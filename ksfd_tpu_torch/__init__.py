@@ -1,0 +1,52 @@
+"""ksfd_tpu_torch — the PyTorch/CUDA port of ksfd_tpu.
+
+A second package beside ``ksfd_tpu`` (the JAX reference, which stays
+unchanged).  It imports torch and never jax, and it mirrors the
+reference's module layout: each docstring names its counterpart as
+``ksfd_tpu/<file>:<function>``.
+
+What runs so far is the fixed-dt main path (solvers/solver.py
+make_multistep_fn with default numerics) on 2D periodic problems, with
+the float32 stencil kernels of ops/fused_stencil.py written in CUDA for
+Hopper (csrc/stencil2d.cu).  Importing the package sets no global torch
+state (no default dtype, no default device): tensors carry their own
+dtype and device, float64 for the state as in the reference.
+"""
+
+__version__ = "0.1.0"
+
+from .utils import (  # noqa: E402
+    KSFDException,
+    NumericsOptions,
+    Parameter,
+    ParameterList,
+    default_parameters,
+    find_duplicates,
+    log,
+    safe_sympify,
+    torchify,
+)
+from .models import (  # noqa: E402
+    Ligand,
+    LigandGroup,
+    LigandGroups,
+    SolutionParameters,
+)
+from .grid import Grid  # noqa: E402
+
+__all__ = [
+    "KSFDException",
+    "NumericsOptions",
+    "Parameter",
+    "ParameterList",
+    "default_parameters",
+    "find_duplicates",
+    "log",
+    "safe_sympify",
+    "torchify",
+    "Ligand",
+    "LigandGroup",
+    "LigandGroups",
+    "SolutionParameters",
+    "Grid",
+]

@@ -1,0 +1,213 @@
+// Fused float32 stencil kernels of the Keller-Segel operator, 2D
+// periodic, for Hopper (sm_90a).
+//
+// Replaces the Pallas bodies of ksfd_tpu/ops/pallas_stencil.py:
+//   ksfd_resid  <- resid_kernel :655 (rows from _jvp_rows :613)
+//   ksfd_jvp    <- jvp_kernel   :648
+//   ksfd_delta  <- delta_kernel :674
+// The problem (free energy G, its field derivatives dG, the increment
+// form G_delta, stencil coefficients, groom floors, ligand
+// coefficients) comes from the header that ops/codegen.py generates
+// (ksfd_pointwise.cuh).  The wrappers, scalar packs and plain PyTorch
+// versions are in ops/fused_stencil.py.
+//
+// Bound: memory.  At 1024^2 x 3 f32 each kernel reads three or four
+// state-sized arrays and writes one (resid: u, v, b -> out; delta:
+// u0, d, u1 -> out), ~50 MB per launch, a floor of ~15 us at the
+// H100 SXM's 3.35 TB/s; the pointwise transcendentals (a few logf /
+// tanhf per point) are a small fraction of that.  Design: one block
+// per TX x TY tile.  The block reads its inputs with an SW-wide halo
+// straight from global memory by periodic index arithmetic (no padded
+// copy), evaluates G / dG.v / G_delta ONCE per halo point into shared
+// memory (the halo costs (TX+2SW)(TY+2SW)/(TX*TY) = 1.33x pointwise
+// work at 16x64, SW=2), then applies the star stencils from shared
+// memory.  Threads run along the contiguous y axis, so global reads
+// and writes coalesce and shared-memory reads are conflict free.
+//
+// Semantics kept from the Pallas body:
+//   - where-form clamp: x >= min ? x : min, so NaN -> min;
+//   - the J-action tangent is zeroed where the clamp is active, with a
+//     strict '>' ; the resid shift term uses the RAW tangent;
+//   - delta centres G on the f64 mean G(means) and rho on its f64 mean,
+//     both passed in the scalar pack;
+//   - the scalar pack is a small f32 DEVICE array read here, never a
+//     host float, so a launch needs no host sync.
+// Every C entry launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "ksfd_pointwise.cuh"
+
+namespace {
+
+constexpr int SW = KSFD_SW;
+constexpr int DOF = KSFD_DOF;
+constexpr int NL = DOF - 1;        // ligand fields
+constexpr int TX = 16;             // tile rows (x)
+constexpr int TY = 64;             // tile columns (y, contiguous)
+constexpr int NT = 256;            // threads per block
+constexpr int HX = TX + 2 * SW;
+constexpr int HY = TY + 2 * SW;
+constexpr int HN = HX * HY;
+// shared arrays per halo point: resid/jvp 4 + NL, delta 4 + NL
+static_assert((4 + NL) * HN * 4 <= 48 * 1024, "tile too large for static shared memory");
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+__device__ __forceinline__ float lap(const float* p) {
+  return ksfd_d2x(p, HY) + ksfd_d2y(p, 1);
+}
+
+__device__ __forceinline__ float graddot(const float* a, const float* b) {
+  return ksfd_d1x(a, HY) * ksfd_d1x(b, HY) + ksfd_d1y(a, 1) * ksfd_d1y(b, 1);
+}
+
+// The J-action rows (and, with RESID, the fused Richardson residual
+// b - shift*v + J(u)v).  sc = [t, shift] (t is unused: the generated
+// G carries no time dependence).
+template <bool RESID>
+__global__ void __launch_bounds__(NT)
+jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           const float* __restrict__ v, const float* __restrict__ b,
+           float* __restrict__ out, int nx, int ny) {
+  __shared__ float s_rho[HN], s_G[HN], s_dG[HN], s_vr[HN];
+  __shared__ float s_vU[NL > 0 ? NL : 1][HN];
+  const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
+  const size_t plane = (size_t)nx * ny;
+
+  for (int i = threadIdx.x; i < HN; i += NT) {
+    const int hx = i / HY, hy = i - hx * HY;
+    const size_t g =
+        (size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny);
+    float f[DOF], vm[DOF], dg[DOF];
+#pragma unroll
+    for (int k = 0; k < DOF; ++k) {
+      const float raw = u[k * plane + g];
+      const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
+      f[k] = raw >= lo ? raw : lo;
+      vm[k] = raw > lo ? v[k * plane + g] : 0.0f;
+    }
+    ksfd_dG(f, dg);
+    float dG = dg[0] * vm[0];
+#pragma unroll
+    for (int k = 1; k < DOF; ++k) dG = dG + dg[k] * vm[k];
+    s_rho[i] = f[0];
+    s_G[i] = ksfd_G(f);
+    s_dG[i] = dG;
+    s_vr[i] = vm[0];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s_vU[l][i] = vm[1 + l];
+  }
+  __syncthreads();
+
+  const float shift = RESID ? sc[1] : 0.0f;
+  for (int i = threadIdx.x; i < TX * TY; i += NT) {
+    const int ix = i / TY, iy = i - ix * TY;
+    const int gx = x0 + ix, gy = y0 + iy;
+    if (gx >= nx || gy >= ny) continue;
+    const int c = (ix + SW) * HY + (iy + SW);
+    const size_t g = (size_t)gx * ny + gy;
+    const float vr = s_vr[c];
+    float row = graddot(&s_vr[c], &s_G[c]) + graddot(&s_rho[c], &s_dG[c]) +
+                vr * lap(&s_G[c]) + s_rho[c] * lap(&s_dG[c]);
+    out[g] = RESID ? b[g] - shift * v[g] + row : row;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      row = -ksfd_gamma(l) * s_vU[l][c] + ksfd_s(l) * vr +
+            ksfd_D(l) * lap(&s_vU[l][c]);
+      const size_t gl = (1 + l) * plane + g;
+      out[gl] = RESID ? b[gl] - shift * v[gl] + row : row;
+    }
+  }
+}
+
+// Exact increment rhs(u1) - rhs(u0) of the source-free RHS, with
+// d = u1 - u0 and u0 groomed.  sc = [t, rho_mean, G0_mean].
+__global__ void __launch_bounds__(NT)
+delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
+             const float* __restrict__ d, const float* __restrict__ u1,
+             float* __restrict__ out, int nx, int ny) {
+  __shared__ float s_d0[HN], s_Gs[HN], s_r0c[HN], s_dG[HN];
+  __shared__ float s_dU[NL > 0 ? NL : 1][HN];
+  const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
+  const size_t plane = (size_t)nx * ny;
+  const float rho_mean = sc[1], G_mean = sc[2];
+
+  for (int i = threadIdx.x; i < HN; i += NT) {
+    const int hx = i / HY, hy = i - hx * HY;
+    const size_t g =
+        (size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny);
+    float f[DOF], dd[DOF], s[DOF];
+#pragma unroll
+    for (int k = 0; k < DOF; ++k) {
+      f[k] = u0[k * plane + g];
+      dd[k] = d[k * plane + g];
+      s[k] = u1[k * plane + g];
+    }
+    const float G0c = ksfd_G(f) - G_mean;
+    const float dG = ksfd_G_delta(f, dd, s);
+    s_d0[i] = dd[0];
+    s_Gs[i] = G0c + dG;
+    s_r0c[i] = f[0] - rho_mean;
+    s_dG[i] = dG;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s_dU[l][i] = dd[1 + l];
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < TX * TY; i += NT) {
+    const int ix = i / TY, iy = i - ix * TY;
+    const int gx = x0 + ix, gy = y0 + iy;
+    if (gx >= nx || gy >= ny) continue;
+    const int c = (ix + SW) * HY + (iy + SW);
+    const size_t g = (size_t)gx * ny + gy;
+    const float drho = s_d0[c];
+    out[g] = graddot(&s_d0[c], &s_Gs[c]) + graddot(&s_r0c[c], &s_dG[c]) +
+             drho * lap(&s_Gs[c]) + u0[g] * lap(&s_dG[c]);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      out[(1 + l) * plane + g] = -ksfd_gamma(l) * s_dU[l][c] +
+                                 ksfd_s(l) * drho +
+                                 ksfd_D(l) * lap(&s_dU[l][c]);
+    }
+  }
+}
+
+dim3 grid_for(int nx, int ny) {
+  return dim3((ny + TY - 1) / TY, (nx + TX - 1) / TX);
+}
+
+}  // namespace
+
+extern "C" {
+
+int ksfd_jvp(const float* sc, const float* u, const float* v, float* out,
+             int nx, int ny, void* stream) {
+  jvp_kernel<false><<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(
+      sc, u, v, nullptr, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+int ksfd_resid(const float* sc, const float* u, const float* v,
+               const float* b, float* out, int nx, int ny, void* stream) {
+  jvp_kernel<true><<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(
+      sc, u, v, b, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+int ksfd_delta(const float* sc, const float* u0, const float* d,
+               const float* u1, float* out, int nx, int ny, void* stream) {
+  delta_kernel<<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(
+      sc, u0, d, u1, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+int ksfd_tile_rows() { return TX; }
+int ksfd_tile_cols() { return TY; }
+
+}  // extern "C"

@@ -1,0 +1,364 @@
+"""Fused float32 stencil kernels: resid, jvp and delta.
+
+Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels.
+``make_fused_kernels(ops)`` returns a namespace with the same entries,
+call signatures and scalar packing as the Pallas build's
+``jvp``/``resid``/``delta`` (pallas_stencil.py:874-911):
+
+- ``jvp(u, v, t)``: the exact J-action J(u)v of the product-rule RHS,
+  u groomed in the kernel and the tangent zeroed where the clamp is
+  active.  Replaces ``jvp_kernel`` (pallas_stencil.py:648).
+- ``resid(u, v, b, t, shift)``: the fused Richardson residual
+  ``b - (shift*v - J(u)v)``.  Replaces ``resid_kernel`` (:655).
+- ``delta(u0, d, u1, t)``: the increment ``rhs(u1) - rhs(u0)`` of the
+  source-free RHS through the cancellation-free G_delta of
+  ops/delta.py, centred on float64 means.  Replaces ``delta_kernel``
+  (:674).
+
+Each entry is a ``FusedKernel``: on a CUDA tensor it launches the
+hand-written CUDA kernel of csrc/stencil2d.cu (built at first use, see
+``build_library``) or raises; on a CPU tensor it runs its plain
+PyTorch version (``.plain``, ``torch.roll`` stencils over the
+torchify'd G/dG/G_delta); any other device raises.  ``launches``
+counts kernel launches and nothing else.  The kernels are
+memory-bound: see the note at the top of csrc/stencil2d.cu.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import torch
+
+from .codegen import pointwise_header
+from .stencil import deriv_coeffs
+
+__all__ = ["make_fused_kernels", "FusedKernel", "build_library"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc" / "stencil2d.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_ENTRIES = {
+    "jvp": 3,    # (sc, u, v) -> out
+    "resid": 4,  # (sc, u, v, b) -> out
+    "delta": 4,  # (sc, u0, d, u1) -> out
+}
+
+
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or NVCC_DEFAULT
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA stencil kernels are built with the "
+            "CUDA toolkit on the machine that has the card"
+        )
+    return path
+
+
+def build_library(header):
+    """Compile csrc/stencil2d.cu with a generated pointwise header and
+    load it.  Returns (ctypes.CDLL, info dict).
+
+    The build lands in ``ksfd_tpu_torch/_build/<content hash>/``, keyed
+    on the kernel source, the header and the flags, so a second call
+    with the same problem reuses it.  ``info`` holds the library path,
+    the nvcc seconds (0.0 when reused) and the ptxas report.
+    """
+    src = CSRC.read_text()
+    key = hashlib.sha256(
+        "\0".join([src, header, " ".join(NVCC_FLAGS)]).encode()
+    ).hexdigest()[:16]
+    out_dir = BUILD_DIR / key
+    lib = out_dir / "libksfd_stencil2d.so"
+    log = out_dir / "nvcc.log"
+    seconds = 0.0
+    if not lib.exists():
+        nvcc = _nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "ksfd_pointwise.cuh").write_text(header)
+        tmp = out_dir / ("lib.%d.so" % os.getpid())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp),
+             str(CSRC)],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (rc=%d):\n%s" % (proc.returncode, proc.stderr)
+            )
+        os.replace(tmp, lib)
+    cdll = ctypes.CDLL(str(lib))
+    for name, n_in in _ENTRIES.items():
+        fn = getattr(cdll, "ksfd_" + name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * (n_in + 1)
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    info = dict(
+        path=str(lib), nvcc_seconds=seconds,
+        ptxas=log.read_text() if log.exists() else "",
+    )
+    return cdll, info
+
+
+class FusedKernel:
+    """One kernel entry: prepare, then the plain body or a CUDA launch.
+
+    ``prepare(*args)`` turns the caller's arguments into the f32 scalar
+    pack and f32 contiguous operands (the packing of the Pallas
+    wrappers); ``body(sc, operands)`` is the plain PyTorch version of
+    the kernel and ``launch(sc, operands)`` the CUDA kernel on the same
+    operands.  ``launches`` counts CUDA launches.
+    """
+
+    def __init__(self, name, owner, prepare, body, replaces):
+        self.name = name
+        self.replaces = replaces
+        self.launches = 0
+        self._owner = owner
+        self.prepare = prepare
+        self._body = body
+
+    def __call__(self, *args):
+        dev = args[0].device
+        if dev.type == "cuda":
+            return self.launch(*self.prepare(*args))
+        if dev.type == "cpu":
+            return self.body(*self.prepare(*args))
+        raise ValueError(
+            "%s kernel: tensors on %s; the kernel runs on cuda and its "
+            "plain version on cpu" % (self.name, dev)
+        )
+
+    def plain(self, *args):
+        """The plain PyTorch version on any device (never counted)."""
+        return self.body(*self.prepare(*args))
+
+    def body(self, sc, operands):
+        return self._body(sc, *operands)
+
+    def launch(self, sc, operands):
+        """Launch the CUDA kernel on prepared operands."""
+        nx, ny = self._owner.Sshape
+        for x in (sc,) + tuple(operands):
+            if x.device != sc.device or x.dtype != torch.float32:
+                raise ValueError("%s kernel: operands must be f32 on one "
+                                 "device" % self.name)
+        for x in operands:
+            if tuple(x.shape) != self._owner.Vshape or not x.is_contiguous():
+                raise ValueError("%s kernel: operand shape %s, expected "
+                                 "contiguous %s" % (self.name, tuple(x.shape),
+                                                    self._owner.Vshape))
+        lib = self._owner.library()
+        out = torch.empty_like(operands[0])
+        with torch.cuda.device(sc.device):
+            stream = torch.cuda.current_stream(sc.device).cuda_stream
+            err = getattr(lib, "ksfd_" + self.name)(
+                sc.data_ptr(), *[x.data_ptr() for x in operands],
+                out.data_ptr(), nx, ny, stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                "%s kernel launch failed: cudaError %d" % (self.name, err)
+            )
+        self.launches += 1
+        return out
+
+
+class _FusedBuild:
+    """Owner of one problem's kernels: the generated header, the lazily
+    built library and the plain bodies."""
+
+    def __init__(self, ops):
+        grid = ops.grid
+        if grid.dim != 2:
+            raise NotImplementedError(
+                "fused kernels are 2D; 3D is ROADMAP Queue B item 6"
+            )
+        if grid.dof != ops.nligands + 1:
+            raise NotImplementedError(
+                "with-G states are ROADMAP Queue A item 13"
+            )
+        self.ops = ops
+        self.Sshape = tuple(grid.Sshape)
+        self.Vshape = tuple(grid.Vshape)
+        self.dof = ops.nligands + 1
+        self.header = pointwise_header(ops)
+        self.build_info = None
+        self._lib = None
+        sw = ops.sw
+        self._cs = dict(
+            c1x=[float(c) for c in deriv_coeffs(1, sw, ops.spacing[0])],
+            c2x=[float(c) for c in deriv_coeffs(2, sw, ops.spacing[0])],
+            c1y=[float(c) for c in deriv_coeffs(1, sw, ops.spacing[1])],
+            c2y=[float(c) for c in deriv_coeffs(2, sw, ops.spacing[1])],
+        )
+
+    def library(self):
+        if self._lib is None:
+            self._lib, self.build_info = build_library(self.header)
+        return self._lib
+
+    # -- plain stencils (the order of the Pallas _dx/_dy sums) ---------
+    def _d(self, a, cs, axis):
+        sw = (len(cs) - 1) // 2
+        acc = None
+        for j in range(-sw, sw + 1):
+            c = cs[j + sw]
+            if c == 0.0:
+                continue
+            term = c * torch.roll(a, -j, dims=axis)
+            acc = term if acc is None else acc + term
+        return acc
+
+    def lap(self, a):
+        return self._d(a, self._cs["c2x"], 0) + self._d(a, self._cs["c2y"], 1)
+
+    def graddot(self, a, b):
+        cs = self._cs
+        return (
+            self._d(a, cs["c1x"], 0) * self._d(b, cs["c1x"], 0)
+            + self._d(a, cs["c1y"], 1) * self._d(b, cs["c1y"], 1)
+        )
+
+    # -- plain bodies ----------------------------------------------------
+    def jvp_rows(self, t, u, v):
+        """Counterpart of pallas_stencil.py _jvp_rows (:613)."""
+        ops = self.ops
+        rmin, umin = ops.rhomin, ops.Umin
+        # where-form clamp: NaN compares False, so NaN -> min
+        fields = [torch.where(u[0] >= rmin, u[0], rmin)] + [
+            torch.where(u[k] >= umin, u[k], umin) for k in range(1, self.dof)
+        ]
+        # clamp derivative: tangent zeroed where the clamp is active
+        vm = [torch.where(u[0] > rmin, v[0], 0.0)] + [
+            torch.where(u[k] > umin, v[k], 0.0) for k in range(1, self.dof)
+        ]
+        G = ops._G_fn(*fields, t)
+        dGs = [fn(*fields, t) for fn in ops._dG_fns]
+        dG = dGs[0] * vm[0]
+        for k in range(1, self.dof):
+            dG = dG + dGs[k] * vm[k]
+        rho = fields[0]
+        rows = [
+            self.graddot(vm[0], G)
+            + self.graddot(rho, dG)
+            + vm[0] * self.lap(G)
+            + rho * self.lap(dG)
+        ]
+        for l, c in enumerate(ops.lig_constants):
+            rows.append(
+                -c["gamma"] * vm[1 + l] + c["s"] * vm[0]
+                + c["D"] * self.lap(vm[1 + l])
+            )
+        return rows
+
+    def plain_jvp(self, sc, u, v):
+        return torch.stack(self.jvp_rows(sc[0], u, v))
+
+    def plain_resid(self, sc, u, v, b):
+        shift = sc[1]
+        rows = self.jvp_rows(sc[0], u, v)
+        return torch.stack(
+            [b[f] - shift * v[f] + rows[f] for f in range(self.dof)]
+        )
+
+    def plain_delta(self, sc, u0, d, u1):
+        """Counterpart of pallas_stencil.py delta_kernel (:674)."""
+        ops = self.ops
+        t, rho_mean, G_mean = sc[0], sc[1], sc[2]
+        f0 = [u0[k] for k in range(self.dof)]
+        dd = [d[k] for k in range(self.dof)]
+        s = [u1[k] for k in range(self.dof)]
+        G0c = ops._G_fn(*f0, t) - G_mean
+        dG = ops._G_delta_fn(*f0, *dd, *s, t)
+        Gs = G0c + dG
+        rho0c = f0[0] - rho_mean
+        drho = dd[0]
+        rows = [
+            self.graddot(drho, Gs)
+            + self.graddot(rho0c, dG)
+            + drho * self.lap(Gs)
+            + f0[0] * self.lap(dG)
+        ]
+        for l, c in enumerate(ops.lig_constants):
+            rows.append(
+                -c["gamma"] * dd[1 + l] + c["s"] * drho
+                + c["D"] * self.lap(dd[1 + l])
+            )
+        return torch.stack(rows)
+
+    # -- scalar packs (pallas_stencil.py:874-911) -------------------------
+    def _mean_groomed(self, u64, i):
+        """Mean over the groomed view (a NaN entry must not poison the
+        float64 centring scalars)."""
+        lo = self.ops.rhomin if i == 0 else self.ops.Umin
+        f = u64[i]
+        return torch.mean(torch.where(f >= lo, f, lo))
+
+    @staticmethod
+    def _f32(*xs):
+        return [x.to(torch.float32).contiguous() for x in xs]
+
+    def prep_jvp(self, u, v, t):
+        sc = torch.as_tensor(t, dtype=torch.float32, device=u.device)
+        return sc.reshape(1), self._f32(u, v)
+
+    def prep_resid(self, u, v, b, t, shift):
+        dev = u.device
+        sc = torch.stack([
+            torch.as_tensor(t, dtype=torch.float32, device=dev),
+            torch.as_tensor(shift, dtype=torch.float32, device=dev),
+        ])
+        return sc, self._f32(u, v, b)
+
+    def prep_delta(self, u0, d, u1, t):
+        dev = u0.device
+        u64 = u0.to(torch.float64)
+        means = [self._mean_groomed(u64, i) for i in range(self.dof)]
+        t64 = torch.as_tensor(t, dtype=torch.float64, device=dev)
+        G_m = torch.as_tensor(
+            self.ops._G_fn(*means, t64), dtype=torch.float64, device=dev
+        )
+        sc = torch.stack([t64, means[0], G_m]).to(torch.float32)
+        return sc, self._f32(u0, d, u1)
+
+
+def make_fused_kernels(ops):
+    """Build the fused kernels for a 2D PDEOperators.
+
+    Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels.
+    Returns a namespace with ``jvp``, ``resid`` and ``delta``
+    (FusedKernel instances), ``kernels`` (the three by name) and
+    ``build`` (header, build info).  Nothing is compiled until a
+    kernel first meets a CUDA tensor.  The f32 fast-mode ``rhs`` kernel
+    is ROADMAP Queue B item 7; member-batched and sharded builds are
+    items 8 and 9.
+    """
+    b = _FusedBuild(ops)
+    src = "ksfd_tpu/ops/pallas_stencil.py"
+    jvp = FusedKernel("jvp", b, b.prep_jvp, b.plain_jvp, src + ":648")
+    resid = FusedKernel("resid", b, b.prep_resid, b.plain_resid,
+                        src + ":655")
+    delta = FusedKernel("delta", b, b.prep_delta, b.plain_delta,
+                        src + ":674")
+    return SimpleNamespace(
+        jvp=jvp, resid=resid, delta=delta, build=b,
+        kernels=dict(jvp=jvp, resid=resid, delta=delta),
+    )

@@ -1,0 +1,253 @@
+"""The Keller-Segel PDE operator: RHS, free energy G, J-action.
+
+Counterpart: ksfd_tpu/ops/operators.py:PDEOperators.  The same math:
+
+- free energy   G = V(U..) + Vcap(rho) + s2*log(rho)
+- worm density  drho/dt = grad(rho).grad(G) + rho*laplacian(G) + source
+                (the product-rule discretization of div(rho grad G))
+- each ligand   dU/dt = -gamma*U + s*rho + D*laplacian(U) + source
+
+The pointwise nonlinearity is a sympy expression compiled to a torch
+function (utils/symbolic.py torchify); the stencils are ``torch.roll``
+linear combinations (ops/stencil.py).  The exact matrix-free J-action
+is ``torch.func.jvp`` of the RHS.  The float32 kernels of the main
+path get the same expressions printed as CUDA (ops/codegen.py).
+"""
+
+import numbers
+
+import sympy as sy
+import torch
+
+from ..utils.exceptions import KSFDException
+from ..utils.symbolic import torchify
+from .spatial import SpatialExpression
+from .stencil import grad_apply, laplacian_apply
+
+__all__ = ["PDEOperators"]
+
+_T = sy.Symbol("t")
+
+
+class PDEOperators:
+    """Callable PDE operators for one problem on one grid.
+
+    Counterpart: ksfd_tpu/ops/operators.py:PDEOperators.
+
+    Parameters
+    ----------
+    ps : SolutionParameters
+    grid : Grid with dof == ps.nligands + 1
+    sources : optional list of nligands+1 source terms (expressions /
+        SpatialExpressions), rho first.
+    device : where source terms are evaluated; the operators act on
+        tensors of any device.
+    """
+
+    def __init__(self, ps, grid, sources=None, flux_form=False,
+                 device="cpu"):
+        if flux_form:
+            raise NotImplementedError(
+                "flux_form=True (the conservative discretization) is not "
+                "ported; ROADMAP Queue A item 2 lists it"
+            )
+        self.ps = ps
+        self.grid = grid
+        self.dim = grid.dim
+        self.sw = grid.stencil_width
+        self.spacing = tuple(float(h) for h in grid.spacing)
+        self.nligands = ps.nligands
+        self.device = torch.device(device)
+        if grid.dof != ps.nligands + 1:
+            raise KSFDException(
+                "grid.dof=%d but problem has %d fields"
+                % (grid.dof, ps.nligands + 1)
+            )
+        if sources is None:
+            sources = [0.0] * (ps.nligands + 1)
+        self.sources = [
+            s
+            if isinstance(s, SpatialExpression)
+            else SpatialExpression(ps, grid, s, device=self.device)
+            for s in sources
+        ]
+        self._source_active = [not s.is_zero() for s in self.sources]
+
+        # groom bounds are t0 values, as in the reference
+        self.rhomin = float(ps.values0["rhomin"])
+        self.Umin = float(ps.values0["Umin"])
+
+        self._build_G()
+        self._build_ligand_coeffs()
+        self._build_s2()
+
+    # ------------------------------------------------------------------
+    def _resolve_td(self, expr, allowed=()):
+        """Substitute time-dependent parameter symbols with their
+        resolved expressions in t; returns (expr_in_t, is_time_dep)."""
+        if isinstance(expr, numbers.Number):
+            return sy.Float(float(expr)), False
+        allowed = set(allowed) | {_T}
+        resolved = self.ps.resolved
+        for _ in range(4):
+            free = [s for s in expr.free_symbols if s not in allowed]
+            if not free:
+                break
+            subs = {s: resolved[str(s)] for s in free if str(s) in resolved}
+            if not subs:
+                break
+            expr = expr.subs(subs)
+        extra = [s for s in expr.free_symbols if s not in allowed]
+        if extra:
+            raise KSFDException(
+                "unresolved symbols {s} in PDE coefficient {e!r}".format(
+                    s=sorted(map(str, extra)), e=str(expr)
+                )
+            )
+        return expr, _T in expr.free_symbols
+
+    def _build_G(self):
+        """Compile G(rho, U..., t), each dG/dfield and the increment
+        form G_delta (None when delta_expr has no rewrite)."""
+        from .delta import UnsupportedDelta, delta_expr, torchify_delta
+
+        ps = self.ps
+        rho = sy.Symbol("rho")
+        Us = [sy.Symbol(lig.name()) for lig in ps.Vgroups.ligands()]
+        params = ps.time_dependent_symbols()
+        Gexp = ps.V(Us, rho, params=params) + params["s2"] * sy.log(rho)
+        Gexp, self._G_tdep = self._resolve_td(Gexp, allowed=[rho] + Us)
+        fields = [rho] + Us
+        self.field_symbols = fields
+        self.G_expr = Gexp
+        self.dG_exprs = [sy.diff(Gexp, f) for f in fields]
+        self._G_fn = torchify(fields + [_T], Gexp, name="G")
+        self._dG_fns = [
+            torchify(fields + [_T], e, name="dG_d" + str(f))
+            for f, e in zip(fields, self.dG_exprs)
+        ]
+        # signature (fields0..., deltas..., shifted_fields..., t), as in
+        # the reference package
+        self.delta_symbols = [sy.Symbol("_d_" + str(f)) for f in fields]
+        self.shifted_symbols = [sy.Symbol("_s_" + str(f)) for f in fields]
+        try:
+            self.G_delta_expr = delta_expr(
+                Gexp,
+                dict(zip(fields, self.delta_symbols)),
+                shifted_map=dict(zip(fields, self.shifted_symbols)),
+            )
+            self._G_delta_fn = torchify_delta(
+                fields + self.delta_symbols + self.shifted_symbols + [_T],
+                self.G_delta_expr, name="G_delta",
+            )
+        except UnsupportedDelta:
+            self.G_delta_expr = None
+            self._G_delta_fn = None
+
+    def _build_ligand_coeffs(self):
+        """Per-ligand gamma/s/D as functions of t (TD-aware); the
+        constant values are also kept in ``lig_constants`` for the
+        kernel code generator."""
+        self._lig_coeffs = []
+        self.lig_constants = []
+        self._lig_tdep = False
+        for lig in self.ps.Vgroups.ligands():
+            coeffs, consts = {}, {}
+            for cname, val in (("gamma", lig.gamma), ("s", lig.s), ("D", lig.D)):
+                expr, tdep = self._resolve_td(sy.sympify(val))
+                if tdep:
+                    coeffs[cname] = torchify((_T,), expr, name=cname)
+                    consts[cname] = None
+                    self._lig_tdep = True
+                else:
+                    const = float(expr)
+                    coeffs[cname] = lambda t, c=const: c
+                    consts[cname] = const
+            self._lig_coeffs.append(coeffs)
+            self.lig_constants.append(consts)
+
+    def _build_s2(self):
+        expr, tdep = self._resolve_td(sy.Symbol("s2"))
+        if tdep:
+            self._s2_fn = torchify((_T,), expr, name="s2")
+        else:
+            const = float(expr)
+            self._s2_fn = lambda tt, c=const: c
+
+    def stage_delta_ok(self):
+        """True when stage RHS evaluations may use the increment form
+        (no explicit time dependence in the PDE coefficients)."""
+        return (
+            self._G_delta_fn is not None
+            and not self._G_tdep
+            and not self._lig_tdep
+        )
+
+    # ------------------------------------------------------------------
+    def groom(self, u):
+        """Clamp rho >= rhomin, U >= Umin; NaN -> min."""
+        rho = u[0]
+        rho = torch.where(torch.isnan(rho), self.rhomin, rho)
+        rho = torch.clamp(rho, min=self.rhomin)
+        Us = u[1:]
+        Us = torch.where(torch.isnan(Us), self.Umin, Us)
+        Us = torch.clamp(Us, min=self.Umin)
+        return torch.cat([rho[None], Us], dim=0)
+
+    def G(self, u, t=None):
+        """Pointwise free energy of a (groomed) state tensor."""
+        t = self.ps.t0 if t is None else t
+        return self._G_fn(*[u[i] for i in range(self.nligands + 1)], t)
+
+    def rhs(self, u, t, groom=True):
+        """du/dt of the full system; u: (dof, *Sshape)."""
+        if groom:
+            u = self.groom(u)
+        rho = u[0]
+        G = self.G(u, t)
+        grad_G = grad_apply(G, self.spacing, self.sw)
+        grad_rho = grad_apply(rho, self.spacing, self.sw)
+        lap_G = laplacian_apply(G, self.spacing, self.sw)
+        drho = sum(gr * gG for gr, gG in zip(grad_rho, grad_G)) + rho * lap_G
+        if self._source_active[0]:
+            drho = drho + self.sources[0](t).to(drho.dtype)
+        outs = [drho]
+        for l in range(self.nligands):
+            U = u[1 + l]
+            c = self._lig_coeffs[l]
+            dU = (
+                -c["gamma"](t) * U
+                + c["s"](t) * rho
+                + c["D"](t) * laplacian_apply(U, self.spacing, self.sw)
+            )
+            if self._source_active[1 + l]:
+                dU = dU + self.sources[1 + l](t).to(dU.dtype)
+            outs.append(dU)
+        return torch.stack(outs, dim=0)
+
+    def jacobian_action(self, u, t, v, groom=True):
+        """Exact Jacobian-vector product d(rhs)/du @ v via
+        torch.func.jvp (counterpart of jax.jvp)."""
+        _, jv = torch.func.jvp(
+            lambda uu: self.rhs(uu, t, groom=groom), (u,), (v,)
+        )
+        return jv
+
+    # ------------------------------------------------------------------
+    def stiff_coefficients(self, t):
+        """(diffusion, decay) per field for the spectral preconditioner."""
+        diff = [self._s2_fn(t)]
+        decay = [0.0]
+        for c in self._lig_coeffs:
+            diff.append(c["D"](t))
+            decay.append(c["gamma"](t))
+        return diff, decay
+
+    def linearization_coefficients(self, means, t):
+        """Mean-state linearization data for the block preconditioner:
+        (dG, s, gamma, D), dG[i] = dG/dfield_i at the means."""
+        dG = [fn(*means, t) for fn in self._dG_fns]
+        s = [c["s"](t) for c in self._lig_coeffs]
+        gamma = [c["gamma"](t) for c in self._lig_coeffs]
+        D = [c["D"](t) for c in self._lig_coeffs]
+        return dG, s, gamma, D

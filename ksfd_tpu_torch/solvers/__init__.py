@@ -1,0 +1,25 @@
+from .steppers import Tableau, ROS34PW2, BEULER, get_tableau, wlte_norm_delta
+from .linalg import SpectralPreconditioner, BlockSpectralPreconditioner
+from .gmres import richardson_solve, richardson_solve_resid
+from .solver import (
+    Solver,
+    make_adaptive_chunk_fn,
+    make_multistep_fn,
+    make_step_fn,
+)
+
+__all__ = [
+    "Tableau",
+    "ROS34PW2",
+    "BEULER",
+    "get_tableau",
+    "wlte_norm_delta",
+    "SpectralPreconditioner",
+    "BlockSpectralPreconditioner",
+    "richardson_solve",
+    "richardson_solve_resid",
+    "make_step_fn",
+    "make_multistep_fn",
+    "make_adaptive_chunk_fn",
+    "Solver",
+]

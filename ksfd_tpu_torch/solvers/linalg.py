@@ -1,0 +1,165 @@
+"""Spectral preconditioners for the implicit stage solves.
+
+Counterpart: ksfd_tpu/solvers/linalg.py:SpectralPreconditioner and
+:BlockSpectralPreconditioner, in their basis-GEMM form.  On the
+periodic uniform grid the discrete Laplacian is diagonalized exactly by
+the orthonormal real-DFT basis (ops/stencil.py real_dft_basis), so a
+transform is ``Qx^T @ v @ Qy`` per field and its inverse
+``Qx @ c @ Qy^T`` — plain matrix products, which the reference leaves to
+XLA and the port leaves to ``torch.matmul``.  The per-mode arrow solve
+between them is elementwise tensor arithmetic (XLA code in the
+reference too, ``_arrow_solve``; the Pallas version behind
+``-pc_pallas 1`` is ROADMAP Queue B item 5).
+
+The transforms run in the compute dtype (float32 by default, as
+``pc_dtype`` auto resolves on one device).  On the card a float32
+product must run in full float32: the caller keeps
+``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default;
+chip_smoke.py sets and records it).  Not ported yet: the FFT form
+(``pc_fft``), bfloat16 transforms and the sharded apply (ROADMAP Queue A
+items 4 and 14).
+"""
+
+import torch
+from torch import nn
+
+from ..ops.stencil import laplacian_eigendecomp
+
+__all__ = ["SpectralPreconditioner", "BlockSpectralPreconditioner"]
+
+_DTYPES = {
+    None: torch.float32,
+    "float32": torch.float32,
+    "f32": torch.float32,
+    "float64": torch.float64,
+    "f64": torch.float64,
+}
+
+
+class SpectralPreconditioner(nn.Module):
+    """M^{-1} for W = shift*I - J, inverting each field's stiff part
+    ``decay_f - diff_f * Laplacian`` exactly per Fourier mode.
+
+    Counterpart: ksfd_tpu/solvers/linalg.py:SpectralPreconditioner.
+    Buffers: ``Qx``, ``Qy`` (the per-axis bases) and ``lam`` (the total
+    Laplacian eigenvalue per mode, <= 0).  2D only.
+    """
+
+    def __init__(self, grid, compute_dtype=None, device="cpu"):
+        super().__init__()
+        if grid.dim != 2:
+            raise NotImplementedError(
+                "spectral preconditioner is 2D; 3D is ROADMAP Queue A "
+                "item 10"
+            )
+        if compute_dtype not in _DTYPES:
+            raise NotImplementedError(
+                "pc dtype %r: bfloat16 transforms belong to the sharded "
+                "apply, ROADMAP Queue A item 14" % (compute_dtype,)
+            )
+        cd = _DTYPES[compute_dtype]
+        self.compute_dtype = cd
+        self.sshape = tuple(grid.Sshape)
+        sw = grid.stencil_width
+        Qx, lx = laplacian_eigendecomp(int(grid.nps[0]), float(grid.spacing[0]), sw)
+        Qy, ly = laplacian_eigendecomp(int(grid.nps[1]), float(grid.spacing[1]), sw)
+        lam = lx[:, None] + ly
+        self.register_buffer("Qx", torch.as_tensor(Qx, dtype=cd, device=device))
+        self.register_buffer("Qy", torch.as_tensor(Qy, dtype=cd, device=device))
+        # lam stays float64 like the reference's numpy total; it is
+        # cast to the compute dtype at its use sites
+        self.register_buffer(
+            "lam", torch.as_tensor(lam, dtype=torch.float64, device=device)
+        )
+
+    def _forward(self, v):
+        """(dof, nx, ny) -> real spectral coefficients Qx^T v Qy."""
+        return torch.matmul(torch.matmul(self.Qx.T, v), self.Qy)
+
+    def _inverse(self, c):
+        return torch.matmul(torch.matmul(self.Qx, c), self.Qy.T)
+
+    def apply(self, v, shift, diff, decay):
+        """v: (dof, nx, ny); diff/decay: per-field scalars."""
+        cd = self.compute_dtype
+        c = self._forward(v.to(cd))
+        dev = v.device
+        diff = torch.stack([torch.as_tensor(d, dtype=cd, device=dev) for d in diff])
+        decay = torch.stack([torch.as_tensor(d, dtype=cd, device=dev) for d in decay])
+        denom = (
+            torch.as_tensor(shift, dtype=cd, device=dev)
+            + decay[:, None, None]
+            - diff[:, None, None] * self.lam.to(cd)
+        )
+        return self._inverse(c / denom).to(v.dtype)
+
+
+class BlockSpectralPreconditioner(SpectralPreconditioner):
+    """Per-mode exact inverse of the mean-state linearization.
+
+    Counterpart: ksfd_tpu/solvers/linalg.py:BlockSpectralPreconditioner.
+    Per Fourier mode (Laplacian eigenvalue lam <= 0) the (dof x dof)
+    matrix
+
+        W(lam) = shift*I - J(lam),
+        J_rho,i(lam) = rho_mean * lam * dG/dfield_i |_means
+        J_Ul,rho = s_l,   J_Ul,Ul = -gamma_l + D_l*lam
+
+    is an arrow matrix, solved in closed form by a Schur complement on
+    the rho row; the rho row's diffusivity is the pointwise bound
+    ``rho_diff`` = max_x(rho * dG/drho) when given.
+    """
+
+    def __init__(self, grid, ops, compute_dtype=None, device="cpu"):
+        super().__init__(grid, compute_dtype=compute_dtype, device=device)
+        self.ops = ops
+        self.nfields = ops.nligands + 1
+
+    def _arrow_solve(self, c, shift, t, means, rho_diff):
+        """Per-mode arrow-system solve on transformed coefficients c
+        (counterpart: BlockSpectralPreconditioner._arrow_solve)."""
+        cd = self.compute_dtype
+        dev = c.device
+        cast = lambda x: torch.as_tensor(x, dtype=cd, device=dev)
+        nf = self.nfields
+        lam = self.lam.to(cd)
+        dG, s, gamma, D = self.ops.linearization_coefficients(means, t)
+        rho_mean = cast(means[0])
+        shift = cast(shift)
+        dG = [cast(g) for g in dG]
+        # arrow system per mode:
+        #   a x_r + sum_l b_l x_l = y_r
+        #   c_l x_r + d_l x_l     = y_l
+        if rho_diff is not None:
+            a = shift - cast(rho_diff) * lam
+        else:
+            a = shift - rho_mean * lam * dG[0]
+        schur = a
+        rhs_r = c[0]
+        xs_den = []
+        for l in range(nf - 1):
+            b_l = -rho_mean * lam * dG[1 + l]
+            c_l = -cast(s[l])
+            d_l = shift + cast(gamma[l]) - cast(D[l]) * lam
+            schur = schur - b_l * c_l / d_l
+            rhs_r = rhs_r - b_l * c[1 + l] / d_l
+            xs_den.append((c_l, d_l))
+        x_r = rhs_r / schur
+        outs = [x_r]
+        for l in range(nf - 1):
+            c_l, d_l = xs_den[l]
+            outs.append((c[1 + l] - c_l * x_r) / d_l)
+        return torch.stack(outs, dim=0)
+
+    def apply_linearized(self, v, shift, t, means, rho_diff=None):
+        """v: (dof, nx, ny); means: per-field scalars of the STATE
+        being linearized (not of v, which is a residual).  Returns the
+        result in v's dtype."""
+        if v.shape[0] != self.nfields:
+            raise NotImplementedError(
+                "extra trailing fields (the with-G state) are ROADMAP "
+                "Queue A item 13"
+            )
+        c = self._forward(v.to(self.compute_dtype))
+        outs = self._arrow_solve(c, shift, t, means, rho_diff)
+        return self._inverse(outs).to(v.dtype)

@@ -1,0 +1,25 @@
+from .exceptions import KSFDException
+from .debug import log, logger, enabled
+from .symbolic import safe_sympify, torchify, free_parameter_names
+from .params import (
+    Parameter,
+    ParameterList,
+    default_parameters,
+    find_duplicates,
+)
+from .cli import NumericsOptions
+
+__all__ = [
+    "KSFDException",
+    "log",
+    "logger",
+    "enabled",
+    "safe_sympify",
+    "torchify",
+    "free_parameter_names",
+    "Parameter",
+    "ParameterList",
+    "default_parameters",
+    "find_duplicates",
+    "NumericsOptions",
+]

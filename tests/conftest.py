@@ -30,3 +30,4 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end gate tests"
     )
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")

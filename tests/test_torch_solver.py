@@ -1,0 +1,249 @@
+"""The port's fixed-dt main path against ksfd_tpu on the CPU.
+
+The reference runs its default numerics with the Pallas kernels in
+interpret mode (KSFD_PALLAS_INTERPRET=1, as tests/test_pallas.py does);
+the port runs the plain versions of its kernels.  States agree to
+1e-5 of the increment, the mixed-precision envelope of
+tests/test_pallas.py.  The embedded error norm agrees to 1e-2
+relative: at these accepted steps it is a cancelling sum far below the
+increments, so the float32 sweeps' rounding moves it (the reference's
+own float64 16-sweep solve moves it by 0.4% at 64^2, h=1e-3).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as ge
+import ksfd_tpu as KJ
+from ksfd_tpu.solvers import linalg as jlinalg
+from ksfd_tpu.solvers import make_multistep_fn as jmultistep
+from ksfd_tpu.solvers import make_step_fn as jstep
+from ksfd_tpu_torch import NumericsOptions
+from ksfd_tpu_torch.interop import (
+    numpy_from_tensors,
+    problem_from_clargs,
+    tensors_from_numpy,
+)
+from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch import solvers as tsolver
+from ksfd_tpu_torch.solvers import linalg as tlinalg
+from ksfd_tpu_torch.solvers import make_multistep_fn, make_step_fn
+
+N = 64
+H = 1e-3
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def problems():
+    jps, _, jops = ge._make_problem(N, N)
+    _, _, tops = problem_from_clargs(jps.clargs, N, N)
+    return jops, tops
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
+
+
+def rough_state(seed=0, scale=1000.0):
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        6000 + 3 * scale * np.abs(rng.standard_normal((N, N))),
+        6000 + scale * np.abs(rng.standard_normal((N, N))),
+        6000 + 0.5 * scale * np.abs(rng.standard_normal((N, N))),
+    ])
+
+
+def scalar(x):
+    return torch.tensor(x, dtype=torch.float64)
+
+
+def test_step_matches_reference(problems, interpret):
+    jops, tops = problems
+    u0 = np.array(jops.groom(jnp.asarray(rough_state())))
+    step_j, _ = jstep(jops, KJ.NumericsOptions(), atol=0.01, rtol=1e-6)
+    u_ref, e_ref = step_j(jnp.asarray(u0), jnp.asarray(0.0), jnp.asarray(H))
+    step_t, tab = make_step_fn(tops, NumericsOptions(), atol=0.01, rtol=1e-6)
+    assert tab.name == "ros34pw2"
+    u1, e = step_t(torch.from_numpy(u0), scalar(0.0), scalar(H))
+    assert u1.dtype == torch.float64 and e.dim() == 0
+    u_ref = np.asarray(u_ref)
+    inc = np.abs(u_ref - u0).max()
+    assert np.abs(u1.numpy() - u_ref).max() / inc < 1e-5
+    assert float(e_ref) < 1.0
+    assert abs(float(e) - float(e_ref)) <= 1e-2 * float(e_ref)
+
+
+def test_multistep_chain_matches_reference(problems, interpret):
+    jops, tops = problems
+    u0 = np.array(jops.groom(jnp.asarray(rough_state())))
+    multi_j, _ = jmultistep(jops, KJ.NumericsOptions(), atol=0.01,
+                            rtol=1e-6, static_steps=False)
+    u_ref, t_ref, e_ref = multi_j(jnp.asarray(u0), jnp.asarray(0.0),
+                                  jnp.asarray(H), 6)
+    multi_t, _ = make_multistep_fn(tops, NumericsOptions(), atol=0.01,
+                                   rtol=1e-6, static_steps=False)
+    u6, t6, e6 = multi_t(torch.from_numpy(u0), scalar(0.0), scalar(H), 6)
+    u_ref = np.asarray(u_ref)
+    inc = np.abs(u_ref - u0).max()
+    assert np.abs(u6.numpy() - u_ref).max() / inc < 1e-5
+    assert abs(float(t6) - float(t_ref)) < 1e-15
+    assert abs(float(e6) - float(e_ref)) <= 1e-2 * float(e_ref)
+
+
+def test_launch_counts_per_step(problems):
+    """Per step: 8 resid (2 per stage solve), 4 delta (3 stage RHS and
+    the f0 advance), 0 jvp.  On the CPU the wrappers run their plain
+    bodies, so the bodies' calls are counted here."""
+    _, tops = problems
+    kern = make_fused_kernels(tops)
+    calls = {name: 0 for name in kern.kernels}
+    for name, k in kern.kernels.items():
+        def counted(*a, _name=name, _body=k._body):
+            calls[_name] += 1
+            return _body(*a)
+        k._body = counted
+    multi, _ = make_multistep_fn(tops, NumericsOptions(), atol=0.01,
+                                 rtol=1e-6, kernels=kern)
+    u, t, e = multi(torch.from_numpy(rough_state()), scalar(0.0),
+                    scalar(H), 3)
+    assert calls == dict(jvp=0, resid=24, delta=12)
+    assert all(k.launches == 0 for k in kern.kernels.values())
+    assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(e))
+    assert abs(float(t) - 3 * H) < 1e-15
+
+
+@pytest.mark.parametrize("change", [
+    dict(ksp_type="gmres"), dict(ksp_type="chebyshev"),
+    dict(ksp_type="dense"), dict(pc_type="spectral"),
+    dict(precision="float32"), dict(pc_fft="on"), dict(pc_pallas=True),
+    dict(pc_dtype="bfloat16"), dict(sweep_dtype="float64"),
+    dict(stage_delta=False), dict(use_pallas=False),
+    dict(ts_type="arkimex"),
+])
+def test_off_path_options_raise(problems, change):
+    _, tops = problems
+    numerics = dataclasses.replace(NumericsOptions(), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP|item"):
+        make_step_fn(tops, numerics)
+
+
+@pytest.mark.parametrize("build,item", [
+    (lambda ops: tsolver.make_adaptive_chunk_fn(ops), "item 7"),
+    (lambda ops: tsolver.Solver(ops), "item 8"),
+])
+def test_later_entry_points_raise(problems, build, item):
+    _, tops = problems
+    with pytest.raises(NotImplementedError, match=item):
+        build(tops)
+
+
+def test_mesh_not_ported(problems):
+    _, tops = problems
+    with pytest.raises(NotImplementedError, match="item 14"):
+        make_step_fn(tops, NumericsOptions(), mesh=object())
+
+
+def test_interop_round_trip(problems):
+    """State, base RHS and preconditioner basis carried across as
+    numpy reproduce the reference's arrays and its pc apply."""
+    jops, tops = problems
+    u = jnp.asarray(rough_state(seed=4))
+    arrays = dict(
+        state=np.asarray(u), f0=np.asarray(jops.rhs(u, 0.0)),
+    )
+    tens = tensors_from_numpy(arrays)
+    assert tens["state"].dtype == torch.float64
+    assert tuple(tens["state"].shape) == (3, N, N)
+    back = numpy_from_tensors(tens)
+    for k in arrays:
+        np.testing.assert_array_equal(back[k], arrays[k])
+    np.testing.assert_allclose(
+        tops.rhs(tens["state"], 0.0).numpy(), arrays["f0"],
+        rtol=0, atol=1e-12 * np.abs(arrays["f0"]).max(),
+    )
+    jpc = jlinalg.BlockSpectralPreconditioner(jops.grid, jops,
+                                              compute_dtype="float64")
+    tpc = tlinalg.BlockSpectralPreconditioner(tops.grid, tops,
+                                              compute_dtype="float64")
+    Qx, Qy, lam = tensors_from_numpy(
+        [np.asarray(jpc.Qs[0]), np.asarray(jpc.Qs[1]), np.asarray(jpc.lam)]
+    )
+    tpc.load_state_dict(dict(Qx=Qx, Qy=Qy, lam=lam))
+    v = np.random.default_rng(5).standard_normal((3, N, N))
+    means = [9000.0, 6000.0, 800.0]
+    ref = np.asarray(jpc.apply_linearized(
+        jnp.asarray(v), 100.0, 0.0, [jnp.asarray(m) for m in means], 2.0))
+    out = tpc.apply_linearized(
+        torch.from_numpy(v), 100.0, 0.0,
+        [torch.tensor(m, dtype=torch.float64) for m in means], 2.0).numpy()
+    assert np.abs(out - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_port_source_has_no_jax_import():
+    pkg = os.path.join(ROOT, "ksfd_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as fh:
+                    for line in fh:
+                        word = line.strip()
+                        assert not word.startswith(
+                            ("import jax", "from jax", "import ksfd_tpu.",
+                             "from ksfd_tpu ", "from ksfd_tpu.")
+                        ), (name, line)
+
+
+_NO_JAX = r"""
+import sys
+sys.modules["jax"] = None
+sys.path[:0] = [ROOT, ROOT + "/tests"]
+import torch
+from helpers import OPTIONS92_PARAMS, make_clargs
+import ksfd_tpu_torch
+from ksfd_tpu_torch import NumericsOptions
+from ksfd_tpu_torch.interop import problem_from_clargs
+from ksfd_tpu_torch.solvers import make_multistep_fn
+keep = ("nelements", "dim", "rho0", "U0_1_1", "U0_2_1")
+params = [p for p in OPTIONS92_PARAMS if p.split("=", 1)[0] not in keep]
+params += ["nelements=16", "dim=2", "height=1", "rho0=murho + arho*x",
+           "U0_1_1=", "U0_2_1="]
+ps, grid, ops = problem_from_clargs(make_clargs(params=params), 16, 16)
+multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01, rtol=1e-6)
+u0 = torch.full(grid.Vshape, 9000.0, dtype=torch.float64)
+u0[0, 3, 4] += 1.0
+u, t, e = multi(u0, torch.tensor(0.0, dtype=torch.float64),
+                torch.tensor(1.0, dtype=torch.float64), 2)
+assert torch.isfinite(u).all() and torch.isfinite(e)
+assert float(t) == 2.0
+assert sys.modules["jax"] is None
+assert "ksfd_tpu" not in sys.modules
+assert not [m for m in sys.modules if m.startswith(("jax.", "ksfd_tpu."))]
+print("OK", float(e))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", "ROOT = %r\n" % ROOT + _NO_JAX],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
