@@ -6,19 +6,27 @@ CUDA toolkit (nvcc):
     python3 chip_smoke.py
 
 It builds the CUDA stencil kernels of ksfd_tpu_torch from the sources
-in the checkout and runs four phases, each printing one line:
+in the checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per
+problem header, all started together) and runs seven phases, each
+printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, the float32 matmul precision and the kernels' build;
-2. each kernel against its plain PyTorch version on the card at
+   versions, the float32 matmul precision and the kernels' builds;
+2. each 2D kernel against its plain PyTorch version on the card at
    1024^2 x 3 f32, with CUDA-event times of both;
-3. the main path at 1024^2 x 3 f64: ``make_multistep_fn`` with default
-   numerics, chained fixed-dt steps at h=1 (2 and 10 steps), with
-   exact launch counts, a finite state and embedded error, and the
+3. the 2D main path at 1024^2 x 3 f64: ``make_multistep_fn`` with
+   default numerics, chained fixed-dt steps at h=1 (2 and 10 steps),
+   with exact launch counts, a finite state and embedded error, and the
    slope-timed ms/step and DOF-updates/s;
 4. the same slice at 256^2 x 3 on the card and on the CPU (plain
    versions) from one numpy state, agreeing to 1e-5 of the summed
-   increment.
+   increment;
+5. each 3D kernel against its plain version on the card at 256^3 x 3
+   f32 (the aggregation3d problem) and at the odd size 40 x 36 x 20,
+   with CUDA-event times at 256^3;
+6. the 3D main path at 256^3 x 3 f64 (50.3M DOF), as phase 3;
+7. the 3D slice at 64^3 x 3 (examples/aggregation3d's size) on the card
+   and on the CPU, as phase 4.
 
 Then one JSON line of the kernels and, last, the result line.  Any
 failed phase raises, so the exit code is not 0 and no result prints.
@@ -26,11 +34,13 @@ It imports nothing of JAX.  Profiles and long reports go to
 chiprun_out/.
 """
 
+import ctypes
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +49,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 N_BIG = 1024
 N_CMP = 256
+N3_BIG = 256
+N3_CMP = 64
+ODD3 = (40, 36, 20)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same sheet
 
 
 def check(cond, what):
@@ -74,13 +89,41 @@ def bench_clargs(n):
     return make_clargs(params=params)
 
 
+def agg3d_clargs(n):
+    """The parameters of examples/aggregation3d (rho plus an attractant
+    and a repellent ligand group, degree 3, periodic unit cube) with
+    nelements=n."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from helpers import make_clargs
+
+    params = []
+    with open(os.path.join(ROOT, "examples", "aggregation3d")) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith("--petsc"):
+                break
+            if line and not line.startswith(("#", "--", "nelements=")):
+                params.append(line)
+    return make_clargs(params=params + ["nelements=%d" % n])
+
+
 def initial_state(grid):
-    """Port of __graft_entry__._initial_state: near-uniform ~9000."""
-    x = np.arange(grid.nx) / grid.nx
-    y = np.arange(grid.ny) / grid.ny
-    X, Y = np.meshgrid(x, y, indexing="ij")
-    s = np.sin(2 * np.pi * (X + Y))
+    """Port of __graft_entry__._initial_state, near-uniform ~9000, in
+    any dimension: 9000 + (1, 0.7, 0.1) * sin(2 pi (x + y [+ z]))."""
+    axes = [np.arange(n) / n for n in grid.Sshape]
+    s = np.sin(2 * np.pi * sum(np.meshgrid(*axes, indexing="ij")))
     return np.stack([9000.0 + s, 9000.0 + 0.7 * s, 9000.0 + 0.1 * s])
+
+
+def ligand_ratios(ps):
+    """s/gamma of each ligand: the ligands' equilibrium per unit rho."""
+    out = []
+    for lig in ps.Vgroups.ligands():
+        suffix = lig.name()[1:]
+        sval = float(ps.values0.get("s" + suffix, lig.s))
+        gval = float(ps.values0.get("gamma" + suffix, lig.gamma))
+        out.append(sval / gval)
+    return out
 
 
 def rough_state(grid, ps):
@@ -98,13 +141,31 @@ def rough_state(grid, ps):
         dy = np.minimum(np.abs(Y - cy), 1.0 - np.abs(Y - cy))
         rho += 0.95 * rhomax * np.exp(-(dx**2 + dy**2) / (2 * w * w))
     rho = np.minimum(rho, 0.93 * rhomax)
-    fields = [rho]
-    for lig in ps.Vgroups.ligands():
-        suffix = lig.name()[1:]
-        sval = float(ps.values0.get("s" + suffix, lig.s))
-        gval = float(ps.values0.get("gamma" + suffix, lig.gamma))
-        fields.append(rho * (sval / gval))
-    return np.stack(fields)
+    return np.stack([rho] + [rho * r for r in ligand_ratios(ps)])
+
+
+def rough_state_3d(grid, ps, device, seed=1234):
+    """The 3D counterpart of rough_state, made on ``device``: capped
+    Gaussian peaks (sigma 4 cells along x, centres from a numpy seed,
+    one per 16384 points and at least 16, about an eighth of the box)
+    over a depleted background of 300, ligands at s/gamma * rho."""
+    rhomax = float(ps.values0.get("rhomax", 28000.0))
+    shape = tuple(grid.Sshape)
+    rng = np.random.default_rng(seed)
+    w = 4.0 / shape[0]
+    coords = [torch.arange(n, dtype=torch.float64, device=device) / n
+              for n in shape]
+    rho = torch.full(shape, 300.0, dtype=torch.float64, device=device)
+    for centre in rng.random((max(16, int(np.prod(shape)) // 16384), 3)):
+        g = []
+        for ax, c in zip(coords, centre):
+            d = torch.abs(ax - float(c))
+            d = torch.minimum(d, 1.0 - d)
+            g.append(torch.exp(-d * d / (2 * w * w)))
+        rho += (0.95 * rhomax) * (g[0][:, None, None] * g[1][None, :, None]
+                                  * g[2][None, None, :])
+    rho = torch.clamp(rho, max=0.93 * rhomax)
+    return torch.stack([rho] + [rho * r for r in ligand_ratios(ps)])
 
 
 def cuda_ms(fn, reps):
@@ -122,6 +183,44 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+# operands read per kernel (the output is written once besides)
+_N_IN = dict(jvp=2, resid=3, delta=3)
+
+
+def point_ops(name, build):
+    """Arithmetic operations per grid point that the kernel's function
+    needs: the pointwise G and dG (or G_delta) once per point, sympy's
+    count of their operations with a transcendental counted as one, and
+    the star stencils of the rows as multiply-adds."""
+    import sympy as sy
+
+    ops, dim, sw, nl = build.ops, build.dim, build.ops.sw, build.ops.nligands
+    d1 = 2 * (2 * sw) - 1          # first derivative: 2*sw taps
+    d2 = 2 * (2 * sw + 1) - 1      # second derivative: 2*sw+1 taps
+    graddot = dim * (2 * d1 + 1) + dim - 1
+    lap = dim * d2 + dim - 1
+    rows = 2 * graddot + 2 * lap + 5 + nl * (lap + 5)
+    if name == "delta":
+        pointwise = int(sy.count_ops(ops.G_expr)) + int(
+            sy.count_ops(ops.G_delta_expr)) + 4
+    else:
+        pointwise = int(sy.count_ops(ops.G_expr)) + sum(
+            int(sy.count_ops(e)) for e in ops.dG_exprs) + 2 * (nl + 1)
+    return pointwise + rows + (3 * (nl + 1) if name == "resid" else 0)
+
+
+def kernel_bound(name, build):
+    """(bound_ms, bound_by): the larger of the bytes the function must
+    move (each operand read once, the output written once) over the
+    card's memory rate and its operations over the f32 rate."""
+    points = int(np.prod(build.Sshape))
+    nbytes = (_N_IN[name] + 1) * build.dof * points * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = points * point_ops(name, build) / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def phase_device():
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
     # the preconditioner's float32 GEMMs run in full float32
@@ -136,60 +235,91 @@ def phase_device():
     return card
 
 
-def phase_kernels(card):
-    """Each kernel against its plain version on the card, 1024^2 x 3."""
+def phase_build():
+    """Build every kernel library the phases use, one nvcc per problem
+    header (the stencil coefficients depend on the grid spacing), all
+    started together."""
     from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
 
-    dev = torch.device("cuda")
-    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
-                                        device=dev)
-    kern = make_fused_kernels(ops)
+    configs = [
+        ("2d %d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG)),
+        ("2d %d^2" % N_CMP, bench_clargs(N_CMP), (N_CMP, N_CMP)),
+        ("3d %d^3" % N3_BIG, agg3d_clargs(N3_BIG), (N3_BIG,) * 3),
+        ("3d %dx%dx%d" % ODD3, agg3d_clargs(ODD3[0]), ODD3),
+        ("3d %d^3" % N3_CMP, agg3d_clargs(N3_CMP), (N3_CMP,) * 3),
+    ]
+    builds = []
+    for label, clargs, shape in configs:
+        # the header depends on the problem only, not on the device
+        _, _, ops = problem_from_clargs(clargs, *shape, device="cpu")
+        builds.append((label, make_fused_kernels(ops).build))
     t0 = time.perf_counter()
-    kern.build.library()
-    info = kern.build.build_info
-    ptxas = [l.strip() for l in info["ptxas"].splitlines()
-             if "registers" in l or "spill" in l]
-    print("phase 1 build: nvcc %.2f s (setup incl. load %.2f s) | %s" % (
-        info["nvcc_seconds"], time.perf_counter() - t0, " ; ".join(ptxas)))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda lb: lb[1].library(), builds))
+    wall = time.perf_counter() - t0
+    reports = []
+    for label, b in builds[::2]:   # 1024^2, 256^3 and 64^3 reports
+        ptxas = [l.strip() for l in b.build_info["ptxas"].splitlines()
+                 if "registers" in l or "spill" in l]
+        reports.append("%s: %s" % (label, " ; ".join(ptxas)))
+    smem_fn = builds[2][1].library().ksfd_smem_bytes
+    smem_fn.argtypes, smem_fn.restype = [], ctypes.c_int
+    smem3d = smem_fn()
+    print("phase 1 build: %d libraries in %.2f s wall (nvcc s: %s) | 3D "
+          "dynamic shared memory %d B/block | %s" % (
+              len(builds), wall,
+              ", ".join("%s %.2f" % (l, b.build_info["nvcc_seconds"])
+                        for l, b in builds),
+              smem3d, " | ".join(reports)))
 
-    rng = np.random.default_rng(7)
-    to = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
-    states = dict(rough=rough_state(grid, ps), initial=initial_state(grid))
-    t = to(0.0, torch.float64)
-    shift = to(1.0 / 0.435866521508459, torch.float64)
-    errs = {k: 0.0 for k in kern.kernels}
-    rel = {k: 0.0 for k in kern.kernels}
+
+def kernel_cases(kern, ops, states, gen):
+    """(name, label, args) for each kernel on each state (f64 tensors on
+    the card): jvp and resid on the groomed f32 state and, for the rough
+    one, on a raw state with points below, at and NaN against the
+    floors; delta with increments of scale 100 (rough) or 1e-3
+    (near-uniform) and with a fifth of the points clamped to the
+    floor."""
+    dim = ops.grid.dim
+    shape = tuple(ops.grid.Vshape)
+    t = torch.zeros((), dtype=torch.float64, device="cuda")
+    shift = torch.full((), 1.0 / 0.435866521508459, dtype=torch.float64,
+                       device="cuda")
+    randn = lambda: torch.randn(shape, generator=gen, device="cuda",
+                                dtype=torch.float64)
     cases = []
-    for sname, u_np in states.items():
-        u64 = ops.groom(to(u_np, torch.float64))
+    for sname, u_raw in states.items():
+        u64 = ops.groom(u_raw)
         u = u64.float()
-        v = to(rng.standard_normal(grid.Vshape))
-        b = to(rng.standard_normal(grid.Vshape))
+        v, b = randn().float(), randn().float()
         cases.append(("jvp", sname, (u, v, t)))
         cases.append(("resid", sname, (u, v, b, t, shift)))
-        if sname == "rough":
-            # the groom's where-form clamp and the strict tangent mask:
-            # points below, at and NaN against the floors
-            raw = u_np.copy()
-            raw[0, ::97, ::89] = 0.5 * ops.rhomin
-            raw[0, 3, 5] = ops.rhomin
-            raw[1, 5, 7] = ops.Umin
-            raw[2, 9, 11] = np.nan
-            uc = to(raw)
-            cases.append(("jvp", "clamped", (uc, v, t)))
-            cases.append(("resid", "clamped", (uc, v, b, t, shift)))
-        scales = [("d100", 100.0)] if sname == "rough" else [("d1e-3", 1e-3)]
-        for dname, scale in scales:
-            d = to(scale * rng.standard_normal(grid.Vshape), torch.float64)
-            u1 = ops.groom(u64 + d)
-            cases.append(("delta", sname + "/" + dname,
-                          (u64, u1 - u64, u1, t)))
+        if sname.startswith("rough"):
+            # the groom's where-form clamp and the strict tangent mask
+            raw = u_raw.clone()
+            raw[(0,) + tuple(slice(None, None, p)
+                             for p in (97, 89, 7)[:dim])] = 0.5 * ops.rhomin
+            raw[(0, 3, 5, 1)[:dim + 1]] = ops.rhomin
+            raw[(1, 5, 7, 2)[:dim + 1]] = ops.Umin
+            raw[(2, 9, 11, 3)[:dim + 1]] = float("nan")
+            uc = raw.float()
+            cases.append(("jvp", sname + "/clamped", (uc, v, t)))
+            cases.append(("resid", sname + "/clamped", (uc, v, b, t, shift)))
+        dname, scale = (("d100", 100.0) if sname.startswith("rough")
+                        else ("d1e-3", 1e-3))
+        u1 = ops.groom(u64 + scale * randn())
+        cases.append(("delta", sname + "/" + dname, (u64, u1 - u64, u1, t)))
         # clamp-to-floor: a fifth of the points fall to the floor
-        drop = to(rng.random(grid.Vshape) < 0.2, torch.float64)
+        drop = (torch.rand(shape, generator=gen, device="cuda") < 0.2)
         u1 = ops.groom(u64 - 2.0 * u64 * drop)
         cases.append(("delta", sname + "/floor", (u64, u1 - u64, u1, t)))
-    lines = []
+    return cases
+
+
+def compare_kernels(kern, cases, errs, rel, lines):
+    """Each case's kernel against its plain version: finite, and within
+    1e-5 of the plain version's largest value."""
     for name, label, args in cases:
         k = kern.kernels[name]
         out = k(*args)
@@ -200,36 +330,92 @@ def phase_kernels(card):
         check(bool(torch.isfinite(out).all()), "%s %s finite" % (name, label))
         check(err <= 1e-5 * scale,
               "%s %s: max err %.3e > 1e-5 * %.3e" % (name, label, err, scale))
-        errs[name] = max(errs[name], err)
-        rel[name] = max(rel[name], err / scale)
+        errs[name] = max(errs.get(name, 0.0), err)
+        rel[name] = max(rel.get(name, 0.0), err / scale)
         lines.append("%s/%s err %.3e (%.2e rel)" % (name, label, err,
                                                     err / scale))
-    # times at the main path's shapes (the rough state's operands):
-    # the kernel and the plain body on the same prepared f32 operands
+
+
+def time_kernels(kern, cases, label, reps, plain_reps):
+    """CUDA-event ms of each kernel and of its plain body on the same
+    prepared f32 operands of the ``label`` state (the build is done)."""
     times = {}
-    for name, label, args in cases:
-        if label not in ("rough", "rough/d100"):
+    for name, lab, args in cases:
+        if lab.split("/")[0] != label or lab.endswith(("clamped", "floor")):
             continue
         k = kern.kernels[name]
         prepared = k.prepare(*args)
-        times[name] = (cuda_ms(lambda: k.launch(*prepared), 200),
-                       cuda_ms(lambda: k.body(*prepared), 20))
-    print("phase 2 kernels vs plain (%s): %s | ms kernel/plain: %s" % (
-        card, "; ".join(lines),
-        "; ".join("%s %.4f/%.4f" % (n, a, b) for n, (a, b) in times.items())))
+        times[name] = (cuda_ms(lambda: k.launch(*prepared), reps),
+                       cuda_ms(lambda: k.body(*prepared), plain_reps))
+    return times
+
+
+def phase_kernels(card):
+    """Each 2D kernel against its plain version on the card, 1024^2 x 3."""
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+
+    dev = torch.device("cuda")
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    kern = make_fused_kernels(ops)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    states = dict(rough=torch.as_tensor(rough_state(grid, ps), device=dev),
+                  initial=torch.as_tensor(initial_state(grid), device=dev))
+    cases = kernel_cases(kern, ops, states, gen)
+    errs, rel, lines = {}, {}, []
+    compare_kernels(kern, cases, errs, rel, lines)
+    times = time_kernels(kern, cases, "rough", 200, 20)
+    print("phase 2 kernels vs plain 1024^2x3 (%s): %s | ms kernel/plain: "
+          "%s" % (card, "; ".join(lines), "; ".join(
+              "%s %.4f/%.4f" % (n, a, b) for n, (a, b) in times.items())))
     return kern, errs, rel, times
 
 
-def phase_main_path(card):
-    """make_multistep_fn at 1024^2 x 3 f64, fixed dt h=1."""
+def phase_kernels_3d(card):
+    """Each 3D kernel against its plain version on the card at 256^3 x 3
+    (rough and near-uniform states, timed on the rough one) and at the
+    odd size ODD3, whose tiles are ragged in every axis."""
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs, rel, lines = {}, {}, []
+    ps, grid, ops = problem_from_clargs(agg3d_clargs(N3_BIG), *(N3_BIG,) * 3,
+                                        device=dev)
+    kern = make_fused_kernels(ops)
+    states = dict(rough=rough_state_3d(grid, ps, dev),
+                  initial=torch.as_tensor(initial_state(grid), device=dev))
+    cases = kernel_cases(kern, ops, states, gen)
+    compare_kernels(kern, cases, errs, rel, lines)
+    times = time_kernels(kern, cases, "rough", 200, 200)
+    del cases, states
+    ps, grid, ops = problem_from_clargs(agg3d_clargs(ODD3[0]), *ODD3,
+                                        device=dev)
+    kern_odd = make_fused_kernels(ops)
+    states = dict(rough_odd=rough_state_3d(grid, ps, dev))
+    compare_kernels(kern_odd, kernel_cases(kern_odd, ops, states, gen),
+                    errs, rel, lines)
+    print("phase 5 3D kernels vs plain 256^3x3 and %dx%dx%dx3 (%s): %s | "
+          "ms kernel/plain at 256^3: %s" % (ODD3 + (card, "; ".join(lines),
+          "; ".join("%s %.4f/%.4f" % (n, a, b)
+                    for n, (a, b) in times.items()))))
+    return kern, errs, rel, times
+
+
+def phase_main_path(card, tag, clargs, shape, phase):
+    """make_multistep_fn with default numerics at ``shape`` x 3 f64,
+    fixed dt h=1, from the near-uniform initial state: exact launch
+    counts of the 2- and 10-step chains (each counted from 0 just before
+    the chain), slope timing and a profiled 2-step chain."""
     from ksfd_tpu_torch import NumericsOptions
     from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
     from ksfd_tpu_torch.solvers import make_multistep_fn
 
     dev = torch.device("cuda")
-    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
-                                        device=dev)
+    ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
     kern = make_fused_kernels(ops)
     multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01,
                                  rtol=1e-6, static_steps=False,
@@ -251,6 +437,7 @@ def phase_main_path(card):
         check(bool(torch.isfinite(emax)), "emax finite")
         check(abs(float(t) - n) < 1e-9, "t advanced")
     inc = float((u - u0).abs().max())
+    del u
 
     # slope timing: min over repeats of the 2- and 10-step chains,
     # each from a distinctly perturbed state
@@ -264,6 +451,7 @@ def phase_main_path(card):
             multi(up, t0, h, n)
             torch.cuda.synchronize()
             samples[n].append(time.perf_counter() - t_start)
+            del up
     step_s = (min(samples[10]) - min(samples[2])) / 8
     rate = grid.n_dofs / step_s
 
@@ -277,8 +465,9 @@ def phase_main_path(card):
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "main_path_profile.txt"), "w") as fh:
-        fh.write("%s\n2-step chain, 1024^2 x 3, h=1\n%s\n" % (card, table))
+    fname = "main_path_profile%s.txt" % ("" if len(shape) == 2 else "_3d")
+    with open(os.path.join(OUT_DIR, fname), "w") as fh:
+        fh.write("%s\n2-step chain, %s x 3, h=1\n%s\n" % (card, tag, table))
     # device time per step by kernel, and grouped
     cuda_dev = torch.autograd.DeviceType.CUDA
     per_kernel = {}
@@ -300,11 +489,11 @@ def phase_main_path(card):
             groups["other"] += ms
     device_ms = sum(groups.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
-    print("phase 3 main path 1024^2x3 f64 h=1 (%s): counts %s; emax %.6e; "
+    print("phase %d main path %s x3 f64 h=1 (%s): counts %s; emax %.6e; "
           "max|u10-u0| %.6e; %.4f ms/step (2-step %.4f s, 10-step %.4f s); "
           "%.6e DOF-updates/s | profiled device ms/step %.4f (busy %.3f of "
           "the step): %s | top: %s" % (
-              card, counts[10], float(emax), inc, step_s * 1e3,
+              phase, tag, card, counts[10], float(emax), inc, step_s * 1e3,
               min(samples[2]), min(samples[10]), rate, device_ms,
               device_ms / (step_s * 1e3),
               "; ".join("%s %.4f" % kv for kv in groups.items()),
@@ -312,20 +501,23 @@ def phase_main_path(card):
     return counts[10], step_s, rate
 
 
-def phase_card_vs_cpu(card):
-    """The 256^2 x 3 slice on the card (kernels) and on the CPU (plain
-    versions) from one numpy state: 4 chained steps."""
+def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase):
+    """The slice at ``shape`` x 3 on the card (kernels) and on the CPU
+    (plain versions) from one state made on the CPU: 4 chained steps at
+    h=1e-4, agreeing to 1e-5 of the summed per-step increment."""
     from ksfd_tpu_torch import NumericsOptions
     from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.solvers import make_multistep_fn
 
     runs = {}
-    for dev in ("cuda", "cpu"):
-        ps, grid, ops = problem_from_clargs(bench_clargs(N_CMP), N_CMP,
-                                            N_CMP, device=dev)
+    state = None
+    for dev in ("cpu", "cuda"):
+        ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
+        if state is None:
+            state = torch.as_tensor(make_state(grid, ps))
         multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01,
                                      rtol=1e-6)
-        u0 = torch.as_tensor(rough_state(grid, ps), device=dev)
+        u0 = state.to(dev)
         t0 = torch.zeros((), dtype=torch.float64, device=dev)
         h = torch.full((), 1e-4, dtype=torch.float64, device=dev)
         u4, _, emax = multi(u0, t0, h, 4)
@@ -342,27 +534,51 @@ def phase_card_vs_cpu(card):
           "emax finite")
     check(dev_abs <= 1e-5 * inc,
           "card vs cpu: %.3e > 1e-5 * %.3e" % (dev_abs, inc))
-    print("phase 4 card vs cpu 256^2x3 rough h=1e-4 x4 (%s): max dev "
+    print("phase %d card vs cpu %s x3 rough h=1e-4 x4 (%s): max dev "
           "%.3e, summed increment %.6e, dev/inc %.3e; emax cuda %.6e "
-          "cpu %.6e" % (card, dev_abs, inc, dev_abs / inc, runs["cuda"][1],
-                        runs["cpu"][1]))
+          "cpu %.6e" % (phase, tag, card, dev_abs, inc, dev_abs / inc,
+                        runs["cuda"][1], runs["cpu"][1]))
+
+
+def kernel_rows(kern, src, counts, errs, rel, times, suffix):
+    rows = []
+    for name, k in kern.kernels.items():
+        bound_ms, bound_by = kernel_bound(name, kern.build)
+        rows.append({
+            "name": name + suffix, "route": "cuda", "source": src,
+            "replaces": k.replaces, "launches": counts[name],
+            "max_abs_err": errs[name], "max_rel_err": rel[name],
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a fused stencil row
+            "library_ms": None, "on_main_path": name != "jvp",
+        })
+    return rows
 
 
 def main():
     card = phase_device()
+    phase_build()
     kern, errs, rel, times = phase_kernels(card)
-    counts, step_s, rate = phase_main_path(card)
-    phase_card_vs_cpu(card)
-    src = "ksfd_tpu_torch/csrc/stencil2d.cu"
+    counts, step_s, rate = phase_main_path(
+        card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 3)
+    phase_card_vs_cpu(card, "%d^2" % N_CMP, bench_clargs(N_CMP),
+                      (N_CMP, N_CMP), rough_state, 4)
+    kern3, errs3, rel3, times3 = phase_kernels_3d(card)
+    counts3, step3_s, rate3 = phase_main_path(
+        card, "%d^3" % N3_BIG, agg3d_clargs(N3_BIG), (N3_BIG,) * 3, 6)
+    phase_card_vs_cpu(card, "%d^3" % N3_CMP, agg3d_clargs(N3_CMP),
+                      (N3_CMP,) * 3,
+                      lambda grid, ps: rough_state_3d(grid, ps, "cpu"), 7)
     print(card)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": k.replaces, "launches": counts[name],
-         "max_abs_err": errs[name], "max_rel_err": rel[name],
-         "ms": times[name][0], "plain_ms": times[name][1],
-         "on_main_path": name != "jvp"}
-        for name, k in kern.kernels.items()
-    ], "ms_per_step": step_s * 1e3, "dof_updates_per_s": rate}))
+    print(json.dumps({
+        "kernels": kernel_rows(kern, "ksfd_tpu_torch/csrc/stencil2d.cu",
+                               counts, errs, rel, times, "")
+        + kernel_rows(kern3, "ksfd_tpu_torch/csrc/stencil3d.cu",
+                      counts3, errs3, rel3, times3, "3d"),
+        "ms_per_step": step_s * 1e3, "dof_updates_per_s": rate,
+        "ms_per_step_3d": step3_s * 1e3, "dof_updates_per_s_3d": rate3,
+    }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

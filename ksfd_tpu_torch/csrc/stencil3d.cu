@@ -1,0 +1,288 @@
+// Fused float32 stencil kernels of the Keller-Segel operator, 3D
+// periodic, for Hopper (sm_90a).
+//
+// Replaces the Pallas bodies of ksfd_tpu/ops/pallas_stencil3d.py:
+//   ksfd_resid  <- resid_kernel :426 (rows from _jvp_rows :390)
+//   ksfd_jvp    <- jvp_kernel   :419
+//   ksfd_delta  <- delta_kernel :440
+// They compute what csrc/stencil2d.cu computes, with a third stencil
+// axis.  The problem (G, dG, G_delta, the stencil coefficients of all
+// three axes, groom floors, ligand coefficients) comes from the header
+// that ops/codegen.py generates (ksfd_pointwise.cuh, KSFD_DIM 3).  The
+// wrappers, scalar packs and plain PyTorch versions are in
+// ops/fused_stencil3d.py and ops/fused_stencil.py.
+//
+// Layout: the natural (dof, nx, ny, nz), z contiguous, any extents
+// >= 2*SW+1 (bounds guards, no alignment), 64-bit element offsets.
+// The TPU's folded (dof, nx, ny*nz) lane layout is not carried over.
+//
+// Bound: memory.  At 256^3 x 3 f32 one operand is 201 MB; resid reads
+// u, v, b and writes out (805 MB, 240 us at the H100 SXM's 3.35 TB/s),
+// jvp 604 MB (180 us), delta 805 MB (240 us).  Design (the simple one;
+// a 2.5D march along x with a rolling window of 2*SW+1 planes is the
+// faster design, left for later): one block of NT threads per
+// TX x TY x TZ tile, z fastest.  The block reads its inputs over a
+// box with an SW-wide halo straight from global memory by periodic
+// index arithmetic, evaluates G / dG.v / G_delta ONCE per box point
+// into dynamic shared memory, then applies the star stencils from
+// there.  The star stencils never read a box point with two or more
+// coordinates in the halo (edges and corners), so those are skipped:
+// at 4 x 8 x 32 and SW=2, 2,688 of the box's 3,456 points are
+// evaluated, 2.6 per output point.  Shared memory is (4 + NL) arrays
+// of the 8 x 12 x 36 box, 82,944 B for three fields: above the 48 KB
+// static limit, so each entry opts the kernel into that much dynamic
+// shared memory before it launches.  On an H100 80GB HBM3 at 700 W
+// this design takes 1.1-1.3 ms per launch at 256^3 x 3, 5-6x the
+// bound: the re-evaluated pointwise functions, not the bytes, set its
+// time (PERF.md, chip_smoke.py phase 5).
+//
+// Semantics kept from the Pallas body (as in stencil2d.cu):
+//   - where-form clamp: x >= min ? x : min, so NaN -> min;
+//   - the J-action tangent is zeroed where the clamp is active, with a
+//     strict '>' ; the resid shift term uses the RAW tangent;
+//   - delta centres G on the f64 mean G(means) and rho on its f64 mean,
+//     both passed in the scalar pack;
+//   - the scalar pack is a small f32 DEVICE array read here, never a
+//     host float, so a launch needs no host sync.
+// Every C entry launches on the caller's stream, allocates nothing and
+// returns the first CUDA error (0 on success).
+//
+// Without __CUDACC__ (a host C++ compiler with the CUDA qualifiers
+// defined away, KSFD_NT=1 and one thread walking each block) the kernel
+// bodies compile as plain C++; tests/test_torch_3d.py runs them so on
+// the CPU.  The C entries exist only in the nvcc build.
+
+#include <math.h>
+#include <stddef.h>
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+#include "ksfd_pointwise.cuh"
+
+static_assert(KSFD_DIM == 3, "stencil3d.cu needs the 3D pointwise header");
+
+#ifndef KSFD_NT
+#define KSFD_NT 256
+#endif
+
+extern __shared__ float ksfd_smem[];
+
+namespace {
+
+constexpr int SW = KSFD_SW;
+constexpr int DOF = KSFD_DOF;
+constexpr int NL = DOF - 1;        // ligand fields
+constexpr int TX = 4;              // tile extent along x
+constexpr int TY = 8;              // along y
+constexpr int TZ = 32;             // along z (contiguous)
+constexpr int NT = KSFD_NT;        // threads per block
+constexpr int HX = TX + 2 * SW;
+constexpr int HY = TY + 2 * SW;
+constexpr int HZ = TZ + 2 * SW;
+constexpr int SY = HZ;             // box stride along y
+constexpr int SX = HY * HZ;        // box stride along x
+constexpr int HN = HX * HY * HZ;
+constexpr int TN = TX * TY * TZ;
+// shared arrays per box point: resid/jvp rho, G, dG.v, v_rho, v_U[NL];
+// delta d_rho, G0c + dG, rho0c, dG, d_U[NL]
+constexpr int NARR = 4 + (NL > 0 ? NL : 1);
+constexpr size_t SMEM_BYTES = sizeof(float) * NARR * HN;
+static_assert(SMEM_BYTES <= 227 * 1024, "tile too large for shared memory");
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+// A box point that some star stencil of the tile reads: at most one
+// of its coordinates lies in the halo.
+__device__ __forceinline__ bool on_star(int hx, int hy, int hz) {
+  const int out = (hx < SW || hx >= SW + TX) + (hy < SW || hy >= SW + TY) +
+                  (hz < SW || hz >= SW + TZ);
+  return out <= 1;
+}
+
+// Global offset (within one field) of box point (hx, hy, hz) of the
+// tile at (x0, y0, z0), wrapped periodically.
+__device__ __forceinline__ size_t box_offset(int hx, int hy, int hz, int x0,
+                                             int y0, int z0, int nx, int ny,
+                                             int nz) {
+  return ((size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny)) * nz +
+         wrap(z0 + hz - SW, nz);
+}
+
+__device__ __forceinline__ float lap(const float* p) {
+  return ksfd_d2x(p, SX) + ksfd_d2y(p, SY) + ksfd_d2z(p, 1);
+}
+
+__device__ __forceinline__ float graddot(const float* a, const float* b) {
+  return ksfd_d1x(a, SX) * ksfd_d1x(b, SX) + ksfd_d1y(a, SY) * ksfd_d1y(b, SY) +
+         ksfd_d1z(a, 1) * ksfd_d1z(b, 1);
+}
+
+// The J-action rows (and, with RESID, the fused Richardson residual
+// b - shift*v + J(u)v).  sc = [t, shift] (t is unused: the generated
+// G carries no time dependence).
+template <bool RESID>
+__global__ void __launch_bounds__(NT)
+jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           const float* __restrict__ v, const float* __restrict__ b,
+           float* __restrict__ out, int nx, int ny, int nz) {
+  float* s_rho = ksfd_smem;
+  float* s_G = s_rho + HN;
+  float* s_dG = s_G + HN;
+  float* s_vr = s_dG + HN;
+  float* s_vU = s_vr + HN;  // NL arrays of HN
+  const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
+  const size_t plane = (size_t)nx * ny * nz;
+
+  for (int i = threadIdx.x; i < HN; i += NT) {
+    const int hx = i / SX, r = i - hx * SX, hy = r / SY, hz = r - hy * SY;
+    if (!on_star(hx, hy, hz)) continue;
+    const size_t g = box_offset(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    float f[DOF], vm[DOF], dg[DOF];
+#pragma unroll
+    for (int k = 0; k < DOF; ++k) {
+      const float raw = u[k * plane + g];
+      const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
+      f[k] = raw >= lo ? raw : lo;
+      vm[k] = raw > lo ? v[k * plane + g] : 0.0f;
+    }
+    ksfd_dG(f, dg);
+    float dG = dg[0] * vm[0];
+#pragma unroll
+    for (int k = 1; k < DOF; ++k) dG = dG + dg[k] * vm[k];
+    s_rho[i] = f[0];
+    s_G[i] = ksfd_G(f);
+    s_dG[i] = dG;
+    s_vr[i] = vm[0];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s_vU[l * HN + i] = vm[1 + l];
+  }
+  __syncthreads();
+
+  const float shift = RESID ? sc[1] : 0.0f;
+  for (int i = threadIdx.x; i < TN; i += NT) {
+    const int ix = i / (TY * TZ), r = i - ix * (TY * TZ);
+    const int iy = r / TZ, iz = r - iy * TZ;
+    const int gx = x0 + ix, gy = y0 + iy, gz = z0 + iz;
+    if (gx >= nx || gy >= ny || gz >= nz) continue;
+    const int c = (ix + SW) * SX + (iy + SW) * SY + (iz + SW);
+    const size_t g = ((size_t)gx * ny + gy) * nz + gz;
+    const float vr = s_vr[c];
+    float row = graddot(&s_vr[c], &s_G[c]) + graddot(&s_rho[c], &s_dG[c]) +
+                vr * lap(&s_G[c]) + s_rho[c] * lap(&s_dG[c]);
+    out[g] = RESID ? b[g] - shift * v[g] + row : row;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const float* vU = &s_vU[l * HN + c];
+      row = -ksfd_gamma(l) * vU[0] + ksfd_s(l) * vr + ksfd_D(l) * lap(vU);
+      const size_t gl = (1 + l) * plane + g;
+      out[gl] = RESID ? b[gl] - shift * v[gl] + row : row;
+    }
+  }
+}
+
+// Exact increment rhs(u1) - rhs(u0) of the source-free RHS, with
+// d = u1 - u0 and u0 groomed.  sc = [t, rho_mean, G0_mean].
+__global__ void __launch_bounds__(NT)
+delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
+             const float* __restrict__ d, const float* __restrict__ u1,
+             float* __restrict__ out, int nx, int ny, int nz) {
+  float* s_d0 = ksfd_smem;
+  float* s_Gs = s_d0 + HN;
+  float* s_r0c = s_Gs + HN;
+  float* s_dG = s_r0c + HN;
+  float* s_dU = s_dG + HN;  // NL arrays of HN
+  const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
+  const size_t plane = (size_t)nx * ny * nz;
+  const float rho_mean = sc[1], G_mean = sc[2];
+
+  for (int i = threadIdx.x; i < HN; i += NT) {
+    const int hx = i / SX, r = i - hx * SX, hy = r / SY, hz = r - hy * SY;
+    if (!on_star(hx, hy, hz)) continue;
+    const size_t g = box_offset(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    float f[DOF], dd[DOF], s[DOF];
+#pragma unroll
+    for (int k = 0; k < DOF; ++k) {
+      f[k] = u0[k * plane + g];
+      dd[k] = d[k * plane + g];
+      s[k] = u1[k * plane + g];
+    }
+    const float G0c = ksfd_G(f) - G_mean;
+    const float dG = ksfd_G_delta(f, dd, s);
+    s_d0[i] = dd[0];
+    s_Gs[i] = G0c + dG;
+    s_r0c[i] = f[0] - rho_mean;
+    s_dG[i] = dG;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s_dU[l * HN + i] = dd[1 + l];
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < TN; i += NT) {
+    const int ix = i / (TY * TZ), r = i - ix * (TY * TZ);
+    const int iy = r / TZ, iz = r - iy * TZ;
+    const int gx = x0 + ix, gy = y0 + iy, gz = z0 + iz;
+    if (gx >= nx || gy >= ny || gz >= nz) continue;
+    const int c = (ix + SW) * SX + (iy + SW) * SY + (iz + SW);
+    const size_t g = ((size_t)gx * ny + gy) * nz + gz;
+    const float drho = s_d0[c];
+    out[g] = graddot(&s_d0[c], &s_Gs[c]) + graddot(&s_r0c[c], &s_dG[c]) +
+             drho * lap(&s_Gs[c]) + u0[g] * lap(&s_dG[c]);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const float* dU = &s_dU[l * HN + c];
+      out[(1 + l) * plane + g] =
+          -ksfd_gamma(l) * dU[0] + ksfd_s(l) * drho + ksfd_D(l) * lap(dU);
+    }
+  }
+}
+
+#ifdef __CUDACC__
+dim3 grid_for(int nx, int ny, int nz) {
+  return dim3((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
+}
+
+// Opt the kernel into SMEM_BYTES of dynamic shared memory (above the
+// 48 KB default), then launch it.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int nx, int ny, int nz, void* stream,
+           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_for(nx, ny, nz), NT, SMEM_BYTES, (cudaStream_t)stream>>>(
+      args..., nx, ny, nz);
+  return (int)cudaGetLastError();
+}
+#endif
+
+}  // namespace
+
+#ifdef __CUDACC__
+extern "C" {
+
+int ksfd_jvp(const float* sc, const float* u, const float* v, float* out,
+             int nx, int ny, int nz, void* stream) {
+  return launch(jvp_kernel<false>, nx, ny, nz, stream, sc, u, v,
+                (const float*)nullptr, out);
+}
+
+int ksfd_resid(const float* sc, const float* u, const float* v,
+               const float* b, float* out, int nx, int ny, int nz,
+               void* stream) {
+  return launch(jvp_kernel<true>, nx, ny, nz, stream, sc, u, v, b, out);
+}
+
+int ksfd_delta(const float* sc, const float* u0, const float* d,
+               const float* u1, float* out, int nx, int ny, int nz,
+               void* stream) {
+  return launch(delta_kernel, nx, ny, nz, stream, sc, u0, d, u1, out);
+}
+
+int ksfd_smem_bytes() { return (int)SMEM_BYTES; }
+
+}  // extern "C"
+#endif

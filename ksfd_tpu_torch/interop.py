@@ -1,15 +1,19 @@
 """Carrying problems and arrays across from the JAX package.
 
-- ``problem_from_clargs(clargs, nx, ny, device)`` builds the port's
-  ``(ps, grid, ops)`` from the same argparse ``Namespace`` that
-  ``ksfd_tpu.SolutionParameters`` takes, as
-  ``__graft_entry__._make_problem`` builds the reference's.
-- ``tensors_from_numpy(arrays, device)`` turns arrays taken from the
-  JAX package as numpy (the state, a base RHS f0, a preconditioner's
-  Q/lam) into tensors, keeping dtype and the ``(dof, nx, ny)`` layout;
-  ``numpy_from_tensors`` goes back.
+- ``problem_from_clargs(clargs, nx, ny, nz=None, device=None)`` builds
+  the port's ``(ps, grid, ops)`` from the same argparse ``Namespace``
+  that ``ksfd_tpu.SolutionParameters`` takes, as
+  ``__graft_entry__._make_problem`` builds the reference's 2D problem
+  and ``tests/test_3d.py:_problem`` its 3D one.  The dimension comes
+  from the parameters (``dim``).
+- ``tensors_from_numpy(arrays, device=None)`` turns arrays taken from
+  the JAX package as numpy (the state, a base RHS f0, a
+  preconditioner's Q/lam) into tensors, keeping dtype and the
+  ``(dof, nx, ny[, nz])`` layout; ``numpy_from_tensors`` goes back.
 
-Neither side is imported by the other: arrays cross as numpy.
+Both run on the card unless ``device`` names another device
+(utils/device.py).  Neither side is imported by the other: arrays
+cross as numpy.
 """
 
 import numpy as np
@@ -18,18 +22,34 @@ import torch
 from .grid import Grid
 from .models import SolutionParameters
 from .ops import PDEOperators
+from .utils.device import resolve_device
 
 __all__ = ["problem_from_clargs", "tensors_from_numpy", "numpy_from_tensors"]
 
 
-def problem_from_clargs(clargs, nx, ny, device="cpu"):
-    """(ps, grid, ops) of a 2D problem on an nx x ny periodic grid whose
-    extent, field count and stencil order come from the parameters."""
+def problem_from_clargs(clargs, nx, ny, nz=None, device=None):
+    """(ps, grid, ops) of a 2D or 3D problem on a periodic grid whose
+    dimension, extent, field count and stencil order come from the
+    parameters.  A 3D problem (``dim=3``) needs ``nz``."""
+    device = resolve_device(device)
     ps = SolutionParameters(clargs)
-    grid = Grid(
-        dim=2, width=ps.width, height=ps.height, nx=nx, ny=ny,
-        dof=ps.nligands + 1, order=ps.degree,
-    )
+    dim = ps.dim
+    if dim == 2:
+        grid = Grid(
+            dim=2, width=ps.width, height=ps.height, nx=nx, ny=ny,
+            dof=ps.nligands + 1, order=ps.degree,
+        )
+    elif dim == 3:
+        if nz is None:
+            raise ValueError("a 3D problem needs nz")
+        grid = Grid(
+            dim=3, width=ps.width, height=ps.height, depth=ps.depth,
+            nx=nx, ny=ny, nz=nz, dof=ps.nligands + 1, order=ps.degree,
+        )
+    else:
+        raise NotImplementedError(
+            "dim=%d: the port runs 2D and 3D problems" % dim
+        )
     return ps, grid, PDEOperators(ps, grid, device=device)
 
 
@@ -41,10 +61,11 @@ def _map(fn, arrays):
     return fn(arrays)
 
 
-def tensors_from_numpy(arrays, device="cpu"):
+def tensors_from_numpy(arrays, device=None):
     """An array, or a list/tuple/dict of arrays, as tensors on
     ``device`` with the same dtype, shape and element order.  The data
     is copied: arrays taken from JAX are read-only views."""
+    device = resolve_device(device)
     return _map(lambda a: torch.from_numpy(np.array(a)).to(device), arrays)
 
 

@@ -2,21 +2,23 @@
 
 Counterpart: the tracing of ``ops._G_fn``, ``ops._dG_fns`` and
 ``ops._G_delta_fn`` into the Pallas kernel bodies of
-ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels.  Where Pallas
+ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels and
+ksfd_tpu/ops/pallas_stencil3d.py:make_pallas_kernels_3d.  Where Pallas
 traces the sympy-lambdified JAX functions, the CUDA kernels of
-csrc/stencil2d.cu include a header generated here that holds
+csrc/stencil2d.cu and csrc/stencil3d.cu include a header generated here
+that holds
 
 - ``ksfd_G(f)``, ``ksfd_dG(f, out)`` and ``ksfd_G_delta(f, d, s)`` as
   ``__device__ __forceinline__`` functions of ``float`` arrays of
   length ``KSFD_DOF`` (fields, increments, shifted fields);
-- the star stencils ``ksfd_d1x(p, stride)`` ... ``ksfd_d2y``: the
-  first/second derivative at ``*p`` along an axis of that stride, a
-  left-to-right sum of the nonzero coefficients (the order of the
-  Pallas body's ``_dx``/``_dy``);
-- the problem constants: ``KSFD_DOF``, ``KSFD_SW``, the groom floors
-  ``KSFD_RHOMIN``/``KSFD_UMIN`` and the ligand coefficients
-  ``ksfd_gamma(l)``, ``ksfd_s(l)``, ``ksfd_D(l)``, all as ``F``
-  literals of their float32 values.
+- the star stencils ``ksfd_d1x(p, stride)`` ... ``ksfd_d2y`` (and
+  ``ksfd_d1z``/``ksfd_d2z`` in 3D): the first/second derivative at
+  ``*p`` along an axis of that stride, a left-to-right sum of the
+  nonzero coefficients (the order of the Pallas body's ``_d``);
+- the problem constants: ``KSFD_DIM``, ``KSFD_DOF``, ``KSFD_SW``, the
+  groom floors ``KSFD_RHOMIN``/``KSFD_UMIN`` and the ligand
+  coefficients ``ksfd_gamma(l)``, ``ksfd_s(l)``, ``ksfd_D(l)``, all as
+  ``F`` literals of their float32 values.
 
 The printer is sympy's C99 printer with ``real`` aliased to float32, so
 literals carry an ``F`` suffix and calls are the single-precision
@@ -98,15 +100,17 @@ def _table_fn(name, values):
 
 
 def pointwise_header(ops):
-    """The generated header text for a 2D PDEOperators.
+    """The generated header text for a 2D or 3D PDEOperators.
 
     Raises NotImplementedError for a problem with time-dependent
     coefficients (their values would have to come in at run time) or
-    without an increment form of G.
+    without an increment form of G.  G, dG and G_delta do not depend on
+    the dimension; only the stencils do.
     """
-    if ops.grid.dim != 2:
+    dim = ops.grid.dim
+    if dim not in (2, 3):
         raise NotImplementedError(
-            "CUDA kernels are 2D; 3D is ROADMAP Queue A item 10"
+            "CUDA kernels are 2D and 3D; a %dD problem has none" % dim
         )
     if ops._G_tdep or ops._lig_tdep:
         raise NotImplementedError(
@@ -125,15 +129,18 @@ def pointwise_header(ops):
     lines = [
         "// Generated by ksfd_tpu_torch/ops/codegen.py; do not edit.",
         "#pragma once",
+        "#define KSFD_DIM %d" % dim,
         "#define KSFD_DOF %d" % dof,
         "#define KSFD_SW %d" % ops.sw,
         "#define KSFD_RHOMIN (%s)" % _flit(ops.rhomin),
         "#define KSFD_UMIN (%s)" % _flit(ops.Umin),
-        _stencil_fn("ksfd_d1x", deriv_coeffs(1, ops.sw, ops.spacing[0])),
-        _stencil_fn("ksfd_d2x", deriv_coeffs(2, ops.sw, ops.spacing[0])),
-        _stencil_fn("ksfd_d1y", deriv_coeffs(1, ops.sw, ops.spacing[1])),
-        _stencil_fn("ksfd_d2y", deriv_coeffs(2, ops.sw, ops.spacing[1])),
     ]
+    for d, axis in enumerate("xyz"[:dim]):
+        for order in (1, 2):
+            lines.append(_stencil_fn(
+                "ksfd_d%d%s" % (order, axis),
+                deriv_coeffs(order, ops.sw, ops.spacing[d]),
+            ))
     for cname in ("gamma", "s", "D"):
         lines.append(_table_fn(
             "ksfd_%s" % cname, [c[cname] for c in ops.lig_constants]

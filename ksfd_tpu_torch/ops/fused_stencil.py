@@ -1,6 +1,8 @@
 """Fused float32 stencil kernels: resid, jvp and delta.
 
-Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels.
+Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels (2D;
+3D grids go to ops/fused_stencil3d.py, as the reference dispatches to
+make_pallas_kernels_3d at pallas_stencil.py:474).
 ``make_fused_kernels(ops)`` returns a namespace with the same entries,
 call signatures and scalar packing as the Pallas build's
 ``jvp``/``resid``/``delta`` (pallas_stencil.py:874-911):
@@ -19,9 +21,10 @@ Each entry is a ``FusedKernel``: on a CUDA tensor it launches the
 hand-written CUDA kernel of csrc/stencil2d.cu (built at first use, see
 ``build_library``) or raises; on a CPU tensor it runs its plain
 PyTorch version (``.plain``, ``torch.roll`` stencils over the
-torchify'd G/dG/G_delta); any other device raises.  ``launches``
-counts kernel launches and nothing else.  The kernels are
-memory-bound: see the note at the top of csrc/stencil2d.cu.
+torchify'd G/dG/G_delta, summed over the axes in the order x, y(, z)
+of the Pallas bodies); any other device raises.  ``launches`` counts
+kernel launches and nothing else.  The kernels are memory-bound: see
+the note at the top of csrc/stencil2d.cu.
 """
 
 import ctypes
@@ -67,21 +70,25 @@ def _nvcc():
     return path
 
 
-def build_library(header):
-    """Compile csrc/stencil2d.cu with a generated pointwise header and
-    load it.  Returns (ctypes.CDLL, info dict).
+def build_library(header, csrc=CSRC, ndim=2):
+    """Compile a kernel source (csrc/stencil2d.cu by default) with a
+    generated pointwise header and load it.  Returns (ctypes.CDLL,
+    info dict).
 
     The build lands in ``ksfd_tpu_torch/_build/<content hash>/``, keyed
     on the kernel source, the header and the flags, so a second call
-    with the same problem reuses it.  ``info`` holds the library path,
-    the nvcc seconds (0.0 when reused) and the ptxas report.
+    with the same problem reuses it and the 2D and 3D libraries are
+    separate builds.  ``info`` holds the library path, the nvcc seconds
+    (0.0 when reused) and the ptxas report.  Each entry takes the
+    pointers, then the ``ndim`` grid extents, then the stream.
     """
-    src = CSRC.read_text()
+    csrc = Path(csrc)
+    src = csrc.read_text()
     key = hashlib.sha256(
         "\0".join([src, header, " ".join(NVCC_FLAGS)]).encode()
     ).hexdigest()[:16]
     out_dir = BUILD_DIR / key
-    lib = out_dir / "libksfd_stencil2d.so"
+    lib = out_dir / ("libksfd_%s.so" % csrc.stem)
     log = out_dir / "nvcc.log"
     seconds = 0.0
     if not lib.exists():
@@ -92,7 +99,7 @@ def build_library(header):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp),
-             str(CSRC)],
+             str(csrc)],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
@@ -107,7 +114,7 @@ def build_library(header):
         fn = getattr(cdll, "ksfd_" + name)
         fn.argtypes = (
             [ctypes.c_void_p] * (n_in + 1)
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * ndim + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     info = dict(
@@ -155,7 +162,6 @@ class FusedKernel:
 
     def launch(self, sc, operands):
         """Launch the CUDA kernel on prepared operands."""
-        nx, ny = self._owner.Sshape
         for x in (sc,) + tuple(operands):
             if x.device != sc.device or x.dtype != torch.float32:
                 raise ValueError("%s kernel: operands must be f32 on one "
@@ -171,7 +177,7 @@ class FusedKernel:
             stream = torch.cuda.current_stream(sc.device).cuda_stream
             err = getattr(lib, "ksfd_" + self.name)(
                 sc.data_ptr(), *[x.data_ptr() for x in operands],
-                out.data_ptr(), nx, ny, stream,
+                out.data_ptr(), *self._owner.Sshape, stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -183,39 +189,39 @@ class FusedKernel:
 
 class _FusedBuild:
     """Owner of one problem's kernels: the generated header, the lazily
-    built library and the plain bodies."""
+    built library (from ``csrc``) and the plain bodies, which hold for
+    any dimension: every stencil sums over the grid's axes in order."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, csrc=CSRC):
         grid = ops.grid
-        if grid.dim != 2:
-            raise NotImplementedError(
-                "fused kernels are 2D; 3D is ROADMAP Queue B item 6"
-            )
         if grid.dof != ops.nligands + 1:
             raise NotImplementedError(
                 "with-G states are ROADMAP Queue A item 13"
             )
         self.ops = ops
+        self.csrc = Path(csrc)
+        self.dim = grid.dim
         self.Sshape = tuple(grid.Sshape)
         self.Vshape = tuple(grid.Vshape)
         self.dof = ops.nligands + 1
         self.header = pointwise_header(ops)
         self.build_info = None
         self._lib = None
-        sw = ops.sw
-        self._cs = dict(
-            c1x=[float(c) for c in deriv_coeffs(1, sw, ops.spacing[0])],
-            c2x=[float(c) for c in deriv_coeffs(2, sw, ops.spacing[0])],
-            c1y=[float(c) for c in deriv_coeffs(1, sw, ops.spacing[1])],
-            c2y=[float(c) for c in deriv_coeffs(2, sw, ops.spacing[1])],
+        # per axis: first- and second-derivative coefficients
+        self._c1, self._c2 = (
+            [[float(c) for c in deriv_coeffs(order, ops.sw, h)]
+             for h in ops.spacing]
+            for order in (1, 2)
         )
 
     def library(self):
         if self._lib is None:
-            self._lib, self.build_info = build_library(self.header)
+            self._lib, self.build_info = build_library(
+                self.header, self.csrc, self.dim
+            )
         return self._lib
 
-    # -- plain stencils (the order of the Pallas _dx/_dy sums) ---------
+    # -- plain stencils (the order of the Pallas _d sums) ---------------
     def _d(self, a, cs, axis):
         sw = (len(cs) - 1) // 2
         acc = None
@@ -228,14 +234,17 @@ class _FusedBuild:
         return acc
 
     def lap(self, a):
-        return self._d(a, self._cs["c2x"], 0) + self._d(a, self._cs["c2y"], 1)
+        acc = self._d(a, self._c2[0], 0)
+        for axis in range(1, self.dim):
+            acc = acc + self._d(a, self._c2[axis], axis)
+        return acc
 
     def graddot(self, a, b):
-        cs = self._cs
-        return (
-            self._d(a, cs["c1x"], 0) * self._d(b, cs["c1x"], 0)
-            + self._d(a, cs["c1y"], 1) * self._d(b, cs["c1y"], 1)
-        )
+        c1 = self._c1
+        acc = self._d(a, c1[0], 0) * self._d(b, c1[0], 0)
+        for axis in range(1, self.dim):
+            acc = acc + self._d(a, c1[axis], axis) * self._d(b, c1[axis], axis)
+        return acc
 
     # -- plain bodies ----------------------------------------------------
     def jvp_rows(self, t, u, v):
@@ -340,25 +349,43 @@ class _FusedBuild:
         return sc, self._f32(u0, d, u1)
 
 
-def make_fused_kernels(ops):
-    """Build the fused kernels for a 2D PDEOperators.
-
-    Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels.
-    Returns a namespace with ``jvp``, ``resid`` and ``delta``
-    (FusedKernel instances), ``kernels`` (the three by name) and
-    ``build`` (header, build info).  Nothing is compiled until a
-    kernel first meets a CUDA tensor.  The f32 fast-mode ``rhs`` kernel
-    is ROADMAP Queue B item 7; member-batched and sharded builds are
-    items 8 and 9.
-    """
-    b = _FusedBuild(ops)
-    src = "ksfd_tpu/ops/pallas_stencil.py"
-    jvp = FusedKernel("jvp", b, b.prep_jvp, b.plain_jvp, src + ":648")
+def kernel_namespace(build, replaces):
+    """The ``jvp``/``resid``/``delta`` namespace over one _FusedBuild;
+    ``replaces`` maps each name to the TPU kernel's file:line."""
+    b = build
+    jvp = FusedKernel("jvp", b, b.prep_jvp, b.plain_jvp, replaces["jvp"])
     resid = FusedKernel("resid", b, b.prep_resid, b.plain_resid,
-                        src + ":655")
+                        replaces["resid"])
     delta = FusedKernel("delta", b, b.prep_delta, b.plain_delta,
-                        src + ":674")
+                        replaces["delta"])
     return SimpleNamespace(
         jvp=jvp, resid=resid, delta=delta, build=b,
         kernels=dict(jvp=jvp, resid=resid, delta=delta),
     )
+
+
+def make_fused_kernels(ops):
+    """Build the fused kernels for a 2D or 3D PDEOperators.
+
+    Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels,
+    which hands 3D grids to make_pallas_kernels_3d (here:
+    ops/fused_stencil3d.py).  Returns a namespace with ``jvp``,
+    ``resid`` and ``delta`` (FusedKernel instances), ``kernels`` (the
+    three by name) and ``build`` (header, build info).  Nothing is
+    compiled until a kernel first meets a CUDA tensor.  The f32
+    fast-mode ``rhs`` kernels are ROADMAP Queue B items 6a and 7;
+    member-batched and sharded builds are items 8 and 9.
+    """
+    if ops.grid.dim == 3:
+        from .fused_stencil3d import make_fused_kernels_3d
+
+        return make_fused_kernels_3d(ops)
+    if ops.grid.dim != 2:
+        raise NotImplementedError(
+            "fused kernels are 2D and 3D; a %dD problem has none"
+            % ops.grid.dim
+        )
+    src = "ksfd_tpu/ops/pallas_stencil.py"
+    return kernel_namespace(_FusedBuild(ops), dict(
+        jvp=src + ":648", resid=src + ":655", delta=src + ":674",
+    ))

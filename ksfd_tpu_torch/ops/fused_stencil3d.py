@@ -1,0 +1,52 @@
+"""Fused float32 stencil kernels on 3D grids: resid, jvp and delta.
+
+Counterpart: ksfd_tpu/ops/pallas_stencil3d.py:make_pallas_kernels_3d.
+``make_fused_kernels_3d(ops)`` (reached through
+``fused_stencil.make_fused_kernels`` for a 3D grid) returns the same
+namespace as the 2D build, with the same entries, call signatures and
+scalar packs (pallas_stencil3d.py:619-654):
+
+- ``jvp(u, v, t)``, ``sc=[t]``: the exact J-action J(u)v.  Replaces
+  ``jvp_kernel`` (pallas_stencil3d.py:419, rows from ``_jvp_rows``
+  :390).
+- ``resid(u, v, b, t, shift)``, ``sc=[t, shift]``: the fused
+  Richardson residual ``b - (shift*v - J(u)v)``.  Replaces
+  ``resid_kernel`` (:426).
+- ``delta(u0, d, u1, t)``, ``sc=[t, rho_mean, G_mean]`` from float64
+  means of the groomed view: ``rhs(u1) - rhs(u0)`` through G_delta.
+  Replaces ``delta_kernel`` (:440).
+
+The operands keep the natural ``(dof, nx, ny, nz)`` layout, z
+contiguous; the TPU's folded ``(dof, nx, ny*nz)`` lane layout and its
+tile planner (``_tile_plan3d``) answer Mosaic's 128-lane alignment and
+are not carried over, so any ``nx, ny, nz >= 2*sw + 1`` is accepted.
+On a CUDA tensor each entry launches its kernel in csrc/stencil3d.cu
+(a library of its own, built at first use); on a CPU tensor it runs
+the plain PyTorch version of fused_stencil._FusedBuild, whose
+``torch.roll`` stencils sum over x, then y, then z, the order of the
+Pallas ``lap``/``graddot``.  The f32 fast-mode ``rhs_kernel`` (:366)
+waits with its 2D twin, ROADMAP Queue B items 6a and 7.
+"""
+
+from .fused_stencil import CSRC, _FusedBuild, kernel_namespace
+
+__all__ = ["make_fused_kernels_3d", "CSRC3D"]
+
+CSRC3D = CSRC.parent / "stencil3d.cu"
+
+
+def make_fused_kernels_3d(ops):
+    """Build the fused kernels for a 3D PDEOperators."""
+    grid = ops.grid
+    if grid.dim != 3:
+        raise ValueError("make_fused_kernels_3d needs a 3D grid")
+    small = [n for n in grid.Sshape if n < 2 * ops.sw + 1]
+    if small:
+        raise ValueError(
+            "3D fused kernels need every extent >= 2*sw+1 = %d; got %s"
+            % (2 * ops.sw + 1, grid.Sshape)
+        )
+    src = "ksfd_tpu/ops/pallas_stencil3d.py"
+    return kernel_namespace(_FusedBuild(ops, CSRC3D), dict(
+        jvp=src + ":419", resid=src + ":426", delta=src + ":440",
+    ))

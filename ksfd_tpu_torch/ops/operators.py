@@ -19,6 +19,7 @@ import numbers
 import sympy as sy
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.exceptions import KSFDException
 from ..utils.symbolic import torchify
 from .spatial import SpatialExpression
@@ -40,12 +41,13 @@ class PDEOperators:
     grid : Grid with dof == ps.nligands + 1
     sources : optional list of nligands+1 source terms (expressions /
         SpatialExpressions), rho first.
-    device : where source terms are evaluated; the operators act on
-        tensors of any device.
+    device : where source terms are evaluated and the step's buffers
+        live; the card unless given (utils/device.py).  The operators
+        act on tensors of any device.
     """
 
     def __init__(self, ps, grid, sources=None, flux_form=False,
-                 device="cpu"):
+                 device=None):
         if flux_form:
             raise NotImplementedError(
                 "flux_form=True (the conservative discretization) is not "
@@ -57,7 +59,7 @@ class PDEOperators:
         self.sw = grid.stencil_width
         self.spacing = tuple(float(h) for h in grid.spacing)
         self.nligands = ps.nligands
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if grid.dof != ps.nligands + 1:
             raise KSFDException(
                 "grid.dof=%d but problem has %d fields"

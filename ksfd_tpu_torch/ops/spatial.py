@@ -16,6 +16,7 @@ import numbers
 import sympy as sy
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.exceptions import KSFDException
 from ..utils.symbolic import safe_sympify, torchify
 
@@ -28,14 +29,15 @@ class SpatialExpression:
     """A function of space (and optionally time) on a Grid.
 
     Call with a time (python float or 0-d tensor) to get a float64
-    tensor of shape ``grid.Sshape`` on ``device``.
+    tensor of shape ``grid.Sshape`` on ``device`` (the card unless
+    given, utils/device.py).
     """
 
-    def __init__(self, ps, grid, expr, name="spatial", device="cpu"):
+    def __init__(self, ps, grid, expr, name="spatial", device=None):
         self.ps = ps
         self.grid = grid
         self.name = name
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if isinstance(expr, SpatialExpression):
             expr = expr.expr
         self.source = expr

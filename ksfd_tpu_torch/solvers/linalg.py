@@ -1,14 +1,17 @@
 """Spectral preconditioners for the implicit stage solves.
 
 Counterpart: ksfd_tpu/solvers/linalg.py:SpectralPreconditioner and
-:BlockSpectralPreconditioner, in their basis-GEMM form.  On the
-periodic uniform grid the discrete Laplacian is diagonalized exactly by
-the orthonormal real-DFT basis (ops/stencil.py real_dft_basis), so a
-transform is ``Qx^T @ v @ Qy`` per field and its inverse
-``Qx @ c @ Qy^T`` — plain matrix products, which the reference leaves to
-XLA and the port leaves to ``torch.matmul``.  The per-mode arrow solve
-between them is elementwise tensor arithmetic (XLA code in the
-reference too, ``_arrow_solve``; the Pallas version behind
+:BlockSpectralPreconditioner, in their basis-GEMM form, 2D and 3D.  On
+the periodic uniform grid the discrete Laplacian is diagonalized
+exactly by the orthonormal real-DFT basis (ops/stencil.py
+real_dft_basis), so a transform is ``Qx^T @ v @ Qy`` per field in 2D
+and its inverse ``Qx @ c @ Qy^T`` — plain matrix products, which the
+reference leaves to XLA and the port leaves to ``torch.matmul``.  In 3D
+the reference's four-operand einsums (``"fijm,ik,jl,mn->fkln"`` and
+``"fkln,ik,jl,mn->fijm"``) are written as three single-axis products,
+last axis first, so no intermediate is larger than the state.  The
+per-mode arrow solve between them is elementwise tensor arithmetic (XLA
+code in the reference too, ``_arrow_solve``; the Pallas version behind
 ``-pc_pallas 1`` is ROADMAP Queue B item 5).
 
 The transforms run in the compute dtype (float32 by default, as
@@ -24,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.stencil import laplacian_eigendecomp
+from ..utils.device import resolve_device
 
 __all__ = ["SpectralPreconditioner", "BlockSpectralPreconditioner"]
 
@@ -41,55 +45,88 @@ class SpectralPreconditioner(nn.Module):
     ``decay_f - diff_f * Laplacian`` exactly per Fourier mode.
 
     Counterpart: ksfd_tpu/solvers/linalg.py:SpectralPreconditioner.
-    Buffers: ``Qx``, ``Qy`` (the per-axis bases) and ``lam`` (the total
-    Laplacian eigenvalue per mode, <= 0).  2D only.
+    Buffers: ``Qx``, ``Qy`` (and ``Qz`` in 3D), the per-axis bases;
+    ``lam``, the total Laplacian eigenvalue per mode (<= 0, float64,
+    shape ``grid.Sshape``); and ``lam_cd``, the same values in the
+    compute dtype (not saved: it follows ``lam`` on load), so an apply
+    does not re-cast the whole mode array.  Buffers live on ``device``,
+    the card unless given (utils/device.py).
     """
 
-    def __init__(self, grid, compute_dtype=None, device="cpu"):
+    def __init__(self, grid, compute_dtype=None, device=None):
         super().__init__()
-        if grid.dim != 2:
+        if grid.dim not in (2, 3):
             raise NotImplementedError(
-                "spectral preconditioner is 2D; 3D is ROADMAP Queue A "
-                "item 10"
+                "spectral preconditioner in %dD: the port runs 2D and 3D "
+                "problems" % grid.dim
             )
         if compute_dtype not in _DTYPES:
             raise NotImplementedError(
                 "pc dtype %r: bfloat16 transforms belong to the sharded "
                 "apply, ROADMAP Queue A item 14" % (compute_dtype,)
             )
+        device = resolve_device(device)
         cd = _DTYPES[compute_dtype]
         self.compute_dtype = cd
+        self.dim = grid.dim
         self.sshape = tuple(grid.Sshape)
         sw = grid.stencil_width
-        Qx, lx = laplacian_eigendecomp(int(grid.nps[0]), float(grid.spacing[0]), sw)
-        Qy, ly = laplacian_eigendecomp(int(grid.nps[1]), float(grid.spacing[1]), sw)
-        lam = lx[:, None] + ly
-        self.register_buffer("Qx", torch.as_tensor(Qx, dtype=cd, device=device))
-        self.register_buffer("Qy", torch.as_tensor(Qy, dtype=cd, device=device))
-        # lam stays float64 like the reference's numpy total; it is
-        # cast to the compute dtype at its use sites
+        lam = None
+        for d, name in enumerate(("Qx", "Qy", "Qz")[: grid.dim]):
+            Q, ld = laplacian_eigendecomp(
+                int(grid.nps[d]), float(grid.spacing[d]), sw
+            )
+            self.register_buffer(
+                name, torch.as_tensor(Q, dtype=cd, device=device)
+            )
+            # total eigenvalue per mode: lam_x (+ lam_y (+ lam_z))
+            lam = ld if lam is None else lam[..., None] + ld
+        # lam stays float64 like the reference's numpy total
         self.register_buffer(
             "lam", torch.as_tensor(lam, dtype=torch.float64, device=device)
         )
+        self.register_buffer("lam_cd", self.lam.to(cd), persistent=False)
+        self.register_load_state_dict_post_hook(
+            lambda module, keys: module._sync_lam_cd()
+        )
+
+    def _sync_lam_cd(self):
+        self.lam_cd = self.lam.to(self.compute_dtype)
 
     def _forward(self, v):
-        """(dof, nx, ny) -> real spectral coefficients Qx^T v Qy."""
-        return torch.matmul(torch.matmul(self.Qx.T, v), self.Qy)
+        """(dof, *Sshape) -> real spectral coefficients: Qx^T v Qy in
+        2D, "fijm,ik,jl,mn->fkln" in 3D."""
+        if self.dim == 2:
+            return torch.matmul(torch.matmul(self.Qx.T, v), self.Qy)
+        f, nx, ny, nz = v.shape
+        c = torch.matmul(v, self.Qz)               # m -> n
+        c = torch.matmul(self.Qy.T, c)             # j -> l
+        c = torch.matmul(self.Qx.T, c.reshape(f, nx, ny * nz))  # i -> k
+        return c.reshape(f, nx, ny, nz)
 
     def _inverse(self, c):
-        return torch.matmul(torch.matmul(self.Qx, c), self.Qy.T)
+        """The inverse transform: Qx c Qy^T in 2D,
+        "fkln,ik,jl,mn->fijm" in 3D."""
+        if self.dim == 2:
+            return torch.matmul(torch.matmul(self.Qx, c), self.Qy.T)
+        f, nx, ny, nz = c.shape
+        v = torch.matmul(c, self.Qz.T)             # n -> m
+        v = torch.matmul(self.Qy, v)               # l -> j
+        v = torch.matmul(self.Qx, v.reshape(f, nx, ny * nz))    # k -> i
+        return v.reshape(f, nx, ny, nz)
 
     def apply(self, v, shift, diff, decay):
-        """v: (dof, nx, ny); diff/decay: per-field scalars."""
+        """v: (dof, *Sshape); diff/decay: per-field scalars."""
         cd = self.compute_dtype
         c = self._forward(v.to(cd))
         dev = v.device
+        per_field = (-1,) + (1,) * self.dim
         diff = torch.stack([torch.as_tensor(d, dtype=cd, device=dev) for d in diff])
         decay = torch.stack([torch.as_tensor(d, dtype=cd, device=dev) for d in decay])
         denom = (
             torch.as_tensor(shift, dtype=cd, device=dev)
-            + decay[:, None, None]
-            - diff[:, None, None] * self.lam.to(cd)
+            + decay.reshape(per_field)
+            - diff.reshape(per_field) * self.lam_cd
         )
         return self._inverse(c / denom).to(v.dtype)
 
@@ -110,7 +147,7 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
     ``rho_diff`` = max_x(rho * dG/drho) when given.
     """
 
-    def __init__(self, grid, ops, compute_dtype=None, device="cpu"):
+    def __init__(self, grid, ops, compute_dtype=None, device=None):
         super().__init__(grid, compute_dtype=compute_dtype, device=device)
         self.ops = ops
         self.nfields = ops.nligands + 1
@@ -122,7 +159,7 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
         dev = c.device
         cast = lambda x: torch.as_tensor(x, dtype=cd, device=dev)
         nf = self.nfields
-        lam = self.lam.to(cd)
+        lam = self.lam_cd
         dG, s, gamma, D = self.ops.linearization_coefficients(means, t)
         rho_mean = cast(means[0])
         shift = cast(shift)
@@ -152,7 +189,7 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
         return torch.stack(outs, dim=0)
 
     def apply_linearized(self, v, shift, t, means, rho_diff=None):
-        """v: (dof, nx, ny); means: per-field scalars of the STATE
+        """v: (dof, *Sshape); means: per-field scalars of the STATE
         being linearized (not of v, which is a residual).  Returns the
         result in v's dtype."""
         if v.shape[0] != self.nfields:

@@ -2,13 +2,14 @@
 
 Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn and
 :make_multistep_fn, on their default path (``NumericsOptions()`` on a
-single device):
+single device), on 2D and 3D periodic grids:
 
 - one ROS34PW2 Rosenbrock-W step of 4 stages;
 - each stage solve is ``ksp_iters`` (3) float32 Richardson sweeps,
   ``x = M(b)`` then ``x += M(resid(x, b))``, with the fused resid
-  kernel (ops/fused_stencil.py) and the float32 block spectral
-  preconditioner in its basis-GEMM form (solvers/linalg.py);
+  kernel (ops/fused_stencil.py, ops/fused_stencil3d.py) and the float32
+  block spectral preconditioner in its basis-GEMM form
+  (solvers/linalg.py);
 - stages 2-4 get their right-hand side as ``f32(f0) + delta(...)``;
 - the solution and the embedded difference are float64 sums, followed
   by ``wlte_norm_delta``;
@@ -25,8 +26,8 @@ step makes no host round trip.
 Everything else raises NotImplementedError naming its ROADMAP item:
 the adaptive chunk and host Solver loop (Queue A items 7-8), DIRK
 (item 9), other stage solvers (item 5), dense/direct tiers (item 12),
-the float32 fast mode (Queue B item 7), the FFT preconditioner (Queue
-A item 4), the Pallas preconditioner (Queue B item 5) and meshes (Queue
+the float32 fast mode (Queue B items 6a and 7), the FFT preconditioner
+(Queue A item 4), the Pallas preconditioner (Queue B item 5) and meshes (Queue
 A item 14).
 """
 
@@ -55,7 +56,11 @@ def _check_numerics(numerics, ops):
     if numerics.pc_type != "block":
         todo.append("pc_type %r (Queue A item 4)" % numerics.pc_type)
     if numerics.precision not in ("float64", "f64"):
-        todo.append("the float32 fast mode (Queue B item 7)")
+        todo.append(
+            "the float32 fast mode (Queue B %s)"
+            % ("items 6a (B6a) and 7 (B7)" if ops.grid.dim == 3
+               else "item 7 (B7)")
+        )
     if numerics.pc_fft != "off":
         todo.append("pc_fft %r (Queue A item 4)" % numerics.pc_fft)
     if numerics.pc_pallas:
@@ -79,7 +84,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     """Build the implicit step ``(u, t, h) -> (u1, enorm)``.
 
     Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn (default
-    path).  u is a float64 (dof, nx, ny) tensor; t and h are 0-d
+    path).  u is a float64 (dof, nx, ny[, nz]) tensor; t and h are 0-d
     float64 tensors on u's device.  enorm <= 1 means the step meets
     atol/rtol; a failed solve shows as a non-finite enorm.
 

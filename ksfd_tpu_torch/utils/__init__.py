@@ -8,6 +8,7 @@ from .params import (
     find_duplicates,
 )
 from .cli import NumericsOptions
+from .device import resolve_device
 
 __all__ = [
     "KSFDException",
@@ -22,4 +23,5 @@ __all__ = [
     "default_parameters",
     "find_duplicates",
     "NumericsOptions",
+    "resolve_device",
 ]

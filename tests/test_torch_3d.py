@@ -1,0 +1,545 @@
+"""The port's 3D fixed-dt main path against ksfd_tpu on the CPU.
+
+The problem is ``examples/aggregation3d`` (rho plus an attractant and a
+repellent ligand group, degree 3) on a non-cubic 16 x 8 x 16 grid that
+the reference's 3D Pallas kernels accept in interpret mode
+(KSFD_PALLAS_INTERPRET=1, as tests/test_3d.py runs them).  Each case
+feeds the same seeded numpy inputs through both packages.  Tolerances:
+float64 operators and the float64 preconditioner to 1e-12 relative;
+the float32 preconditioner to 1e-5; the plain versions of the float32
+kernels to 1e-5 of the reference's largest value (the 2D bound of
+tests/test_torch_kernels.py), the delta kernel also to 3e-6 of the
+float64 oracle increment (tests/test_3d.py's bound); steps to 1e-5 of
+the increment (tests/test_torch_solver.py).
+
+csrc/stencil3d.cu runs here too: its kernel bodies compile as host C++
+(the CUDA qualifiers defined away, one thread walking each block) and
+are held against the plain versions at this size and at an odd one.
+The CUDA build itself runs only on a card (``cuda`` marker;
+chip_smoke.py runs the same comparison at 256^3 x 3).
+"""
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ksfd_tpu as KJ
+from helpers import make_clargs
+from ksfd_tpu.ops.pallas_stencil import make_pallas_kernels
+from ksfd_tpu.solvers import linalg as jlinalg
+from ksfd_tpu.solvers import make_multistep_fn as jmultistep
+from ksfd_tpu.solvers import make_step_fn as jstep
+from ksfd_tpu_torch import NumericsOptions
+from ksfd_tpu_torch.interop import (
+    numpy_from_tensors,
+    problem_from_clargs,
+    tensors_from_numpy,
+)
+from ksfd_tpu_torch.ops.codegen import pointwise_header
+from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch.ops.fused_stencil3d import CSRC3D
+from ksfd_tpu_torch.ops.stencil import deriv_coeffs
+from ksfd_tpu_torch.solvers import linalg as tlinalg
+from ksfd_tpu_torch.solvers import make_multistep_fn, make_step_fn
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPE = (16, 8, 16)
+# at this size and h=1e-3 the embedded error norm (~3e-6) is float32
+# rounding of the sweeps; at 1e-2 (~8e-4) it carries the step's error
+H = 1e-2
+
+
+def aggregation3d_params(n):
+    """The parameter lines of examples/aggregation3d, nelements=n."""
+    params = []
+    with open(os.path.join(ROOT, "examples", "aggregation3d")) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith("--petsc"):
+                break
+            if line and not line.startswith(("#", "--")):
+                params.append(line)
+    return [p for p in params if not p.startswith("nelements=")] + [
+        "nelements=%d" % n
+    ]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
+
+
+def _problems(shape):
+    clargs = make_clargs(params=aggregation3d_params(shape[0]))
+    jps = KJ.SolutionParameters(clargs)
+    jgrid = KJ.Grid(dim=3, width=1, height=1, depth=1, nx=shape[0],
+                    ny=shape[1], nz=shape[2], dof=3, order=3)
+    jops = KJ.ops.PDEOperators(jps, jgrid)
+    _, tgrid, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    assert tgrid.state() == jgrid.state()
+    return jops, tops
+
+
+@pytest.fixture(scope="module")
+def problems():
+    return _problems(SHAPE)
+
+
+@pytest.fixture(scope="module")
+def pallas(problems):
+    """The reference's 3D Pallas kernels in interpret mode."""
+    return make_pallas_kernels(problems[0], interpret=True)
+
+
+def rough_state(shape=SHAPE, seed=0, scale=1000.0):
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        6000 + 3 * scale * np.abs(rng.standard_normal(shape)),
+        6000 + scale * np.abs(rng.standard_normal(shape)),
+        6000 + 0.5 * scale * np.abs(rng.standard_normal(shape)),
+    ])
+
+
+def wave_state(shape=SHAPE):
+    """Near-uniform fields with ~1-amplitude structure along all axes."""
+    X, Y, Z = np.meshgrid(*[np.arange(n) / n for n in shape], indexing="ij")
+    wave = np.sin(2 * np.pi * (X + Y + Z))
+    return np.stack([9000 + wave, 9000 + 0.7 * wave, 9000 + 0.1 * wave])
+
+
+def with_clamps(u, ops):
+    """Points below, at and NaN against the floors (active clamps)."""
+    u = u.copy()
+    nx, ny, nz = u.shape[1:]
+    u[0, 3, 5, 2] = 0.5 * ops.rhomin
+    u[0, 7, 2, nz - 1] = ops.rhomin
+    u[1, 4, 4, 0] = ops.Umin
+    u[2, nx - 1, ny - 1, 9] = np.nan
+    return u
+
+
+def rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def scalar(x):
+    return torch.tensor(x, dtype=torch.float64)
+
+
+# ---------------------------------------------------------------- operators
+
+
+def test_problem_and_free_energy_match(problems):
+    jops, tops = problems
+    assert tops.grid.Vshape == (3,) + SHAPE
+    assert str(jops.G_expr) == str(tops.G_expr)
+    assert tops.stage_delta_ok() == jops.stage_delta_ok() is True
+    means = [9000.0, 9000.0, 9000.0]
+    jc = jops.linearization_coefficients([jnp.asarray(m) for m in means], 0.0)
+    tc = tops.linearization_coefficients([scalar(m) for m in means], 0.0)
+    for ja, ta in zip(jc, tc):
+        np.testing.assert_allclose(
+            [float(x) for x in ta], [float(x) for x in ja], rtol=1e-14
+        )
+
+
+def test_groom_matches(problems):
+    jops, tops = problems
+    u = with_clamps(rough_state(seed=2) - 6500.0, tops)
+    np.testing.assert_array_equal(
+        tops.groom(torch.as_tensor(u)).numpy(),
+        np.asarray(jops.groom(jnp.asarray(u))),
+    )
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_rhs_matches(problems, seed):
+    jops, tops = problems
+    u = rough_state(seed=seed)
+    ref = jops.rhs(jnp.asarray(u), 0.5)
+    out = tops.rhs(torch.as_tensor(u), 0.5)
+    assert out.dtype == torch.float64 and out.shape == (3,) + SHAPE
+    assert rel(out.numpy(), ref) < 1e-12
+
+
+def test_jacobian_action_matches(problems):
+    jops, tops = problems
+    u = rough_state(seed=5)
+    v = np.random.default_rng(6).standard_normal(u.shape)
+    ref = jops.jacobian_action(jnp.asarray(u), 0.5, jnp.asarray(v))
+    out = tops.jacobian_action(torch.as_tensor(u), 0.5, torch.as_tensor(v))
+    assert rel(out.numpy(), ref) < 1e-12
+
+
+# ------------------------------------------------- kernels (plain versions)
+
+
+@pytest.mark.parametrize("state", ["rough", "wave"])
+def test_plain_resid_and_jvp_match_pallas(problems, pallas, state):
+    _, tops = problems
+    fk = make_fused_kernels(tops)
+    rng = np.random.default_rng(1)
+    u = with_clamps(rough_state() if state == "rough" else wave_state(), tops)
+    u, v, b = (a.astype(np.float32) for a in (
+        u, rng.standard_normal(u.shape), rng.standard_normal(u.shape)))
+    ref = np.asarray(pallas.jvp(jnp.asarray(u), jnp.asarray(v), 0.5))
+    out = fk.jvp(torch.from_numpy(u), torch.from_numpy(v), 0.5)
+    assert out.dtype == torch.float32 and np.isfinite(ref).all()
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    ref = np.asarray(pallas.resid(*[jnp.asarray(a) for a in (u, v, b)],
+                                  0.5, 7.5))
+    out = fk.resid(*[torch.from_numpy(a) for a in (u, v, b)], 0.5, 7.5)
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("state,scale", [
+    ("rough", 100.0), ("wave", 1e-3), ("floor", None),
+])
+def test_plain_delta_matches_pallas_and_oracle(problems, pallas, state,
+                                               scale):
+    jops, tops = problems
+    fk = make_fused_kernels(tops)
+    rng = np.random.default_rng(3)
+    u0 = jops.groom(jnp.asarray(wave_state() if state == "wave"
+                                else rough_state()))
+    if state == "floor":
+        # a fifth of the points clamp to the floor (the big branch)
+        drop = rng.random(u0.shape) < 0.2
+        d = jnp.asarray(np.where(drop, -2.0 * np.asarray(u0),
+                                 100.0 * rng.standard_normal(u0.shape)))
+    else:
+        d = jnp.asarray(scale * rng.standard_normal(u0.shape))
+    ug = jops.groom(u0 + d)
+    dd = ug - u0
+    ref = np.asarray(pallas.delta(u0, dd, ug, 0.5))
+    out = fk.delta(*[torch.from_numpy(np.array(a)) for a in (u0, dd, ug)],
+                   0.5).numpy()
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    oracle = np.asarray(jops.rhs(ug, 0.5) - jops.rhs(u0, 0.5))
+    assert rel(out, oracle) < 3e-6
+
+
+# --------------------------------------------------------- preconditioner
+
+
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12), ("float32", 1e-5)])
+@pytest.mark.parametrize("use_rho_diff", [True, False])
+def test_apply_linearized_matches(problems, dtype, tol, use_rho_diff):
+    jops, tops = problems
+    jpc = jlinalg.BlockSpectralPreconditioner(jops.grid, jops,
+                                              compute_dtype=dtype)
+    tpc = tlinalg.BlockSpectralPreconditioner(tops.grid, tops,
+                                              compute_dtype=dtype,
+                                              device="cpu")
+    assert tuple(tpc.lam.shape) == SHAPE and tpc.lam_cd.dtype == getattr(
+        torch, dtype)
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal(jops.grid.Vshape)
+    means = [9000.0, 6000.0, 800.0]
+    rd = 3.0 if use_rho_diff else None
+    shift = 1.0 / (1e-2 * 0.435866521508459)
+    ref = jpc.apply_linearized(jnp.asarray(v), shift, 0.0,
+                               [jnp.asarray(m) for m in means], rho_diff=rd)
+    out = tpc.apply_linearized(torch.as_tensor(v), shift, 0.0,
+                               [scalar(m) for m in means], rho_diff=rd)
+    assert out.dtype == torch.float64
+    assert rel(out.numpy(), ref) < tol
+
+
+def test_spectral_apply_matches(problems):
+    jops, tops = problems
+    jpc = jlinalg.SpectralPreconditioner(jops.grid, compute_dtype="float64")
+    tpc = tlinalg.SpectralPreconditioner(tops.grid, compute_dtype="float64",
+                                         device="cpu")
+    v = np.random.default_rng(8).standard_normal(jops.grid.Vshape)
+    diff, decay = tops.stiff_coefficients(0.0)
+    ref = jpc.apply(jnp.asarray(v), 50.0, diff, decay)
+    out = tpc.apply(torch.as_tensor(v), 50.0, diff, decay)
+    assert rel(out.numpy(), ref) < 1e-12
+
+
+def test_interop_round_trip_3d(problems):
+    """A 3D state and the reference's per-axis bases carried across as
+    numpy keep the (dof, nx, ny, nz) layout and reproduce the
+    reference's pc apply; lam_cd follows a loaded lam."""
+    jops, tops = problems
+    u = rough_state(seed=4)
+    tens = tensors_from_numpy(dict(state=u), device="cpu")
+    assert tuple(tens["state"].shape) == (3,) + SHAPE
+    np.testing.assert_array_equal(numpy_from_tensors(tens)["state"], u)
+    jpc = jlinalg.BlockSpectralPreconditioner(jops.grid, jops,
+                                              compute_dtype="float32")
+    tpc = tlinalg.BlockSpectralPreconditioner(tops.grid, tops,
+                                              compute_dtype="float32",
+                                              device="cpu")
+    Qx, Qy, Qz, lam = tensors_from_numpy(
+        [np.asarray(q, dtype=np.float32) for q in jpc.Qs]
+        + [2.0 * np.asarray(jpc.lam)], device="cpu")
+    tpc.load_state_dict(dict(Qx=Qx, Qy=Qy, Qz=Qz, lam=lam))
+    assert torch.equal(tpc.lam_cd, lam.float())
+
+
+# ------------------------------------------------------------- main path
+
+
+def test_step_matches_reference(problems, interpret):
+    jops, tops = problems
+    u0 = np.array(jops.groom(jnp.asarray(rough_state())))
+    step_j, _ = jstep(jops, KJ.NumericsOptions(), atol=0.01, rtol=1e-6)
+    u_ref, e_ref = step_j(jnp.asarray(u0), jnp.asarray(0.0), jnp.asarray(H))
+    step_t, _ = make_step_fn(tops, NumericsOptions(), atol=0.01, rtol=1e-6)
+    u1, e = step_t(torch.from_numpy(u0), scalar(0.0), scalar(H))
+    u_ref = np.asarray(u_ref)
+    inc = np.abs(u_ref - u0).max()
+    assert np.abs(u1.numpy() - u_ref).max() / inc < 1e-5
+    assert float(e_ref) < 1.0
+    assert abs(float(e) - float(e_ref)) <= 1e-2 * float(e_ref)
+
+
+def test_multistep_chain_matches_reference(problems, interpret):
+    jops, tops = problems
+    u0 = np.array(jops.groom(jnp.asarray(rough_state())))
+    multi_j, _ = jmultistep(jops, KJ.NumericsOptions(), atol=0.01,
+                            rtol=1e-6, static_steps=False)
+    u_ref, t_ref, e_ref = multi_j(jnp.asarray(u0), jnp.asarray(0.0),
+                                  jnp.asarray(H), 4)
+    multi_t, _ = make_multistep_fn(tops, NumericsOptions(), atol=0.01,
+                                   rtol=1e-6)
+    u4, t4, e4 = multi_t(torch.from_numpy(u0), scalar(0.0), scalar(H), 4)
+    u_ref = np.asarray(u_ref)
+    inc = np.abs(u_ref - u0).max()
+    assert np.abs(u4.numpy() - u_ref).max() / inc < 1e-5
+    assert abs(float(t4) - float(t_ref)) < 1e-15
+    assert abs(float(e4) - float(e_ref)) <= 1e-2 * float(e_ref)
+
+
+def test_launch_counts_per_step(problems):
+    """Per 3D step: 8 resid, 4 delta, 0 jvp (the plain bodies' calls,
+    counted on the CPU; no kernel launch)."""
+    _, tops = problems
+    kern = make_fused_kernels(tops)
+    assert kern.build.csrc == CSRC3D
+    calls = {name: 0 for name in kern.kernels}
+    for name, k in kern.kernels.items():
+        def counted(*a, _name=name, _body=k._body):
+            calls[_name] += 1
+            return _body(*a)
+        k._body = counted
+    multi, _ = make_multistep_fn(tops, NumericsOptions(), atol=0.01,
+                                 rtol=1e-6, kernels=kern)
+    u, t, e = multi(torch.from_numpy(wave_state()), scalar(0.0), scalar(1.0),
+                    2)
+    assert calls == dict(jvp=0, resid=16, delta=8)
+    assert all(k.launches == 0 for k in kern.kernels.values())
+    assert bool(torch.isfinite(u).all()) and float(e) < 1.0
+
+
+def test_fast_mode_names_b6a(problems):
+    _, tops = problems
+    numerics = dataclasses.replace(NumericsOptions(), precision="float32")
+    with pytest.raises(NotImplementedError, match="B6a"):
+        make_step_fn(tops, numerics)
+
+
+def test_small_extent_rejected():
+    clargs = make_clargs(params=aggregation3d_params(8))
+    _, _, ops = problem_from_clargs(clargs, 8, 4, 8, device="cpu")
+    with pytest.raises(ValueError, match="2\\*sw\\+1"):
+        make_fused_kernels(ops)
+
+
+# ------------------------------------------------- generated code on the host
+
+
+def _cxx():
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no C++ compiler found to compile the generated code")
+    return cxx
+
+
+_HEADER_SHIM = r"""
+#include <math.h>
+#define __device__
+#define __forceinline__ inline
+#include "ksfd_pointwise.cuh"
+extern "C" void eval_all(int n, const float* f, const float* d,
+                         const float* s, float* G, float* dG, float* Gd) {
+  for (int i = 0; i < n; ++i) {
+    const float* fi = f + i * KSFD_DOF;
+    G[i] = ksfd_G(fi);
+    ksfd_dG(fi, dG + i * KSFD_DOF);
+    Gd[i] = ksfd_G_delta(fi, d + i * KSFD_DOF, s + i * KSFD_DOF);
+  }
+}
+extern "C" void stencils(const float* p, float* out) {
+  // p: 2*KSFD_SW+1 points at stride 1 around p[KSFD_SW]
+  const float* c = p + KSFD_SW;
+  out[0] = ksfd_d1x(c, 1); out[1] = ksfd_d2x(c, 1);
+  out[2] = ksfd_d1y(c, 1); out[3] = ksfd_d2y(c, 1);
+  out[4] = ksfd_d1z(c, 1); out[5] = ksfd_d2z(c, 1);
+}
+"""
+
+
+def test_generated_header_3d(problems, tmp_path):
+    """The 3D header is the 2D one plus a z axis: it compiles as host
+    C++, declares KSFD_DIM 3, its six star stencils apply each axis's
+    coefficients, and G, dG and G_delta equal the torchify'd float32
+    functions to 1e-6 of their largest value."""
+    cxx = _cxx()
+    _, tops = problems
+    text = pointwise_header(tops)
+    assert "#define KSFD_DIM 3" in text and "ksfd_d2z" in text
+    (tmp_path / "ksfd_pointwise.cuh").write_text(text)
+    (tmp_path / "shim.cpp").write_text(_HEADER_SHIM)
+    lib = tmp_path / "libshim.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    str(tmp_path), "-o", str(lib), str(tmp_path / "shim.cpp")],
+                   check=True, capture_output=True)
+    shim = ctypes.CDLL(str(lib))
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    shim.stencils.argtypes = [ctypes.c_void_p] * 2
+    shim.eval_all.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+    rng = np.random.default_rng(12)
+    p = rng.standard_normal(2 * tops.sw + 1).astype(np.float32)
+    out = np.empty(6, np.float32)
+    shim.stencils(ptr(p), ptr(out))
+    for d in range(3):
+        for k, order in enumerate((1, 2)):
+            cs = deriv_coeffs(order, tops.sw, tops.spacing[d])
+            ref = float(np.dot(cs.astype(np.float32), p))
+            assert abs(out[2 * d + k] - ref) <= 1e-5 * np.abs(
+                cs * p).sum(), (d, order)
+    n = 600
+    f = np.stack([300 + 25000 * rng.random(n), 30 + 25000 * rng.random(n),
+                  3 + 2500 * rng.random(n)], axis=1)
+    d = f * rng.uniform(-0.3, 0.3, size=f.shape)
+    s = f + d
+    s[400:500, 0] = tops.rhomin
+    d = s - f
+    f, d, s = (np.ascontiguousarray(a, dtype=np.float32) for a in (f, d, s))
+    G, Gd = np.empty(n, np.float32), np.empty(n, np.float32)
+    dG = np.empty((n, 3), np.float32)
+    shim.eval_all(n, ptr(f), ptr(d), ptr(s), ptr(G), ptr(dG), ptr(Gd))
+    cols = lambda a: [torch.from_numpy(a[:, k].copy()) for k in range(3)]
+    close = lambda a, b: np.abs(a - b).max() <= 1e-6 * np.abs(b).max()
+    assert close(G, tops._G_fn(*cols(f), 0.0).numpy())
+    for k, fn in enumerate(tops._dG_fns):
+        assert close(dG[:, k], fn(*cols(f), 0.0).numpy()), k
+    assert close(Gd, tops._G_delta_fn(*cols(f), *cols(d), *cols(s),
+                                      0.0).numpy())
+
+
+_KERNEL_SHIM = r"""
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__
+#define __restrict__
+#define __launch_bounds__(n)
+struct ksfd_uint3 { unsigned x, y, z; };
+static ksfd_uint3 blockIdx, threadIdx;
+static inline void __syncthreads() {}
+#include "stencil3d.cu"
+float ksfd_smem[NARR * HN];
+
+// one host thread walks every block of the launch grid in turn
+extern "C" int run(int which, const float* sc, const float* a,
+                   const float* b, const float* c, float* out, int nx,
+                   int ny, int nz) {
+  threadIdx = {0, 0, 0};
+  for (unsigned bx = 0; bx < (unsigned)((nz + TZ - 1) / TZ); ++bx)
+    for (unsigned by = 0; by < (unsigned)((ny + TY - 1) / TY); ++by)
+      for (unsigned bz = 0; bz < (unsigned)((nx + TX - 1) / TX); ++bz) {
+        blockIdx = {bx, by, bz};
+        if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny, nz);
+        if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny, nz);
+        if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny, nz);
+      }
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (9, 7, 11)])
+def test_cuda_source_bodies_match_plain(shape, tmp_path):
+    """The kernel bodies of csrc/stencil3d.cu, compiled as host C++
+    (KSFD_NT=1), equal the plain versions to 1e-5 of max|plain| on a
+    tiled grid and on an odd one whose tiles are ragged in every axis
+    (the periodic wrap and the bounds guards)."""
+    cxx = _cxx()
+    clargs = make_clargs(params=aggregation3d_params(shape[0]))
+    _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    fk = make_fused_kernels(tops)
+    (tmp_path / "ksfd_pointwise.cuh").write_text(fk.build.header)
+    shutil.copy(CSRC3D, tmp_path / "stencil3d.cu")
+    (tmp_path / "shim.cpp").write_text(_KERNEL_SHIM)
+    lib = tmp_path / "libkern.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-DKSFD_NT=1", "-I",
+         str(tmp_path), "-o", str(lib), str(tmp_path / "shim.cpp")],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    host = ctypes.CDLL(str(lib))
+    host.run.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 3)
+    rng = np.random.default_rng(9)
+    u64 = tops.groom(torch.from_numpy(with_clamps(rough_state(shape), tops)))
+    raw = torch.from_numpy(with_clamps(rough_state(shape), tops))
+    v = torch.from_numpy(rng.standard_normal(u64.shape))
+    b = torch.from_numpy(rng.standard_normal(u64.shape))
+    d = torch.from_numpy(100.0 * rng.standard_normal(u64.shape))
+    u1 = tops.groom(u64 + d)
+    cases = [(0, fk.jvp, (raw, v, 0.5)), (1, fk.resid, (raw, v, b, 0.5, 7.5)),
+             (2, fk.delta, (u64, u1 - u64, u1, 0.5))]
+    for which, k, args in cases:
+        sc, operands = k.prepare(*args)
+        ptrs = [x.data_ptr() for x in (sc, *operands)]
+        ptrs += [None] * (4 - len(ptrs))
+        out = torch.empty_like(operands[0])
+        host.run(which, *ptrs, out.data_ptr(), *shape)
+        ref = k.body(sc, operands)
+        assert torch.isfinite(out).all(), k.name
+        err = float((out - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (k.name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_3d():
+    """On a card: each 3D CUDA kernel equals its plain version (1e-5 of
+    the largest reference value) and counts its launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python3 chip_smoke.py)")
+    clargs = make_clargs(params=aggregation3d_params(SHAPE[0]))
+    _, _, tops = problem_from_clargs(clargs, *SHAPE, device="cuda")
+    fk = make_fused_kernels(tops)
+    rng = np.random.default_rng(5)
+    to = lambda a: torch.as_tensor(a, device="cuda")
+    u64 = tops.groom(to(rough_state()))
+    u, v, b = u64.float(), to(rng.standard_normal(u64.shape)).float(), \
+        to(rng.standard_normal(u64.shape)).float()
+    d = to(100.0 * rng.standard_normal(u64.shape))
+    u1 = tops.groom(u64 + d)
+    for k, args in [(fk.jvp, (u, v, 0.5)), (fk.resid, (u, v, b, 0.5, 7.5)),
+                    (fk.delta, (u64, u1 - u64, u1, 0.5))]:
+        n0 = k.launches
+        out, ref = k(*args), k.plain(*args)
+        assert k.launches == n0 + 1
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -42,7 +42,7 @@ def built():
     """(JAX ops, port ops, Pallas kernels in interpret mode, port
     kernels) of the bench problem at N^2 x 3."""
     jps, _, jops = ge._make_problem(N, N)
-    _, _, tops = problem_from_clargs(jps.clargs, N, N)
+    _, _, tops = problem_from_clargs(jps.clargs, N, N, device="cpu")
     return (jops, tops, make_pallas_kernels(jops, tile_x=16, interpret=True),
             make_fused_kernels(tops))
 

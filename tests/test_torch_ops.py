@@ -42,7 +42,7 @@ def one_thread():
 def problems():
     """(JAX ops, port ops) of the bench problem at N^2 x 3."""
     jps, jgrid, jops = ge._make_problem(N, N)
-    _, _, tops = problem_from_clargs(jps.clargs, N, N)
+    _, _, tops = problem_from_clargs(jps.clargs, N, N, device="cpu")
     return jops, tops
 
 
@@ -228,7 +228,8 @@ def test_stage_delta_ok_and_stiff_coefficients(problems):
 def test_flux_form_not_ported(problems):
     _, tops = problems
     with pytest.raises(NotImplementedError, match="flux_form"):
-        KT.ops.PDEOperators(tops.ps, tops.grid, flux_form=True)
+        KT.ops.PDEOperators(tops.ps, tops.grid, flux_form=True,
+                            device="cpu")
 
 
 def test_spatial_source_matches(problems):
@@ -238,10 +239,10 @@ def test_spatial_source_matches(problems):
 
     expr = "murho*sin(2*pi*x)*cos(2*pi*y) + t"
     js = JS(jops.ps, jops.grid, expr)
-    ts = TS(tops.ps, tops.grid, expr)
+    ts = TS(tops.ps, tops.grid, expr, device="cpu")
     assert ts.tdep and not ts.is_zero()
     assert rel(ts(0.25).numpy(), js(0.25)) < 1e-14
-    assert TS(tops.ps, tops.grid, 0.0).is_zero()
+    assert TS(tops.ps, tops.grid, 0.0, device="cpu").is_zero()
 
 
 # ---------------------------------------------------------- preconditioner
@@ -254,7 +255,8 @@ def test_apply_linearized_matches(problems, dtype, tol, use_rho_diff):
     jpc = jlinalg.BlockSpectralPreconditioner(jops.grid, jops,
                                               compute_dtype=dtype)
     tpc = tlinalg.BlockSpectralPreconditioner(tops.grid, tops,
-                                              compute_dtype=dtype)
+                                              compute_dtype=dtype,
+                                              device="cpu")
     rng = np.random.default_rng(7)
     v = rng.standard_normal(jops.grid.Vshape)
     means = [9000.0, 6000.0, 800.0]
@@ -276,7 +278,8 @@ def test_apply_linearized_matches(problems, dtype, tol, use_rho_diff):
 def test_spectral_apply_matches(problems):
     jops, tops = problems
     jpc = jlinalg.SpectralPreconditioner(jops.grid, compute_dtype="float64")
-    tpc = tlinalg.SpectralPreconditioner(tops.grid, compute_dtype="float64")
+    tpc = tlinalg.SpectralPreconditioner(tops.grid, compute_dtype="float64",
+                                         device="cpu")
     v = np.random.default_rng(8).standard_normal(jops.grid.Vshape)
     diff, decay = tops.stiff_coefficients(0.0)
     ref = jpc.apply(jnp.asarray(v), 50.0, diff, decay)

@@ -12,6 +12,7 @@ own float64 16-sweep solve moves it by 0.4% at 64^2, h=1e-3).
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -32,6 +33,7 @@ from ksfd_tpu_torch.interop import (
     tensors_from_numpy,
 )
 from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch import ops as KT_ops
 from ksfd_tpu_torch import solvers as tsolver
 from ksfd_tpu_torch.solvers import linalg as tlinalg
 from ksfd_tpu_torch.solvers import make_multistep_fn, make_step_fn
@@ -52,7 +54,7 @@ def one_thread():
 @pytest.fixture(scope="module")
 def problems():
     jps, _, jops = ge._make_problem(N, N)
-    _, _, tops = problem_from_clargs(jps.clargs, N, N)
+    _, _, tops = problem_from_clargs(jps.clargs, N, N, device="cpu")
     return jops, tops
 
 
@@ -168,7 +170,7 @@ def test_interop_round_trip(problems):
     arrays = dict(
         state=np.asarray(u), f0=np.asarray(jops.rhs(u, 0.0)),
     )
-    tens = tensors_from_numpy(arrays)
+    tens = tensors_from_numpy(arrays, device="cpu")
     assert tens["state"].dtype == torch.float64
     assert tuple(tens["state"].shape) == (3, N, N)
     back = numpy_from_tensors(tens)
@@ -181,9 +183,11 @@ def test_interop_round_trip(problems):
     jpc = jlinalg.BlockSpectralPreconditioner(jops.grid, jops,
                                               compute_dtype="float64")
     tpc = tlinalg.BlockSpectralPreconditioner(tops.grid, tops,
-                                              compute_dtype="float64")
+                                              compute_dtype="float64",
+                                              device="cpu")
     Qx, Qy, lam = tensors_from_numpy(
-        [np.asarray(jpc.Qs[0]), np.asarray(jpc.Qs[1]), np.asarray(jpc.lam)]
+        [np.asarray(jpc.Qs[0]), np.asarray(jpc.Qs[1]), np.asarray(jpc.lam)],
+        device="cpu",
     )
     tpc.load_state_dict(dict(Qx=Qx, Qy=Qy, lam=lam))
     v = np.random.default_rng(5).standard_normal((3, N, N))
@@ -196,18 +200,24 @@ def test_interop_round_trip(problems):
     assert np.abs(out - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
+_FORBIDDEN_IMPORT = re.compile(r"^(import|from)\s+(jax|ksfd_tpu)(\s|\.|,|$)")
+
+
 def test_port_source_has_no_jax_import():
-    pkg = os.path.join(ROOT, "ksfd_tpu_torch")
-    for dirpath, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as fh:
-                    for line in fh:
-                        word = line.strip()
-                        assert not word.startswith(
-                            ("import jax", "from jax", "import ksfd_tpu.",
-                             "from ksfd_tpu ", "from ksfd_tpu.")
-                        ), (name, line)
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX
+    package (``import ksfd_tpu_torch`` is the port itself)."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "ksfd_tpu_torch")):
+        paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+    assert any(p.endswith("fused_stencil3d.py") for p in paths)
+    for path in paths:
+        with open(path) as fh:
+            for line in fh:
+                assert not _FORBIDDEN_IMPORT.match(line.strip()), (path, line)
+    for line in ("import ksfd_tpu", "import jax", "from ksfd_tpu.ops import x",
+                 "import ksfd_tpu as K", "from jax import numpy"):
+        assert _FORBIDDEN_IMPORT.match(line), line
+    assert not _FORBIDDEN_IMPORT.match("import ksfd_tpu_torch")
 
 
 _NO_JAX = r"""
@@ -224,7 +234,8 @@ keep = ("nelements", "dim", "rho0", "U0_1_1", "U0_2_1")
 params = [p for p in OPTIONS92_PARAMS if p.split("=", 1)[0] not in keep]
 params += ["nelements=16", "dim=2", "height=1", "rho0=murho + arho*x",
            "U0_1_1=", "U0_2_1="]
-ps, grid, ops = problem_from_clargs(make_clargs(params=params), 16, 16)
+ps, grid, ops = problem_from_clargs(make_clargs(params=params), 16, 16,
+                                    device="cpu")
 multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01, rtol=1e-6)
 u0 = torch.full(grid.Vshape, 9000.0, dtype=torch.float64)
 u0[0, 3, 4] += 1.0
@@ -237,6 +248,47 @@ assert "ksfd_tpu" not in sys.modules
 assert not [m for m in sys.modules if m.startswith(("jax.", "ksfd_tpu."))]
 print("OK", float(e))
 """
+
+
+_DEFAULT_DEVICE_BUILDS = {
+    "problem_from_clargs": lambda tops: problem_from_clargs(
+        tops.ps.clargs, 8, 8),
+    "tensors_from_numpy": lambda tops: tensors_from_numpy(np.zeros(3)),
+    "PDEOperators": lambda tops: KT_ops.PDEOperators(tops.ps, tops.grid),
+    "SpatialExpression": lambda tops: KT_ops.SpatialExpression(
+        tops.ps, tops.grid, "x"),
+    "SpectralPreconditioner": lambda tops: tlinalg.SpectralPreconditioner(
+        tops.grid),
+    "BlockSpectralPreconditioner":
+        lambda tops: tlinalg.BlockSpectralPreconditioner(tops.grid, tops),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_DEFAULT_DEVICE_BUILDS))
+def test_entry_points_default_to_the_card(problems, entry):
+    """An entry point told no device runs on the card; without one it
+    raises rather than building on the CPU."""
+    _, tops = problems
+    build = _DEFAULT_DEVICE_BUILDS[entry]
+    if torch.cuda.is_available():
+        built = build(tops)
+        devices = {t.device.type for t in _tensors_of(built)}
+        assert devices == {"cuda"}, devices
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(tops)
+
+
+def _tensors_of(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, torch.nn.Module):
+        return list(obj.buffers())
+    if isinstance(obj, tuple):
+        return [t for o in obj for t in _tensors_of(o)]
+    if hasattr(obj, "device"):  # operators, spatial expressions
+        return [torch.empty(0, device=obj.device)]
+    return []
 
 
 def test_port_runs_with_jax_blocked():
