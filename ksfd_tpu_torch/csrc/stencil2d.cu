@@ -2,6 +2,7 @@
 // periodic, for Hopper (sm_90a).
 //
 // Replaces the Pallas bodies of ksfd_tpu/ops/pallas_stencil.py:
+//   ksfd_rhs    <- rhs_kernel   :584
 //   ksfd_resid  <- resid_kernel :655 (rows from _jvp_rows :613)
 //   ksfd_jvp    <- jvp_kernel   :648
 //   ksfd_delta  <- delta_kernel :674
@@ -11,11 +12,11 @@
 // (ksfd_pointwise.cuh).  The wrappers, scalar packs and plain PyTorch
 // versions are in ops/fused_stencil.py.
 //
-// Bound: memory.  At 1024^2 x 3 f32 each kernel reads three or four
-// state-sized arrays and writes one (resid: u, v, b -> out; delta:
-// u0, d, u1 -> out), ~50 MB per launch, a floor of ~15 us at the
-// H100 SXM's 3.35 TB/s; the pointwise transcendentals (a few logf /
-// tanhf per point) are a small fraction of that.  Design: one block
+// Bound: memory.  At 1024^2 x 3 f32 each kernel reads one to four
+// state-sized arrays and writes one (rhs: u -> out, 25 MB, 7.5 us at
+// the H100 SXM's 3.35 TB/s; resid: u, v, b -> out and delta: u0, d,
+// u1 -> out, 50 MB, 15 us); the pointwise transcendentals (a few logf
+// / tanhf per point) are a small fraction of that.  Design: one block
 // per TX x TY tile.  The block reads its inputs with an SW-wide halo
 // straight from global memory by periodic index arithmetic (no padded
 // copy), evaluates G / dG.v / G_delta ONCE per halo point into shared
@@ -28,17 +29,39 @@
 //   - where-form clamp: x >= min ? x : min, so NaN -> min;
 //   - the J-action tangent is zeroed where the clamp is active, with a
 //     strict '>' ; the resid shift term uses the RAW tangent;
+//   - rhs centres rho, G and each U on f64 means and adds the f64
+//     mean-level reaction balances, all from the scalar pack; the
+//     rho*lap(Gc) term takes the uncentred groomed rho;
 //   - delta centres G on the f64 mean G(means) and rho on its f64 mean,
 //     both passed in the scalar pack;
 //   - the scalar pack is a small f32 DEVICE array read here, never a
 //     host float, so a launch needs no host sync.
+// The build passes -fmad=false (ops/fused_stencil.py NVCC_FLAGS): no
+// multiply-add contraction, so every product and sum rounds as in the
+// plain version's separate PyTorch operations, and rhs on a
+// near-uniform state (where one ulp of G moves the centred rho row by
+// its whole size) matches its plain version.
 // Every C entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
+//
+// Without __CUDACC__ (a host C++ compiler with the CUDA qualifiers
+// defined away, KSFD_NT=1 and one thread walking each block) the kernel
+// bodies compile as plain C++; tests/test_torch_kernels.py runs them so
+// on the CPU.  The C entries exist only in the nvcc build.
 
-#include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
 
 #include "ksfd_pointwise.cuh"
+
+static_assert(KSFD_DIM == 2, "stencil2d.cu needs the 2D pointwise header");
+
+#ifndef KSFD_NT
+#define KSFD_NT 256
+#endif
 
 namespace {
 
@@ -47,11 +70,12 @@ constexpr int DOF = KSFD_DOF;
 constexpr int NL = DOF - 1;        // ligand fields
 constexpr int TX = 16;             // tile rows (x)
 constexpr int TY = 64;             // tile columns (y, contiguous)
-constexpr int NT = 256;            // threads per block
+constexpr int NT = KSFD_NT;        // threads per block
 constexpr int HX = TX + 2 * SW;
 constexpr int HY = TY + 2 * SW;
 constexpr int HN = HX * HY;
-// shared arrays per halo point: resid/jvp 4 + NL, delta 4 + NL
+// shared arrays per halo point: rhs 2 + NL, resid/jvp 4 + NL,
+// delta 4 + NL
 static_assert((4 + NL) * HN * 4 <= 48 * 1024, "tile too large for static shared memory");
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -65,6 +89,57 @@ __device__ __forceinline__ float lap(const float* p) {
 
 __device__ __forceinline__ float graddot(const float* a, const float* b) {
   return ksfd_d1x(a, HY) * ksfd_d1x(b, HY) + ksfd_d1y(a, 1) * ksfd_d1y(b, 1);
+}
+
+// The full centred RHS of the float32 fast mode (no sources: the
+// wrapper adds them).  u is the RAW state (groomed here).
+// sc = [t, mean_0 .. mean_{DOF-1}, G(means), react_1 .. react_NL]
+// (t is unused: the generated G carries no time dependence).
+__global__ void __launch_bounds__(NT)
+rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           float* __restrict__ out, int nx, int ny) {
+  __shared__ float s_rc[HN], s_Gc[HN];
+  __shared__ float s_Uc[NL > 0 ? NL : 1][HN];
+  const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
+  const size_t plane = (size_t)nx * ny;
+  const float rho_mean = sc[1], G_mean = sc[1 + DOF];
+
+  for (int i = threadIdx.x; i < HN; i += NT) {
+    const int hx = i / HY, hy = i - hx * HY;
+    const size_t g =
+        (size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny);
+    float f[DOF];
+#pragma unroll
+    for (int k = 0; k < DOF; ++k) {
+      const float raw = u[k * plane + g];
+      const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
+      f[k] = raw >= lo ? raw : lo;
+    }
+    s_rc[i] = f[0] - rho_mean;
+    s_Gc[i] = ksfd_G(f) - G_mean;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s_Uc[l][i] = f[1 + l] - sc[2 + l];
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < TX * TY; i += NT) {
+    const int ix = i / TY, iy = i - ix * TY;
+    const int gx = x0 + ix, gy = y0 + iy;
+    if (gx >= nx || gy >= ny) continue;
+    const int c = (ix + SW) * HY + (iy + SW);
+    const size_t g = (size_t)gx * ny + gy;
+    // the uncentred groomed rho at the output point
+    const float raw = u[g];
+    const float rho = raw >= KSFD_RHOMIN ? raw : KSFD_RHOMIN;
+    const float rc = s_rc[c];
+    out[g] = graddot(&s_rc[c], &s_Gc[c]) + rho * lap(&s_Gc[c]);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      out[(1 + l) * plane + g] = -ksfd_gamma(l) * s_Uc[l][c] +
+                                 ksfd_s(l) * rc + sc[2 + DOF + l] +
+                                 ksfd_D(l) * lap(&s_Uc[l][c]);
+    }
+  }
 }
 
 // The J-action rows (and, with RESID, the fused Richardson residual
@@ -178,13 +253,23 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
   }
 }
 
+#ifdef __CUDACC__
 dim3 grid_for(int nx, int ny) {
   return dim3((ny + TY - 1) / TY, (nx + TX - 1) / TX);
 }
+#endif
 
 }  // namespace
 
+#ifdef __CUDACC__
 extern "C" {
+
+int ksfd_rhs(const float* sc, const float* u, float* out, int nx, int ny,
+             void* stream) {
+  rhs_kernel<<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(sc, u, out,
+                                                                nx, ny);
+  return (int)cudaGetLastError();
+}
 
 int ksfd_jvp(const float* sc, const float* u, const float* v, float* out,
              int nx, int ny, void* stream) {
@@ -211,3 +296,4 @@ int ksfd_tile_rows() { return TX; }
 int ksfd_tile_cols() { return TY; }
 
 }  // extern "C"
+#endif

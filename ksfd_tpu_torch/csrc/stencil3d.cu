@@ -2,6 +2,7 @@
 // periodic, for Hopper (sm_90a).
 //
 // Replaces the Pallas bodies of ksfd_tpu/ops/pallas_stencil3d.py:
+//   ksfd_rhs    <- rhs_kernel   :366
 //   ksfd_resid  <- resid_kernel :426 (rows from _jvp_rows :390)
 //   ksfd_jvp    <- jvp_kernel   :419
 //   ksfd_delta  <- delta_kernel :440
@@ -18,7 +19,7 @@
 //
 // Bound: memory.  At 256^3 x 3 f32 one operand is 201 MB; resid reads
 // u, v, b and writes out (805 MB, 240 us at the H100 SXM's 3.35 TB/s),
-// jvp 604 MB (180 us), delta 805 MB (240 us).  Design (the simple one;
+// jvp 604 MB (180 us), delta 805 MB (240 us), rhs 403 MB (120 us).  Design (the simple one;
 // a 2.5D march along x with a rolling window of 2*SW+1 planes is the
 // faster design, left for later): one block of NT threads per
 // TX x TY x TZ tile, z fastest.  The block reads its inputs over a
@@ -29,9 +30,10 @@
 // coordinates in the halo (edges and corners), so those are skipped:
 // at 4 x 8 x 32 and SW=2, 2,688 of the box's 3,456 points are
 // evaluated, 2.6 per output point.  Shared memory is (4 + NL) arrays
-// of the 8 x 12 x 36 box, 82,944 B for three fields: above the 48 KB
-// static limit, so each entry opts the kernel into that much dynamic
-// shared memory before it launches.  On an H100 80GB HBM3 at 700 W
+// of the 8 x 12 x 36 box for resid/jvp/delta, 82,944 B for three
+// fields, and (2 + NL) arrays for rhs, 55,296 B: above the 48 KB
+// static limit, so each entry opts its kernel into its own amount of
+// dynamic shared memory before it launches.  On an H100 80GB HBM3 at 700 W
 // this design takes 1.1-1.3 ms per launch at 256^3 x 3, 5-6x the
 // bound: the re-evaluated pointwise functions, not the bytes, set its
 // time (PERF.md, chip_smoke.py phase 5).
@@ -40,10 +42,18 @@
 //   - where-form clamp: x >= min ? x : min, so NaN -> min;
 //   - the J-action tangent is zeroed where the clamp is active, with a
 //     strict '>' ; the resid shift term uses the RAW tangent;
+//   - rhs centres rho, G and each U on f64 means and adds the f64
+//     mean-level reaction balances, all from the scalar pack; the
+//     rho*lap(Gc) term takes the uncentred groomed rho;
 //   - delta centres G on the f64 mean G(means) and rho on its f64 mean,
 //     both passed in the scalar pack;
 //   - the scalar pack is a small f32 DEVICE array read here, never a
 //     host float, so a launch needs no host sync.
+// The build passes -fmad=false (ops/fused_stencil.py NVCC_FLAGS): no
+// multiply-add contraction, so every product and sum rounds as in the
+// plain version's separate PyTorch operations, and rhs on a
+// near-uniform state (where one ulp of G moves the centred rho row by
+// its whole size) matches its plain version.
 // Every C entry launches on the caller's stream, allocates nothing and
 // returns the first CUDA error (0 on success).
 //
@@ -85,9 +95,11 @@ constexpr int SX = HY * HZ;        // box stride along x
 constexpr int HN = HX * HY * HZ;
 constexpr int TN = TX * TY * TZ;
 // shared arrays per box point: resid/jvp rho, G, dG.v, v_rho, v_U[NL];
-// delta d_rho, G0c + dG, rho0c, dG, d_U[NL]
+// delta d_rho, G0c + dG, rho0c, dG, d_U[NL]; rhs rho_c, Gc, Uc[NL]
 constexpr int NARR = 4 + (NL > 0 ? NL : 1);
+constexpr int NARR_RHS = 2 + (NL > 0 ? NL : 1);
 constexpr size_t SMEM_BYTES = sizeof(float) * NARR * HN;
+constexpr size_t SMEM_BYTES_RHS = sizeof(float) * NARR_RHS * HN;
 static_assert(SMEM_BYTES <= 227 * 1024, "tile too large for shared memory");
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -119,6 +131,59 @@ __device__ __forceinline__ float lap(const float* p) {
 __device__ __forceinline__ float graddot(const float* a, const float* b) {
   return ksfd_d1x(a, SX) * ksfd_d1x(b, SX) + ksfd_d1y(a, SY) * ksfd_d1y(b, SY) +
          ksfd_d1z(a, 1) * ksfd_d1z(b, 1);
+}
+
+// The full centred RHS of the float32 fast mode (no sources: the
+// wrapper adds them).  u is the RAW state (groomed here).
+// sc = [t, mean_0 .. mean_{DOF-1}, G(means), react_1 .. react_NL]
+// (t is unused: the generated G carries no time dependence).
+__global__ void __launch_bounds__(NT)
+rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           float* __restrict__ out, int nx, int ny, int nz) {
+  float* s_rc = ksfd_smem;
+  float* s_Gc = s_rc + HN;
+  float* s_Uc = s_Gc + HN;  // NL arrays of HN
+  const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
+  const size_t plane = (size_t)nx * ny * nz;
+  const float rho_mean = sc[1], G_mean = sc[1 + DOF];
+
+  for (int i = threadIdx.x; i < HN; i += NT) {
+    const int hx = i / SX, r = i - hx * SX, hy = r / SY, hz = r - hy * SY;
+    if (!on_star(hx, hy, hz)) continue;
+    const size_t g = box_offset(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    float f[DOF];
+#pragma unroll
+    for (int k = 0; k < DOF; ++k) {
+      const float raw = u[k * plane + g];
+      const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
+      f[k] = raw >= lo ? raw : lo;
+    }
+    s_rc[i] = f[0] - rho_mean;
+    s_Gc[i] = ksfd_G(f) - G_mean;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s_Uc[l * HN + i] = f[1 + l] - sc[2 + l];
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < TN; i += NT) {
+    const int ix = i / (TY * TZ), r = i - ix * (TY * TZ);
+    const int iy = r / TZ, iz = r - iy * TZ;
+    const int gx = x0 + ix, gy = y0 + iy, gz = z0 + iz;
+    if (gx >= nx || gy >= ny || gz >= nz) continue;
+    const int c = (ix + SW) * SX + (iy + SW) * SY + (iz + SW);
+    const size_t g = ((size_t)gx * ny + gy) * nz + gz;
+    // the uncentred groomed rho at the output point
+    const float raw = u[g];
+    const float rho = raw >= KSFD_RHOMIN ? raw : KSFD_RHOMIN;
+    const float rc = s_rc[c];
+    out[g] = graddot(&s_rc[c], &s_Gc[c]) + rho * lap(&s_Gc[c]);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const float* Uc = &s_Uc[l * HN + c];
+      out[(1 + l) * plane + g] = -ksfd_gamma(l) * Uc[0] + ksfd_s(l) * rc +
+                                 sc[2 + DOF + l] + ksfd_D(l) * lap(Uc);
+    }
+  }
 }
 
 // The J-action rows (and, with RESID, the fused Richardson residual
@@ -245,15 +310,15 @@ dim3 grid_for(int nx, int ny, int nz) {
   return dim3((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
 }
 
-// Opt the kernel into SMEM_BYTES of dynamic shared memory (above the
+// Opt the kernel into smem bytes of dynamic shared memory (above the
 // 48 KB default), then launch it.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int nx, int ny, int nz, void* stream,
+int launch(Kernel kernel, size_t smem, int nx, int ny, int nz, void* stream,
            Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_for(nx, ny, nz), NT, SMEM_BYTES, (cudaStream_t)stream>>>(
+  kernel<<<grid_for(nx, ny, nz), NT, smem, (cudaStream_t)stream>>>(
       args..., nx, ny, nz);
   return (int)cudaGetLastError();
 }
@@ -264,25 +329,33 @@ int launch(Kernel kernel, int nx, int ny, int nz, void* stream,
 #ifdef __CUDACC__
 extern "C" {
 
+int ksfd_rhs(const float* sc, const float* u, float* out, int nx, int ny,
+             int nz, void* stream) {
+  return launch(rhs_kernel, SMEM_BYTES_RHS, nx, ny, nz, stream, sc, u, out);
+}
+
 int ksfd_jvp(const float* sc, const float* u, const float* v, float* out,
              int nx, int ny, int nz, void* stream) {
-  return launch(jvp_kernel<false>, nx, ny, nz, stream, sc, u, v,
+  return launch(jvp_kernel<false>, SMEM_BYTES, nx, ny, nz, stream, sc, u, v,
                 (const float*)nullptr, out);
 }
 
 int ksfd_resid(const float* sc, const float* u, const float* v,
                const float* b, float* out, int nx, int ny, int nz,
                void* stream) {
-  return launch(jvp_kernel<true>, nx, ny, nz, stream, sc, u, v, b, out);
+  return launch(jvp_kernel<true>, SMEM_BYTES, nx, ny, nz, stream, sc, u, v,
+                b, out);
 }
 
 int ksfd_delta(const float* sc, const float* u0, const float* d,
                const float* u1, float* out, int nx, int ny, int nz,
                void* stream) {
-  return launch(delta_kernel, nx, ny, nz, stream, sc, u0, d, u1, out);
+  return launch(delta_kernel, SMEM_BYTES, nx, ny, nz, stream, sc, u0, d, u1,
+                out);
 }
 
 int ksfd_smem_bytes() { return (int)SMEM_BYTES; }
+int ksfd_smem_bytes_rhs() { return (int)SMEM_BYTES_RHS; }
 
 }  // extern "C"
 #endif

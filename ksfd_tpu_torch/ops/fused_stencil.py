@@ -1,12 +1,20 @@
-"""Fused float32 stencil kernels: resid, jvp and delta.
+"""Fused float32 stencil kernels: rhs, jvp, resid and delta.
 
 Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels (2D;
 3D grids go to ops/fused_stencil3d.py, as the reference dispatches to
 make_pallas_kernels_3d at pallas_stencil.py:474).
 ``make_fused_kernels(ops)`` returns a namespace with the same entries,
 call signatures and scalar packing as the Pallas build's
-``jvp``/``resid``/``delta`` (pallas_stencil.py:874-911):
+``rhs``/``jvp``/``resid``/``delta`` (pallas_stencil.py:851-911):
 
+- ``rhs(u, t)``: the full float32 RHS of the float32 fast mode, u
+  groomed in the kernel, every differenced quantity centred on float64
+  means (``sc = [t, mean_0..mean_{dof-1}, G(means),
+  react_1..react_{dof-1}]``, the means over the groomed view and
+  ``react_l = s_l*mean_0 - gamma_l*mean_l``, all computed in float64
+  and cast once).  Active sources are added after the launch, in f32,
+  as ``rhs_fn`` adds them.  Replaces ``rhs_kernel``
+  (pallas_stencil.py:584).
 - ``jvp(u, v, t)``: the exact J-action J(u)v of the product-rule RHS,
   u groomed in the kernel and the tangent zeroed where the clamp is
   active.  Replaces ``jvp_kernel`` (pallas_stencil.py:648).
@@ -46,11 +54,16 @@ __all__ = ["make_fused_kernels", "FusedKernel", "build_library"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc" / "stencil2d.cu"
 BUILD_DIR = _PKG / "_build"
+# -fmad=false: no multiply-add contraction, so each product and sum
+# rounds once, as in the plain versions' separate PyTorch operations.
+# The rhs kernels need it: on a near-uniform state one ulp of G moves
+# the centred rho*lap(G - G_mean) row by its whole size.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _ENTRIES = {
+    "rhs": 2,    # (sc, u) -> out
     "jvp": 3,    # (sc, u, v) -> out
     "resid": 4,  # (sc, u, v, b) -> out
     "delta": 4,  # (sc, u0, d, u1) -> out
@@ -247,14 +260,38 @@ class _FusedBuild:
         return acc
 
     # -- plain bodies ----------------------------------------------------
+    def _groom(self, u):
+        """The where-form clamp: NaN compares False, so NaN -> min."""
+        ops = self.ops
+        return [torch.where(u[0] >= ops.rhomin, u[0], ops.rhomin)] + [
+            torch.where(u[k] >= ops.Umin, u[k], ops.Umin)
+            for k in range(1, self.dof)
+        ]
+
+    def plain_rhs(self, sc, u):
+        """Counterpart of pallas_stencil.py rhs_kernel (:584): the RHS
+        with rho, G and each U centred on the scalar pack's means (the
+        centring removes the f32 cancellation of O(1e4) fields with
+        O(1e-4) derivatives); rho*lap(Gc) takes the uncentred rho."""
+        ops, dof = self.ops, self.dof
+        fields = self._groom(u)
+        rho = fields[0]
+        Gc = ops._G_fn(*fields, sc[0]) - sc[1 + dof]
+        rho_c = rho - sc[1]
+        rows = [self.graddot(rho_c, Gc) + rho * self.lap(Gc)]
+        for l, c in enumerate(ops.lig_constants):
+            Uc = fields[1 + l] - sc[2 + l]
+            rows.append(
+                -c["gamma"] * Uc + c["s"] * rho_c + sc[2 + dof + l]
+                + c["D"] * self.lap(Uc)
+            )
+        return torch.stack(rows)
+
     def jvp_rows(self, t, u, v):
         """Counterpart of pallas_stencil.py _jvp_rows (:613)."""
         ops = self.ops
         rmin, umin = ops.rhomin, ops.Umin
-        # where-form clamp: NaN compares False, so NaN -> min
-        fields = [torch.where(u[0] >= rmin, u[0], rmin)] + [
-            torch.where(u[k] >= umin, u[k], umin) for k in range(1, self.dof)
-        ]
+        fields = self._groom(u)
         # clamp derivative: tangent zeroed where the clamp is active
         vm = [torch.where(u[0] > rmin, v[0], 0.0)] + [
             torch.where(u[k] > umin, v[k], 0.0) for k in range(1, self.dof)
@@ -313,17 +350,32 @@ class _FusedBuild:
             )
         return torch.stack(rows)
 
-    # -- scalar packs (pallas_stencil.py:874-911) -------------------------
-    def _mean_groomed(self, u64, i):
-        """Mean over the groomed view (a NaN entry must not poison the
-        float64 centring scalars)."""
+    # -- scalar packs (pallas_stencil.py:851-911) -------------------------
+    def _mean_groomed(self, u, i):
+        """Float64 mean over the groomed view of field i of an f32 or
+        f64 state (a NaN entry must not poison the centring scalars).
+        One field at a time: an f32 state is never copied whole to
+        f64."""
         lo = self.ops.rhomin if i == 0 else self.ops.Umin
-        f = u64[i]
-        return torch.mean(torch.where(f >= lo, f, lo))
+        f = u[i]
+        return torch.mean(torch.where(f >= lo, f, lo), dtype=torch.float64)
 
     @staticmethod
     def _f32(*xs):
         return [x.to(torch.float32).contiguous() for x in xs]
+
+    def prep_rhs(self, u, t):
+        ops, dev = self.ops, u.device
+        means = [self._mean_groomed(u, i) for i in range(self.dof)]
+        t64 = torch.as_tensor(t, dtype=torch.float64, device=dev)
+        G_m = torch.as_tensor(ops._G_fn(*means, t64), dtype=torch.float64,
+                              device=dev)
+        reacts = [
+            c["s"] * means[0] - c["gamma"] * means[1 + l]
+            for l, c in enumerate(ops.lig_constants)
+        ]
+        sc = torch.stack([t64] + means + [G_m] + reacts).to(torch.float32)
+        return sc, self._f32(u)
 
     def prep_jvp(self, u, v, t):
         sc = torch.as_tensor(t, dtype=torch.float32, device=u.device)
@@ -339,8 +391,7 @@ class _FusedBuild:
 
     def prep_delta(self, u0, d, u1, t):
         dev = u0.device
-        u64 = u0.to(torch.float64)
-        means = [self._mean_groomed(u64, i) for i in range(self.dof)]
+        means = [self._mean_groomed(u0, i) for i in range(self.dof)]
         t64 = torch.as_tensor(t, dtype=torch.float64, device=dev)
         G_m = torch.as_tensor(
             self.ops._G_fn(*means, t64), dtype=torch.float64, device=dev
@@ -350,18 +401,28 @@ class _FusedBuild:
 
 
 def kernel_namespace(build, replaces):
-    """The ``jvp``/``resid``/``delta`` namespace over one _FusedBuild;
-    ``replaces`` maps each name to the TPU kernel's file:line."""
+    """The ``rhs``/``jvp``/``resid``/``delta`` namespace over one
+    _FusedBuild; ``replaces`` maps each name to the TPU kernel's
+    file:line.  ``rhs`` is the kernel plus the active sources, added
+    after the launch as pallas_stencil.py:866-870 adds them; the other
+    entries are the kernels themselves."""
     b = build
-    jvp = FusedKernel("jvp", b, b.prep_jvp, b.plain_jvp, replaces["jvp"])
-    resid = FusedKernel("resid", b, b.prep_resid, b.plain_resid,
-                        replaces["resid"])
-    delta = FusedKernel("delta", b, b.prep_delta, b.plain_delta,
-                        replaces["delta"])
-    return SimpleNamespace(
-        jvp=jvp, resid=resid, delta=delta, build=b,
-        kernels=dict(jvp=jvp, resid=resid, delta=delta),
-    )
+    kernels = {
+        name: FusedKernel(name, b, getattr(b, "prep_" + name),
+                          getattr(b, "plain_" + name), replaces[name])
+        for name in _ENTRIES
+    }
+    ops = b.ops
+
+    def rhs(u, t):
+        out = kernels["rhs"](u, t)
+        for i, active in enumerate(ops._source_active):
+            if active:
+                out[i] += ops.sources[i](t).to(torch.float32)
+        return out
+
+    return SimpleNamespace(build=b, kernels=kernels,
+                           **dict(kernels, rhs=rhs))
 
 
 def make_fused_kernels(ops):
@@ -370,11 +431,11 @@ def make_fused_kernels(ops):
     Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels,
     which hands 3D grids to make_pallas_kernels_3d (here:
     ops/fused_stencil3d.py).  Returns a namespace with ``jvp``,
-    ``resid`` and ``delta`` (FusedKernel instances), ``kernels`` (the
-    three by name) and ``build`` (header, build info).  Nothing is
-    compiled until a kernel first meets a CUDA tensor.  The f32
-    fast-mode ``rhs`` kernels are ROADMAP Queue B items 6a and 7;
-    member-batched and sharded builds are items 8 and 9.
+    ``resid`` and ``delta`` (FusedKernel instances), ``rhs`` (the rhs
+    kernel plus active sources), ``kernels`` (the four FusedKernels by
+    name) and ``build`` (header, build info).  Nothing is compiled
+    until a kernel first meets a CUDA tensor.  Member-batched and
+    sharded builds are ROADMAP Queue B items 8 and 9.
     """
     if ops.grid.dim == 3:
         from .fused_stencil3d import make_fused_kernels_3d
@@ -387,5 +448,6 @@ def make_fused_kernels(ops):
         )
     src = "ksfd_tpu/ops/pallas_stencil.py"
     return kernel_namespace(_FusedBuild(ops), dict(
-        jvp=src + ":648", resid=src + ":655", delta=src + ":674",
+        rhs=src + ":584", jvp=src + ":648", resid=src + ":655",
+        delta=src + ":674",
     ))

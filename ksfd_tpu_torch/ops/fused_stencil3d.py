@@ -1,11 +1,16 @@
-"""Fused float32 stencil kernels on 3D grids: resid, jvp and delta.
+"""Fused float32 stencil kernels on 3D grids: rhs, jvp, resid and delta.
 
 Counterpart: ksfd_tpu/ops/pallas_stencil3d.py:make_pallas_kernels_3d.
 ``make_fused_kernels_3d(ops)`` (reached through
 ``fused_stencil.make_fused_kernels`` for a 3D grid) returns the same
 namespace as the 2D build, with the same entries, call signatures and
-scalar packs (pallas_stencil3d.py:619-654):
+scalar packs (pallas_stencil3d.py:603-654):
 
+- ``rhs(u, t)``, ``sc=[t, mean_0..mean_{dof-1}, G(means),
+  react_1..react_{dof-1}]`` from float64 means of the groomed view:
+  the float32 fast mode's full RHS, centred on the means; active
+  sources added after the launch.  Replaces ``rhs_kernel``
+  (pallas_stencil3d.py:366, scalar pack :603-617).
 - ``jvp(u, v, t)``, ``sc=[t]``: the exact J-action J(u)v.  Replaces
   ``jvp_kernel`` (pallas_stencil3d.py:419, rows from ``_jvp_rows``
   :390).
@@ -24,8 +29,7 @@ On a CUDA tensor each entry launches its kernel in csrc/stencil3d.cu
 (a library of its own, built at first use); on a CPU tensor it runs
 the plain PyTorch version of fused_stencil._FusedBuild, whose
 ``torch.roll`` stencils sum over x, then y, then z, the order of the
-Pallas ``lap``/``graddot``.  The f32 fast-mode ``rhs_kernel`` (:366)
-waits with its 2D twin, ROADMAP Queue B items 6a and 7.
+Pallas ``lap``/``graddot``.
 """
 
 from .fused_stencil import CSRC, _FusedBuild, kernel_namespace
@@ -48,5 +52,6 @@ def make_fused_kernels_3d(ops):
         )
     src = "ksfd_tpu/ops/pallas_stencil3d.py"
     return kernel_namespace(_FusedBuild(ops, CSRC3D), dict(
-        jvp=src + ":419", resid=src + ":426", delta=src + ":440",
+        rhs=src + ":366", jvp=src + ":419", resid=src + ":426",
+        delta=src + ":440",
     ))

@@ -20,7 +20,6 @@ chip_smoke.py runs the same comparison at 256^3 x 3).
 """
 
 import ctypes
-import dataclasses
 import os
 import shutil
 import subprocess
@@ -330,8 +329,8 @@ def test_multistep_chain_matches_reference(problems, interpret):
 
 
 def test_launch_counts_per_step(problems):
-    """Per 3D step: 8 resid, 4 delta, 0 jvp (the plain bodies' calls,
-    counted on the CPU; no kernel launch)."""
+    """Per 3D step: 8 resid, 4 delta, 0 jvp and 0 rhs (the plain bodies'
+    calls, counted on the CPU; no kernel launch)."""
     _, tops = problems
     kern = make_fused_kernels(tops)
     assert kern.build.csrc == CSRC3D
@@ -345,16 +344,9 @@ def test_launch_counts_per_step(problems):
                                  rtol=1e-6, kernels=kern)
     u, t, e = multi(torch.from_numpy(wave_state()), scalar(0.0), scalar(1.0),
                     2)
-    assert calls == dict(jvp=0, resid=16, delta=8)
+    assert calls == dict(rhs=0, jvp=0, resid=16, delta=8)
     assert all(k.launches == 0 for k in kern.kernels.values())
     assert bool(torch.isfinite(u).all()) and float(e) < 1.0
-
-
-def test_fast_mode_names_b6a(problems):
-    _, tops = problems
-    numerics = dataclasses.replace(NumericsOptions(), precision="float32")
-    with pytest.raises(NotImplementedError, match="B6a"):
-        make_step_fn(tops, numerics)
 
 
 def test_small_extent_rejected():
@@ -472,6 +464,7 @@ extern "C" int run(int which, const float* sc, const float* a,
         if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny, nz);
         if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny, nz);
         if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny, nz);
+        if (which == 3) rhs_kernel(sc, a, out, nx, ny, nz);
       }
   return 0;
 }
@@ -480,10 +473,10 @@ extern "C" int run(int which, const float* sc, const float* a,
 
 @pytest.mark.parametrize("shape", [SHAPE, (9, 7, 11)])
 def test_cuda_source_bodies_match_plain(shape, tmp_path):
-    """The kernel bodies of csrc/stencil3d.cu, compiled as host C++
-    (KSFD_NT=1), equal the plain versions to 1e-5 of max|plain| on a
-    tiled grid and on an odd one whose tiles are ragged in every axis
-    (the periodic wrap and the bounds guards)."""
+    """The kernel bodies of csrc/stencil3d.cu (rhs on the raw state
+    too), compiled as host C++ (KSFD_NT=1), equal the plain versions to
+    1e-5 of max|plain| on a tiled grid and on an odd one whose tiles are
+    ragged in every axis (the periodic wrap and the bounds guards)."""
     cxx = _cxx()
     clargs = make_clargs(params=aggregation3d_params(shape[0]))
     _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
@@ -508,7 +501,8 @@ def test_cuda_source_bodies_match_plain(shape, tmp_path):
     d = torch.from_numpy(100.0 * rng.standard_normal(u64.shape))
     u1 = tops.groom(u64 + d)
     cases = [(0, fk.jvp, (raw, v, 0.5)), (1, fk.resid, (raw, v, b, 0.5, 7.5)),
-             (2, fk.delta, (u64, u1 - u64, u1, 0.5))]
+             (2, fk.delta, (u64, u1 - u64, u1, 0.5)),
+             (3, fk.kernels["rhs"], (raw, 0.5))]
     for which, k, args in cases:
         sc, operands = k.prepare(*args)
         ptrs = [x.data_ptr() for x in (sc, *operands)]

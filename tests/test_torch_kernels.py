@@ -11,6 +11,7 @@ those tests carry the ``cuda`` marker and skip elsewhere
 """
 
 import ctypes
+import os
 import shutil
 import subprocess
 
@@ -24,7 +25,7 @@ from ksfd_tpu.ops.pallas_stencil import make_pallas_kernels
 from ksfd_tpu_torch.interop import problem_from_clargs
 from ksfd_tpu_torch.ops import fused_stencil
 from ksfd_tpu_torch.ops.codegen import pointwise_header
-from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch.ops.fused_stencil import CSRC, make_fused_kernels
 
 N = 32
 
@@ -120,6 +121,7 @@ def test_plain_path_counts_no_launch(built):
     _, _, _, fk = built
     u = torch.from_numpy(rough_state().astype(np.float32))
     before = {k: kk.launches for k, kk in fk.kernels.items()}
+    fk.rhs(u, 0.0)
     fk.jvp(u, u, 0.0)
     fk.resid(u, u, u, 0.0, 1.0)
     fk.delta(u.double(), 0 * u.double(), u.double(), 0.0)
@@ -129,6 +131,8 @@ def test_plain_path_counts_no_launch(built):
 def test_wrapper_raises_on_other_devices(built):
     _, _, _, fk = built
     u = torch.empty((3, N, N), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        fk.kernels["rhs"](u, 0.0)
     with pytest.raises(ValueError, match="meta"):
         fk.jvp(u, u, 0.0)
     with pytest.raises(ValueError, match="meta"):
@@ -233,6 +237,92 @@ def test_generated_header_matches_torchify(built, tmp_path):
     assert close(Gd, ref)
 
 
+_KERNEL_SHIM = r"""
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__
+#define __restrict__
+#define __launch_bounds__(n)
+struct ksfd_uint3 { unsigned x, y, z; };
+static ksfd_uint3 blockIdx, threadIdx;
+static inline void __syncthreads() {}
+#include "stencil2d.cu"
+
+// one host thread walks every block of the launch grid in turn
+extern "C" int run(int which, const float* sc, const float* a,
+                   const float* b, const float* c, float* out, int nx,
+                   int ny) {
+  threadIdx = {0, 0, 0};
+  for (unsigned by = 0; by < (unsigned)((nx + TX - 1) / TX); ++by)
+    for (unsigned bx = 0; bx < (unsigned)((ny + TY - 1) / TY); ++bx) {
+      blockIdx = {bx, by, 0};
+      if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny);
+      if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny);
+      if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny);
+      if (which == 3) rhs_kernel(sc, a, out, nx, ny);
+    }
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("shape", [(N, N), (20, 36)])
+def test_cuda_source_bodies_match_plain(shape, tmp_path):
+    """The four kernel bodies of csrc/stencil2d.cu, compiled as host C++
+    (KSFD_NT=1), equal the plain versions to 1e-5 of max|plain| on a
+    tiled grid and on one whose tiles are ragged in both axes (the
+    periodic wrap and the bounds guards); jvp, resid and rhs on a raw
+    state with points below, at and NaN against the floors."""
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no C++ compiler found to compile the kernel bodies")
+    jps, _, _ = ge._make_problem(*shape)
+    _, _, tops = problem_from_clargs(jps.clargs, *shape, device="cpu")
+    fk = make_fused_kernels(tops)
+    (tmp_path / "ksfd_pointwise.cuh").write_text(fk.build.header)
+    shutil.copy(CSRC, tmp_path / os.path.basename(CSRC))
+    (tmp_path / "shim.cpp").write_text(_KERNEL_SHIM)
+    lib = tmp_path / "libkern.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-DKSFD_NT=1", "-I",
+         str(tmp_path), "-o", str(lib), str(tmp_path / "shim.cpp")],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    host = ctypes.CDLL(str(lib))
+    host.run.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 2)
+    rng = np.random.default_rng(9)
+    u = np.stack([
+        6000 + 3000 * np.abs(rng.standard_normal(shape)),
+        6000 + 1000 * np.abs(rng.standard_normal(shape)),
+        6000 + 500 * np.abs(rng.standard_normal(shape)),
+    ])
+    u[0, 3, 5] = 0.5 * tops.rhomin
+    u[0, shape[0] - 1, shape[1] - 1] = tops.rhomin
+    u[1, 4, 4] = tops.Umin
+    u[2, 1, shape[1] - 1] = np.nan
+    raw = torch.from_numpy(u)
+    u64 = tops.groom(raw)
+    v = torch.from_numpy(rng.standard_normal(u.shape))
+    b = torch.from_numpy(rng.standard_normal(u.shape))
+    d = torch.from_numpy(100.0 * rng.standard_normal(u.shape))
+    u1 = tops.groom(u64 + d)
+    cases = [(0, fk.jvp, (raw, v, 0.5)), (1, fk.resid, (raw, v, b, 0.5, 7.5)),
+             (2, fk.delta, (u64, u1 - u64, u1, 0.5)),
+             (3, fk.kernels["rhs"], (raw, 0.5))]
+    for which, k, args in cases:
+        sc, operands = k.prepare(*args)
+        ptrs = [x.data_ptr() for x in (sc, *operands)]
+        ptrs += [None] * (4 - len(ptrs))
+        out = torch.empty_like(operands[0])
+        host.run(which, *ptrs, out.data_ptr(), *shape)
+        ref = k.body(sc, operands)
+        assert torch.isfinite(out).all(), k.name
+        err = float((out - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (k.name, err)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(built):
     """On a card: each CUDA kernel equals its plain version (1e-5 of
@@ -248,7 +338,8 @@ def test_cuda_kernels_match_plain(built):
     d = to(100.0 * rng.standard_normal(u64.shape))
     u1 = tops.groom(u64 + d)
     cases = [(fk.jvp, (u, v, 0.5)), (fk.resid, (u, v, b, 0.5, 7.5)),
-             (fk.delta, (u64, u1 - u64, u1, 0.5))]
+             (fk.delta, (u64, u1 - u64, u1, 0.5)),
+             (fk.kernels["rhs"], (u, 0.5))]
     for k, args in cases:
         n0 = k.launches
         out, ref = k(*args), k.plain(*args)

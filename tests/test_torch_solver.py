@@ -111,7 +111,7 @@ def test_multistep_chain_matches_reference(problems, interpret):
 
 def test_launch_counts_per_step(problems):
     """Per step: 8 resid (2 per stage solve), 4 delta (3 stage RHS and
-    the f0 advance), 0 jvp.  On the CPU the wrappers run their plain
+    the f0 advance), 0 jvp, 0 rhs.  On the CPU the wrappers run their plain
     bodies, so the bodies' calls are counted here."""
     _, tops = problems
     kern = make_fused_kernels(tops)
@@ -125,7 +125,7 @@ def test_launch_counts_per_step(problems):
                                  rtol=1e-6, kernels=kern)
     u, t, e = multi(torch.from_numpy(rough_state()), scalar(0.0),
                     scalar(H), 3)
-    assert calls == dict(jvp=0, resid=24, delta=12)
+    assert calls == dict(rhs=0, jvp=0, resid=24, delta=12)
     assert all(k.launches == 0 for k in kern.kernels.values())
     assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(e))
     assert abs(float(t) - 3 * H) < 1e-15
@@ -134,7 +134,9 @@ def test_launch_counts_per_step(problems):
 @pytest.mark.parametrize("change", [
     dict(ksp_type="gmres"), dict(ksp_type="chebyshev"),
     dict(ksp_type="dense"), dict(pc_type="spectral"),
-    dict(precision="float32"), dict(pc_fft="on"), dict(pc_pallas=True),
+    dict(precision="float32", use_pallas=False),
+    dict(precision="bfloat16"), dict(pc_fft="on"),
+    dict(pc_pallas=True),
     dict(pc_dtype="bfloat16"), dict(sweep_dtype="float64"),
     dict(stage_delta=False), dict(use_pallas=False),
     dict(ts_type="arkimex"),
@@ -200,12 +202,15 @@ def test_interop_round_trip(problems):
     assert np.abs(out - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
-_FORBIDDEN_IMPORT = re.compile(r"^(import|from)\s+(jax|ksfd_tpu)(\s|\.|,|$)")
+_FORBIDDEN_IMPORT = re.compile(
+    r"^(import|from)\s+(jax|ksfd_tpu|helpers|tests)(\s|\.|,|$)")
 
 
 def test_port_source_has_no_jax_import():
-    """No module of the port, nor chip_smoke.py, imports jax or the JAX
-    package (``import ksfd_tpu_torch`` is the port itself)."""
+    """No module of the port, nor chip_smoke.py, imports jax, the JAX
+    package or the reference's test helpers (tests/helpers.py): the port
+    keeps its own copy of what it needs (``import ksfd_tpu_torch`` is the
+    port itself)."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "ksfd_tpu_torch")):
         paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
@@ -215,17 +220,35 @@ def test_port_source_has_no_jax_import():
             for line in fh:
                 assert not _FORBIDDEN_IMPORT.match(line.strip()), (path, line)
     for line in ("import ksfd_tpu", "import jax", "from ksfd_tpu.ops import x",
-                 "import ksfd_tpu as K", "from jax import numpy"):
+                 "import ksfd_tpu as K", "from jax import numpy",
+                 "from helpers import make_clargs",
+                 "from tests.helpers import OPTIONS92_PARAMS"):
         assert _FORBIDDEN_IMPORT.match(line), line
     assert not _FORBIDDEN_IMPORT.match("import ksfd_tpu_torch")
+
+
+def test_chip_smoke_problem_matches_helpers():
+    """chip_smoke.py keeps its own copy of the reference's test
+    parameters and of make_clargs (tests/helpers.py); the copies agree,
+    so a change to either shows here."""
+    import chip_smoke
+    import helpers
+
+    assert chip_smoke.OPTIONS92_PARAMS == helpers.OPTIONS92_PARAMS
+    for kw in (dict(), dict(params=["dim=2"], source=["x"], seed=3,
+                            cappotential="linear", extra=1)):
+        assert vars(chip_smoke.make_clargs(**kw)) == vars(
+            helpers.make_clargs(**kw))
+    jps, _, _ = ge._make_problem(16, 16)
+    assert vars(chip_smoke.bench_clargs(16)) == vars(jps.clargs)
 
 
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None
-sys.path[:0] = [ROOT, ROOT + "/tests"]
+sys.path[:0] = [ROOT]
 import torch
-from helpers import OPTIONS92_PARAMS, make_clargs
+from chip_smoke import OPTIONS92_PARAMS, make_clargs
 import ksfd_tpu_torch
 from ksfd_tpu_torch import NumericsOptions
 from ksfd_tpu_torch.interop import problem_from_clargs
@@ -244,7 +267,7 @@ u, t, e = multi(u0, torch.tensor(0.0, dtype=torch.float64),
 assert torch.isfinite(u).all() and torch.isfinite(e)
 assert float(t) == 2.0
 assert sys.modules["jax"] is None
-assert "ksfd_tpu" not in sys.modules
+assert "ksfd_tpu" not in sys.modules and "helpers" not in sys.modules
 assert not [m for m in sys.modules if m.startswith(("jax.", "ksfd_tpu."))]
 print("OK", float(e))
 """
