@@ -5,10 +5,10 @@ CUDA toolkit (nvcc):
 
     python3 chip_smoke.py
 
-It builds the CUDA stencil kernels of ksfd_tpu_torch from the sources
-in the checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per
-problem header, all started together) and runs ten phases, each
-printing one line:
+It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
+checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
+header, and csrc/pc2d.cu, all started together) and runs fourteen
+phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the float32 matmul precision and the kernels' builds;
@@ -34,9 +34,23 @@ printing one line:
    at 1024^2 x 3 and at 256^3 x 3, as phases 3 and 6;
 10. the fast mode on the card and on the CPU at 256^2 x 3 and 64^3 x 3,
     agreeing to 1e-4 of the summed increment plus 4 float32 ulps of the
-    state.
+    state;
+11. the fused pc's kernels (B5a pc_fwd, B5b pc_inv) against their plain
+    versions at 1024^2 x 3, 1536^2 x 3 and the ragged 200 x 136 x 3,
+    with CUDA-event times of each kernel, its plain version and the
+    basis-GEMM pc's cuBLAS call for the same function, and the bound;
+12. the main path with ``pc_pallas=True`` at 1024^2 x 3, f64 and f32,
+    as phases 3 and 9 (its profile must show no library GEMM), and on
+    the card against the CPU at 256^2 x 3;
+13. the adaptive chunk (``make_adaptive_chunk_fn``) at the flagship's
+    1536^2 x 3 (examples/aggregation2d), with the fused and with the
+    basis-GEMM pc: a smooth figure at h=1 and a stiff one from the rough
+    state, whose ladder must escalate;
+14. the chunk with the fused pc on the card and on the CPU at 128^2 x 3
+    of the flagship's spacing, agreeing in accepts, attempts and the
+    rejected flag.
 
-Then one JSON line of the eight kernels and, last, the result line.  Any
+Then one JSON line of the ten kernels and, last, the result line.  Any
 failed phase raises, so the exit code is not 0 and no result prints.
 It imports nothing of JAX.  Profiles and long reports go to
 chiprun_out/.
@@ -61,6 +75,10 @@ N_CMP = 256
 N3_BIG = 256
 N3_CMP = 64
 ODD3 = (40, 36, 20)
+N_AGG = 1536                # examples/aggregation2d, the flagship
+RAGGED = (200, 136)         # a size whose pc tiles are ragged
+N_CHUNK_CMP = 128
+GAMMA = 0.435866521508459   # ROS34PW2's diagonal: shift = 1/(h*GAMMA)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same sheet
 
@@ -130,19 +148,45 @@ def bench_clargs(n):
     return make_clargs(params=params)
 
 
+def example_params(name):
+    """The ``name=value`` parameter lines of examples/<name>, up to its
+    numerics block, without ``nelements``."""
+    params = []
+    with open(os.path.join(ROOT, "examples", name)) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith(("--petsc", "--numerics")):
+                break
+            if line and not line.startswith(("#", "--", "nelements=")):
+                params.append(line)
+    return params
+
+
 def agg3d_clargs(n):
     """The parameters of examples/aggregation3d (rho plus an attractant
     and a repellent ligand group, degree 3, periodic unit cube) with
     nelements=n."""
-    params = []
-    with open(os.path.join(ROOT, "examples", "aggregation3d")) as fh:
-        for line in fh:
-            line = line.strip()
-            if line.startswith("--petsc"):
-                break
-            if line and not line.startswith(("#", "--", "nelements=")):
-                params.append(line)
-    return make_clargs(params=params + ["nelements=%d" % n])
+    return make_clargs(params=example_params("aggregation3d")
+                       + ["nelements=%d" % n])
+
+
+def agg2d_clargs(n, extra=()):
+    """The parameters of examples/aggregation2d, the flagship (rho plus
+    an attractant and a repellent ligand group, degree 3, a periodic
+    4 x 4 square, 1536^2 elements) with nelements=n; ``extra``
+    parameters replace the file's of the same name."""
+    names = {p.split("=", 1)[0] for p in extra}
+    params = [p for p in example_params("aggregation2d")
+              if p.split("=", 1)[0] not in names]
+    return make_clargs(params=params + list(extra) + ["nelements=%d" % n])
+
+
+def agg2d_small_clargs(n):
+    """aggregation2d's parameters on an n x n grid of the flagship's
+    spacing (a square of side 4 n / 1536), so the stiffness per cell and
+    the rough state's peaks (10 cells wide) are the flagship's."""
+    side = "%.17g" % (4.0 * n / N_AGG)
+    return agg2d_clargs(n, ["width=" + side, "height=" + side])
 
 
 def initial_state(grid):
@@ -174,10 +218,13 @@ def rough_state(grid, ps):
     rng = np.random.default_rng(1234)
     rho = np.full((nx, ny), 300.0)
     w = 10.0 / nx
+    x, y = X[:, 0], Y[0]
     for cx, cy in rng.random((max(48, (nx * ny) // 8192), 2)):
-        dx = np.minimum(np.abs(X - cx), 1.0 - np.abs(X - cx))
-        dy = np.minimum(np.abs(Y - cy), 1.0 - np.abs(Y - cy))
-        rho += 0.95 * rhomax * np.exp(-(dx**2 + dy**2) / (2 * w * w))
+        # the Gaussian is separable: one outer product per peak
+        dx = np.minimum(np.abs(x - cx), 1.0 - np.abs(x - cx))
+        dy = np.minimum(np.abs(y - cy), 1.0 - np.abs(y - cy))
+        rho += (0.95 * rhomax) * np.outer(np.exp(-dx**2 / (2 * w * w)),
+                                          np.exp(-dy**2 / (2 * w * w)))
     rho = np.minimum(rho, 0.93 * rhomax)
     return np.stack([rho] + [rho * r for r in ligand_ratios(ps)])
 
@@ -278,18 +325,30 @@ def phase_device():
     return card
 
 
+# kernel names of library GEMMs (cuBLAS, CUTLASS) in a profile
+_LIBRARY_GEMM = ("gemm", "xmma", "cutlass", "sm90")
+
 # the kernels' mangled names, as ptxas reports them
 _PTXAS_NAMES = (("rhs_kernel", "rhs"), ("jvp_kernelILb0", "jvp"),
                 ("jvp_kernelILb1", "resid"), ("delta_kernel", "delta"))
 
 
-def ptxas_summary(log):
+#: csrc/pc2d.cu's pc_gemm<NF, A_BATCH, EPI> instances: the left product,
+#: the right product and the right product with the arrow epilogue
+_PTXAS_PC_NAMES = tuple(
+    ("pc_gemmILi%dELb%dELb%dE" % (nf, a, e), "%s nf=%d" % (what, nf))
+    for nf in (2, 3, 4)
+    for a, e, what in ((0, 0, "left"), (1, 0, "right"), (1, 1, "right+arrow"))
+)
+
+
+def ptxas_summary(log, names=_PTXAS_NAMES):
     """Registers, spills and static shared memory per kernel from an
     ``nvcc -Xptxas -v`` log."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = next((n for m, n in _PTXAS_NAMES if m in line), line)
+            name = next((n for m, n in names if m in line), line)
         elif "spill stores" in line and name:
             spills = line.strip().split(",")[1:]
             out.append([name, ",".join(spills).strip()])
@@ -303,6 +362,7 @@ def phase_build():
     header (the stencil coefficients depend on the grid spacing), all
     started together."""
     from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.ops.fused_pc import PC_BUILD
     from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
 
     configs = [
@@ -311,18 +371,27 @@ def phase_build():
         ("3d %d^3" % N3_BIG, agg3d_clargs(N3_BIG), (N3_BIG,) * 3),
         ("3d %dx%dx%d" % ODD3, agg3d_clargs(ODD3[0]), ODD3),
         ("3d %d^3" % N3_CMP, agg3d_clargs(N3_CMP), (N3_CMP,) * 3),
+        ("2d agg %d^2" % N_AGG, agg2d_clargs(N_AGG), (N_AGG, N_AGG)),
+        ("2d agg %d^2" % N_CHUNK_CMP, agg2d_small_clargs(N_CHUNK_CMP),
+         (N_CHUNK_CMP, N_CHUNK_CMP)),
     ]
     builds = []
     for label, clargs, shape in configs:
         # the header depends on the problem only, not on the device
         _, _, ops = problem_from_clargs(clargs, *shape, device="cpu")
-        builds.append((label, make_fused_kernels(ops).build))
+        build = make_fused_kernels(ops).build
+        if all(b.header != build.header for _, b in builds):
+            builds.append((label, build))
+    # the fused pc needs no header: one library for every grid
+    builds.append(("pc2d", PC_BUILD))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda lb: lb[1].library(), builds))
     wall = time.perf_counter() - t0
     reports = ["%s: %s" % (label, ptxas_summary(b.build_info["ptxas"]))
-               for label, b in builds[::2]]  # 1024^2, 256^3, 64^3
+               for label, b in builds[:5:2]]  # 1024^2, 256^3, 64^3
+    reports.append("pc2d: %s" % ptxas_summary(
+        PC_BUILD.build_info["ptxas"], _PTXAS_PC_NAMES))
     smem3d = []
     for fn in ("ksfd_smem_bytes", "ksfd_smem_bytes_rhs"):
         smem_fn = getattr(builds[2][1].library(), fn)
@@ -334,6 +403,7 @@ def phase_build():
               ", ".join("%s %.2f" % (l, b.build_info["nvcc_seconds"])
                         for l, b in builds),
               smem3d[0], smem3d[1], " | ".join(reports)))
+    return reports[-1]
 
 
 def clamped(u_raw, ops):
@@ -529,12 +599,14 @@ def phase_rhs_kernels(card):
             for key in ("2d", "3d")}
 
 
-def phase_main_path(card, tag, clargs, shape, phase, fast32=False):
+def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
+                    pc_pallas=False):
     """make_multistep_fn at ``shape`` x 3, default numerics (f64) or the
-    float32 fast mode, fixed dt h=1, from the near-uniform initial state:
-    exact launch counts of the 2- and 10-step chains (each counted from
-    0 just before the chain), slope timing and a profiled 2-step
-    chain."""
+    float32 fast mode, with the basis-GEMM pc or (``pc_pallas``) the
+    fused pc, fixed dt h=1, from the near-uniform initial state: exact
+    launch counts of the 2- and 10-step chains (each counted from 0 just
+    before the chain), slope timing and a profiled 2-step chain, which
+    on the fused pc's path must show no library GEMM."""
     from ksfd_tpu_torch import NumericsOptions
     from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
@@ -543,23 +615,29 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False):
     dev = torch.device("cuda")
     ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
     kern = make_fused_kernels(ops)
-    numerics = NumericsOptions(precision="float32" if fast32 else "float64")
+    numerics = NumericsOptions(precision="float32" if fast32 else "float64",
+                               pc_pallas=pc_pallas)
     per_step = (dict(rhs=4, jvp=8, resid=0, delta=0) if fast32
                 else dict(rhs=0, jvp=0, resid=8, delta=4))
+    if pc_pallas:
+        per_step.update(pc_fwd=12, pc_inv=12)
     multi, _ = make_multistep_fn(ops, numerics, atol=0.01,
                                  rtol=1e-6, static_steps=False,
                                  kernels=kern)
+    wrappers = dict(kern.kernels)
+    if pc_pallas:
+        wrappers.update(multi.fused_pc.kernels)
     u0 = torch.as_tensor(initial_state(grid), device=dev)
     t0 = torch.zeros((), dtype=torch.float64, device=dev)
     h = torch.full((), 1.0, dtype=torch.float64, device=dev)
 
     counts = {}
     for n in (2, 10):
-        for k in kern.kernels.values():
+        for k in wrappers.values():
             k.launches = 0
         u, t, emax = multi(u0, t0, h, n)
         torch.cuda.synchronize()
-        counts[n] = {name: k.launches for name, k in kern.kernels.items()}
+        counts[n] = {name: k.launches for name, k in wrappers.items()}
         check(counts[n] == {k: n * c for k, c in per_step.items()},
               "launch counts %s for %d steps" % (counts[n], n))
         check(u.dtype == (torch.float32 if fast32 else torch.float64),
@@ -599,9 +677,10 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False):
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     os.makedirs(OUT_DIR, exist_ok=True)
-    prec = "f32" if fast32 else "f64"
-    fname = "main_path_profile%s%s.txt" % ("" if len(shape) == 2 else "_3d",
-                                           "_f32" if fast32 else "")
+    prec = ("f32" if fast32 else "f64") + (" pc_pallas" if pc_pallas else "")
+    fname = "main_path_profile%s%s%s.txt" % (
+        "" if len(shape) == 2 else "_3d", "_pc" if pc_pallas else "",
+        "_f32" if fast32 else "")
     with open(os.path.join(OUT_DIR, fname), "w") as fh:
         fh.write("%s\n2-step chain, %s x 3 %s, h=%g\n%s\n" % (
             card, tag, prec, float(h), table))
@@ -615,10 +694,13 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False):
         if dt is None:
             dt = ev.self_cuda_time_total
         per_kernel[ev.key] = dt / 1e3 / 2  # ms per step
-    groups = {"gemm": 0.0, "stencil kernels": 0.0, "other": 0.0}
+    groups = {"gemm": 0.0, "pc kernels": 0.0, "stencil kernels": 0.0,
+              "other": 0.0}
     for key, ms in per_kernel.items():
         low = key.lower()
-        if any(w in low for w in ("gemm", "xmma", "cutlass", "sm90")):
+        if "pc_gemm" in low:
+            groups["pc kernels"] += ms
+        elif any(w in low for w in _LIBRARY_GEMM):
             groups["gemm"] += ms
         elif "ksfd" in low or any(
                 w in low for w in ("rhs_kernel", "jvp_kernel",
@@ -627,6 +709,12 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False):
         else:
             groups["other"] += ms
     device_ms = sum(groups.values())
+    if pc_pallas:
+        check(groups["pc kernels"] > 0 and not [
+            k for k in per_kernel if "pc_gemm" not in k.lower()
+            and any(w in k.lower() for w in _LIBRARY_GEMM)],
+            "the pc_pallas chain runs the pc kernels and no library GEMM: "
+            "%s" % sorted(per_kernel))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     print("phase %d main path %s x3 %s h=%g (%s): counts %s; emax %.6e; "
           "max|u10-u0| %.6e; %.4f ms/step (2-step %.4f s, 10-step %.4f s); "
@@ -642,7 +730,7 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False):
 
 
 def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase,
-                      fast32=False):
+                      fast32=False, pc_pallas=False):
     """The slice at ``shape`` x 3 on the card (kernels) and on the CPU
     (plain versions) from one state made on the CPU: 4 chained steps at
     h=1e-4, agreeing to 1e-5 of the summed per-step increment (f64), or
@@ -652,7 +740,10 @@ def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase,
     from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.solvers import make_multistep_fn
 
-    numerics = NumericsOptions(precision="float32" if fast32 else "float64")
+    numerics = NumericsOptions(precision="float32" if fast32 else "float64",
+                               pc_pallas=pc_pallas)
+    if pc_pallas:
+        tag += " pc_pallas"
     runs = {}
     state = None
     for dev in ("cpu", "cuda"):
@@ -690,30 +781,336 @@ def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase,
               dev_abs / inc, tol, terms, runs["cuda"][1], runs["cpu"][1]))
 
 
-def kernel_rows(kern, src, counts, errs, rel, times, suffix):
-    """One row per kernel of ``kern``; counts maps each path ("f64",
-    "f32") to the kernel launches of its 10-step chain."""
+def pc_step_scalars(ops, u64, h=1.0):
+    """The fused pc's inputs of one step of size h from u64 at t=0, as
+    make_step_fn builds them: (shift, t, means, rho_diff, scalar pack)."""
+    from ksfd_tpu_torch.ops.fused_pc import pack_pc_scalars
+
+    dev = u64.device
+    u32 = ops.groom(u64).float()
+    nf = u32.shape[0]
+    t = torch.zeros((), dtype=torch.float64, device=dev)
+    shift = torch.full((), 1.0 / (h * GAMMA), dtype=torch.float64,
+                       device=dev)
+    means = [torch.mean(u32[i]) for i in range(nf)]
+    dG0 = ops._dG_fns[0](*[u32[i] for i in range(nf)], t)
+    rho_diff = torch.max(u32[0] * dG0)
+    return shift, t, means, rho_diff, pack_pc_scalars(ops, shift, t, means,
+                                                      rho_diff)
+
+
+def pc_bound(name, grid):
+    """(bound_ms, bound_by) of one fused-pc entry: its two float32
+    products per field, 2 nx ny (nx + ny) operations, and for pc_fwd the
+    arrow epilogue's 3 + 13 nl per mode, over 67 TFLOP/s, against the
+    bytes it must move (the fields in and out, the two bases, and for
+    pc_fwd lam2d and the scalar pack) over 3.35 TB/s."""
+    nx, ny = (int(n) for n in grid.Sshape)
+    nf = int(grid.dof)
+    nl = nf - 1
+    n_ops = nf * 2.0 * nx * ny * (nx + ny)
+    nbytes = 4.0 * (2 * nf * nx * ny + nx * nx + ny * ny)
+    if name == "pc_fwd":
+        n_ops += nx * ny * (3 + 13 * nl)
+        nbytes += 4.0 * (nx * ny + 3 + 4 * nl)
+    t_ops, t_bytes = n_ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_pc_kernels(card):
+    """B5a (pc_fwd) and B5b (pc_inv) against their plain versions on the
+    card at 1024^2 x 3, at the flagship's 1536^2 x 3 and at the ragged
+    RAGGED x 3, with the scalar packs of a step at h=1 from the rough and
+    the near-uniform state and v from a seeded generator: within 1e-5 of
+    max|plain|.  At the two square sizes, CUDA-event ms of each kernel,
+    of its plain version and of the library call that computes the same
+    function (the basis-GEMM pc's cuBLAS products: ``_forward`` then
+    ``_arrow_solve`` for pc_fwd, ``_inverse`` for pc_inv), and the
+    bound."""
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.ops.fused_pc import make_fused_block_pc
+    from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs, rel, lines, figures = {}, {}, [], {}
+    for label, clargs, shape in (
+            ("%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG)),
+            ("%d^2" % N_AGG, agg2d_clargs(N_AGG), (N_AGG, N_AGG)),
+            ("%dx%d" % RAGGED, bench_clargs(RAGGED[0]), RAGGED)):
+        ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
+        pc = make_fused_block_pc(grid, ops)
+        states = dict(
+            rough=torch.as_tensor(rough_state(grid, ps), device=dev),
+            initial=torch.as_tensor(initial_state(grid), device=dev))
+        for sname, u64 in states.items():
+            sc = pc_step_scalars(ops, u64)[-1]
+            v = torch.randn(tuple(grid.Vshape), generator=gen, device=dev)
+            modes = pc.fwd(sc, v)
+            out = pc.inv(modes)
+            for name, got, ref in (("pc_fwd", modes, pc.fwd.plain(sc, v)),
+                                   ("pc_inv", out, pc.inv.plain(modes))):
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                scale = float(ref.abs().max())
+                what = "%s %s %s" % (name, label, sname)
+                check(bool(torch.isfinite(got).all()), what + " finite")
+                check(err <= 1e-5 * scale, "%s: max err %.3e > 1e-5 * %.3e"
+                      % (what, err, scale))
+                errs[name] = max(errs.get(name, 0.0), err)
+                rel[name] = max(rel.get(name, 0.0), err / scale)
+                lines.append("%s/%s/%s err %.3e (%.2e rel)" % (
+                    name, label, sname, err, err / scale))
+        if shape == RAGGED:
+            continue
+        shift, t, means, rho_diff, sc = pc_step_scalars(ops, states["rough"])
+        v = torch.randn(tuple(grid.Vshape), generator=gen, device=dev)
+        lib = BlockSpectralPreconditioner(grid, ops, compute_dtype="float32",
+                                          device=dev)
+        fwd_in = pc.fwd.prepare(sc, v)
+        modes = pc.fwd.launch(*fwd_in)
+        inv_in = pc.inv.prepare(modes)
+        figures[label] = {
+            "pc_fwd": (
+                cuda_ms(lambda: pc.fwd.launch(*fwd_in), 50),
+                cuda_ms(lambda: pc.fwd.body(*fwd_in), 20),
+                cuda_ms(lambda: lib._arrow_solve(lib._forward(v), shift, t,
+                                                 means, rho_diff), 20),
+            ) + pc_bound("pc_fwd", grid),
+            "pc_inv": (
+                cuda_ms(lambda: pc.inv.launch(*inv_in), 50),
+                cuda_ms(lambda: pc.inv.body(*inv_in), 20),
+                cuda_ms(lambda: lib._inverse(modes), 20),
+            ) + pc_bound("pc_inv", grid),
+        }
+        del states, lib, modes
+    print("phase 11 pc kernels vs plain %d^2x3, %d^2x3 and %dx%dx3 (%s): "
+          "%s | ms kernel/plain/library (bound, by): %s" % (
+              N_BIG, N_AGG, RAGGED[0], RAGGED[1], card, "; ".join(lines),
+              "; ".join("%s %s %.4f/%.4f/%.4f (%.4f, %s)" % ((lab, n) + f)
+                        for lab, per in figures.items()
+                        for n, f in per.items())))
+    return pc, errs, rel, figures
+
+
+def chunk_numerics(pc_pallas, dt_max):
+    """examples/aggregation2d's numerics block (-ts_type rosw,
+    -ts_adapt_dt_max 10000, -ts_adapt_clip 0.1,5) as NumericsOptions
+    fields, with dt_max then pinned to ``dt_max``."""
+    import dataclasses
+
+    from ksfd_tpu_torch import NumericsOptions
+
+    flagship = NumericsOptions(ts_type="rosw", dt_max=1e4, clip_low=0.1,
+                               clip_high=5.0, pc_pallas=pc_pallas)
+    return dataclasses.replace(flagship, dt_max=dt_max)
+
+
+def chunk_wrappers(chunk):
+    """The kernel wrappers a chunk's tiers share, by name."""
+    out = dict(chunk.kernels.kernels)
+    if chunk.fused_pc is not None:
+        out.update(chunk.fused_pc.kernels)
+    return out
+
+
+def run_chunk(chunk, u, t, h, accepts):
+    """One chunk call from launch counts of 0: (its result, host seconds
+    to the synchronised end, the launches by kernel)."""
+    wrappers = chunk_wrappers(chunk)
+    for k in wrappers.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = chunk(u, t, h, 1e30, accepts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, {name: k.launches for name, k in wrappers.items()}
+
+
+#: accepted steps of the stiff figure's untimed spin-up (bench.py:332)
+CHUNK_SPIN = 64
+
+
+def phase_chunk(card, ops, grid, ps, kern, u_rough, pc_pallas):
+    """make_adaptive_chunk_fn at the flagship's 1536^2 x 3 (aggregation2d's
+    parameters and numerics), with the fused or the basis-GEMM pc.
+    (a) smooth: the near-uniform state with dt_max pinned to h=1, every
+    attempt accepted, ms per accepted step from the slope of 2 and 10
+    accepts (min of 2).  (b) stiff: the rough state, an untimed spin-up
+    of CHUNK_SPIN accepts from h=1e-3 with dt_max=2 (a top-tier
+    rejection on the way is tolerated), then 2 and 10 accepts from h=2,
+    which must escalate; ms per accepted step from their slope.  Launches
+    per accepted step from the difference of the two runs' counts."""
+    from ksfd_tpu_torch.solvers import make_adaptive_chunk_fn
+
+    dev = torch.device("cuda")
+    tag = "pc_pallas" if pc_pallas else "basis-GEMM pc"
+    out = {}
+    # (a) smooth
+    chunk, _ = make_adaptive_chunk_fn(ops, chunk_numerics(pc_pallas, 1.0),
+                                      atol=0.01, rtol=1e-6,
+                                      max_attempts=4 * 14, kernels=kern)
+    u0 = torch.as_tensor(initial_state(grid), device=dev)
+    run_chunk(chunk, u0, 0.0, 1.0, 2)
+    samples, counts = {2: [], 10: []}, {}
+    for rep in range(2):
+        for n in (2, 10):
+            pert = 1e-9 * (3 + 2 * rep + (n == 10))
+            (u, t, h, k, att, rej), secs, cnt = run_chunk(
+                chunk, u0 * (1.0 + pert) + pert, 0.0, 1.0, n)
+            check(k == att == n and not rej and t == float(n),
+                  "smooth chunk %s: k=%d attempts=%d rejected=%s of %d"
+                  % (tag, k, att, rej, n))
+            check(bool(torch.isfinite(u).all()), "smooth chunk state finite")
+            samples[n].append(secs)
+            counts[n] = cnt
+    out["smooth_ms"] = (min(samples[10]) - min(samples[2])) / 8 * 1e3
+    out["smooth_per_accept"] = {n: (counts[10][n] - counts[2][n]) / 8
+                                for n in counts[10]}
+    out["smooth_counts"] = counts[10]
+    smooth_line = ("(a) smooth h=1: %.4f ms/accept (2-accept %.4f s, "
+                   "10-accept %.4f s), launches/accept %s" % (
+                       out["smooth_ms"], min(samples[2]), min(samples[10]),
+                       out["smooth_per_accept"]))
+    del chunk
+    # (b) stiff
+    chunk, _ = make_adaptive_chunk_fn(ops, chunk_numerics(pc_pallas, 2.0),
+                                      atol=0.01, rtol=1e-6,
+                                      max_attempts=8 * (CHUNK_SPIN + 4),
+                                      kernels=kern)
+    (u1, t1, h1, k, spin_att, rej), spin_s, _ = run_chunk(
+        chunk, u_rough, 0.0, 1e-3, CHUNK_SPIN)
+    spin = chunk.stats
+    check(k == CHUNK_SPIN and not rej,
+          "stiff spin-up %s: k=%d attempts=%d rejected=%s (records %s)" % (
+              tag, k, spin_att, rej, spin.records))
+    top_rejects = sum(1 for tier, e, _ in spin.records
+                      if tier == len(spin.tiers) - 1 and not e <= 1.0)
+    runs, counts = {}, {}
+    for n in (2, 10):
+        (u, t, h, k, att, rej), secs, cnt = run_chunk(chunk, u1, t1, 2.0, n)
+        check(k == n and not rej and bool(torch.isfinite(u).all()),
+              "stiff chunk %s: k=%d attempts=%d rejected=%s of %d (records "
+              "%s)" % (tag, k, att, rej, n, chunk.stats.records))
+        runs[n] = (secs, att, chunk.stats)
+        counts[n] = cnt
+    secs10, att10, st10 = runs[10]
+    check(att10 > 10, "stiff chunk %s: the escalation did not engage "
+          "(attempts %d for 10 accepts)" % (tag, att10))
+    out["stiff_ms"] = (secs10 - runs[2][0]) / 8 * 1e3
+    out["stiff_per_accept"] = {n: (counts[10][n] - counts[2][n]) / 8
+                               for n in counts[10]}
+    out["stiff_counts"] = counts[10]
+    out["stiff_attempts"] = att10
+    out["stiff_per_tier"] = st10.per_tier
+    print("phase 13 adaptive chunk %d^2x3 aggregation2d %s (%s): %s | (b) "
+          "stiff: spin-up %d accepts in %d attempts (per tier %s, top-tier "
+          "rejections %d, exit tier %d, h %.6g, t %.6g) %.2f s; 10 accepts "
+          "from h=2 in %d attempts (per tier %s, exit tier %d, h %.6g), "
+          "2 accepts in %d; %.4f ms/accept (2-accept %.4f s, 10-accept "
+          "%.4f s, %.4f ms/accept of the 10-accept run), launches/accept %s"
+          % (N_AGG, tag, card, smooth_line, CHUNK_SPIN, spin_att,
+             spin.per_tier, top_rejects, spin.tier, h1,
+             t1, spin_s, att10, st10.per_tier, st10.tier, h, runs[2][1],
+             out["stiff_ms"], runs[2][0], secs10, secs10 / 10 * 1e3,
+             out["stiff_per_accept"]))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chunk_records_%s.txt" % (
+            "pc" if pc_pallas else "gemm")), "w") as fh:
+        fh.write("%s\n(tier, enorm, h) per attempt, %d^2x3 %s\n" % (
+            card, N_AGG, tag))
+        for what, stats in (("spin-up", spin), ("10 accepts", st10)):
+            fh.write("%s: %s\n" % (what, stats.records))
+    return out
+
+
+def phase_chunk_card_vs_cpu(card):
+    """The chunk with the fused pc on the card and on the CPU (plain
+    versions) at 128^2 x 3 of the flagship's spacing, from the rough
+    state made once on the CPU at h=1e-3: 10 accepts within 30 attempts,
+    which walk through all three tiers.  Same accepts, attempts and
+    rejected flag; t and h within 1e-4 relative; u within 1e-4 of the
+    CPU run's increment max|u - u0|.  On a mismatch both per-attempt
+    records print before the failure."""
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.solvers import make_adaptive_chunk_fn
+
+    n = N_CHUNK_CMP
+    runs, state = {}, None
+    for dev in ("cpu", "cuda"):
+        ps, grid, ops = problem_from_clargs(agg2d_small_clargs(n), n, n,
+                                            device=dev)
+        if state is None:
+            state = torch.as_tensor(rough_state(grid, ps))
+        chunk, _ = make_adaptive_chunk_fn(ops, chunk_numerics(True, 1e4),
+                                          atol=0.01, rtol=1e-6,
+                                          max_attempts=30)
+        u, t, h, k, att, rej = chunk(state.to(dev), 0.0, 1e-3, 1e30, 10)
+        launches = {name: w.launches
+                    for name, w in chunk_wrappers(chunk).items()}
+        runs[dev] = (u.cpu(), t, h, k, att, rej, chunk.stats, launches)
+    (uc, tc, hc, kc, ac, rc, sc_, _), (ug, tg, hg, kg, ag, rg, sg, lg) = (
+        runs["cpu"], runs["cuda"])
+    inc = float((uc - state).abs().max())
+    dev_abs = float((ug - uc).abs().max())
+    same = ((kg, ag, rg) == (kc, ac, rc) and abs(tg - tc) <= 1e-4 * abs(tc)
+            and abs(hg - hc) <= 1e-4 * abs(hc) and dev_abs <= 1e-4 * inc)
+    if not same:
+        print("phase 14 records cpu: %s" % sc_.records)
+        print("phase 14 records cuda: %s" % sg.records)
+    check(same, "chunk card vs cpu: k %d/%d attempts %d/%d rejected %s/%s "
+          "t %.9g/%.9g h %.9g/%.9g max dev %.3e of increment %.3e" % (
+              kg, kc, ag, ac, rg, rc, tg, tc, hg, hc, dev_abs, inc))
+    check(kc == 10 and not rc and lg["pc_fwd"] > 0 and lg["resid"] > 0,
+          "chunk card vs cpu delivered its accepts through the kernels")
+    print("phase 14 chunk card vs cpu %d^2x3 (flagship spacing) pc_pallas "
+          "rough h0=1e-3 (%s): k %d, attempts %d (per tier cuda %s, cpu %s), "
+          "rejected %s; t %.9g vs %.9g, h %.9g vs %.9g; max dev %.3e, "
+          "increment %.6e, dev/inc %.3e; card launches %s" % (
+              n, card, kg, ag, sg.per_tier, sc_.per_tier, rg, tg, tc, hg, hc,
+              dev_abs, inc, dev_abs / inc, lg))
+
+
+def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
+                extra=None):
+    """One row per kernel of ``kern`` (a namespace of wrappers by name,
+    ``kernels``); ``per_step`` maps each path to the kernel launches per
+    step (per accepted step for the chunk) and ``totals`` to the
+    launches counted on the main-path runs.  ``times`` holds (ms,
+    plain ms[, library ms, bound ms, bound by]) per kernel; without the
+    bound it is computed from the stencil build.  ``extra`` adds keys to
+    a kernel's row by name."""
     rows = []
     for name, k in kern.kernels.items():
-        bound_ms, bound_by = kernel_bound(name, kern.build)
+        tm = times[name]
+        if len(tm) > 2:
+            ms, plain_ms, library_ms, bound_ms, bound_by = tm
+        else:
+            (ms, plain_ms), library_ms = tm, None
+            bound_ms, bound_by = kernel_bound(name, kern.build)
         rows.append({
             "name": name + suffix, "route": "cuda", "source": src,
             "replaces": k.replaces,
-            "launches": sum(c[name] for c in counts.values()),
-            "launches_per_step": {p: c[name] // 10
-                                  for p, c in counts.items()},
+            "launches": totals[name],
+            "launches_per_step": {p: c[name] for p, c in per_step.items()
+                                  if name in c},
             "max_abs_err": errs[name], "max_rel_err": rel[name],
-            "ms": times[name][0], "plain_ms": times[name][1],
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes a fused stencil row
-            "library_ms": None,
+            # no single PyTorch call computes a fused stencil row; the
+            # pc entries' is the basis-GEMM pc's cuBLAS apply
+            "library_ms": library_ms,
         })
+        if extra:
+            rows[-1].update(extra.get(name, {}))
     return rows
 
 
 def main():
     card = phase_device()
-    phase_build()
+    ptxas_pc = phase_build()
     kern, errs, rel, times = phase_kernels(card)
     counts, step_s, rate = phase_main_path(
         card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 3)
@@ -738,25 +1135,77 @@ def main():
                       (N3_CMP,) * 3,
                       lambda grid, ps: rough_state_3d(grid, ps, "cpu"), 10,
                       fast32=True)
+    pc_ragged, pc_errs, pc_rel, pc_figs = phase_pc_kernels(card)
+    counts_pc, step_pc_s, rate_pc = phase_main_path(
+        card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 12,
+        pc_pallas=True)
+    counts32_pc, step32_pc_s, rate32_pc = phase_main_path(
+        card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 12,
+        fast32=True, pc_pallas=True)
+    for fast32 in (False, True):
+        phase_card_vs_cpu(card, "%d^2" % N_CMP, bench_clargs(N_CMP),
+                          (N_CMP, N_CMP), rough_state, 12, fast32=fast32,
+                          pc_pallas=True)
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+
+    ps, grid, ops = problem_from_clargs(agg2d_clargs(N_AGG), N_AGG, N_AGG,
+                                        device="cuda")
+    kern_agg = make_fused_kernels(ops)
+    u_rough = torch.as_tensor(rough_state(grid, ps), device="cuda")
+    chunks = {pc: phase_chunk(card, ops, grid, ps, kern_agg, u_rough, pc)
+              for pc in (True, False)}
+    del u_rough
+    phase_chunk_card_vs_cpu(card)
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
     for key, (ks, es, rs, ts) in ((2, (kern, errs, rel, times)),
                                   (3, (kern3, errs3, rel3, times3))):
         _, e, r, tm = rhs["%dd" % key]
         es["rhs"], rs["rhs"], ts["rhs"] = e, r, tm
+    # launches per step of each path (per accepted step for the chunk),
+    # and the launches counted on the main-path runs
+    per_step = {p: {n: c // 10 for n, c in cs.items()} for p, cs in (
+        ("f64", counts), ("f32", counts32), ("f64_pc", counts_pc),
+        ("f32_pc", counts32_pc))}
+    runs2d = [counts, counts32, counts_pc, counts32_pc]
+    for pc, fig in chunks.items():
+        sfx = "_pc" if pc else ""
+        per_step["chunk_smooth" + sfx] = fig["smooth_per_accept"]
+        per_step["chunk_stiff" + sfx] = fig["stiff_per_accept"]
+        runs2d += [fig["smooth_counts"], fig["stiff_counts"]]
+    totals = {n: sum(c.get(n, 0) for c in runs2d)
+              for n in list(kern.kernels) + ["pc_fwd", "pc_inv"]}
+    per_step3 = {"f64": {n: c // 10 for n, c in counts3.items()},
+                 "f32": {n: c // 10 for n, c in counts32_3.items()}}
+    totals3 = {n: counts3[n] + counts32_3[n] for n in kern3.kernels}
+    big = "%d^2" % N_BIG
+    agg = "%d^2" % N_AGG
+    pc_times = {n: pc_figs[big][n] for n in ("pc_fwd", "pc_inv")}
+    pc_at_agg = {n: dict(zip(("ms_1536", "plain_ms_1536", "library_ms_1536",
+                              "bound_ms_1536"), pc_figs[agg][n][:4]))
+                 for n in ("pc_fwd", "pc_inv")}
     print(card)
     print(json.dumps({
         "kernels": kernel_rows(kern, "ksfd_tpu_torch/csrc/stencil2d.cu",
-                               dict(f64=counts, f32=counts32), errs, rel,
-                               times, "")
+                               per_step, totals, errs, rel, times, "")
         + kernel_rows(kern3, "ksfd_tpu_torch/csrc/stencil3d.cu",
-                      dict(f64=counts3, f32=counts32_3), errs3, rel3,
-                      times3, "3d"),
+                      per_step3, totals3, errs3, rel3, times3, "3d")
+        + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
+                      totals, pc_errs, pc_rel, pc_times, "",
+                      extra=pc_at_agg),
+        "ptxas_pc2d": ptxas_pc,
         "ms_per_step": step_s * 1e3, "dof_updates_per_s": rate,
         "ms_per_step_3d": step3_s * 1e3, "dof_updates_per_s_3d": rate3,
         "ms_per_step_f32": step32_s * 1e3, "dof_updates_per_s_f32": rate32,
         "ms_per_step_3d_f32": step32_3_s * 1e3,
         "dof_updates_per_s_3d_f32": rate32_3,
+        "ms_per_step_pc": step_pc_s * 1e3,
+        "ms_per_step_f32_pc": step32_pc_s * 1e3,
+        "ms_per_accept_chunk_smooth": chunks[False]["smooth_ms"],
+        "ms_per_accept_chunk_smooth_pc": chunks[True]["smooth_ms"],
+        "ms_per_accept_chunk_stiff": chunks[False]["stiff_ms"],
+        "ms_per_accept_chunk_stiff_pc": chunks[True]["stiff_ms"],
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

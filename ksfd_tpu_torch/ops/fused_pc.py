@@ -1,0 +1,302 @@
+"""Fused float32 block-preconditioner apply (``-pc_pallas 1``).
+
+Counterpart: ksfd_tpu/ops/pallas_pc.py:pack_pc_scalars,
+:pallas_pc_available and :make_pallas_block_pc.  The apply
+``M^{-1} v = Qx . arrow^{-1}(Qx^T v Qy) . Qy^T`` of the block spectral
+preconditioner (solvers/linalg.py BlockSpectralPreconditioner with
+``rho_diff`` set, the production configuration) runs as two kernels:
+
+- ``pc_fwd(sc, v32)``: per field ``Qx^T v_f Qy``, then the per-mode
+  arrow inverse (a Schur complement on the rho row) as the epilogue,
+  from ``lam2d`` and the scalar pack.  Replaces ``fwd_kernel``
+  (pallas_pc.py:153, launched at :196).
+- ``pc_inv(c)``: per field ``Qx c_f Qy^T``, back to physical space.
+  Replaces ``inv_kernel`` (pallas_pc.py:185, launched at :222).
+
+Each is a ``PCKernel``: on a CUDA tensor it launches the hand-written
+CUDA kernels of csrc/pc2d.cu (one library for every grid, built by nvcc
+at first use through fused_stencil.build_library) or raises; on a CPU
+tensor it runs its plain PyTorch version (``torch.matmul`` and the arrow
+formula of pallas_pc.py:164-183); any other device raises.  ``launches``
+counts calls of the C entry, each of which launches its two products.
+The operands stay float32 with float32 accumulation, the numerics of
+the reference's interpret-mode tests and of the port's cuBLAS apply
+with TF32 off; the TPU's bf16 MXU operands are not copied.
+
+The port's gate is wider than the reference's and stricter about what
+it refuses.  Any 2D extent runs (no 128-alignment: the kernels mask
+ragged tiles).  A 3D grid, ``pc_dtype`` float64, more than
+``MAX_NF`` fields or a with-G state raise NotImplementedError naming
+their ROADMAP item instead of falling back to the cuBLAS apply, as the
+reference falls back to its einsums (ksfd_tpu/solvers/solver.py:258-282).
+"""
+
+import ctypes
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .fused_stencil import build_library
+from .stencil import laplacian_eigendecomp
+
+__all__ = ["pack_pc_scalars", "fused_pc_available", "fused_pc_refusal",
+           "make_fused_block_pc", "PCKernel", "PC_BUILD", "MAX_NF"]
+
+CSRC_PC = Path(__file__).resolve().parent.parent / "csrc" / "pc2d.cu"
+#: fields per block of the CUDA kernels (their register budget)
+MAX_NF = 4
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    # (sc, v, qxt, qy, lam, tmp, out, nf, nx, ny, stream)
+    "ksfd_pc_fwd": [_P] * 7 + [_I] * 3 + [_P],
+    # (c, qx, qyt, tmp, out, nf, nx, ny, stream)
+    "ksfd_pc_inv": [_P] * 5 + [_I] * 3 + [_P],
+}
+_SRC = "ksfd_tpu/ops/pallas_pc.py"
+
+
+class _PCBuild:
+    """The one csrc/pc2d.cu library: it needs no problem header, so a
+    single build serves every grid and every fused pc."""
+
+    def __init__(self):
+        self.build_info = None
+        self._lib = None
+
+    def library(self):
+        if self._lib is None:
+            self._lib, self.build_info = build_library(
+                "", CSRC_PC, entries=_ENTRIES
+            )
+        return self._lib
+
+
+PC_BUILD = _PCBuild()
+
+
+def pack_pc_scalars(ops, shift, t, means, rho_diff):
+    """The per-step scalar vector the fused apply consumes:
+    ``[shift, rho_diff, rho_mean, dG_1..dG_nl, s_1..s_nl,
+    gamma_1..gamma_nl, D_1..D_nl]`` (float32), on the device of
+    ``means[0]``.  Each part is cast to float32 on its own, as
+    pallas_pc.py:90 casts it; device scalars stay on the device (no
+    host read)."""
+    dG, s, gamma, D = ops.linearization_coefficients(means, t)
+    nl = ops.nligands
+    dev = torch.as_tensor(means[0]).device
+    parts = [shift, rho_diff, means[0]]
+    parts += [dG[1 + l] for l in range(nl)]
+    parts += list(s) + list(gamma) + list(D)
+    return torch.stack([
+        torch.as_tensor(p, device=dev).to(torch.float32) for p in parts
+    ])
+
+
+def fused_pc_refusal(grid, ops, pc_dtype="float32"):
+    """Why the fused apply cannot run here, or None."""
+    if grid.dim != 2:
+        return ("pc_pallas on a %dD grid (the fused pc is 2D, as the "
+                "reference's is: ROADMAP Queue B item 5)" % grid.dim)
+    if ops is not None and grid.dof != ops.nligands + 1:
+        return "pc_pallas on a with-G state (ROADMAP Queue A item 13)"
+    if grid.dof > MAX_NF or grid.dof < 2:
+        return ("pc_pallas with %d fields (the CUDA kernels take 2..%d: "
+                "ROADMAP Queue B item 5)" % (grid.dof, MAX_NF))
+    if pc_dtype in ("float64", "f64"):
+        return ("pc_pallas with pc_dtype float64 (the fused apply is "
+                "float32: ROADMAP Queue B item 5)")
+    return None
+
+
+def fused_pc_available(grid, ops=None, pc_dtype="float32"):
+    """Whether the fused apply runs for this grid and pc dtype: a 2D
+    grid of the physical fields only (``dof == nligands + 1``), 2 to
+    MAX_NF of them, float32 transforms.  Any extent: no alignment."""
+    return fused_pc_refusal(grid, ops, pc_dtype) is None
+
+
+class PCKernel:
+    """One fused-pc entry: prepare, then the plain body or a CUDA launch.
+
+    ``prepare(*args)`` returns the float32 contiguous operands,
+    ``body(*operands)`` is the plain PyTorch version and
+    ``launch(*operands)`` the CUDA kernels on the same operands; the
+    argument ``state_arg`` decides the device.  ``launches`` counts
+    calls of the C entry and nothing else.
+    """
+
+    def __init__(self, name, body, launch, state_arg, replaces):
+        self.name = name
+        self.replaces = replaces
+        self.launches = 0
+        self._state_arg = state_arg
+        self._body = body
+        self._launch = launch
+
+    def prepare(self, *args):
+        return [torch.as_tensor(x).to(torch.float32).contiguous()
+                for x in args]
+
+    def __call__(self, *args):
+        dev = args[self._state_arg].device
+        if dev.type == "cuda":
+            return self.launch(*self.prepare(*args))
+        if dev.type == "cpu":
+            return self.body(*self.prepare(*args))
+        raise ValueError(
+            "%s kernel: tensors on %s; the kernel runs on cuda and its "
+            "plain version on cpu" % (self.name, dev)
+        )
+
+    def plain(self, *args):
+        """The plain PyTorch version on any device (never counted)."""
+        return self.body(*self.prepare(*args))
+
+    def body(self, *operands):
+        return self._body(*operands)
+
+    def launch(self, *operands):
+        """Launch the CUDA kernels on prepared operands."""
+        out = self._launch(*operands)
+        self.launches += 1
+        return out
+
+
+class _FusedPC:
+    """The bases, lam2d and the plain and CUDA bodies of one grid."""
+
+    def __init__(self, grid, ops, device):
+        nx, ny = (int(n) for n in grid.nps)
+        self.nf = int(grid.dof)
+        self.nl = self.nf - 1
+        self.Vshape = (self.nf, nx, ny)
+        self.Sshape = (nx, ny)
+        Qs, lams = [], []
+        for d in range(2):
+            Q, lam = laplacian_eigendecomp(
+                int(grid.nps[d]), float(grid.spacing[d]), grid.stencil_width
+            )
+            Qs.append(np.asarray(Q, dtype=np.float64))
+            lams.append(np.asarray(lam, dtype=np.float64))
+        f32 = lambda a: torch.as_tensor(
+            np.ascontiguousarray(a), dtype=torch.float32, device=device
+        )
+        # lam2d: the float64 total, rounded once (pallas_pc.py:130)
+        self.lam2d = f32(lams[0][:, None] + lams[1][None, :])
+        self.Qx, self.QxT = f32(Qs[0]), f32(Qs[0].T)
+        self.Qy, self.QyT = f32(Qs[1]), f32(Qs[1].T)
+
+    # -- plain versions -------------------------------------------------
+    def arrow(self, sc, cs):
+        """The arrow inverse per mode, pallas_pc.py:164-183 term by term
+        (float32)."""
+        nl, lam = self.nl, self.lam2d.to(cs.device)
+        shift, rho_diff, rho_mean = sc[0], sc[1], sc[2]
+        schur = shift - rho_diff * lam
+        num = cs[0]
+        backs = []
+        for l in range(nl):
+            dG_l, s_l = sc[3 + l], sc[3 + nl + l]
+            g_l, D_l = sc[3 + 2 * nl + l], sc[3 + 3 * nl + l]
+            inv_d = 1.0 / (shift + g_l - D_l * lam)
+            b_over_d = (-rho_mean * dG_l) * lam * inv_d
+            schur = schur - b_over_d * (-s_l)
+            num = num - b_over_d * cs[1 + l]
+            backs.append((-s_l, inv_d))
+        x_r = num / schur
+        outs = [x_r]
+        for l in range(nl):
+            c_l, inv_d = backs[l]
+            outs.append((cs[1 + l] - c_l * x_r) * inv_d)
+        return torch.stack(outs)
+
+    def plain_fwd(self, sc, v):
+        dev = v.device
+        cs = torch.matmul(torch.matmul(self.QxT.to(dev), v), self.Qy.to(dev))
+        return self.arrow(sc, cs)
+
+    def plain_inv(self, c):
+        dev = c.device
+        return torch.matmul(torch.matmul(self.Qx.to(dev), c),
+                            self.QyT.to(dev))
+
+    # -- CUDA launches --------------------------------------------------
+    def _check(self, name, sc, fields):
+        for x in ((sc,) if sc is not None else ()) + (fields,):
+            if x.device.type != "cuda" or x.dtype != torch.float32:
+                raise ValueError("%s kernel: operands must be float32 on "
+                                 "the card" % name)
+        if tuple(fields.shape) != self.Vshape or not fields.is_contiguous():
+            raise ValueError("%s kernel: operand shape %s, expected "
+                             "contiguous %s" % (name, tuple(fields.shape),
+                                                self.Vshape))
+        if self.Qx.device != fields.device:
+            raise ValueError("%s kernel: bases on %s, operand on %s" % (
+                name, self.Qx.device, fields.device))
+        if sc is not None and (sc.device != fields.device
+                               or sc.numel() != 3 + 4 * self.nl):
+            raise ValueError("%s kernel: scalar pack of %d on %s, expected "
+                             "%d on %s" % (name, sc.numel(), sc.device,
+                                           3 + 4 * self.nl, fields.device))
+
+    def _run(self, name, fields, ptrs):
+        lib = PC_BUILD.library()
+        tmp = torch.empty_like(fields)
+        out = torch.empty_like(fields)
+        with torch.cuda.device(fields.device):
+            stream = torch.cuda.current_stream(fields.device).cuda_stream
+            err = getattr(lib, "ksfd_" + name)(
+                *ptrs, tmp.data_ptr(), out.data_ptr(), self.nf,
+                *self.Sshape, stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                "%s kernel launch failed: cudaError %d" % (name, err)
+            )
+        return out
+
+    def launch_fwd(self, sc, v):
+        self._check("pc_fwd", sc, v)
+        return self._run("pc_fwd", v, [
+            sc.data_ptr(), v.data_ptr(), self.QxT.data_ptr(),
+            self.Qy.data_ptr(), self.lam2d.data_ptr(),
+        ])
+
+    def launch_inv(self, c):
+        self._check("pc_inv", None, c)
+        return self._run("pc_inv", c, [
+            c.data_ptr(), self.Qx.data_ptr(), self.QyT.data_ptr(),
+        ])
+
+
+def make_fused_block_pc(grid, ops, device=None):
+    """Build the fused apply ``apply(sc, v32) -> M^{-1} v32`` (float32).
+
+    Counterpart: ksfd_tpu/ops/pallas_pc.py:make_pallas_block_pc.  ``sc``
+    from ``pack_pc_scalars``; v32 is ``(dof, nx, ny)``.  The same
+    arithmetic as ``apply_linearized`` with ``rho_diff`` set, up to the
+    association of the products.  ``apply.fwd(sc, v32)`` and
+    ``apply.inv(c)`` are the two halves (PCKernels, also in
+    ``apply.kernels``); the bases live on ``device``, ops' device unless
+    given.
+    """
+    why = fused_pc_refusal(grid, ops)
+    if why is not None:
+        raise NotImplementedError("not ported yet (see ROADMAP): " + why)
+    device = resolve_device(device if device is not None else ops.device)
+    owner = _FusedPC(grid, ops, device)
+    fwd = PCKernel("pc_fwd", owner.plain_fwd, owner.launch_fwd, 1,
+                   _SRC + ":153")
+    inv = PCKernel("pc_inv", owner.plain_inv, owner.launch_inv, 0,
+                   _SRC + ":185")
+
+    def apply(sc, v32):
+        return inv(fwd(sc, v32))
+
+    apply.fwd = fwd
+    apply.inv = inv
+    apply.kernels = {"pc_fwd": fwd, "pc_inv": inv}
+    apply.owner = owner
+    return apply

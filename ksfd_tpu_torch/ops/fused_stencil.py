@@ -40,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -83,7 +84,17 @@ def _nvcc():
     return path
 
 
-def build_library(header, csrc=CSRC, ndim=2):
+def stencil_entries(ndim):
+    """ctypes argument types of the stencil entries ``ksfd_<name>``:
+    the pointers, then the ``ndim`` grid extents, then the stream."""
+    return {
+        "ksfd_" + name: [ctypes.c_void_p] * (n_in + 1)
+        + [ctypes.c_int] * ndim + [ctypes.c_void_p]
+        for name, n_in in _ENTRIES.items()
+    }
+
+
+def build_library(header, csrc=CSRC, ndim=2, entries=None):
     """Compile a kernel source (csrc/stencil2d.cu by default) with a
     generated pointwise header and load it.  Returns (ctypes.CDLL,
     info dict).
@@ -92,8 +103,10 @@ def build_library(header, csrc=CSRC, ndim=2):
     on the kernel source, the header and the flags, so a second call
     with the same problem reuses it and the 2D and 3D libraries are
     separate builds.  ``info`` holds the library path, the nvcc seconds
-    (0.0 when reused) and the ptxas report.  Each entry takes the
-    pointers, then the ``ndim`` grid extents, then the stream.
+    (0.0 when reused) and the ptxas report.  ``entries`` maps each C
+    entry to its ctypes argument types (each returns an int error
+    code); by default the stencil entries of ``stencil_entries(ndim)``.
+    A source that needs no header (csrc/pc2d.cu) passes ``header=""``.
     """
     csrc = Path(csrc)
     src = csrc.read_text()
@@ -108,7 +121,9 @@ def build_library(header, csrc=CSRC, ndim=2):
         nvcc = _nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "ksfd_pointwise.cuh").write_text(header)
-        tmp = out_dir / ("lib.%d.so" % os.getpid())
+        # unique per process and thread: two threads may build one key
+        tmp = out_dir / ("lib.%d.%d.so" % (os.getpid(),
+                                            threading.get_ident()))
         t0 = time.perf_counter()
         proc = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp),
@@ -123,12 +138,11 @@ def build_library(header, csrc=CSRC, ndim=2):
             )
         os.replace(tmp, lib)
     cdll = ctypes.CDLL(str(lib))
-    for name, n_in in _ENTRIES.items():
-        fn = getattr(cdll, "ksfd_" + name)
-        fn.argtypes = (
-            [ctypes.c_void_p] * (n_in + 1)
-            + [ctypes.c_int] * ndim + [ctypes.c_void_p]
-        )
+    if entries is None:
+        entries = stencil_entries(ndim)
+    for name, argtypes in entries.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     info = dict(
         path=str(lib), nvcc_seconds=seconds,

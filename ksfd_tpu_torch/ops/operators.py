@@ -227,6 +227,15 @@ class PDEOperators:
             outs.append(dU)
         return torch.stack(outs, dim=0)
 
+    def velocity(self, u, t=None):
+        """Worm velocity grad(G) of the groomed state: shape
+        (dim, *Sshape).  Counterpart: ksfd_tpu/ops/operators.py:velocity
+        (the adaptive chunk's CFL clamp reads it)."""
+        t = self.ps.t0 if t is None else t
+        u = self.groom(u)
+        G = self.G(u, t)
+        return torch.stack(grad_apply(G, self.spacing, self.sw), dim=0)
+
     def jacobian_action(self, u, t, v, groom=True):
         """Exact Jacobian-vector product d(rhs)/du @ v via
         torch.func.jvp (counterpart of jax.jvp)."""

@@ -1,6 +1,11 @@
 from .steppers import Tableau, ROS34PW2, BEULER, get_tableau, wlte_norm_delta
 from .linalg import SpectralPreconditioner, BlockSpectralPreconditioner
-from .gmres import richardson_solve, richardson_solve_resid
+from .gmres import (
+    chebyshev_solve,
+    chebyshev_solve_resid,
+    richardson_solve,
+    richardson_solve_resid,
+)
 from .solver import (
     Solver,
     make_adaptive_chunk_fn,
@@ -18,6 +23,8 @@ __all__ = [
     "BlockSpectralPreconditioner",
     "richardson_solve",
     "richardson_solve_resid",
+    "chebyshev_solve",
+    "chebyshev_solve_resid",
     "make_step_fn",
     "make_multistep_fn",
     "make_adaptive_chunk_fn",

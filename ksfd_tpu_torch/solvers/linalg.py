@@ -11,8 +11,9 @@ the reference's four-operand einsums (``"fijm,ik,jl,mn->fkln"`` and
 ``"fkln,ik,jl,mn->fijm"``) are written as three single-axis products,
 last axis first, so no intermediate is larger than the state.  The
 per-mode arrow solve between them is elementwise tensor arithmetic (XLA
-code in the reference too, ``_arrow_solve``; the Pallas version behind
-``-pc_pallas 1`` is ROADMAP Queue B item 5).
+code in the reference too, ``_arrow_solve``).  Behind ``-pc_pallas 1``
+the whole 2D apply is the hand-written CUDA pair of ops/fused_pc.py
+instead.
 
 The transforms run in the compute dtype (float32 by default, as
 ``pc_dtype`` auto resolves on one device).  On the card a float32

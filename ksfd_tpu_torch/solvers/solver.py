@@ -1,12 +1,17 @@
-"""The implicit step and the fixed-dt multistep loop.
+"""The implicit step, the fixed-dt multistep loop and the adaptive chunk.
 
-Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn and
-:make_multistep_fn on a single device, on 2D and 3D periodic grids, in
-its two precisions.  Both run one ROS34PW2 Rosenbrock-W step of 4
-stages, each stage solve ``ksp_iters`` (3) float32 Richardson sweeps
-``x = M(b)`` then ``x += M(b - W x)``, with the float32 block spectral
-preconditioner in its basis-GEMM form (solvers/linalg.py) built from
-the float32 state's means, ``dG/drho`` and ``rho_diff``.
+Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn,
+:make_multistep_fn, :make_adaptive_chunk_fn and :chunk_cfl_safety on a
+single device, on 2D and 3D periodic grids, in its two precisions.  A
+step is one ROS34PW2 Rosenbrock-W step of 4 stages, each stage solve
+``ksp_iters`` float32 preconditioner applications: Richardson sweeps
+``x = M(b)`` then ``x += M(b - W x)``, or (``ksp_type="chebyshev"``)
+the Chebyshev recurrence of solvers/gmres.py on an interval estimated
+on the device from the pointwise diffusivity spread.  M is the float32
+block spectral preconditioner built from the float32 state's means,
+``dG/drho`` and ``rho_diff``: in its basis-GEMM form
+(solvers/linalg.py), or with ``pc_pallas=True`` (2D) as the fused apply
+of ops/fused_pc.py, whose scalar pack is built once per step.
 
 - **float64 (default ``NumericsOptions()``)**: the state and the
   solution and embedded-difference sums are float64; each sweep's
@@ -14,43 +19,58 @@ the float32 state's means, ``dG/drho`` and ``rho_diff``.
   ops/fused_stencil3d.py); stages 2-4 get their right-hand side as
   ``f32(f0) + delta(...)``; the multistep chains f0 from step to step
   through the delta kernel, with one fresh float64 ``ops.rhs`` per
-  block.  Per step: 8 resid launches (2 per stage solve) and 4 delta
-  launches (3 stage right-hand sides and the f0 advance), no rhs or
-  jvp.
+  block.  Per step with 3 sweeps: 8 resid launches (2 per stage solve)
+  and 4 delta launches (3 stage right-hand sides and the f0 advance),
+  no rhs or jvp; with ``pc_pallas`` also 12 pc_fwd and 12 pc_inv.
 - **float32 fast mode (``precision="float32"``)**, the reference's
   ``fast32`` branch: u, t and h are cast to float32 and everything
   after is float32.  f0 and every stage right-hand side come from the
   rhs kernel (the stage states are not groomed first: the kernel
   grooms), W is ``shift*v - jvp(u, v, t)`` with the jvp kernel, and
-  the solve is the plain ``richardson_solve``; no f0 chain.  Per step:
-  4 rhs launches (f0 and stages 2-4) and 8 jvp launches (2 per stage
-  solve), no resid or delta.  ``stage_delta`` and ``sweep_dtype`` are
-  ignored, as the reference ignores them.
+  the solve is the plain ``richardson_solve`` (or ``chebyshev_solve``);
+  no f0 chain.  Per step with 3 sweeps: 4 rhs launches (f0 and stages
+  2-4) and 8 jvp launches (2 per stage solve), no resid or delta.
+  ``stage_delta`` and ``sweep_dtype`` are ignored, as the reference
+  ignores them.
 
-Every scalar of a step (t, h, shift, the means, ``rho_diff``, ``emax``)
-stays a 0-d tensor on the state's device: a step makes no host round
-trip.
+Every scalar of a step (t, h, shift, the means, ``rho_diff``, the
+Chebyshev interval, ``emax``) stays a 0-d tensor on the state's device:
+a step makes no host round trip.  The adaptive chunk's controller runs
+on the host and reads one scalar per attempt (see
+make_adaptive_chunk_fn).
 
 Everything else raises NotImplementedError naming its ROADMAP item:
-the adaptive chunk and host Solver loop (Queue A items 7-8), DIRK
-(item 9), other stage solvers (item 5), dense/direct tiers (item 12),
-the fast mode without the fused kernels (item 6), the FFT
-preconditioner (Queue A item 4), the Pallas preconditioner (Queue B
-item 5) and meshes (Queue A item 14).
+the host Solver loop (Queue A item 8), DIRK (item 9), the Krylov stage
+solvers (item 5), dense/direct tiers (item 12), the fast mode without
+the fused kernels (item 6), the FFT preconditioner (Queue A item 4),
+the fused preconditioner off its 2D float32 gate (Queue B item 5) and
+meshes (Queue A item 14).
 """
 
+import dataclasses
+import math
 from types import SimpleNamespace
 
 import torch
 
 from ..utils.cli import NumericsOptions
+from ..ops.fused_pc import (
+    fused_pc_refusal,
+    make_fused_block_pc,
+    pack_pc_scalars,
+)
 from ..ops.fused_stencil import make_fused_kernels
-from .gmres import richardson_solve, richardson_solve_resid
+from .gmres import (
+    chebyshev_solve,
+    chebyshev_solve_resid,
+    richardson_solve,
+    richardson_solve_resid,
+)
 from .linalg import BlockSpectralPreconditioner
 from .steppers import get_tableau, wlte_norm_delta
 
 __all__ = ["make_step_fn", "make_multistep_fn", "make_adaptive_chunk_fn",
-           "Solver"]
+           "chunk_cfl_safety", "Solver"]
 
 
 def _fast32(numerics):
@@ -66,14 +86,19 @@ def _to_f32(u, t, h):
     )
 
 
+def _pc_dtype(numerics):
+    """pc_dtype 'auto' resolves to float32 on one device."""
+    return "float32" if numerics.pc_dtype == "auto" else numerics.pc_dtype
+
+
 def _check_numerics(numerics, ops):
     """Raise NotImplementedError for any request off the ported paths."""
     fast32 = _fast32(numerics)
     todo = []
-    if numerics.ksp_type != "richardson":
+    if numerics.ksp_type not in ("richardson", "chebyshev"):
         todo.append(
             "ksp_type %r (dense/direct/banded/lu: Queue A item 12; "
-            "Krylov/Chebyshev: item 5)" % numerics.ksp_type
+            "Krylov: item 5)" % numerics.ksp_type
         )
     if numerics.pc_type != "block":
         todo.append("pc_type %r (Queue A item 4)" % numerics.pc_type)
@@ -88,7 +113,9 @@ def _check_numerics(numerics, ops):
     if numerics.pc_fft != "off":
         todo.append("pc_fft %r (Queue A item 4)" % numerics.pc_fft)
     if numerics.pc_pallas:
-        todo.append("pc_pallas (Queue B item 5)")
+        why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
+        if why is not None:
+            todo.append(why)
     if numerics.pc_dtype not in ("auto", "float32", "f32", "float64", "f64"):
         todo.append("pc_dtype %r (Queue A item 14)" % numerics.pc_dtype)
     if not fast32 and numerics.sweep_dtype not in ("float32", "f32"):
@@ -103,8 +130,34 @@ def _check_numerics(numerics, ops):
         )
 
 
+def _cheb_interval(numerics, shift, rho_d, rho_diff, cheb_lap):
+    """The Chebyshev interval (lmin, lmax) of M^{-1}W as float32 0-d
+    tensors on the device (ksfd_tpu/solvers/solver.py:436-495).
+
+    With ``cheb_lmin`` > 0 the knobs give it.  Otherwise it is estimated
+    per step: the pc bounds the rho diffusivity by its maximum
+    ``rho_diff``, so per mode the preconditioned eigenvalue is about
+    ``(shift + d|lam|) / (shift + rho_diff|lam|)``, smallest at the
+    stiffest mode (``cheb_lap``) and the smallest pointwise d (``dmin``);
+    ``cheb_safety`` widens it downward, and the clip keeps it inside
+    ``[1e-4, lmax/2]``."""
+    f32 = torch.float32
+    dev = rho_diff.device
+    b_hi = torch.full((), numerics.cheb_lmax, dtype=f32, device=dev)
+    if numerics.cheb_lmin > 0:
+        return torch.full((), numerics.cheb_lmin, dtype=f32,
+                          device=dev), b_hi
+    s32 = shift.to(f32)
+    dmin = torch.clamp(torch.min(rho_d).to(f32), min=0.0)
+    a_auto = (s32 + dmin * cheb_lap) / (s32 + rho_diff.to(f32) * cheb_lap)
+    lmin = torch.minimum(
+        torch.clamp(a_auto * numerics.cheb_safety, min=1e-4), 0.5 * b_hi
+    )
+    return lmin, b_hi
+
+
 def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
-                 mesh=None, chain_f0=False, kernels=None):
+                 mesh=None, chain_f0=False, kernels=None, fused_pc=None):
     """Build the implicit step ``(u, t, h) -> (u1, enorm)``.
 
     Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn.  u is a
@@ -123,21 +176,29 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     step) comes with the Solver, ROADMAP Queue A item 8.
 
     kernels: a ``make_fused_kernels(ops)`` namespace to share between
-    builds (its launch counters then count both).
+    builds (its launch counters then count both).  fused_pc: likewise a
+    ``make_fused_block_pc`` apply, used when ``numerics.pc_pallas``.
     """
     if mesh is not None:
         raise NotImplementedError("meshes are ROADMAP Queue A item 14")
     numerics = numerics or NumericsOptions()
     _check_numerics(numerics, ops)
     tab = tableau or get_tableau(numerics.ts_type)
-    pc_dtype = "float32" if numerics.pc_dtype == "auto" else numerics.pc_dtype
     precond = BlockSpectralPreconditioner(
-        ops.grid, ops, compute_dtype=pc_dtype, device=ops.device
+        ops.grid, ops, compute_dtype=_pc_dtype(numerics), device=ops.device
     )
     kern = kernels if kernels is not None else make_fused_kernels(ops)
+    pc_fused = None
+    if numerics.pc_pallas:
+        pc_fused = (fused_pc if fused_pc is not None
+                    else make_fused_block_pc(ops.grid, ops))
     iters = numerics.ksp_iters
     nf = ops.nligands + 1
     fast32 = _fast32(numerics)
+    use_cheb = numerics.ksp_type == "chebyshev"
+    # the Laplacian's largest |eigenvalue|, a build-time constant that
+    # turns the per-step diffusivity spread into the Chebyshev interval
+    cheb_lap = float((-precond.lam).max()) if use_cheb else None
 
     def _step_core(u, t, h, f0_chained=None):
         if fast32:
@@ -149,12 +210,22 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         means = [torch.mean(u32[i]) for i in range(nf)]
         # pointwise effective rho diffusivity bound (linalg docstring)
         dG0 = ops._dG_fns[0](*[u32[i] for i in range(nf)], t)
-        rho_diff = torch.max(u32[0] * dG0)
+        rho_d = u32[0] * dG0
+        rho_diff = torch.max(rho_d)
+        cheb_ab = _cheb_interval(numerics, shift, rho_d, rho_diff,
+                                 cheb_lap) if use_cheb else None
 
-        def Minv(v):
-            return precond.apply_linearized(
-                v, shift, t, means, rho_diff=rho_diff
-            )
+        if pc_fused is not None:
+            # the scalar pack once per step, not per apply
+            sc_pc = pack_pc_scalars(ops, shift, t, means, rho_diff)
+
+            def Minv(v):
+                return pc_fused(sc_pc, v.to(torch.float32)).to(v.dtype)
+        else:
+            def Minv(v):
+                return precond.apply_linearized(
+                    v, shift, t, means, rho_diff=rho_diff
+                )
 
         if fast32:
             f0 = kern.rhs(u, t)
@@ -165,6 +236,9 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 return shift * v - kern.jvp(u, v, t)
 
             def solve(bi):
+                if use_cheb:
+                    return chebyshev_solve(W, bi, Minv, iters=iters,
+                                           lmin=cheb_ab[0], lmax=cheb_ab[1])
                 return richardson_solve(W, bi, Minv, iters=iters)
         else:
             f0 = ops.rhs(u, t) if f0_chained is None else f0_chained
@@ -176,6 +250,11 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
 
             def solve(bi):
                 # f32 storage: the sweeps carry only f32 information
+                if use_cheb:
+                    return chebyshev_solve_resid(
+                        resid32, bi.to(torch.float32), Minv, iters=iters,
+                        lmin=cheb_ab[0], lmax=cheb_ab[1],
+                    )
                 return richardson_solve_resid(
                     resid32, bi.to(torch.float32), Minv, iters=iters
                 )
@@ -266,16 +345,19 @@ def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     once per call and chained through the delta kernel.  In the
     float32 fast mode u, t and h are cast to float32 once before the
     loop, t accumulates in float32, the plain step loop runs (no f0
-    chain) and u, t and emax come back float32.  Returns (fn, tableau).
+    chain) and u, t and emax come back float32.  Returns (fn, tableau);
+    ``fn.kernels`` and ``fn.fused_pc`` (None without ``pc_pallas``) hold
+    the kernel wrappers the steps share, and their launch counters.
     """
     kern = kernels if kernels is not None else make_fused_kernels(ops)
+    pc = _shared_fused_pc(ops, numerics, mesh)
     step, tab = make_step_fn(
         ops, numerics, atol=atol, rtol=rtol, tableau=tableau, mesh=mesh,
-        kernels=kern,
+        kernels=kern, fused_pc=pc,
     )
     chain, _ = make_step_fn(
         ops, numerics, atol=atol, rtol=rtol, tableau=tableau, mesh=mesh,
-        chain_f0=True, kernels=kern,
+        chain_f0=True, kernels=kern, fused_pc=pc,
     )
 
     fast32 = _fast32(numerics or NumericsOptions())
@@ -298,14 +380,242 @@ def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
             emax = torch.maximum(emax, enorm)
         return u, t, emax
 
+    multi.kernels, multi.fused_pc = kern, pc
     return multi, tab
 
 
-def make_adaptive_chunk_fn(ops, numerics=None, **kwargs):
-    """Counterpart: ksfd_tpu/solvers/solver.py:make_adaptive_chunk_fn."""
-    raise NotImplementedError(
-        "the adaptive chunk (tier ladder) is ROADMAP Queue A item 7"
-    )
+def _shared_fused_pc(ops, numerics, mesh):
+    """One fused pc shared by the steps that make_multistep_fn or
+    make_adaptive_chunk_fn builds, or None.  The options are checked
+    first, so a refused request raises as make_step_fn would."""
+    numerics = numerics or NumericsOptions()
+    if mesh is not None or not numerics.pc_pallas:
+        return None
+    _check_numerics(numerics, ops)
+    return make_fused_block_pc(ops.grid, ops)
+
+
+def chunk_cfl_safety(ps):
+    """Constant CFL factor for the adaptive chunk's clamp, or None (a
+    time-dependent factor needs the per-step host loop).  Counterpart:
+    ksfd_tpu/solvers/solver.py:chunk_cfl_safety."""
+    s = float(ps.values0.get("CFL_safety_factor", 0.0) or 0.0)
+    return s if s > 0.0 else None
+
+
+#: accepts a rescued step parks on its tier before probing
+ESC_PARK = 16
+#: a probe's tier sticks only if its accept has enorm <= PROBE_GOOD
+PROBE_GOOD = 0.5
+
+
+class ChunkLadder:
+    """The solve-tier ladder and step-size controller of the adaptive
+    chunk, on the host: ksfd_tpu/solvers/solver.py:1113-1212 with
+    Python numbers for ``lax.while_loop``'s carry.
+
+    ``update(enorm)`` takes one attempt's error norm (a float; NaN or
+    inf for a failed solve) at ``self.tier`` and step ``self.h`` and
+    moves the ladder, the counters and h as the reference's loop body
+    does.  Two reference defects are not copied:
+
+    - a finite rejection of an up-probe INTO THE TOP TIER
+      (solver.py:1122 counts it as a top-tier controller rejection:
+      shrink h, count a failure, reset the ladder) returns to the
+      resident tier at the same h, counts no failure and backs the
+      next probe off like an unimproved probe (``4 * ESC_PARK``);
+    - ``max_attempts`` (applied by the caller) defaults to
+      ``ntiers * max_rejects``, so a stuck state reaches the rejection
+      exit (solver.py:883 defaults to 64 < 3 x 24).
+    """
+
+    def __init__(self, numerics, ntiers, expo, h, max_rejects=24):
+        self.n = numerics
+        self.ntiers = ntiers
+        self.expo = expo
+        self.max_rejects = max_rejects
+        self.h = float(h)
+        self.tier = 0
+        self.park = ESC_PARK
+        self.probing = 0          # 1: down-probe, 2: up-probe
+        self.fails = 0
+
+    @property
+    def rejected(self):
+        return self.fails >= self.max_rejects
+
+    def update(self, enorm, cfl_h=math.inf):
+        """One attempt's outcome; returns whether it was accepted.
+        ``cfl_h``: the CFL bound on the next h after an accept."""
+        n, top = self.n, self.ntiers - 1
+        tier, park, probing = self.tier, self.park, self.probing
+        finite = math.isfinite(enorm)
+        ok = finite and enorm <= 1.0
+        esc = retry_top = False
+        if top > 0:
+            esc = finite and not ok and tier < top
+            topfail = finite and not ok and tier == top
+            # the repaired defect: an up-probe rejected at the top tier
+            retry_top = topfail and probing == 2
+            topfail = topfail and not retry_top
+            marginal = ok and enorm > PROBE_GOOD
+            down_bounce = probing == 1 and marginal and tier < top
+            up_return = probing == 2 and marginal and tier > 0
+            resolved = probing > 0 and ok
+            ordinary = ok and probing == 0
+            if ordinary:
+                park -= 1
+            expire = ordinary and park <= 0
+            probe_up = expire and marginal and tier < top
+            probe_down = expire and not marginal and tier > 0
+            if topfail:
+                tier = 0
+            elif esc or down_bounce or probe_up:
+                tier = min(tier + 1, top)
+            elif up_return or probe_down or retry_top:
+                tier -= 1
+            if esc or topfail or resolved or expire:
+                park = ESC_PARK
+            if up_return or retry_top:
+                park = 4 * ESC_PARK
+            probing = int(probe_down) + 2 * int(probe_up)
+        h = self.h
+        hfac = n.safety * max(enorm, 1e-300) ** self.expo if finite else 0.0
+        if ok:
+            h_acc = min(max(h * min(max(hfac, n.clip_low), n.clip_high),
+                            n.dt_min), n.dt_max)
+            self.h = min(h_acc, cfl_h)
+            self.fails = 0
+        elif not finite:
+            # non-finite: exit at once with h untouched
+            self.fails = self.max_rejects
+        elif not (esc or retry_top):
+            # a controller rejection: shrink h, count it
+            self.h = max(h * min(max(hfac, n.clip_low), 0.9), n.dt_min)
+            self.fails += 1
+        self.tier, self.park, self.probing = tier, park, probing
+        return ok
+
+
+def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
+                           tableau=None, max_attempts=None, mesh=None,
+                           max_rejects=24, cfl_safety=None, kernels=None):
+    """The adaptive integrator chunk ``chunk(u, t, h, tmax, max_accepts)
+    -> (u, t, h, k, attempts, rejected)``, and the tableau.
+
+    Counterpart: ksfd_tpu/solvers/solver.py:make_adaptive_chunk_fn.  It
+    runs step attempts until ``max_attempts`` attempts, ``k ==
+    max_accepts`` accepts, t > tmax, or the solver is stuck
+    (``max_rejects`` consecutive controller rejections or a non-finite
+    error norm, which leaves h untouched); ``rejected`` says it was
+    stuck.  A finite rejection below the top tier retries the same h one
+    tier up; the tiers are ``(ksp_type, ksp_iters)``, then
+    ``ksp_iters_max`` sweeps, then ``ksp_iters_max2`` applications as
+    Chebyshev when ``esc_cheb`` (the block pc's on-device interval), with
+    bidirectional probing every ``ESC_PARK`` accepts (ChunkLadder).  The
+    tiers are prebuilt steps sharing one ``make_fused_kernels`` (or
+    ``kernels``) and one fused pc; the f0 chain (one fresh float64 RHS
+    per call, advanced by the delta kernel on accepts) is used only when
+    every tier can chain.  ``cfl_safety`` > 0 clamps the post-accept h
+    by the velocity CFL bound of the groomed new state.
+
+    ``lax.while_loop``/``lax.switch`` become a host-side controller: the
+    ladder state, the counters, t and h are Python numbers, each attempt
+    gets t and h as 0-d float64 device tensors, and the one host read
+    per attempt is ``float(enorm)`` (with the CFL bound read in the same
+    transfer).  u keeps the caller's dtype (a fast-mode attempt's
+    float32 state is cast back, as the reference's carry is).
+    ``chunk.stats`` holds the last call's per-attempt records
+    ``(tier, enorm, h)``, the attempts per tier and the tier at exit.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded chunk needs meshes, ROADMAP Queue A item 14"
+        )
+    numerics = numerics or NumericsOptions()
+    _check_numerics(numerics, ops)
+    kern = kernels if kernels is not None else make_fused_kernels(ops)
+    pc = _shared_fused_pc(ops, numerics, mesh)
+    tiers = [(numerics.ksp_type, int(numerics.ksp_iters))]
+    esc_iters = int(getattr(numerics, "ksp_iters_max", 0) or 0)
+    if esc_iters > int(numerics.ksp_iters):
+        tiers.append((numerics.ksp_type, esc_iters))
+        esc2 = int(getattr(numerics, "ksp_iters_max2", 0) or 0)
+        if esc2 > esc_iters:
+            top_type = numerics.ksp_type
+            if numerics.esc_cheb and numerics.pc_type == "block":
+                top_type = "chebyshev"
+            tiers.append((top_type, esc2))
+    builds = []
+    for kt, it in tiers:
+        nm_t = dataclasses.replace(numerics, ksp_type=kt, ksp_iters=it)
+        kw = dict(atol=atol, rtol=rtol, tableau=tableau, kernels=kern,
+                  fused_pc=pc)
+        step, tab = make_step_fn(ops, nm_t, **kw)
+        chain, _ = make_step_fn(ops, nm_t, chain_f0=True, **kw)
+        builds.append((step, chain))
+    use_chain = all(c is not None for _, c in builds)
+    ntiers = len(builds)
+    if max_attempts is None:
+        max_attempts = ntiers * int(max_rejects)
+    expo = -1.0 / (tab.order + 1)
+    safety = None
+    if cfl_safety is not None and float(cfl_safety) > 0.0:
+        safety = float(cfl_safety)
+        reach = [float(s) * ops.grid.stencil_width
+                 for s in ops.grid.spacing]
+
+    def cfl_maxh(u, t):
+        """safety * min over axes of spacing*sw / max|v_axis| (inf where
+        the velocity vanishes), a 0-d tensor."""
+        vmax = torch.stack([v.abs().max() for v in ops.velocity(u, t)])
+        reach_t = torch.tensor(reach, dtype=vmax.dtype, device=vmax.device)
+        hs = torch.where(vmax > 0.0,
+                         reach_t / torch.clamp(vmax, min=1e-300), math.inf)
+        return safety * hs.min()
+
+    def chunk(u, t, h, tmax, max_accepts):
+        dev = u.device
+        t, tmax = float(t), float(tmax)
+        ladder = ChunkLadder(numerics, ntiers, expo, h, max_rejects)
+        f64 = lambda x: torch.full((), x, dtype=torch.float64, device=dev)
+        f0 = ops.rhs(ops.groom(u), f64(t)) if use_chain else None
+        k = attempts = 0
+        records = []
+        while (attempts < max_attempts and k < int(max_accepts)
+               and t <= tmax and not ladder.rejected):
+            tier, h = ladder.tier, ladder.h
+            step, chain = builds[tier]
+            if use_chain:
+                u1, enorm, f1 = chain.step(u, f64(t), f64(h), f0)
+            else:
+                u1, enorm = step(u, f64(t), f64(h))
+            if safety is None:
+                # the one host read of the attempt
+                enorm, cfl_h = float(enorm), math.inf
+            else:
+                cfl = cfl_maxh(ops.groom(u1), f64(t + h))
+                enorm, cfl_h = torch.stack(
+                    [enorm.to(cfl.dtype), cfl]).tolist()
+            records.append((tier, enorm, h))
+            attempts += 1
+            if ladder.update(enorm, cfl_h):
+                u = u1.to(u.dtype)
+                if use_chain:
+                    f0 = f1
+                t = t + h
+                k += 1
+        per_tier = [0] * ntiers
+        for tier, _, _ in records:
+            per_tier[tier] += 1
+        chunk.stats = SimpleNamespace(records=records, per_tier=per_tier,
+                                      tier=ladder.tier, tiers=tiers)
+        return u, t, ladder.h, k, attempts, ladder.rejected
+
+    chunk.stats = None
+    chunk.tiers = tiers
+    chunk.kernels, chunk.fused_pc = kern, pc
+    return chunk, tab
 
 
 class Solver:

@@ -132,11 +132,11 @@ def test_launch_counts_per_step(problems):
 
 
 @pytest.mark.parametrize("change", [
-    dict(ksp_type="gmres"), dict(ksp_type="chebyshev"),
+    dict(ksp_type="gmres"), dict(ksp_type="gmres_rolled"),
     dict(ksp_type="dense"), dict(pc_type="spectral"),
     dict(precision="float32", use_pallas=False),
     dict(precision="bfloat16"), dict(pc_fft="on"),
-    dict(pc_pallas=True),
+    dict(pc_pallas=True, pc_dtype="float64"),
     dict(pc_dtype="bfloat16"), dict(sweep_dtype="float64"),
     dict(stage_delta=False), dict(use_pallas=False),
     dict(ts_type="arkimex"),
@@ -149,7 +149,8 @@ def test_off_path_options_raise(problems, change):
 
 
 @pytest.mark.parametrize("build,item", [
-    (lambda ops: tsolver.make_adaptive_chunk_fn(ops), "item 7"),
+    (lambda ops: tsolver.make_adaptive_chunk_fn(ops, mesh=object()),
+     "item 14"),
     (lambda ops: tsolver.Solver(ops), "item 8"),
 ])
 def test_later_entry_points_raise(problems, build, item):
