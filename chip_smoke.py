@@ -7,7 +7,7 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs fourteen
+header, and csrc/pc2d.cu, all started together) and runs nineteen
 phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -48,9 +48,29 @@ phases, each printing one line:
     state, whose ladder must escalate;
 14. the chunk with the fused pc on the card and on the CPU at 128^2 x 3
     of the flagship's spacing, agreeing in accepts, attempts and the
-    rejected flag.
+    rejected flag;
+15. B11, the coefficient-field resid kernel, at 1024^2 x 3 on the
+    probe's state (ksfd_tpu_torch/tools/probe_coeff_kernel.py): against
+    its plain version and against B1, µs per launch of both, the
+    probe's slope µs/sweep of both chains, the bounds and the ms of
+    ``prepare``;
+16. the member-batched builds of B1, B2, B3 and B7 at 1024^2 x 3 for 4
+    distinct members: one batched launch under ``torch.func.vmap``
+    against the 4 single launches (bit for bit) and the plain version,
+    µs of both, ptxas registers and spills;
+17. the ensemble's fixed-dt path (EnsembleSolver, block_steps) at
+    1024^2 x 3 with 1, 4 and 8 members (f64) and 8 in the fast mode:
+    exact launches per ensemble step whatever the member count, ms per
+    ensemble step and per member, the busy share, members against
+    their own single runs;
+18. EnsembleSolver adaptive per step on examples/hexagons2d at its own
+    384^2 x 3, 4 members, with a forced fallback so that the float64
+    GMRES step runs;
+19. the ensemble on the card and on the CPU at 64^2 x 3, 3 members,
+    fixed-dt blocks and adaptive per step, agreeing in counts, t, h
+    and state.
 
-Then one JSON line of the ten kernels and, last, the result line.  Any
+Then one JSON line of the eleven kernels and, last, the result line.  Any
 failed phase raises, so the exit code is not 0 and no result prints.
 It imports nothing of JAX.  Profiles and long reports go to
 chiprun_out/.
@@ -58,15 +78,24 @@ chiprun_out/.
 
 import ctypes
 import json
-from argparse import Namespace
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+# the problem definitions, shared with the probes: the port's copy of
+# __graft_entry__._make_problem's parameters and tests/helpers.py's
+from ksfd_tpu_torch.interop import problem_from_clargs
+from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch.utils.device import card_line
+from ksfd_tpu_torch.tools.problems import (  # noqa: F401 (re-exported)
+    OPTIONS92_PARAMS,
+    bench_clargs,
+    make_clargs,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -78,6 +107,9 @@ ODD3 = (40, 36, 20)
 N_AGG = 1536                # examples/aggregation2d, the flagship
 RAGGED = (200, 136)         # a size whose pc tiles are ragged
 N_CHUNK_CMP = 128
+N_HEX = 384                 # examples/hexagons2d's own size
+N_ENS_CMP = 64              # the ensemble's card vs CPU check
+ENS_MEMBERS = (1, 4, 8)     # phase 17's member counts
 GAMMA = 0.435866521508459   # ROS34PW2's diagonal: shift = 1/(h*GAMMA)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same sheet
@@ -86,66 +118,6 @@ F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same sheet
 def check(cond, what):
     if not cond:
         raise RuntimeError("check failed: " + what)
-
-
-def card_line():
-    """``name, power.limit`` as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def make_clargs(params=(), source=(), cappotential="tophat",
-                seed=793817931, **kw):
-    """A Namespace shaped like ksfdsolver.py's parsed command line (the
-    port's copy of the reference's test helper of that name)."""
-    ns = Namespace(
-        cappotential=cappotential, save=None, check=None, resume=None,
-        restart=None, series_retries=0, series_retry_interval=60,
-        mpiok=False, showparams=False, noperiodic=False, onestep=False,
-        solver="tpu", seed=seed, source=list(source), params=list(params),
-        numerics=[], petsc=[],
-    )
-    for k, v in kw.items():
-        setattr(ns, k, v)
-    return ns
-
-
-#: Parameters of the two-ligand-group problem of the reference's
-#: convergence tests (options92 / options93nx128dt1), the base of the
-#: 2D bench problem.
-OPTIONS92_PARAMS = [
-    "dt=1", "tmax=200000", "maxsteps=10000", "width=1", "nelements=128",
-    "dim=1", "degree=3", "atol=0.01", "rtol=1e-6", "rhomin=1e-7",
-    "rhomax=28000", "cushion=2000", "sigma=0.02357", "s2=sigma**2/2",
-    "Nworms=0", "rho0=murho + arho*sin(2*pi*(0.25+k0*x))",
-    "U0_1_1=murho + arho*aUa*sin(2*pi*(0.25+k0*x))",
-    "U0_2_1=murho + arho*aUr*sin(2*pi*(0.25+k0*x))",
-    "murho=9000.0", "arho=1.0", "aUa=0.6846227279629311",
-    "aUr=0.088562372925828", "lamda=0.003974930217658144", "k0=4.0",
-    "srho0=0", "ngroups=2", "nligands_1=1", "alpha_1=1500",
-    "beta_1=5.56e-4", "s_1_1=0.01", "gamma_1_1=0.01", "D_1_1=1e-6",
-    "nligands_2=1", "alpha_2=1500", "beta_2=-5.56e-4", "s_2_1=0.001",
-    "gamma_2_1=0.001", "D_2_1=1e-5",
-]
-
-
-def bench_clargs(n):
-    """The options84-class bench problem on an n x n grid: the
-    parameters of __graft_entry__._make_problem."""
-    params = [
-        p for p in OPTIONS92_PARAMS
-        if p.split("=", 1)[0]
-        not in ("nelements", "dim", "rho0", "U0_1_1", "U0_2_1")
-    ] + [
-        "nelements=%d" % n, "nwidth=%d" % n, "nheight=%d" % n, "dim=2",
-        "height=1", "rho0=murho + arho*sin(2*pi*(x+y))", "U0_1_1=",
-        "U0_2_1=",
-    ]
-    return make_clargs(params=params)
 
 
 def example_params(name):
@@ -187,6 +159,27 @@ def agg2d_small_clargs(n):
     the rough state's peaks (10 cells wide) are the flagship's."""
     side = "%.17g" % (4.0 * n / N_AGG)
     return agg2d_clargs(n, ["width=" + side, "height=" + side])
+
+
+def hex_clargs():
+    """The parameters of examples/hexagons2d (the options81-class noisy
+    uniform start, rho plus an attractant and a repellent ligand group,
+    degree 3, a periodic unit square) at its own 384^2."""
+    return make_clargs(params=example_params("hexagons2d")
+                       + ["nelements=%d" % N_HEX])
+
+
+def hex_numerics(**kw):
+    """examples/hexagons2d's numerics block (-ts_type rosw,
+    -ts_adapt_type basic, -ts_adapt_dt_max 10000, -ts_adapt_dt_min 1e-20,
+    -ts_adapt_clip 0.1,5, -ksp_iters 16) as NumericsOptions fields; its
+    '-ksp_type preonly -pc_type lu' stays on the iterative stack at
+    384^2 x 3, as the reference routes it (solver.py:64-92)."""
+    from ksfd_tpu_torch import NumericsOptions
+
+    return NumericsOptions(ts_type="rosw", adapt_type="basic", dt_max=1e4,
+                           dt_min=1e-20, clip_low=0.1, clip_high=5.0,
+                           ksp_iters=16, **kw)
 
 
 def initial_state(grid):
@@ -253,13 +246,28 @@ def rough_state_3d(grid, ps, device, seed=1234):
     return torch.stack([rho] + [rho * r for r in ligand_ratios(ps)])
 
 
+#: cycles per second of torch.cuda._sleep, nominal (the H100 SXM's
+#: boost clock; a slower clock only lengthens the sleep)
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
 def cuda_ms(fn, reps):
-    """Mean ms of fn() over reps back-to-back calls (CUDA events),
-    after two warmup calls."""
+    """Mean ms of fn() over reps back-to-back calls (CUDA events), after
+    two warmup calls.  A sleep on the card, 1.5 times the host's time to
+    queue the calls (capped at 2 s), goes first: the card then runs the
+    queued calls back to back, so the events time the card's work and
+    not the host's launch rate (a ~35 µs launch from Python can take the
+    host longer than the card)."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0, 1.5 * reps * host_s + 1e-3)
+                          * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -268,8 +276,10 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-# operands read per kernel (the output is written once besides)
-_N_IN = dict(rhs=1, jvp=2, resid=3, delta=3)
+# state-sized planes read per kernel, in units of dof (the output, dof
+# planes, is written once besides); coeff_resid also reads C's 3 extra
+# planes
+_N_IN = dict(rhs=1, jvp=2, resid=3, delta=3, coeff_resid=3)
 
 
 def point_ops(name, build):
@@ -290,6 +300,10 @@ def point_ops(name, build):
         return (int(sy.count_ops(ops.G_expr)) + nl + 2 + graddot + lap + 2
                 + nl * (lap + 6))
     rows = 2 * graddot + 2 * lap + 5 + nl * (lap + 5)
+    if name == "coeff_resid":
+        # no pointwise function: dG = sum dG'_i v_i, the mask bits and
+        # the tangents' selects, then the rows and the residual
+        return rows + 4 * (nl + 1) + 3 * (nl + 1)
     if name == "delta":
         pointwise = int(sy.count_ops(ops.G_expr)) + int(
             sy.count_ops(ops.G_delta_expr)) + 4
@@ -299,12 +313,14 @@ def point_ops(name, build):
     return pointwise + rows + (3 * (nl + 1) if name == "resid" else 0)
 
 
-def kernel_bound(name, build):
+def kernel_bound(name, build, nb=1):
     """(bound_ms, bound_by): the larger of the bytes the function must
     move (each operand read once, the output written once) over the
-    card's memory rate and its operations over the f32 rate."""
-    points = int(np.prod(build.Sshape))
-    nbytes = (_N_IN[name] + 1) * build.dof * points * 4
+    card's memory rate and its operations over the f32 rate, for ``nb``
+    members."""
+    points = nb * int(np.prod(build.Sshape))
+    planes = (_N_IN[name] + 1) * build.dof + 3 * (name == "coeff_resid")
+    nbytes = planes * points * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = points * point_ops(name, build) / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -330,7 +346,8 @@ _LIBRARY_GEMM = ("gemm", "xmma", "cutlass", "sm90")
 
 # the kernels' mangled names, as ptxas reports them
 _PTXAS_NAMES = (("rhs_kernel", "rhs"), ("jvp_kernelILb0", "jvp"),
-                ("jvp_kernelILb1", "resid"), ("delta_kernel", "delta"))
+                ("jvp_kernelILb1", "resid"), ("delta_kernel", "delta"),
+                ("coeff_resid_kernel", "coeff_resid"))
 
 
 #: csrc/pc2d.cu's pc_gemm<NF, A_BATCH, EPI> instances: the left product,
@@ -361,9 +378,7 @@ def phase_build():
     """Build every kernel library the phases use, one nvcc per problem
     header (the stencil coefficients depend on the grid spacing), all
     started together."""
-    from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.ops.fused_pc import PC_BUILD
-    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
 
     configs = [
         ("2d %d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG)),
@@ -374,6 +389,9 @@ def phase_build():
         ("2d agg %d^2" % N_AGG, agg2d_clargs(N_AGG), (N_AGG, N_AGG)),
         ("2d agg %d^2" % N_CHUNK_CMP, agg2d_small_clargs(N_CHUNK_CMP),
          (N_CHUNK_CMP, N_CHUNK_CMP)),
+        ("2d hexagons %d^2" % N_HEX, hex_clargs(), (N_HEX, N_HEX)),
+        ("2d %d^2" % N_ENS_CMP, bench_clargs(N_ENS_CMP),
+         (N_ENS_CMP, N_ENS_CMP)),
     ]
     builds = []
     for label, clargs, shape in configs:
@@ -504,8 +522,6 @@ def time_kernels(kern, cases, label, reps, plain_reps):
 
 def phase_kernels(card):
     """Each 2D kernel against its plain version on the card, 1024^2 x 3."""
-    from ksfd_tpu_torch.interop import problem_from_clargs
-    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
 
     dev = torch.device("cuda")
     ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
@@ -528,8 +544,6 @@ def phase_kernels_3d(card):
     """Each 3D kernel against its plain version on the card at 256^3 x 3
     (rough and near-uniform states, timed on the rough one) and at the
     odd size ODD3, whose tiles are ragged in every axis."""
-    from ksfd_tpu_torch.interop import problem_from_clargs
-    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -541,7 +555,7 @@ def phase_kernels_3d(card):
                   initial=torch.as_tensor(initial_state(grid), device=dev))
     cases = kernel_cases(kern, ops, states, gen)
     compare_kernels(kern, cases, errs, rel, lines)
-    times = time_kernels(kern, cases, "rough", 200, 200)
+    times = time_kernels(kern, cases, "rough", 200, 20)
     del cases, states
     ps, grid, ops = problem_from_clargs(agg3d_clargs(ODD3[0]), *ODD3,
                                         device=dev)
@@ -560,8 +574,6 @@ def phase_rhs_kernels(card):
     """The fast mode's rhs kernels against their plain versions on the
     card: B7 at 1024^2 x 3, B6a at 256^3 x 3 (rough, near-uniform and
     clamped states, timed on the rough one) and at the odd size ODD3."""
-    from ksfd_tpu_torch.interop import problem_from_clargs
-    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
 
     dev = torch.device("cuda")
     out = {}
@@ -589,7 +601,7 @@ def phase_rhs_kernels(card):
             rel["3d"] = max(rel["3d"], r["rhs"])
             continue
         errs[key], rel[key] = e["rhs"], r["rhs"]
-        out[key] = (kern, time_kernels(kern, cases, "rough", 200, 200))
+        out[key] = (kern, time_kernels(kern, cases, "rough", 200, 20))
         del cases, states
     print("phase 8 rhs kernels vs plain, B7 1024^2x3, B6a 256^3x3 and "
           "%dx%dx%dx3 (%s): %s | ms kernel/plain: 2d %.4f/%.4f; 3d "
@@ -608,8 +620,6 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
     before the chain), slope timing and a profiled 2-step chain, which
     on the fused pc's path must show no library GEMM."""
     from ksfd_tpu_torch import NumericsOptions
-    from ksfd_tpu_torch.interop import problem_from_clargs
-    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
     from ksfd_tpu_torch.solvers import make_multistep_fn
 
     dev = torch.device("cuda")
@@ -737,7 +747,6 @@ def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase,
     in the float32 fast mode to 1e-4 of it plus 4 float32 ulps of the
     state, which is float32 itself."""
     from ksfd_tpu_torch import NumericsOptions
-    from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.solvers import make_multistep_fn
 
     numerics = NumericsOptions(precision="float32" if fast32 else "float64",
@@ -828,7 +837,6 @@ def phase_pc_kernels(card):
     function (the basis-GEMM pc's cuBLAS products: ``_forward`` then
     ``_arrow_solve`` for pc_fwd, ``_inverse`` for pc_inv), and the
     bound."""
-    from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.ops.fused_pc import make_fused_block_pc
     from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
 
@@ -1034,7 +1042,6 @@ def phase_chunk_card_vs_cpu(card):
     rejected flag; t and h within 1e-4 relative; u within 1e-4 of the
     CPU run's increment max|u - u0|.  On a mismatch both per-attempt
     records print before the failure."""
-    from ksfd_tpu_torch.interop import problem_from_clargs
     from ksfd_tpu_torch.solvers import make_adaptive_chunk_fn
 
     n = N_CHUNK_CMP
@@ -1073,6 +1080,443 @@ def phase_chunk_card_vs_cpu(card):
               dev_abs, inc, dev_abs / inc, lg))
 
 
+#: the probe's sweeps per timed chain and repeats (probe_coeff_kernel)
+PROBE_SWEEPS = 64
+PROBE_REPEATS = 3
+
+
+def phase_coeff_kernel(card):
+    """B11 (the coefficient-field resid, ksfd_coeff_resid) at 1024^2 x 3
+    on the probe's state (ksfd_tpu_torch/tools/probe_coeff_kernel.py):
+    against its plain version (1e-5 of max|plain|) and against B1 on the
+    same (u, v, b) (relative deviation < 1e-5, the probe's assert);
+    CUDA-event µs per launch of each and of its plain version, the
+    probe's slope µs/sweep of both chains, the bounds and the ms of
+    ``prepare``.  Launches counted from 0 before the probe's run."""
+    from ksfd_tpu_torch.tools.probe_coeff_kernel import (
+        build_coeff_resid,
+        run as probe_run,
+    )
+
+    dev = torch.device("cuda")
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    kern = make_fused_kernels(ops)
+    b11 = kern.coeff_resid
+    b11.launches = kern.resid.launches = 0
+    res, (C, u32, v, b), _ = probe_run(N_BIG, PROBE_SWEEPS, PROBE_REPEATS,
+                                       dev, ops=ops, kern=kern)
+    torch.cuda.synchronize()
+    launches = b11.launches
+    check(res["rel_dev"] < 1e-5, "B11 vs B1 rel dev %.3e" % res["rel_dev"])
+    t, shift = 0.5, 37.0
+    out = b11(C, v, b, t, shift)
+    ref = b11.plain(C, v, b, t, shift)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(out).all()), "B11 finite")
+    check(err <= 1e-5 * scale, "B11 vs plain: max err %.3e > 1e-5 * %.3e"
+          % (err, scale))
+    prepare, _ = build_coeff_resid(ops, kern)
+    u64 = u32.double()
+    p11 = b11.prepare(C, v, b, t, shift)
+    p1 = kern.resid.prepare(u32, v, b, t, shift)
+    ms = {
+        "coeff_resid": (cuda_ms(lambda: b11.launch(*p11), 200),
+                        cuda_ms(lambda: b11.body(*p11), 20)),
+        "resid": (cuda_ms(lambda: kern.resid.launch(*p1), 200),
+                  cuda_ms(lambda: kern.resid.body(*p1), 20)),
+    }
+    prepare_ms = cuda_ms(lambda: prepare(u64, t), 20)
+    bounds = {n: kernel_bound(n, kern.build) for n in ms}
+    print("phase 15 B11 coeff-field resid %d^2x3 (%s): vs plain err %.3e "
+          "(%.2e rel); vs B1 rel dev %.3e | us/launch kernel/plain: B11 "
+          "%.3f/%.1f, B1 %.3f/%.1f, B1/B11 %.4f | bound us: B11 %.3f (%s), "
+          "B1 %.3f (%s) | slope us/sweep (%d sweeps, min of %d): B1 %.3f, "
+          "B11 %.3f, B1/B11 %.4f | prepare %.4f ms | probe launches %d" % (
+              N_BIG, card, err, err / scale, res["rel_dev"],
+              ms["coeff_resid"][0] * 1e3, ms["coeff_resid"][1] * 1e3,
+              ms["resid"][0] * 1e3, ms["resid"][1] * 1e3,
+              ms["resid"][0] / ms["coeff_resid"][0],
+              bounds["coeff_resid"][0] * 1e3, bounds["coeff_resid"][1],
+              bounds["resid"][0] * 1e3, bounds["resid"][1], PROBE_SWEEPS,
+              PROBE_REPEATS, res["production_us"], res["coeff_us"],
+              res["speedup"], prepare_ms, launches))
+    return dict(kern=kern, err=err, rel=err / scale, ms=ms["coeff_resid"],
+                bound=bounds["coeff_resid"], launches=launches, probe=res,
+                prepare_ms=prepare_ms)
+
+
+#: members of the batched-kernel phase
+NB = 4
+
+
+def batched_cases(ops, gen, nb):
+    """(name, per-member argument tuples) of the four 2D kernels for nb
+    distinct members: rough states scaled member by member, their own
+    tangents, right-hand sides and increments, and their own t and
+    shift (0-d tensors, so each member's scalar pack differs)."""
+    dev = torch.device("cuda")
+    shape = tuple(ops.grid.Vshape)
+    base = torch.as_tensor(rough_state(ops.grid, ops.ps), device=dev)
+    randn = lambda: torch.randn(shape, generator=gen, device=dev,
+                                dtype=torch.float64)
+    cases = {n: [] for n in ("rhs", "jvp", "resid", "delta")}
+    for i in range(nb):
+        u64 = ops.groom(base * (1.0 + 0.05 * i) + 10.0 * randn())
+        u = u64.float()
+        t = torch.full((), 0.1 * i, dtype=torch.float64, device=dev)
+        shift = torch.full((), (1.0 + i) / GAMMA, dtype=torch.float64,
+                           device=dev)
+        v, b = randn().float(), randn().float()
+        u1 = ops.groom(u64 + 100.0 * randn())
+        cases["rhs"].append((u, t.float()))
+        cases["jvp"].append((u, v, t))
+        cases["resid"].append((u, v, b, t, shift))
+        cases["delta"].append((u64, u1 - u64, u1, t))
+    return cases
+
+
+def phase_batched_kernels(card, kern):
+    """The member-batched builds of B1, B2, B3 and B7 at 1024^2 x 3 for
+    NB distinct members: one launch under ``torch.func.vmap`` (counted
+    once) equal bit for bit to the NB single launches and within 1e-5 of
+    max|plain| of the plain version under vmap; CUDA-event µs of one
+    batched launch against NB single launches; ptxas registers and
+    spills of the entries."""
+    from torch.func import vmap
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cases = batched_cases(kern.build.ops, gen, NB)
+    lines, figures, errs = [], {}, {}
+    for name, per in cases.items():
+        k = kern.kernels[name]
+        stacked = [torch.stack(xs) for xs in zip(*per)]
+        singles = [k(*args) for args in per]
+        n0 = k.launches
+        out = vmap(k)(*stacked)
+        torch.cuda.synchronize()
+        check(k.launches == n0 + 1, "%s under vmap launched %d times"
+              % (name, k.launches - n0))
+        ref = vmap(k.plain)(*stacked)
+        check(all(torch.equal(out[i], singles[i]) for i in range(NB)),
+              "%s batched launch equals %d single launches bit for bit"
+              % (name, NB))
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= 1e-5 * scale, "%s batched vs plain: %.3e > 1e-5 * %.3e"
+              % (name, err, scale))
+        errs[name] = (err, err / scale)
+        prepared = [k.prepare(*args) for args in per]
+        sc_b = torch.stack([p[0] for p in prepared])
+        ops_b = [torch.stack(xs) for xs in zip(*[p[1] for p in prepared])]
+        check(torch.equal(k.launch(sc_b, ops_b), out),
+              "%s prepared batched launch equals the vmapped one" % name)
+
+        def four():
+            for sc, operands in prepared:
+                k.launch(sc, operands)
+
+        figures[name] = (cuda_ms(lambda: k.launch(sc_b, ops_b), 100),
+                         cuda_ms(four, 100),
+                         kernel_bound(name, kern.build, NB))
+        lines.append("%s bitwise equal, vs plain %.3e (%.2e rel)" % (
+            name, err, err / scale))
+    ptxas = ptxas_summary(kern.build.build_info["ptxas"])
+    print("phase 16 batched kernels %d^2x3 nb=%d (%s): %s | us batched "
+          "launch / %d single launches (bound us x%d): %s | ptxas: %s" % (
+              N_BIG, NB, card, "; ".join(lines), NB, NB, "; ".join(
+                  "%s %.3f/%.3f (%.3f)" % (n, a * 1e3, b_ * 1e3, bd[0] * 1e3)
+                  for n, (a, b_, bd) in figures.items()), ptxas))
+    return figures, errs
+
+
+def ensemble_members(base, n, seed=0):
+    """n members ``base * (1 + 1e-4 N(0,1))`` (tools/ensemble_bench.py:
+    71-78), one numpy generator for all."""
+    rng = np.random.default_rng(seed)
+    return np.stack([base * (1.0 + 1e-4 * rng.standard_normal(base.shape))
+                     for _ in range(n)])
+
+
+def profile_device_ms(fn, steps):
+    """Device ms per step of ``fn()`` (which runs ``steps`` steps) from a
+    torch.profiler trace of the card alone (no host events, which cost
+    seconds on a vmapped block): the sum of the card's kernel times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    total = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != cuda_dev:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        total += ev.self_cuda_time_total if dt is None else dt
+    return total / 1e3 / steps
+
+
+def phase_ensemble_fixed(card):
+    """The ensemble's fixed-dt path at 1024^2 x 3 (phase 3's problem and
+    state, members base * (1 + 1e-4 N(0,1))): EnsembleSolver with
+    block_steps, whose vmapped make_multistep_fn runs every member's
+    steps through one batched launch per kernel call.  For N in
+    ENS_MEMBERS (f64) and N = 8 in the fast mode: one solve() of a
+    2-step block, the exact launches per ensemble step (8 resid + 4
+    delta, or 4 rhs + 8 jvp, the same for every N) from 2- and 10-step
+    blocks counted from 0, ms per ensemble step from their slope (min
+    of 3), per-member ms, DOF-updates/s, and the busy share from a
+    profiled 2-step block.  Each member of N = 4 (f64) against its own
+    single-member make_multistep_fn run: 2 steps at h = 1e-2 within
+    1e-5 of the increment (the batched products and reductions round
+    apart from the single ones), and the same at the timed h = 1
+    printed."""
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.solvers import EnsembleSolver, make_multistep_fn
+
+    dev = torch.device("cuda")
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    kern = make_fused_kernels(ops)
+    base = initial_state(grid)
+    figures, lines = {}, []
+    runs = [("f64", n) for n in ENS_MEMBERS] + [("f32", 8)]
+    for prec, n in runs:
+        fast32 = prec == "f32"
+        nm = NumericsOptions(adapt_type="none", precision="float32"
+                             if fast32 else "float64")
+        per_step = (dict(rhs=4, jvp=8, resid=0, delta=0) if fast32
+                    else dict(rhs=0, jvp=0, resid=8, delta=4))
+        es = EnsembleSolver(ops, nm, t0=0.0, dt=1.0, tmax=1e9, maxsteps=2,
+                            rtol=1e-6, atol=0.01, block_steps=2,
+                            kernels=kern)
+        U0 = torch.as_tensor(ensemble_members(base, n), device=dev)
+        out = es.solve(U0)
+        check((out.k == 2).all() and not out.diverged.any()
+              and bool(torch.isfinite(out.u).all()),
+              "ensemble %s N=%d solve: k %s" % (prec, n, out.k))
+        ts = torch.zeros(n, dtype=torch.float64, device=dev)
+        hs = torch.ones(n, dtype=torch.float64, device=dev)
+        counts, samples = {}, {2: [], 10: []}
+        for nst in (2, 10):
+            for k in kern.kernels.values():
+                k.launches = 0
+            _, _, emax = es._vmulti(U0, ts, hs, nst)
+            torch.cuda.synchronize()
+            counts[nst] = {name: k.launches
+                           for name, k in kern.kernels.items()}
+            check(counts[nst] == {k: nst * c for k, c in per_step.items()},
+                  "ensemble %s N=%d launch counts %s for %d steps"
+                  % (prec, n, counts[nst], nst))
+            check(bool(torch.isfinite(emax).all()), "ensemble emax finite")
+        for rep in range(3):
+            for nst in (2, 10):
+                pert = (1e-6 if fast32 else 1e-9) * (1 + 2 * rep
+                                                     + (nst == 10))
+                Up = U0 * (1.0 + pert) + pert
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                es._vmulti(Up, ts, hs, nst)
+                torch.cuda.synchronize()
+                samples[nst].append(time.perf_counter() - t0)
+                del Up
+        step_s = (min(samples[10]) - min(samples[2])) / 8
+        device_ms = profile_device_ms(lambda: es._vmulti(U0, ts, hs, 2), 2)
+        figures[prec, n] = dict(
+            ms=step_s * 1e3, member_ms=step_s * 1e3 / n,
+            rate=n * grid.n_dofs / step_s, device_ms=device_ms,
+            busy=device_ms / (step_s * 1e3), per_step=per_step,
+            launches={k: counts[2][k] + counts[10][k] for k in counts[2]})
+        lines.append("%s N=%d: %.4f ms/ens step (2-block %.4f s, 10-block "
+                     "%.4f s), %.4f ms/member, %.6e DOF-updates/s, device "
+                     "%.4f ms/ens step (busy %.3f), launches/step %s" % (
+                         prec, n, step_s * 1e3, min(samples[2]),
+                         min(samples[10]), step_s * 1e3 / n,
+                         n * grid.n_dofs / step_s, device_ms,
+                         device_ms / (step_s * 1e3),
+                         {k: c // 10 for k, c in counts[10].items()}))
+        if (prec, n) == ("f64", 4):
+            multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6,
+                                         kernels=kern)
+            devs = {}
+            for h in (1e-2, 1.0):
+                hs_h = torch.full((n,), h, dtype=torch.float64, device=dev)
+                ue, _, _ = es._vmulti(U0, ts, hs_h, 2)
+                worst = 0.0
+                for i in range(n):
+                    ui, _, _ = multi(U0[i], ts[i], hs_h[i], 2)
+                    inc = float((ui - U0[i]).abs().max())
+                    worst = max(worst, float((ue[i] - ui).abs().max()) / inc)
+                devs[h] = worst
+            check(devs[1e-2] <= 1e-5, "ensemble members vs single runs at "
+                  "h=1e-2: %.3e of the increment" % devs[1e-2])
+            lines.append("N=4 members vs their single runs (2 steps): "
+                         "%.3e of the increment at h=1e-2, %.3e at h=1"
+                         % (devs[1e-2], devs[1.0]))
+        del es, U0, out
+    print("phase 17 ensemble fixed-dt %d^2x3 h=1 (%s): %s" % (
+        N_BIG, card, " | ".join(lines)))
+    return figures
+
+
+def hex_starts(grid, n, seed):
+    """n starts 9000 + 90 N(0,1) per field, member i from numpy seed
+    seed + i: a stand-in for ic.py's srho0=90 noisy uniform start
+    (ROADMAP Queue A item 8 brings ic.py)."""
+    return np.stack([
+        9000.0 + 90.0 * np.random.default_rng(seed + i).standard_normal(
+            tuple(grid.Vshape))
+        for i in range(n)])
+
+
+#: accepted steps per member of phase 18's run
+HEX_STEPS = 24
+
+
+def phase_ensemble_adaptive(card):
+    """EnsembleSolver adaptive per-step (device_loop off) on
+    examples/hexagons2d's parameters and numerics at its own 384^2 x 3,
+    4 members from noisy uniform starts, dt=1e-8, HEX_STEPS accepts:
+    per member the accepts, rejections, fallback rescues and steps, the
+    t and h range, and ms per outer iteration.  Then one forced
+    fallback (the fast step fails for member 0 once, as
+    tests/test_ensemble.py:493-562 stages it), so the float64 GMRES step
+    runs on the card: member 0 is rescued and stays on it."""
+    from ksfd_tpu_torch.solvers import EnsembleSolver
+
+    dev = torch.device("cuda")
+    clargs = hex_clargs()
+    ps, grid, ops = problem_from_clargs(clargs, N_HEX, N_HEX, device=dev)
+    kern = make_fused_kernels(ops)
+    U0 = hex_starts(grid, 4, clargs.seed)
+    kw = dict(t0=0.0, dt=float(ps.params0["dt"]),
+              tmax=float(ps.params0["tmax"]), rtol=float(ps.params0["rtol"]),
+              atol=float(ps.params0["atol"]), kernels=kern)
+    es = EnsembleSolver(ops, hex_numerics(), maxsteps=HEX_STEPS, **kw)
+    hs_seen = []
+    es.add_monitor(lambda es, ks, ts, U: hs_seen.append(es.hs.copy()))
+    for k in kern.kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = es.solve(U0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kern.kernels.items()}
+    check((out.k == HEX_STEPS).all() and not out.diverged.any()
+          and bool(torch.isfinite(out.u).all()),
+          "hexagons2d ensemble: k %s diverged %s" % (out.k, out.diverged))
+    check(launches["resid"] > 0 and launches["delta"] > 0,
+          "hexagons2d ensemble ran through the kernels: %s" % launches)
+    hs = np.array(hs_seen)
+    members = "; ".join(
+        "m%d: k %d, rejections %d, fallback rescues %d, t %.6g, h "
+        "%.3g..%.3g" % (i, out.k[i], out.snes_failures[i], es.rescues[i],
+                        out.t[i], hs[:, i].min(), hs[:, i].max())
+        for i in range(4))
+    natural = dict(iterations=es.iterations, secs=secs, launches=launches,
+                   k=out.k.tolist(), rejections=out.snes_failures.tolist(),
+                   rescues=es.rescues.tolist())
+
+    # the forced fallback: member 0's first fast step fails, its robust
+    # retry runs (and is taken as accepted)
+    es = EnsembleSolver(ops, hex_numerics(), maxsteps=3, **kw)
+    es._build_steps()
+    step, fb = es._vstep, es._get_fallback()
+    forced = {"step": True, "fb": True}
+
+    def wstep(u, t, h):
+        u1, e = step(u, t, h)
+        if forced["step"]:
+            forced["step"] = False
+            e = e.clone()
+            e[0] = float("inf")
+        return u1, e
+
+    def wfb(u, t, h):
+        u1, e = fb(u, t, h)
+        if forced["fb"]:
+            forced["fb"] = False
+            fb_e.append(float(e))
+            e = torch.full_like(e, 0.5)
+        return u1, e
+
+    fb_e = []
+    es._vstep, es._fallback = wstep, wfb
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2 = es.solve(U0)
+    torch.cuda.synchronize()
+    fsecs = time.perf_counter() - t0
+    check(es.rescues[0] == 1 and es._fbm[0] and (out2.k == 3).all()
+          and bool(torch.isfinite(out2.u).all()),
+          "forced fallback: rescues %s fbm %s k %s" % (es.rescues, es._fbm,
+                                                       out2.k))
+    print("phase 18 ensemble adaptive hexagons2d %d^2x3 4 members dt=1e-8 "
+          "(%s): %d accepts each in %d outer iterations, %.3f s, %.4f ms per "
+          "outer iteration | %s | launches %s | forced fallback: member 0 "
+          "rescued (its GMRES step's own enorm %.4g) and parked on the "
+          "fallback, %.3f s for 3 accepts" % (
+              N_HEX, card, HEX_STEPS, natural["iterations"], secs,
+              secs / natural["iterations"] * 1e3, members, launches,
+              fb_e[0], fsecs))
+    return natural
+
+
+def phase_ensemble_card_vs_cpu(card):
+    """The ensemble on the card and on the CPU (plain versions) at
+    64^2 x 3 (the bench problem), 3 members from one numpy state: fixed
+    dt in 2-step blocks (4 steps at h=1e-3) and adaptive per step (8
+    accepts from h=1e-3).  The same k, rejections, snes_failures and
+    rescues per member; u within 1e-5 of the increment; t and h within
+    1e-6 relative on the fixed-dt path (they are equal) and 1e-5 on the
+    adaptive one: there each accept's h follows the embedded error
+    norm, a cancelling sum that the card's and the CPU's float32 sweeps
+    round apart (9.9e-7 measured; phase 14 allows 1e-4)."""
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.solvers import EnsembleSolver
+
+    n = N_ENS_CMP
+    cases = (("fixed", NumericsOptions(adapt_type="none"), 2, 4, 1e-6),
+             ("adaptive", NumericsOptions(), 1, 8, 1e-5))
+    lines = []
+    for label, nm, block, steps, th_rtol in cases:
+        runs, U0 = {}, None
+        for dev in ("cpu", "cuda"):
+            ps, grid, ops = problem_from_clargs(bench_clargs(n), n, n,
+                                                device=dev)
+            if U0 is None:
+                U0 = ensemble_members(initial_state(grid), 3, seed=1)
+            es = EnsembleSolver(ops, nm, t0=0.0, dt=1e-3, tmax=1e9,
+                                maxsteps=steps, rtol=1e-6, atol=0.01,
+                                block_steps=block)
+            out = es.solve(U0)
+            runs[dev] = (out.u.cpu().numpy(), out.t, out.h, out.k,
+                         out.snes_failures, es.rescues)
+        (uc, tc, hc, kc, sc_, rc), (ug, tg, hg, kg, sg, rg) = (runs["cpu"],
+                                                               runs["cuda"])
+        inc = float(np.abs(uc - U0).max())
+        dev_abs = float(np.abs(ug - uc).max())
+        trel = float(np.max(np.abs(tg - tc) / np.abs(tc)))
+        hrel = float(np.max(np.abs(hg - hc) / np.abs(hc)))
+        check((kg == kc).all() and (sg == sc_).all() and (rg == rc).all()
+              and (kc == steps).all(),
+              "ensemble card vs cpu %s: k %s/%s snes %s/%s rescues %s/%s"
+              % (label, kg, kc, sg, sc_, rg, rc))
+        check(trel <= th_rtol and hrel <= th_rtol and dev_abs <= 1e-5 * inc,
+              "ensemble card vs cpu %s: t %.3e h %.3e rel, u %.3e of the "
+              "increment %.3e" % (label, trel, hrel, dev_abs, inc))
+        lines.append("%s: k %s, rejections %s, t/h rel dev %.3e/%.3e, u "
+                     "dev %.3e (%.3e of the increment %.6e)" % (
+                         label, kg.tolist(), sg.tolist(), trel, hrel, dev_abs,
+                         dev_abs / inc, inc))
+    print("phase 19 ensemble card vs cpu %d^2x3 3 members (%s): %s" % (
+        n, card, " | ".join(lines)))
+
+
 def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
                 extra=None):
     """One row per kernel of ``kern`` (a namespace of wrappers by name,
@@ -1109,62 +1553,78 @@ def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
 
 
 def main():
-    card = phase_device()
-    ptxas_pc = phase_build()
-    kern, errs, rel, times = phase_kernels(card)
-    counts, step_s, rate = phase_main_path(
-        card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 3)
-    phase_card_vs_cpu(card, "%d^2" % N_CMP, bench_clargs(N_CMP),
-                      (N_CMP, N_CMP), rough_state, 4)
-    kern3, errs3, rel3, times3 = phase_kernels_3d(card)
-    counts3, step3_s, rate3 = phase_main_path(
-        card, "%d^3" % N3_BIG, agg3d_clargs(N3_BIG), (N3_BIG,) * 3, 6)
-    phase_card_vs_cpu(card, "%d^3" % N3_CMP, agg3d_clargs(N3_CMP),
-                      (N3_CMP,) * 3,
-                      lambda grid, ps: rough_state_3d(grid, ps, "cpu"), 7)
-    rhs = phase_rhs_kernels(card)
-    counts32, step32_s, rate32 = phase_main_path(
-        card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 9,
-        fast32=True)
-    counts32_3, step32_3_s, rate32_3 = phase_main_path(
-        card, "%d^3" % N3_BIG, agg3d_clargs(N3_BIG), (N3_BIG,) * 3, 9,
-        fast32=True)
-    phase_card_vs_cpu(card, "%d^2" % N_CMP, bench_clargs(N_CMP),
-                      (N_CMP, N_CMP), rough_state, 10, fast32=True)
-    phase_card_vs_cpu(card, "%d^3" % N3_CMP, agg3d_clargs(N3_CMP),
-                      (N3_CMP,) * 3,
-                      lambda grid, ps: rough_state_3d(grid, ps, "cpu"), 10,
-                      fast32=True)
-    pc_ragged, pc_errs, pc_rel, pc_figs = phase_pc_kernels(card)
-    counts_pc, step_pc_s, rate_pc = phase_main_path(
-        card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 12,
-        pc_pallas=True)
-    counts32_pc, step32_pc_s, rate32_pc = phase_main_path(
-        card, "%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG), 12,
-        fast32=True, pc_pallas=True)
-    for fast32 in (False, True):
-        phase_card_vs_cpu(card, "%d^2" % N_CMP, bench_clargs(N_CMP),
-                          (N_CMP, N_CMP), rough_state, 12, fast32=fast32,
-                          pc_pallas=True)
-    from ksfd_tpu_torch.interop import problem_from_clargs
-    from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+    seconds = []
 
+    def timed(label, fn, *args, **kw):
+        """fn(*args, **kw), its wall seconds recorded under ``label``."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds.append((label, time.perf_counter() - t0))
+        return out
+
+    card = phase_device()
+    ptxas_pc = timed("build", phase_build)
+    kern, errs, rel, times = timed("2", phase_kernels, card)
+    counts, step_s, rate = timed(
+        "3", phase_main_path, card, "%d^2" % N_BIG, bench_clargs(N_BIG),
+        (N_BIG, N_BIG), 3)
+    timed("4", phase_card_vs_cpu, card, "%d^2" % N_CMP, bench_clargs(N_CMP),
+          (N_CMP, N_CMP), rough_state, 4)
+    kern3, errs3, rel3, times3 = timed("5", phase_kernels_3d, card)
+    counts3, step3_s, rate3 = timed(
+        "6", phase_main_path, card, "%d^3" % N3_BIG, agg3d_clargs(N3_BIG),
+        (N3_BIG,) * 3, 6)
+    timed("7", phase_card_vs_cpu, card, "%d^3" % N3_CMP,
+          agg3d_clargs(N3_CMP), (N3_CMP,) * 3,
+          lambda grid, ps: rough_state_3d(grid, ps, "cpu"), 7)
+    rhs = timed("8", phase_rhs_kernels, card)
+    counts32, step32_s, rate32 = timed(
+        "9 2d", phase_main_path, card, "%d^2" % N_BIG, bench_clargs(N_BIG),
+        (N_BIG, N_BIG), 9, fast32=True)
+    counts32_3, step32_3_s, rate32_3 = timed(
+        "9 3d", phase_main_path, card, "%d^3" % N3_BIG,
+        agg3d_clargs(N3_BIG), (N3_BIG,) * 3, 9, fast32=True)
+    timed("10 2d", phase_card_vs_cpu, card, "%d^2" % N_CMP,
+          bench_clargs(N_CMP), (N_CMP, N_CMP), rough_state, 10, fast32=True)
+    timed("10 3d", phase_card_vs_cpu, card, "%d^3" % N3_CMP,
+          agg3d_clargs(N3_CMP), (N3_CMP,) * 3,
+          lambda grid, ps: rough_state_3d(grid, ps, "cpu"), 10, fast32=True)
+    pc_ragged, pc_errs, pc_rel, pc_figs = timed("11", phase_pc_kernels, card)
+    counts_pc, step_pc_s, rate_pc = timed(
+        "12 f64", phase_main_path, card, "%d^2" % N_BIG, bench_clargs(N_BIG),
+        (N_BIG, N_BIG), 12, pc_pallas=True)
+    counts32_pc, step32_pc_s, rate32_pc = timed(
+        "12 f32", phase_main_path, card, "%d^2" % N_BIG, bench_clargs(N_BIG),
+        (N_BIG, N_BIG), 12, fast32=True, pc_pallas=True)
+    for fast32 in (False, True):
+        timed("12 cpu", phase_card_vs_cpu, card, "%d^2" % N_CMP,
+              bench_clargs(N_CMP), (N_CMP, N_CMP), rough_state, 12,
+              fast32=fast32, pc_pallas=True)
     ps, grid, ops = problem_from_clargs(agg2d_clargs(N_AGG), N_AGG, N_AGG,
                                         device="cuda")
     kern_agg = make_fused_kernels(ops)
     u_rough = torch.as_tensor(rough_state(grid, ps), device="cuda")
-    chunks = {pc: phase_chunk(card, ops, grid, ps, kern_agg, u_rough, pc)
+    chunks = {pc: timed("13", phase_chunk, card, ops, grid, ps, kern_agg,
+                        u_rough, pc)
               for pc in (True, False)}
-    del u_rough
-    phase_chunk_card_vs_cpu(card)
+    del u_rough, kern_agg, ops
+    timed("14", phase_chunk_card_vs_cpu, card)
+    b11 = timed("15", phase_coeff_kernel, card)
+    batched, batched_errs = timed("16", phase_batched_kernels, card,
+                                  b11["kern"])
+    ens = timed("17", phase_ensemble_fixed, card)
+    hexa = timed("18", phase_ensemble_adaptive, card)
+    timed("19", phase_ensemble_card_vs_cpu, card)
+    print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
     for key, (ks, es, rs, ts) in ((2, (kern, errs, rel, times)),
                                   (3, (kern3, errs3, rel3, times3))):
         _, e, r, tm = rhs["%dd" % key]
         es["rhs"], rs["rhs"], ts["rhs"] = e, r, tm
-    # launches per step of each path (per accepted step for the chunk),
-    # and the launches counted on the main-path runs
+    # launches per step of each path (per accepted step for the chunk,
+    # per ensemble step for the ensembles, the same for every N), and
+    # the launches counted on the main-path runs
     per_step = {p: {n: c // 10 for n, c in cs.items()} for p, cs in (
         ("f64", counts), ("f32", counts32), ("f64_pc", counts_pc),
         ("f32_pc", counts32_pc))}
@@ -1174,6 +1634,9 @@ def main():
         per_step["chunk_smooth" + sfx] = fig["smooth_per_accept"]
         per_step["chunk_stiff" + sfx] = fig["stiff_per_accept"]
         runs2d += [fig["smooth_counts"], fig["stiff_counts"]]
+    per_step["ensemble_f64"] = ens["f64", 8]["per_step"]
+    per_step["ensemble_f32"] = ens["f32", 8]["per_step"]
+    runs2d += [f["launches"] for f in ens.values()] + [hexa["launches"]]
     totals = {n: sum(c.get(n, 0) for c in runs2d)
               for n in list(kern.kernels) + ["pc_fwd", "pc_inv"]}
     per_step3 = {"f64": {n: c // 10 for n, c in counts3.items()},
@@ -1185,10 +1648,33 @@ def main():
     pc_at_agg = {n: dict(zip(("ms_1536", "plain_ms_1536", "library_ms_1536",
                               "bound_ms_1536"), pc_figs[agg][n][:4]))
                  for n in ("pc_fwd", "pc_inv")}
+    # the member-batched builds at nb = NB: one batched launch, NB
+    # single launches and the bound of NB members
+    batched_keys = {n: {"ms_nb%d" % NB: a, "ms_%d_single" % NB: b_,
+                        "bound_ms_nb%d" % NB: bd[0],
+                        "batched_max_abs_err": batched_errs[n][0]}
+                    for n, (a, b_, bd) in batched.items()}
+    b11_row = {
+        "name": "coeff_resid", "route": "cuda",
+        "source": "ksfd_tpu_torch/csrc/stencil2d.cu",
+        "replaces": b11["kern"].coeff_resid.replaces,
+        "launches": b11["launches"],
+        "launches_per_step": {"probe": "1 per sweep"},
+        "path": "probe (ksfd_tpu_torch/tools/probe_coeff_kernel.py)",
+        "max_abs_err": b11["err"], "max_rel_err": b11["rel"],
+        "ms": b11["ms"][0], "plain_ms": b11["ms"][1],
+        "bound_ms": b11["bound"][0], "bound_by": b11["bound"][1],
+        "library_ms": None, "library": "none",
+        "probe_us_per_sweep": {"resid": b11["probe"]["production_us"],
+                               "coeff_resid": b11["probe"]["coeff_us"]},
+        "prepare_ms": b11["prepare_ms"],
+    }
     print(card)
     print(json.dumps({
         "kernels": kernel_rows(kern, "ksfd_tpu_torch/csrc/stencil2d.cu",
-                               per_step, totals, errs, rel, times, "")
+                               per_step, totals, errs, rel, times, "",
+                               extra=batched_keys)
+        + [b11_row]
         + kernel_rows(kern3, "ksfd_tpu_torch/csrc/stencil3d.cu",
                       per_step3, totals3, errs3, rel3, times3, "3d")
         + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
@@ -1206,6 +1692,10 @@ def main():
         "ms_per_accept_chunk_smooth_pc": chunks[True]["smooth_ms"],
         "ms_per_accept_chunk_stiff": chunks[False]["stiff_ms"],
         "ms_per_accept_chunk_stiff_pc": chunks[True]["stiff_ms"],
+        "ensemble": {"%s_N%d" % k: {kk: v for kk, v in f.items()
+                                    if kk not in ("per_step", "launches")}
+                     for k, f in ens.items()},
+        "ensemble_hexagons2d": hexa,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

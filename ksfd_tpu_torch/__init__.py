@@ -5,12 +5,15 @@ unchanged).  It imports torch and never jax, and it mirrors the
 reference's module layout: each docstring names its counterpart as
 ``ksfd_tpu/<file>:<function>``.
 
-What runs so far is the fixed-dt multistep (solvers/solver.py
-make_multistep_fn) on 2D and 3D periodic problems, with default
-numerics (a float64 state) and in the float32 fast mode
-(``NumericsOptions(precision="float32")``), with the float32 stencil
-kernels of ops/fused_stencil.py and ops/fused_stencil3d.py written in
-CUDA for Hopper (csrc/stencil2d.cu, csrc/stencil3d.cu).  Importing the
+What runs so far is the fixed-dt multistep and the adaptive chunk
+(solvers/solver.py make_multistep_fn, make_adaptive_chunk_fn) on 2D
+and 3D periodic problems, with default numerics (a float64 state) and
+in the float32 fast mode (``NumericsOptions(precision="float32")``),
+the fused pc (``pc_pallas``), the float64 GMRES fallback step and, on
+2D problems, ``solvers.EnsembleSolver`` (members batched through the
+kernels' member axis), with the float32 kernels of ops/fused_stencil.py,
+ops/fused_stencil3d.py and ops/fused_pc.py written in CUDA for Hopper
+(csrc/stencil2d.cu, csrc/stencil3d.cu, csrc/pc2d.cu).  Importing the
 package sets no global torch state (no default dtype, no default
 device): tensors carry their own dtype and device, float64 for the
 state as in the reference, float32 in the fast mode.

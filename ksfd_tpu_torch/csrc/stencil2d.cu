@@ -6,6 +6,7 @@
 //   ksfd_resid  <- resid_kernel :655 (rows from _jvp_rows :613)
 //   ksfd_jvp    <- jvp_kernel   :648
 //   ksfd_delta  <- delta_kernel :674
+//   ksfd_coeff_resid <- tools/probe_coeff_kernel.py resid_kernel :114
 // The problem (free energy G, its field derivatives dG, the increment
 // form G_delta, stencil coefficients, groom floors, ligand
 // coefficients) comes from the header that ops/codegen.py generates
@@ -44,6 +45,16 @@
 // Every C entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 //
+// Member-batched builds (pallas_stencil.py:523-535, B8): every entry
+// takes a member count nb >= 1 and launches one grid of nb x the tiles,
+// the member on blockIdx.z.  Operands are contiguous (nb, planes, nx,
+// ny) and the scalar pack is (nb, k), one row per member, as the
+// batched Pallas build reads scv(sc_ref, b, j) (pallas_stencil.py:530).
+// A block adds member * planes * nx * ny to its pointers and member * k
+// to the pack, and nothing else changes: the arithmetic of a member is
+// that of a single launch, so a batched launch equals nb single
+// launches bit for bit, and nb = 1 is the single-member kernel.
+//
 // Without __CUDACC__ (a host C++ compiler with the CUDA qualifiers
 // defined away, KSFD_NT=1 and one thread walking each block) the kernel
 // bodies compile as plain C++; tests/test_torch_kernels.py runs them so
@@ -75,8 +86,22 @@ constexpr int HX = TX + 2 * SW;
 constexpr int HY = TY + 2 * SW;
 constexpr int HN = HX * HY;
 // shared arrays per halo point: rhs 2 + NL, resid/jvp 4 + NL,
-// delta 4 + NL
+// delta 4 + NL, coeff_resid 4 + NL
 static_assert((4 + NL) * HN * 4 <= 48 * 1024, "tile too large for static shared memory");
+// scalar pack lengths, the row stride of a batched pack
+constexpr int SC_RHS = 2 * DOF + 1;  // t, means, G(means), reactions
+constexpr int SC_JVP = 1;            // t
+constexpr int SC_RESID = 2;          // t, shift
+constexpr int SC_DELTA = 3;          // t, rho_mean, G0_mean
+// coefficient planes of coeff_resid: rho_g, G, dG'_0..dG'_{DOF-1},
+// maskpack (tools/probe_coeff_kernel.py:183-205)
+constexpr int NC = DOF + 3;
+// coeff_resid reads NC + DOF planes per halo point (9 at DOF = 3).
+// Staged raw they would need (NC + DOF) * HN * 4 B of shared memory,
+// 48,960 B at DOF = 3 with the 16x64 tile, over the 48 KB static
+// limit.  It folds them as it loads them into B1's 4 + NL arrays (rho,
+// G, dG.v and the DOF masked tangents: 32,640 B at DOF = 3), so the
+// assert above covers it and it runs B1's tile, halo and occupancy.
 
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
@@ -102,6 +127,10 @@ rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   __shared__ float s_Uc[NL > 0 ? NL : 1][HN];
   const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
   const size_t plane = (size_t)nx * ny;
+  const size_t member = blockIdx.z * (size_t)DOF * plane;
+  sc += blockIdx.z * SC_RHS;
+  u += member;
+  out += member;
   const float rho_mean = sc[1], G_mean = sc[1 + DOF];
 
   for (int i = threadIdx.x; i < HN; i += NT) {
@@ -142,6 +171,37 @@ rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   }
 }
 
+// The rows of _jvp_rows (pallas_stencil.py:613) from the staged halo
+// arrays (rho, G, dG.v and the masked tangents) into out, and with
+// RESID the fused Richardson residual b - shift*v + J(u)v; shared by
+// jvp_kernel and coeff_resid_kernel.
+template <bool RESID>
+__device__ __forceinline__ void jvp_rows_out(
+    const float* s_rho, const float* s_G, const float* s_dG,
+    const float* s_vr, const float (*s_vU)[HN], float shift,
+    const float* __restrict__ v, const float* __restrict__ b,
+    float* __restrict__ out, int x0, int y0, int nx, int ny) {
+  const size_t plane = (size_t)nx * ny;
+  for (int i = threadIdx.x; i < TX * TY; i += NT) {
+    const int ix = i / TY, iy = i - ix * TY;
+    const int gx = x0 + ix, gy = y0 + iy;
+    if (gx >= nx || gy >= ny) continue;
+    const int c = (ix + SW) * HY + (iy + SW);
+    const size_t g = (size_t)gx * ny + gy;
+    const float vr = s_vr[c];
+    float row = graddot(&s_vr[c], &s_G[c]) + graddot(&s_rho[c], &s_dG[c]) +
+                vr * lap(&s_G[c]) + s_rho[c] * lap(&s_dG[c]);
+    out[g] = RESID ? b[g] - shift * v[g] + row : row;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      row = -ksfd_gamma(l) * s_vU[l][c] + ksfd_s(l) * vr +
+            ksfd_D(l) * lap(&s_vU[l][c]);
+      const size_t gl = (1 + l) * plane + g;
+      out[gl] = RESID ? b[gl] - shift * v[gl] + row : row;
+    }
+  }
+}
+
 // The J-action rows (and, with RESID, the fused Richardson residual
 // b - shift*v + J(u)v).  sc = [t, shift] (t is unused: the generated
 // G carries no time dependence).
@@ -154,6 +214,12 @@ jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   __shared__ float s_vU[NL > 0 ? NL : 1][HN];
   const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
   const size_t plane = (size_t)nx * ny;
+  const size_t member = blockIdx.z * (size_t)DOF * plane;
+  sc += blockIdx.z * (RESID ? SC_RESID : SC_JVP);
+  u += member;
+  v += member;
+  out += member;
+  if (RESID) b += member;
 
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / HY, hy = i - hx * HY;
@@ -180,25 +246,56 @@ jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   }
   __syncthreads();
 
-  const float shift = RESID ? sc[1] : 0.0f;
-  for (int i = threadIdx.x; i < TX * TY; i += NT) {
-    const int ix = i / TY, iy = i - ix * TY;
-    const int gx = x0 + ix, gy = y0 + iy;
-    if (gx >= nx || gy >= ny) continue;
-    const int c = (ix + SW) * HY + (iy + SW);
-    const size_t g = (size_t)gx * ny + gy;
-    const float vr = s_vr[c];
-    float row = graddot(&s_vr[c], &s_G[c]) + graddot(&s_rho[c], &s_dG[c]) +
-                vr * lap(&s_G[c]) + s_rho[c] * lap(&s_dG[c]);
-    out[g] = RESID ? b[g] - shift * v[g] + row : row;
+  jvp_rows_out<RESID>(s_rho, s_G, s_dG, s_vr, s_vU, RESID ? sc[1] : 0.0f, v,
+                      b, out, x0, y0, nx, ny);
+}
+
+// B11: jvp_kernel<true> fed from precomputed float32 coefficient fields
+// C = [rho_g, G, dG'_0..dG'_{DOF-1}, maskpack] (NC planes), with no
+// pointwise transcendental (tools/probe_coeff_kernel.py:114-161).  The
+// dG'_i are already masked (zero where field i's clamp is active), so
+// dG = sum_i dG'_i * v_i takes the raw tangent; the masked tangents of
+// the rows come from maskpack's bits (bit i: u_i above its floor).
+// sc = [t, shift].
+__global__ void __launch_bounds__(NT)
+coeff_resid_kernel(const float* __restrict__ sc, const float* __restrict__ C,
+                   const float* __restrict__ v, const float* __restrict__ b,
+                   float* __restrict__ out, int nx, int ny) {
+  __shared__ float s_rho[HN], s_G[HN], s_dG[HN], s_vr[HN];
+  __shared__ float s_vU[NL > 0 ? NL : 1][HN];
+  const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
+  const size_t plane = (size_t)nx * ny;
+  const size_t member = blockIdx.z * (size_t)DOF * plane;
+  sc += blockIdx.z * SC_RESID;
+  C += blockIdx.z * (size_t)NC * plane;
+  v += member;
+  b += member;
+  out += member;
+
+  for (int i = threadIdx.x; i < HN; i += NT) {
+    const int hx = i / HY, hy = i - hx * HY;
+    const size_t g =
+        (size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny);
+    float vv[DOF];
 #pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      row = -ksfd_gamma(l) * s_vU[l][c] + ksfd_s(l) * vr +
-            ksfd_D(l) * lap(&s_vU[l][c]);
-      const size_t gl = (1 + l) * plane + g;
-      out[gl] = RESID ? b[gl] - shift * v[gl] + row : row;
-    }
+    for (int k = 0; k < DOF; ++k) vv[k] = v[k * plane + g];
+    // maskpack holds small integers, exact in float32
+    const int mask = (int)C[(2 + DOF) * plane + g];
+    float dG = C[2 * plane + g] * vv[0];
+#pragma unroll
+    for (int k = 1; k < DOF; ++k) dG = dG + C[(2 + k) * plane + g] * vv[k];
+    s_rho[i] = C[g];
+    s_G[i] = C[plane + g];
+    s_dG[i] = dG;
+    s_vr[i] = (mask & 1) ? vv[0] : 0.0f;
+#pragma unroll
+    for (int l = 0; l < NL; ++l)
+      s_vU[l][i] = ((mask >> (1 + l)) & 1) ? vv[1 + l] : 0.0f;
   }
+  __syncthreads();
+
+  jvp_rows_out<true>(s_rho, s_G, s_dG, s_vr, s_vU, sc[1], v, b, out, x0, y0,
+                     nx, ny);
 }
 
 // Exact increment rhs(u1) - rhs(u0) of the source-free RHS, with
@@ -211,6 +308,12 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
   __shared__ float s_dU[NL > 0 ? NL : 1][HN];
   const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
   const size_t plane = (size_t)nx * ny;
+  const size_t member = blockIdx.z * (size_t)DOF * plane;
+  sc += blockIdx.z * SC_DELTA;
+  u0 += member;
+  d += member;
+  u1 += member;
+  out += member;
   const float rho_mean = sc[1], G_mean = sc[2];
 
   for (int i = threadIdx.x; i < HN; i += NT) {
@@ -254,8 +357,8 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
 }
 
 #ifdef __CUDACC__
-dim3 grid_for(int nx, int ny) {
-  return dim3((ny + TY - 1) / TY, (nx + TX - 1) / TX);
+dim3 grid_for(int nx, int ny, int nb) {
+  return dim3((ny + TY - 1) / TY, (nx + TX - 1) / TX, nb);
 }
 #endif
 
@@ -264,31 +367,42 @@ dim3 grid_for(int nx, int ny) {
 #ifdef __CUDACC__
 extern "C" {
 
+// nb: members (>= 1, at most 65535, gridDim.z's limit)
 int ksfd_rhs(const float* sc, const float* u, float* out, int nx, int ny,
-             void* stream) {
-  rhs_kernel<<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(sc, u, out,
-                                                                nx, ny);
+             int nb, void* stream) {
+  rhs_kernel<<<grid_for(nx, ny, nb), NT, 0, (cudaStream_t)stream>>>(
+      sc, u, out, nx, ny);
   return (int)cudaGetLastError();
 }
 
 int ksfd_jvp(const float* sc, const float* u, const float* v, float* out,
-             int nx, int ny, void* stream) {
-  jvp_kernel<false><<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(
+             int nx, int ny, int nb, void* stream) {
+  jvp_kernel<false><<<grid_for(nx, ny, nb), NT, 0, (cudaStream_t)stream>>>(
       sc, u, v, nullptr, out, nx, ny);
   return (int)cudaGetLastError();
 }
 
 int ksfd_resid(const float* sc, const float* u, const float* v,
-               const float* b, float* out, int nx, int ny, void* stream) {
-  jvp_kernel<true><<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(
+               const float* b, float* out, int nx, int ny, int nb,
+               void* stream) {
+  jvp_kernel<true><<<grid_for(nx, ny, nb), NT, 0, (cudaStream_t)stream>>>(
       sc, u, v, b, out, nx, ny);
   return (int)cudaGetLastError();
 }
 
 int ksfd_delta(const float* sc, const float* u0, const float* d,
-               const float* u1, float* out, int nx, int ny, void* stream) {
-  delta_kernel<<<grid_for(nx, ny), NT, 0, (cudaStream_t)stream>>>(
+               const float* u1, float* out, int nx, int ny, int nb,
+               void* stream) {
+  delta_kernel<<<grid_for(nx, ny, nb), NT, 0, (cudaStream_t)stream>>>(
       sc, u0, d, u1, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+int ksfd_coeff_resid(const float* sc, const float* C, const float* v,
+                     const float* b, float* out, int nx, int ny, int nb,
+                     void* stream) {
+  coeff_resid_kernel<<<grid_for(nx, ny, nb), NT, 0,
+                       (cudaStream_t)stream>>>(sc, C, v, b, out, nx, ny);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,13 @@ call signatures and scalar packing as the Pallas build's
   ops/delta.py, centred on float64 means.  Replaces ``delta_kernel``
   (:674).
 
+The 2D namespace also holds ``coeff_resid(C, v, b, t, shift)``, B11:
+the resid kernel fed from precomputed float32 coefficient fields ``C =
+[rho_g, G, dG'_0..dG'_{dof-1}, maskpack]`` (``(dof+3, nx, ny)``, built
+by ksfd_tpu_torch/tools/probe_coeff_kernel.py ``prepare``), with no
+pointwise transcendental.  Replaces the probe's ``resid_kernel``
+(tools/probe_coeff_kernel.py:114); it lies on no solver path.
+
 Each entry is a ``FusedKernel``: on a CUDA tensor it launches the
 hand-written CUDA kernel of csrc/stencil2d.cu (built at first use, see
 ``build_library``) or raises; on a CPU tensor it runs its plain
@@ -33,15 +40,31 @@ torchify'd G/dG/G_delta, summed over the axes in the order x, y(, z)
 of the Pallas bodies); any other device raises.  ``launches`` counts
 kernel launches and nothing else.  The kernels are memory-bound: see
 the note at the top of csrc/stencil2d.cu.
+
+**Member batching** (the counterpart of pallas_stencil.py
+``member_batching_rules``, :87-123).  A call goes through a
+``torch.library.custom_op`` (``ksfd_tpu_torch::stencil<n>``, one per
+operand count) whose ``register_vmap`` rule stands in for
+``jax.custom_batching``: under ``torch.func.vmap`` the rule receives
+the member-leading operands and scalar packs, broadcasts the unbatched
+ones (as pallas_stencil.py:113-118 does) and makes ONE batched launch
+of the 2D kernel (``(nb, dof, nx, ny)`` operands, an ``(nb, k)`` pack,
+members on ``blockIdx.z``), counted once.  So ``EnsembleSolver``
+vmaps the unchanged ``make_step_fn``/``make_multistep_fn``.  On CPU
+tensors the rule runs the plain body member by member.  A 3D batched
+call raises NotImplementedError (ROADMAP Queue B item 8): the 3D
+kernels have no member axis yet.
 """
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -63,12 +86,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_ENTRIES = {
-    "rhs": 2,    # (sc, u) -> out
-    "jvp": 3,    # (sc, u, v) -> out
-    "resid": 4,  # (sc, u, v, b) -> out
-    "delta": 4,  # (sc, u0, d, u1) -> out
+#: operands of each stencil entry (besides the scalar pack and out)
+_OPERANDS = {
+    "rhs": 1,          # (sc, u) -> out
+    "jvp": 2,          # (sc, u, v) -> out
+    "resid": 3,        # (sc, u, v, b) -> out
+    "delta": 3,        # (sc, u0, d, u1) -> out
+    "coeff_resid": 3,  # (sc, C, v, b) -> out, 2D only (B11)
 }
+#: the solver path's four entries, in both dimensions
+STEP_ENTRIES = ("rhs", "jvp", "resid", "delta")
 
 
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -84,13 +111,23 @@ def _nvcc():
     return path
 
 
+def entry_names(ndim):
+    """The stencil entries of a dimension's kernel source: the four of
+    the step, and in 2D also B11's ``coeff_resid`` (3D has none, as the
+    reference has none)."""
+    return STEP_ENTRIES + (("coeff_resid",) if ndim == 2 else ())
+
+
 def stencil_entries(ndim):
-    """ctypes argument types of the stencil entries ``ksfd_<name>``:
-    the pointers, then the ``ndim`` grid extents, then the stream."""
+    """ctypes argument types of the stencil entries ``ksfd_<name>`` of
+    a dimension: the scalar pack, operand and output pointers, the
+    ``ndim`` grid extents, in 2D the member count ``nb``, then the
+    stream."""
+    batch = [ctypes.c_int] if ndim == 2 else []
     return {
-        "ksfd_" + name: [ctypes.c_void_p] * (n_in + 1)
-        + [ctypes.c_int] * ndim + [ctypes.c_void_p]
-        for name, n_in in _ENTRIES.items()
+        "ksfd_" + name: [ctypes.c_void_p] * (_OPERANDS[name] + 2)
+        + [ctypes.c_int] * ndim + batch + [ctypes.c_void_p]
+        for name in entry_names(ndim)
     }
 
 
@@ -151,6 +188,45 @@ def build_library(header, csrc=CSRC, ndim=2, entries=None):
     return cdll, info
 
 
+#: live FusedKernels by key: the custom ops carry the key, not the object
+_KERNELS = weakref.WeakValueDictionary()
+_NEXT_KEY = itertools.count()
+
+
+def _op_impl(key, sc, *operands):
+    """The custom op's body outside vmap: one member."""
+    return _KERNELS[key].run(sc, operands)
+
+
+def _op_vmap(info, in_dims, key, sc, *operands):
+    """The vmap rule (pallas_stencil.py member_batching_rules): every
+    operand and the scalar pack get a leading member axis, the
+    unbatched ones broadcast to it, and the batched entry runs once."""
+    n = info.batch_size
+
+    def lead(x, dim):
+        x = x.movedim(dim, 0) if dim is not None else x.expand(
+            (n,) + tuple(x.shape))
+        return x.contiguous()
+
+    return _KERNELS[key].run_batched(
+        lead(sc, in_dims[1]),
+        [lead(x, d) for x, d in zip(operands, in_dims[2:])]), 0
+
+
+def _make_op(n_in):
+    args = ", ".join("Tensor x%d" % i for i in range(n_in))
+    op = torch.library.custom_op(
+        "ksfd_tpu_torch::stencil%d" % n_in, _op_impl, mutates_args=(),
+        schema="(int key, Tensor sc, %s) -> Tensor" % args)
+    op.register_vmap(_op_vmap)
+    return op
+
+
+#: the custom ops by operand count
+_STENCIL_OPS = {n: _make_op(n) for n in sorted(set(_OPERANDS.values()))}
+
+
 class FusedKernel:
     """One kernel entry: prepare, then the plain body or a CUDA launch.
 
@@ -158,27 +234,33 @@ class FusedKernel:
     pack and f32 contiguous operands (the packing of the Pallas
     wrappers); ``body(sc, operands)`` is the plain PyTorch version of
     the kernel and ``launch(sc, operands)`` the CUDA kernel on the same
-    operands.  ``launches`` counts CUDA launches.
+    operands, for one member or (2D) a leading member axis.  A call
+    dispatches through the custom op of its operand count, so
+    ``torch.func.vmap`` batches it (see the module docstring).
+    ``launches`` counts CUDA launches.  ``planes`` gives each operand's
+    leading extent (the state's ``dof`` unless given).
     """
 
-    def __init__(self, name, owner, prepare, body, replaces):
+    def __init__(self, name, owner, prepare, body, replaces, planes=None):
         self.name = name
         self.replaces = replaces
         self.launches = 0
         self._owner = owner
         self.prepare = prepare
         self._body = body
+        self.planes = tuple(planes or (owner.dof,) * _OPERANDS[name])
+        self.key = next(_NEXT_KEY)
+        _KERNELS[self.key] = self
 
     def __call__(self, *args):
         dev = args[0].device
-        if dev.type == "cuda":
-            return self.launch(*self.prepare(*args))
-        if dev.type == "cpu":
-            return self.body(*self.prepare(*args))
-        raise ValueError(
-            "%s kernel: tensors on %s; the kernel runs on cuda and its "
-            "plain version on cpu" % (self.name, dev)
-        )
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(
+                "%s kernel: tensors on %s; the kernel runs on cuda and its "
+                "plain version on cpu" % (self.name, dev)
+            )
+        sc, operands = self.prepare(*args)
+        return _STENCIL_OPS[len(operands)](self.key, sc, *operands)
 
     def plain(self, *args):
         """The plain PyTorch version on any device (never counted)."""
@@ -187,24 +269,62 @@ class FusedKernel:
     def body(self, sc, operands):
         return self._body(sc, *operands)
 
+    def run(self, sc, operands):
+        """One member: the CUDA kernel on a CUDA tensor, else the plain
+        version (the caller checked the device)."""
+        if sc.device.type == "cuda":
+            return self.launch(sc, operands)
+        return self.body(sc, operands)
+
+    def run_batched(self, sc, operands):
+        """A leading member axis: one batched launch on a CUDA tensor;
+        on a CPU tensor the plain version member by member."""
+        self._check_batchable()
+        if sc.device.type == "cuda":
+            return self.launch(sc, operands)
+        return torch.stack([self.body(sc[i], [x[i] for x in operands])
+                            for i in range(sc.shape[0])])
+
+    def _check_batchable(self):
+        if self._owner.dim != 2:
+            raise NotImplementedError(
+                "member-batched %dD kernels (%s under vmap, an ensemble of "
+                "%dD problems) are ROADMAP Queue B item 8 (3D)"
+                % (self._owner.dim, self.name, self._owner.dim)
+            )
+
     def launch(self, sc, operands):
-        """Launch the CUDA kernel on prepared operands."""
+        """Launch the CUDA kernel on prepared operands: ``(planes, *S)``
+        each with a ``(k,)`` pack, or (2D) ``(nb, planes, *S)`` with an
+        ``(nb, k)`` pack, one launch for all nb members."""
+        S = self._owner.Sshape
+        batched = operands[0].dim() == len(S) + 2
+        if batched:
+            self._check_batchable()
+        nb = int(operands[0].shape[0]) if batched else 1
+        lead = (nb,) if batched else ()
         for x in (sc,) + tuple(operands):
             if x.device != sc.device or x.dtype != torch.float32:
                 raise ValueError("%s kernel: operands must be f32 on one "
                                  "device" % self.name)
-        for x in operands:
-            if tuple(x.shape) != self._owner.Vshape or not x.is_contiguous():
+        for x, p in zip(operands, self.planes):
+            if tuple(x.shape) != lead + (p,) + S or not x.is_contiguous():
                 raise ValueError("%s kernel: operand shape %s, expected "
                                  "contiguous %s" % (self.name, tuple(x.shape),
-                                                    self._owner.Vshape))
+                                                    lead + (p,) + S))
+        if sc.dim() != 1 + batched or (batched and sc.shape[0] != nb) \
+                or not sc.is_contiguous():
+            raise ValueError("%s kernel: scalar pack shape %s for %d "
+                             "member(s)" % (self.name, tuple(sc.shape), nb))
         lib = self._owner.library()
-        out = torch.empty_like(operands[0])
+        out = torch.empty(lead + (self._owner.dof,) + S, dtype=torch.float32,
+                          device=sc.device)
         with torch.cuda.device(sc.device):
             stream = torch.cuda.current_stream(sc.device).cuda_stream
             err = getattr(lib, "ksfd_" + self.name)(
                 sc.data_ptr(), *[x.data_ptr() for x in operands],
-                out.data_ptr(), *self._owner.Sshape, stream,
+                out.data_ptr(), *S, *((nb,) if self._owner.dim == 2 else ()),
+                stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -315,14 +435,18 @@ class _FusedBuild:
         dG = dGs[0] * vm[0]
         for k in range(1, self.dof):
             dG = dG + dGs[k] * vm[k]
-        rho = fields[0]
+        return self._rows(fields[0], G, dG, vm)
+
+    def _rows(self, rho, G, dG, vm):
+        """The J-action rows from the groomed rho, G, dG.v and the
+        masked tangents."""
         rows = [
             self.graddot(vm[0], G)
             + self.graddot(rho, dG)
             + vm[0] * self.lap(G)
             + rho * self.lap(dG)
         ]
-        for l, c in enumerate(ops.lig_constants):
+        for l, c in enumerate(self.ops.lig_constants):
             rows.append(
                 -c["gamma"] * vm[1 + l] + c["s"] * vm[0]
                 + c["D"] * self.lap(vm[1 + l])
@@ -337,6 +461,24 @@ class _FusedBuild:
         rows = self.jvp_rows(sc[0], u, v)
         return torch.stack(
             [b[f] - shift * v[f] + rows[f] for f in range(self.dof)]
+        )
+
+    def plain_coeff_resid(self, sc, C, v, b):
+        """Counterpart of tools/probe_coeff_kernel.py resid_kernel
+        (:114): plain_resid from the coefficient fields ``C = [rho_g,
+        G, dG'_0..dG'_{dof-1}, maskpack]``.  The dG'_i come masked, so
+        dG takes the raw tangent; the rows' tangents are masked by
+        maskpack's bits.  Summed in the order of plain_resid."""
+        dof, shift = self.dof, sc[1]
+        mask = C[2 + dof].to(torch.int32)
+        vm = [torch.where((mask >> k) & 1 > 0, v[k], 0.0)
+              for k in range(dof)]
+        dG = C[2] * v[0]
+        for k in range(1, dof):
+            dG = dG + C[2 + k] * v[k]
+        rows = self._rows(C[0], C[1], dG, vm)
+        return torch.stack(
+            [b[f] - shift * v[f] + rows[f] for f in range(dof)]
         )
 
     def plain_delta(self, sc, u0, d, u1):
@@ -403,6 +545,10 @@ class _FusedBuild:
         ])
         return sc, self._f32(u, v, b)
 
+    def prep_coeff_resid(self, C, v, b, t, shift):
+        """The f32 pack ``[t, shift]`` on the device, as prep_resid."""
+        return self.prep_resid(C, v, b, t, shift)
+
     def prep_delta(self, u0, d, u1, t):
         dev = u0.device
         means = [self._mean_groomed(u0, i) for i in range(self.dof)]
@@ -416,16 +562,21 @@ class _FusedBuild:
 
 def kernel_namespace(build, replaces):
     """The ``rhs``/``jvp``/``resid``/``delta`` namespace over one
-    _FusedBuild; ``replaces`` maps each name to the TPU kernel's
-    file:line.  ``rhs`` is the kernel plus the active sources, added
-    after the launch as pallas_stencil.py:866-870 adds them; the other
-    entries are the kernels themselves."""
+    _FusedBuild (and ``coeff_resid`` where ``replaces`` names it);
+    ``replaces`` maps each name to the TPU kernel's file:line.  ``rhs``
+    is the kernel plus the active sources, added after the launch as
+    pallas_stencil.py:866-870 adds them; the other entries are the
+    kernels themselves.  ``kernels`` holds the four of the step."""
     b = build
-    kernels = {
-        name: FusedKernel(name, b, getattr(b, "prep_" + name),
-                          getattr(b, "plain_" + name), replaces[name])
-        for name in _ENTRIES
+    made = {
+        name: FusedKernel(
+            name, b, getattr(b, "prep_" + name), getattr(b, "plain_" + name),
+            replaces[name],
+            planes=(b.dof + 3, b.dof, b.dof) if name == "coeff_resid"
+            else None)
+        for name in replaces
     }
+    kernels = {name: made[name] for name in STEP_ENTRIES}
     ops = b.ops
 
     def rhs(u, t):
@@ -436,7 +587,7 @@ def kernel_namespace(build, replaces):
         return out
 
     return SimpleNamespace(build=b, kernels=kernels,
-                           **dict(kernels, rhs=rhs))
+                           **dict(made, rhs=rhs))
 
 
 def make_fused_kernels(ops):
@@ -447,9 +598,12 @@ def make_fused_kernels(ops):
     ops/fused_stencil3d.py).  Returns a namespace with ``jvp``,
     ``resid`` and ``delta`` (FusedKernel instances), ``rhs`` (the rhs
     kernel plus active sources), ``kernels`` (the four FusedKernels by
-    name) and ``build`` (header, build info).  Nothing is compiled
-    until a kernel first meets a CUDA tensor.  Member-batched and
-    sharded builds are ROADMAP Queue B items 8 and 9.
+    name), ``coeff_resid`` (B11, 2D only) and ``build`` (header, build
+    info).  Nothing is compiled until a kernel first meets a CUDA
+    tensor.  Under ``torch.func.vmap`` each 2D entry launches its
+    member-batched build once for all members (module docstring); the
+    3D member-batched builds are ROADMAP Queue B item 8 and the sharded
+    builds item 9.
     """
     if ops.grid.dim == 3:
         from .fused_stencil3d import make_fused_kernels_3d
@@ -464,4 +618,5 @@ def make_fused_kernels(ops):
     return kernel_namespace(_FusedBuild(ops), dict(
         rhs=src + ":584", jvp=src + ":648", resid=src + ":655",
         delta=src + ":674",
+        coeff_resid="tools/probe_coeff_kernel.py:114",
     ))

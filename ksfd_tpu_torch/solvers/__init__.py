@@ -3,6 +3,7 @@ from .linalg import SpectralPreconditioner, BlockSpectralPreconditioner
 from .gmres import (
     chebyshev_solve,
     chebyshev_solve_resid,
+    gmres_solve,
     richardson_solve,
     richardson_solve_resid,
 )
@@ -12,6 +13,7 @@ from .solver import (
     make_multistep_fn,
     make_step_fn,
 )
+from .ensemble import EnsembleSolver, shard_members
 
 __all__ = [
     "Tableau",
@@ -25,8 +27,11 @@ __all__ = [
     "richardson_solve_resid",
     "chebyshev_solve",
     "chebyshev_solve_resid",
+    "gmres_solve",
     "make_step_fn",
     "make_multistep_fn",
     "make_adaptive_chunk_fn",
     "Solver",
+    "EnsembleSolver",
+    "shard_members",
 ]

@@ -1,0 +1,484 @@
+"""Ensemble integration: N independent trajectories as one batched program.
+
+Counterpart: ksfd_tpu/solvers/ensemble.py:EnsembleSolver (and
+:shard_members, which raises here).  The implicit step of
+solvers/solver.py is ``torch.func.vmap``-ped, unchanged, over a leading
+member axis: under vmap each fused stencil kernel launches its
+member-batched build once for all members (ops/fused_stencil.py's vmap
+rule, the counterpart of ``jax.custom_batching``), and the
+preconditioner's products become batched products.  The member axis
+stays on the card; every member carries its own t, h, step count,
+controller and fallback state on the host, in numpy.
+
+Per member the semantics are the scalar host loop's: accept or reject
+by the embedded error estimate, the PETSc-style vector h controller
+with its clip and rollback (``_h_accept_vec``/``_h_reject_vec``), the
+robust fallback retry at the same h with its per-member hysteresis (a
+rescued member stays on the robust solver for ``fb_probe`` accepts
+before it probes the fast path again), the CFL clamp, conservation,
+grooming, monitors, and noise injection.  With ``block_steps > 1`` on a
+fixed-dt run (``adapt_type="none"``) a vmapped ``make_multistep_fn``
+fuses that many steps per member between monitor calls.
+
+The robust fallback (``ksp_type="gmres_scipy"``, solvers/gmres.py
+``gmres_solve``) runs member by member: a Python loop over the members
+that need it runs the unbatched step.  The reference vmaps it, and
+JAX's batched ``while_loop`` freezes the members whose GMRES has
+converged, so each member's result there equals its unbatched one too;
+the loop is that retry, not a way around a batched kernel.
+
+Noise: one ``torch.Generator`` on the state's device per member,
+seeded from ``(rng_key, member_offset + i)``, drawn only when the
+member injects.  It cannot reproduce JAX's PRNG keys bit for bit
+(ROADMAP Queue A item 8), so noise runs are held to statistics and to
+the reference's injection times.
+
+Usage:
+    es = EnsembleSolver(ops, numerics, t0=.., dt=.., tmax=..,
+                        maxsteps=.., atol=.., rtol=..)
+    out = es.solve(U0)            # U0: (n_members, dof, nx, ny)
+    out.u, out.t, out.k, out.diverged, out.snes_failures  # per member
+
+Still raising NotImplementedError, each naming its ROADMAP item: the
+vmapped adaptive chunk (``device_loop=True``, Queue A item 11), member
+meshes and ``shard_members`` (Queue A item 14), with-G states and
+``refresh_G`` (Queue A item 13), 1D and 3D problems and the fused pc
+(``pc_pallas``), whose member-batched builds are Queue B item 8.
+"""
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from ..ops.fused_stencil import make_fused_kernels
+from ..utils.cli import NumericsOptions
+from ..utils.debug import logger
+from ..utils.exceptions import KSFDException
+from .solver import make_multistep_fn, make_step_fn
+from .steppers import get_tableau
+
+logENS = logger("ENSEMBLE")
+
+__all__ = ["EnsembleSolver", "shard_members", "noise_active"]
+
+
+def shard_members(U, devices=None):
+    """Counterpart: ksfd_tpu/solvers/ensemble.py:shard_members."""
+    raise NotImplementedError(
+        "members sharded over several cards (member meshes) are ROADMAP "
+        "Queue A item 14"
+    )
+
+
+def noise_active(ps):
+    """Whether variance injection is configured at all.  Counterpart:
+    ksfd_tpu/solvers/solver.py:noise_active."""
+    v0 = ps.values0
+    return (
+        bool(v0.get("variance_rate", 0.0))
+        or "variance_rate" in ps.tdfuncs
+    )
+
+
+def _member_seed(seed, index):
+    """The 63-bit seed of member ``index``'s noise generator, mixed from
+    the run's seed and the member's global index (so a member slab of a
+    larger ensemble draws what the whole run would)."""
+    words = np.random.SeedSequence([int(seed), int(index)]).generate_state(
+        2, np.uint32)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
+class EnsembleSolver:
+    """Vector adaptive controller over a vmapped implicit step."""
+
+    default_hmin = 1e-20
+
+    def __init__(
+        self,
+        ops,
+        numerics=None,
+        t0=0.0,
+        dt=0.001,
+        tmax=20.0,
+        maxsteps=100,
+        rtol=1e-5,
+        atol=1e-5,
+        hmin=None,
+        rng_key=None,
+        block_steps=1,
+        member_offset=0,
+        kernels=None,
+    ):
+        """As the reference's constructor.  ``rng_key`` is the noise
+        seed, an integer (None: 0), where the reference takes a
+        ``jax.random.PRNGKey``.  block_steps > 1 (fixed-dt runs only):
+        that many steps per member in one vmapped multistep call
+        between monitor calls.  member_offset: global index of this
+        solver's first member, which seeds its noise generators.
+        kernels: a ``make_fused_kernels(ops)`` namespace to share (its
+        launch counters then count the ensemble's launches)."""
+        self.ops = ops
+        self.ps = ops.ps
+        self.numerics = numerics or NumericsOptions()
+        self.t0 = float(t0)
+        self.dt0 = float(dt)
+        self.tmax = float(tmax)
+        self.maxsteps = int(maxsteps)
+        self.rtol = float(rtol)
+        self.atol = float(atol)
+        self.hmin = float(hmin) if hmin else self.default_hmin
+        self.seed = 0 if rng_key is None else int(rng_key)
+        self.monitors = []
+        n = self.numerics
+        if n.ksp_type in ("banded", "lu"):
+            raise KSFDException(
+                "ksp_type=%s is a host-side direct solve (scalar "
+                "Solver only); ensembles need a device stage solver"
+                % n.ksp_type
+            )
+        self._refuse(ops, n)
+        self.tableau = get_tableau(n.ts_type)
+        self.block_steps = int(block_steps)
+        self.member_offset = int(member_offset)
+        self.kernels = kernels
+        # built lazily by solve() (or _build_steps)
+        self._vstep = None
+        self._vmulti = None
+        self._fallback = None
+        self._vgroom = vmap(ops.groom)
+        self._vmax_fn = vmap(
+            lambda u, t: torch.stack(
+                [torch.max(torch.abs(v)) for v in ops.velocity(u, t)]
+            )
+        )
+        # per-member state, filled by solve()
+        self.u = None
+        self.ts = self.hs = self.ks = None
+        self.diverged = None
+        self.snes_failures = None
+
+    @staticmethod
+    def _refuse(ops, n):
+        """NotImplementedError, naming its ROADMAP item, for each
+        ensemble the port does not run yet."""
+        todo = []
+        dim = ops.grid.dim
+        if n.device_loop and n.adapt_type != "none":
+            todo.append("the vmapped adaptive chunk (device_loop=True, "
+                        "ensemble.py:325-346 and :473-629): Queue A item 11")
+        if dim == 3:
+            todo.append("3D ensembles (the member-batched 3D kernels): "
+                        "Queue B item 8")
+        elif dim != 2:
+            todo.append("%dD ensembles (the fused kernels are 2D and 3D): "
+                        "Queue A item 11" % dim)
+        if n.pc_pallas:
+            todo.append("pc_pallas ensembles (a member-batched fused pc): "
+                        "Queue B item 8")
+        if hasattr(ops, "refresh_G"):
+            todo.append("with-G states (refresh_G): Queue A item 13")
+        if todo:
+            raise NotImplementedError(
+                "not ported yet (see ROADMAP): " + "; ".join(todo)
+            )
+
+    # -- monitors ---------------------------------------------------
+    def add_monitor(self, monitor):
+        """monitor(es, ks, ts, U) with per-member vectors, called after
+        every outer iteration that accepted at least one member."""
+        self.monitors.append(monitor)
+
+    def monitor(self, ks, ts, U):
+        for m in self.monitors:
+            m(self, ks, ts, U)
+
+    # -- vector h controller (elementwise Solver._new_h_*) ----------
+    def _h_accept_vec(self, h, enorm):
+        n = self.numerics
+        expo = -1.0 / (self.tableau.order + 1)
+        with np.errstate(divide="ignore", over="ignore",
+                         invalid="ignore"):
+            hfac = np.where(
+                enorm <= 0.0,
+                n.clip_high,
+                n.safety * np.maximum(enorm, 1e-300) ** expo,
+            )
+        hfac = np.clip(hfac, n.clip_low, n.clip_high)
+        return np.clip(h * hfac, n.dt_min, n.dt_max)
+
+    def _h_reject_vec(self, h, enorm, finite):
+        n = self.numerics
+        expo = -1.0 / (self.tableau.order + 1)
+        with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+            hfac = np.where(
+                finite,
+                np.clip(
+                    n.safety
+                    * np.where(finite, np.maximum(enorm, 1e-300), 1.0)
+                    ** expo,
+                    n.clip_low,
+                    0.9,
+                ),
+                n.rollback_factor,
+            )
+        return np.maximum(h * hfac, n.dt_min)
+
+    # -- steps ------------------------------------------------------
+    def _build_steps(self):
+        """Build the vmapped step (and, for fixed-dt blocks, the
+        vmapped multistep) on one shared kernel build."""
+        nm = self.numerics
+        kern = (self.kernels if self.kernels is not None
+                else make_fused_kernels(self.ops))
+        self.kernels = kern
+        kw = dict(atol=self.atol, rtol=self.rtol, kernels=kern)
+        step, _ = make_step_fn(self.ops, nm, **kw)
+        self._vstep = vmap(step)
+        self._vmulti = None
+        if self.block_steps > 1 and nm.adapt_type == "none":
+            multi, _ = make_multistep_fn(self.ops, nm, **kw)
+
+            def vmulti(U, ts, hs, nblk):
+                return vmap(lambda u, t, h: multi(u, t, h, nblk))(U, ts, hs)
+
+            self._vmulti = vmulti
+        self._fallback = None
+
+    def _get_fallback(self):
+        """The robust retry step ``fb(u, t, h) -> (u1, enorm)`` of ONE
+        member (ensemble.py:350-368): GMRES stage solves in the state's
+        precision (f64 by default) on the dataclasses.replace of the
+        numerics the reference builds.  None unless the fast solver is
+        Richardson."""
+        if self.numerics.ksp_type not in ("richardson",):
+            return None
+        if self._fallback is None:
+            nm = dataclasses.replace(
+                self.numerics, ksp_type="gmres_scipy",
+                ksp_restart=12, ksp_max_it=4, stage_delta=False,
+                snes_iters=max(4, self.numerics.snes_iters),
+            )
+            self._fallback, _ = make_step_fn(
+                self.ops, nm, atol=self.atol, rtol=self.rtol,
+                kernels=self.kernels,
+            )
+        return self._fallback
+
+    # -- per-member physics helpers ---------------------------------
+    def _dev(self, x, dtype=torch.float64):
+        """A host value or vector as a tensor on the members' device."""
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=self.ops.device)
+
+    def _select(self, mask, a, b):
+        """Per member: a where mask, else b (mask a numpy bool vector)."""
+        sel = self._dev(mask, torch.bool).reshape(
+            (len(mask),) + (1,) * (a.dim() - 1))
+        return torch.where(sel, a, b)
+
+    def _cfl_maxh(self, U, ts):
+        """Per-member max stable h (Solver.CFL_step vectorized)."""
+        vmaxs = self._vmax_fn(U, self._dev(ts)).cpu().numpy()
+        sw = self.ops.grid.stencil_width
+        sp = np.asarray(self.ops.grid.spacing, dtype=float)
+        with np.errstate(divide="ignore"):
+            hmaxs = np.where(vmaxs == 0.0, np.inf, sw * sp / vmaxs)
+        return hmaxs.min(axis=1)
+
+    def _cfl_clamp(self, U, ts, hs, active):
+        if "CFL_safety_factor" in self.ps.tdfuncs:
+            fn = self.ps.funcs["CFL_safety_factor"]
+            sf = np.asarray([float(fn(float(t))) for t in ts])
+        else:
+            s0 = float(
+                self.ps.values0.get("CFL_safety_factor", 0.0) or 0.0
+            )
+            if s0 <= 0.0:
+                return hs
+            sf = np.full(len(ts), s0)
+        if not (sf > 0.0).any():
+            return hs
+        maxh = np.where(sf > 0.0, sf * self._cfl_maxh(U, ts), np.inf)
+        return np.where(active, np.minimum(hs, maxh), hs)
+
+    def _inject_noise(self, U, ts, lastvart, accepted, conserve, Nw0):
+        """Per-member geometric-Brownian injection (Solver.add_variance
+        with a generator per member; only injected members draw)."""
+        inject = np.zeros(len(ts), dtype=bool)
+        sds = np.zeros(len(ts))
+        vr_fn = self.ps.funcs["variance_rate"]
+        vtf_fn = self.ps.funcs["variance_timing_function"]
+        for i in np.nonzero(accepted)[0]:
+            t, lv = float(ts[i]), float(lastvart[i])
+            vrate = float(vr_fn(t) or 0.0)
+            if vrate <= 0.0:
+                continue
+            if float(vtf_fn(t)) - float(vtf_fn(lv)) < 1.0:
+                continue
+            inject[i] = True
+            sds[i] = np.sqrt(vrate * (t - lv))
+        if not inject.any():
+            return U, lastvart
+        U = U.clone()
+        for i in np.nonzero(inject)[0]:
+            stn = torch.randn(U.shape[2:], generator=self._gens[i],
+                              dtype=U.dtype, device=U.device)
+            rho = U[i, 0] * torch.exp(sds[i] * stn)
+            if conserve:
+                rho = rho * (float(Nw0[i]) / torch.sum(rho))
+            U[i, 0] = rho
+        lastvart = np.where(inject, ts, lastvart)
+        return U, lastvart
+
+    # -- the loop ----------------------------------------------------
+    def solve(self, U0):
+        """Integrate every member to tmax/maxsteps.  Returns a
+        SimpleNamespace with per-member u, t, h, k, diverged,
+        snes_failures (and leaves the same on self).  U0: an array or
+        tensor (n_members, dof, nx, ny); the members run on the
+        device of ``ops`` (the card unless the problem was built
+        elsewhere)."""
+        n = self.numerics
+        adapt = n.adapt_type != "none"
+        U = torch.as_tensor(U0, device=self.ops.device)
+        N = U.shape[0]
+        if self._vstep is None:
+            self._build_steps()
+        U = self._vgroom(U)
+        ts = np.full(N, self.t0)
+        hs = np.full(N, min(max(self.dt0, n.dt_min), n.dt_max))
+        ks = np.zeros(N, dtype=int)
+        diverged = np.zeros(N, dtype=bool)
+        consec = np.zeros(N, dtype=int)
+        snes = np.zeros(N, dtype=int)
+        # per-member fallback hysteresis (the scalar controller's
+        # _fb_mode/_fb_accepts/_fb_probe)
+        self._fbm = np.zeros(N, dtype=bool)
+        self._fbacc = np.zeros(N, dtype=int)
+        self._fbprobe = np.full(N, 64, dtype=int)
+        # per member: fast-path failures the fallback rescued
+        self.rescues = np.zeros(N, dtype=int)
+        self.iterations = 0
+        self._gens = [
+            torch.Generator(device=U.device).manual_seed(
+                _member_seed(self.seed, self.member_offset + i))
+            for i in range(N)
+        ]
+        lastvart = np.full(N, self.t0)
+        conserve = self.ps.params0["conserve_worms"]
+        conserve = False if conserve == "False" else bool(conserve)
+        Nw0 = torch.sum(U[:, 0].reshape(N, -1), dim=1).cpu().numpy()
+        hs = self._cfl_clamp(U, ts, hs, np.ones(N, dtype=bool))
+        self.u = U
+        self.ks, self.ts, self.hs = ks, ts, hs
+        self.monitor(ks, ts, U)
+        while True:
+            active = (
+                ~diverged
+                & (ks < self.maxsteps)
+                & (ts <= self.tmax)
+                & (hs >= self.hmin)
+            )
+            if not active.any():
+                break
+            self.iterations += 1
+            nblk = 1
+            if self._vmulti is not None:
+                nblk = max(1, min(self.block_steps,
+                                  self.maxsteps - int(ks[active].max())))
+            if nblk > 1:
+                # fused fixed-dt blocks (noise/CFL/monitors act at
+                # block boundaries, like the scalar block mode)
+                u1, _, enorm = self._vmulti(U, self._dev(ts), self._dev(hs),
+                                            nblk)
+            else:
+                u1, enorm = self._vstep(U, self._dev(ts), self._dev(hs))
+            e = enorm.to(torch.float64).cpu().numpy()
+            finite = np.isfinite(e)
+            rejected = active & ((~finite) | (adapt & (e > 1.0)))
+            fbm = active & self._fbm
+            need = (rejected & ~self._fbm) | fbm
+            fb = self._get_fallback() if nblk == 1 and need.any() else None
+            if fb is not None:
+                ebn = np.full(N, np.nan)
+                u1b = {}
+                for i in np.nonzero(need)[0]:
+                    ub, eb = fb(U[i], self._dev(ts[i]), self._dev(hs[i]))
+                    u1b[i], ebn[i] = ub, float(eb)
+                # members IN fallback mode take the robust result as
+                # THE step; rejected fast-path members get the same-h
+                # robust retry and ENGAGE fallback mode
+                rescued = (
+                    rejected
+                    & ~self._fbm
+                    & np.isfinite(ebn)
+                    & ((ebn <= 1.0) | (not adapt))
+                )
+                if rescued.any():
+                    logENS("fallback rescued members",
+                           np.nonzero(rescued)[0])
+                    self._fbm = self._fbm | rescued
+                    self._fbacc = np.where(rescued, 0, self._fbacc)
+                    self._fbprobe = np.where(rescued, 64, self._fbprobe)
+                    self.rescues += rescued
+                take_fb = fbm | rescued
+                if take_fb.any():
+                    u1 = u1.clone()
+                    for i in np.nonzero(take_fb)[0]:
+                        u1[i] = u1b[i]
+                e = np.where(take_fb, ebn, e)
+                finite = np.isfinite(e)
+                rejected = active & ((~finite) | (adapt & (e > 1.0)))
+            accepted = active & ~rejected
+            # hysteresis: after fb_probe accepts on the robust solver,
+            # probe the fast path again
+            fb_acc = accepted & self._fbm
+            self._fbacc = np.where(fb_acc, self._fbacc + 1, self._fbacc)
+            leave = fb_acc & (
+                self._fbacc % np.maximum(self._fbprobe, 1) == 0
+            )
+            self._fbm = self._fbm & ~leave
+            snes += rejected
+            consec = np.where(rejected, consec + 1, 0)
+            diverged |= consec > n.max_snes_failures
+            # commit accepted members (a diverged member's NaN state
+            # never reaches U)
+            if accepted.any():
+                U = self._select(accepted, u1.to(U.dtype), U)
+                ts = np.where(accepted, ts + nblk * hs, ts)
+                ks = ks + nblk * accepted
+            if adapt:
+                hs = np.where(
+                    accepted,
+                    self._h_accept_vec(hs, e),
+                    np.where(rejected, self._h_reject_vec(hs, e, finite),
+                             hs),
+                )
+            else:
+                hs = np.where(rejected, self._h_reject_vec(hs, e, finite),
+                              hs)
+                # fixed-dt semantics: restore the nominal dt on accept
+                hs = np.where(accepted,
+                              min(max(self.dt0, n.dt_min), n.dt_max), hs)
+            if accepted.any():
+                if noise_active(self.ps):
+                    U, lastvart = self._inject_noise(
+                        U, ts, lastvart, accepted, conserve, Nw0
+                    )
+                U = self._vgroom(U)
+                hs = self._cfl_clamp(U, ts, hs, accepted)
+                self.u = U
+                self.ks, self.ts, self.hs = ks, ts, hs
+                self.monitor(ks, ts, U)
+        self.u = U
+        self.ts, self.hs, self.ks = ts, hs, ks
+        self.diverged = diverged
+        self.snes_failures = snes
+        return SimpleNamespace(
+            u=U, t=ts, h=hs, k=ks, diverged=diverged,
+            snes_failures=snes,
+        )

@@ -39,12 +39,27 @@ a step makes no host round trip.  The adaptive chunk's controller runs
 on the host and reads one scalar per attempt (see
 make_adaptive_chunk_fn).
 
+- **float64 GMRES (``ksp_type="gmres_scipy"``)**, the robust retry step
+  of the ensemble (solvers/ensemble.py) and, later, of the host Solver:
+  W = shift*I - J in float64 through ``ops.jacobian_action``, the
+  basis-GEMM (or fused) pc as M with its statistics from the float64
+  state, the restarted GMRES of solvers/gmres.py ``gmres_solve``
+  (``ksp_rtol``, ``ksp_restart``, ``ksp_max_it``), stage right-hand
+  sides from the float64 ``ops.rhs`` with ``stage_delta=False`` (as
+  the fallback builds it) or ``f0 + delta`` otherwise, all combinations
+  in float64 (solver.py:399-401, :431-435, :607-615).  It is never
+  mixed32 (:529-539).  In the fast mode the same solve runs in float32
+  on the jvp kernel's W.  No f0 chain.
+
+``EnsembleSolver`` vmaps these steps unchanged (``torch.func.vmap``):
+each fused kernel call launches its member-batched build once.
+
 Everything else raises NotImplementedError naming its ROADMAP item:
-the host Solver loop (Queue A item 8), DIRK (item 9), the Krylov stage
-solvers (item 5), dense/direct tiers (item 12), the fast mode without
-the fused kernels (item 6), the FFT preconditioner (Queue A item 4),
-the fused preconditioner off its 2D float32 gate (Queue B item 5) and
-meshes (Queue A item 14).
+the host Solver loop (Queue A item 8), DIRK (item 9), the fixed-count
+Krylov stage solvers (item 5), dense/direct tiers (item 12), the fast
+mode without the fused kernels (item 6), the FFT preconditioner (Queue
+A item 4), the fused preconditioner off its 2D float32 gate (Queue B
+item 5) and meshes (Queue A item 14).
 """
 
 import dataclasses
@@ -63,6 +78,7 @@ from ..ops.fused_stencil import make_fused_kernels
 from .gmres import (
     chebyshev_solve,
     chebyshev_solve_resid,
+    gmres_solve,
     richardson_solve,
     richardson_solve_resid,
 )
@@ -91,14 +107,20 @@ def _pc_dtype(numerics):
     return "float32" if numerics.pc_dtype == "auto" else numerics.pc_dtype
 
 
+def _krylov(numerics):
+    """The tolerance-based GMRES stage solve of the robust fallback."""
+    return numerics.ksp_type == "gmres_scipy"
+
+
 def _check_numerics(numerics, ops):
     """Raise NotImplementedError for any request off the ported paths."""
     fast32 = _fast32(numerics)
+    krylov = _krylov(numerics)
     todo = []
-    if numerics.ksp_type not in ("richardson", "chebyshev"):
+    if numerics.ksp_type not in ("richardson", "chebyshev", "gmres_scipy"):
         todo.append(
             "ksp_type %r (dense/direct/banded/lu: Queue A item 12; "
-            "Krylov: item 5)" % numerics.ksp_type
+            "fixed-count Krylov: item 5)" % numerics.ksp_type
         )
     if numerics.pc_type != "block":
         todo.append("pc_type %r (Queue A item 4)" % numerics.pc_type)
@@ -118,9 +140,13 @@ def _check_numerics(numerics, ops):
             todo.append(why)
     if numerics.pc_dtype not in ("auto", "float32", "f32", "float64", "f64"):
         todo.append("pc_dtype %r (Queue A item 14)" % numerics.pc_dtype)
-    if not fast32 and numerics.sweep_dtype not in ("float32", "f32"):
+    # the float64 GMRES step runs no sweeps and takes its stage RHS
+    # from ops.rhs when the delta kernel is off (solver.py:607-615)
+    if not fast32 and not krylov and numerics.sweep_dtype not in (
+            "float32", "f32"):
         todo.append("float64 sweeps (Queue A item 5)")
-    if not fast32 and not (numerics.use_pallas and numerics.stage_delta):
+    if not fast32 and not krylov and not (numerics.use_pallas
+                                          and numerics.stage_delta):
         todo.append("stage RHS without the delta kernel (Queue A item 6)")
     if not ops.stage_delta_ok():
         todo.append("time-dependent PDE coefficients (Queue A item 6)")
@@ -170,8 +196,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     chain_f0: return ``SimpleNamespace(step)`` instead, where
     ``step(u, t, h, f0) -> (u1, enorm, f1)`` takes the RHS f0 at
     (groom(u), t) and returns the RHS at groom(u1), advanced by the
-    delta kernel.  None when ineligible (active sources, or the fast
-    mode, which has no delta kernel on its path).  The
+    delta kernel.  None when ineligible (active sources, the fast
+    mode, which has no delta kernel on its path, or the GMRES step).  The
     reference's ``advance`` (the Solver's re-base after a fallback
     step) comes with the Solver, ROADMAP Queue A item 8.
 
@@ -195,7 +221,17 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     iters = numerics.ksp_iters
     nf = ops.nligands + 1
     fast32 = _fast32(numerics)
+    krylov = _krylov(numerics)
+    # the float64 GMRES step's stage RHS: f0 + the delta kernel, or (with
+    # -stage_delta 0, as the fallback builds it) the float64 ops.rhs
+    krylov_delta = (krylov and numerics.use_pallas and numerics.stage_delta
+                    and ops.stage_delta_ok())
     use_cheb = numerics.ksp_type == "chebyshev"
+
+    def gmres(W, bi, Minv):
+        return gmres_solve(W, bi, Minv, tol=numerics.ksp_rtol,
+                           restart=numerics.ksp_restart,
+                           maxiter=numerics.ksp_max_it)
     # the Laplacian's largest |eigenvalue|, a build-time constant that
     # turns the per-step diffusivity spread into the Chebyshev interval
     cheb_lap = float((-precond.lam).max()) if use_cheb else None
@@ -205,12 +241,15 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             u, t, h = _to_f32(u, t, h)
         u = ops.groom(u)
         shift = 1.0 / (h * tab.gamma)
-        # preconditioner statistics from the f32 view of the state
         u32 = u.to(torch.float32)
-        means = [torch.mean(u32[i]) for i in range(nf)]
+        # preconditioner statistics from the f32 view of the state on
+        # the sweep paths, from the state itself on the GMRES path (the
+        # reference's ``ustat``, solver.py:451-453)
+        ustat = u if krylov else u32
+        means = [torch.mean(ustat[i]) for i in range(nf)]
         # pointwise effective rho diffusivity bound (linalg docstring)
-        dG0 = ops._dG_fns[0](*[u32[i] for i in range(nf)], t)
-        rho_d = u32[0] * dG0
+        dG0 = ops._dG_fns[0](*[ustat[i] for i in range(nf)], t)
+        rho_d = ustat[0] * dG0
         rho_diff = torch.max(rho_d)
         cheb_ab = _cheb_interval(numerics, shift, rho_d, rho_diff,
                                  cheb_lap) if use_cheb else None
@@ -236,10 +275,34 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 return shift * v - kern.jvp(u, v, t)
 
             def solve(bi):
+                if krylov:
+                    return gmres(W, bi, Minv)
                 if use_cheb:
                     return chebyshev_solve(W, bi, Minv, iters=iters,
                                            lmin=cheb_ab[0], lmax=cheb_ab[1])
                 return richardson_solve(W, bi, Minv, iters=iters)
+        elif krylov:
+            # the float64 GMRES step (solver.py:607-615): W = shift*I - J
+            # in float64 through the exact J-action, stage solves and
+            # combinations in float64
+            f0 = ops.rhs(u, t)
+
+            def W(v):
+                return shift * v - ops.jacobian_action(u, t, v)
+
+            def solve(bi):
+                return gmres(W, bi, Minv)
+
+            def stage_eval(Ui, ti):
+                if not krylov_delta:
+                    return ops.rhs(Ui, ti)
+                Ug = ops.groom(Ui)
+                fi = f0 + kern.delta(u, Ug - u, Ug, t).to(f0.dtype)
+                for isrc, active in enumerate(ops._source_active):
+                    if active and ops.sources[isrc].tdep:
+                        src = ops.sources[isrc]
+                        fi[isrc] += (src(ti) - src(t)).to(f0.dtype)
+                return fi
         else:
             f0 = ops.rhs(u, t) if f0_chained is None else f0_chained
             t32 = t.to(torch.float32)
@@ -313,7 +376,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         return u, u1, wlte_norm_delta(u1, d, atol, rtol)
 
     if chain_f0:
-        if fast32 or any(ops._source_active):
+        if fast32 or krylov or any(ops._source_active):
             return None, tab
 
         def step_chain(u, t, h, f0):

@@ -1,0 +1,61 @@
+"""Problem definitions shared by the probes and chip_smoke.py.
+
+Counterpart: the parameters of __graft_entry__._make_problem and of
+the reference's tests/helpers.py (OPTIONS92_PARAMS, make_clargs), kept
+here as the port's own copy (the port imports nothing of the JAX
+package or its tests).
+"""
+
+from argparse import Namespace
+
+__all__ = ["OPTIONS92_PARAMS", "make_clargs", "bench_clargs"]
+
+
+def make_clargs(params=(), source=(), cappotential="tophat",
+                seed=793817931, **kw):
+    """A Namespace shaped like ksfdsolver.py's parsed command line (the
+    port's copy of the reference's test helper of that name)."""
+    ns = Namespace(
+        cappotential=cappotential, save=None, check=None, resume=None,
+        restart=None, series_retries=0, series_retry_interval=60,
+        mpiok=False, showparams=False, noperiodic=False, onestep=False,
+        solver="tpu", seed=seed, source=list(source), params=list(params),
+        numerics=[], petsc=[],
+    )
+    for k, v in kw.items():
+        setattr(ns, k, v)
+    return ns
+
+
+#: Parameters of the two-ligand-group problem of the reference's
+#: convergence tests (options92 / options93nx128dt1), the base of the
+#: 2D bench problem.
+OPTIONS92_PARAMS = [
+    "dt=1", "tmax=200000", "maxsteps=10000", "width=1", "nelements=128",
+    "dim=1", "degree=3", "atol=0.01", "rtol=1e-6", "rhomin=1e-7",
+    "rhomax=28000", "cushion=2000", "sigma=0.02357", "s2=sigma**2/2",
+    "Nworms=0", "rho0=murho + arho*sin(2*pi*(0.25+k0*x))",
+    "U0_1_1=murho + arho*aUa*sin(2*pi*(0.25+k0*x))",
+    "U0_2_1=murho + arho*aUr*sin(2*pi*(0.25+k0*x))",
+    "murho=9000.0", "arho=1.0", "aUa=0.6846227279629311",
+    "aUr=0.088562372925828", "lamda=0.003974930217658144", "k0=4.0",
+    "srho0=0", "ngroups=2", "nligands_1=1", "alpha_1=1500",
+    "beta_1=5.56e-4", "s_1_1=0.01", "gamma_1_1=0.01", "D_1_1=1e-6",
+    "nligands_2=1", "alpha_2=1500", "beta_2=-5.56e-4", "s_2_1=0.001",
+    "gamma_2_1=0.001", "D_2_1=1e-5",
+]
+
+
+def bench_clargs(n):
+    """The options84-class bench problem on an n x n grid: the
+    parameters of __graft_entry__._make_problem."""
+    params = [
+        p for p in OPTIONS92_PARAMS
+        if p.split("=", 1)[0]
+        not in ("nelements", "dim", "rho0", "U0_1_1", "U0_2_1")
+    ] + [
+        "nelements=%d" % n, "nwidth=%d" % n, "nheight=%d" % n, "dim=2",
+        "height=1", "rho0=murho + arho*sin(2*pi*(x+y))", "U0_1_1=",
+        "U0_2_1=",
+    ]
+    return make_clargs(params=params)

@@ -6,9 +6,11 @@ it raises instead of carrying on on the CPU.  A CPU run names
 ``device="cpu"`` (the CPU tests do).
 """
 
+import subprocess
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "card_line"]
 
 
 def resolve_device(device=None):
@@ -24,3 +26,15 @@ def resolve_device(device=None):
             "machine has none; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def card_line():
+    """The card's ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` reports them
+    (the first card), the label every measurement carries."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]

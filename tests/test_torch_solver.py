@@ -204,18 +204,22 @@ def test_interop_round_trip(problems):
 
 
 _FORBIDDEN_IMPORT = re.compile(
-    r"^(import|from)\s+(jax|ksfd_tpu|helpers|tests)(\s|\.|,|$)")
+    r"^(import|from)\s+(jax|ksfd_tpu|helpers|tests|__graft_entry__)"
+    r"(\s|\.|,|$)")
 
 
 def test_port_source_has_no_jax_import():
-    """No module of the port, nor chip_smoke.py, imports jax, the JAX
-    package or the reference's test helpers (tests/helpers.py): the port
-    keeps its own copy of what it needs (``import ksfd_tpu_torch`` is the
-    port itself)."""
+    """No module of the port (its tools/ included), nor chip_smoke.py,
+    imports jax, the JAX package, __graft_entry__ or the reference's
+    test helpers (tests/helpers.py): the port keeps its own copy of
+    what it needs (``import ksfd_tpu_torch`` is the port itself)."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "ksfd_tpu_torch")):
         paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
-    assert any(p.endswith("fused_stencil3d.py") for p in paths)
+    for name in ("fused_stencil3d.py", "ensemble.py",
+                 os.path.join("tools", "probe_coeff_kernel.py"),
+                 os.path.join("tools", "problems.py")):
+        assert any(p.endswith(name) for p in paths), name
     for path in paths:
         with open(path) as fh:
             for line in fh:
@@ -223,7 +227,8 @@ def test_port_source_has_no_jax_import():
     for line in ("import ksfd_tpu", "import jax", "from ksfd_tpu.ops import x",
                  "import ksfd_tpu as K", "from jax import numpy",
                  "from helpers import make_clargs",
-                 "from tests.helpers import OPTIONS92_PARAMS"):
+                 "from tests.helpers import OPTIONS92_PARAMS",
+                 "import __graft_entry__ as ge"):
         assert _FORBIDDEN_IMPORT.match(line), line
     assert not _FORBIDDEN_IMPORT.match("import ksfd_tpu_torch")
 
