@@ -7,7 +7,7 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs nineteen
+header, and csrc/pc2d.cu, all started together) and runs twenty-four
 phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -68,7 +68,20 @@ phases, each printing one line:
     GMRES step runs;
 19. the ensemble on the card and on the CPU at 64^2 x 3, 3 members,
     fixed-dt blocks and adaptive per step, agreeing in counts, t, h
-    and state.
+    and state;
+20. the member-batched builds of B6a-d at 256^3 x 3 for 4 distinct
+    members, as phase 16;
+21. the member-batched fused pc (B5a, B5b) at 1024^2 x 3 for 4 distinct
+    members, as phase 16;
+22. the 3D ensemble's fixed-dt path at 256^3 x 3 with 1 and 4 members
+    (f64) and 4 in the fast mode, as phase 17, with the peak device
+    memory;
+23. the pc_pallas ensemble's fixed-dt path at 1024^2 x 3 with 4 and 8
+    members, as phase 17 (its profile must show no library GEMM);
+24. EnsembleSolver adaptive per step on examples/aggregation3d at its
+    own 64^3 x 3, 4 members; and the 3D ensemble (32^3 x 3, 2 members)
+    and the pc_pallas ensemble (64^2 x 3, 3 members) on the card and
+    on the CPU, as phase 19.
 
 Then one JSON line of the eleven kernels and, last, the result line.  Any
 failed phase raises, so the exit code is not 0 and no result prints.
@@ -109,7 +122,10 @@ RAGGED = (200, 136)         # a size whose pc tiles are ragged
 N_CHUNK_CMP = 128
 N_HEX = 384                 # examples/hexagons2d's own size
 N_ENS_CMP = 64              # the ensemble's card vs CPU check
-ENS_MEMBERS = (1, 4, 8)     # phase 17's member counts
+ENS_RUNS = [("f64", 1), ("f64", 4), ("f64", 8), ("f32", 8)]   # phase 17
+ENS3_RUNS = [("f64", 1), ("f64", 4), ("f32", 4)]   # phase 22, 256^3
+ENS_PC_RUNS = [("f64", 4), ("f64", 8)]             # phase 23, pc_pallas
+N3_ENS_CMP = 32             # the 3D ensemble's card vs CPU check
 GAMMA = 0.435866521508459   # ROS34PW2's diagonal: shift = 1/(h*GAMMA)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same sheet
@@ -344,6 +360,32 @@ def phase_device():
 # kernel names of library GEMMs (cuBLAS, CUTLASS) in a profile
 _LIBRARY_GEMM = ("gemm", "xmma", "cutlass", "sm90")
 
+
+def library_gemms(per_kernel):
+    """The library GEMM kernels (cuBLAS, CUTLASS) of a profile."""
+    return sorted(k for k in per_kernel if "pc_gemm" not in k.lower()
+                  and any(w in k.lower() for w in _LIBRARY_GEMM))
+
+
+def device_groups(per_kernel):
+    """Device ms by group (library GEMMs, the fused pc's kernels, the
+    stencil kernels, the rest) of a profile's ms by kernel name."""
+    groups = {"gemm": 0.0, "pc kernels": 0.0, "stencil kernels": 0.0,
+              "other": 0.0}
+    for key, ms in per_kernel.items():
+        low = key.lower()
+        if "pc_gemm" in low:
+            groups["pc kernels"] += ms
+        elif any(w in low for w in _LIBRARY_GEMM):
+            groups["gemm"] += ms
+        elif "ksfd" in low or any(
+                w in low for w in ("rhs_kernel", "jvp_kernel",
+                                   "delta_kernel")):
+            groups["stencil kernels"] += ms
+        else:
+            groups["other"] += ms
+    return groups
+
 # the kernels' mangled names, as ptxas reports them
 _PTXAS_NAMES = (("rhs_kernel", "rhs"), ("jvp_kernelILb0", "jvp"),
                 ("jvp_kernelILb1", "resid"), ("delta_kernel", "delta"),
@@ -386,6 +428,8 @@ def phase_build():
         ("3d %d^3" % N3_BIG, agg3d_clargs(N3_BIG), (N3_BIG,) * 3),
         ("3d %dx%dx%d" % ODD3, agg3d_clargs(ODD3[0]), ODD3),
         ("3d %d^3" % N3_CMP, agg3d_clargs(N3_CMP), (N3_CMP,) * 3),
+        ("3d %d^3" % N3_ENS_CMP, agg3d_clargs(N3_ENS_CMP),
+         (N3_ENS_CMP,) * 3),
         ("2d agg %d^2" % N_AGG, agg2d_clargs(N_AGG), (N_AGG, N_AGG)),
         ("2d agg %d^2" % N_CHUNK_CMP, agg2d_small_clargs(N_CHUNK_CMP),
          (N_CHUNK_CMP, N_CHUNK_CMP)),
@@ -704,27 +748,12 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
         if dt is None:
             dt = ev.self_cuda_time_total
         per_kernel[ev.key] = dt / 1e3 / 2  # ms per step
-    groups = {"gemm": 0.0, "pc kernels": 0.0, "stencil kernels": 0.0,
-              "other": 0.0}
-    for key, ms in per_kernel.items():
-        low = key.lower()
-        if "pc_gemm" in low:
-            groups["pc kernels"] += ms
-        elif any(w in low for w in _LIBRARY_GEMM):
-            groups["gemm"] += ms
-        elif "ksfd" in low or any(
-                w in low for w in ("rhs_kernel", "jvp_kernel",
-                                   "delta_kernel")):
-            groups["stencil kernels"] += ms
-        else:
-            groups["other"] += ms
+    groups = device_groups(per_kernel)
     device_ms = sum(groups.values())
     if pc_pallas:
-        check(groups["pc kernels"] > 0 and not [
-            k for k in per_kernel if "pc_gemm" not in k.lower()
-            and any(w in k.lower() for w in _LIBRARY_GEMM)],
-            "the pc_pallas chain runs the pc kernels and no library GEMM: "
-            "%s" % sorted(per_kernel))
+        check(groups["pc kernels"] > 0 and not library_gemms(per_kernel),
+              "the pc_pallas chain runs the pc kernels and no library GEMM: "
+              "%s" % library_gemms(per_kernel))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     print("phase %d main path %s x3 %s h=%g (%s): counts %s; emax %.6e; "
           "max|u10-u0| %.6e; %.4f ms/step (2-step %.4f s, 10-step %.4f s); "
@@ -808,20 +837,21 @@ def pc_step_scalars(ops, u64, h=1.0):
                                                       rho_diff)
 
 
-def pc_bound(name, grid):
-    """(bound_ms, bound_by) of one fused-pc entry: its two float32
-    products per field, 2 nx ny (nx + ny) operations, and for pc_fwd the
-    arrow epilogue's 3 + 13 nl per mode, over 67 TFLOP/s, against the
-    bytes it must move (the fields in and out, the two bases, and for
-    pc_fwd lam2d and the scalar pack) over 3.35 TB/s."""
+def pc_bound(name, grid, nb=1):
+    """(bound_ms, bound_by) of one fused-pc entry for ``nb`` members: its
+    two float32 products per field, 2 nx ny (nx + ny) operations, and for
+    pc_fwd the arrow epilogue's 3 + 13 nl per mode, over 67 TFLOP/s,
+    against the bytes it must move (the fields in and out, the two bases
+    once, and for pc_fwd lam2d once and the scalar packs) over 3.35
+    TB/s."""
     nx, ny = (int(n) for n in grid.Sshape)
     nf = int(grid.dof)
     nl = nf - 1
-    n_ops = nf * 2.0 * nx * ny * (nx + ny)
-    nbytes = 4.0 * (2 * nf * nx * ny + nx * nx + ny * ny)
+    n_ops = nb * nf * 2.0 * nx * ny * (nx + ny)
+    nbytes = 4.0 * (2 * nb * nf * nx * ny + nx * nx + ny * ny)
     if name == "pc_fwd":
-        n_ops += nx * ny * (3 + 13 * nl)
-        nbytes += 4.0 * (nx * ny + 3 + 4 * nl)
+        n_ops += nb * nx * ny * (3 + 13 * nl)
+        nbytes += 4.0 * (nx * ny + nb * (3 + 4 * nl))
     t_ops, t_bytes = n_ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -1152,14 +1182,14 @@ def phase_coeff_kernel(card):
 NB = 4
 
 
-def batched_cases(ops, gen, nb):
-    """(name, per-member argument tuples) of the four 2D kernels for nb
-    distinct members: rough states scaled member by member, their own
-    tangents, right-hand sides and increments, and their own t and
-    shift (0-d tensors, so each member's scalar pack differs)."""
+def batched_cases(ops, gen, nb, base):
+    """(name, per-member argument tuples) of the four stencil kernels
+    for nb distinct members: the rough state ``base`` (f64 on the card)
+    scaled member by member, their own tangents, right-hand sides and
+    increments, and their own t and shift (0-d tensors, so each member's
+    scalar pack differs)."""
     dev = torch.device("cuda")
     shape = tuple(ops.grid.Vshape)
-    base = torch.as_tensor(rough_state(ops.grid, ops.ps), device=dev)
     randn = lambda: torch.randn(shape, generator=gen, device=dev,
                                 dtype=torch.float64)
     cases = {n: [] for n in ("rhs", "jvp", "resid", "delta")}
@@ -1178,19 +1208,23 @@ def batched_cases(ops, gen, nb):
     return cases
 
 
-def phase_batched_kernels(card, kern):
-    """The member-batched builds of B1, B2, B3 and B7 at 1024^2 x 3 for
-    NB distinct members: one launch under ``torch.func.vmap`` (counted
-    once) equal bit for bit to the NB single launches and within 1e-5 of
-    max|plain| of the plain version under vmap; CUDA-event µs of one
-    batched launch against NB single launches; ptxas registers and
-    spills of the entries."""
+def phase_batched_kernels(card, kern, base, phase, tag, reps=100):
+    """The member-batched builds of the four stencil kernels of ``kern``
+    (B1, B2, B3 and B7 in 2D; B6a-d in 3D) at the problem's size for NB
+    distinct members made from ``base``: one launch under
+    ``torch.func.vmap`` (counted once) equal bit for bit to the NB
+    single launches and within 1e-5 of max|plain| of the plain version
+    under vmap; CUDA-event µs of one batched launch against NB single
+    launches and the bound of NB members; ptxas registers and spills of
+    the entries."""
     from torch.func import vmap
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    cases = batched_cases(kern.build.ops, gen, NB)
+    cases = batched_cases(kern.build.ops, gen, NB, base)
     lines, figures, errs = [], {}, {}
-    for name, per in cases.items():
+    for name in list(cases):
+        # one kernel's members at a time (at 256^3 each holds GBs)
+        per = cases.pop(name)
         k = kern.kernels[name]
         stacked = [torch.stack(xs) for xs in zip(*per)]
         singles = [k(*args) for args in per]
@@ -1218,17 +1252,81 @@ def phase_batched_kernels(card, kern):
             for sc, operands in prepared:
                 k.launch(sc, operands)
 
-        figures[name] = (cuda_ms(lambda: k.launch(sc_b, ops_b), 100),
-                         cuda_ms(four, 100),
+        figures[name] = (cuda_ms(lambda: k.launch(sc_b, ops_b), reps),
+                         cuda_ms(four, reps),
                          kernel_bound(name, kern.build, NB))
         lines.append("%s bitwise equal, vs plain %.3e (%.2e rel)" % (
             name, err, err / scale))
+        del per, stacked, singles, out, ref, prepared, sc_b, ops_b
     ptxas = ptxas_summary(kern.build.build_info["ptxas"])
-    print("phase 16 batched kernels %d^2x3 nb=%d (%s): %s | us batched "
+    print("phase %d batched kernels %s nb=%d (%s): %s | us batched "
           "launch / %d single launches (bound us x%d): %s | ptxas: %s" % (
-              N_BIG, NB, card, "; ".join(lines), NB, NB, "; ".join(
+              phase, tag, NB, card, "; ".join(lines), NB, NB, "; ".join(
                   "%s %.3f/%.3f (%.3f)" % (n, a * 1e3, b_ * 1e3, bd[0] * 1e3)
                   for n, (a, b_, bd) in figures.items()), ptxas))
+    return figures, errs
+
+
+def phase_batched_pc(card):
+    """B5a/B5b batched at 1024^2 x 3 for NB distinct members (rough
+    states scaled member by member, the scalar packs of their own steps
+    at h = 1 + i, their own v): one launch of each entry under
+    ``torch.func.vmap`` (counted once) equal bit for bit to the NB single
+    launches and within 1e-5 of max|plain| of the plain version under
+    vmap; CUDA-event µs of one batched launch against NB single
+    launches, and the bound of NB members."""
+    from torch.func import vmap
+
+    from ksfd_tpu_torch.ops.fused_pc import make_fused_block_pc
+
+    dev = torch.device("cuda")
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    pc = make_fused_block_pc(grid, ops)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    base = torch.as_tensor(rough_state(grid, ps), device=dev)
+    scs, vs = [], []
+    for i in range(NB):
+        scs.append(pc_step_scalars(ops, base * (1.0 + 0.05 * i),
+                                   h=1.0 + i)[-1])
+        vs.append(torch.randn(tuple(grid.Vshape), generator=gen, device=dev))
+    sc_b, v_b = torch.stack(scs), torch.stack(vs)
+    modes = [pc.fwd(scs[i], vs[i]) for i in range(NB)]
+    modes_b = torch.stack(modes)
+    lines, figures, errs = [], {}, {}
+    for k, args, singles in ((pc.fwd, (sc_b, v_b), modes),
+                             (pc.inv, (modes_b,),
+                              [pc.inv(m) for m in modes])):
+        n0 = k.launches
+        out = vmap(k)(*args)
+        torch.cuda.synchronize()
+        check(k.launches == n0 + 1, "%s under vmap launched %d times"
+              % (k.name, k.launches - n0))
+        check(all(torch.equal(out[i], singles[i]) for i in range(NB)),
+              "%s batched launch equals %d single launches bit for bit"
+              % (k.name, NB))
+        ref = vmap(k.plain)(*args)
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= 1e-5 * scale, "%s batched vs plain: %.3e > 1e-5 * %.3e"
+              % (k.name, err, scale))
+        errs[k.name] = (err, err / scale)
+        single_args = [[x[i] for x in args] for i in range(NB)]
+
+        def four():
+            for a in single_args:
+                k.launch(*a)
+
+        figures[k.name] = (cuda_ms(lambda: k.launch(*args), 50),
+                           cuda_ms(four, 50), pc_bound(k.name, grid, NB))
+        lines.append("%s bitwise equal, vs plain %.3e (%.2e rel)" % (
+            k.name, err, err / scale))
+    print("phase 21 batched pc kernels %d^2x3 nb=%d (%s): %s | us batched "
+          "launch / %d single launches (bound us x%d, by): %s" % (
+              N_BIG, NB, card, "; ".join(lines), NB, NB, "; ".join(
+                  "%s %.3f/%.3f (%.3f, %s)" % (n, a * 1e3, b_ * 1e3,
+                                               bd[0] * 1e3, bd[1])
+                  for n, (a, b_, bd) in figures.items())))
     return figures, errs
 
 
@@ -1243,33 +1341,40 @@ def ensemble_members(base, n, seed=0):
 def profile_device_ms(fn, steps):
     """Device ms per step of ``fn()`` (which runs ``steps`` steps) from a
     torch.profiler trace of the card alone (no host events, which cost
-    seconds on a vmapped block): the sum of the card's kernel times."""
+    seconds on a vmapped block): the sum of the card's kernel times, and
+    the same per kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     cuda_dev = torch.autograd.DeviceType.CUDA
-    total = 0.0
+    per_kernel = {}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != cuda_dev:
             continue
         dt = getattr(ev, "self_device_time_total", None)
-        total += ev.self_cuda_time_total if dt is None else dt
-    return total / 1e3 / steps
+        dt = ev.self_cuda_time_total if dt is None else dt
+        per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + dt / 1e3 / steps
+    return sum(per_kernel.values()), per_kernel
 
 
-def phase_ensemble_fixed(card):
-    """The ensemble's fixed-dt path at 1024^2 x 3 (phase 3's problem and
-    state, members base * (1 + 1e-4 N(0,1))): EnsembleSolver with
-    block_steps, whose vmapped make_multistep_fn runs every member's
-    steps through one batched launch per kernel call.  For N in
-    ENS_MEMBERS (f64) and N = 8 in the fast mode: one solve() of a
-    2-step block, the exact launches per ensemble step (8 resid + 4
-    delta, or 4 rhs + 8 jvp, the same for every N) from 2- and 10-step
-    blocks counted from 0, ms per ensemble step from their slope (min
-    of 3), per-member ms, DOF-updates/s, and the busy share from a
-    profiled 2-step block.  Each member of N = 4 (f64) against its own
+def phase_ensemble_fixed(card, clargs, shape, runs, phase, pc_pallas=False,
+                         reps=3, member_check=("f64", 4)):
+    """The ensemble's fixed-dt path at ``shape`` x 3 (the main path's
+    problem and near-uniform state, members base * (1 + 1e-4 N(0,1))):
+    EnsembleSolver with block_steps, whose vmapped make_multistep_fn runs
+    every member's steps through one batched launch per kernel call
+    (with ``pc_pallas``, the fused pc's too).  For each (precision, N) of
+    ``runs``: one solve() of a 2-step block, the exact launches per
+    ensemble step (8 resid + 4 delta, or 4 rhs + 8 jvp, and 12 + 12 pc
+    launches with the fused pc: the same for every N, with no operand
+    broadcast to the members) from 2- and 10-step blocks counted from
+    0, ms per ensemble step from their slope
+    (min of ``reps``), per-member ms, DOF-updates/s, the busy share and
+    the device ms by group from a profiled 2-step block (with the fused
+    pc it must hold no library GEMM), and the peak device memory of the
+    timed blocks.  Each member of ``member_check`` against its own
     single-member make_multistep_fn run: 2 steps at h = 1e-2 within
     1e-5 of the increment (the batched products and reductions round
     apart from the single ones), and the same at the timed h = 1
@@ -1278,18 +1383,19 @@ def phase_ensemble_fixed(card):
     from ksfd_tpu_torch.solvers import EnsembleSolver, make_multistep_fn
 
     dev = torch.device("cuda")
-    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
-                                        device=dev)
+    ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
     kern = make_fused_kernels(ops)
     base = initial_state(grid)
     figures, lines = {}, []
-    runs = [("f64", n) for n in ENS_MEMBERS] + [("f32", 8)]
+    tag = "x".join(str(n) for n in shape) + "x3"
     for prec, n in runs:
         fast32 = prec == "f32"
         nm = NumericsOptions(adapt_type="none", precision="float32"
-                             if fast32 else "float64")
+                             if fast32 else "float64", pc_pallas=pc_pallas)
         per_step = (dict(rhs=4, jvp=8, resid=0, delta=0) if fast32
                     else dict(rhs=0, jvp=0, resid=8, delta=4))
+        if pc_pallas:
+            per_step.update(pc_fwd=12, pc_inv=12)
         es = EnsembleSolver(ops, nm, t0=0.0, dt=1.0, tmax=1e9, maxsteps=2,
                             rtol=1e-6, atol=0.01, block_steps=2,
                             kernels=kern)
@@ -1297,22 +1403,32 @@ def phase_ensemble_fixed(card):
         out = es.solve(U0)
         check((out.k == 2).all() and not out.diverged.any()
               and bool(torch.isfinite(out.u).all()),
-              "ensemble %s N=%d solve: k %s" % (prec, n, out.k))
+              "ensemble %s %s N=%d solve: k %s" % (tag, prec, n, out.k))
+        del out
+        wrappers = dict(kern.kernels)
+        if pc_pallas:
+            wrappers.update(es.fused_pc.kernels)
         ts = torch.zeros(n, dtype=torch.float64, device=dev)
         hs = torch.ones(n, dtype=torch.float64, device=dev)
         counts, samples = {}, {2: [], 10: []}
         for nst in (2, 10):
-            for k in kern.kernels.values():
-                k.launches = 0
+            for k in wrappers.values():
+                k.launches = k.broadcasts = 0
             _, _, emax = es._vmulti(U0, ts, hs, nst)
             torch.cuda.synchronize()
-            counts[nst] = {name: k.launches
-                           for name, k in kern.kernels.items()}
+            counts[nst] = {name: k.launches for name, k in wrappers.items()}
             check(counts[nst] == {k: nst * c for k, c in per_step.items()},
-                  "ensemble %s N=%d launch counts %s for %d steps"
-                  % (prec, n, counts[nst], nst))
+                  "ensemble %s %s N=%d launch counts %s for %d steps"
+                  % (tag, prec, n, counts[nst], nst))
+            # every operand of every kernel call is per member: the vmap
+            # rule copies none of them to the members
+            check(not any(k.broadcasts for k in wrappers.values()),
+                  "ensemble %s %s N=%d: unbatched kernel operands %s" % (
+                      tag, prec, n, {name: k.broadcasts
+                                     for name, k in wrappers.items()}))
             check(bool(torch.isfinite(emax).all()), "ensemble emax finite")
-        for rep in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(reps):
             for nst in (2, 10):
                 pert = (1e-6 if fast32 else 1e-9) * (1 + 2 * rep
                                                      + (nst == 10))
@@ -1323,22 +1439,33 @@ def phase_ensemble_fixed(card):
                 torch.cuda.synchronize()
                 samples[nst].append(time.perf_counter() - t0)
                 del Up
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         step_s = (min(samples[10]) - min(samples[2])) / 8
-        device_ms = profile_device_ms(lambda: es._vmulti(U0, ts, hs, 2), 2)
+        device_ms, per_kernel = profile_device_ms(
+            lambda: es._vmulti(U0, ts, hs, 2), 2)
+        groups = device_groups(per_kernel)
+        if pc_pallas:
+            check(groups["pc kernels"] > 0 and not library_gemms(per_kernel),
+                  "the pc_pallas ensemble runs the pc kernels and no library "
+                  "GEMM: %s" % library_gemms(per_kernel))
         figures[prec, n] = dict(
             ms=step_s * 1e3, member_ms=step_s * 1e3 / n,
             rate=n * grid.n_dofs / step_s, device_ms=device_ms,
-            busy=device_ms / (step_s * 1e3), per_step=per_step,
+            device_member_ms=device_ms / n,
+            busy=device_ms / (step_s * 1e3), peak_gb=peak_gb,
+            device_groups=groups, per_step=per_step,
             launches={k: counts[2][k] + counts[10][k] for k in counts[2]})
         lines.append("%s N=%d: %.4f ms/ens step (2-block %.4f s, 10-block "
                      "%.4f s), %.4f ms/member, %.6e DOF-updates/s, device "
-                     "%.4f ms/ens step (busy %.3f), launches/step %s" % (
+                     "%.4f ms/ens step (%.4f per member, busy %.3f; %s), "
+                     "peak %.3f GB, launches/step %s" % (
                          prec, n, step_s * 1e3, min(samples[2]),
                          min(samples[10]), step_s * 1e3 / n,
-                         n * grid.n_dofs / step_s, device_ms,
+                         n * grid.n_dofs / step_s, device_ms, device_ms / n,
                          device_ms / (step_s * 1e3),
-                         {k: c // 10 for k, c in counts[10].items()}))
-        if (prec, n) == ("f64", 4):
+                         ", ".join("%s %.4f" % kv for kv in groups.items()),
+                         peak_gb, {k: c // 10 for k, c in counts[10].items()}))
+        if (prec, n) == member_check:
             multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6,
                                          kernels=kern)
             devs = {}
@@ -1350,15 +1477,18 @@ def phase_ensemble_fixed(card):
                     ui, _, _ = multi(U0[i], ts[i], hs_h[i], 2)
                     inc = float((ui - U0[i]).abs().max())
                     worst = max(worst, float((ue[i] - ui).abs().max()) / inc)
+                    del ui
                 devs[h] = worst
+                del ue
             check(devs[1e-2] <= 1e-5, "ensemble members vs single runs at "
                   "h=1e-2: %.3e of the increment" % devs[1e-2])
-            lines.append("N=4 members vs their single runs (2 steps): "
+            lines.append("%s N=%d members vs their single runs (2 steps): "
                          "%.3e of the increment at h=1e-2, %.3e at h=1"
-                         % (devs[1e-2], devs[1.0]))
-        del es, U0, out
-    print("phase 17 ensemble fixed-dt %d^2x3 h=1 (%s): %s" % (
-        N_BIG, card, " | ".join(lines)))
+                         % (prec, n, devs[1e-2], devs[1.0]))
+        del es, U0
+    print("phase %d ensemble fixed-dt %s%s h=1 (%s): %s" % (
+        phase, tag, " pc_pallas" if pc_pallas else "", card,
+        " | ".join(lines)))
     return figures
 
 
@@ -1466,36 +1596,44 @@ def phase_ensemble_adaptive(card):
     return natural
 
 
-def phase_ensemble_card_vs_cpu(card):
+def phase_ensemble_card_vs_cpu(card, phase, make_clargs_for, shape,
+                               n_members, pc_pallas=False):
     """The ensemble on the card and on the CPU (plain versions) at
-    64^2 x 3 (the bench problem), 3 members from one numpy state: fixed
-    dt in 2-step blocks (4 steps at h=1e-3) and adaptive per step (8
-    accepts from h=1e-3).  The same k, rejections, snes_failures and
-    rescues per member; u within 1e-5 of the increment; t and h within
-    1e-6 relative on the fixed-dt path (they are equal) and 1e-5 on the
+    ``shape`` x 3, ``n_members`` members from one numpy state: fixed dt
+    in 2-step blocks (4 steps at h=1e-3) and adaptive per step (8
+    accepts from h=1e-3), with the basis-GEMM or (``pc_pallas``) the
+    fused pc.  The same k, rejections, snes_failures and rescues per
+    member; u within 1e-5 of the increment; t and h within 1e-6
+    relative on the fixed-dt path (they are equal) and 1e-5 on the
     adaptive one: there each accept's h follows the embedded error
     norm, a cancelling sum that the card's and the CPU's float32 sweeps
-    round apart (9.9e-7 measured; phase 14 allows 1e-4)."""
+    round apart (9.9e-7 measured in 2D; phase 14 allows 1e-4)."""
     from ksfd_tpu_torch import NumericsOptions
     from ksfd_tpu_torch.solvers import EnsembleSolver
 
-    n = N_ENS_CMP
-    cases = (("fixed", NumericsOptions(adapt_type="none"), 2, 4, 1e-6),
-             ("adaptive", NumericsOptions(), 1, 8, 1e-5))
+    cases = (("fixed", NumericsOptions(adapt_type="none",
+                                       pc_pallas=pc_pallas), 2, 4, 1e-6),
+             ("adaptive", NumericsOptions(pc_pallas=pc_pallas), 1, 8, 1e-5))
+    tag = "x".join(str(n) for n in shape) + "x3"
     lines = []
     for label, nm, block, steps, th_rtol in cases:
         runs, U0 = {}, None
         for dev in ("cpu", "cuda"):
-            ps, grid, ops = problem_from_clargs(bench_clargs(n), n, n,
-                                                device=dev)
+            ps, grid, ops = problem_from_clargs(make_clargs_for(shape[0]),
+                                                *shape, device=dev)
             if U0 is None:
-                U0 = ensemble_members(initial_state(grid), 3, seed=1)
+                U0 = ensemble_members(initial_state(grid), n_members, seed=1)
             es = EnsembleSolver(ops, nm, t0=0.0, dt=1e-3, tmax=1e9,
                                 maxsteps=steps, rtol=1e-6, atol=0.01,
                                 block_steps=block)
             out = es.solve(U0)
             runs[dev] = (out.u.cpu().numpy(), out.t, out.h, out.k,
                          out.snes_failures, es.rescues)
+            if dev == "cuda":
+                launched = {n: k.launches for n, k in es.kernels.kernels.items()}
+                if pc_pallas:
+                    launched.update({n: k.launches for n, k in
+                                     es.fused_pc.kernels.items()})
         (uc, tc, hc, kc, sc_, rc), (ug, tg, hg, kg, sg, rg) = (runs["cpu"],
                                                                runs["cuda"])
         inc = float(np.abs(uc - U0).max())
@@ -1504,17 +1642,90 @@ def phase_ensemble_card_vs_cpu(card):
         hrel = float(np.max(np.abs(hg - hc) / np.abs(hc)))
         check((kg == kc).all() and (sg == sc_).all() and (rg == rc).all()
               and (kc == steps).all(),
-              "ensemble card vs cpu %s: k %s/%s snes %s/%s rescues %s/%s"
-              % (label, kg, kc, sg, sc_, rg, rc))
+              "ensemble card vs cpu %s %s: k %s/%s snes %s/%s rescues %s/%s"
+              % (tag, label, kg, kc, sg, sc_, rg, rc))
         check(trel <= th_rtol and hrel <= th_rtol and dev_abs <= 1e-5 * inc,
-              "ensemble card vs cpu %s: t %.3e h %.3e rel, u %.3e of the "
-              "increment %.3e" % (label, trel, hrel, dev_abs, inc))
+              "ensemble card vs cpu %s %s: t %.3e h %.3e rel, u %.3e of the "
+              "increment %.3e" % (tag, label, trel, hrel, dev_abs, inc))
+        check(launched["resid"] > 0 and (not pc_pallas
+                                         or launched["pc_fwd"] > 0),
+              "ensemble card vs cpu %s %s ran through the kernels: %s"
+              % (tag, label, launched))
         lines.append("%s: k %s, rejections %s, t/h rel dev %.3e/%.3e, u "
                      "dev %.3e (%.3e of the increment %.6e)" % (
                          label, kg.tolist(), sg.tolist(), trel, hrel, dev_abs,
                          dev_abs / inc, inc))
-    print("phase 19 ensemble card vs cpu %d^2x3 3 members (%s): %s" % (
-        n, card, " | ".join(lines)))
+    print("phase %d ensemble card vs cpu %s%s %d members (%s): %s" % (
+        phase, tag, " pc_pallas" if pc_pallas else "", n_members, card,
+        " | ".join(lines)))
+
+
+def agg3d_numerics():
+    """examples/aggregation3d's numerics block (-ts_type rosw,
+    -ts_adapt_type basic, -ts_adapt_dt_max 10000, -ts_adapt_dt_min 1e-20,
+    -ts_adapt_clip 0.1,5) as NumericsOptions fields; its '-ksp_type
+    preonly -pc_type lu' stays on the port's default iterative stage
+    solver, as phase 18 keeps hexagons2d's."""
+    from ksfd_tpu_torch import NumericsOptions
+
+    return NumericsOptions(ts_type="rosw", adapt_type="basic", dt_max=1e4,
+                           dt_min=1e-20, clip_low=0.1, clip_high=5.0)
+
+
+#: accepted steps per member of phase 24's adaptive 3D run
+AGG3D_STEPS = 24
+
+
+def phase_ensemble_adaptive_3d(card):
+    """EnsembleSolver adaptive per step (device_loop off) on
+    examples/aggregation3d's parameters and numerics at its own 64^3 x 3,
+    4 members from 9000 + 90 N(0,1) starts (hex_starts, the stand-in
+    for srho0=90), dt=1e-6, AGG3D_STEPS accepts: per member the accepts,
+    rejections, fallback rescues and the t and h range, ms per outer
+    iteration and the launches (each one batched launch for all
+    members)."""
+    from ksfd_tpu_torch.solvers import EnsembleSolver
+
+    dev = torch.device("cuda")
+    n = N3_CMP
+    clargs = agg3d_clargs(n)
+    ps, grid, ops = problem_from_clargs(clargs, n, n, n, device=dev)
+    kern = make_fused_kernels(ops)
+    U0 = hex_starts(grid, 4, clargs.seed)
+    es = EnsembleSolver(ops, agg3d_numerics(), t0=0.0,
+                        dt=float(ps.params0["dt"]),
+                        tmax=float(ps.params0["tmax"]),
+                        maxsteps=AGG3D_STEPS, rtol=float(ps.params0["rtol"]),
+                        atol=float(ps.params0["atol"]), kernels=kern)
+    hs_seen = []
+    es.add_monitor(lambda es, ks, ts, U: hs_seen.append(es.hs.copy()))
+    for k in kern.kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = es.solve(U0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kern.kernels.items()}
+    check((out.k == AGG3D_STEPS).all() and not out.diverged.any()
+          and bool(torch.isfinite(out.u).all()),
+          "aggregation3d ensemble: k %s diverged %s" % (out.k, out.diverged))
+    check(launches["resid"] > 0 and launches["delta"] > 0,
+          "aggregation3d ensemble ran through the kernels: %s" % launches)
+    hs = np.array(hs_seen)
+    members = "; ".join(
+        "m%d: k %d, rejections %d, fallback rescues %d, t %.6g, h "
+        "%.3g..%.3g" % (i, out.k[i], out.snes_failures[i], es.rescues[i],
+                        out.t[i], hs[:, i].min(), hs[:, i].max())
+        for i in range(4))
+    print("phase 24 ensemble adaptive aggregation3d %d^3x3 4 members dt=1e-6 "
+          "(%s): %d accepts each in %d outer iterations, %.3f s, %.4f ms per "
+          "outer iteration | %s | launches %s" % (
+              n, card, AGG3D_STEPS, es.iterations, secs,
+              secs / es.iterations * 1e3, members, launches))
+    return dict(iterations=es.iterations, secs=secs, launches=launches,
+                k=out.k.tolist(), rejections=out.snes_failures.tolist(),
+                rescues=es.rescues.tolist())
 
 
 def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
@@ -1550,6 +1761,13 @@ def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
         if extra:
             rows[-1].update(extra.get(name, {}))
     return rows
+
+
+def ensemble_json(figures):
+    """An ensemble phase's figures by "<precision>_N<members>"."""
+    return {"%s_N%d" % k: {kk: v for kk, v in f.items()
+                           if kk not in ("per_step", "launches")}
+            for k, f in figures.items()}
 
 
 def main():
@@ -1610,11 +1828,34 @@ def main():
     del u_rough, kern_agg, ops
     timed("14", phase_chunk_card_vs_cpu, card)
     b11 = timed("15", phase_coeff_kernel, card)
-    batched, batched_errs = timed("16", phase_batched_kernels, card,
-                                  b11["kern"])
-    ens = timed("17", phase_ensemble_fixed, card)
+    batched, batched_errs = timed(
+        "16", phase_batched_kernels, card, b11["kern"],
+        torch.as_tensor(rough_state(b11["kern"].build.ops.grid,
+                                    b11["kern"].build.ops.ps),
+                        device="cuda"), 16, "%d^2x3" % N_BIG)
+    ens = timed("17", phase_ensemble_fixed, card, bench_clargs(N_BIG),
+                (N_BIG, N_BIG), ENS_RUNS, 17)
     hexa = timed("18", phase_ensemble_adaptive, card)
-    timed("19", phase_ensemble_card_vs_cpu, card)
+    timed("19", phase_ensemble_card_vs_cpu, card, 19, bench_clargs,
+          (N_ENS_CMP,) * 2, 3)
+    ops3 = kern3.build.ops
+    batched3, batched3_errs = timed(
+        "20", phase_batched_kernels, card, kern3,
+        rough_state_3d(ops3.grid, ops3.ps, "cuda"), 20, "%d^3x3" % N3_BIG,
+        reps=20)
+    del ops3
+    batched_pc, batched_pc_errs = timed("21", phase_batched_pc, card)
+    ens3 = timed("22", phase_ensemble_fixed, card, agg3d_clargs(N3_BIG),
+                 (N3_BIG,) * 3, ENS3_RUNS, 22, reps=2,
+                 member_check=ENS3_RUNS[-2])
+    ens_pc = timed("23", phase_ensemble_fixed, card, bench_clargs(N_BIG),
+                   (N_BIG, N_BIG), ENS_PC_RUNS, 23, pc_pallas=True,
+                   member_check=ENS_PC_RUNS[0])
+    agg3 = timed("24 adaptive", phase_ensemble_adaptive_3d, card)
+    timed("24 cpu 3d", phase_ensemble_card_vs_cpu, card, 24, agg3d_clargs,
+          (N3_ENS_CMP,) * 3, 2)
+    timed("24 cpu pc", phase_ensemble_card_vs_cpu, card, 24, bench_clargs,
+          (N_ENS_CMP,) * 2, 3, pc_pallas=True)
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -1636,24 +1877,33 @@ def main():
         runs2d += [fig["smooth_counts"], fig["stiff_counts"]]
     per_step["ensemble_f64"] = ens["f64", 8]["per_step"]
     per_step["ensemble_f32"] = ens["f32", 8]["per_step"]
+    per_step["ensemble_f64_pc"] = ens_pc[ENS_PC_RUNS[0]]["per_step"]
     runs2d += [f["launches"] for f in ens.values()] + [hexa["launches"]]
+    runs2d += [f["launches"] for f in ens_pc.values()]
     totals = {n: sum(c.get(n, 0) for c in runs2d)
               for n in list(kern.kernels) + ["pc_fwd", "pc_inv"]}
     per_step3 = {"f64": {n: c // 10 for n, c in counts3.items()},
-                 "f32": {n: c // 10 for n, c in counts32_3.items()}}
-    totals3 = {n: counts3[n] + counts32_3[n] for n in kern3.kernels}
+                 "f32": {n: c // 10 for n, c in counts32_3.items()},
+                 "ensemble_f64": ens3["f64", 1]["per_step"],
+                 "ensemble_f32": ens3[ENS3_RUNS[-1]]["per_step"]}
+    runs3d = [counts3, counts32_3, agg3["launches"]] + [
+        f["launches"] for f in ens3.values()]
+    totals3 = {n: sum(c.get(n, 0) for c in runs3d) for n in kern3.kernels}
     big = "%d^2" % N_BIG
     agg = "%d^2" % N_AGG
     pc_times = {n: pc_figs[big][n] for n in ("pc_fwd", "pc_inv")}
-    pc_at_agg = {n: dict(zip(("ms_1536", "plain_ms_1536", "library_ms_1536",
-                              "bound_ms_1536"), pc_figs[agg][n][:4]))
-                 for n in ("pc_fwd", "pc_inv")}
     # the member-batched builds at nb = NB: one batched launch, NB
     # single launches and the bound of NB members
-    batched_keys = {n: {"ms_nb%d" % NB: a, "ms_%d_single" % NB: b_,
-                        "bound_ms_nb%d" % NB: bd[0],
-                        "batched_max_abs_err": batched_errs[n][0]}
-                    for n, (a, b_, bd) in batched.items()}
+    def batched_keys(figs, errs_b):
+        return {n: {"ms_nb%d" % NB: a, "ms_%d_single" % NB: b_,
+                    "bound_ms_nb%d" % NB: bd[0],
+                    "batched_max_abs_err": errs_b[n][0]}
+                for n, (a, b_, bd) in figs.items()}
+
+    pc_extra = batched_keys(batched_pc, batched_pc_errs)
+    for n in ("pc_fwd", "pc_inv"):
+        pc_extra[n].update(zip(("ms_1536", "plain_ms_1536", "library_ms_1536",
+                                "bound_ms_1536"), pc_figs[agg][n][:4]))
     b11_row = {
         "name": "coeff_resid", "route": "cuda",
         "source": "ksfd_tpu_torch/csrc/stencil2d.cu",
@@ -1673,13 +1923,14 @@ def main():
     print(json.dumps({
         "kernels": kernel_rows(kern, "ksfd_tpu_torch/csrc/stencil2d.cu",
                                per_step, totals, errs, rel, times, "",
-                               extra=batched_keys)
+                               extra=batched_keys(batched, batched_errs))
         + [b11_row]
         + kernel_rows(kern3, "ksfd_tpu_torch/csrc/stencil3d.cu",
-                      per_step3, totals3, errs3, rel3, times3, "3d")
+                      per_step3, totals3, errs3, rel3, times3, "3d",
+                      extra=batched_keys(batched3, batched3_errs))
         + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
                       totals, pc_errs, pc_rel, pc_times, "",
-                      extra=pc_at_agg),
+                      extra=pc_extra),
         "ptxas_pc2d": ptxas_pc,
         "ms_per_step": step_s * 1e3, "dof_updates_per_s": rate,
         "ms_per_step_3d": step3_s * 1e3, "dof_updates_per_s_3d": rate3,
@@ -1692,10 +1943,11 @@ def main():
         "ms_per_accept_chunk_smooth_pc": chunks[True]["smooth_ms"],
         "ms_per_accept_chunk_stiff": chunks[False]["stiff_ms"],
         "ms_per_accept_chunk_stiff_pc": chunks[True]["stiff_ms"],
-        "ensemble": {"%s_N%d" % k: {kk: v for kk, v in f.items()
-                                    if kk not in ("per_step", "launches")}
-                     for k, f in ens.items()},
+        "ensemble": ensemble_json(ens),
         "ensemble_hexagons2d": hexa,
+        "ensemble_3d": ensemble_json(ens3),
+        "ensemble_pc": ensemble_json(ens_pc),
+        "ensemble_aggregation3d": agg3,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,16 @@
 // Every C entry launches on the caller's stream, allocates nothing (the
 // wrapper passes the scratch T) and returns cudaGetLastError().
 //
+// Members (the reference's ensemble vmaps the two pallas_calls,
+// pallas_pc.py:196 and :222): every entry takes a member count nb >= 1
+// (at most 65535) and runs both of its grids over nb members on
+// blockIdx.z.  v, c, T and the output are contiguous (nb, NF, nx, ny)
+// and the scalar pack is (nb, 3 + 4 NL), one row per member; the bases
+// and lam2d are shared by all members and not broadcast.  A block adds
+// member * NF * nx * ny to its per-member pointers and member * (3 + 4
+// NL) to the pack, and nothing else changes, so a batched launch equals
+// nb single launches bit for bit and nb = 1 is the single-member apply.
+//
 // Without __CUDACC__ (a host C++20 compiler, one std::thread per CUDA
 // thread and a std::barrier for __syncthreads) the kernel bodies compile
 // as plain C++; tests/test_torch_pc.py runs them so on the CPU.  The C
@@ -91,7 +101,8 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p, int r,
 // else shared), B is K x N (shared when A_BATCH, else one per field), C
 // is NF x M x N.  EPI (forward right product): C holds the arrow-solved
 // modes instead, from sc = [shift, rho_diff, rho_mean, dG_1..dG_nl,
-// s_1..s_nl, gamma_1..gamma_nl, D_1..D_nl] and lam (M x N, f32).
+// s_1..s_nl, gamma_1..gamma_nl, D_1..D_nl] and lam (M x N, f32).  The
+// member blockIdx.z selects its own per-field operand, C and pack row.
 template <int NF, bool A_BATCH, bool EPI>
 __global__ void __launch_bounds__(NT)
 pc_gemm(const float* __restrict__ A, const float* __restrict__ B,
@@ -107,6 +118,14 @@ pc_gemm(const float* __restrict__ A, const float* __restrict__ B,
   const int ar = tid / (BK / 4), ac = (tid % (BK / 4)) * 4;   // A loader
   const int br = tid / (BN / 4), bc = (tid % (BN / 4)) * 4;   // B loader
   const size_t a_stride = (size_t)M * K, b_stride = (size_t)K * N;
+  const size_t member = blockIdx.z;
+  if (A_BATCH) {
+    A += member * NF * a_stride;
+  } else {
+    B += member * NF * b_stride;
+  }
+  C += member * NF * (size_t)M * N;
+  if (EPI) sc += member * (3 + 4 * (NF - 1));
 
   float acc[NF][TM][TN];
 #pragma unroll
@@ -228,38 +247,38 @@ int vec_ok(int nx, int ny, const float* const* ptrs, int n) {
   return 1;
 }
 
-dim3 grid_for(int nx, int ny) {
-  return dim3((ny + BN - 1) / BN, (nx + BM - 1) / BM);
+dim3 grid_for(int nx, int ny, int nb) {
+  return dim3((ny + BN - 1) / BN, (nx + BM - 1) / BM, nb);
 }
 
 template <int NF>
 int fwd(const float* sc, const float* v, const float* qxt, const float* qy,
-        const float* lam, float* tmp, float* out, int nx, int ny,
+        const float* lam, float* tmp, float* out, int nx, int ny, int nb,
         cudaStream_t s) {
   const float* ptrs[] = {v, qxt, qy, tmp, out};
   const int vec = vec_ok(nx, ny, ptrs, 5);
   // T_f = Qx^T v_f  (M = nx, K = nx, N = ny; the basis is shared)
-  pc_gemm<NF, false, false><<<grid_for(nx, ny), NT, 0, s>>>(
+  pc_gemm<NF, false, false><<<grid_for(nx, ny, nb), NT, 0, s>>>(
       qxt, v, tmp, nx, ny, nx, vec, nullptr, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // modes = arrow^{-1}(T_f Qy)  (M = nx, K = ny, N = ny)
-  pc_gemm<NF, true, true><<<grid_for(nx, ny), NT, 0, s>>>(
+  pc_gemm<NF, true, true><<<grid_for(nx, ny, nb), NT, 0, s>>>(
       tmp, qy, out, nx, ny, ny, vec, sc, lam);
   return (int)cudaGetLastError();
 }
 
 template <int NF>
 int inv(const float* c, const float* qx, const float* qyt, float* tmp,
-        float* out, int nx, int ny, cudaStream_t s) {
+        float* out, int nx, int ny, int nb, cudaStream_t s) {
   const float* ptrs[] = {c, qx, qyt, tmp, out};
   const int vec = vec_ok(nx, ny, ptrs, 5);
   // T_f = Qx c_f, then out_f = T_f Qy^T
-  pc_gemm<NF, false, false><<<grid_for(nx, ny), NT, 0, s>>>(
+  pc_gemm<NF, false, false><<<grid_for(nx, ny, nb), NT, 0, s>>>(
       qx, c, tmp, nx, ny, nx, vec, nullptr, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pc_gemm<NF, true, false><<<grid_for(nx, ny), NT, 0, s>>>(
+  pc_gemm<NF, true, false><<<grid_for(nx, ny, nb), NT, 0, s>>>(
       tmp, qyt, out, nx, ny, ny, vec, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
@@ -269,29 +288,32 @@ int inv(const float* c, const float* qx, const float* qyt, float* tmp,
 
 #ifdef __CUDACC__
 // nf is 2..4 (ops/fused_pc.py MAX_NF): a block keeps nf accumulator
-// tiles in registers, so each nf is its own instance.
+// tiles in registers, so each nf is its own instance.  nb: members, 1 to
+// 65535 (gridDim.z's limit).
 extern "C" {
 
 int ksfd_pc_fwd(const float* sc, const float* v, const float* qxt,
                 const float* qy, const float* lam, float* tmp, float* out,
-                int nf, int nx, int ny, void* stream) {
+                int nf, int nx, int ny, int nb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
   switch (nf) {
-    case 2: return fwd<2>(sc, v, qxt, qy, lam, tmp, out, nx, ny, s);
-    case 3: return fwd<3>(sc, v, qxt, qy, lam, tmp, out, nx, ny, s);
-    case 4: return fwd<4>(sc, v, qxt, qy, lam, tmp, out, nx, ny, s);
+    case 2: return fwd<2>(sc, v, qxt, qy, lam, tmp, out, nx, ny, nb, s);
+    case 3: return fwd<3>(sc, v, qxt, qy, lam, tmp, out, nx, ny, nb, s);
+    case 4: return fwd<4>(sc, v, qxt, qy, lam, tmp, out, nx, ny, nb, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int ksfd_pc_inv(const float* c, const float* qx, const float* qyt,
-                float* tmp, float* out, int nf, int nx, int ny,
+                float* tmp, float* out, int nf, int nx, int ny, int nb,
                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
   switch (nf) {
-    case 2: return inv<2>(c, qx, qyt, tmp, out, nx, ny, s);
-    case 3: return inv<3>(c, qx, qyt, tmp, out, nx, ny, s);
-    case 4: return inv<4>(c, qx, qyt, tmp, out, nx, ny, s);
+    case 2: return inv<2>(c, qx, qyt, tmp, out, nx, ny, nb, s);
+    case 3: return inv<3>(c, qx, qyt, tmp, out, nx, ny, nb, s);
+    case 4: return inv<4>(c, qx, qyt, tmp, out, nx, ny, nb, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

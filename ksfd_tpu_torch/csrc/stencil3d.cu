@@ -57,6 +57,24 @@
 // Every C entry launches on the caller's stream, allocates nothing and
 // returns the first CUDA error (0 on success).
 //
+// Member-batched builds (pallas_stencil3d.py:191-192, :246-260, B8 in
+// 3D): every entry takes a member count nb >= 1 and launches one grid
+// of nb x the tiles.  The grid is one-dimensional (gridDim.x's 2^31 - 1
+// leaves the member count uncapped) and a block decodes its tile from
+// blockIdx.x with the member slowest, then the x tile, the y tile and
+// the z tile fastest, so the blocks of a batched launch run in the
+// order of nb single launches back to back.  That order matters: a
+// 4-wide x tile reads 2 * SW halo planes besides its 4, which can come from
+// L2 only while the x-neighbour tiles run close by; a member-major fold
+// into the z tiles interleaved the members and took 1.05-1.08x the time
+// of nb single launches on the H100 (PERF.md, section 6).  Operands are
+// contiguous (nb, DOF, nx, ny, nz) and the scalar pack is (nb, k), one
+// row per member, as the batched Pallas build's per-member pack rows.
+// A block adds member * DOF * nx * ny * nz (64-bit) to its pointers and
+// member * k to the pack, and nothing else changes: a member's
+// arithmetic is that of a single launch, so a batched launch equals nb
+// single launches bit for bit, and nb = 1 is the single-member kernel.
+//
 // Without __CUDACC__ (a host C++ compiler with the CUDA qualifiers
 // defined away, KSFD_NT=1 and one thread walking each block) the kernel
 // bodies compile as plain C++; tests/test_torch_3d.py runs them so on
@@ -98,6 +116,11 @@ constexpr int TN = TX * TY * TZ;
 // delta d_rho, G0c + dG, rho0c, dG, d_U[NL]; rhs rho_c, Gc, Uc[NL]
 constexpr int NARR = 4 + (NL > 0 ? NL : 1);
 constexpr int NARR_RHS = 2 + (NL > 0 ? NL : 1);
+// scalar pack lengths, the row stride of a batched pack
+constexpr int SC_RHS = 2 * DOF + 1;  // t, means, G(means), reactions
+constexpr int SC_JVP = 1;            // t
+constexpr int SC_RESID = 2;          // t, shift
+constexpr int SC_DELTA = 3;          // t, rho_mean, G0_mean
 constexpr size_t SMEM_BYTES = sizeof(float) * NARR * HN;
 constexpr size_t SMEM_BYTES_RHS = sizeof(float) * NARR_RHS * HN;
 static_assert(SMEM_BYTES <= 227 * 1024, "tile too large for shared memory");
@@ -124,6 +147,23 @@ __device__ __forceinline__ size_t box_offset(int hx, int hy, int hz, int x0,
          wrap(z0 + hz - SW, nz);
 }
 
+// The tile origin (x0, y0, z0) of this block and its member, decoded
+// from the 1D grid: member slowest, then x, y and z tiles.
+struct Tile {
+  int x0, y0, z0;
+  size_t member;
+};
+
+__device__ __forceinline__ Tile tile_of(int nx, int ny, int nz) {
+  const unsigned ntz = (nz + TZ - 1) / TZ, nty = (ny + TY - 1) / TY;
+  const unsigned per_member = ntz * nty * ((nx + TX - 1) / TX);
+  const unsigned member = blockIdx.x / per_member;
+  const unsigned r = blockIdx.x - member * per_member;
+  const unsigned xz = r / ntz, yt = xz % nty;
+  return Tile{(int)(xz / nty) * TX, (int)yt * TY, (int)(r - xz * ntz) * TZ,
+              (size_t)member};
+}
+
 __device__ __forceinline__ float lap(const float* p) {
   return ksfd_d2x(p, SX) + ksfd_d2y(p, SY) + ksfd_d2z(p, 1);
 }
@@ -143,8 +183,13 @@ rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   float* s_rc = ksfd_smem;
   float* s_Gc = s_rc + HN;
   float* s_Uc = s_Gc + HN;  // NL arrays of HN
-  const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
+  const Tile tl = tile_of(nx, ny, nz);
+  const int x0 = tl.x0, y0 = tl.y0, z0 = tl.z0;
   const size_t plane = (size_t)nx * ny * nz;
+  const size_t member = tl.member * DOF * plane;
+  sc += tl.member * SC_RHS;
+  u += member;
+  out += member;
   const float rho_mean = sc[1], G_mean = sc[1 + DOF];
 
   for (int i = threadIdx.x; i < HN; i += NT) {
@@ -199,8 +244,15 @@ jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   float* s_dG = s_G + HN;
   float* s_vr = s_dG + HN;
   float* s_vU = s_vr + HN;  // NL arrays of HN
-  const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
+  const Tile tl = tile_of(nx, ny, nz);
+  const int x0 = tl.x0, y0 = tl.y0, z0 = tl.z0;
   const size_t plane = (size_t)nx * ny * nz;
+  const size_t member = tl.member * DOF * plane;
+  sc += tl.member * (RESID ? SC_RESID : SC_JVP);
+  u += member;
+  v += member;
+  out += member;
+  if (RESID) b += member;
 
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / SX, r = i - hx * SX, hy = r / SY, hz = r - hy * SY;
@@ -260,8 +312,15 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
   float* s_r0c = s_Gs + HN;
   float* s_dG = s_r0c + HN;
   float* s_dU = s_dG + HN;  // NL arrays of HN
-  const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
+  const Tile tl = tile_of(nx, ny, nz);
+  const int x0 = tl.x0, y0 = tl.y0, z0 = tl.z0;
   const size_t plane = (size_t)nx * ny * nz;
+  const size_t member = tl.member * DOF * plane;
+  sc += tl.member * SC_DELTA;
+  u0 += member;
+  d += member;
+  u1 += member;
+  out += member;
   const float rho_mean = sc[1], G_mean = sc[2];
 
   for (int i = threadIdx.x; i < HN; i += NT) {
@@ -306,20 +365,24 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
 }
 
 #ifdef __CUDACC__
-dim3 grid_for(int nx, int ny, int nz) {
-  return dim3((nz + TZ - 1) / TZ, (ny + TY - 1) / TY, (nx + TX - 1) / TX);
+// the tiles of one member, nb times, in one dimension
+long long tiles_of(int nx, int ny, int nz) {
+  return (long long)((nz + TZ - 1) / TZ) * ((ny + TY - 1) / TY) *
+         ((nx + TX - 1) / TX);
 }
 
 // Opt the kernel into smem bytes of dynamic shared memory (above the
-// 48 KB default), then launch it.
+// 48 KB default), then launch it for nb members.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int nx, int ny, int nz, void* stream,
-           Args... args) {
+int launch(Kernel kernel, size_t smem, int nx, int ny, int nz, int nb,
+           void* stream, Args... args) {
+  const long long blocks = nb * tiles_of(nx, ny, nz);
+  if (nb < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_for(nx, ny, nz), NT, smem, (cudaStream_t)stream>>>(
-      args..., nx, ny, nz);
+  kernel<<<(unsigned)blocks, NT, smem, (cudaStream_t)stream>>>(args..., nx,
+                                                               ny, nz);
   return (int)cudaGetLastError();
 }
 #endif
@@ -329,29 +392,31 @@ int launch(Kernel kernel, size_t smem, int nx, int ny, int nz, void* stream,
 #ifdef __CUDACC__
 extern "C" {
 
+// nb: members (>= 1), with the tiles in one grid dimension
 int ksfd_rhs(const float* sc, const float* u, float* out, int nx, int ny,
-             int nz, void* stream) {
-  return launch(rhs_kernel, SMEM_BYTES_RHS, nx, ny, nz, stream, sc, u, out);
+             int nz, int nb, void* stream) {
+  return launch(rhs_kernel, SMEM_BYTES_RHS, nx, ny, nz, nb, stream, sc, u,
+                out);
 }
 
 int ksfd_jvp(const float* sc, const float* u, const float* v, float* out,
-             int nx, int ny, int nz, void* stream) {
-  return launch(jvp_kernel<false>, SMEM_BYTES, nx, ny, nz, stream, sc, u, v,
-                (const float*)nullptr, out);
+             int nx, int ny, int nz, int nb, void* stream) {
+  return launch(jvp_kernel<false>, SMEM_BYTES, nx, ny, nz, nb, stream, sc, u,
+                v, (const float*)nullptr, out);
 }
 
 int ksfd_resid(const float* sc, const float* u, const float* v,
-               const float* b, float* out, int nx, int ny, int nz,
+               const float* b, float* out, int nx, int ny, int nz, int nb,
                void* stream) {
-  return launch(jvp_kernel<true>, SMEM_BYTES, nx, ny, nz, stream, sc, u, v,
-                b, out);
+  return launch(jvp_kernel<true>, SMEM_BYTES, nx, ny, nz, nb, stream, sc, u,
+                v, b, out);
 }
 
 int ksfd_delta(const float* sc, const float* u0, const float* d,
-               const float* u1, float* out, int nx, int ny, int nz,
+               const float* u1, float* out, int nx, int ny, int nz, int nb,
                void* stream) {
-  return launch(delta_kernel, SMEM_BYTES, nx, ny, nz, stream, sc, u0, d, u1,
-                out);
+  return launch(delta_kernel, SMEM_BYTES, nx, ny, nz, nb, stream, sc, u0, d,
+                u1, out);
 }
 
 int ksfd_smem_bytes() { return (int)SMEM_BYTES; }

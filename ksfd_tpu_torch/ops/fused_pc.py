@@ -23,6 +23,15 @@ The operands stay float32 with float32 accumulation, the numerics of
 the reference's interpret-mode tests and of the port's cuBLAS apply
 with TF32 off; the TPU's bf16 MXU operands are not copied.
 
+**Members.**  The reference's ensemble vmaps the two ``pallas_call``s
+(pallas_pc.py:196, :222).  Here a call goes through the custom op of
+ops/fused_stencil.py (``call_kernel``), whose vmap rule gives every
+operand a leading member axis and runs the wrapper once: on the card
+ONE launch of the C entry for all members (``(nb, dof, nx, ny)``
+operands, an ``(nb, 3 + 4 nl)`` pack, the members on ``blockIdx.z``,
+the bases and lam2d shared), counted once; on the CPU the plain version
+member by member.
+
 The port's gate is wider than the reference's and stricter about what
 it refuses.  Any 2D extent runs (no 128-alignment: the kernels mask
 ragged tiles).  A 3D grid, ``pc_dtype`` float64, more than
@@ -38,7 +47,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .fused_stencil import build_library
+from .fused_stencil import build_library, call_kernel, register_kernel
 from .stencil import laplacian_eigendecomp
 
 __all__ = ["pack_pc_scalars", "fused_pc_available", "fused_pc_refusal",
@@ -49,10 +58,10 @@ CSRC_PC = Path(__file__).resolve().parent.parent / "csrc" / "pc2d.cu"
 MAX_NF = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
-    # (sc, v, qxt, qy, lam, tmp, out, nf, nx, ny, stream)
-    "ksfd_pc_fwd": [_P] * 7 + [_I] * 3 + [_P],
-    # (c, qx, qyt, tmp, out, nf, nx, ny, stream)
-    "ksfd_pc_inv": [_P] * 5 + [_I] * 3 + [_P],
+    # (sc, v, qxt, qy, lam, tmp, out, nf, nx, ny, nb, stream)
+    "ksfd_pc_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    # (c, qx, qyt, tmp, out, nf, nx, ny, nb, stream)
+    "ksfd_pc_inv": [_P] * 5 + [_I] * 4 + [_P],
 }
 _SRC = "ksfd_tpu/ops/pallas_pc.py"
 
@@ -98,15 +107,16 @@ def fused_pc_refusal(grid, ops, pc_dtype="float32"):
     """Why the fused apply cannot run here, or None."""
     if grid.dim != 2:
         return ("pc_pallas on a %dD grid (the fused pc is 2D, as the "
-                "reference's is: ROADMAP Queue B item 5)" % grid.dim)
+                "reference's is: ROADMAP Queue B item 2, B5)" % grid.dim)
     if ops is not None and grid.dof != ops.nligands + 1:
-        return "pc_pallas on a with-G state (ROADMAP Queue A item 13)"
+        return ("pc_pallas on a with-G state (ROADMAP Queue A item 10, "
+                "A13)")
     if grid.dof > MAX_NF or grid.dof < 2:
         return ("pc_pallas with %d fields (the CUDA kernels take 2..%d: "
-                "ROADMAP Queue B item 5)" % (grid.dof, MAX_NF))
+                "ROADMAP Queue B item 2, B5)" % (grid.dof, MAX_NF))
     if pc_dtype in ("float64", "f64"):
         return ("pc_pallas with pc_dtype float64 (the fused apply is "
-                "float32: ROADMAP Queue B item 5)")
+                "float32: ROADMAP Queue B item 2, B5)")
     return None
 
 
@@ -122,18 +132,23 @@ class PCKernel:
 
     ``prepare(*args)`` returns the float32 contiguous operands,
     ``body(*operands)`` is the plain PyTorch version and
-    ``launch(*operands)`` the CUDA kernels on the same operands; the
-    argument ``state_arg`` decides the device.  ``launches`` counts
-    calls of the C entry and nothing else.
+    ``launch(*operands)`` the CUDA kernels on the same operands, for one
+    member or a leading member axis; the argument ``state_arg`` decides
+    the device.  A call dispatches through the custom op of
+    ops/fused_stencil.py, so ``torch.func.vmap`` batches it (module
+    docstring).  ``launches`` counts calls of the C entry and nothing
+    else, ``broadcasts`` the unbatched tensors of vmapped calls.
     """
 
     def __init__(self, name, body, launch, state_arg, replaces):
         self.name = name
         self.replaces = replaces
         self.launches = 0
+        self.broadcasts = 0
         self._state_arg = state_arg
         self._body = body
         self._launch = launch
+        self.key = register_kernel(self)
 
     def prepare(self, *args):
         return [torch.as_tensor(x).to(torch.float32).contiguous()
@@ -141,14 +156,13 @@ class PCKernel:
 
     def __call__(self, *args):
         dev = args[self._state_arg].device
-        if dev.type == "cuda":
-            return self.launch(*self.prepare(*args))
-        if dev.type == "cpu":
-            return self.body(*self.prepare(*args))
-        raise ValueError(
-            "%s kernel: tensors on %s; the kernel runs on cuda and its "
-            "plain version on cpu" % (self.name, dev)
-        )
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(
+                "%s kernel: tensors on %s; the kernel runs on cuda and its "
+                "plain version on cpu" % (self.name, dev)
+            )
+        first, *rest = self.prepare(*args)
+        return call_kernel(self, first, rest)
 
     def plain(self, *args):
         """The plain PyTorch version on any device (never counted)."""
@@ -156,6 +170,23 @@ class PCKernel:
 
     def body(self, *operands):
         return self._body(*operands)
+
+    def run(self, first, rest):
+        """One member: the CUDA kernels on a CUDA tensor, else the plain
+        version (the caller checked the device)."""
+        operands = (first,) + tuple(rest)
+        if operands[self._state_arg].device.type == "cuda":
+            return self.launch(*operands)
+        return self.body(*operands)
+
+    def run_batched(self, first, rest):
+        """A leading member axis on every operand: one launch on a CUDA
+        tensor; on a CPU tensor the plain version member by member."""
+        operands = (first,) + tuple(rest)
+        if operands[self._state_arg].device.type == "cuda":
+            return self.launch(*operands)
+        return torch.stack([self.body(*[x[i] for x in operands])
+                            for i in range(first.shape[0])])
 
     def launch(self, *operands):
         """Launch the CUDA kernels on prepared operands."""
@@ -224,24 +255,35 @@ class _FusedPC:
 
     # -- CUDA launches --------------------------------------------------
     def _check(self, name, sc, fields):
+        """Check the operands of one member, ``(dof, nx, ny)`` with a
+        ``(k,)`` pack, or of nb members, ``(nb, dof, nx, ny)`` with an
+        ``(nb, k)`` pack; returns nb."""
         for x in ((sc,) if sc is not None else ()) + (fields,):
             if x.device.type != "cuda" or x.dtype != torch.float32:
                 raise ValueError("%s kernel: operands must be float32 on "
                                  "the card" % name)
-        if tuple(fields.shape) != self.Vshape or not fields.is_contiguous():
+        batched = fields.dim() == len(self.Vshape) + 1
+        nb = int(fields.shape[0]) if batched else 1
+        lead = (nb,) if batched else ()
+        if tuple(fields.shape) != lead + self.Vshape \
+                or not fields.is_contiguous():
             raise ValueError("%s kernel: operand shape %s, expected "
                              "contiguous %s" % (name, tuple(fields.shape),
-                                                self.Vshape))
+                                                lead + self.Vshape))
         if self.Qx.device != fields.device:
             raise ValueError("%s kernel: bases on %s, operand on %s" % (
                 name, self.Qx.device, fields.device))
+        k = 3 + 4 * self.nl
         if sc is not None and (sc.device != fields.device
-                               or sc.numel() != 3 + 4 * self.nl):
-            raise ValueError("%s kernel: scalar pack of %d on %s, expected "
-                             "%d on %s" % (name, sc.numel(), sc.device,
-                                           3 + 4 * self.nl, fields.device))
+                               or tuple(sc.shape) != lead + (k,)
+                               or not sc.is_contiguous()):
+            raise ValueError("%s kernel: scalar pack of shape %s on %s, "
+                             "expected %s on %s" % (
+                                 name, tuple(sc.shape), sc.device,
+                                 lead + (k,), fields.device))
+        return nb
 
-    def _run(self, name, fields, ptrs):
+    def _run(self, name, fields, nb, ptrs):
         lib = PC_BUILD.library()
         tmp = torch.empty_like(fields)
         out = torch.empty_like(fields)
@@ -249,7 +291,7 @@ class _FusedPC:
             stream = torch.cuda.current_stream(fields.device).cuda_stream
             err = getattr(lib, "ksfd_" + name)(
                 *ptrs, tmp.data_ptr(), out.data_ptr(), self.nf,
-                *self.Sshape, stream,
+                *self.Sshape, nb, stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -258,15 +300,15 @@ class _FusedPC:
         return out
 
     def launch_fwd(self, sc, v):
-        self._check("pc_fwd", sc, v)
-        return self._run("pc_fwd", v, [
+        nb = self._check("pc_fwd", sc, v)
+        return self._run("pc_fwd", v, nb, [
             sc.data_ptr(), v.data_ptr(), self.QxT.data_ptr(),
             self.Qy.data_ptr(), self.lam2d.data_ptr(),
         ])
 
     def launch_inv(self, c):
-        self._check("pc_inv", None, c)
-        return self._run("pc_inv", c, [
+        nb = self._check("pc_inv", None, c)
+        return self._run("pc_inv", c, nb, [
             c.data_ptr(), self.Qx.data_ptr(), self.QyT.data_ptr(),
         ])
 

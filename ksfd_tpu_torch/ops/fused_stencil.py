@@ -42,18 +42,18 @@ kernel launches and nothing else.  The kernels are memory-bound: see
 the note at the top of csrc/stencil2d.cu.
 
 **Member batching** (the counterpart of pallas_stencil.py
-``member_batching_rules``, :87-123).  A call goes through a
-``torch.library.custom_op`` (``ksfd_tpu_torch::stencil<n>``, one per
-operand count) whose ``register_vmap`` rule stands in for
-``jax.custom_batching``: under ``torch.func.vmap`` the rule receives
-the member-leading operands and scalar packs, broadcasts the unbatched
-ones (as pallas_stencil.py:113-118 does) and makes ONE batched launch
-of the 2D kernel (``(nb, dof, nx, ny)`` operands, an ``(nb, k)`` pack,
-members on ``blockIdx.z``), counted once.  So ``EnsembleSolver``
-vmaps the unchanged ``make_step_fn``/``make_multistep_fn``.  On CPU
-tensors the rule runs the plain body member by member.  A 3D batched
-call raises NotImplementedError (ROADMAP Queue B item 8): the 3D
-kernels have no member axis yet.
+``member_batching_rules``, :87-123, used in 3D at
+pallas_stencil3d.py:578-582).  A call goes through a
+``torch.library.custom_op`` (``ksfd_tpu_torch::kernel<n>``, one per
+operand count, shared with ops/fused_pc.py) whose ``register_vmap`` rule
+stands in for ``jax.custom_batching``: under ``torch.func.vmap`` the
+rule receives the member-leading operands and scalar packs, broadcasts
+the unbatched ones (as pallas_stencil.py:113-118 does) and makes ONE
+batched launch (``(nb, dof, *S)`` operands, an ``(nb, k)`` pack; the
+members on ``blockIdx.z`` in 2D, the slowest part of a 1D block index
+in 3D), counted once.  So ``EnsembleSolver`` vmaps the
+unchanged ``make_step_fn``/``make_multistep_fn``.  On CPU tensors the
+rule runs the plain body member by member.
 """
 
 import ctypes
@@ -121,12 +121,10 @@ def entry_names(ndim):
 def stencil_entries(ndim):
     """ctypes argument types of the stencil entries ``ksfd_<name>`` of
     a dimension: the scalar pack, operand and output pointers, the
-    ``ndim`` grid extents, in 2D the member count ``nb``, then the
-    stream."""
-    batch = [ctypes.c_int] if ndim == 2 else []
+    ``ndim`` grid extents, the member count ``nb``, then the stream."""
     return {
         "ksfd_" + name: [ctypes.c_void_p] * (_OPERANDS[name] + 2)
-        + [ctypes.c_int] * ndim + batch + [ctypes.c_void_p]
+        + [ctypes.c_int] * (ndim + 1) + [ctypes.c_void_p]
         for name in entry_names(ndim)
     }
 
@@ -188,9 +186,21 @@ def build_library(header, csrc=CSRC, ndim=2, entries=None):
     return cdll, info
 
 
-#: live FusedKernels by key: the custom ops carry the key, not the object
+#: live kernel wrappers by key (FusedKernel here, PCKernel in
+#: ops/fused_pc.py): the custom ops carry the key, not the object.  A
+#: wrapper has ``run(sc, operands)`` for one member,
+#: ``run_batched(sc, operands)`` for a leading member axis on every
+#: tensor, and ``broadcasts``, the count of unbatched tensors the vmap
+#: rule copied to every member.
 _KERNELS = weakref.WeakValueDictionary()
 _NEXT_KEY = itertools.count()
+
+
+def register_kernel(kernel):
+    """Enter a kernel wrapper in the registry; returns its key."""
+    key = next(_NEXT_KEY)
+    _KERNELS[key] = kernel
+    return key
 
 
 def _op_impl(key, sc, *operands):
@@ -201,30 +211,40 @@ def _op_impl(key, sc, *operands):
 def _op_vmap(info, in_dims, key, sc, *operands):
     """The vmap rule (pallas_stencil.py member_batching_rules): every
     operand and the scalar pack get a leading member axis, the
-    unbatched ones broadcast to it, and the batched entry runs once."""
+    unbatched ones broadcast to it (and counted), and the batched entry
+    runs once."""
     n = info.batch_size
+    kernel = _KERNELS[key]
+    kernel.broadcasts += sum(d is None for d in in_dims[1:])
 
     def lead(x, dim):
         x = x.movedim(dim, 0) if dim is not None else x.expand(
             (n,) + tuple(x.shape))
         return x.contiguous()
 
-    return _KERNELS[key].run_batched(
+    return kernel.run_batched(
         lead(sc, in_dims[1]),
         [lead(x, d) for x, d in zip(operands, in_dims[2:])]), 0
 
 
 def _make_op(n_in):
-    args = ", ".join("Tensor x%d" % i for i in range(n_in))
+    args = "".join(", Tensor x%d" % i for i in range(n_in))
     op = torch.library.custom_op(
-        "ksfd_tpu_torch::stencil%d" % n_in, _op_impl, mutates_args=(),
-        schema="(int key, Tensor sc, %s) -> Tensor" % args)
+        "ksfd_tpu_torch::kernel%d" % n_in, _op_impl, mutates_args=(),
+        schema="(int key, Tensor sc%s) -> Tensor" % args)
     op.register_vmap(_op_vmap)
     return op
 
 
-#: the custom ops by operand count
-_STENCIL_OPS = {n: _make_op(n) for n in sorted(set(_OPERANDS.values()))}
+#: the custom ops by operand count besides the first tensor (0: the
+#: fused pc's pc_inv, 1..3: the stencil kernels and pc_fwd)
+_KERNEL_OPS = {n: _make_op(n) for n in range(4)}
+
+
+def call_kernel(kernel, sc, operands):
+    """Call a registered wrapper through the custom op of its operand
+    count, so that ``torch.func.vmap`` batches it."""
+    return _KERNEL_OPS[len(operands)](kernel.key, sc, *operands)
 
 
 class FusedKernel:
@@ -234,23 +254,24 @@ class FusedKernel:
     pack and f32 contiguous operands (the packing of the Pallas
     wrappers); ``body(sc, operands)`` is the plain PyTorch version of
     the kernel and ``launch(sc, operands)`` the CUDA kernel on the same
-    operands, for one member or (2D) a leading member axis.  A call
+    operands, for one member or a leading member axis.  A call
     dispatches through the custom op of its operand count, so
     ``torch.func.vmap`` batches it (see the module docstring).
-    ``launches`` counts CUDA launches.  ``planes`` gives each operand's
-    leading extent (the state's ``dof`` unless given).
+    ``launches`` counts CUDA launches, ``broadcasts`` the unbatched
+    tensors of vmapped calls.  ``planes`` gives each operand's leading
+    extent (the state's ``dof`` unless given).
     """
 
     def __init__(self, name, owner, prepare, body, replaces, planes=None):
         self.name = name
         self.replaces = replaces
         self.launches = 0
+        self.broadcasts = 0
         self._owner = owner
         self.prepare = prepare
         self._body = body
         self.planes = tuple(planes or (owner.dof,) * _OPERANDS[name])
-        self.key = next(_NEXT_KEY)
-        _KERNELS[self.key] = self
+        self.key = register_kernel(self)
 
     def __call__(self, *args):
         dev = args[0].device
@@ -260,7 +281,7 @@ class FusedKernel:
                 "plain version on cpu" % (self.name, dev)
             )
         sc, operands = self.prepare(*args)
-        return _STENCIL_OPS[len(operands)](self.key, sc, *operands)
+        return call_kernel(self, sc, operands)
 
     def plain(self, *args):
         """The plain PyTorch version on any device (never counted)."""
@@ -279,28 +300,17 @@ class FusedKernel:
     def run_batched(self, sc, operands):
         """A leading member axis: one batched launch on a CUDA tensor;
         on a CPU tensor the plain version member by member."""
-        self._check_batchable()
         if sc.device.type == "cuda":
             return self.launch(sc, operands)
         return torch.stack([self.body(sc[i], [x[i] for x in operands])
                             for i in range(sc.shape[0])])
 
-    def _check_batchable(self):
-        if self._owner.dim != 2:
-            raise NotImplementedError(
-                "member-batched %dD kernels (%s under vmap, an ensemble of "
-                "%dD problems) are ROADMAP Queue B item 8 (3D)"
-                % (self._owner.dim, self.name, self._owner.dim)
-            )
-
     def launch(self, sc, operands):
         """Launch the CUDA kernel on prepared operands: ``(planes, *S)``
-        each with a ``(k,)`` pack, or (2D) ``(nb, planes, *S)`` with an
+        each with a ``(k,)`` pack, or ``(nb, planes, *S)`` with an
         ``(nb, k)`` pack, one launch for all nb members."""
         S = self._owner.Sshape
         batched = operands[0].dim() == len(S) + 2
-        if batched:
-            self._check_batchable()
         nb = int(operands[0].shape[0]) if batched else 1
         lead = (nb,) if batched else ()
         for x in (sc,) + tuple(operands):
@@ -323,8 +333,7 @@ class FusedKernel:
             stream = torch.cuda.current_stream(sc.device).cuda_stream
             err = getattr(lib, "ksfd_" + self.name)(
                 sc.data_ptr(), *[x.data_ptr() for x in operands],
-                out.data_ptr(), *S, *((nb,) if self._owner.dim == 2 else ()),
-                stream,
+                out.data_ptr(), *S, nb, stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -343,7 +352,7 @@ class _FusedBuild:
         grid = ops.grid
         if grid.dof != ops.nligands + 1:
             raise NotImplementedError(
-                "with-G states are ROADMAP Queue A item 13"
+                "with-G states are ROADMAP Queue A item 10 (A13)"
             )
         self.ops = ops
         self.csrc = Path(csrc)
@@ -600,10 +609,9 @@ def make_fused_kernels(ops):
     kernel plus active sources), ``kernels`` (the four FusedKernels by
     name), ``coeff_resid`` (B11, 2D only) and ``build`` (header, build
     info).  Nothing is compiled until a kernel first meets a CUDA
-    tensor.  Under ``torch.func.vmap`` each 2D entry launches its
+    tensor.  Under ``torch.func.vmap`` each entry launches its
     member-batched build once for all members (module docstring); the
-    3D member-batched builds are ROADMAP Queue B item 8 and the sharded
-    builds item 9.
+    sharded builds (B9) are ROADMAP Queue B item 1.
     """
     if ops.grid.dim == 3:
         from .fused_stencil3d import make_fused_kernels_3d

@@ -30,6 +30,12 @@ On a CUDA tensor each entry launches its kernel in csrc/stencil3d.cu
 the plain PyTorch version of fused_stencil._FusedBuild, whose
 ``torch.roll`` stencils sum over x, then y, then z, the order of the
 Pallas ``lap``/``graddot``.
+
+Under ``torch.func.vmap`` each entry makes one member-batched launch
+(B8 in 3D, the counterpart of the ``batch=B`` build,
+pallas_stencil3d.py:191-192, :246-260, and its vmap rule :578-582):
+the vmap rule of ops/fused_stencil.py, the members the slowest part of
+a 1D block index (csrc/stencil3d.cu).
 """
 
 from .fused_stencil import CSRC, _FusedBuild, kernel_namespace

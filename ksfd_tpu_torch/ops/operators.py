@@ -51,7 +51,7 @@ class PDEOperators:
         if flux_form:
             raise NotImplementedError(
                 "flux_form=True (the conservative discretization) is not "
-                "ported; ROADMAP Queue A item 2 lists it"
+                "ported; ROADMAP Queue A item 9 lists it"
             )
         self.ps = ps
         self.grid = grid

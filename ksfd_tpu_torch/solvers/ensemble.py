@@ -1,14 +1,15 @@
 """Ensemble integration: N independent trajectories as one batched program.
 
 Counterpart: ksfd_tpu/solvers/ensemble.py:EnsembleSolver (and
-:shard_members, which raises here).  The implicit step of
-solvers/solver.py is ``torch.func.vmap``-ped, unchanged, over a leading
-member axis: under vmap each fused stencil kernel launches its
-member-batched build once for all members (ops/fused_stencil.py's vmap
-rule, the counterpart of ``jax.custom_batching``), and the
-preconditioner's products become batched products.  The member axis
-stays on the card; every member carries its own t, h, step count,
-controller and fallback state on the host, in numpy.
+:shard_members, which raises here), on 2D and 3D problems.  The implicit
+step of solvers/solver.py is ``torch.func.vmap``-ped, unchanged, over a
+leading member axis: under vmap each fused stencil kernel, 2D or 3D,
+and with ``pc_pallas`` (2D) each fused pc kernel launches its
+member-batched build once for all members (the vmap rule of
+ops/fused_stencil.py, the counterpart of ``jax.custom_batching``), and
+the basis-GEMM preconditioner's products become batched products.  The
+member axis stays on the card; every member carries its own t, h, step
+count, controller and fallback state on the host, in numpy.
 
 Per member the semantics are the scalar host loop's: accept or reject
 by the embedded error estimate, the PETSc-style vector h controller
@@ -30,20 +31,21 @@ the loop is that retry, not a way around a batched kernel.
 Noise: one ``torch.Generator`` on the state's device per member,
 seeded from ``(rng_key, member_offset + i)``, drawn only when the
 member injects.  It cannot reproduce JAX's PRNG keys bit for bit
-(ROADMAP Queue A item 8), so noise runs are held to statistics and to
-the reference's injection times.
+(ROADMAP Queue A item 4, A8), so noise runs are held to statistics and
+to the reference's injection times.
 
 Usage:
     es = EnsembleSolver(ops, numerics, t0=.., dt=.., tmax=..,
                         maxsteps=.., atol=.., rtol=..)
-    out = es.solve(U0)            # U0: (n_members, dof, nx, ny)
+    out = es.solve(U0)            # U0: (n_members, dof, *Sshape)
     out.u, out.t, out.k, out.diverged, out.snes_failures  # per member
 
 Still raising NotImplementedError, each naming its ROADMAP item: the
-vmapped adaptive chunk (``device_loop=True``, Queue A item 11), member
-meshes and ``shard_members`` (Queue A item 14), with-G states and
-``refresh_G`` (Queue A item 13), 1D and 3D problems and the fused pc
-(``pc_pallas``), whose member-batched builds are Queue B item 8.
+vmapped adaptive chunk (``device_loop=True``, Queue A item 1, A11),
+member meshes and ``shard_members`` (Queue A item 11, A14), with-G
+states and ``refresh_G`` (Queue A item 10, A13), 1D problems (Queue A
+item 3, A16) and ``pc_pallas`` on a 3D problem (the fused pc is 2D, as
+the reference's is: Queue B item 2, B5).
 """
 
 import dataclasses
@@ -53,6 +55,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from ..ops.fused_pc import fused_pc_refusal, make_fused_block_pc
 from ..ops.fused_stencil import make_fused_kernels
 from ..utils.cli import NumericsOptions
 from ..utils.debug import logger
@@ -69,7 +72,7 @@ def shard_members(U, devices=None):
     """Counterpart: ksfd_tpu/solvers/ensemble.py:shard_members."""
     raise NotImplementedError(
         "members sharded over several cards (member meshes) are ROADMAP "
-        "Queue A item 14"
+        "Queue A item 11 (A14)"
     )
 
 
@@ -149,6 +152,7 @@ class EnsembleSolver:
         self._vstep = None
         self._vmulti = None
         self._fallback = None
+        self.fused_pc = None
         self._vgroom = vmap(ops.groom)
         self._vmax_fn = vmap(
             lambda u, t: torch.stack(
@@ -169,18 +173,17 @@ class EnsembleSolver:
         dim = ops.grid.dim
         if n.device_loop and n.adapt_type != "none":
             todo.append("the vmapped adaptive chunk (device_loop=True, "
-                        "ensemble.py:325-346 and :473-629): Queue A item 11")
-        if dim == 3:
-            todo.append("3D ensembles (the member-batched 3D kernels): "
-                        "Queue B item 8")
-        elif dim != 2:
+                        "ensemble.py:325-346 and :473-629): Queue A item 1 "
+                        "(A11)")
+        if dim not in (2, 3):
             todo.append("%dD ensembles (the fused kernels are 2D and 3D): "
-                        "Queue A item 11" % dim)
+                        "Queue A item 3 (A16)" % dim)
         if n.pc_pallas:
-            todo.append("pc_pallas ensembles (a member-batched fused pc): "
-                        "Queue B item 8")
+            why = fused_pc_refusal(ops.grid, ops)
+            if why is not None:
+                todo.append(why)
         if hasattr(ops, "refresh_G"):
-            todo.append("with-G states (refresh_G): Queue A item 13")
+            todo.append("with-G states (refresh_G): Queue A item 10 (A13)")
         if todo:
             raise NotImplementedError(
                 "not ported yet (see ROADMAP): " + "; ".join(todo)
@@ -230,12 +233,17 @@ class EnsembleSolver:
     # -- steps ------------------------------------------------------
     def _build_steps(self):
         """Build the vmapped step (and, for fixed-dt blocks, the
-        vmapped multistep) on one shared kernel build."""
+        vmapped multistep) on one shared kernel build and, with
+        ``pc_pallas``, one shared fused pc (``self.fused_pc``, whose
+        launch counters then count the ensemble's pc launches)."""
         nm = self.numerics
         kern = (self.kernels if self.kernels is not None
                 else make_fused_kernels(self.ops))
         self.kernels = kern
-        kw = dict(atol=self.atol, rtol=self.rtol, kernels=kern)
+        self.fused_pc = (make_fused_block_pc(self.ops.grid, self.ops)
+                         if nm.pc_pallas else None)
+        kw = dict(atol=self.atol, rtol=self.rtol, kernels=kern,
+                  fused_pc=self.fused_pc)
         step, _ = make_step_fn(self.ops, nm, **kw)
         self._vstep = vmap(step)
         self._vmulti = None
@@ -264,7 +272,7 @@ class EnsembleSolver:
             )
             self._fallback, _ = make_step_fn(
                 self.ops, nm, atol=self.atol, rtol=self.rtol,
-                kernels=self.kernels,
+                kernels=self.kernels, fused_pc=self.fused_pc,
             )
         return self._fallback
 
@@ -339,7 +347,7 @@ class EnsembleSolver:
         """Integrate every member to tmax/maxsteps.  Returns a
         SimpleNamespace with per-member u, t, h, k, diverged,
         snes_failures (and leaves the same on self).  U0: an array or
-        tensor (n_members, dof, nx, ny); the members run on the
+        tensor (n_members, dof, *Sshape); the members run on the
         device of ``ops`` (the card unless the problem was built
         elsewhere)."""
         n = self.numerics

@@ -12,7 +12,7 @@ gating, gmres.py:97 and :154-175, works around XLA and is not ported).
 fallback step (``ksp_type="gmres_scipy"``); its convergence test reads
 one scalar per restart on the host.  The fixed-count Krylov solvers
 (``gmres_fixed``, ``gmres_rolled``, ``gmres_restarted``) wait for
-ROADMAP Queue A item 5.
+ROADMAP Queue A item 9.
 """
 
 import math

@@ -21,7 +21,7 @@ product must run in full float32: the caller keeps
 ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default;
 chip_smoke.py sets and records it).  Not ported yet: the FFT form
 (``pc_fft``), bfloat16 transforms and the sharded apply (ROADMAP Queue A
-items 4 and 14).
+items 8 and 11, A4 and A14).
 """
 
 import torch
@@ -64,7 +64,7 @@ class SpectralPreconditioner(nn.Module):
         if compute_dtype not in _DTYPES:
             raise NotImplementedError(
                 "pc dtype %r: bfloat16 transforms belong to the sharded "
-                "apply, ROADMAP Queue A item 14" % (compute_dtype,)
+                "apply, ROADMAP Queue A item 11 (A14)" % (compute_dtype,)
             )
         device = resolve_device(device)
         cd = _DTYPES[compute_dtype]
@@ -196,7 +196,7 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
         if v.shape[0] != self.nfields:
             raise NotImplementedError(
                 "extra trailing fields (the with-G state) are ROADMAP "
-                "Queue A item 13"
+                "Queue A item 10 (A13)"
             )
         c = self._forward(v.to(self.compute_dtype))
         outs = self._arrow_solve(c, shift, t, means, rho_diff)

@@ -55,11 +55,11 @@ make_adaptive_chunk_fn).
 each fused kernel call launches its member-batched build once.
 
 Everything else raises NotImplementedError naming its ROADMAP item:
-the host Solver loop (Queue A item 8), DIRK (item 9), the fixed-count
-Krylov stage solvers (item 5), dense/direct tiers (item 12), the fast
-mode without the fused kernels (item 6), the FFT preconditioner (Queue
-A item 4), the fused preconditioner off its 2D float32 gate (Queue B
-item 5) and meshes (Queue A item 14).
+the host Solver loop (Queue A item 4, A8), DIRK (item 7, A9), the
+fixed-count Krylov stage solvers (item 9), dense/direct tiers (item 5,
+A12), the fast mode without the fused kernels (item 3, A16), the FFT
+preconditioner (item 8, A4), the fused preconditioner off its 2D
+float32 gate (Queue B item 2, B5) and meshes (Queue A item 11, A14).
 """
 
 import dataclasses
@@ -119,37 +119,37 @@ def _check_numerics(numerics, ops):
     todo = []
     if numerics.ksp_type not in ("richardson", "chebyshev", "gmres_scipy"):
         todo.append(
-            "ksp_type %r (dense/direct/banded/lu: Queue A item 12; "
-            "fixed-count Krylov: item 5)" % numerics.ksp_type
+            "ksp_type %r (dense/direct/banded/lu: Queue A item 5, A12; "
+            "fixed-count Krylov: Queue A item 9)" % numerics.ksp_type
         )
     if numerics.pc_type != "block":
-        todo.append("pc_type %r (Queue A item 4)" % numerics.pc_type)
+        todo.append("pc_type %r (Queue A item 8, A4)" % numerics.pc_type)
     if numerics.precision not in ("float64", "f64", "float32", "f32"):
         todo.append("precision %r (the reference has only float64 and "
                     "float32)" % numerics.precision)
     if fast32 and not numerics.use_pallas:
         todo.append(
             "the float32 fast mode without the fused kernels "
-            "(use_pallas=False, the XLA-f32 RHS: Queue A item 6)"
+            "(use_pallas=False, the XLA-f32 RHS: Queue A item 3, A16)"
         )
     if numerics.pc_fft != "off":
-        todo.append("pc_fft %r (Queue A item 4)" % numerics.pc_fft)
+        todo.append("pc_fft %r (Queue A item 8, A4)" % numerics.pc_fft)
     if numerics.pc_pallas:
         why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
         if why is not None:
             todo.append(why)
     if numerics.pc_dtype not in ("auto", "float32", "f32", "float64", "f64"):
-        todo.append("pc_dtype %r (Queue A item 14)" % numerics.pc_dtype)
+        todo.append("pc_dtype %r (Queue A item 11, A14)" % numerics.pc_dtype)
     # the float64 GMRES step runs no sweeps and takes its stage RHS
     # from ops.rhs when the delta kernel is off (solver.py:607-615)
     if not fast32 and not krylov and numerics.sweep_dtype not in (
             "float32", "f32"):
-        todo.append("float64 sweeps (Queue A item 5)")
+        todo.append("float64 sweeps (Queue A item 3, A16)")
     if not fast32 and not krylov and not (numerics.use_pallas
                                           and numerics.stage_delta):
-        todo.append("stage RHS without the delta kernel (Queue A item 6)")
+        todo.append("stage RHS without the delta kernel (Queue A item 3, A16)")
     if not ops.stage_delta_ok():
-        todo.append("time-dependent PDE coefficients (Queue A item 6)")
+        todo.append("time-dependent PDE coefficients (Queue A item 3, A16)")
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP): " + "; ".join(todo)
@@ -199,14 +199,14 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     delta kernel.  None when ineligible (active sources, the fast
     mode, which has no delta kernel on its path, or the GMRES step).  The
     reference's ``advance`` (the Solver's re-base after a fallback
-    step) comes with the Solver, ROADMAP Queue A item 8.
+    step) comes with the Solver, ROADMAP Queue A item 4 (A8).
 
     kernels: a ``make_fused_kernels(ops)`` namespace to share between
     builds (its launch counters then count both).  fused_pc: likewise a
     ``make_fused_block_pc`` apply, used when ``numerics.pc_pallas``.
     """
     if mesh is not None:
-        raise NotImplementedError("meshes are ROADMAP Queue A item 14")
+        raise NotImplementedError("meshes are ROADMAP Queue A item 11 (A14)")
     numerics = numerics or NumericsOptions()
     _check_numerics(numerics, ops)
     tab = tableau or get_tableau(numerics.ts_type)
@@ -396,7 +396,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
 
 def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
                       tableau=None, mesh=None, static_steps=True,
-                      kernels=None):
+                      kernels=None, fused_pc=None):
     """Fixed-dt multistep function ``fn(u, t, h, nsteps) -> (u, t, emax)``.
 
     Counterpart: ksfd_tpu/solvers/solver.py:make_multistep_fn.  The
@@ -410,10 +410,12 @@ def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     loop, t accumulates in float32, the plain step loop runs (no f0
     chain) and u, t and emax come back float32.  Returns (fn, tableau);
     ``fn.kernels`` and ``fn.fused_pc`` (None without ``pc_pallas``) hold
-    the kernel wrappers the steps share, and their launch counters.
+    the kernel wrappers the steps share, and their launch counters;
+    ``kernels`` and ``fused_pc`` pass in ones to share.
     """
     kern = kernels if kernels is not None else make_fused_kernels(ops)
-    pc = _shared_fused_pc(ops, numerics, mesh)
+    pc = (fused_pc if fused_pc is not None
+          else _shared_fused_pc(ops, numerics, mesh))
     step, tab = make_step_fn(
         ops, numerics, atol=atol, rtol=rtol, tableau=tableau, mesh=mesh,
         kernels=kern, fused_pc=pc,
@@ -572,7 +574,8 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     (``max_rejects`` consecutive controller rejections or a non-finite
     error norm, which leaves h untouched); ``rejected`` says it was
     stuck.  A finite rejection below the top tier retries the same h one
-    tier up; the tiers are ``(ksp_type, ksp_iters)``, then
+    tier up; the tiers are ``(ksp_type, ksp_iters)``, then (for
+    richardson and chebyshev only, as the reference's ``esc_ok``)
     ``ksp_iters_max`` sweeps, then ``ksp_iters_max2`` applications as
     Chebyshev when ``esc_cheb`` (the block pc's on-device interval), with
     bidirectional probing every ``ESC_PARK`` accepts (ChunkLadder).  The
@@ -593,7 +596,7 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     """
     if mesh is not None:
         raise NotImplementedError(
-            "the sharded chunk needs meshes, ROADMAP Queue A item 14"
+            "the sharded chunk needs meshes, ROADMAP Queue A item 11 (A14)"
         )
     numerics = numerics or NumericsOptions()
     _check_numerics(numerics, ops)
@@ -601,7 +604,11 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     pc = _shared_fused_pc(ops, numerics, mesh)
     tiers = [(numerics.ksp_type, int(numerics.ksp_iters))]
     esc_iters = int(getattr(numerics, "ksp_iters_max", 0) or 0)
-    if esc_iters > int(numerics.ksp_iters):
+    # escalation only for the sweep solvers (the reference's esc_ok,
+    # solver.py:995-999): GMRES ignores ksp_iters, so a rejection
+    # shrinks h instead
+    if (esc_iters > int(numerics.ksp_iters)
+            and numerics.ksp_type in ("richardson", "chebyshev")):
         tiers.append((numerics.ksp_type, esc_iters))
         esc2 = int(getattr(numerics, "ksp_iters_max2", 0) or 0)
         if esc2 > esc_iters:
@@ -687,5 +694,5 @@ class Solver:
     def __init__(self, ops, numerics=None, **kwargs):
         raise NotImplementedError(
             "the host Solver loop (noise, monitors, I/O, fallback) is "
-            "ROADMAP Queue A item 8"
+            "ROADMAP Queue A item 4 (A8)"
         )

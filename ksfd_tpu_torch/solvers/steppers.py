@@ -22,7 +22,7 @@ published (A, Gamma, b, b2) tableau at import time.
 
 Counterpart: ksfd_tpu/solvers/steppers.py.  The Rosenbrock tableaus
 are numpy and copied unchanged; the ESDIRK (ARKIMEX) tableaus wait for
-the DIRK path (ROADMAP Queue A item 9).
+the DIRK path (ROADMAP Queue A item 7, A9).
 
 Like PETSc TSROSW, f is evaluated at shifted stage times but no
 explicit df/dt term enters the stage solves; the W-property absorbs
@@ -146,7 +146,7 @@ def get_tableau(name):
     """Counterpart: ksfd_tpu/solvers/steppers.py:get_tableau."""
     if name in ("arkimex", "ark324", "ark436"):
         raise NotImplementedError(
-            "ESDIRK tableau %r: the DIRK path is ROADMAP Queue A item 9"
+            "ESDIRK tableau %r: the DIRK path is ROADMAP Queue A item 7 (A9)"
             % name
         )
     return _TABLEAUS[name]

@@ -2,7 +2,7 @@
 
 Counterpart: ksfd_tpu/utils/cli.py.  Only ``NumericsOptions`` is ported
 so far; the ``Parser`` and the ``--petsc`` block translation wait for
-the solver host loop (ROADMAP Queue A item 8).
+the solver host loop (ROADMAP Queue A items 4 and 6, A8).
 """
 
 from dataclasses import dataclass, field, asdict

@@ -452,34 +452,35 @@ static inline void __syncthreads() {}
 #include "stencil3d.cu"
 float ksfd_smem[NARR * HN];
 
-// one host thread walks every block of the launch grid in turn
+// one host thread walks every block of the 1D launch grid of nb
+// members' tiles in turn
 extern "C" int run(int which, const float* sc, const float* a,
                    const float* b, const float* c, float* out, int nx,
-                   int ny, int nz) {
+                   int ny, int nz, int nb) {
   threadIdx = {0, 0, 0};
-  for (unsigned bx = 0; bx < (unsigned)((nz + TZ - 1) / TZ); ++bx)
-    for (unsigned by = 0; by < (unsigned)((ny + TY - 1) / TY); ++by)
-      for (unsigned bz = 0; bz < (unsigned)((nx + TX - 1) / TX); ++bz) {
-        blockIdx = {bx, by, bz};
-        if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny, nz);
-        if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny, nz);
-        if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny, nz);
-        if (which == 3) rhs_kernel(sc, a, out, nx, ny, nz);
-      }
+  const unsigned blocks = nb * ((nz + TZ - 1) / TZ) * ((ny + TY - 1) / TY) *
+                          ((nx + TX - 1) / TX);
+  for (unsigned bx = 0; bx < blocks; ++bx) {
+    blockIdx = {bx, 0, 0};
+    if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny, nz);
+    if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny, nz);
+    if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny, nz);
+    if (which == 3) rhs_kernel(sc, a, out, nx, ny, nz);
+  }
   return 0;
 }
 """
 
 
-@pytest.mark.parametrize("shape", [SHAPE, (9, 7, 11)])
-def test_cuda_source_bodies_match_plain(shape, tmp_path):
-    """The kernel bodies of csrc/stencil3d.cu (rhs on the raw state
-    too), compiled as host C++ (KSFD_NT=1), equal the plain versions to
-    1e-5 of max|plain| on a tiled grid and on an odd one whose tiles are
-    ragged in every axis (the periodic wrap and the bounds guards)."""
+#: the host harness's kernel numbers
+HOST_KERNELS = dict(jvp=0, resid=1, delta=2, rhs=3)
+
+
+def host_kernels_3d(tops, tmp_path):
+    """csrc/stencil3d.cu's kernel bodies compiled as host C++
+    (KSFD_NT=1) with the problem's header: ``run(which, sc, a, b, c,
+    out, nx, ny, nz, nb)``."""
     cxx = _cxx()
-    clargs = make_clargs(params=aggregation3d_params(shape[0]))
-    _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
     fk = make_fused_kernels(tops)
     (tmp_path / "ksfd_pointwise.cuh").write_text(fk.build.header)
     shutil.copy(CSRC3D, tmp_path / "stencil3d.cu")
@@ -492,7 +493,31 @@ def test_cuda_source_bodies_match_plain(shape, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     host = ctypes.CDLL(str(lib))
     host.run.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                         + [ctypes.c_int] * 3)
+                         + [ctypes.c_int] * 4)
+    return fk, host
+
+
+def host_run_3d(host, name, sc, operands, shape, dof):
+    """The host harness on prepared operands (with or without a leading
+    member axis); returns the output."""
+    nb = int(sc.shape[0]) if sc.dim() == 2 else 1
+    ptrs = [x.data_ptr() for x in (sc, *operands)]
+    ptrs += [None] * (4 - len(ptrs))
+    out = torch.empty(((nb,) if sc.dim() == 2 else ()) + (dof,) + shape,
+                      dtype=torch.float32)
+    host.run(HOST_KERNELS[name], *ptrs, out.data_ptr(), *shape, nb)
+    return out
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (9, 7, 11)])
+def test_cuda_source_bodies_match_plain(shape, tmp_path):
+    """The kernel bodies of csrc/stencil3d.cu (rhs on the raw state
+    too), compiled as host C++ (KSFD_NT=1), equal the plain versions to
+    1e-5 of max|plain| on a tiled grid and on an odd one whose tiles are
+    ragged in every axis (the periodic wrap and the bounds guards)."""
+    clargs = make_clargs(params=aggregation3d_params(shape[0]))
+    _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    fk, host = host_kernels_3d(tops, tmp_path)
     rng = np.random.default_rng(9)
     u64 = tops.groom(torch.from_numpy(with_clamps(rough_state(shape), tops)))
     raw = torch.from_numpy(with_clamps(rough_state(shape), tops))
@@ -504,15 +529,65 @@ def test_cuda_source_bodies_match_plain(shape, tmp_path):
              (2, fk.delta, (u64, u1 - u64, u1, 0.5)),
              (3, fk.kernels["rhs"], (raw, 0.5))]
     for which, k, args in cases:
+        assert HOST_KERNELS[k.name] == which
         sc, operands = k.prepare(*args)
-        ptrs = [x.data_ptr() for x in (sc, *operands)]
-        ptrs += [None] * (4 - len(ptrs))
-        out = torch.empty_like(operands[0])
-        host.run(which, *ptrs, out.data_ptr(), *shape)
+        out = host_run_3d(host, k.name, sc, operands, shape, 3)
         ref = k.body(sc, operands)
         assert torch.isfinite(out).all(), k.name
         err = float((out - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), (k.name, err)
+
+
+def batched_args_3d(tops, name, nb, shape, seed=21):
+    """Per-member argument tuples of 3D kernel ``name`` for nb members:
+    distinct rough states (with clamps), tangents, increments, t and
+    shift, so each member's scalar pack differs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(nb):
+        raw = torch.from_numpy(with_clamps(
+            rough_state(shape, seed=seed + i), tops))
+        u64 = tops.groom(raw)
+        v = torch.from_numpy(rng.standard_normal(u64.shape))
+        b = torch.from_numpy(rng.standard_normal(u64.shape))
+        u1 = tops.groom(u64 + torch.from_numpy(
+            100.0 * rng.standard_normal(u64.shape)))
+        t, shift = scalar(0.1 * i), scalar(3.0 + i)
+        out.append(dict(
+            rhs=(raw.float(), t.float()), jvp=(raw.float(), v, t),
+            resid=(raw.float(), v, b, t, shift),
+            delta=(u64, u1 - u64, u1, t),
+        )[name])
+    return out
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (9, 7, 11), (9, 17, 70)])
+def test_cuda_source_batched_bodies_match_single_members(shape, tmp_path):
+    """The member-batched bodies of csrc/stencil3d.cu (one 1D grid, the
+    member slowest in the block index, one (nb, k) scalar pack row per
+    member), compiled as host C++ with nb = 3, equal three single-member
+    runs bit for bit, for each of the four 3D kernels, and the plain
+    version under vmap within 1e-5 of its largest value: on a tiled
+    grid, on one ragged in every axis and on one with several tiles in
+    every axis (so each part of the block index's decoding counts)."""
+    from torch.func import vmap
+
+    clargs = make_clargs(params=aggregation3d_params(shape[0]))
+    _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    fk, host = host_kernels_3d(tops, tmp_path)
+    for name in HOST_KERNELS:
+        k = fk.kernels[name]
+        prepared = [k.prepare(*args)
+                    for args in batched_args_3d(tops, name, 3, shape)]
+        sc_b = torch.stack([p[0] for p in prepared])
+        ops_b = [torch.stack(xs) for xs in zip(*[p[1] for p in prepared])]
+        out = host_run_3d(host, name, sc_b, ops_b, shape, 3)
+        for i, (sc, operands) in enumerate(prepared):
+            single = host_run_3d(host, name, sc, operands, shape, 3)
+            assert torch.equal(out[i], single), (name, i)
+        ref = vmap(k.body)(sc_b, ops_b)
+        assert float((out - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max()), name
 
 
 @pytest.mark.cuda

@@ -197,6 +197,43 @@ def test_chunk_nonfinite_exit_matches_reference(problems, jax_default):
     assert not math.isfinite(recs[2][1])
 
 
+def test_chunk_tiers_follow_the_escalation_gate(problems):
+    """Repaired fault (ROADMAP Queue C): the chunk adds its escalation
+    tiers only for the sweep solvers, as the reference's ``esc_ok``
+    (ksfd_tpu/solvers/solver.py:995-999); GMRES ignores ksp_iters, so a
+    gmres_scipy chunk has one tier."""
+    tops = problems[3]
+
+    def tiers(**kw):
+        chunk, _ = make_adaptive_chunk_fn(tops, NumericsOptions(**kw),
+                                          atol=ATOL, rtol=RTOL)
+        return chunk.tiers
+
+    assert tiers(ksp_type="gmres_scipy") == [("gmres_scipy", 3)]
+    assert tiers() == [("richardson", 3), ("richardson", 16),
+                       ("chebyshev", 48)]
+    assert tiers(ksp_type="chebyshev") == [("chebyshev", 3),
+                                           ("chebyshev", 16),
+                                           ("chebyshev", 48)]
+
+
+def test_chunk_gmres_scipy_matches_reference(problems, interpret_env):
+    """A gmres_scipy chunk on the peaked state from h=0.1: its one tier
+    rejects twice and shrinks h each time, as the reference's chunk
+    does, with the reference's accepts, attempts and rejected flag."""
+    jps, jgrid, _, _ = problems
+    u0 = peaked_state(jps, jgrid)
+    jchunk = _jax_chunk(problems, KJ.NumericsOptions(ksp_type="gmres_scipy"))
+    out, ref, stats = run_both(problems, jchunk,
+                               NumericsOptions(ksp_type="gmres_scipy"),
+                               u0, 0.1, 2)
+    assert_parity(out, ref, u0)
+    assert out[3] == 2 and out[4] == 4 and not out[5]
+    recs = stats.records
+    assert [r[0] for r in recs] == [0] * 4
+    assert recs[0][1] > 1.0 and recs[1][1] > 1.0 and recs[1][2] < recs[0][2]
+
+
 def test_chunk_pc_pallas_matches_default_pc():
     """The chunk with the fused pc against the chunk with the basis-GEMM
     pc at 128^2: the same accepts and attempts, t and h within 1e-4

@@ -154,18 +154,28 @@ def test_host_batched_bodies_match_single_members(prob, tmp_path):
             ref.abs().max()), name
 
 
-def test_3d_batched_kernel_raises():
-    """A 3D kernel under vmap raises (no member axis in stencil3d.cu yet)
-    instead of looping over the members."""
+@pytest.mark.parametrize("name", ["rhs", "jvp", "resid", "delta"])
+def test_3d_batched_plain_kernels_under_vmap_match_members(name):
+    """A 3D kernel under torch.func.vmap (through the custom op's vmap
+    rule, as the 2D ones) equals the per-member calls bit for bit, also
+    with an unbatched first operand broadcast to the members; on the CPU
+    it launches nothing."""
     from helpers import make_clargs
-    from test_torch_3d import aggregation3d_params
+    from test_torch_3d import aggregation3d_params, batched_args_3d
 
+    shape = (8, 8, 10)
     _, _, ops3 = problem_from_clargs(
-        make_clargs(params=aggregation3d_params(8)), 8, 8, 8, device="cpu")
-    kern = make_fused_kernels(ops3)
-    u = torch.full((2, 3, 8, 8, 8), 9000.0)
-    with pytest.raises(NotImplementedError, match="Queue B item 8"):
-        vmap(lambda x: kern.jvp(x, x, 0.0))(u)
+        make_clargs(params=aggregation3d_params(8)), *shape, device="cpu")
+    k = make_fused_kernels(ops3).kernels[name]
+    per = batched_args_3d(ops3, name, 3, shape)
+    singles = torch.stack([k(*args) for args in per])
+    stacked = [torch.stack(xs) for xs in zip(*per)]
+    assert torch.equal(vmap(k)(*stacked), singles)
+    in_dims = (None,) + (0,) * (len(stacked) - 1)
+    out = vmap(k, in_dims=in_dims)(per[0][0], *stacked[1:])
+    ref = torch.stack([k(per[0][0], *args[1:]) for args in per])
+    assert torch.equal(out, ref)
+    assert k.launches == 0
 
 
 # -- GMRES -------------------------------------------------------------
@@ -246,7 +256,7 @@ def test_gmres_scipy_refusals(prob):
     make_step_fn(tops, NumericsOptions(ksp_type="gmres_scipy",
                                        stage_delta=False, use_pallas=False))
     for kt in ("gmres", "gmres_rolled", "gmres_restarted"):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(NotImplementedError, match="item 9"):
             make_step_fn(tops, NumericsOptions(ksp_type=kt))
     chain, _ = make_step_fn(tops, NumericsOptions(ksp_type="gmres_scipy"),
                             chain_f0=True)
@@ -526,20 +536,23 @@ def test_refused_ensembles_raise(prob):
     from test_torch_3d import aggregation3d_params
 
     _, tops = prob
-    cases = [
-        (tops, NumericsOptions(device_loop=True), "Queue A item 11"),
-        (tops, NumericsOptions(pc_pallas=True), "Queue B item 8"),
-    ]
     _, _, ops3 = problem_from_clargs(
         make_clargs(params=aggregation3d_params(8)), 8, 8, 8, device="cpu")
-    cases.append((ops3, NumericsOptions(), "Queue B item 8"))
+    cases = [
+        (tops, NumericsOptions(device_loop=True), r"Queue A item 1 \(A11\)"),
+        (ops3, NumericsOptions(device_loop=True), r"Queue A item 1 \(A11\)"),
+        (ops3, NumericsOptions(pc_pallas=True), "Queue B item 2, B5"),
+    ]
     for ops, nm, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             EnsembleSolver(ops, nm)
+    # 3D ensembles and pc_pallas ensembles in 2D run
+    EnsembleSolver(ops3, NumericsOptions())
+    EnsembleSolver(tops, NumericsOptions(pc_pallas=True))
     # device_loop with fixed dt runs no chunk in the reference either
     EnsembleSolver(tops, NumericsOptions(device_loop=True,
                                          adapt_type="none"))
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
+    with pytest.raises(NotImplementedError, match=r"Queue A item 11 \(A14\)"):
         shard_members(torch.zeros(2, 3, N, N))
     with pytest.raises(KSFDException, match="direct solve"):
         EnsembleSolver(tops, NumericsOptions(ksp_type="lu"))

@@ -352,7 +352,7 @@ def test_fast_mode_time_dependent_coefficients_raise():
         "gamma_1_1=0.01*(1 + t)"]
     _, _, tops = problem_from_clargs(clargs, N, N, device="cpu")
     assert not tops.stage_delta_ok()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="A16"):
         make_step_fn(tops, FAST)
 
 

@@ -168,10 +168,11 @@ static inline void __syncthreads() { ksfd_bar->arrive_and_wait(); }
 #define __align__(n) __attribute__((aligned(n)))
 #include "pc2d.cu"
 
-template <class F> static void launch(int nx, int ny, F body) {
+template <class F> static void launch(int nx, int ny, int nb, F body) {
+  for (unsigned bz = 0; bz < (unsigned)nb; ++bz)
   for (unsigned by = 0; by < (unsigned)((nx + BM - 1) / BM); ++by)
     for (unsigned bx = 0; bx < (unsigned)((ny + BN - 1) / BN); ++bx) {
-      blockIdx = {bx, by, 0};
+      blockIdx = {bx, by, bz};
       std::barrier<> bar(NT);
       ksfd_bar = &bar;
       std::vector<std::thread> pool;
@@ -181,22 +182,24 @@ template <class F> static void launch(int nx, int ny, F body) {
     }
 }
 
+// the two grids of an entry, each over nb members on blockIdx.z
 extern "C" int pc_fwd3(const float* sc, const float* v, const float* qxt,
                        const float* qy, const float* lam, float* tmp,
-                       float* out, int nx, int ny, int vec) {
-  launch(nx, ny, [=] { pc_gemm<3, false, false>(qxt, v, tmp, nx, ny, nx, vec,
-                                                nullptr, nullptr); });
-  launch(nx, ny, [=] { pc_gemm<3, true, true>(tmp, qy, out, nx, ny, ny, vec,
-                                              sc, lam); });
+                       float* out, int nx, int ny, int nb, int vec) {
+  launch(nx, ny, nb, [=] { pc_gemm<3, false, false>(
+      qxt, v, tmp, nx, ny, nx, vec, nullptr, nullptr); });
+  launch(nx, ny, nb, [=] { pc_gemm<3, true, true>(
+      tmp, qy, out, nx, ny, ny, vec, sc, lam); });
   return 0;
 }
 
 extern "C" int pc_inv3(const float* c, const float* qx, const float* qyt,
-                       float* tmp, float* out, int nx, int ny, int vec) {
-  launch(nx, ny, [=] { pc_gemm<3, false, false>(qx, c, tmp, nx, ny, nx, vec,
-                                                nullptr, nullptr); });
-  launch(nx, ny, [=] { pc_gemm<3, true, false>(tmp, qyt, out, nx, ny, ny, vec,
-                                               nullptr, nullptr); });
+                       float* tmp, float* out, int nx, int ny, int nb,
+                       int vec) {
+  launch(nx, ny, nb, [=] { pc_gemm<3, false, false>(
+      qx, c, tmp, nx, ny, nx, vec, nullptr, nullptr); });
+  launch(nx, ny, nb, [=] { pc_gemm<3, true, false>(
+      tmp, qyt, out, nx, ny, ny, vec, nullptr, nullptr); });
   return 0;
 }
 """
@@ -218,9 +221,24 @@ def host_pc(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr[-3000:]
     host = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    host.pc_fwd3.argtypes = [P] * 7 + [I] * 3
-    host.pc_inv3.argtypes = [P] * 5 + [I] * 3
+    host.pc_fwd3.argtypes = [P] * 7 + [I] * 4
+    host.pc_inv3.argtypes = [P] * 5 + [I] * 4
     return host
+
+
+def host_pc_run(host, pc, sc, v, vec):
+    """The host fwd then inv on prepared operands, one member or a
+    leading member axis: (modes, out)."""
+    o = pc.owner
+    nb = int(v.shape[0]) if v.dim() == 4 else 1
+    shape = tuple(v.shape[-2:])
+    tmp, modes, out = (torch.empty_like(v) for _ in range(3))
+    host.pc_fwd3(sc.data_ptr(), v.data_ptr(), o.QxT.data_ptr(),
+                 o.Qy.data_ptr(), o.lam2d.data_ptr(), tmp.data_ptr(),
+                 modes.data_ptr(), *shape, nb, vec)
+    host.pc_inv3(modes.data_ptr(), o.Qx.data_ptr(), o.QyT.data_ptr(),
+                 tmp.data_ptr(), out.data_ptr(), *shape, nb, vec)
+    return modes, out
 
 
 @pytest.mark.parametrize("shape,vec", [
@@ -236,20 +254,76 @@ def test_cuda_source_bodies_match_plain(host_pc, shape, vec):
     _, _, _, tops = problem(shape)
     x = pc_inputs(tops)
     pc = make_fused_block_pc(tops.grid, tops)
-    o = pc.owner
     sc = port_pack(tops, x)
     v = torch.from_numpy(x.v).contiguous()
-    tmp, modes, out = (torch.empty_like(v) for _ in range(3))
-    host_pc.pc_fwd3(sc.data_ptr(), v.data_ptr(), o.QxT.data_ptr(),
-                    o.Qy.data_ptr(), o.lam2d.data_ptr(), tmp.data_ptr(),
-                    modes.data_ptr(), *shape, vec)
-    host_pc.pc_inv3(modes.data_ptr(), o.Qx.data_ptr(), o.QyT.data_ptr(),
-                    tmp.data_ptr(), out.data_ptr(), *shape, vec)
+    modes, out = host_pc_run(host_pc, pc, sc, v, vec)
     for got, want in ((modes, pc.fwd.plain(sc, v)),
                       (out, pc.inv.plain(modes))):
         assert bool(torch.isfinite(got).all())
         err = float((got - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def batched_pc_inputs(tops, nb):
+    """nb members' scalar packs (a shift and means of their own) and
+    float32 right-hand sides, stacked: ((nb, k) pack, (nb, dof, nx, ny))."""
+    x = pc_inputs(tops)
+    rng = np.random.default_rng(8)
+    packs, vs = [], []
+    for i in range(nb):
+        xi = SimpleNamespace(**vars(x))
+        xi.shift = x.shift * (1.0 + i)
+        xi.means = [m * (1.0 + 0.01 * i) for m in x.means]
+        packs.append(port_pack(tops, xi))
+        vs.append(torch.from_numpy(rng.standard_normal(
+            tops.grid.Vshape).astype(np.float32)))
+    return torch.stack(packs), torch.stack(vs)
+
+
+@pytest.mark.parametrize("shape,vec", [((48, 40), 1), ((45, 37), 0)])
+def test_cuda_source_batched_bodies_match_single_members(host_pc, shape,
+                                                         vec):
+    """The member-batched pc2d.cu bodies (the members on blockIdx.z,
+    their own pack rows, the bases shared), compiled as host C++ with
+    nb = 3, equal three single-member runs bit for bit, in fwd and inv,
+    with the 16-byte loads and with ragged masked tiles; and the plain
+    version under vmap within 1e-5 of its largest value."""
+    from torch.func import vmap
+
+    _, _, _, tops = problem(shape)
+    pc = make_fused_block_pc(tops.grid, tops)
+    sc_b, v_b = batched_pc_inputs(tops, 3)
+    modes_b, out_b = host_pc_run(host_pc, pc, sc_b, v_b, vec)
+    for i in range(3):
+        modes, out = host_pc_run(host_pc, pc, sc_b[i].contiguous(),
+                                 v_b[i].contiguous(), vec)
+        assert torch.equal(modes_b[i], modes) and torch.equal(out_b[i], out)
+    for got, want in ((modes_b, vmap(pc.fwd.plain)(sc_b, v_b)),
+                      (out_b, vmap(pc.inv.plain)(modes_b))):
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_fused_pc_under_vmap_matches_members():
+    """Under torch.func.vmap each fused-pc entry (through the custom op's
+    vmap rule) equals the per-member calls bit for bit, also with the
+    right-hand side unbatched (broadcast); on the CPU it launches
+    nothing."""
+    from torch.func import vmap
+
+    _, _, _, tops = problem((32, 32))
+    pc = make_fused_block_pc(tops.grid, tops)
+    sc_b, v_b = batched_pc_inputs(tops, 3)
+    modes = vmap(pc.fwd)(sc_b, v_b)
+    assert torch.equal(modes, torch.stack([pc.fwd(sc_b[i], v_b[i])
+                                           for i in range(3)]))
+    out = vmap(pc)(sc_b, v_b)
+    assert torch.equal(out, torch.stack([pc(sc_b[i], v_b[i])
+                                         for i in range(3)]))
+    shared = vmap(pc.fwd, in_dims=(0, None))(sc_b, v_b[0])
+    assert torch.equal(shared, torch.stack([pc.fwd(sc_b[i], v_b[0])
+                                            for i in range(3)]))
+    assert pc.fwd.launches == pc.inv.launches == 0
 
 
 # -- the pc_pallas step ---------------------------------------------------
@@ -315,9 +389,9 @@ def test_pc_pallas_on_a_3d_grid_raises():
     _, grid, ops = problem_from_clargs(chip_smoke.agg3d_clargs(16), *shape,
                                        device="cpu")
     assert not fused_pc_available(grid, ops)
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
+    with pytest.raises(NotImplementedError, match="Queue B item 2"):
         make_step_fn(ops, NumericsOptions(pc_pallas=True))
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
+    with pytest.raises(NotImplementedError, match="Queue B item 2"):
         make_fused_block_pc(grid, ops)
 
 
@@ -326,9 +400,9 @@ def test_pc_pallas_with_float64_transforms_raises(pc_dtype):
     _, _, _, tops = problem((32, 32))
     nm = NumericsOptions(pc_pallas=True, pc_dtype=pc_dtype)
     assert not fused_pc_available(tops.grid, tops, pc_dtype)
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
+    with pytest.raises(NotImplementedError, match="Queue B item 2"):
         make_step_fn(tops, nm)
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
+    with pytest.raises(NotImplementedError, match="Queue B item 2"):
         make_multistep_fn(tops, dataclasses.replace(nm, precision="float32"))
 
 

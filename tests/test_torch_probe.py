@@ -138,9 +138,9 @@ def test_b11_is_2d_only():
     assert "coeff_resid" not in entry_names(3)
     assert "ksfd_coeff_resid" in stencil_entries(2)
     assert "ksfd_coeff_resid" not in stencil_entries(3)
-    # 2D entries take the member count before the stream, 3D ones not
+    # entries of both dimensions take the member count before the stream
     assert len(stencil_entries(2)["ksfd_resid"]) == 5 + 2 + 1 + 1
-    assert len(stencil_entries(3)["ksfd_resid"]) == 5 + 3 + 1
+    assert len(stencil_entries(3)["ksfd_resid"]) == 5 + 3 + 1 + 1
     from helpers import make_clargs
     from test_torch_3d import aggregation3d_params
 

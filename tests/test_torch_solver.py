@@ -150,9 +150,9 @@ def test_off_path_options_raise(problems, change):
 
 @pytest.mark.parametrize("build,item", [
     (lambda ops: tsolver.make_adaptive_chunk_fn(ops, mesh=object()),
-     "item 14"),
-    (lambda ops: tsolver.Solver(ops), "item 8"),
-])
+     "A14"),
+    (lambda ops: tsolver.Solver(ops), "A8"),
+], ids=["<lambda>-item 14", "<lambda>-item 8"])
 def test_later_entry_points_raise(problems, build, item):
     _, tops = problems
     with pytest.raises(NotImplementedError, match=item):
@@ -161,7 +161,7 @@ def test_later_entry_points_raise(problems, build, item):
 
 def test_mesh_not_ported(problems):
     _, tops = problems
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="A14"):
         make_step_fn(tops, NumericsOptions(), mesh=object())
 
 
