@@ -7,7 +7,7 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs twenty-four
+header, and csrc/pc2d.cu, all started together) and runs twenty-seven
 phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -81,12 +81,27 @@ phases, each printing one line:
 24. EnsembleSolver adaptive per step on examples/aggregation3d at its
     own 64^3 x 3, 4 members; and the 3D ensemble (32^3 x 3, 2 members)
     and the pc_pallas ensemble (64^2 x 3, 3 members) on the card and
-    on the CPU, as phase 19.
+    on the CPU, as phase 19;
+25. B9, the halo-slab builds of the four 2D and the four 3D stencil
+    kernels, at 1024^2 x 3 and 256^3 x 3 on 1, 2 and 4 slabs of one
+    global state in this one process (the halo rows cut from it): each
+    slab within 1e-5 of max|plain| of its plain version, the stitched
+    slabs bit for bit the unsharded launch, µs per launch per slab at 2
+    slabs beside the plain version and the bound;
+26. the sharded path on a one-rank NCCL mesh (``mesh=`` with the ring
+    closed on itself, every all_reduce through NCCL): the float64 and
+    fast-mode multisteps at 1024^2 x 3 and 256^3 x 3 with exact B9
+    launch counts, against the unsharded multistep, ms/step of both and
+    the profiled device share of the halo rows and the all_reduce;
+27. two gloo ranks (spawned processes) time-sliced on the one card: the
+    2D step and multistep, the adaptive chunk at the flagship's
+    1536^2 x 3 and the 3D multistep, each against the unsharded port on
+    the card.
 
-Then one JSON line of the eleven kernels and, last, the result line.  Any
-failed phase raises, so the exit code is not 0 and no result prints.
-It imports nothing of JAX.  Profiles and long reports go to
-chiprun_out/.
+Then one JSON line of the nineteen kernels (B9's eight rows last) and,
+last, the result line.  Any failed phase raises (a failed rank fails
+phase 27), so the exit code is not 0 and no result prints.  It imports
+nothing of JAX.  Profiles and long reports go to chiprun_out/.
 """
 
 import ctypes
@@ -236,6 +251,17 @@ def rough_state(grid, ps):
                                           np.exp(-dy**2 / (2 * w * w)))
     rho = np.minimum(rho, 0.93 * rhomax)
     return np.stack([rho] + [rho * r for r in ligand_ratios(ps)])
+
+
+def pallas_rough_state(shape, seed=0, scale=1000.0):
+    """tests/test_pallas.py's rough state at any shape (numpy seed 0):
+    6000 + (3, 1, 0.5) * scale * |N(0, 1)| per field."""
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        6000 + 3 * scale * np.abs(rng.standard_normal(shape)),
+        6000 + scale * np.abs(rng.standard_normal(shape)),
+        6000 + 0.5 * scale * np.abs(rng.standard_normal(shape)),
+    ])
 
 
 def rough_state_3d(grid, ps, device, seed=1234):
@@ -389,7 +415,11 @@ def device_groups(per_kernel):
 # the kernels' mangled names, as ptxas reports them
 _PTXAS_NAMES = (("rhs_kernel", "rhs"), ("jvp_kernelILb0", "jvp"),
                 ("jvp_kernelILb1", "resid"), ("delta_kernel", "delta"),
-                ("coeff_resid_kernel", "coeff_resid"))
+                ("coeff_resid_kernel", "coeff_resid"),
+                ("rhs_halo_kernel", "rhs_halo"),
+                ("jvp_halo_kernelILb0", "jvp_halo"),
+                ("jvp_halo_kernelILb1", "resid_halo"),
+                ("delta_halo_kernel", "delta_halo"))
 
 
 #: csrc/pc2d.cu's pc_gemm<NF, A_BATCH, EPI> instances: the left product,
@@ -1728,6 +1758,544 @@ def phase_ensemble_adaptive_3d(card):
                 rescues=es.rescues.tolist())
 
 
+# ----------------------------------------------------------------- B9
+
+
+#: slab counts of phase 25, and the one its times are taken at
+B9_SPLITS = (1, 2, 4)
+B9_TIMED = 2
+
+
+def slab_meshes(grid, S, device="cuda"):
+    """The S ranks' meshes of an x split in this one process (no process
+    group): ``cut`` takes each slab and its halo rows from a global
+    tensor, as ``distribute`` and ``halo_rows`` give them to the ranks."""
+    from ksfd_tpu_torch.parallel.mesh import SlabMesh
+
+    dev = str(torch.device(device, torch.cuda.current_device()))
+    return [SlabMesh(grid, None, S, r, "gloo", dev, [dev] * S)
+            for r in range(S)]
+
+
+def slab_operands(kernel, mesh, operands):
+    """A halo-slab kernel's operands cut from the unsharded prepared
+    ones: each stencil operand's slab with its lo and hi rows, then the
+    own-point operands' slabs."""
+    sw = kernel._owner.ops.sw
+    out = []
+    for x in operands[:kernel.n_st]:
+        out += list(mesh.cut(x, sw))
+    return out + [mesh.cut(x, sw)[0] for x in operands[kernel.n_st:]]
+
+
+def halo_bound(name, build, S):
+    """(bound_ms, bound_by) of one halo-slab launch on a slab of an
+    S-way split: the slab's operands and each stencil operand's 2 sw
+    halo rows read once, the slab's output written once, over the
+    card's memory rate; its points' operations over the f32 rate."""
+    from ksfd_tpu_torch.ops.fused_stencil import HALO_OPERANDS
+
+    n_st, n_own = HALO_OPERANDS[name]
+    nx_loc = build.Sshape[0] // S
+    row = int(np.prod(build.Sshape[1:]))
+    rows = n_st * (nx_loc + 2 * build.ops.sw) + (n_own + 1) * nx_loc
+    t_bytes = rows * row * build.dof * 4 / HBM_BYTES_PER_S
+    t_ops = nx_loc * row * point_ops(name, build) / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_halo_kernels(card):
+    """B9: each halo-slab kernel (2D at 1024^2 x 3, 3D at 256^3 x 3) on
+    S in B9_SPLITS slabs of one global state, in one process, the halo
+    rows cut from it: every slab within 1e-5 of max|plain| of its plain
+    version, the stitched slabs bit for bit the unsharded launch under
+    the same scalar pack (the B1-B3/B7 and B6a-d cases of phases 2, 5
+    and 8: rough, near-uniform and clamped states); µs per launch per
+    slab at S = B9_TIMED beside its plain version and its bound."""
+    dev = torch.device("cuda")
+    out = {}
+    for key, clargs, shape, make_rough in (
+        ("2d", bench_clargs(N_BIG), (N_BIG, N_BIG),
+         lambda grid, ps: torch.as_tensor(rough_state(grid, ps), device=dev)),
+        ("3d", agg3d_clargs(N3_BIG), (N3_BIG,) * 3,
+         lambda grid, ps: rough_state_3d(grid, ps, dev)),
+    ):
+        ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
+        full = make_fused_kernels(ops)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        states = dict(rough=make_rough(grid, ps),
+                      initial=torch.as_tensor(initial_state(grid),
+                                              device=dev))
+        cases = kernel_cases(full, ops, states, gen) + rhs_cases(ops, states)
+        errs, rel, lines = {}, {}, []
+        times = {}
+        for S in B9_SPLITS:
+            meshes = slab_meshes(grid, S)
+            slab = make_fused_kernels(ops, mesh=meshes[0])
+            for name, label, args in cases:
+                sc, operands = full.kernels[name].prepare(*args)
+                ref = full.kernels[name].launch(sc, operands)
+                k = slab.kernels[name]
+                outs = []
+                for m in meshes:
+                    ops_m = slab_operands(k, m, operands)
+                    o = k.launch(sc, ops_m)
+                    plain = k.body(sc, ops_m)
+                    torch.cuda.synchronize()
+                    err = float((o - plain).abs().max())
+                    scale = float(plain.abs().max())
+                    check(bool(torch.isfinite(o).all()),
+                          "B9 %s %s %s S=%d finite" % (key, name, label, S))
+                    check(err <= 1e-5 * scale, "B9 %s %s %s S=%d: max err "
+                          "%.3e > 1e-5 * %.3e" % (key, name, label, S, err,
+                                                  scale))
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    rel[name] = max(rel.get(name, 0.0), err / scale)
+                    outs.append(o)
+                    del plain
+                check(torch.equal(torch.cat(outs, dim=1), ref),
+                      "B9 %s %s %s: %d slabs stitched differ from the "
+                      "unsharded launch" % (key, name, label, S))
+                del outs, ref
+                if (S == B9_TIMED and label.split("/")[0] == "rough"
+                        and not label.endswith(("clamped", "floor"))
+                        and name not in times):
+                    ops_m = slab_operands(k, meshes[0], operands)
+                    reps = 200 if key == "2d" else 20
+                    times[name] = (
+                        cuda_ms(lambda: k.launch(sc, ops_m), reps),
+                        cuda_ms(lambda: k.body(sc, ops_m), 5),
+                        None) + halo_bound(name, full.build, S)
+                    del ops_m
+            lines.append("S=%d bit-equal" % S)
+        print("phase 25 B9 %s %s x3 on %s slabs (%s): every case of "
+              "phases 2/5/8 within 1e-5 of plain (max rel %s), stitched "
+              "bit-equal to the unsharded launch at every S | µs per launch "
+              "per slab at S=%d kernel/plain (bound, by): %s" % (
+                  key, "x".join(map(str, shape)),
+                  "/".join(map(str, B9_SPLITS)), card,
+                  ", ".join("%s %.2e" % kv for kv in rel.items()), B9_TIMED,
+                  "; ".join("%s %.1f/%.1f (%.1f, %s)" % (
+                      n, a * 1e3, b * 1e3, bd * 1e3, by)
+                      for n, (a, b, _, bd, by) in times.items())))
+        out[key] = (slab, errs, rel, times)
+        del cases, states, full
+        torch.cuda.empty_cache()
+    return out
+
+
+#: a free local port for a one-rank NCCL group (no network: localhost)
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def b9_counts(kern):
+    return {name: k.launches for name, k in kern.kernels.items()}
+
+
+def slope_ms(multi, u0, t0, h, fast32):
+    """ms/step from the slope of a 2- and a 10-step chain (min of 2)."""
+    samples = {2: [], 10: []}
+    for rep in range(2):
+        for n in (2, 10):
+            pert = (1e-6 if fast32 else 1e-9) * (1 + 2 * rep + (n == 10))
+            up = u0 * (1.0 + pert) + pert
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            multi(up, t0, h, n)
+            torch.cuda.synchronize()
+            samples[n].append(time.perf_counter() - t_start)
+    return (min(samples[10]) - min(samples[2])) / 8 * 1e3
+
+
+def phase_one_rank_nccl(card):
+    """The whole sharded path on a one-rank NCCL mesh (the ring closed
+    on itself, every all_reduce through NCCL): the 2D float64 and
+    fast-mode multisteps at 1024^2 x 3 and at 256^3 x 3 with ``mesh=``,
+    from the near-uniform state at h=1: exact
+    B9 launches per step (each chain from counts of 0), the state after
+    2 steps against the unsharded multistep of the same run (1e-5 of the
+    increment in float64; in the fast mode, whose state is float32, 1e-4
+    of it plus 4 float32 ulps of the state, phase 10's rule), ms/step of
+    both, and the profiled device share of the halo rows and the
+    all_reduce (their ``ksfd::halo``/``ksfd::all_reduce`` ranges)."""
+    import torch.distributed as dist
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.parallel.mesh import all_reduce_sum, exchange_halos
+    from ksfd_tpu_torch.solvers import make_multistep_fn
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % free_port(), world_size=1, rank=0)
+    figs, totals = {}, {}
+    try:
+        for key, clargs, shape, fast32 in (
+            ("2d_f64", bench_clargs(N_BIG), (N_BIG, N_BIG), False),
+            ("2d_f32", bench_clargs(N_BIG), (N_BIG, N_BIG), True),
+            ("3d_f64", agg3d_clargs(N3_BIG), (N3_BIG,) * 3, False),
+            ("3d_f32", agg3d_clargs(N3_BIG), (N3_BIG,) * 3, True),
+        ):
+            ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
+            mesh = grid_mesh(grid, device=dev)
+            check(mesh.backend == "nccl" and mesh.n_x == 1, "one-rank mesh")
+            if key == "2d_f64":
+                # host µs per call of the mesh's two communications
+                x3 = torch.ones(3, dtype=torch.float64, device=dev)
+                slab = torch.ones((3,) + shape, dtype=torch.float32,
+                                  device=dev)
+                per_call = {}
+                for what, fn in (
+                        ("all_reduce", lambda: all_reduce_sum(x3, mesh)),
+                        ("halo", lambda: exchange_halos([slab, slab],
+                                                        ops.sw, mesh))):
+                    fn()
+                    torch.cuda.synchronize()
+                    t_start = time.perf_counter()
+                    for _ in range(100):
+                        fn()
+                    torch.cuda.synchronize()
+                    per_call[what] = (time.perf_counter() - t_start) * 1e4
+                figs["host_us_per_call"] = per_call
+                print("phase 26 one-rank NCCL mesh: host µs per call "
+                      "(100 calls, synchronised): %s" % per_call)
+            numerics = NumericsOptions(
+                precision="float32" if fast32 else "float64")
+            multi_s, _ = make_multistep_fn(ops, numerics, atol=0.01,
+                                           rtol=1e-6, static_steps=False,
+                                           mesh=mesh)
+            multi_1, _ = make_multistep_fn(ops, numerics, atol=0.01,
+                                           rtol=1e-6, static_steps=False)
+            kern = multi_s.kernels
+            check(kern.kind.startswith("halo-slab"), kern.kind)
+            per_step = (dict(rhs=4, jvp=8, resid=0, delta=0) if fast32
+                        else dict(rhs=0, jvp=0, resid=8, delta=4))
+            u0 = torch.as_tensor(initial_state(grid), device=dev)
+            t0 = torch.zeros((), dtype=torch.float64, device=dev)
+            h = torch.full((), 1.0, dtype=torch.float64, device=dev)
+            u_loc = distribute(u0, grid, mesh)[0]
+            for n in (2, 10):
+                for k in kern.kernels.values():
+                    k.launches = 0
+                u_s, t_s, e_s = multi_s(u_loc, t0, h, n)
+                torch.cuda.synchronize()
+                cnt = b9_counts(kern)
+                check(cnt == {k: n * c for k, c in per_step.items()},
+                      "B9 launch counts %s for %d steps" % (cnt, n))
+                check(bool(torch.isfinite(u_s).all()) and
+                      bool(torch.isfinite(e_s)), "sharded state finite")
+                if n == 2:
+                    u_s2, e_s2 = u_s, float(e_s)
+            for name, c in cnt.items():
+                totals[(key[:2], name)] = totals.get((key[:2], name), 0) + c
+            u_1, _, e_1 = multi_1(u0, t0, h, 2)
+            inc = float((u_1 - u0.to(u_1.dtype)).abs().max())
+            dev_abs = float((u_s2 - u_1).abs().max())
+            tol = 1e-5 * inc
+            if fast32:
+                tol = 1e-4 * inc + 4 * 2.0 ** -23 * float(u_1.abs().max())
+            check(dev_abs <= tol, "%s one-rank NCCL vs unsharded: %.3e > "
+                  "%.3e" % (key, dev_abs, tol))
+            del u_s, u_1
+            ms_s = slope_ms(multi_s, u_loc, t0, h, fast32)
+            ms_1 = slope_ms(multi_1, u0, t0, h, fast32)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                multi_s(u_loc, t0, h, 2)
+                torch.cuda.synchronize()
+            cuda_dev = torch.autograd.DeviceType.CUDA
+            cpu_dev = torch.autograd.DeviceType.CPU
+            device_ms = sum(
+                (getattr(ev, "self_device_time_total", None)
+                 or ev.self_cuda_time_total)
+                for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == cuda_dev) / 1e3 / 2
+            # the host ranges' own kernels (the device-side annotation of
+            # a range spans its idle gaps too, and is not counted)
+            comm = {w: sum(ev.device_time_total for ev in prof.events()
+                           if ev.name == "ksfd::" + w
+                           and ev.device_type == cpu_dev) / 1e3 / 2
+                    for w in ("halo", "all_reduce")}
+            host = {w: sum(ev.cpu_time_total for ev in prof.events()
+                           if ev.name == "ksfd::" + w
+                           and ev.device_type == cpu_dev) / 1e3 / 2
+                    for w in ("halo", "all_reduce")}
+            os.makedirs(OUT_DIR, exist_ok=True)
+            with open(os.path.join(OUT_DIR, "one_rank_nccl_profile_%s.txt"
+                                   % key), "w") as fh:
+                fh.write("%s\n2-step sharded chain, one-rank NCCL mesh, "
+                         "%s\n%s\n%s\n" % (
+                             card, key,
+                             prof.key_averages().table(
+                                 sort_by="cuda_time_total", row_limit=25),
+                             prof.key_averages().table(
+                                 sort_by="cpu_time_total", row_limit=40)))
+            nccl = sum((getattr(ev, "self_device_time_total", None)
+                        or ev.self_cuda_time_total)
+                       for ev in prof.key_averages()
+                       if getattr(ev, "device_type", None) == cuda_dev
+                       and "nccl" in ev.key.lower()) / 1e3 / 2
+            check(sum(ev.name == "ksfd::all_reduce" for ev in prof.events())
+                  > 0, "%s: no all_reduce in the profiled chain" % key)
+            figs[key] = dict(ms_per_step=ms_s, ms_per_step_unsharded=ms_1,
+                             device_ms_per_step=device_ms,
+                             halo_ms_per_step=comm["halo"],
+                             all_reduce_ms_per_step=comm["all_reduce"],
+                             halo_host_ms_per_step=host["halo"],
+                             all_reduce_host_ms_per_step=host["all_reduce"],
+                             nccl_kernel_ms_per_step=nccl,
+                             dev_over_inc=dev_abs / inc,
+                             enorm=e_s2, enorm_unsharded=float(e_1),
+                             launches_per_step=per_step)
+            print("phase 26 one-rank NCCL mesh %s %s x3 (%s): B9 counts %s "
+                  "for 10 steps; max|u_sharded - u| %.3e = %.3e of the "
+                  "increment %.6e (bound %.3e); emax %.6e vs %.6e; %.4f "
+                  "ms/step sharded, %.4f unsharded; profiled device "
+                  "%.4f ms/step, halo %.4f, all_reduce %.4f (NCCL kernels "
+                  "%.4f): share %.4f; host ms/step in the profiled chain: "
+                  "halo %.4f, all_reduce %.4f" % (
+                      key, "x".join(map(str, shape)), card, cnt, dev_abs,
+                      dev_abs / inc, inc, tol, e_s2, float(e_1), ms_s, ms_1,
+                      device_ms, comm["halo"], comm["all_reduce"], nccl,
+                      (comm["halo"] + comm["all_reduce"])
+                      / max(device_ms, 1e-9), host["halo"],
+                      host["all_reduce"]))
+            del multi_s, multi_1, kern, ops, u0, u_loc, u_s2
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return figs, totals
+
+
+#: phase 27's ranks
+N_RANKS = 2
+
+
+def _gloo_rank(rank, n, store, queue):
+    """One of phase 27's ranks: a gloo group over the one card (the halo
+    rows and the all_reduce through the host), each path sharded, rank 0
+    also the unsharded reference of the same path on the card."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=n)
+        out = _gloo_paths(rank)
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _gloo_paths(rank):
+    import torch.distributed as dist
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.solvers import (
+        make_adaptive_chunk_fn, make_multistep_fn, make_step_fn)
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    f64 = lambda x: torch.full((), x, dtype=torch.float64, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def against(key, u_s, u_ref, u0, e_s=None, e_ref=None, tol_inc=1e-5):
+        """On rank 0: the gathered sharded state against the unsharded
+        one, within tol_inc of the increment (and enorm within 1e-2)."""
+        inc = float((u_ref - u0).abs().max())
+        dev_abs = float((u_s - u_ref).abs().max())
+        out[key] = dict(dev_over_inc=dev_abs / inc, inc=inc)
+        check(dev_abs <= tol_inc * inc, "%s: two ranks vs unsharded %.3e > "
+              "%g of the increment %.3e" % (key, dev_abs, tol_inc, inc))
+        if e_s is not None:
+            out[key].update(enorm=e_s, enorm_unsharded=e_ref)
+            check(abs(e_s - e_ref) <= 1e-2 * e_ref, "%s: enorm %.6e vs "
+                  "%.6e" % (key, e_s, e_ref))
+
+    # 2D steps at 1024^2 x 3: pc_dtype auto (the bf16 sharded pc) on
+    # tests/test_pallas.py's rough state, the state of the envelope it is
+    # held to (test_pallas.py:293-332: h=1e-3 at 64^2, an accepted step),
+    # at that step's stiffness per cell, h = 1e-3 (64/n)^2, and float32
+    # pinned on bench.py's capped-peak rough state; the bf16 pc's
+    # deviation on the capped-peak state is reported beside them
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    h_env = 1e-3 * (64.0 / N_BIG) ** 2
+    mesh = grid_mesh(grid, device=dev)
+    check(mesh.backend == "gloo" and mesh.n_x == N_RANKS, repr(mesh))
+    states = dict(
+        pallas=ops.groom(torch.as_tensor(pallas_rough_state(grid.Sshape),
+                                         device=dev)),
+        bench=ops.groom(torch.as_tensor(rough_state(grid, ps), device=dev)))
+    for label, nm, state, gate in (
+            ("step_2d_auto", NumericsOptions(), "pallas", True),
+            ("step_2d_f32pc", NumericsOptions(pc_dtype="float32"), "bench",
+             True),
+            ("step_2d_auto_capped", NumericsOptions(), "bench", False)):
+        u0 = states[state]
+        step, _ = make_step_fn(ops, nm, atol=0.01, rtol=1e-6, mesh=mesh)
+        u_loc = distribute(u0, grid, mesh)[0]
+        step(u_loc, f64(0.0), f64(h_env))
+        (u1, e1), secs = timed(lambda: step(u_loc, f64(0.0), f64(h_env)))
+        u1 = mesh.gather(u1)
+        if rank == 0:
+            # unsharded, pc_dtype auto is float32
+            ref, _ = make_step_fn(ops, nm, atol=0.01, rtol=1e-6)
+            ur, er = ref(u0, f64(0.0), f64(h_env))
+            check(float(er) < 1.0, "%s: the envelope's step is an accepted "
+                  "one; enorm %.6e at h=%g" % (label, float(er), h_env))
+            if gate:
+                against(label, u1, ur, u0, float(e1), float(er))
+            else:
+                inc = float((ur - u0).abs().max())
+                out[label] = dict(
+                    dev_over_inc=float((u1 - ur).abs().max()) / inc,
+                    inc=inc, enorm=float(e1), enorm_unsharded=float(er))
+            out[label].update(ms=secs * 1e3, state=state, h=h_env,
+                              pc_dtype=step.build_info["pc_dtype"])
+        dist.barrier()
+    del states
+    # the 2D f64 multistep from the near-uniform state at h=1, pc pinned
+    u0 = torch.as_tensor(initial_state(grid), device=dev)
+    nm = NumericsOptions(pc_dtype="float32")
+    multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6, mesh=mesh)
+    u_loc = distribute(u0, grid, mesh)[0]
+    multi(u_loc, f64(0.0), f64(1.0), 2)
+    (res2, s2) = timed(lambda: multi(u_loc, f64(0.0), f64(1.0), 2))
+    (_, s10) = timed(lambda: multi(u_loc, f64(0.0), f64(1.0), 10))
+    u2 = mesh.gather(res2[0])
+    if rank == 0:
+        ref, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6)
+        against("multistep_2d", u2, ref(u0, f64(0.0), f64(1.0), 2)[0], u0)
+        out["multistep_2d"]["ms_per_step"] = (s10 - s2) / 8 * 1e3
+    dist.barrier()
+    del ops, mesh, multi, u0, u_loc, u2, res2
+    torch.cuda.empty_cache()
+    # the adaptive chunk at the flagship's 1536^2 x 3, smooth, pc auto
+    ps, grid, ops = problem_from_clargs(agg2d_clargs(N_AGG), N_AGG, N_AGG,
+                                        device=dev)
+    mesh = grid_mesh(grid, device=dev)
+    u0 = torch.as_tensor(initial_state(grid), device=dev)
+    nm = chunk_numerics(False, 1.0)
+    chunk, _ = make_adaptive_chunk_fn(ops, nm, atol=0.01, rtol=1e-6,
+                                      max_attempts=4 * 14, mesh=mesh)
+    u_loc = distribute(u0, grid, mesh)[0]
+    (res, secs) = timed(lambda: chunk(u_loc, 0.0, 1.0, 1e30, 6))
+    stats = chunk.stats
+    if rank == 0:
+        ref, _ = make_adaptive_chunk_fn(ops, nm, atol=0.01, rtol=1e-6,
+                                        max_attempts=4 * 14)
+        r = ref(u0, 0.0, 1.0, 1e30, 6)
+        out["chunk"] = dict(k=res[3], attempts=res[4], per_tier=stats.per_tier,
+                            k_unsharded=r[3], attempts_unsharded=r[4],
+                            per_tier_unsharded=ref.stats.per_tier,
+                            pc_dtype=chunk.build_info["pc_dtype"],
+                            ms_per_accept=secs / max(res[3], 1) * 1e3)
+        check((res[3], res[4], stats.per_tier) == (
+            r[3], r[4], ref.stats.per_tier),
+            "chunk: k %d attempts %d per tier %s vs unsharded %d %d %s" % (
+                res[3], res[4], stats.per_tier, r[3], r[4],
+                ref.stats.per_tier))
+    out["chunk_records"] = repr(stats.records)
+    dist.barrier()
+    del ops, mesh, chunk, u0, u_loc, res
+    torch.cuda.empty_cache()
+    # the 3D multistep at 256^3 x 3, pc pinned, from the near-uniform state
+    ps, grid, ops = problem_from_clargs(agg3d_clargs(N3_BIG), *(N3_BIG,) * 3,
+                                        device=dev)
+    mesh = grid_mesh(grid, device=dev)
+    u0 = torch.as_tensor(initial_state(grid), device=dev)
+    nm = NumericsOptions(pc_dtype="float32")
+    multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6, mesh=mesh)
+    u_loc = distribute(u0, grid, mesh)[0]
+    (res2, s2) = timed(lambda: multi(u_loc, f64(0.0), f64(1.0), 2))
+    u2 = mesh.gather(res2[0])
+    del res2
+    if rank == 0:
+        ref, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6)
+        against("multistep_3d", u2, ref(u0, f64(0.0), f64(1.0), 2)[0], u0)
+        out["multistep_3d"]["ms_per_step"] = s2 / 2 * 1e3
+    dist.barrier()
+    return out
+
+
+def phase_two_ranks(card):
+    """Two gloo ranks time-sliced on the one card (spawned processes),
+    the halo rows and the all_reduce through the host: the 2D float64
+    step at 1024^2 x 3 (pc_dtype auto, the bfloat16 sharded pc, on
+    tests/test_pallas.py's rough state, and float32 pinned on bench.py's
+    capped-peak rough state, at h = 1e-3 (64/1024)^2, the stiffness per
+    cell of that test's accepted step: 1e-5 of the increment, enorm 1e-2
+    relative; the bfloat16 pc on the capped-peak state is reported), the
+    2D multistep (pinned), the adaptive chunk
+    at the flagship's 1536^2 x 3 (smooth, 6 accepts: the same k and
+    attempts per tier), the 3D multistep at 256^3 x 3 (pinned), each
+    against the unsharded port on the card.  A rank that fails fails the
+    phase.  The times are of two ranks sharing one card, not a scaling
+    figure."""
+    import multiprocessing as mp
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="ksfd_gloo_"), "store")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, N_RANKS, store, queue))
+             for r in range(N_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in procs:
+            rank, res, err = queue.get(timeout=900)
+            if err is not None:
+                errors.append("rank %d:\n%s" % (rank, err))
+                break
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=120 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    check(not errors, "two-rank phase failed:\n" + "\n".join(errors))
+    check(results[0]["chunk_records"] == results[1]["chunk_records"],
+          "the ranks' chunk records differ")
+    r0 = results[0]
+    wall = time.perf_counter() - t0
+    print("phase 27 two gloo ranks time-sliced on one card (%s; not a "
+          "scaling figure; %.2f s wall with the spawn): %s" % (
+              card, wall, " | ".join(
+                  "%s %s" % (k, {kk: (round(v, 9) if isinstance(v, float)
+                                      else v) for kk, v in r0[k].items()})
+                  for k in ("step_2d_auto", "step_2d_f32pc",
+                            "step_2d_auto_capped", "multistep_2d", "chunk",
+                            "multistep_3d"))))
+    return {k: v for k, v in r0.items() if k != "chunk_records"}
+
+
+
 def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
                 extra=None):
     """One row per kernel of ``kern`` (a namespace of wrappers by name,
@@ -1760,6 +2328,24 @@ def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
         })
         if extra:
             rows[-1].update(extra.get(name, {}))
+    return rows
+
+
+def b9_rows(halo, one_rank, totals):
+    """The kernels line's B9 rows: phase 25's errors and times per slab
+    (``halo``), phase 26's launches per step on each path
+    (``one_rank``) and the launches it counted (``totals``)."""
+    rows = []
+    for dim, src in (("2d", "stencil2d.cu"), ("3d", "stencil3d.cu")):
+        slab, errs, rel, times = halo[dim]
+        rows += kernel_rows(
+            slab, "ksfd_tpu_torch/csrc/" + src,
+            {"one_rank_" + k[3:]: f["launches_per_step"]
+             for k, f in one_rank.items() if k.startswith(dim)},
+            {n: totals[dim, n] for n in slab.kernels}, errs, rel, times,
+            "_halo" + ("3d" if dim == "3d" else ""),
+            extra={n: {"slabs": B9_TIMED, "per": "launch per slab"}
+                   for n in slab.kernels})
     return rows
 
 
@@ -1856,6 +2442,11 @@ def main():
           (N3_ENS_CMP,) * 3, 2)
     timed("24 cpu pc", phase_ensemble_card_vs_cpu, card, 24, bench_clargs,
           (N_ENS_CMP,) * 2, 3, pc_pallas=True)
+    halo = timed("25", phase_halo_kernels, card)
+    one_rank, b9_totals = timed("26", phase_one_rank_nccl, card)
+    check(all(c > 0 for c in b9_totals.values()) and len(b9_totals) == 8,
+          "a B9 kernel ran no launch on phase 26's paths: %s" % b9_totals)
+    two_ranks = timed("27", phase_two_ranks, card)
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -1930,7 +2521,8 @@ def main():
                       extra=batched_keys(batched3, batched3_errs))
         + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
                       totals, pc_errs, pc_rel, pc_times, "",
-                      extra=pc_extra),
+                      extra=pc_extra)
+        + b9_rows(halo, one_rank, b9_totals),
         "ptxas_pc2d": ptxas_pc,
         "ms_per_step": step_s * 1e3, "dof_updates_per_s": rate,
         "ms_per_step_3d": step3_s * 1e3, "dof_updates_per_s_3d": rate3,
@@ -1948,6 +2540,8 @@ def main():
         "ensemble_3d": ensemble_json(ens3),
         "ensemble_pc": ensemble_json(ens_pc),
         "ensemble_aggregation3d": agg3,
+        "one_rank_nccl": one_rank,
+        "two_gloo_ranks_one_card": two_ranks,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

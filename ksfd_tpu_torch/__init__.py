@@ -13,7 +13,10 @@ the fused pc (``pc_pallas``), the float64 GMRES fallback step and, on
 2D problems, ``solvers.EnsembleSolver`` (members batched through the
 kernels' member axis), with the float32 kernels of ops/fused_stencil.py,
 ops/fused_stencil3d.py and ops/fused_pc.py written in CUDA for Hopper
-(csrc/stencil2d.cu, csrc/stencil3d.cu, csrc/pc2d.cu).  Importing the
+(csrc/stencil2d.cu, csrc/stencil3d.cu, csrc/pc2d.cu).  The step, the
+multistep and the chunk also run SPMD over torch.distributed ranks, one
+per x-slab (``mesh=``, parallel/), with the halo-slab builds of the
+stencil kernels.  Importing the
 package sets no global torch state (no default dtype, no default
 device): tensors carry their own dtype and device, float64 for the
 state as in the reference, float32 in the fast mode.

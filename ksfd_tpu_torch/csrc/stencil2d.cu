@@ -55,6 +55,26 @@
 // that of a single launch, so a batched launch equals nb single
 // launches bit for bit, and nb = 1 is the single-member kernel.
 //
+// Halo-slab builds (B9, the sharded builds of pallas_stencil.py: pad_x
+// :718-735, shardwrap :737-755, padded_src :539): ksfd_<name>_halo runs
+// the same kernel on one rank's local x-slab (nx = the slab's rows).
+// Each operand that the stencil reads comes as the slab plus its lo and
+// hi halo buffers, the SW rows below and above it from the ring
+// neighbours, each a contiguous (DOF, SW, ny) block; a halo row index r
+// in [-SW, nx + SW) reads lo, the slab or hi in place of wrap(r, nx).  y
+// still wraps inside the slab; resid's b and the own-point reads need no
+// halo.  The TPU build pads every operand into a fresh array (pad_x's
+// concatenate, a full HBM copy of each operand per call); here the
+// block's halo loads read the halo buffers where they lie, so the only
+// extra traffic is the 2 * SW rows.  The halo depth is SW rows, not the
+// TPU's 8-row DMA unit (_halo_rows :316).  A halo-slab launch has no
+// member axis (a batched build is never sharded, pallas_stencil.py:526),
+// and its arithmetic per point is the unsharded kernel's, so the
+// stitched slabs equal one unsharded launch bit for bit under one scalar
+// pack.  The bodies are shared: each __global__ entry instantiates one
+// with HALO false (the unsharded and member-batched build, unchanged) or
+// true.
+//
 // Without __CUDACC__ (a host C++ compiler with the CUDA qualifiers
 // defined away, KSFD_NT=1 and one thread walking each block) the kernel
 // bodies compile as plain C++; tests/test_torch_kernels.py runs them so
@@ -108,6 +128,35 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : i;
 }
 
+// Where halo point (r, y) of a tile reads an operand: ``part`` 1 is the
+// operand itself at in-plane offset ``g`` with one field's plane
+// ``plane``; in the halo-slab build rows below 0 are in lo (part 0) and
+// rows at or past nx in hi (part 2), whose planes are SW rows.
+struct Rows {
+  int part;
+  size_t g, plane;
+};
+
+template <bool HALO>
+__device__ __forceinline__ Rows rows_at(int r, int y, int nx, int ny) {
+  const int yy = wrap(y, ny);
+  if (!HALO) return Rows{1, (size_t)wrap(r, nx) * ny + yy, (size_t)nx * ny};
+  if (r < 0) return Rows{0, (size_t)(r + SW) * ny + yy, (size_t)SW * ny};
+  // a ragged last tile's box reaches past the halo: rows no output
+  // reads, loaded from hi's last row so that every read stays in hi
+  if (r >= nx)
+    return Rows{2, (size_t)(r - nx < SW ? r - nx : SW - 1) * ny + yy,
+                (size_t)SW * ny};
+  return Rows{1, (size_t)r * ny + yy, (size_t)nx * ny};
+}
+
+// The base of the part that w reads: the operand p, or its lo or hi.
+template <bool HALO>
+__device__ __forceinline__ const float* part(const float* p, const float* lo,
+                                             const float* hi, const Rows& w) {
+  return !HALO || w.part == 1 ? p : (w.part == 0 ? lo : hi);
+}
+
 __device__ __forceinline__ float lap(const float* p) {
   return ksfd_d2x(p, HY) + ksfd_d2y(p, 1);
 }
@@ -120,9 +169,11 @@ __device__ __forceinline__ float graddot(const float* a, const float* b) {
 // wrapper adds them).  u is the RAW state (groomed here).
 // sc = [t, mean_0 .. mean_{DOF-1}, G(means), react_1 .. react_NL]
 // (t is unused: the generated G carries no time dependence).
-__global__ void __launch_bounds__(NT)
-rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
-           float* __restrict__ out, int nx, int ny) {
+template <bool HALO>
+__device__ __forceinline__ void rhs_body(
+    const float* __restrict__ sc, const float* __restrict__ u,
+    const float* __restrict__ u_lo, const float* __restrict__ u_hi,
+    float* __restrict__ out, int nx, int ny) {
   __shared__ float s_rc[HN], s_Gc[HN];
   __shared__ float s_Uc[NL > 0 ? NL : 1][HN];
   const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
@@ -135,12 +186,12 @@ rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
 
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / HY, hy = i - hx * HY;
-    const size_t g =
-        (size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny);
+    const Rows w = rows_at<HALO>(x0 + hx - SW, y0 + hy - SW, nx, ny);
+    const float* up = part<HALO>(u, u_lo, u_hi, w);
     float f[DOF];
 #pragma unroll
     for (int k = 0; k < DOF; ++k) {
-      const float raw = u[k * plane + g];
+      const float raw = up[k * w.plane + w.g];
       const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
       f[k] = raw >= lo ? raw : lo;
     }
@@ -169,6 +220,21 @@ rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
                                  ksfd_D(l) * lap(&s_Uc[l][c]);
     }
   }
+}
+
+__global__ void __launch_bounds__(NT)
+rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           float* __restrict__ out, int nx, int ny) {
+  rhs_body<false>(sc, u, nullptr, nullptr, out, nx, ny);
+}
+
+// B9: one rank's slab with its halo rows (no member axis)
+__global__ void __launch_bounds__(NT)
+rhs_halo_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+                const float* __restrict__ u_lo,
+                const float* __restrict__ u_hi, float* __restrict__ out,
+                int nx, int ny) {
+  rhs_body<true>(sc, u, u_lo, u_hi, out, nx, ny);
 }
 
 // The rows of _jvp_rows (pallas_stencil.py:613) from the staged halo
@@ -205,11 +271,13 @@ __device__ __forceinline__ void jvp_rows_out(
 // The J-action rows (and, with RESID, the fused Richardson residual
 // b - shift*v + J(u)v).  sc = [t, shift] (t is unused: the generated
 // G carries no time dependence).
-template <bool RESID>
-__global__ void __launch_bounds__(NT)
-jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
-           const float* __restrict__ v, const float* __restrict__ b,
-           float* __restrict__ out, int nx, int ny) {
+template <bool RESID, bool HALO>
+__device__ __forceinline__ void jvp_body(
+    const float* __restrict__ sc, const float* __restrict__ u,
+    const float* __restrict__ u_lo, const float* __restrict__ u_hi,
+    const float* __restrict__ v, const float* __restrict__ v_lo,
+    const float* __restrict__ v_hi, const float* __restrict__ b,
+    float* __restrict__ out, int nx, int ny) {
   __shared__ float s_rho[HN], s_G[HN], s_dG[HN], s_vr[HN];
   __shared__ float s_vU[NL > 0 ? NL : 1][HN];
   const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
@@ -223,15 +291,16 @@ jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
 
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / HY, hy = i - hx * HY;
-    const size_t g =
-        (size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny);
+    const Rows w = rows_at<HALO>(x0 + hx - SW, y0 + hy - SW, nx, ny);
+    const float* up = part<HALO>(u, u_lo, u_hi, w);
+    const float* vp = part<HALO>(v, v_lo, v_hi, w);
     float f[DOF], vm[DOF], dg[DOF];
 #pragma unroll
     for (int k = 0; k < DOF; ++k) {
-      const float raw = u[k * plane + g];
+      const float raw = up[k * w.plane + w.g];
       const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
       f[k] = raw >= lo ? raw : lo;
-      vm[k] = raw > lo ? v[k * plane + g] : 0.0f;
+      vm[k] = raw > lo ? vp[k * w.plane + w.g] : 0.0f;
     }
     ksfd_dG(f, dg);
     float dG = dg[0] * vm[0];
@@ -248,6 +317,28 @@ jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
 
   jvp_rows_out<RESID>(s_rho, s_G, s_dG, s_vr, s_vU, RESID ? sc[1] : 0.0f, v,
                       b, out, x0, y0, nx, ny);
+}
+
+template <bool RESID>
+__global__ void __launch_bounds__(NT)
+jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           const float* __restrict__ v, const float* __restrict__ b,
+           float* __restrict__ out, int nx, int ny) {
+  jvp_body<RESID, false>(sc, u, nullptr, nullptr, v, nullptr, nullptr, b,
+                         out, nx, ny);
+}
+
+// B9: one rank's slab; u and v with their halo rows, b at its own
+// points only
+template <bool RESID>
+__global__ void __launch_bounds__(NT)
+jvp_halo_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+                const float* __restrict__ u_lo,
+                const float* __restrict__ u_hi, const float* __restrict__ v,
+                const float* __restrict__ v_lo,
+                const float* __restrict__ v_hi, const float* __restrict__ b,
+                float* __restrict__ out, int nx, int ny) {
+  jvp_body<RESID, true>(sc, u, u_lo, u_hi, v, v_lo, v_hi, b, out, nx, ny);
 }
 
 // B11: jvp_kernel<true> fed from precomputed float32 coefficient fields
@@ -300,10 +391,14 @@ coeff_resid_kernel(const float* __restrict__ sc, const float* __restrict__ C,
 
 // Exact increment rhs(u1) - rhs(u0) of the source-free RHS, with
 // d = u1 - u0 and u0 groomed.  sc = [t, rho_mean, G0_mean].
-__global__ void __launch_bounds__(NT)
-delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
-             const float* __restrict__ d, const float* __restrict__ u1,
-             float* __restrict__ out, int nx, int ny) {
+template <bool HALO>
+__device__ __forceinline__ void delta_body(
+    const float* __restrict__ sc, const float* __restrict__ u0,
+    const float* __restrict__ u0_lo, const float* __restrict__ u0_hi,
+    const float* __restrict__ d, const float* __restrict__ d_lo,
+    const float* __restrict__ d_hi, const float* __restrict__ u1,
+    const float* __restrict__ u1_lo, const float* __restrict__ u1_hi,
+    float* __restrict__ out, int nx, int ny) {
   __shared__ float s_d0[HN], s_Gs[HN], s_r0c[HN], s_dG[HN];
   __shared__ float s_dU[NL > 0 ? NL : 1][HN];
   const int x0 = blockIdx.y * TX, y0 = blockIdx.x * TY;
@@ -318,14 +413,16 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
 
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / HY, hy = i - hx * HY;
-    const size_t g =
-        (size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny);
+    const Rows w = rows_at<HALO>(x0 + hx - SW, y0 + hy - SW, nx, ny);
+    const float* u0p = part<HALO>(u0, u0_lo, u0_hi, w);
+    const float* dp = part<HALO>(d, d_lo, d_hi, w);
+    const float* u1p = part<HALO>(u1, u1_lo, u1_hi, w);
     float f[DOF], dd[DOF], s[DOF];
 #pragma unroll
     for (int k = 0; k < DOF; ++k) {
-      f[k] = u0[k * plane + g];
-      dd[k] = d[k * plane + g];
-      s[k] = u1[k * plane + g];
+      f[k] = u0p[k * w.plane + w.g];
+      dd[k] = dp[k * w.plane + w.g];
+      s[k] = u1p[k * w.plane + w.g];
     }
     const float G0c = ksfd_G(f) - G_mean;
     const float dG = ksfd_G_delta(f, dd, s);
@@ -354,6 +451,31 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
                                  ksfd_D(l) * lap(&s_dU[l][c]);
     }
   }
+}
+
+__global__ void __launch_bounds__(NT)
+delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
+             const float* __restrict__ d, const float* __restrict__ u1,
+             float* __restrict__ out, int nx, int ny) {
+  delta_body<false>(sc, u0, nullptr, nullptr, d, nullptr, nullptr, u1,
+                    nullptr, nullptr, out, nx, ny);
+}
+
+// B9: one rank's slab; u0, d and u1 with their halo rows
+__global__ void __launch_bounds__(NT)
+delta_halo_kernel(const float* __restrict__ sc,
+                  const float* __restrict__ u0,
+                  const float* __restrict__ u0_lo,
+                  const float* __restrict__ u0_hi,
+                  const float* __restrict__ d,
+                  const float* __restrict__ d_lo,
+                  const float* __restrict__ d_hi,
+                  const float* __restrict__ u1,
+                  const float* __restrict__ u1_lo,
+                  const float* __restrict__ u1_hi, float* __restrict__ out,
+                  int nx, int ny) {
+  delta_body<true>(sc, u0, u0_lo, u0_hi, d, d_lo, d_hi, u1, u1_lo, u1_hi,
+                   out, nx, ny);
 }
 
 #ifdef __CUDACC__
@@ -403,6 +525,46 @@ int ksfd_coeff_resid(const float* sc, const float* C, const float* v,
                      void* stream) {
   coeff_resid_kernel<<<grid_for(nx, ny, nb), NT, 0,
                        (cudaStream_t)stream>>>(sc, C, v, b, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+// B9, the halo-slab entries: one rank's slab of nx rows (>= SW), each
+// stencil operand X followed by its lo and hi rows ((DOF, SW, ny)
+// each); one member
+int ksfd_rhs_halo(const float* sc, const float* u, const float* u_lo,
+                  const float* u_hi, float* out, int nx, int ny,
+                  void* stream) {
+  rhs_halo_kernel<<<grid_for(nx, ny, 1), NT, 0, (cudaStream_t)stream>>>(
+      sc, u, u_lo, u_hi, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+int ksfd_jvp_halo(const float* sc, const float* u, const float* u_lo,
+                  const float* u_hi, const float* v, const float* v_lo,
+                  const float* v_hi, float* out, int nx, int ny,
+                  void* stream) {
+  jvp_halo_kernel<false>
+      <<<grid_for(nx, ny, 1), NT, 0, (cudaStream_t)stream>>>(
+          sc, u, u_lo, u_hi, v, v_lo, v_hi, nullptr, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+int ksfd_resid_halo(const float* sc, const float* u, const float* u_lo,
+                    const float* u_hi, const float* v, const float* v_lo,
+                    const float* v_hi, const float* b, float* out, int nx,
+                    int ny, void* stream) {
+  jvp_halo_kernel<true><<<grid_for(nx, ny, 1), NT, 0, (cudaStream_t)stream>>>(
+      sc, u, u_lo, u_hi, v, v_lo, v_hi, b, out, nx, ny);
+  return (int)cudaGetLastError();
+}
+
+int ksfd_delta_halo(const float* sc, const float* u0, const float* u0_lo,
+                    const float* u0_hi, const float* d, const float* d_lo,
+                    const float* d_hi, const float* u1, const float* u1_lo,
+                    const float* u1_hi, float* out, int nx, int ny,
+                    void* stream) {
+  delta_halo_kernel<<<grid_for(nx, ny, 1), NT, 0, (cudaStream_t)stream>>>(
+      sc, u0, u0_lo, u0_hi, d, d_lo, d_hi, u1, u1_lo, u1_hi, out, nx, ny);
   return (int)cudaGetLastError();
 }
 

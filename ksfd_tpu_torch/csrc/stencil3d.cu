@@ -75,6 +75,19 @@
 // arithmetic is that of a single launch, so a batched launch equals nb
 // single launches bit for bit, and nb = 1 is the single-member kernel.
 //
+// Halo-slab builds (B9 in 3D, pallas_stencil3d.py pad_x :474-486,
+// shardwrap :488-500, padded_src :263): ksfd_<name>_halo runs the same
+// kernel on one rank's local x-slab (nx = the slab's rows), as
+// csrc/stencil2d.cu's halo entries do.  Each stencil operand comes as
+// the slab plus its lo and hi halo buffers, each a contiguous
+// (DOF, SW, ny, nz) block of the ring neighbours' boundary rows; a box
+// row r in [-SW, nx + SW) reads lo, the slab or hi in place of
+// wrap(r, nx), and y and z still wrap inside the slab.  No padded copy
+// of an operand is made.  One member; the 1D member-slowest grid decode
+// stays for the unsharded build (here it decodes one member's tiles).
+// The arithmetic per point is the unsharded kernel's, so the stitched
+// slabs equal one unsharded launch bit for bit under one scalar pack.
+//
 // Without __CUDACC__ (a host C++ compiler with the CUDA qualifiers
 // defined away, KSFD_NT=1 and one thread walking each block) the kernel
 // bodies compile as plain C++; tests/test_torch_3d.py runs them so on
@@ -138,13 +151,41 @@ __device__ __forceinline__ bool on_star(int hx, int hy, int hz) {
   return out <= 1;
 }
 
-// Global offset (within one field) of box point (hx, hy, hz) of the
-// tile at (x0, y0, z0), wrapped periodically.
-__device__ __forceinline__ size_t box_offset(int hx, int hy, int hz, int x0,
-                                             int y0, int z0, int nx, int ny,
-                                             int nz) {
-  return ((size_t)wrap(x0 + hx - SW, nx) * ny + wrap(y0 + hy - SW, ny)) * nz +
-         wrap(z0 + hz - SW, nz);
+// Where box point (hx, hy, hz) of the tile at (x0, y0, z0) reads an
+// operand: ``part`` 1 is the operand itself at in-field offset ``g``
+// (wrapped periodically) with one field's extent ``plane``; in the
+// halo-slab build rows below 0 are in lo (part 0) and rows at or past nx
+// in hi (part 2), whose fields are SW rows.
+struct Rows {
+  int part;
+  size_t g, plane;
+};
+
+template <bool HALO>
+__device__ __forceinline__ Rows box_rows(int hx, int hy, int hz, int x0,
+                                         int y0, int z0, int nx, int ny,
+                                         int nz) {
+  const int r = x0 + hx - SW;
+  const size_t yz = (size_t)wrap(y0 + hy - SW, ny) * nz + wrap(z0 + hz - SW, nz);
+  const size_t pl = (size_t)ny * nz;
+  if (!HALO)
+    return Rows{1, ((size_t)wrap(r, nx) * ny + wrap(y0 + hy - SW, ny)) * nz +
+                       wrap(z0 + hz - SW, nz),
+                (size_t)nx * pl};
+  if (r < 0) return Rows{0, (size_t)(r + SW) * pl + yz, (size_t)SW * pl};
+  // a ragged last tile's box reaches past the halo: rows no output
+  // reads, loaded from hi's last row so that every read stays in hi
+  if (r >= nx)
+    return Rows{2, (size_t)(r - nx < SW ? r - nx : SW - 1) * pl + yz,
+                (size_t)SW * pl};
+  return Rows{1, (size_t)r * pl + yz, (size_t)nx * pl};
+}
+
+// The base of the part that w reads: the operand p, or its lo or hi.
+template <bool HALO>
+__device__ __forceinline__ const float* part(const float* p, const float* lo,
+                                             const float* hi, const Rows& w) {
+  return !HALO || w.part == 1 ? p : (w.part == 0 ? lo : hi);
 }
 
 // The tile origin (x0, y0, z0) of this block and its member, decoded
@@ -177,9 +218,11 @@ __device__ __forceinline__ float graddot(const float* a, const float* b) {
 // wrapper adds them).  u is the RAW state (groomed here).
 // sc = [t, mean_0 .. mean_{DOF-1}, G(means), react_1 .. react_NL]
 // (t is unused: the generated G carries no time dependence).
-__global__ void __launch_bounds__(NT)
-rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
-           float* __restrict__ out, int nx, int ny, int nz) {
+template <bool HALO>
+__device__ __forceinline__ void rhs_body(
+    const float* __restrict__ sc, const float* __restrict__ u,
+    const float* __restrict__ u_lo, const float* __restrict__ u_hi,
+    float* __restrict__ out, int nx, int ny, int nz) {
   float* s_rc = ksfd_smem;
   float* s_Gc = s_rc + HN;
   float* s_Uc = s_Gc + HN;  // NL arrays of HN
@@ -195,11 +238,12 @@ rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / SX, r = i - hx * SX, hy = r / SY, hz = r - hy * SY;
     if (!on_star(hx, hy, hz)) continue;
-    const size_t g = box_offset(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    const Rows w = box_rows<HALO>(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    const float* up = part<HALO>(u, u_lo, u_hi, w);
     float f[DOF];
 #pragma unroll
     for (int k = 0; k < DOF; ++k) {
-      const float raw = u[k * plane + g];
+      const float raw = up[k * w.plane + w.g];
       const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
       f[k] = raw >= lo ? raw : lo;
     }
@@ -231,14 +275,31 @@ rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   }
 }
 
+__global__ void __launch_bounds__(NT)
+rhs_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           float* __restrict__ out, int nx, int ny, int nz) {
+  rhs_body<false>(sc, u, nullptr, nullptr, out, nx, ny, nz);
+}
+
+// B9: one rank's slab with its halo rows (one member)
+__global__ void __launch_bounds__(NT)
+rhs_halo_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+                const float* __restrict__ u_lo,
+                const float* __restrict__ u_hi, float* __restrict__ out,
+                int nx, int ny, int nz) {
+  rhs_body<true>(sc, u, u_lo, u_hi, out, nx, ny, nz);
+}
+
 // The J-action rows (and, with RESID, the fused Richardson residual
 // b - shift*v + J(u)v).  sc = [t, shift] (t is unused: the generated
 // G carries no time dependence).
-template <bool RESID>
-__global__ void __launch_bounds__(NT)
-jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
-           const float* __restrict__ v, const float* __restrict__ b,
-           float* __restrict__ out, int nx, int ny, int nz) {
+template <bool RESID, bool HALO>
+__device__ __forceinline__ void jvp_body(
+    const float* __restrict__ sc, const float* __restrict__ u,
+    const float* __restrict__ u_lo, const float* __restrict__ u_hi,
+    const float* __restrict__ v, const float* __restrict__ v_lo,
+    const float* __restrict__ v_hi, const float* __restrict__ b,
+    float* __restrict__ out, int nx, int ny, int nz) {
   float* s_rho = ksfd_smem;
   float* s_G = s_rho + HN;
   float* s_dG = s_G + HN;
@@ -257,14 +318,16 @@ jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / SX, r = i - hx * SX, hy = r / SY, hz = r - hy * SY;
     if (!on_star(hx, hy, hz)) continue;
-    const size_t g = box_offset(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    const Rows w = box_rows<HALO>(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    const float* up = part<HALO>(u, u_lo, u_hi, w);
+    const float* vp = part<HALO>(v, v_lo, v_hi, w);
     float f[DOF], vm[DOF], dg[DOF];
 #pragma unroll
     for (int k = 0; k < DOF; ++k) {
-      const float raw = u[k * plane + g];
+      const float raw = up[k * w.plane + w.g];
       const float lo = k == 0 ? KSFD_RHOMIN : KSFD_UMIN;
       f[k] = raw >= lo ? raw : lo;
-      vm[k] = raw > lo ? v[k * plane + g] : 0.0f;
+      vm[k] = raw > lo ? vp[k * w.plane + w.g] : 0.0f;
     }
     ksfd_dG(f, dg);
     float dG = dg[0] * vm[0];
@@ -301,12 +364,39 @@ jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
   }
 }
 
+template <bool RESID>
+__global__ void __launch_bounds__(NT)
+jvp_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+           const float* __restrict__ v, const float* __restrict__ b,
+           float* __restrict__ out, int nx, int ny, int nz) {
+  jvp_body<RESID, false>(sc, u, nullptr, nullptr, v, nullptr, nullptr, b,
+                         out, nx, ny, nz);
+}
+
+// B9: one rank's slab; u and v with their halo rows, b at its own
+// points only
+template <bool RESID>
+__global__ void __launch_bounds__(NT)
+jvp_halo_kernel(const float* __restrict__ sc, const float* __restrict__ u,
+                const float* __restrict__ u_lo,
+                const float* __restrict__ u_hi, const float* __restrict__ v,
+                const float* __restrict__ v_lo,
+                const float* __restrict__ v_hi, const float* __restrict__ b,
+                float* __restrict__ out, int nx, int ny, int nz) {
+  jvp_body<RESID, true>(sc, u, u_lo, u_hi, v, v_lo, v_hi, b, out, nx, ny,
+                        nz);
+}
+
 // Exact increment rhs(u1) - rhs(u0) of the source-free RHS, with
 // d = u1 - u0 and u0 groomed.  sc = [t, rho_mean, G0_mean].
-__global__ void __launch_bounds__(NT)
-delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
-             const float* __restrict__ d, const float* __restrict__ u1,
-             float* __restrict__ out, int nx, int ny, int nz) {
+template <bool HALO>
+__device__ __forceinline__ void delta_body(
+    const float* __restrict__ sc, const float* __restrict__ u0,
+    const float* __restrict__ u0_lo, const float* __restrict__ u0_hi,
+    const float* __restrict__ d, const float* __restrict__ d_lo,
+    const float* __restrict__ d_hi, const float* __restrict__ u1,
+    const float* __restrict__ u1_lo, const float* __restrict__ u1_hi,
+    float* __restrict__ out, int nx, int ny, int nz) {
   float* s_d0 = ksfd_smem;
   float* s_Gs = s_d0 + HN;
   float* s_r0c = s_Gs + HN;
@@ -326,13 +416,16 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / SX, r = i - hx * SX, hy = r / SY, hz = r - hy * SY;
     if (!on_star(hx, hy, hz)) continue;
-    const size_t g = box_offset(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    const Rows w = box_rows<HALO>(hx, hy, hz, x0, y0, z0, nx, ny, nz);
+    const float* u0p = part<HALO>(u0, u0_lo, u0_hi, w);
+    const float* dp = part<HALO>(d, d_lo, d_hi, w);
+    const float* u1p = part<HALO>(u1, u1_lo, u1_hi, w);
     float f[DOF], dd[DOF], s[DOF];
 #pragma unroll
     for (int k = 0; k < DOF; ++k) {
-      f[k] = u0[k * plane + g];
-      dd[k] = d[k * plane + g];
-      s[k] = u1[k * plane + g];
+      f[k] = u0p[k * w.plane + w.g];
+      dd[k] = dp[k * w.plane + w.g];
+      s[k] = u1p[k * w.plane + w.g];
     }
     const float G0c = ksfd_G(f) - G_mean;
     const float dG = ksfd_G_delta(f, dd, s);
@@ -362,6 +455,31 @@ delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
           -ksfd_gamma(l) * dU[0] + ksfd_s(l) * drho + ksfd_D(l) * lap(dU);
     }
   }
+}
+
+__global__ void __launch_bounds__(NT)
+delta_kernel(const float* __restrict__ sc, const float* __restrict__ u0,
+             const float* __restrict__ d, const float* __restrict__ u1,
+             float* __restrict__ out, int nx, int ny, int nz) {
+  delta_body<false>(sc, u0, nullptr, nullptr, d, nullptr, nullptr, u1,
+                    nullptr, nullptr, out, nx, ny, nz);
+}
+
+// B9: one rank's slab; u0, d and u1 with their halo rows
+__global__ void __launch_bounds__(NT)
+delta_halo_kernel(const float* __restrict__ sc,
+                  const float* __restrict__ u0,
+                  const float* __restrict__ u0_lo,
+                  const float* __restrict__ u0_hi,
+                  const float* __restrict__ d,
+                  const float* __restrict__ d_lo,
+                  const float* __restrict__ d_hi,
+                  const float* __restrict__ u1,
+                  const float* __restrict__ u1_lo,
+                  const float* __restrict__ u1_hi, float* __restrict__ out,
+                  int nx, int ny, int nz) {
+  delta_body<true>(sc, u0, u0_lo, u0_hi, d, d_lo, d_hi, u1, u1_lo, u1_hi,
+                   out, nx, ny, nz);
 }
 
 #ifdef __CUDACC__
@@ -417,6 +535,42 @@ int ksfd_delta(const float* sc, const float* u0, const float* d,
                void* stream) {
   return launch(delta_kernel, SMEM_BYTES, nx, ny, nz, nb, stream, sc, u0, d,
                 u1, out);
+}
+
+// B9, the halo-slab entries: one rank's slab of nx rows (>= SW), each
+// stencil operand X followed by its lo and hi rows ((DOF, SW, ny, nz)
+// each); one member
+int ksfd_rhs_halo(const float* sc, const float* u, const float* u_lo,
+                  const float* u_hi, float* out, int nx, int ny, int nz,
+                  void* stream) {
+  return launch(rhs_halo_kernel, SMEM_BYTES_RHS, nx, ny, nz, 1, stream, sc,
+                u, u_lo, u_hi, out);
+}
+
+int ksfd_jvp_halo(const float* sc, const float* u, const float* u_lo,
+                  const float* u_hi, const float* v, const float* v_lo,
+                  const float* v_hi, float* out, int nx, int ny, int nz,
+                  void* stream) {
+  return launch(jvp_halo_kernel<false>, SMEM_BYTES, nx, ny, nz, 1, stream,
+                sc, u, u_lo, u_hi, v, v_lo, v_hi, (const float*)nullptr,
+                out);
+}
+
+int ksfd_resid_halo(const float* sc, const float* u, const float* u_lo,
+                    const float* u_hi, const float* v, const float* v_lo,
+                    const float* v_hi, const float* b, float* out, int nx,
+                    int ny, int nz, void* stream) {
+  return launch(jvp_halo_kernel<true>, SMEM_BYTES, nx, ny, nz, 1, stream, sc,
+                u, u_lo, u_hi, v, v_lo, v_hi, b, out);
+}
+
+int ksfd_delta_halo(const float* sc, const float* u0, const float* u0_lo,
+                    const float* u0_hi, const float* d, const float* d_lo,
+                    const float* d_hi, const float* u1, const float* u1_lo,
+                    const float* u1_hi, float* out, int nx, int ny, int nz,
+                    void* stream) {
+  return launch(delta_halo_kernel, SMEM_BYTES, nx, ny, nz, 1, stream, sc, u0,
+                u0_lo, u0_hi, d, d_lo, d_hi, u1, u1_lo, u1_hi, out);
 }
 
 int ksfd_smem_bytes() { return (int)SMEM_BYTES; }

@@ -107,16 +107,16 @@ def fused_pc_refusal(grid, ops, pc_dtype="float32"):
     """Why the fused apply cannot run here, or None."""
     if grid.dim != 2:
         return ("pc_pallas on a %dD grid (the fused pc is 2D, as the "
-                "reference's is: ROADMAP Queue B item 2, B5)" % grid.dim)
+                "reference's is: ROADMAP Queue B item 1, B5)" % grid.dim)
     if ops is not None and grid.dof != ops.nligands + 1:
         return ("pc_pallas on a with-G state (ROADMAP Queue A item 10, "
                 "A13)")
     if grid.dof > MAX_NF or grid.dof < 2:
         return ("pc_pallas with %d fields (the CUDA kernels take 2..%d: "
-                "ROADMAP Queue B item 2, B5)" % (grid.dof, MAX_NF))
+                "ROADMAP Queue B item 1, B5)" % (grid.dof, MAX_NF))
     if pc_dtype in ("float64", "f64"):
         return ("pc_pallas with pc_dtype float64 (the fused apply is "
-                "float32: ROADMAP Queue B item 2, B5)")
+                "float32: ROADMAP Queue B item 1, B5)")
     return None
 
 

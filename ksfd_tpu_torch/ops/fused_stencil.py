@@ -54,6 +54,16 @@ members on ``blockIdx.z`` in 2D, the slowest part of a 1D block index
 in 3D), counted once.  So ``EnsembleSolver`` vmaps the
 unchanged ``make_step_fn``/``make_multistep_fn``.  On CPU tensors the
 rule runs the plain body member by member.
+
+**Halo-slab builds** (B9, the counterpart of ``make_pallas_kernels(
+mesh=)``: pad_x :718-735, shardwrap :737-755, padded_src :539).  With a
+``mesh`` (parallel/mesh.py SlabMesh) the four step entries are
+``SlabKernel``s on this rank's local x-slab: each stencil operand's
+``sw`` halo rows come from the ring neighbours in one exchange, the f64
+centring means are global sums over the ranks over the global point
+count, and the CUDA entries ``ksfd_<name>_halo`` read the halo rows
+where they lie (no padded copy).  Their plain versions pad each operand
+by ``torch.cat`` and crop.  A halo-slab build has no member axis.
 """
 
 import ctypes
@@ -70,6 +80,12 @@ from types import SimpleNamespace
 
 import torch
 
+from ..parallel.mesh import (
+    MESH_TODO,
+    SlabMesh,
+    all_reduce_sum,
+    exchange_halos,
+)
 from .codegen import pointwise_header
 from .stencil import deriv_coeffs
 
@@ -96,6 +112,10 @@ _OPERANDS = {
 }
 #: the solver path's four entries, in both dimensions
 STEP_ENTRIES = ("rhs", "jvp", "resid", "delta")
+#: the halo-slab entries (B9): how many leading operands the stencil
+#: reads (each passed with its lo and hi halo rows), and how many it reads
+#: at the tile's own points only
+HALO_OPERANDS = dict(rhs=(1, 0), jvp=(2, 0), resid=(2, 1), delta=(3, 0))
 
 
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -121,12 +141,20 @@ def entry_names(ndim):
 def stencil_entries(ndim):
     """ctypes argument types of the stencil entries ``ksfd_<name>`` of
     a dimension: the scalar pack, operand and output pointers, the
-    ``ndim`` grid extents, the member count ``nb``, then the stream."""
-    return {
+    ``ndim`` grid extents, the member count ``nb``, then the stream; and
+    of the halo-slab entries ``ksfd_<name>_halo`` (B9): the scalar pack,
+    each stencil operand with its lo and hi rows, the own-point
+    operands, the output, the slab's ``ndim`` extents and the stream."""
+    out = {
         "ksfd_" + name: [ctypes.c_void_p] * (_OPERANDS[name] + 2)
         + [ctypes.c_int] * (ndim + 1) + [ctypes.c_void_p]
         for name in entry_names(ndim)
     }
+    for name, (n_st, n_own) in HALO_OPERANDS.items():
+        out["ksfd_%s_halo" % name] = (
+            [ctypes.c_void_p] * (3 * n_st + n_own + 2)
+            + [ctypes.c_int] * ndim + [ctypes.c_void_p])
+    return out
 
 
 def build_library(header, csrc=CSRC, ndim=2, entries=None):
@@ -343,6 +371,88 @@ class FusedKernel:
         return out
 
 
+class SlabKernel(FusedKernel):
+    """B9: one entry's halo-slab build on a rank's local x-slab.
+    Counterpart: ksfd_tpu/ops/pallas_stencil.py:shardwrap around the
+    entry's ``pallas_call`` fed by ``pad_x`` (3D:
+    pallas_stencil3d.py:shardwrap).
+
+    ``prepare(*args)`` takes the entry's usual arguments on local slabs
+    and returns the f32 pack (its means global over the mesh) and the
+    operands, each stencil operand followed by its ``lo`` and ``hi``
+    halo rows (one exchange for all of them, parallel/mesh.py
+    ``exchange_halos``), then the own-point operands.  On a CUDA tensor
+    ``run`` launches ``ksfd_<name>_halo`` (csrc/stencil2d.cu,
+    csrc/stencil3d.cu), which reads the halo rows where they lie; on a
+    CPU tensor it runs the plain version: the unsharded plain body on
+    each operand padded by ``torch.cat`` of lo, the slab and hi, cropped
+    to the slab.  No member axis (a batched build is never sharded,
+    pallas_stencil.py:526), so a call does not go through the vmap op.
+    """
+
+    def __init__(self, name, owner, prepare, body, replaces, mesh):
+        super().__init__(name, owner, prepare, body, replaces)
+        self.mesh = mesh
+        self.n_st, self.n_own = HALO_OPERANDS[name]
+
+    def __call__(self, *args):
+        dev = args[0].device
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(
+                "%s kernel: tensors on %s; the kernel runs on cuda and its "
+                "plain version on cpu" % (self.name, dev))
+        return self.run(*self.prepare(*args))
+
+    def run_batched(self, sc, operands):
+        raise NotImplementedError(
+            "a halo-slab build has no member axis (pallas_stencil.py:526); "
+            "ensembles on a mesh are ROADMAP Queue A item 11 (A14)")
+
+    def body(self, sc, operands):
+        sw = self._owner.ops.sw
+        padded = []
+        for i in range(self.n_st):
+            x, lo, hi = operands[3 * i:3 * i + 3]
+            padded.append(torch.cat([lo, x, hi], dim=1))
+        for x in operands[3 * self.n_st:]:
+            # read at the tile's own points only: the pad is cropped
+            z = torch.zeros_like(x[:, :sw])
+            padded.append(torch.cat([z, x, z], dim=1))
+        return self._body(sc, *padded)[:, sw:-sw].contiguous()
+
+    def launch(self, sc, operands):
+        S = self.mesh.local_shape
+        dof, sw = self._owner.dof, self._owner.ops.sw
+        halo = (dof, sw) + S[1:]
+        shapes = [s for _ in range(self.n_st)
+                  for s in ((dof,) + S, halo, halo)]
+        shapes += [(dof,) + S] * self.n_own
+        if len(operands) != len(shapes):
+            raise ValueError("%s halo kernel: %d operands, expected %d"
+                             % (self.name, len(operands), len(shapes)))
+        for x, shape in zip((sc,) + tuple(operands), [None] + shapes):
+            if x.device != sc.device or x.dtype != torch.float32:
+                raise ValueError("%s halo kernel: operands must be f32 on "
+                                 "one device" % self.name)
+            if shape is not None and (tuple(x.shape) != shape
+                                      or not x.is_contiguous()):
+                raise ValueError("%s halo kernel: operand shape %s, expected "
+                                 "contiguous %s" % (self.name,
+                                                    tuple(x.shape), shape))
+        lib = self._owner.library()
+        out = torch.empty((dof,) + S, dtype=torch.float32, device=sc.device)
+        with torch.cuda.device(sc.device):
+            stream = torch.cuda.current_stream(sc.device).cuda_stream
+            err = getattr(lib, "ksfd_%s_halo" % self.name)(
+                sc.data_ptr(), *[x.data_ptr() for x in operands],
+                out.data_ptr(), *S, stream)
+        if err != 0:
+            raise RuntimeError("%s halo kernel launch failed: cudaError %d"
+                               % (self.name, err))
+        self.launches += 1
+        return out
+
+
 class _FusedBuild:
     """Owner of one problem's kernels: the generated header, the lazily
     built library (from ``csrc``) and the plain bodies, which hold for
@@ -516,22 +626,33 @@ class _FusedBuild:
         return torch.stack(rows)
 
     # -- scalar packs (pallas_stencil.py:851-911) -------------------------
-    def _mean_groomed(self, u, i):
-        """Float64 mean over the groomed view of field i of an f32 or
-        f64 state (a NaN entry must not poison the centring scalars).
-        One field at a time: an f32 state is never copied whole to
-        f64."""
+    def _groomed(self, u, i):
         lo = self.ops.rhomin if i == 0 else self.ops.Umin
         f = u[i]
-        return torch.mean(torch.where(f >= lo, f, lo), dtype=torch.float64)
+        return torch.where(f >= lo, f, lo)
+
+    def _means_groomed(self, u, mesh=None):
+        """Float64 means over the groomed view of each field of an f32
+        or f64 state (a NaN entry must not poison the centring scalars).
+        One field at a time: an f32 state is never copied whole to
+        f64.  On a mesh (u a local slab) each is the global sum over the
+        ranks, one all_reduce for all fields, over the global point
+        count (pallas_stencil.py _mean_groomed :846 on sharded state)."""
+        if mesh is None:
+            return [torch.mean(self._groomed(u, i), dtype=torch.float64)
+                    for i in range(self.dof)]
+        sums = torch.stack([torch.sum(self._groomed(u, i),
+                                      dtype=torch.float64)
+                            for i in range(self.dof)])
+        return list(all_reduce_sum(sums, mesh) / mesh.n_points)
 
     @staticmethod
     def _f32(*xs):
         return [x.to(torch.float32).contiguous() for x in xs]
 
-    def prep_rhs(self, u, t):
+    def prep_rhs(self, u, t, mesh=None):
         ops, dev = self.ops, u.device
-        means = [self._mean_groomed(u, i) for i in range(self.dof)]
+        means = self._means_groomed(u, mesh)
         t64 = torch.as_tensor(t, dtype=torch.float64, device=dev)
         G_m = torch.as_tensor(ops._G_fn(*means, t64), dtype=torch.float64,
                               device=dev)
@@ -542,11 +663,11 @@ class _FusedBuild:
         sc = torch.stack([t64] + means + [G_m] + reacts).to(torch.float32)
         return sc, self._f32(u)
 
-    def prep_jvp(self, u, v, t):
+    def prep_jvp(self, u, v, t, mesh=None):
         sc = torch.as_tensor(t, dtype=torch.float32, device=u.device)
         return sc.reshape(1), self._f32(u, v)
 
-    def prep_resid(self, u, v, b, t, shift):
+    def prep_resid(self, u, v, b, t, shift, mesh=None):
         dev = u.device
         sc = torch.stack([
             torch.as_tensor(t, dtype=torch.float32, device=dev),
@@ -558,9 +679,9 @@ class _FusedBuild:
         """The f32 pack ``[t, shift]`` on the device, as prep_resid."""
         return self.prep_resid(C, v, b, t, shift)
 
-    def prep_delta(self, u0, d, u1, t):
+    def prep_delta(self, u0, d, u1, t, mesh=None):
         dev = u0.device
-        means = [self._mean_groomed(u0, i) for i in range(self.dof)]
+        means = self._means_groomed(u0, mesh)
         t64 = torch.as_tensor(t, dtype=torch.float64, device=dev)
         G_m = torch.as_tensor(
             self.ops._G_fn(*means, t64), dtype=torch.float64, device=dev
@@ -569,22 +690,53 @@ class _FusedBuild:
         return sc, self._f32(u0, d, u1)
 
 
-def kernel_namespace(build, replaces):
+def _halo_prepare(build, name, mesh):
+    """A SlabKernel's prepare: the entry's pack and f32 operands (means
+    global over the mesh), each stencil operand followed by its halo
+    rows from one exchange."""
+    prep = getattr(build, "prep_" + name)
+    n_st = HALO_OPERANDS[name][0]
+
+    def prepare(*args):
+        sc, operands = prep(*args, mesh=mesh)
+        halos = exchange_halos(operands[:n_st], build.ops.sw, mesh)
+        out = []
+        for x, (lo, hi) in zip(operands[:n_st], halos):
+            out += [x, lo, hi]
+        return sc, out + list(operands[n_st:])
+
+    return prepare
+
+
+def kernel_namespace(build, replaces, mesh=None, sharded=None):
     """The ``rhs``/``jvp``/``resid``/``delta`` namespace over one
     _FusedBuild (and ``coeff_resid`` where ``replaces`` names it);
     ``replaces`` maps each name to the TPU kernel's file:line.  ``rhs``
     is the kernel plus the active sources, added after the launch as
     pallas_stencil.py:866-870 adds them; the other entries are the
-    kernels themselves.  ``kernels`` holds the four of the step."""
+    kernels themselves.  ``kernels`` holds the four of the step.
+
+    With a ``mesh`` (parallel/mesh.py SlabMesh) the four entries are the
+    halo-slab builds (B9, SlabKernel) on this rank's slab, ``sharded``
+    naming what each replaces; ``kind`` records which build runs."""
     b = build
-    made = {
-        name: FusedKernel(
-            name, b, getattr(b, "prep_" + name), getattr(b, "plain_" + name),
-            replaces[name],
-            planes=(b.dof + 3, b.dof, b.dof) if name == "coeff_resid"
-            else None)
-        for name in replaces
-    }
+    if mesh is None:
+        made = {
+            name: FusedKernel(
+                name, b, getattr(b, "prep_" + name),
+                getattr(b, "plain_" + name), replaces[name],
+                planes=(b.dof + 3, b.dof, b.dof) if name == "coeff_resid"
+                else None)
+            for name in replaces
+        }
+        kind = "unsharded"
+    else:
+        made = {
+            name: SlabKernel(name, b, _halo_prepare(b, name, mesh),
+                             getattr(b, "plain_" + name), sharded[name], mesh)
+            for name in STEP_ENTRIES
+        }
+        kind = "halo-slab (B9) over %d x-slabs" % mesh.n_x
     kernels = {name: made[name] for name in STEP_ENTRIES}
     ops = b.ops
 
@@ -592,14 +744,30 @@ def kernel_namespace(build, replaces):
         out = kernels["rhs"](u, t)
         for i, active in enumerate(ops._source_active):
             if active:
-                out[i] += ops.sources[i](t).to(torch.float32)
+                src = ops.sources[i](t)
+                if mesh is not None:
+                    src = mesh.rows(src)
+                out[i] += src.to(torch.float32)
         return out
 
-    return SimpleNamespace(build=b, kernels=kernels,
+    return SimpleNamespace(build=b, kernels=kernels, mesh=mesh, kind=kind,
                            **dict(made, rhs=rhs))
 
 
-def make_fused_kernels(ops):
+def check_mesh(ops, mesh):
+    """Refuse a mesh the port does not run: anything but a SlabMesh of
+    this problem's grid (parallel/mesh.py)."""
+    if not isinstance(mesh, SlabMesh):
+        raise NotImplementedError(
+            "mesh %r: the port runs parallel.grid_mesh's x-slab mesh; "
+            "other meshes are %s" % (type(mesh).__name__, MESH_TODO))
+    if tuple(int(n) for n in mesh.grid.nps) != tuple(
+            int(n) for n in ops.grid.nps):
+        raise ValueError("the mesh splits a %s grid, the problem's is %s"
+                         % (tuple(mesh.grid.nps), tuple(ops.grid.nps)))
+
+
+def make_fused_kernels(ops, mesh=None):
     """Build the fused kernels for a 2D or 3D PDEOperators.
 
     Counterpart: ksfd_tpu/ops/pallas_stencil.py:make_pallas_kernels,
@@ -610,21 +778,30 @@ def make_fused_kernels(ops):
     name), ``coeff_resid`` (B11, 2D only) and ``build`` (header, build
     info).  Nothing is compiled until a kernel first meets a CUDA
     tensor.  Under ``torch.func.vmap`` each entry launches its
-    member-batched build once for all members (module docstring); the
-    sharded builds (B9) are ROADMAP Queue B item 1.
+    member-batched build once for all members (module docstring).
+
+    mesh: a parallel/mesh.py SlabMesh; the four step entries then take
+    this rank's local slabs and run their halo-slab builds (B9, the
+    counterpart of ``make_pallas_kernels(mesh=)``: pad_x :718-735 and
+    shardwrap :737-755), with the f64 centring means global over the
+    ranks.  B11 (``coeff_resid``) has no halo-slab build.
     """
+    if mesh is not None:
+        check_mesh(ops, mesh)
     if ops.grid.dim == 3:
         from .fused_stencil3d import make_fused_kernels_3d
 
-        return make_fused_kernels_3d(ops)
+        return make_fused_kernels_3d(ops, mesh=mesh)
     if ops.grid.dim != 2:
         raise NotImplementedError(
             "fused kernels are 2D and 3D; a %dD problem has none"
             % ops.grid.dim
         )
     src = "ksfd_tpu/ops/pallas_stencil.py"
+    lines = dict(rhs=584, jvp=648, resid=655, delta=674)
     return kernel_namespace(_FusedBuild(ops), dict(
-        rhs=src + ":584", jvp=src + ":648", resid=src + ":655",
-        delta=src + ":674",
+        {n: "%s:%d" % (src, k) for n, k in lines.items()},
         coeff_resid="tools/probe_coeff_kernel.py:114",
-    ))
+    ), mesh=mesh, sharded={
+        n: "%s:%d sharded (pad_x :718, shardwrap :737)" % (src, k)
+        for n, k in lines.items()})

@@ -36,6 +36,10 @@ Under ``torch.func.vmap`` each entry makes one member-batched launch
 pallas_stencil3d.py:191-192, :246-260, and its vmap rule :578-582):
 the vmap rule of ops/fused_stencil.py, the members the slowest part of
 a 1D block index (csrc/stencil3d.cu).
+
+With a ``mesh`` (parallel/mesh.py) the entries are the halo-slab builds
+(B9 in 3D, pallas_stencil3d.py pad_x :474 and shardwrap :488) on this
+rank's slab, as ops/fused_stencil.py describes for 2D.
 """
 
 from .fused_stencil import CSRC, _FusedBuild, kernel_namespace
@@ -45,8 +49,11 @@ __all__ = ["make_fused_kernels_3d", "CSRC3D"]
 CSRC3D = CSRC.parent / "stencil3d.cu"
 
 
-def make_fused_kernels_3d(ops):
-    """Build the fused kernels for a 3D PDEOperators."""
+def make_fused_kernels_3d(ops, mesh=None):
+    """Build the fused kernels for a 3D PDEOperators; with a ``mesh``
+    (parallel/mesh.py SlabMesh) the halo-slab builds (B9 in 3D,
+    pallas_stencil3d.py pad_x :474 and shardwrap :488) on this rank's
+    slab."""
     grid = ops.grid
     if grid.dim != 3:
         raise ValueError("make_fused_kernels_3d needs a 3D grid")
@@ -57,7 +64,9 @@ def make_fused_kernels_3d(ops):
             % (2 * ops.sw + 1, grid.Sshape)
         )
     src = "ksfd_tpu/ops/pallas_stencil3d.py"
-    return kernel_namespace(_FusedBuild(ops, CSRC3D), dict(
-        rhs=src + ":366", jvp=src + ":419", resid=src + ":426",
-        delta=src + ":440",
-    ))
+    lines = dict(rhs=366, jvp=419, resid=426, delta=440)
+    return kernel_namespace(
+        _FusedBuild(ops, CSRC3D),
+        {n: "%s:%d" % (src, k) for n, k in lines.items()}, mesh=mesh,
+        sharded={n: "%s:%d sharded (pad_x :474, shardwrap :488)"
+                 % (src, k) for n, k in lines.items()})

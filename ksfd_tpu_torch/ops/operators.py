@@ -19,6 +19,7 @@ import numbers
 import sympy as sy
 import torch
 
+from ..parallel.mesh import halo_rows
 from ..utils.device import resolve_device
 from ..utils.exceptions import KSFDException
 from ..utils.symbolic import torchify
@@ -201,8 +202,31 @@ class PDEOperators:
         t = self.ps.t0 if t is None else t
         return self._G_fn(*[u[i] for i in range(self.nligands + 1)], t)
 
-    def rhs(self, u, t, groom=True):
-        """du/dt of the full system; u: (dof, *Sshape)."""
+    def _padded(self, u, mesh):
+        """A rank's slab with the ``sw`` halo rows of its neighbours on
+        each side (parallel/mesh.py halo_rows): the roll stencils on it
+        are exact on the slab's own rows, which ``[:, sw:-sw]`` keeps."""
+        lo, hi = halo_rows(u, self.sw, mesh)
+        return torch.cat([lo, u, hi], dim=1)
+
+    def rhs(self, u, t, groom=True, mesh=None):
+        """du/dt of the full system; u: (dof, *Sshape).
+
+        With a ``mesh`` (parallel/mesh.py SlabMesh) u is this rank's
+        slab: the product-rule RHS reads only ``sw`` rows beyond it, so
+        it runs on the slab padded by its neighbours' halo rows and is
+        cropped back, and the sources add this rank's rows."""
+        if mesh is not None:
+            sw = self.sw
+            out = self._rhs(self._padded(u, mesh), t, groom, False)
+            out = out[:, sw:-sw].contiguous()
+            for i, active in enumerate(self._source_active):
+                if active:
+                    out[i] += mesh.rows(self.sources[i](t)).to(out.dtype)
+            return out
+        return self._rhs(u, t, groom, True)
+
+    def _rhs(self, u, t, groom, sources):
         if groom:
             u = self.groom(u)
         rho = u[0]
@@ -211,7 +235,7 @@ class PDEOperators:
         grad_rho = grad_apply(rho, self.spacing, self.sw)
         lap_G = laplacian_apply(G, self.spacing, self.sw)
         drho = sum(gr * gG for gr, gG in zip(grad_rho, grad_G)) + rho * lap_G
-        if self._source_active[0]:
+        if sources and self._source_active[0]:
             drho = drho + self.sources[0](t).to(drho.dtype)
         outs = [drho]
         for l in range(self.nligands):
@@ -222,16 +246,21 @@ class PDEOperators:
                 + c["s"](t) * rho
                 + c["D"](t) * laplacian_apply(U, self.spacing, self.sw)
             )
-            if self._source_active[1 + l]:
+            if sources and self._source_active[1 + l]:
                 dU = dU + self.sources[1 + l](t).to(dU.dtype)
             outs.append(dU)
         return torch.stack(outs, dim=0)
 
-    def velocity(self, u, t=None):
+    def velocity(self, u, t=None, mesh=None):
         """Worm velocity grad(G) of the groomed state: shape
         (dim, *Sshape).  Counterpart: ksfd_tpu/ops/operators.py:velocity
-        (the adaptive chunk's CFL clamp reads it)."""
+        (the adaptive chunk's CFL clamp reads it).  With a ``mesh`` u is
+        this rank's slab, padded by its neighbours' halo rows and the
+        result cropped to the slab, as ``rhs``."""
         t = self.ps.t0 if t is None else t
+        if mesh is not None:
+            sw = self.sw
+            return self.velocity(self._padded(u, mesh), t)[:, sw:-sw]
         u = self.groom(u)
         G = self.G(u, t)
         return torch.stack(grad_apply(G, self.spacing, self.sw), dim=0)

@@ -42,10 +42,11 @@ Usage:
 
 Still raising NotImplementedError, each naming its ROADMAP item: the
 vmapped adaptive chunk (``device_loop=True``, Queue A item 1, A11),
-member meshes and ``shard_members`` (Queue A item 11, A14), with-G
+member meshes, ``shard_members`` and slab meshes (Queue A item 11,
+A14), with-G
 states and ``refresh_G`` (Queue A item 10, A13), 1D problems (Queue A
 item 3, A16) and ``pc_pallas`` on a 3D problem (the fused pc is 2D, as
-the reference's is: Queue B item 2, B5).
+the reference's is: Queue B item 1, B5).
 """
 
 import dataclasses

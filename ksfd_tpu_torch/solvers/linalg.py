@@ -19,18 +19,30 @@ The transforms run in the compute dtype (float32 by default, as
 ``pc_dtype`` auto resolves on one device).  On the card a float32
 product must run in full float32: the caller keeps
 ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default;
-chip_smoke.py sets and records it).  Not ported yet: the FFT form
-(``pc_fft``), bfloat16 transforms and the sharded apply (ROADMAP Queue A
-items 8 and 11, A4 and A14).
+chip_smoke.py sets and records it).
+
+On a slab mesh (parallel/mesh.py) the apply is
+``make_sharded_block_apply``, the counterpart of linalg.py:295: the
+forward products contract only this rank's x rows, the partial mode
+coefficients are cast to the transform dtype and summed over the ranks
+in ONE all_reduce per apply, the arrow solve runs replicated, and the
+inverse products give only the local rows.  There ``pc_dtype``
+bfloat16 (the default on more than one rank) runs the transforms on
+bfloat16 operands and stores their intermediates and the reduced
+coefficients in bfloat16, the mode arithmetic and the inverse products
+in float32; bfloat16 runs in no other apply.
+Not ported yet: the FFT form (``pc_fft``, ROADMAP Queue A item 8, A4).
 """
 
 import torch
 from torch import nn
 
 from ..ops.stencil import laplacian_eigendecomp
+from ..parallel.mesh import all_reduce_sum
 from ..utils.device import resolve_device
 
-__all__ = ["SpectralPreconditioner", "BlockSpectralPreconditioner"]
+__all__ = ["SpectralPreconditioner", "BlockSpectralPreconditioner",
+           "make_sharded_block_apply"]
 
 _DTYPES = {
     None: torch.float32,
@@ -38,6 +50,8 @@ _DTYPES = {
     "f32": torch.float32,
     "float64": torch.float64,
     "f64": torch.float64,
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
 }
 
 
@@ -62,12 +76,12 @@ class SpectralPreconditioner(nn.Module):
                 "problems" % grid.dim
             )
         if compute_dtype not in _DTYPES:
-            raise NotImplementedError(
-                "pc dtype %r: bfloat16 transforms belong to the sharded "
-                "apply, ROADMAP Queue A item 11 (A14)" % (compute_dtype,)
-            )
+            raise NotImplementedError("pc dtype %r" % (compute_dtype,))
         device = resolve_device(device)
-        cd = _DTYPES[compute_dtype]
+        td = _DTYPES[compute_dtype]
+        # bfloat16: bf16 transforms (the bases stored so), f32 modes
+        cd = torch.float32 if td == torch.bfloat16 else td
+        self.transform_dtype = td
         self.compute_dtype = cd
         self.dim = grid.dim
         self.sshape = tuple(grid.Sshape)
@@ -78,7 +92,7 @@ class SpectralPreconditioner(nn.Module):
                 int(grid.nps[d]), float(grid.spacing[d]), sw
             )
             self.register_buffer(
-                name, torch.as_tensor(Q, dtype=cd, device=device)
+                name, torch.as_tensor(Q, dtype=td, device=device)
             )
             # total eigenvalue per mode: lam_x (+ lam_y (+ lam_z))
             lam = ld if lam is None else lam[..., None] + ld
@@ -94,9 +108,16 @@ class SpectralPreconditioner(nn.Module):
     def _sync_lam_cd(self):
         self.lam_cd = self.lam.to(self.compute_dtype)
 
+    def _unsharded(self):
+        if self.transform_dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "bfloat16 transforms run only in the sharded apply "
+                "(make_sharded_block_apply, on a slab mesh)")
+
     def _forward(self, v):
         """(dof, *Sshape) -> real spectral coefficients: Qx^T v Qy in
         2D, "fijm,ik,jl,mn->fkln" in 3D."""
+        self._unsharded()
         if self.dim == 2:
             return torch.matmul(torch.matmul(self.Qx.T, v), self.Qy)
         f, nx, ny, nz = v.shape
@@ -201,3 +222,64 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
         c = self._forward(v.to(self.compute_dtype))
         outs = self._arrow_solve(c, shift, t, means, rho_diff)
         return self._inverse(outs).to(v.dtype)
+
+
+def make_sharded_block_apply(precond, ops, mesh):
+    """The block pc's apply on a slab mesh, ONE all_reduce per apply:
+    ``apply(v, shift, t, means, rho_diff)`` with v this rank's slab.
+
+    Counterpart: ksfd_tpu/solvers/linalg.py:make_sharded_block_apply.
+    The forward products contract only the local x rows against this
+    rank's rows of Qx (the local y (and z) products first, so each
+    rank's work is its share); the partial mode coefficients are cast to
+    the transform dtype (bfloat16 on the wire under ``pc_dtype``
+    bfloat16: the forward products' operands and outputs are bf16) and
+    summed over the ranks; the arrow solve runs replicated in the
+    compute dtype; the inverse products give only the local rows, in
+    the compute dtype from the transform-dtype coefficients and bases
+    (the reference's ``preferred_element_type=cd``: a bf16 pc rounds
+    none of its inverse's intermediates to bf16), with no further
+    collective.  The products are plain ``torch.matmul``, as the
+    single-card pc's are.
+    """
+    td, cd = precond.transform_dtype, precond.compute_dtype
+    dim = precond.dim
+    qx = mesh.rows(precond.Qx).contiguous()        # (nx_loc, nx), td
+    qxT = qx.T.contiguous()
+    last = precond.Qz if dim == 3 else precond.Qy
+    Qy = precond.Qy
+    # the inverse's operands: the td-rounded bases and coefficients, its
+    # products and their outputs in cd (a bf16 x bf16 product is exact
+    # in f32), as the reference's preferred_element_type=cd inverse
+    qx_i = qx.to(cd)
+    Qy_i = Qy.to(cd)
+    lastT_i = last.T.to(cd).contiguous()
+
+    def forward(v):
+        f, nloc = v.shape[0], v.shape[1]
+        c = torch.matmul(v.to(td), last)                  # m -> n (y in 2D)
+        if dim == 3:
+            c = torch.matmul(Qy.T, c)                     # j -> l
+        c = torch.matmul(qxT, c.reshape(f, nloc, -1))     # local i -> k
+        return c.reshape((f, mesh.nx) + tuple(v.shape[2:]))
+
+    def inverse(c):
+        f, rest = c.shape[0], tuple(c.shape[2:])
+        c = c.to(td).to(cd).reshape(f, mesh.nx, -1)
+        o = torch.matmul(qx_i, c)                         # k -> local i
+        o = o.reshape((f, mesh.nx_loc) + rest)
+        if dim == 3:
+            o = torch.matmul(Qy_i, o)                     # l -> j
+        return torch.matmul(o, lastT_i)                   # n -> m
+
+    def apply(v, shift, t, means, rho_diff):
+        if v.shape[0] != precond.nfields:
+            raise NotImplementedError(
+                "extra trailing fields (the with-G state) are ROADMAP "
+                "Queue A item 10 (A13)")
+        # THE collective: the partial coefficients, in the transform dtype
+        c = all_reduce_sum(forward(v).to(td), mesh)
+        outs = precond._arrow_solve(c.to(cd), shift, t, means, rho_diff)
+        return inverse(outs).to(v.dtype)
+
+    return apply

@@ -54,12 +54,19 @@ make_adaptive_chunk_fn).
 ``EnsembleSolver`` vmaps these steps unchanged (``torch.func.vmap``):
 each fused kernel call launches its member-batched build once.
 
+**On a slab mesh** (``mesh=``, parallel/mesh.py) the step, the
+multistep and the chunk run SPMD, one torch.distributed rank per
+x-slab, each on its local slab: the halo-slab kernels (B9), the sharded
+basis-GEMM pc (one all_reduce per apply, bfloat16 by default on more
+than one rank), global means, pc statistics and error norms.
+
 Everything else raises NotImplementedError naming its ROADMAP item:
 the host Solver loop (Queue A item 4, A8), DIRK (item 7, A9), the
 fixed-count Krylov stage solvers (item 9), dense/direct tiers (item 5,
 A12), the fast mode without the fused kernels (item 3, A16), the FFT
 preconditioner (item 8, A4), the fused preconditioner off its 2D
-float32 gate (Queue B item 2, B5) and meshes (Queue A item 11, A14).
+float32 gate (Queue B item 1, B5), and on a mesh the GMRES step, y
+splits and other meshes (Queue A item 11, A14).
 """
 
 import dataclasses
@@ -74,7 +81,8 @@ from ..ops.fused_pc import (
     make_fused_block_pc,
     pack_pc_scalars,
 )
-from ..ops.fused_stencil import make_fused_kernels
+from ..ops.fused_stencil import check_mesh, make_fused_kernels
+from ..parallel.mesh import MESH_TODO, all_reduce_max, all_reduce_sum
 from .gmres import (
     chebyshev_solve,
     chebyshev_solve_resid,
@@ -82,7 +90,7 @@ from .gmres import (
     richardson_solve,
     richardson_solve_resid,
 )
-from .linalg import BlockSpectralPreconditioner
+from .linalg import BlockSpectralPreconditioner, make_sharded_block_apply
 from .steppers import get_tableau, wlte_norm_delta
 
 __all__ = ["make_step_fn", "make_multistep_fn", "make_adaptive_chunk_fn",
@@ -102,9 +110,13 @@ def _to_f32(u, t, h):
     )
 
 
-def _pc_dtype(numerics):
-    """pc_dtype 'auto' resolves to float32 on one device."""
-    return "float32" if numerics.pc_dtype == "auto" else numerics.pc_dtype
+def _pc_dtype(numerics, mesh=None):
+    """pc_dtype 'auto' resolves to bfloat16 on a mesh of more than one
+    rank, the sharded apply's one bf16 all_reduce (solver.py:203-216),
+    and to float32 otherwise; an explicit pc_dtype wins."""
+    if numerics.pc_dtype != "auto":
+        return numerics.pc_dtype
+    return "bfloat16" if mesh is not None and mesh.n_x > 1 else "float32"
 
 
 def _krylov(numerics):
@@ -112,7 +124,7 @@ def _krylov(numerics):
     return numerics.ksp_type == "gmres_scipy"
 
 
-def _check_numerics(numerics, ops):
+def _check_numerics(numerics, ops, mesh=None):
     """Raise NotImplementedError for any request off the ported paths."""
     fast32 = _fast32(numerics)
     krylov = _krylov(numerics)
@@ -134,12 +146,20 @@ def _check_numerics(numerics, ops):
         )
     if numerics.pc_fft != "off":
         todo.append("pc_fft %r (Queue A item 8, A4)" % numerics.pc_fft)
-    if numerics.pc_pallas:
+    # on a mesh pc_pallas takes the basis-GEMM pc, as the reference's
+    # fused pc is single-shard (solver.py:258-265)
+    if numerics.pc_pallas and mesh is None:
         why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
         if why is not None:
             todo.append(why)
-    if numerics.pc_dtype not in ("auto", "float32", "f32", "float64", "f64"):
-        todo.append("pc_dtype %r (Queue A item 11, A14)" % numerics.pc_dtype)
+    pc_dtypes = ("auto", "float32", "f32", "float64", "f64")
+    if mesh is not None:
+        pc_dtypes += ("bfloat16", "bf16")
+    if numerics.pc_dtype not in pc_dtypes:
+        todo.append("pc_dtype %r (bfloat16 runs only in the sharded apply "
+                    "on a mesh: Queue A item 11, A14)" % numerics.pc_dtype)
+    if mesh is not None and krylov:
+        todo.append("the GMRES step on a mesh (%s)" % MESH_TODO)
     # the float64 GMRES step runs no sweeps and takes its stage RHS
     # from ops.rhs when the delta kernel is off (solver.py:607-615)
     if not fast32 and not krylov and numerics.sweep_dtype not in (
@@ -156,7 +176,7 @@ def _check_numerics(numerics, ops):
         )
 
 
-def _cheb_interval(numerics, shift, rho_d, rho_diff, cheb_lap):
+def _cheb_interval(numerics, shift, rho_dmin, rho_diff, cheb_lap):
     """The Chebyshev interval (lmin, lmax) of M^{-1}W as float32 0-d
     tensors on the device (ksfd_tpu/solvers/solver.py:436-495).
 
@@ -164,7 +184,8 @@ def _cheb_interval(numerics, shift, rho_d, rho_diff, cheb_lap):
     per step: the pc bounds the rho diffusivity by its maximum
     ``rho_diff``, so per mode the preconditioned eigenvalue is about
     ``(shift + d|lam|) / (shift + rho_diff|lam|)``, smallest at the
-    stiffest mode (``cheb_lap``) and the smallest pointwise d (``dmin``);
+    stiffest mode (``cheb_lap``) and the smallest pointwise d
+    (``rho_dmin``, clamped at 0);
     ``cheb_safety`` widens it downward, and the clip keeps it inside
     ``[1e-4, lmax/2]``."""
     f32 = torch.float32
@@ -174,7 +195,7 @@ def _cheb_interval(numerics, shift, rho_d, rho_diff, cheb_lap):
         return torch.full((), numerics.cheb_lmin, dtype=f32,
                           device=dev), b_hi
     s32 = shift.to(f32)
-    dmin = torch.clamp(torch.min(rho_d).to(f32), min=0.0)
+    dmin = torch.clamp(rho_dmin.to(f32), min=0.0)
     a_auto = (s32 + dmin * cheb_lap) / (s32 + rho_diff.to(f32) * cheb_lap)
     lmin = torch.minimum(
         torch.clamp(a_auto * numerics.cheb_safety, min=1e-4), 0.5 * b_hi
@@ -201,21 +222,41 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     reference's ``advance`` (the Solver's re-base after a fallback
     step) comes with the Solver, ROADMAP Queue A item 4 (A8).
 
-    kernels: a ``make_fused_kernels(ops)`` namespace to share between
-    builds (its launch counters then count both).  fused_pc: likewise a
-    ``make_fused_block_pc`` apply, used when ``numerics.pc_pallas``.
+    kernels: a ``make_fused_kernels(ops, mesh)`` namespace to share
+    between builds (its launch counters then count both).  fused_pc:
+    likewise a ``make_fused_block_pc`` apply, used when
+    ``numerics.pc_pallas``.
+
+    mesh: a parallel/mesh.py SlabMesh.  The step then runs SPMD, one
+    rank per x-slab: u is this rank's local slab on ``mesh.device`` (as
+    ``ops.device``), the fused kernels are their halo-slab builds (B9),
+    the pc is ``make_sharded_block_apply`` (``pc_dtype`` auto: bfloat16
+    on more than one rank; ``pc_pallas`` takes it too, the reference's
+    fused pc being single-shard), and the means, the pc statistics, the
+    Chebyshev interval and enorm are global over the ranks, so every
+    rank returns the same enorm.  The GMRES step raises on a mesh.
+
+    The step (or the chain namespace) carries ``build_info``: which
+    kernel build, pc and pc dtype run, the mesh shape and the path.
     """
     if mesh is not None:
-        raise NotImplementedError("meshes are ROADMAP Queue A item 11 (A14)")
+        check_mesh(ops, mesh)
     numerics = numerics or NumericsOptions()
-    _check_numerics(numerics, ops)
+    _check_numerics(numerics, ops, mesh)
     tab = tableau or get_tableau(numerics.ts_type)
+    pc_dtype = _pc_dtype(numerics, mesh)
     precond = BlockSpectralPreconditioner(
-        ops.grid, ops, compute_dtype=_pc_dtype(numerics), device=ops.device
+        ops.grid, ops, compute_dtype=pc_dtype, device=ops.device
     )
-    kern = kernels if kernels is not None else make_fused_kernels(ops)
-    pc_fused = None
-    if numerics.pc_pallas:
+    kern = (kernels if kernels is not None
+            else make_fused_kernels(ops, mesh=mesh))
+    if kern.mesh is not mesh:
+        raise ValueError("the kernels were built for mesh %r, the step for "
+                         "%r" % (kern.mesh, mesh))
+    pc_fused = pc_sharded = None
+    if mesh is not None:
+        pc_sharded = make_sharded_block_apply(precond, ops, mesh)
+    elif numerics.pc_pallas:
         pc_fused = (fused_pc if fused_pc is not None
                     else make_fused_block_pc(ops.grid, ops))
     iters = numerics.ksp_iters
@@ -235,6 +276,26 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     # the Laplacian's largest |eigenvalue|, a build-time constant that
     # turns the per-step diffusivity spread into the Chebyshev interval
     cheb_lap = float((-precond.lam).max()) if use_cheb else None
+    build_info = dict(
+        kernels=kern.kind, pc_dtype=pc_dtype,
+        pc=("sharded basis-GEMM, one all_reduce per apply" if pc_sharded
+            else "fused (B5a, B5b)" if pc_fused else "basis-GEMM"),
+        mesh_shape=None if mesh is None else mesh.shape,
+        ksp_type=numerics.ksp_type, cheb=use_cheb, fast32=fast32,
+    )
+
+    def source(isrc, t):
+        """Source ``isrc`` at t on this rank's rows."""
+        src = ops.sources[isrc](t)
+        return src if mesh is None else mesh.rows(src)
+
+    def global_means(x):
+        """Per-field means of x (f32 on the sweep paths), over the mesh."""
+        if mesh is None:
+            return [torch.mean(x[i]) for i in range(nf)]
+        sums = all_reduce_sum(torch.stack([torch.sum(x[i])
+                                           for i in range(nf)]), mesh)
+        return list(sums / mesh.n_points)
 
     def _step_core(u, t, h, f0_chained=None):
         if fast32:
@@ -246,15 +307,25 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         # the sweep paths, from the state itself on the GMRES path (the
         # reference's ``ustat``, solver.py:451-453)
         ustat = u if krylov else u32
-        means = [torch.mean(ustat[i]) for i in range(nf)]
+        means = global_means(ustat)
         # pointwise effective rho diffusivity bound (linalg docstring)
         dG0 = ops._dG_fns[0](*[ustat[i] for i in range(nf)], t)
         rho_d = ustat[0] * dG0
         rho_diff = torch.max(rho_d)
-        cheb_ab = _cheb_interval(numerics, shift, rho_d, rho_diff,
+        rho_dmin = torch.min(rho_d) if use_cheb else None
+        if mesh is not None:
+            # the max (and for Chebyshev the min): one reduction
+            ext = all_reduce_max(torch.stack(
+                [rho_diff] + ([-rho_dmin] if use_cheb else [])), mesh)
+            rho_diff = ext[0]
+            rho_dmin = -ext[1] if use_cheb else None
+        cheb_ab = _cheb_interval(numerics, shift, rho_dmin, rho_diff,
                                  cheb_lap) if use_cheb else None
 
-        if pc_fused is not None:
+        if pc_sharded is not None:
+            def Minv(v):
+                return pc_sharded(v, shift, t, means, rho_diff)
+        elif pc_fused is not None:
             # the scalar pack once per step, not per apply
             sc_pc = pack_pc_scalars(ops, shift, t, means, rho_diff)
 
@@ -304,7 +375,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                         fi[isrc] += (src(ti) - src(t)).to(f0.dtype)
                 return fi
         else:
-            f0 = ops.rhs(u, t) if f0_chained is None else f0_chained
+            f0 = (ops.rhs(u, t, mesh=mesh) if f0_chained is None
+                  else f0_chained)
             t32 = t.to(torch.float32)
             shift32 = shift.to(torch.float32)
 
@@ -331,8 +403,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 fi = f032 + kern.delta(u, Ug - u, Ug, t)
                 for isrc, active in enumerate(ops._source_active):
                     if active and ops.sources[isrc].tdep:
-                        src = ops.sources[isrc]
-                        fi[isrc] += (src(ti) - src(t)).to(torch.float32)
+                        fi[isrc] += (source(isrc, ti)
+                                     - source(isrc, t)).to(torch.float32)
                 return fi
 
         Ys = []
@@ -373,7 +445,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             if dm:
                 term = dm * Yj
                 d = term if d is None else d + term
-        return u, u1, wlte_norm_delta(u1, d, atol, rtol)
+        return u, u1, wlte_norm_delta(u1, d, atol, rtol, mesh=mesh)
 
     if chain_f0:
         if fast32 or krylov or any(ops._source_active):
@@ -385,12 +457,13 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             f1 = f0 + kern.delta(ug, u1g - ug, u1g, t).to(f0.dtype)
             return u1, enorm, f1
 
-        return SimpleNamespace(step=step_chain), tab
+        return SimpleNamespace(step=step_chain, build_info=build_info), tab
 
     def step(u, t, h):
         _, u1, enorm = _step_core(u, t, h)
         return u1, enorm
 
+    step.build_info = build_info
     return step, tab
 
 
@@ -411,9 +484,13 @@ def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     chain) and u, t and emax come back float32.  Returns (fn, tableau);
     ``fn.kernels`` and ``fn.fused_pc`` (None without ``pc_pallas``) hold
     the kernel wrappers the steps share, and their launch counters;
-    ``kernels`` and ``fused_pc`` pass in ones to share.
+    ``kernels`` and ``fused_pc`` pass in ones to share.  With a
+    ``mesh`` (parallel/mesh.py) every rank passes its local slab and
+    gets its slab back (make_step_fn; the fresh f0 is the sharded
+    ``ops.rhs``).
     """
-    kern = kernels if kernels is not None else make_fused_kernels(ops)
+    kern = (kernels if kernels is not None
+            else make_fused_kernels(ops, mesh=mesh))
     pc = (fused_pc if fused_pc is not None
           else _shared_fused_pc(ops, numerics, mesh))
     step, tab = make_step_fn(
@@ -433,7 +510,7 @@ def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
         emax = torch.zeros_like(h)
         if chain is not None:
             u = ops.groom(u)
-            f0 = ops.rhs(u, t)
+            f0 = ops.rhs(u, t, mesh=mesh)
             for _ in range(int(nsteps)):
                 u, enorm, f0 = chain.step(u, t, h, f0)
                 t = t + h
@@ -446,6 +523,7 @@ def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
         return u, t, emax
 
     multi.kernels, multi.fused_pc = kern, pc
+    multi.build_info = step.build_info
     return multi, tab
 
 
@@ -593,14 +671,16 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     float32 state is cast back, as the reference's carry is).
     ``chunk.stats`` holds the last call's per-attempt records
     ``(tier, enorm, h)``, the attempts per tier and the tier at exit.
+
+    With a ``mesh`` (parallel/mesh.py) every rank runs the chunk on its
+    slab: each attempt's enorm and CFL bound are global over the ranks
+    (make_step_fn, all_reduce), so every rank reads the same values and
+    its ladder takes the same decisions.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded chunk needs meshes, ROADMAP Queue A item 11 (A14)"
-        )
     numerics = numerics or NumericsOptions()
-    _check_numerics(numerics, ops)
-    kern = kernels if kernels is not None else make_fused_kernels(ops)
+    _check_numerics(numerics, ops, mesh)
+    kern = (kernels if kernels is not None
+            else make_fused_kernels(ops, mesh=mesh))
     pc = _shared_fused_pc(ops, numerics, mesh)
     tiers = [(numerics.ksp_type, int(numerics.ksp_iters))]
     esc_iters = int(getattr(numerics, "ksp_iters_max", 0) or 0)
@@ -620,7 +700,7 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     for kt, it in tiers:
         nm_t = dataclasses.replace(numerics, ksp_type=kt, ksp_iters=it)
         kw = dict(atol=atol, rtol=rtol, tableau=tableau, kernels=kern,
-                  fused_pc=pc)
+                  fused_pc=pc, mesh=mesh)
         step, tab = make_step_fn(ops, nm_t, **kw)
         chain, _ = make_step_fn(ops, nm_t, chain_f0=True, **kw)
         builds.append((step, chain))
@@ -638,7 +718,10 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     def cfl_maxh(u, t):
         """safety * min over axes of spacing*sw / max|v_axis| (inf where
         the velocity vanishes), a 0-d tensor."""
-        vmax = torch.stack([v.abs().max() for v in ops.velocity(u, t)])
+        vmax = torch.stack([v.abs().max()
+                            for v in ops.velocity(u, t, mesh=mesh)])
+        if mesh is not None:
+            vmax = all_reduce_max(vmax, mesh)
         reach_t = torch.tensor(reach, dtype=vmax.dtype, device=vmax.device)
         hs = torch.where(vmax > 0.0,
                          reach_t / torch.clamp(vmax, min=1e-300), math.inf)
@@ -649,7 +732,7 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
         t, tmax = float(t), float(tmax)
         ladder = ChunkLadder(numerics, ntiers, expo, h, max_rejects)
         f64 = lambda x: torch.full((), x, dtype=torch.float64, device=dev)
-        f0 = ops.rhs(ops.groom(u), f64(t)) if use_chain else None
+        f0 = ops.rhs(ops.groom(u), f64(t), mesh=mesh) if use_chain else None
         k = attempts = 0
         records = []
         while (attempts < max_attempts and k < int(max_accepts)
@@ -685,6 +768,7 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     chunk.stats = None
     chunk.tiers = tiers
     chunk.kernels, chunk.fused_pc = kern, pc
+    chunk.build_info = step.build_info
     return chunk, tab
 
 

@@ -34,6 +34,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_sum
+
 __all__ = [
     "Tableau", "ROS34PW2", "BEULER", "get_tableau", "wlte_norm_delta",
 ]
@@ -152,7 +154,7 @@ def get_tableau(name):
     return _TABLEAUS[name]
 
 
-def wlte_norm_delta(u1, d, atol, rtol):
+def wlte_norm_delta(u1, d, atol, rtol, mesh=None):
     """wlte_norm with the embedded difference d = uhat - u1 supplied
     directly (uhat = u1 + d is never materialized).
 
@@ -165,10 +167,16 @@ def wlte_norm_delta(u1, d, atol, rtol):
     (bhat == b): the estimate is identically zero.
 
     Counterpart: ksfd_tpu/solvers/steppers.py:wlte_norm_delta.  The
-    result is a 0-d tensor on the state's device (no host sync).
+    result is a 0-d tensor on the state's device (no host sync).  With
+    a ``mesh`` (parallel/mesh.py) u1 and d are this rank's slabs and
+    the norm is the global root mean square: the sum of ``e*e`` is
+    reduced over the ranks, so every rank gets the same value.
     """
     if d is None:
         return torch.zeros((), dtype=u1.dtype, device=u1.device)
     w = atol + rtol * torch.maximum(torch.abs(u1), torch.abs(u1 + d))
     e = d / w
-    return torch.sqrt(torch.mean(e * e))
+    if mesh is None:
+        return torch.sqrt(torch.mean(e * e))
+    total = all_reduce_sum(torch.sum(e * e), mesh)
+    return torch.sqrt(total / (e.shape[0] * mesh.n_points))

@@ -541,7 +541,7 @@ def test_refused_ensembles_raise(prob):
     cases = [
         (tops, NumericsOptions(device_loop=True), r"Queue A item 1 \(A11\)"),
         (ops3, NumericsOptions(device_loop=True), r"Queue A item 1 \(A11\)"),
-        (ops3, NumericsOptions(pc_pallas=True), "Queue B item 2, B5"),
+        (ops3, NumericsOptions(pc_pallas=True), "Queue B item 1, B5"),
     ]
     for ops, nm, item in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -250,6 +250,7 @@ def test_chip_smoke_problem_matches_helpers():
 
 
 _NO_JAX = r"""
+import os
 import sys
 sys.modules["jax"] = None
 sys.path[:0] = [ROOT]
@@ -272,6 +273,22 @@ u, t, e = multi(u0, torch.tensor(0.0, dtype=torch.float64),
                 torch.tensor(1.0, dtype=torch.float64), 2)
 assert torch.isfinite(u).all() and torch.isfinite(e)
 assert float(t) == 2.0
+# the sharded multistep over a one-rank gloo mesh (the slab wraps onto
+# itself) agrees with the unsharded one
+import tempfile
+import torch.distributed as dist
+import ksfd_tpu_torch.parallel as par
+store = os.path.join(tempfile.mkdtemp(), "store")
+dist.init_process_group("gloo", init_method="file://" + store, rank=0,
+                        world_size=1)
+mesh = par.grid_mesh(grid, device="cpu")
+multi_s, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01, rtol=1e-6,
+                               mesh=mesh)
+u_s, t_s, e_s = multi_s(par.distribute(u0, grid, mesh)[0],
+                        torch.tensor(0.0, dtype=torch.float64),
+                        torch.tensor(1.0, dtype=torch.float64), 2)
+dist.destroy_process_group()
+assert float((u_s - u).abs().max()) <= 1e-5 * float((u - u0).abs().max())
 assert sys.modules["jax"] is None
 assert "ksfd_tpu" not in sys.modules and "helpers" not in sys.modules
 assert not [m for m in sys.modules if m.startswith(("jax.", "ksfd_tpu."))]

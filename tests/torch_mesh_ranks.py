@@ -1,0 +1,370 @@
+"""Gloo ranks for the port's mesh tests, spawned once per test module.
+
+``run_ranks({n: cases, ...})`` starts, for each entry at once, ``n``
+processes (spawn), each a torch.distributed rank over gloo on the CPU
+(a ``file://`` store in a fresh directory), runs every named case of
+``CASES`` in order and hands back ``{n: {rank: {case: result}}}``, the
+results numpy arrays, numbers and strings.  A rank that fails fails the call with its traceback.  This
+module imports torch and the port only: the rank processes never load
+JAX, so the test modules compare the results with the reference in the
+parent process.
+"""
+
+import os
+import tempfile
+import traceback
+
+import numpy as np
+
+#: the grids of the cases (the test modules build the same on their side)
+N2 = 64          # 2D steps, the sharded pc: the bench problem
+N2_SMALL = 32    # 2D layout checks
+N3 = 32          # 3D
+H = 1e-3
+H3 = 1e-2
+CHUNK_ACCEPTS = 5
+CFL_SAFETY = 0.5
+
+
+def CHUNK_NUMERICS(options):
+    """The chunk's numerics, of either package's NumericsOptions class:
+    pc_dtype float32 (as test_sharded_adaptive_chunk_f64 pins it) and
+    one tier.  Its starts accept every attempt at the bottom tier, and
+    the ladder probes only after 16 accepts, so a three-tier ladder
+    would take the same attempts; one tier keeps the reference's chunk
+    quick to compile."""
+    return options(pc_dtype="float32", ksp_iters_max=0)
+
+
+def rough_state(shape, seed=0, scale=1000.0):
+    """The rough state of tests/test_pallas.py at any shape."""
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        6000 + 3 * scale * np.abs(rng.standard_normal(shape)),
+        6000 + scale * np.abs(rng.standard_normal(shape)),
+        6000 + 0.5 * scale * np.abs(rng.standard_normal(shape)),
+    ])
+
+
+def bench_problem(n):
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.tools.problems import bench_clargs
+
+    return problem_from_clargs(bench_clargs(n), n, n, device="cpu")
+
+
+def ops2d_params():
+    """tests/test_pallas.py ops2d's parameters (options92 at 64^2)."""
+    from ksfd_tpu_torch.tools.problems import OPTIONS92_PARAMS
+
+    return [
+        p for p in OPTIONS92_PARAMS
+        if p.split("=", 1)[0]
+        not in ("nelements", "dim", "rho0", "U0_1_1", "U0_2_1")
+    ] + ["nelements=64", "dim=2", "height=1", "rho0=murho",
+         "U0_1_1=", "U0_2_1="]
+
+
+def aggregation3d_params(n):
+    """The parameter lines of examples/aggregation3d, nelements=n."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    params = []
+    with open(os.path.join(root, "examples", "aggregation3d")) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith("--petsc"):
+                break
+            if line and not line.startswith(("#", "--")):
+                params.append(line)
+    return [p for p in params if not p.startswith("nelements=")] + [
+        "nelements=%d" % n]
+
+
+# ---- the cases: each takes the rank's context, returns a dict --------
+
+def case_layout(ctx):
+    """distribute / local_values / global_from_local / owned_box /
+    gather, and the halo rows of one and of two slabs at once."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import (
+        distribute, global_from_local, grid_mesh, local_values, owned_box,
+        process_box, process_count, process_index)
+    from ksfd_tpu_torch.parallel.mesh import exchange_halos, halo_rows
+
+    n = N2_SMALL
+    _, grid, ops = bench_problem(n)
+    mesh = grid_mesh(grid, device="cpu")
+    u = rough_state((n, n), seed=3)
+    u_loc, m2 = distribute(u, grid, mesh)
+    block = local_values(u_loc, mesh)
+    out = dict(
+        slab=u_loc.numpy(), box=np.array(owned_box(u_loc, mesh)),
+        pbox=np.array(process_box(grid, mesh)),
+        block_equal=bool(np.array_equal(block, u_loc.numpy())),
+        from_block=bool(torch.equal(global_from_local(block, grid, mesh),
+                                    u_loc)),
+        from_full=bool(torch.equal(global_from_local(u, grid, mesh),
+                                   u_loc)),
+        gathered=mesh.gather(u_loc).numpy(),
+        same_mesh=m2 is mesh, count=process_count(), index=process_index(),
+    )
+    lo, hi = halo_rows(u_loc, ops.sw, mesh)
+    out.update(lo=lo.numpy(), hi=hi.numpy(),
+               contiguous=lo.is_contiguous() and hi.is_contiguous())
+    v = torch.from_numpy(rough_state((n, n), seed=4)).float()
+    v_loc = distribute(v, grid, mesh)[0]
+    pair = exchange_halos([u_loc.float(), v_loc], ops.sw, mesh)
+    out.update(lo_v=pair[1][0].numpy(), hi_v=pair[1][1].numpy(),
+               lo_u32=pair[0][0].numpy())
+    return out
+
+
+def case_reduce(ctx):
+    """The mesh reductions, in float64 and bfloat16."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import grid_mesh
+    from ksfd_tpu_torch.parallel.mesh import (
+        all_reduce_max, all_reduce_min, all_reduce_sum)
+
+    _, grid, _ = bench_problem(N2_SMALL)
+    mesh = grid_mesh(grid, device="cpu")
+    x = torch.tensor([1.0 + mesh.rank, -2.0 * mesh.rank], dtype=torch.float64)
+    xb = torch.tensor([0.5 + mesh.rank], dtype=torch.bfloat16)
+    return dict(sum=all_reduce_sum(x, mesh).numpy(),
+                max=all_reduce_max(x, mesh).numpy(),
+                min=all_reduce_min(x, mesh).numpy(),
+                bf16=all_reduce_sum(xb, mesh).float().numpy(),
+                bf16_dtype=str(all_reduce_sum(xb, mesh).dtype),
+                x_kept=x.numpy())
+
+
+def case_refusals(ctx):
+    """A y split and a split that leaves fewer than sw rows raise."""
+    from ksfd_tpu_torch.parallel import grid_mesh
+
+    out = {}
+    _, grid, _ = bench_problem(N2_SMALL)
+    for label, shape in (("y", (1, ctx["n"])), ("xy", (ctx["n"], 2))):
+        try:
+            grid_mesh(grid, shape=shape, device="cpu")
+            out[label] = "no error"
+        except NotImplementedError as e:
+            out[label] = str(e)
+    _, small, _ = bench_problem(ctx["n"])     # one row per rank < sw
+    try:
+        grid_mesh(small, shape=(ctx["n"], 1), device="cpu")
+        out["rows"] = "no error"
+    except ValueError as e:
+        out["rows"] = str(e)
+    return out
+
+
+def case_pc_apply(ctx):
+    """make_sharded_block_apply at N2^2 in float32 and bfloat16 on a
+    seeded residual, at the rough state's statistics."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.solvers.linalg import (
+        BlockSpectralPreconditioner, make_sharded_block_apply)
+
+    _, grid, ops = bench_problem(N2)
+    mesh = grid_mesh(grid, device="cpu")
+    u = ops.groom(torch.from_numpy(rough_state((N2, N2))))
+    v = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        u.shape)).float()
+    u32 = u.float()
+    t = torch.zeros((), dtype=torch.float32)
+    means = [torch.mean(u32[i]) for i in range(3)]
+    rho_diff = torch.max(u32[0] * ops._dG_fns[0](*u32, t))
+    shift = torch.tensor(1.0 / (H * 0.435866521508459), dtype=torch.float64)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        pc = BlockSpectralPreconditioner(grid, ops, compute_dtype=dtype,
+                                         device="cpu")
+        apply = make_sharded_block_apply(pc, ops, mesh)
+        y = apply(distribute(v, grid, mesh)[0], shift, t, means, rho_diff)
+        out[dtype] = mesh.gather(y).numpy()
+        out[dtype + "_dtype"] = str(y.dtype)
+    return out
+
+
+def _steps(ctx, numerics_list, make, h):
+    """Each numerics' sharded step from the rough state: the gathered
+    state and this rank's enorm and build info."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.solvers import make_step_fn
+
+    _, grid, ops = make()
+    mesh = grid_mesh(grid, device="cpu")
+    u0 = ops.groom(torch.from_numpy(rough_state(tuple(grid.Sshape))))
+    t = torch.zeros((), dtype=torch.float64)
+    hh = torch.full((), h, dtype=torch.float64)
+    out = {}
+    for label, nm in numerics_list:
+        step, _ = make_step_fn(ops, nm, atol=0.01, rtol=1e-6, mesh=mesh)
+        u1, e = step(distribute(u0, grid, mesh)[0], t, hh)
+        out[label] = mesh.gather(u1).numpy()
+        out[label + "_enorm"] = float(e)
+        out[label + "_info"] = repr(step.build_info)
+    return out
+
+
+def case_steps_2d(ctx):
+    """The sharded 2D steps at N2^2, h=H: float64 with pc_dtype auto
+    (bfloat16 on 2 ranks) and pinned float32, and the fast mode."""
+    from ksfd_tpu_torch import NumericsOptions
+
+    return _steps(ctx, [
+        ("f64_auto", NumericsOptions()),
+        ("f64_f32pc", NumericsOptions(pc_dtype="float32")),
+        ("fast32", NumericsOptions(precision="float32")),
+    ], lambda: bench_problem(N2), H)
+
+
+def case_step_f64_auto(ctx):
+    """The sharded float64 step with pc_dtype auto alone."""
+    from ksfd_tpu_torch import NumericsOptions
+
+    return _steps(ctx, [("f64_auto", NumericsOptions())],
+                  lambda: bench_problem(N2), H)
+
+
+def case_multistep_3d(ctx):
+    """The sharded 3D multistep at N3^3 (examples/aggregation3d), two
+    steps of H3 from the rough state."""
+    import torch
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.solvers import make_multistep_fn
+    from ksfd_tpu_torch.tools.problems import make_clargs
+
+    _, grid, ops = problem_from_clargs(
+        make_clargs(params=aggregation3d_params(N3)), N3, N3, N3,
+        device="cpu")
+    mesh = grid_mesh(grid, device="cpu")
+    u0 = ops.groom(torch.from_numpy(rough_state((N3,) * 3)))
+    multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01,
+                                 rtol=1e-6, mesh=mesh)
+    u, t, emax = multi(distribute(u0, grid, mesh)[0],
+                       torch.zeros((), dtype=torch.float64),
+                       torch.full((), H3, dtype=torch.float64), 2)
+    launches = {k: v.launches for k, v in multi.kernels.kernels.items()}
+    return dict(u=mesh.gather(u).numpy(), t=float(t), emax=float(emax),
+                launches=repr(launches), info=repr(multi.build_info))
+
+
+def initial_state(shape):
+    """__graft_entry__._initial_state at any shape: near-uniform ~9000."""
+    axes = [np.arange(n) / n for n in shape]
+    w = np.sin(2 * np.pi * sum(np.meshgrid(*axes, indexing="ij")))
+    return np.stack([9000.0 + w, 9000.0 + 0.7 * w, 9000.0 + 0.1 * w])
+
+
+def case_chunk(ctx):
+    """The sharded adaptive chunk (CHUNK_NUMERICS) on
+    tests/test_pallas.py's ops2d problem, from the rough state at h=H as
+    test_sharded_adaptive_chunk_f64 starts it, and from the near-uniform state
+    at h=1 without and with the CFL clamp (CFL_SAFETY): k, attempts, t,
+    h, the per-attempt records and the state of each."""
+    import torch
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.solvers import make_adaptive_chunk_fn
+    from ksfd_tpu_torch.tools.problems import make_clargs
+
+    _, grid, ops = problem_from_clargs(make_clargs(params=ops2d_params()),
+                                       64, 64, device="cpu")
+    mesh = grid_mesh(grid, device="cpu")
+    out = {}
+    for label, u0, h0, cfl in (
+            ("rough", ops.groom(torch.from_numpy(rough_state((64, 64)))),
+             H, None),
+            ("smooth", torch.from_numpy(initial_state((64, 64))), 1.0, None),
+            ("smooth_cfl", torch.from_numpy(initial_state((64, 64))), 1.0,
+             CFL_SAFETY)):
+        chunk, _ = make_adaptive_chunk_fn(
+            ops, CHUNK_NUMERICS(NumericsOptions), atol=0.01, rtol=1e-6,
+            mesh=mesh, cfl_safety=cfl)
+        u, t, h, k, attempts, rejected = chunk(
+            distribute(u0, grid, mesh)[0], 0.0, h0, 1e9, CHUNK_ACCEPTS)
+        out[label] = dict(
+            u=mesh.gather(u).numpy(), t=t, h=h, k=k, attempts=attempts,
+            rejected=rejected, records=repr(chunk.stats.records),
+            per_tier=repr(chunk.stats.per_tier))
+    return out
+
+
+CASES = {name[5:]: fn for name, fn in globals().items()
+         if name.startswith("case_")}
+
+
+def _rank_main(n, rank, store, cases, queue):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=n)
+        ctx = dict(rank=rank, n=n)
+        out = {name: CASES[name](ctx) for name in cases}
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((n, rank, out, None))
+    except BaseException:
+        queue.put((n, rank, None, traceback.format_exc()))
+        raise
+
+
+def run_ranks(groups, timeout=600):
+    """Spawn one gloo group per ``{n: cases}`` entry, all at once: n
+    ranks that run ``cases`` (names of CASES).  Returns ``{n: {rank:
+    {case: result}}}``."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = []
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        for n, cases in groups.items():
+            store = os.path.join(tempfile.mkdtemp(prefix="ksfd_ranks_"),
+                                 "store")
+            procs += [ctx.Process(target=_rank_main,
+                                  args=(n, r, store, list(cases), queue))
+                      for r in range(n)]
+        for p in procs:
+            p.start()
+    finally:
+        if saved is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
+    results = {n: {} for n in groups}
+    errors = []
+    try:
+        for _ in procs:
+            n, rank, out, err = queue.get(timeout=timeout)
+            if err is not None:
+                errors.append("group of %d, rank %d:\n%s" % (n, rank, err))
+                break
+            results[n][rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return results
