@@ -11,7 +11,10 @@ header, and csrc/pc2d.cu, all started together) and runs twenty-seven
 phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, the float32 matmul precision and the kernels' builds;
+   versions, the float32 matmul precision and the kernels' builds, with
+   ptxas's registers and spills and, for csrc/pc2d.cu, the counts of
+   HGMMA (wgmma) and UTMALDG (TMA) instructions in each product
+   (``cuobjdump -sass``, where the toolkit has it: each must have both);
 2. each 2D kernel against its plain PyTorch version on the card at
    1024^2 x 3 f32, with CUDA-event times of both;
 3. the 2D main path at 1024^2 x 3 f64: ``make_multistep_fn`` with
@@ -35,10 +38,13 @@ phases, each printing one line:
 10. the fast mode on the card and on the CPU at 256^2 x 3 and 64^3 x 3,
     agreeing to 1e-4 of the summed increment plus 4 float32 ulps of the
     state;
-11. the fused pc's kernels (B5a pc_fwd, B5b pc_inv) against their plain
-    versions at 1024^2 x 3, 1536^2 x 3 and the ragged 200 x 136 x 3,
-    with CUDA-event times of each kernel, its plain version and the
-    basis-GEMM pc's cuBLAS call for the same function, and the bound;
+11. the fused pc's kernels (B5a pc_fwd, B5b pc_inv, 3xTF32 wgmma fed by
+    TMA) against their plain versions at 1024^2 x 3, 1536^2 x 3, the
+    ragged 200 x 136 x 3 and 201 x 137 x 3 (no axis divisible by 4: the
+    pitched copy, counted, with its profiled device µs), with CUDA-event
+    times of each kernel, its plain version and the basis-GEMM pc's
+    cuBLAS call for the same function, the 3xTF32 tensor-core bound and
+    the earlier float32 SIMT one;
 12. the main path with ``pc_pallas=True`` at 1024^2 x 3, f64 and f32,
     as phases 3 and 9 (its profile must show no library GEMM), and on
     the card against the CPU at 256^2 x 3;
@@ -134,6 +140,7 @@ N3_CMP = 64
 ODD3 = (40, 36, 20)
 N_AGG = 1536                # examples/aggregation2d, the flagship
 RAGGED = (200, 136)         # a size whose pc tiles are ragged
+RAGGED4 = (201, 137)        # both axes not divisible by 4: the pc's pitched copy
 N_CHUNK_CMP = 128
 N_HEX = 384                 # examples/hexagons2d's own size
 N_ENS_CMP = 64              # the ensemble's card vs CPU check
@@ -144,6 +151,7 @@ N3_ENS_CMP = 32             # the 3D ensemble's card vs CPU check
 GAMMA = 0.435866521508459   # ROS34PW2's diagonal: shift = 1/(h*GAMMA)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same sheet
+TF32_OPS_PER_S = 495e12     # TF32 on the tensor cores, dense, same sheet
 
 
 def check(cond, what):
@@ -422,13 +430,38 @@ _PTXAS_NAMES = (("rhs_kernel", "rhs"), ("jvp_kernelILb0", "jvp"),
                 ("delta_halo_kernel", "delta_halo"))
 
 
-#: csrc/pc2d.cu's pc_gemm<NF, A_BATCH, EPI> instances: the left product,
-#: the right product and the right product with the arrow epilogue
+#: csrc/pc2d.cu's pc_gemm_tc<NF, NACC, EPI> instances (the plain
+#: products, one field per block, and the forward entry's second product
+#: with the arrow epilogue, all fields per block) and the pitched copy
 _PTXAS_PC_NAMES = tuple(
-    ("pc_gemmILi%dELb%dELb%dE" % (nf, a, e), "%s nf=%d" % (what, nf))
+    ("pc_gemm_tcILi%dELi%dELb%dE" % (nf, nacc, e), "%s nf=%d" % (what, nf))
     for nf in (2, 3, 4)
-    for a, e, what in ((0, 0, "left"), (1, 0, "right"), (1, 1, "right+arrow"))
-)
+    for nacc, e, what in ((1, 0, "product"), (nf, 1, "product+arrow"))
+) + (("pc_gemm_pitch_copy", "pitch copy"),)
+
+
+def sass_counts(path, ops=("HGMMA", "UTMALDG")):
+    """Counts of the SASS instructions ``ops`` per pc_gemm_tc instance of
+    a built library (``cuobjdump -sass``), labelled as ptxas_summary
+    labels them; None where the toolkit has no cuobjdump."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = next((n for m, n in _PTXAS_PC_NAMES if m in line), None)
+            if name is not None:
+                out[name] = dict.fromkeys(ops, 0)
+        elif name is not None:
+            for op in ops:
+                out[name][op] += (" %s" % op) in line
+    return out
 
 
 def ptxas_summary(log, names=_PTXAS_NAMES):
@@ -484,6 +517,17 @@ def phase_build():
                for label, b in builds[:5:2]]  # 1024^2, 256^3, 64^3
     reports.append("pc2d: %s" % ptxas_summary(
         PC_BUILD.build_info["ptxas"], _PTXAS_PC_NAMES))
+    # the tensor cores (HGMMA) and TMA (UTMALDG) in every product
+    sass = sass_counts(PC_BUILD.build_info["path"])
+    if sass is not None:
+        check(all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                  for n, c in sass.items() if n != "pitch copy")
+              and len(sass) == 7, "pc2d.cu's products without HGMMA or "
+              "UTMALDG: %s" % sass)
+    reports.append("pc2d SASS: %s" % (
+        "no cuobjdump" if sass is None else "; ".join(
+            "%s HGMMA %d UTMALDG %d" % (n, c["HGMMA"], c["UTMALDG"])
+            for n, c in sass.items() if n != "pitch copy")))
     smem3d = []
     for fn in ("ksfd_smem_bytes", "ksfd_smem_bytes_rhs"):
         smem_fn = getattr(builds[2][1].library(), fn)
@@ -495,7 +539,7 @@ def phase_build():
               ", ".join("%s %.2f" % (l, b.build_info["nvcc_seconds"])
                         for l, b in builds),
               smem3d[0], smem3d[1], " | ".join(reports)))
-    return reports[-1]
+    return reports[-2], sass
 
 
 def clamped(u_raw, ops):
@@ -868,12 +912,14 @@ def pc_step_scalars(ops, u64, h=1.0):
 
 
 def pc_bound(name, grid, nb=1):
-    """(bound_ms, bound_by) of one fused-pc entry for ``nb`` members: its
-    two float32 products per field, 2 nx ny (nx + ny) operations, and for
-    pc_fwd the arrow epilogue's 3 + 13 nl per mode, over 67 TFLOP/s,
-    against the bytes it must move (the fields in and out, the two bases
-    once, and for pc_fwd lam2d once and the scalar packs) over 3.35
-    TB/s."""
+    """(bound_ms, bound_by, f32_simt_ms) of one fused-pc entry for ``nb``
+    members.  Its two products per field, 2 nx ny (nx + ny) operations,
+    run as 3xTF32 (three TF32 passes) over the tensor cores' 495
+    TFLOP/s, plus for pc_fwd the arrow epilogue's 3 + 13 nl per mode
+    over 67 TFLOP/s, against the bytes it must move (the fields in and
+    out, the two bases once, and for pc_fwd lam2d once and the scalar
+    packs) over 3.35 TB/s.  f32_simt_ms: the earlier bound, every
+    operation over 67 TFLOP/s of float32 outside the tensor cores."""
     nx, ny = (int(n) for n in grid.Sshape)
     nf = int(grid.dof)
     nl = nf - 1
@@ -882,21 +928,26 @@ def pc_bound(name, grid, nb=1):
     if name == "pc_fwd":
         n_ops += nb * nx * ny * (3 + 13 * nl)
         nbytes += 4.0 * (nx * ny + nb * (3 + 4 * nl))
-    t_ops, t_bytes = n_ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    gemm_ops = nb * nf * 2.0 * nx * ny * (nx + ny)
+    t_tc = 3 * gemm_ops / TF32_OPS_PER_S + (n_ops - gemm_ops) / F32_OPS_PER_S
+    t_simt, t_bytes = n_ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_tc, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_tc else "operations",
+            max(t_simt, t_bytes) * 1e3)
 
 
 def phase_pc_kernels(card):
     """B5a (pc_fwd) and B5b (pc_inv) against their plain versions on the
-    card at 1024^2 x 3, at the flagship's 1536^2 x 3 and at the ragged
-    RAGGED x 3, with the scalar packs of a step at h=1 from the rough and
-    the near-uniform state and v from a seeded generator: within 1e-5 of
-    max|plain|.  At the two square sizes, CUDA-event ms of each kernel,
-    of its plain version and of the library call that computes the same
-    function (the basis-GEMM pc's cuBLAS products: ``_forward`` then
-    ``_arrow_solve`` for pc_fwd, ``_inverse`` for pc_inv), and the
-    bound."""
+    card at 1024^2 x 3, at the flagship's 1536^2 x 3, at the ragged
+    RAGGED x 3 and at RAGGED4 x 3 (no axis divisible by 4: the entries'
+    pitched copy, which must run there and only there), with the scalar
+    packs of a step at h=1 from the rough and the near-uniform state and
+    v from a seeded generator: within 1e-5 of max|plain|.  At the two
+    square sizes, CUDA-event ms of each kernel, of its plain version and
+    of the library call that computes the same function (the basis-GEMM
+    pc's cuBLAS products: ``_forward`` then ``_arrow_solve`` for pc_fwd,
+    ``_inverse`` for pc_inv), and both bounds; at RAGGED4 the profiled
+    device µs of the pitched copy per entry call."""
     from ksfd_tpu_torch.ops.fused_pc import make_fused_block_pc
     from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
 
@@ -906,7 +957,8 @@ def phase_pc_kernels(card):
     for label, clargs, shape in (
             ("%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG)),
             ("%d^2" % N_AGG, agg2d_clargs(N_AGG), (N_AGG, N_AGG)),
-            ("%dx%d" % RAGGED, bench_clargs(RAGGED[0]), RAGGED)):
+            ("%dx%d" % RAGGED, bench_clargs(RAGGED[0]), RAGGED),
+            ("%dx%d" % RAGGED4, bench_clargs(RAGGED4[0]), RAGGED4)):
         ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
         pc = make_fused_block_pc(grid, ops)
         states = dict(
@@ -930,7 +982,17 @@ def phase_pc_kernels(card):
                 rel[name] = max(rel.get(name, 0.0), err / scale)
                 lines.append("%s/%s/%s err %.3e (%.2e rel)" % (
                     name, label, sname, err, err / scale))
-        if shape == RAGGED:
+        check(pc.owner.pitch_copies == (4 * (shape == RAGGED4)),
+              "%s: %d pitched copies" % (label, pc.owner.pitch_copies))
+        if shape == RAGGED4:
+            _, per_kernel = profile_device_ms(
+                lambda: [pc.inv(pc.fwd(sc, v)) for _ in range(10)], 20)
+            pitch_us = sum(ms for k, ms in per_kernel.items()
+                           if "pitch_copy" in k) * 1e3
+            entry_us = sum(ms for k, ms in per_kernel.items()
+                           if "pc_gemm" in k) * 1e3
+            figures["pitch_copy"] = (pitch_us, entry_us)
+        if shape in (RAGGED, RAGGED4):
             continue
         shift, t, means, rho_diff, sc = pc_step_scalars(ops, states["rough"])
         v = torch.randn(tuple(grid.Vshape), generator=gen, device=dev)
@@ -953,12 +1015,20 @@ def phase_pc_kernels(card):
             ) + pc_bound("pc_inv", grid),
         }
         del states, lib, modes
-    print("phase 11 pc kernels vs plain %d^2x3, %d^2x3 and %dx%dx3 (%s): "
-          "%s | ms kernel/plain/library (bound, by): %s" % (
-              N_BIG, N_AGG, RAGGED[0], RAGGED[1], card, "; ".join(lines),
-              "; ".join("%s %s %.4f/%.4f/%.4f (%.4f, %s)" % ((lab, n) + f)
+    pitch_us, entry_us = figures.pop("pitch_copy")
+    print("phase 11 pc kernels vs plain %d^2x3, %d^2x3, %dx%dx3 and "
+          "%dx%dx3 (%s): %s | ms kernel/plain/library (3xTF32 bound, by; "
+          "f32 SIMT bound): %s | %dx%dx3: pitched copy %.2f us of %.2f us "
+          "device per entry call" % (
+              N_BIG, N_AGG, RAGGED[0], RAGGED[1], RAGGED4[0], RAGGED4[1],
+              card, "; ".join(lines),
+              "; ".join("%s %s %.4f/%.4f/%.4f (%.4f, %s; %.4f)"
+                        % ((lab, n) + f)
                         for lab, per in figures.items()
-                        for n, f in per.items())))
+                        for n, f in per.items()),
+              RAGGED4[0], RAGGED4[1], pitch_us, entry_us))
+    figures["pitch_copy_us"] = {"shape": list(RAGGED4), "copy": pitch_us,
+                                "entry_device": entry_us}
     return pc, errs, rel, figures
 
 
@@ -2367,7 +2437,7 @@ def main():
         return out
 
     card = phase_device()
-    ptxas_pc = timed("build", phase_build)
+    ptxas_pc, sass_pc = timed("build", phase_build)
     kern, errs, rel, times = timed("2", phase_kernels, card)
     counts, step_s, rate = timed(
         "3", phase_main_path, card, "%d^2" % N_BIG, bench_clargs(N_BIG),
@@ -2482,7 +2552,7 @@ def main():
     totals3 = {n: sum(c.get(n, 0) for c in runs3d) for n in kern3.kernels}
     big = "%d^2" % N_BIG
     agg = "%d^2" % N_AGG
-    pc_times = {n: pc_figs[big][n] for n in ("pc_fwd", "pc_inv")}
+    pc_times = {n: pc_figs[big][n][:5] for n in ("pc_fwd", "pc_inv")}
     # the member-batched builds at nb = NB: one batched launch, NB
     # single launches and the bound of NB members
     def batched_keys(figs, errs_b):
@@ -2495,6 +2565,9 @@ def main():
     for n in ("pc_fwd", "pc_inv"):
         pc_extra[n].update(zip(("ms_1536", "plain_ms_1536", "library_ms_1536",
                                 "bound_ms_1536"), pc_figs[agg][n][:4]))
+        pc_extra[n].update(bound_ms_f32_simt=pc_figs[big][n][5],
+                           bound_ms_1536_f32_simt=pc_figs[agg][n][5],
+                           pitch_copy_us=pc_figs["pitch_copy_us"])
     b11_row = {
         "name": "coeff_resid", "route": "cuda",
         "source": "ksfd_tpu_torch/csrc/stencil2d.cu",
@@ -2524,6 +2597,7 @@ def main():
                       extra=pc_extra)
         + b9_rows(halo, one_rank, b9_totals),
         "ptxas_pc2d": ptxas_pc,
+        "sass_pc2d": sass_pc,
         "ms_per_step": step_s * 1e3, "dof_updates_per_s": rate,
         "ms_per_step_3d": step3_s * 1e3, "dof_updates_per_s_3d": rate3,
         "ms_per_step_f32": step32_s * 1e3, "dof_updates_per_s_f32": rate32,

@@ -19,9 +19,15 @@ at first use through fused_stencil.build_library) or raises; on a CPU
 tensor it runs its plain PyTorch version (``torch.matmul`` and the arrow
 formula of pallas_pc.py:164-183); any other device raises.  ``launches``
 counts calls of the C entry, each of which launches its two products.
-The operands stay float32 with float32 accumulation, the numerics of
-the reference's interpret-mode tests and of the port's cuBLAS apply
-with TF32 off; the TPU's bf16 MXU operands are not copied.
+The kernels run their products as 3xTF32 on the tensor cores
+(``A_lo B_hi + A_hi B_lo + A_hi B_hi``, float32 accumulation): each
+basis is split here once into a hi and a lo plane (``split_planes``),
+the state-side operand inside the kernel.  That keeps float32-class
+results, the numerics of the reference's interpret-mode tests and of
+the port's cuBLAS apply with TF32 off; the TPU's bf16 MXU operands are
+not copied.  When ``ny % 4 != 0`` the entry first copies its state
+operand into a pitched part of the scratch (TMA needs 16-byte row
+pitches); ``pitch_copies`` on the owner counts those calls.
 
 **Members.**  The reference's ensemble vmaps the two ``pallas_call``s
 (pallas_pc.py:196, :222).  Here a call goes through the custom op of
@@ -51,16 +57,18 @@ from .fused_stencil import build_library, call_kernel, register_kernel
 from .stencil import laplacian_eigendecomp
 
 __all__ = ["pack_pc_scalars", "fused_pc_available", "fused_pc_refusal",
-           "make_fused_block_pc", "PCKernel", "PC_BUILD", "MAX_NF"]
+           "make_fused_block_pc", "PCKernel", "PC_BUILD", "MAX_NF",
+           "tf32", "split_planes", "scratch_floats"]
 
 CSRC_PC = Path(__file__).resolve().parent.parent / "csrc" / "pc2d.cu"
 #: fields per block of the CUDA kernels (their register budget)
 MAX_NF = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
-    # (sc, v, qxt, qy, lam, tmp, out, nf, nx, ny, nb, stream)
+    # (sc, v, bx, by, lam, tmp, out, nf, nx, ny, nb, stream); bx, by:
+    # split_planes of Qx^T and Qy^T
     "ksfd_pc_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    # (c, qx, qyt, tmp, out, nf, nx, ny, nb, stream)
+    # (c, bx, by, tmp, out, nf, nx, ny, nb, stream); of Qx and Qy
     "ksfd_pc_inv": [_P] * 5 + [_I] * 4 + [_P],
 }
 _SRC = "ksfd_tpu/ops/pallas_pc.py"
@@ -83,6 +91,37 @@ class _PCBuild:
 
 
 PC_BUILD = _PCBuild()
+
+
+def tf32(x):
+    """float32 numpy values rounded to TF32 (10 mantissa bits, to
+    nearest, ties away from zero; cvt.rna.tf32.f32) in float32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    finite = (u & np.uint32(0x7F800000)) != np.uint32(0x7F800000)
+    r = (u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return np.where(finite, r, u).astype(np.uint32).view(np.float32)
+
+
+def split_planes(a):
+    """A basis as the kernels' B operand: ``(2, rows, pitch)`` float32,
+    plane 0 ``hi = tf32(a)``, plane 1 ``tf32(a - hi)``, each row
+    zero-padded to a multiple of 4 floats (a 16-byte TMA pitch)."""
+    a = np.asarray(a, dtype=np.float32)
+    hi = tf32(a)
+    rows, cols = a.shape
+    out = np.zeros((2, rows, -(-cols // 4) * 4), dtype=np.float32)
+    out[0, :, :cols] = hi
+    out[1, :, :cols] = tf32(a - hi)
+    return out
+
+
+def scratch_floats(nf, nx, ny, nb):
+    """Floats of an entry's scratch: the S^T planes of the first
+    product (nb nf x ny x nxp) and room for the state's pitched copy
+    (nb nf x nx x nyp), the extents padded to multiples of 4
+    (csrc/pc2d.cu make_plan)."""
+    p4 = lambda n: -(-n // 4) * 4
+    return nb * nf * (ny * p4(nx) + nx * p4(ny))
 
 
 def pack_pc_scalars(ops, shift, t, means, rho_diff):
@@ -218,6 +257,13 @@ class _FusedPC:
         self.lam2d = f32(lams[0][:, None] + lams[1][None, :])
         self.Qx, self.QxT = f32(Qs[0]), f32(Qs[0].T)
         self.Qy, self.QyT = f32(Qs[1]), f32(Qs[1].T)
+        # the kernels' B operands: the entries' bases as [hi; lo] planes
+        # (fwd: Qx^T, Qy^T; inv: Qx, Qy), split from the float32 bases
+        planes = lambda t: f32(split_planes(t.cpu().numpy()))
+        self.planes_fwd = (planes(self.QxT), planes(self.QyT))
+        self.planes_inv = (planes(self.Qx), planes(self.Qy))
+        #: calls whose state operand went through the pitched copy
+        self.pitch_copies = 0
 
     # -- plain versions -------------------------------------------------
     def arrow(self, sc, cs):
@@ -285,8 +331,11 @@ class _FusedPC:
 
     def _run(self, name, fields, nb, ptrs):
         lib = PC_BUILD.library()
-        tmp = torch.empty_like(fields)
+        tmp = torch.empty(scratch_floats(self.nf, *self.Sshape, nb),
+                          dtype=torch.float32, device=fields.device)
         out = torch.empty_like(fields)
+        if self.Sshape[1] % 4 or fields.data_ptr() % 16:
+            self.pitch_copies += 1
         with torch.cuda.device(fields.device):
             stream = torch.cuda.current_stream(fields.device).cuda_stream
             err = getattr(lib, "ksfd_" + name)(
@@ -301,15 +350,17 @@ class _FusedPC:
 
     def launch_fwd(self, sc, v):
         nb = self._check("pc_fwd", sc, v)
+        bx, by = self.planes_fwd
         return self._run("pc_fwd", v, nb, [
-            sc.data_ptr(), v.data_ptr(), self.QxT.data_ptr(),
-            self.Qy.data_ptr(), self.lam2d.data_ptr(),
+            sc.data_ptr(), v.data_ptr(), bx.data_ptr(), by.data_ptr(),
+            self.lam2d.data_ptr(),
         ])
 
     def launch_inv(self, c):
         nb = self._check("pc_inv", None, c)
+        bx, by = self.planes_inv
         return self._run("pc_inv", c, nb, [
-            c.data_ptr(), self.Qx.data_ptr(), self.QyT.data_ptr(),
+            c.data_ptr(), bx.data_ptr(), by.data_ptr(),
         ])
 
 

@@ -5,12 +5,14 @@ csrc/pc2d.cu on the CPU.  They are held against the reference's fused
 Pallas apply in interpret mode (float32 dots, as tests/test_pallas.py:749
 runs it) at 128^2, the reference's alignment gate; against the port's own
 basis-GEMM ``apply_linearized`` at ragged 2D sizes, which the port's gate
-admits and the reference's does not; and the CUDA source's kernel bodies,
-compiled as host C++, against the plain versions.  Tolerances: the scalar
-pack to 1e-7 relative (float32 casts of the same float64 numbers), the
-apply to 1e-5 of max|reference| (float32 products summed in another
-order, tests/test_pallas.py:783), a pc_pallas step to 1e-5 of the
-increment (the mixed-precision envelope of tests/test_torch_solver.py).
+admits and the reference's does not; and the CUDA source's host path
+(the card kernels' tile walk, TF32 split and k-step order, each wgmma a
+scalar loop), compiled as host C++, against the plain versions.
+Tolerances: the scalar pack to 1e-7 relative (float32 casts of the same
+float64 numbers), the apply to 1e-5 of max|reference| (float32 products
+summed in another order, or 3xTF32 products, tests/test_pallas.py:783),
+a pc_pallas step to 1e-5 of the increment (the mixed-precision envelope
+of tests/test_torch_solver.py); the TF32 split exactly.
 """
 
 import ctypes
@@ -37,6 +39,9 @@ from ksfd_tpu_torch.ops.fused_pc import (
     fused_pc_available,
     make_fused_block_pc,
     pack_pc_scalars,
+    scratch_floats,
+    split_planes,
+    tf32,
 )
 from ksfd_tpu_torch.solvers import make_multistep_fn, make_step_fn
 from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
@@ -143,66 +148,10 @@ def test_fused_pc_ragged_matches_apply_linearized(shape):
 
 # -- the CUDA source's kernel bodies on the host -------------------------
 
-# pc2d.cu's kernel bodies as host C++20: one std::thread per CUDA thread,
-# a std::barrier for __syncthreads, a function-local static array for
-# each __shared__ tile, the blocks of a launch in turn.
-_PC_SHIM = r"""
-#include <barrier>
-#include <thread>
-#include <vector>
-struct float4 { float x, y, z, w; };
-static inline float4 make_float4(float a, float b, float c, float d) {
-  return float4{a, b, c, d};
-}
-struct ksfd_uint3 { unsigned x, y, z; };
-static ksfd_uint3 blockIdx;
-static thread_local ksfd_uint3 threadIdx;
-static std::barrier<>* ksfd_bar;
-static inline void __syncthreads() { ksfd_bar->arrive_and_wait(); }
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __shared__ static
-#define __restrict__
-#define __launch_bounds__(n)
-#define __align__(n) __attribute__((aligned(n)))
-#include "pc2d.cu"
-
-template <class F> static void launch(int nx, int ny, int nb, F body) {
-  for (unsigned bz = 0; bz < (unsigned)nb; ++bz)
-  for (unsigned by = 0; by < (unsigned)((nx + BM - 1) / BM); ++by)
-    for (unsigned bx = 0; bx < (unsigned)((ny + BN - 1) / BN); ++bx) {
-      blockIdx = {bx, by, bz};
-      std::barrier<> bar(NT);
-      ksfd_bar = &bar;
-      std::vector<std::thread> pool;
-      for (unsigned t = 0; t < (unsigned)NT; ++t)
-        pool.emplace_back([&body, t] { threadIdx = {t, 0, 0}; body(); });
-      for (auto& th : pool) th.join();
-    }
-}
-
-// the two grids of an entry, each over nb members on blockIdx.z
-extern "C" int pc_fwd3(const float* sc, const float* v, const float* qxt,
-                       const float* qy, const float* lam, float* tmp,
-                       float* out, int nx, int ny, int nb, int vec) {
-  launch(nx, ny, nb, [=] { pc_gemm<3, false, false>(
-      qxt, v, tmp, nx, ny, nx, vec, nullptr, nullptr); });
-  launch(nx, ny, nb, [=] { pc_gemm<3, true, true>(
-      tmp, qy, out, nx, ny, ny, vec, sc, lam); });
-  return 0;
-}
-
-extern "C" int pc_inv3(const float* c, const float* qx, const float* qyt,
-                       float* tmp, float* out, int nx, int ny, int nb,
-                       int vec) {
-  launch(nx, ny, nb, [=] { pc_gemm<3, false, false>(
-      qx, c, tmp, nx, ny, nx, vec, nullptr, nullptr); });
-  launch(nx, ny, nb, [=] { pc_gemm<3, true, false>(
-      tmp, qyt, out, nx, ny, ny, vec, nullptr, nullptr); });
-  return 0;
-}
-"""
+# pc2d.cu compiled as host C++20: its scalar host path (the card's tile
+# walk, split, k-step order, transposed stores and arrow epilogue, each
+# wgmma a scalar loop) behind the entries ksfd_pc_fwd_host,
+# ksfd_pc_inv_host and ksfd_tf32_split.
 
 
 @pytest.fixture(scope="module")
@@ -211,46 +160,86 @@ def host_pc(tmp_path_factory):
     if cxx is None:
         pytest.skip("no C++ compiler found to compile the kernel bodies")
     d = tmp_path_factory.mktemp("pc2d")
-    shutil.copy(CSRC_PC, d / "pc2d.cu")
-    (d / "shim.cpp").write_text(_PC_SHIM)
     lib = d / "libpc.so"
     proc = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I",
-         str(d), "-o", str(lib), str(d / "shim.cpp")],
+        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
+         "-o", str(lib), str(CSRC_PC)],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-3000:]
     host = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    host.pc_fwd3.argtypes = [P] * 7 + [I] * 4
-    host.pc_inv3.argtypes = [P] * 5 + [I] * 4
+    host.ksfd_pc_fwd_host.argtypes = [P] * 7 + [I] * 5
+    host.ksfd_pc_inv_host.argtypes = [P] * 5 + [I] * 5
+    host.ksfd_tf32_split.argtypes = [P] * 3 + [I]
     return host
 
 
 def host_pc_run(host, pc, sc, v, vec):
     """The host fwd then inv on prepared operands, one member or a
-    leading member axis: (modes, out)."""
+    leading member axis: (modes, out).  ``vec`` 1 reads the state as it
+    lies (ny % 4 == 0), 0 through the pitched copy, as the card does for
+    ragged rows."""
     o = pc.owner
     nb = int(v.shape[0]) if v.dim() == 4 else 1
     shape = tuple(v.shape[-2:])
-    tmp, modes, out = (torch.empty_like(v) for _ in range(3))
-    host.pc_fwd3(sc.data_ptr(), v.data_ptr(), o.QxT.data_ptr(),
-                 o.Qy.data_ptr(), o.lam2d.data_ptr(), tmp.data_ptr(),
-                 modes.data_ptr(), *shape, nb, vec)
-    host.pc_inv3(modes.data_ptr(), o.Qx.data_ptr(), o.QyT.data_ptr(),
-                 tmp.data_ptr(), out.data_ptr(), *shape, nb, vec)
+    tmp = torch.empty(scratch_floats(o.nf, *shape, nb))
+    modes, out = torch.empty_like(v), torch.empty_like(v)
+    (fx, fy), (ix, iy) = o.planes_fwd, o.planes_inv
+    assert host.ksfd_pc_fwd_host(
+        sc.data_ptr(), v.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+        o.lam2d.data_ptr(), tmp.data_ptr(), modes.data_ptr(), o.nf, *shape,
+        nb, vec) == 0
+    assert host.ksfd_pc_inv_host(
+        modes.data_ptr(), ix.data_ptr(), iy.data_ptr(), tmp.data_ptr(),
+        out.data_ptr(), o.nf, *shape, nb, vec) == 0
     return modes, out
+
+
+def test_tf32_split_is_exact(host_pc):
+    """The kernels' operand split: hi = tf32(x) has at most 10 mantissa
+    bits (the low 13 bits zero), hi + lo == x exactly (|lo| at most half
+    a TF32 ulp of a normal x), ties round away
+    from zero; the C split (the host emulation of cvt.rna.tf32.f32) and
+    fused_pc.tf32 agree bit for bit; the basis planes are [hi; tf32(lo)]
+    with zero padding."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([
+        rng.standard_normal(4096).astype(np.float32) * 10.0 ** rng.integers(
+            -30, 30, 4096),
+        np.array([0.0, -0.0, 1.0, -1.0, 1e-40, -3e-39, 3.4e38],
+                 dtype=np.float32),
+        # ties: the 13 dropped bits exactly half
+        (np.array([0x3F801000, 0xBF805000], dtype=np.uint32)
+         .view(np.float32)),
+    ]).astype(np.float32)
+    hi, lo = np.empty_like(x), np.empty_like(x)
+    host_pc.ksfd_tf32_split(x.ctypes.data, hi.ctypes.data, lo.ctypes.data,
+                            x.size)
+    assert np.all((hi.view(np.uint32) & 0x1FFF) == 0)
+    assert np.array_equal(hi + lo, x)
+    assert np.array_equal(hi.view(np.uint32), tf32(x).view(np.uint32))
+    normal = np.abs(x) >= np.finfo(np.float32).tiny
+    assert np.all(np.abs(lo[normal]).astype(np.float64)
+                  <= np.abs(x[normal]).astype(np.float64) * 2.0 ** -11)
+    assert list(hi[-2:].view(np.uint32)) == [0x3F802000, 0xBF806000]
+    a = rng.standard_normal((5, 7)).astype(np.float32)
+    planes = split_planes(a)
+    assert planes.shape == (2, 5, 8) and not planes[:, :, 7:].any()
+    assert np.array_equal(planes[0, :, :7], tf32(a))
+    assert np.array_equal(planes[1, :, :7], tf32(a - tf32(a)))
+    assert np.abs(planes[0, :, :7] + planes[1, :, :7] - a).max() <= (
+        2.0 ** -21 * np.abs(a).max())
 
 
 @pytest.mark.parametrize("shape,vec", [
     ((48, 40), 1), ((48, 40), 0), ((45, 37), 0), ((132, 68), 1)])
 def test_cuda_source_bodies_match_plain(host_pc, shape, vec):
-    """The fwd (two products and the arrow epilogue) and inv bodies of
-    csrc/pc2d.cu, compiled as host C++, equal the plain versions to 1e-5
-    of max|plain|: one tile, ragged tiles in both axes, several tiles,
-    with the 16-byte loads (vec=1) and the masked scalar ones.  vec=1
-    needs both extents divisible by 4, as the entries' vec_ok checks:
-    otherwise a row's last float4 reads past the row (past the buffer
-    for the last one)."""
+    """The fwd (two 3xTF32 products and the arrow epilogue) and inv of
+    csrc/pc2d.cu's host path, compiled as host C++, equal the plain
+    versions to 1e-5 of max|plain|: one tile, ragged tiles in both axes,
+    several tiles, with the state read as it lies (vec=1) and through
+    the pitched copy (vec=0).  vec=1 needs ny % 4 == 0, as the card's
+    TMA needs 16-byte row pitches."""
     _, _, _, tops = problem(shape)
     x = pc_inputs(tops)
     pc = make_fused_block_pc(tops.grid, tops)
@@ -262,6 +251,20 @@ def test_cuda_source_bodies_match_plain(host_pc, shape, vec):
         assert bool(torch.isfinite(got).all())
         err = float((got - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_probe_pc_ring_variants_follow_the_source():
+    """tools/probe_pc_ring.py's variants are text edits of csrc/pc2d.cu:
+    every anchor is still in the source and every variant differs from
+    it."""
+    from ksfd_tpu_torch.tools.probe_pc_ring import variants
+
+    src = CSRC_PC.read_text()
+    out = variants(src)
+    assert set(out) == {"full", "one_pass", "no_mma", "no_reads", "ring",
+                        "ring_b_hi", "ring_a"}
+    assert out["full"] == src
+    assert len({text for text in out.values()}) == len(out)
 
 
 def batched_pc_inputs(tops, nb):
@@ -283,11 +286,12 @@ def batched_pc_inputs(tops, nb):
 @pytest.mark.parametrize("shape,vec", [((48, 40), 1), ((45, 37), 0)])
 def test_cuda_source_batched_bodies_match_single_members(host_pc, shape,
                                                          vec):
-    """The member-batched pc2d.cu bodies (the members on blockIdx.z,
-    their own pack rows, the bases shared), compiled as host C++ with
-    nb = 3, equal three single-member runs bit for bit, in fwd and inv,
-    with the 16-byte loads and with ragged masked tiles; and the plain
-    version under vmap within 1e-5 of its largest value."""
+    """The member-batched pc2d.cu host path (the members' planes in the
+    tile walk, their own pack rows, the bases shared), compiled as host
+    C++ with nb = 3, equals three single-member runs bit for bit, in fwd
+    and inv, reading the state as it lies and through the pitched copy
+    with ragged tiles; and the plain version under vmap within 1e-5 of
+    its largest value."""
     from torch.func import vmap
 
     _, _, _, tops = problem(shape)
