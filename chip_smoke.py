@@ -12,7 +12,9 @@ phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the float32 matmul precision and the kernels' builds, with
-   ptxas's registers and spills and, for csrc/pc2d.cu, the counts of
+   ptxas's registers and spills, each 3D kernel's threads and dynamic
+   shared memory per block and its resident blocks per SM (the
+   library's ``ksfd_occupancy``) and, for csrc/pc2d.cu, the counts of
    HGMMA (wgmma) and UTMALDG (TMA) instructions in each product
    (``cuobjdump -sass``, where the toolkit has it: each must have both);
 2. each 2D kernel against its plain PyTorch version on the card at
@@ -26,7 +28,7 @@ phases, each printing one line:
    increment;
 5. each 3D kernel against its plain version on the card at 256^3 x 3
    f32 (the aggregation3d problem) and at the odd size 40 x 36 x 20,
-   with CUDA-event times at 256^3;
+   with CUDA-event times at 256^3 and each kernel's share of its bound;
 6. the 3D main path at 256^3 x 3 f64 (50.3M DOF), as phase 3;
 7. the 3D slice at 64^3 x 3 (examples/aggregation3d's size) on the card
    and on the CPU, as phase 4;
@@ -76,7 +78,8 @@ phases, each printing one line:
     fixed-dt blocks and adaptive per step, agreeing in counts, t, h
     and state;
 20. the member-batched builds of B6a-d at 256^3 x 3 for 4 distinct
-    members, as phase 16;
+    members, as phase 16 (with the batched launch's share of its
+    bound);
 21. the member-batched fused pc (B5a, B5b) at 1024^2 x 3 for 4 distinct
     members, as phase 16;
 22. the 3D ensemble's fixed-dt path at 256^3 x 3 with 1 and 4 members
@@ -93,7 +96,7 @@ phases, each printing one line:
     global state in this one process (the halo rows cut from it): each
     slab within 1e-5 of max|plain| of its plain version, the stitched
     slabs bit for bit the unsharded launch, µs per launch per slab at 2
-    slabs beside the plain version and the bound;
+    slabs beside the plain version, the bound and the share of it;
 26. the sharded path on a one-rank NCCL mesh (``mesh=`` with the ring
     closed on itself, every all_reduce through NCCL): the float64 and
     fast-mode multisteps at 1024^2 x 3 and 256^3 x 3 with exact B9
@@ -127,7 +130,9 @@ from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
 from ksfd_tpu_torch.utils.device import card_line
 from ksfd_tpu_torch.tools.problems import (  # noqa: F401 (re-exported)
     OPTIONS92_PARAMS,
+    agg3d_clargs,
     bench_clargs,
+    example_params,
     make_clargs,
 )
 
@@ -157,28 +162,6 @@ TF32_OPS_PER_S = 495e12     # TF32 on the tensor cores, dense, same sheet
 def check(cond, what):
     if not cond:
         raise RuntimeError("check failed: " + what)
-
-
-def example_params(name):
-    """The ``name=value`` parameter lines of examples/<name>, up to its
-    numerics block, without ``nelements``."""
-    params = []
-    with open(os.path.join(ROOT, "examples", name)) as fh:
-        for line in fh:
-            line = line.strip()
-            if line.startswith(("--petsc", "--numerics")):
-                break
-            if line and not line.startswith(("#", "--", "nelements=")):
-                params.append(line)
-    return params
-
-
-def agg3d_clargs(n):
-    """The parameters of examples/aggregation3d (rho plus an attractant
-    and a repellent ligand group, degree 3, periodic unit cube) with
-    nelements=n."""
-    return make_clargs(params=example_params("aggregation3d")
-                       + ["nelements=%d" % n])
 
 
 def agg2d_clargs(n, extra=()):
@@ -528,18 +511,32 @@ def phase_build():
         "no cuobjdump" if sass is None else "; ".join(
             "%s HGMMA %d UTMALDG %d" % (n, c["HGMMA"], c["UTMALDG"])
             for n, c in sass.items() if n != "pitch copy")))
-    smem3d = []
-    for fn in ("ksfd_smem_bytes", "ksfd_smem_bytes_rhs"):
-        smem_fn = getattr(builds[2][1].library(), fn)
-        smem_fn.argtypes, smem_fn.restype = [], ctypes.c_int
-        smem3d.append(smem_fn())
     print("phase 1 build: %d libraries in %.2f s wall (nvcc s: %s) | 3D "
-          "dynamic shared memory %d B/block (rhs %d B) | %s" % (
+          "per block: %s | %s" % (
               len(builds), wall,
               ", ".join("%s %.2f" % (l, b.build_info["nvcc_seconds"])
                         for l, b in builds),
-              smem3d[0], smem3d[1], " | ".join(reports)))
+              geometry_3d(builds[2][1].library()), " | ".join(reports)))
     return reports[-2], sass
+
+
+def geometry_3d(lib):
+    """Each 3D kernel's threads and dynamic shared memory per block and
+    its resident blocks per SM, unsharded and halo-slab
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
+    library's ``ksfd_occupancy``), from a built csrc/stencil3d.cu."""
+    for fn, n_args in (("ksfd_threads", 1), ("ksfd_smem_floats", 1),
+                       ("ksfd_occupancy", 2)):
+        getattr(lib, fn).argtypes = [ctypes.c_int] * n_args
+        getattr(lib, fn).restype = ctypes.c_int
+    out = []
+    for which, name in enumerate(("jvp", "resid", "delta", "rhs")):
+        occ = (lib.ksfd_occupancy(which, 0), lib.ksfd_occupancy(which, 1))
+        check(min(occ) > 0, "3D %s: no block resident per SM" % name)
+        out.append("%s %d threads %d B, %d blocks/SM (halo %d)" % (
+            name, lib.ksfd_threads(which), 4 * lib.ksfd_smem_floats(which),
+            *occ))
+    return "; ".join(out)
 
 
 def clamped(u_raw, ops):
@@ -682,9 +679,11 @@ def phase_kernels_3d(card):
     compare_kernels(kern_odd, kernel_cases(kern_odd, ops, states, gen),
                     errs, rel, lines)
     print("phase 5 3D kernels vs plain 256^3x3 and %dx%dx%dx3 (%s): %s | "
-          "ms kernel/plain at 256^3: %s" % (ODD3 + (card, "; ".join(lines),
-          "; ".join("%s %.4f/%.4f" % (n, a, b)
-                    for n, (a, b) in times.items()))))
+          "ms kernel/plain at 256^3 (share of the bound): %s" % (
+              ODD3 + (card, "; ".join(lines), "; ".join(
+                  "%s %.4f/%.4f (%.3f)" % (
+                      n, a, b, kernel_bound(n, kern.build)[0] / a)
+                  for n, (a, b) in times.items()))))
     return kern, errs, rel, times
 
 
@@ -1360,9 +1359,11 @@ def phase_batched_kernels(card, kern, base, phase, tag, reps=100):
         del per, stacked, singles, out, ref, prepared, sc_b, ops_b
     ptxas = ptxas_summary(kern.build.build_info["ptxas"])
     print("phase %d batched kernels %s nb=%d (%s): %s | us batched "
-          "launch / %d single launches (bound us x%d): %s | ptxas: %s" % (
+          "launch / %d single launches (bound us x%d, the batched launch's "
+          "share of it): %s | ptxas: %s" % (
               phase, tag, NB, card, "; ".join(lines), NB, NB, "; ".join(
-                  "%s %.3f/%.3f (%.3f)" % (n, a * 1e3, b_ * 1e3, bd[0] * 1e3)
+                  "%s %.3f/%.3f (%.3f, %.3f)" % (
+                      n, a * 1e3, b_ * 1e3, bd[0] * 1e3, bd[0] / a)
                   for n, (a, b_, bd) in figures.items()), ptxas))
     return figures, errs
 
@@ -1942,12 +1943,13 @@ def phase_halo_kernels(card):
         print("phase 25 B9 %s %s x3 on %s slabs (%s): every case of "
               "phases 2/5/8 within 1e-5 of plain (max rel %s), stitched "
               "bit-equal to the unsharded launch at every S | µs per launch "
-              "per slab at S=%d kernel/plain (bound, by): %s" % (
+              "per slab at S=%d kernel/plain (bound, by, share of the "
+              "bound): %s" % (
                   key, "x".join(map(str, shape)),
                   "/".join(map(str, B9_SPLITS)), card,
                   ", ".join("%s %.2e" % kv for kv in rel.items()), B9_TIMED,
-                  "; ".join("%s %.1f/%.1f (%.1f, %s)" % (
-                      n, a * 1e3, b * 1e3, bd * 1e3, by)
+                  "; ".join("%s %.1f/%.1f (%.1f, %s, %.3f)" % (
+                      n, a * 1e3, b * 1e3, bd * 1e3, by, bd / a)
                       for n, (a, b, _, bd, by) in times.items())))
         out[key] = (slab, errs, rel, times)
         del cases, states, full

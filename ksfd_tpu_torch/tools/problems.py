@@ -7,8 +7,13 @@ package or its tests).
 """
 
 from argparse import Namespace
+from pathlib import Path
 
-__all__ = ["OPTIONS92_PARAMS", "make_clargs", "bench_clargs"]
+__all__ = ["OPTIONS92_PARAMS", "make_clargs", "bench_clargs",
+           "example_params", "agg3d_clargs"]
+
+#: the repository's example option files
+EXAMPLES = Path(__file__).resolve().parents[2] / "examples"
 
 
 def make_clargs(params=(), source=(), cappotential="tophat",
@@ -59,3 +64,25 @@ def bench_clargs(n):
         "U0_2_1=",
     ]
     return make_clargs(params=params)
+
+
+def example_params(name):
+    """The ``name=value`` parameter lines of examples/<name>, up to its
+    numerics block, without ``nelements``."""
+    params = []
+    with open(EXAMPLES / name) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith(("--petsc", "--numerics")):
+                break
+            if line and not line.startswith(("#", "--", "nelements=")):
+                params.append(line)
+    return params
+
+
+def agg3d_clargs(n):
+    """The parameters of examples/aggregation3d (rho plus an attractant
+    and a repellent ligand group, degree 3, periodic unit cube) with
+    nelements=n."""
+    return make_clargs(params=example_params("aggregation3d")
+                       + ["nelements=%d" % n])

@@ -122,13 +122,14 @@ def wave_state(shape=SHAPE):
 
 
 def with_clamps(u, ops):
-    """Points below, at and NaN against the floors (active clamps)."""
+    """Points below, at and NaN against the floors (active clamps); on a
+    grid thinner than a point's index the index wraps."""
     u = u.copy()
     nx, ny, nz = u.shape[1:]
-    u[0, 3, 5, 2] = 0.5 * ops.rhomin
-    u[0, 7, 2, nz - 1] = ops.rhomin
-    u[1, 4, 4, 0] = ops.Umin
-    u[2, nx - 1, ny - 1, 9] = np.nan
+    u[0, 3 % nx, 5 % ny, 2] = 0.5 * ops.rhomin
+    u[0, 7 % nx, 2, nz - 1] = ops.rhomin
+    u[1, 4 % nx, 4 % ny, 0] = ops.Umin
+    u[2, nx - 1, ny - 1, 9 % nz] = np.nan
     return u
 
 
@@ -450,18 +451,17 @@ struct ksfd_uint3 { unsigned x, y, z; };
 static ksfd_uint3 blockIdx, threadIdx;
 static inline void __syncthreads() {}
 #include "stencil3d.cu"
-float ksfd_smem[NARR * HN];
+float ksfd_smem[SMEM_FLOATS_MAX];
 
-// one host thread walks every block of the 1D launch grid of nb
-// members' tiles in turn
+// one host thread walks every block of the kernel's 1D launch grid of
+// nb members in turn (the grid as the source exports it)
 extern "C" int run(int which, const float* sc, const float* a,
                    const float* b, const float* c, float* out, int nx,
                    int ny, int nz, int nb) {
   threadIdx = {0, 0, 0};
-  const unsigned blocks = nb * ((nz + TZ - 1) / TZ) * ((ny + TY - 1) / TY) *
-                          ((nx + TX - 1) / TX);
-  for (unsigned bx = 0; bx < blocks; ++bx) {
-    blockIdx = {bx, 0, 0};
+  const long long blocks = ksfd_blocks(which, nx, ny, nz, nb);
+  for (long long bx = 0; bx < blocks; ++bx) {
+    blockIdx = {(unsigned)bx, 0, 0};
     if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny, nz);
     if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny, nz);
     if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny, nz);
@@ -476,14 +476,18 @@ extern "C" int run(int which, const float* sc, const float* a,
 HOST_KERNELS = dict(jvp=0, resid=1, delta=2, rhs=3)
 
 
-def host_kernels_3d(tops, tmp_path):
-    """csrc/stencil3d.cu's kernel bodies compiled as host C++
-    (KSFD_NT=1) with the problem's header: ``run(which, sc, a, b, c,
-    out, nx, ny, nz, nb)``."""
+def host_kernels_3d(tops, tmp_path, source=None):
+    """csrc/stencil3d.cu's kernel bodies (or the text ``source`` in its
+    place) compiled as host C++ (KSFD_NT=1) with the problem's header:
+    ``run(which, sc, a, b, c, out, nx, ny, nz, nb)``."""
     cxx = _cxx()
     fk = make_fused_kernels(tops)
+    tmp_path.mkdir(parents=True, exist_ok=True)
     (tmp_path / "ksfd_pointwise.cuh").write_text(fk.build.header)
-    shutil.copy(CSRC3D, tmp_path / "stencil3d.cu")
+    if source is None:
+        shutil.copy(CSRC3D, tmp_path / "stencil3d.cu")
+    else:
+        (tmp_path / "stencil3d.cu").write_text(source)
     (tmp_path / "shim.cpp").write_text(_KERNEL_SHIM)
     lib = tmp_path / "libkern.so"
     proc = subprocess.run(
@@ -588,6 +592,89 @@ def test_cuda_source_batched_bodies_match_single_members(shape, tmp_path):
         ref = vmap(k.body)(sc_b, ops_b)
         assert float((out - ref).abs().max()) <= 1e-5 * float(
             ref.abs().max()), name
+
+
+#: x extents of the march (jvp and resid walk x in chunks of up to LX =
+#: 32 planes): several chunks with a ragged last one, several whole
+#: chunks, and fewer planes than one chunk (nx = 2*sw + 1, every plane
+#: of the window wrapped once)
+MARCH_SHAPES = {"chunks_ragged": (70, 9, 33), "chunks_whole": (64, 6, 32),
+                "nx_2sw1": (5, 17, 40)}
+
+
+@pytest.mark.parametrize("shape", list(MARCH_SHAPES.values()),
+                         ids=list(MARCH_SHAPES))
+@pytest.mark.parametrize("name", ["jvp", "resid"])
+def test_cuda_march_bodies_match_plain_and_members(name, shape, tmp_path):
+    """The march bodies of csrc/stencil3d.cu (jvp and resid), compiled
+    as host C++ (KSFD_NT=1) and launched on the grid the source exports
+    (``ksfd_blocks``): within 1e-5 of max|plain| of the plain version on
+    a raw state with clamped and NaN points, and a batched run of three
+    members equal bit for bit to three single runs, where the x chunks
+    are several with a ragged last one, several whole ones, or fewer
+    planes than one chunk."""
+    clargs = make_clargs(params=aggregation3d_params(shape[0]))
+    _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    assert 2 * tops.sw + 1 == MARCH_SHAPES["nx_2sw1"][0]
+    fk, host = host_kernels_3d(tops, tmp_path)
+    host.ksfd_blocks.argtypes = [ctypes.c_int] * 5
+    host.ksfd_blocks.restype = ctypes.c_longlong
+    # the cases' chunk counts, against one chunk's blocks
+    which = HOST_KERNELS[name]
+    assert host.ksfd_blocks(which, *shape, 2) == 2 * -(-shape[0] // 32) * \
+        host.ksfd_blocks(which, 1, *shape[1:], 1)
+    k = fk.kernels[name]
+    per = batched_args_3d(tops, name, 3, shape, seed=31)
+    prepared = [k.prepare(*args) for args in per]
+    for sc, operands in prepared:
+        out = host_run_3d(host, name, sc, operands, shape, 3)
+        ref = k.body(sc, operands)
+        assert torch.isfinite(out).all()
+        err = float((out - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), err
+    sc_b = torch.stack([p[0] for p in prepared])
+    ops_b = [torch.stack(xs) for xs in zip(*[p[1] for p in prepared])]
+    out = host_run_3d(host, name, sc_b, ops_b, shape, 3)
+    for i, (sc, operands) in enumerate(prepared):
+        assert torch.equal(out[i], host_run_3d(host, name, sc, operands,
+                                               shape, 3)), i
+
+
+def test_probe_stencil3d_variants_follow_the_source(tmp_path):
+    """tools/probe_stencil3d.py's variants are text edits of the march
+    body of csrc/stencil3d.cu: every anchor is found once, every variant
+    differs from the source and compiles as host C++ (KSFD_NT=1), the
+    box bodies (rhs, delta) stay bit for bit what the source computes,
+    and ``full``, the source itself, keeps jvp and resid within 1e-5 of
+    max|plain|."""
+    from ksfd_tpu_torch.tools.probe_stencil3d import design_of, variants
+
+    src = CSRC3D.read_text()
+    assert design_of(src) == "march"
+    out = variants(src)
+    assert set(out) == {"full", "no_pointwise", "loads_only", "rows_only"}
+    assert out["full"] == src and len(set(out.values())) == len(out)
+    shape = (9, 7, 11)
+    clargs = make_clargs(params=aggregation3d_params(shape[0]))
+    _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    runs = {}
+    for variant, text in out.items():
+        fk, host = host_kernels_3d(tops, tmp_path / variant, source=text)
+        runs[variant] = {}
+        for name in HOST_KERNELS:
+            k = fk.kernels[name]
+            sc, operands = k.prepare(*batched_args_3d(tops, name, 1,
+                                                      shape)[0])
+            runs[variant][name] = host_run_3d(host, name, sc, operands,
+                                              shape, 3)
+            if variant == "full" and name in ("jvp", "resid"):
+                ref = k.body(sc, operands)
+                assert float((runs["full"][name] - ref).abs().max()) <= \
+                    1e-5 * float(ref.abs().max()), name
+    for variant, outs in runs.items():
+        for name in ("rhs", "delta"):
+            assert torch.equal(outs[name], runs["full"][name]), (variant,
+                                                                 name)
 
 
 @pytest.mark.cuda

@@ -341,16 +341,17 @@ struct ksfd_uint3 { unsigned x, y, z; };
 static ksfd_uint3 blockIdx, threadIdx;
 static inline void __syncthreads() {}
 #include "stencil3d.cu"
-float ksfd_smem[NARR * HN];
+float ksfd_smem[SMEM_FLOATS_MAX];
 
+// one member's grid as the source exports it (a halo-slab build has its
+// kernel's)
 extern "C" int run(int which, int halo, const float* sc,
                    const float* const* p, float* out, int nx, int ny,
                    int nz) {
   threadIdx = {0, 0, 0};
-  const unsigned blocks = ((nz + TZ - 1) / TZ) * ((ny + TY - 1) / TY) *
-                          ((nx + TX - 1) / TX);
-  for (unsigned bx = 0; bx < blocks; ++bx) {
-    blockIdx = {bx, 0, 0};
+  const long long blocks = ksfd_blocks(which, nx, ny, nz, 1);
+  for (long long bx = 0; bx < blocks; ++bx) {
+    blockIdx = {(unsigned)bx, 0, 0};
     if (!halo) {
       if (which == 0) jvp_kernel<false>(sc, p[0], p[1], nullptr, out, nx, ny, nz);
       if (which == 1) jvp_kernel<true>(sc, p[0], p[1], p[2], out, nx, ny, nz);
@@ -419,11 +420,14 @@ def with_clamps(u, ops):
     (2, (20, 36), (2, 4)),       # 10 and 5 rows: one ragged 16-row tile
     (2, (40, 68), (2,)),         # 20 rows: a full tile and a ragged one
     (3, (12, 10, 20), (2, 4)),   # 6 and 3 rows: ragged 4-row tiles
+    (3, (8, 10, 20), (4,)),      # sw = 2 rows: the march's window in halos
+    (3, (140, 6, 9), (2,)),      # 70 rows: x chunks of 32, 32 and 6
 ])
 def test_cuda_halo_bodies_match_plain_and_stitch(dim, shape, splits,
                                                  tmp_path):
     """The halo-slab bodies of csrc/stencil{2,3}d.cu, compiled as host
-    C++ (KSFD_NT=1), on ragged slabs: within 1e-5 of max|plain| of the
+    C++ (KSFD_NT=1), on ragged slabs, 3D slabs of sw rows and of several
+    x chunks of the march: within 1e-5 of max|plain| of the
     B9 plain version, and stitched equal to the unsharded host bodies
     bit for bit (rhs, jvp, resid on a raw state with clamped and NaN
     points at the slab boundaries)."""
