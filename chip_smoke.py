@@ -12,9 +12,10 @@ phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the float32 matmul precision and the kernels' builds, with
-   ptxas's registers and spills, each 3D kernel's threads and dynamic
-   shared memory per block and its resident blocks per SM (the
-   library's ``ksfd_occupancy``) and, for csrc/pc2d.cu, the counts of
+   ptxas's registers and spills (no 3D kernel may spill), each 3D
+   kernel's threads and dynamic shared memory per block and its
+   resident blocks per SM (the library's ``ksfd_occupancy``) and, for
+   csrc/pc2d.cu, the counts of
    HGMMA (wgmma) and UTMALDG (TMA) instructions in each product
    (``cuobjdump -sass``, where the toolkit has it: each must have both);
 2. each 2D kernel against its plain PyTorch version on the card at
@@ -34,7 +35,7 @@ phases, each printing one line:
    and on the CPU, as phase 4;
 8. the float32 fast mode's rhs kernels against their plain versions:
    B7 at 1024^2 x 3, B6a at 256^3 x 3 and at 40 x 36 x 20 x 3, with
-   CUDA-event times of both;
+   CUDA-event times of both and each kernel's share of its bound;
 9. the fast mode's main path (``NumericsOptions(precision="float32")``)
    at 1024^2 x 3 and at 256^3 x 3, as phases 3 and 6;
 10. the fast mode on the card and on the CPU at 256^2 x 3 and 64^3 x 3,
@@ -116,6 +117,7 @@ nothing of JAX.  Profiles and long reports go to chiprun_out/.
 import ctypes
 import json
 import os
+import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -143,6 +145,8 @@ N_CMP = 256
 N3_BIG = 256
 N3_CMP = 64
 ODD3 = (40, 36, 20)
+#: the other field counts phase 5 holds the 3D kernels to at ODD3
+FIELDS3 = (2, 4)
 N_AGG = 1536                # examples/aggregation2d, the flagship
 RAGGED = (200, 136)         # a size whose pc tiles are ragged
 RAGGED4 = (201, 137)        # both axes not divisible by 4: the pc's pitched copy
@@ -462,6 +466,21 @@ def ptxas_summary(log, names=_PTXAS_NAMES):
     return "; ".join(" ".join(x) for x in out)
 
 
+def ptxas_spills(log, names=_PTXAS_NAMES):
+    """{kernel: (spill store bytes, spill load bytes)} from an ``nvcc
+    -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((n for m, n in names if m in line), line)
+        elif "spill stores" in line and name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
+
+
 def phase_build():
     """Build every kernel library the phases use, one nvcc per problem
     header (the stencil coefficients depend on the grid spacing), all
@@ -482,7 +501,8 @@ def phase_build():
         ("2d hexagons %d^2" % N_HEX, hex_clargs(), (N_HEX, N_HEX)),
         ("2d %d^2" % N_ENS_CMP, bench_clargs(N_ENS_CMP),
          (N_ENS_CMP, N_ENS_CMP)),
-    ]
+    ] + [("3d %dx%dx%dx%d" % (ODD3 + (dof,)), agg3d_clargs(ODD3[0], dof),
+          ODD3) for dof in FIELDS3]
     builds = []
     for label, clargs, shape in configs:
         # the header depends on the problem only, not on the device
@@ -511,6 +531,10 @@ def phase_build():
         "no cuobjdump" if sass is None else "; ".join(
             "%s HGMMA %d UTMALDG %d" % (n, c["HGMMA"], c["UTMALDG"])
             for n, c in sass.items() if n != "pitch copy")))
+    # every 3D kernel, unsharded and halo-slab, keeps its registers
+    spills = ptxas_spills(builds[2][1].build_info["ptxas"])
+    check(len(spills) == 8 and not any(any(v) for v in spills.values()),
+          "3D kernels spill: %s" % spills)
     print("phase 1 build: %d libraries in %.2f s wall (nvcc s: %s) | 3D "
           "per block: %s | %s" % (
               len(builds), wall,
@@ -548,7 +572,7 @@ def clamped(u_raw, ops):
                      for p in (97, 89, 7)[:dim])] = 0.5 * ops.rhomin
     raw[(0, 3, 5, 1)[:dim + 1]] = ops.rhomin
     raw[(1, 5, 7, 2)[:dim + 1]] = ops.Umin
-    raw[(2, 9, 11, 3)[:dim + 1]] = float("nan")
+    raw[(len(raw) - 1, 9, 11, 3)[:dim + 1]] = float("nan")
     return raw
 
 
@@ -678,9 +702,20 @@ def phase_kernels_3d(card):
     states = dict(rough_odd=rough_state_3d(grid, ps, dev))
     compare_kernels(kern_odd, kernel_cases(kern_odd, ops, states, gen),
                     errs, rel, lines)
-    print("phase 5 3D kernels vs plain 256^3x3 and %dx%dx%dx3 (%s): %s | "
-          "ms kernel/plain at 256^3 (share of the bound): %s" % (
-              ODD3 + (card, "; ".join(lines), "; ".join(
+    # other field counts (a point's raw values outnumber jvp's and
+    # resid's window arrays at 4): every kernel, rhs too
+    for dof in FIELDS3:
+        ps, grid, ops = problem_from_clargs(agg3d_clargs(ODD3[0], dof),
+                                            *ODD3, device=dev)
+        kern_f = make_fused_kernels(ops)
+        states = {"rough_odd_%dfields" % dof: rough_state_3d(grid, ps, dev)}
+        compare_kernels(kern_f, kernel_cases(kern_f, ops, states, gen)
+                        + rhs_cases(ops, states), {}, {}, lines)
+    print("phase 5 3D kernels vs plain 256^3x3 and %dx%dx%dx3 (and x%s "
+          "fields) (%s): %s | ms kernel/plain at 256^3 (share of the "
+          "bound): %s" % (
+              ODD3 + ("/".join(map(str, FIELDS3)), card, "; ".join(lines),
+                      "; ".join(
                   "%s %.4f/%.4f (%.3f)" % (
                       n, a, b, kernel_bound(n, kern.build)[0] / a)
                   for n, (a, b) in times.items()))))
@@ -720,10 +755,13 @@ def phase_rhs_kernels(card):
         errs[key], rel[key] = e["rhs"], r["rhs"]
         out[key] = (kern, time_kernels(kern, cases, "rough", 200, 20))
         del cases, states
+    share = {key: kernel_bound("rhs", out[key][0].build)[0]
+             / out[key][1]["rhs"][0] for key in out}
     print("phase 8 rhs kernels vs plain, B7 1024^2x3, B6a 256^3x3 and "
-          "%dx%dx%dx3 (%s): %s | ms kernel/plain: 2d %.4f/%.4f; 3d "
-          "%.4f/%.4f" % (ODD3 + (card, " | ".join(lines))
-                         + out["2d"][1]["rhs"] + out["3d"][1]["rhs"]))
+          "%dx%dx%dx3 (%s): %s | ms kernel/plain (share of the bound): 2d "
+          "%.4f/%.4f (%.3f); 3d %.4f/%.4f (%.3f)" % (
+              ODD3 + (card, " | ".join(lines)) + out["2d"][1]["rhs"]
+              + (share["2d"],) + out["3d"][1]["rhs"] + (share["3d"],)))
     return {key: (out[key][0], errs[key], rel[key], out[key][1]["rhs"])
             for key in ("2d", "3d")}
 

@@ -1,41 +1,56 @@
-"""Measurement probe: where the time of the 3D jvp and resid kernels goes.
+"""Measurement probe: where the time of the 3D stencil kernels goes.
 
-B6b (jvp) and B6c (resid) of csrc/stencil3d.cu share one body,
-``jvp_body<RESID, HALO>``.  It loads u and v around a tile, evaluates
-the pointwise functions (the groom, the masked tangent, G and dG.v)
-into shared memory, then computes the star-stencil rows from there.
-This probe builds variants of the source that drop one part at a time
-(each a text edit of ``jvp_body``, built into ``ksfd_tpu_torch/_build/``
-like the library itself) and times every variant's jvp and resid
-entries with CUDA events, in turns (in order, then reversed), on the
-aggregation3d problem (examples/aggregation3d) at n^3 x 3:
+The four kernels of csrc/stencil3d.cu (B6b jvp, B6c resid, B6d delta,
+B6a rhs) march along x: a block loads its operands plane by plane,
+evaluates the pointwise functions (the groom, the tangent mask, G, dG.v
+or G_delta) into a window in shared memory, then computes the
+star-stencil rows from there.  This probe builds variants of the source
+that drop one part at a time (each a text edit, built into
+``ksfd_tpu_torch/_build/`` like the library itself) and times every
+variant's four entries with CUDA events, in turns (in order, then
+reversed), on the aggregation3d problem (examples/aggregation3d) at
+n^3 x 3:
 
 - ``full``: the library as it is (checked against the plain versions to
   1e-5 of max|plain| first);
-- ``no_pointwise``: G and dG replaced by one loaded value each (the
+- ``no_pointwise``: G, dG and G_delta replaced by loaded values (the
   groom, the tangent mask and the rows stay);
-- ``loads_only``: the shared arrays filled (loads and evaluations), no
-  stencil rows computed: each output is its centre values, read and
-  written as before;
-- ``rows_only``: the loads of u and v replaced by constants (no global
-  reads of the stencil operands, no address arithmetic for them); the
-  evaluations and the rows stay.
+- ``loads_only``: the window filled (loads and evaluations), no stencil
+  rows computed: each output is its centre values, read and written as
+  before (delta and rhs still read their operand at the output point);
+- ``rows_only``: the loads of the stencil operands replaced by
+  constants of the data's size (fields 6000-7008, tangents and
+  increments -100-87.5: the branches and ranges of the pointwise
+  functions stay those of the timed state), so no global reads of them
+  and no address arithmetic for them; the evaluations and the rows
+  stay;
+- with ``--geometry POLICY=MY,NT,MINB`` (repeatable; POLICY one of
+  Jvp, Delta, Rhs): ``full`` with that policy's column tile MY x 32,
+  threads per block and resident blocks per SM (the registers ptxas
+  sizes for) in place of its own, a variant named e.g.
+  ``delta_16x32_2b`` that computes what ``full`` computes and is
+  checked like it.
 
-The variants other than ``full`` compute wrong numbers by design; they
-only time.  The edits know both designs of the body: the march along x
-(this source) and the box of PR 8 and before, so the probe also runs on
-an older copy of the source (``--source``).  Run on the card:
+The variants other than ``full`` and the geometries compute wrong
+numbers by design; they only time.  The edits know two copies of the
+source: this one (all four kernels march, design "march") and the one
+before it, where jvp/resid march and delta/rhs keep the earlier box
+body (design "box_delta_rhs", ``git show
+ba4c1c8:ksfd_tpu_torch/csrc/stencil3d.cu``), so the probe also runs on
+that copy (``--source``; no geometries there).  Run on the card:
 
     python -m ksfd_tpu_torch.tools.probe_stencil3d [--n 256] [--reps 20]
-        [--source path/to/stencil3d.cu]
+        [--source path/to/stencil3d.cu] [--geometry Delta=16,512,2 ...]
 
-It prints one line per variant (µs of jvp and resid, each turn, and
-ptxas's registers and spills of the two entries) and, last, one JSON
-line with the card's name and power limit and the mean µs per variant.
+It prints one line per variant (µs of jvp, resid, delta and rhs, each
+turn, and ptxas's registers and spills of the four unsharded entries)
+and, last, one JSON line with the card's name and power limit and the
+mean µs per variant and kernel.
 """
 
 import argparse
 import json
+import re
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -48,109 +63,191 @@ from ..utils.device import card_line
 from .probe_pc_ring import _event_us
 from .problems import agg3d_clargs
 
-__all__ = ["design_of", "variants", "build_variants", "run", "main"]
+__all__ = ["KERNELS", "design_of", "variants", "geometry", "build_variants",
+           "run", "main"]
 
-#: the body's edits by design: (old, new) pairs per variant, each old
-#: text found exactly once inside ``jvp_body``
-_EDITS = {
-    "box": {
-        "no_pointwise": [
-            ("    ksfd_dG(f, dg);\n",
-             "    for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
-            ("    s_G[i] = ksfd_G(f);\n", "    s_G[i] = f[0];\n"),
-        ],
-        "loads_only": [
-            ("    float row = graddot(&s_vr[c], &s_G[c]) + "
-             "graddot(&s_rho[c], &s_dG[c]) +\n"
-             "                vr * lap(&s_G[c]) + s_rho[c] * "
-             "lap(&s_dG[c]);\n",
-             "    float row = s_G[c] + s_dG[c];\n"),
-            ("      row = -ksfd_gamma(l) * vU[0] + ksfd_s(l) * vr + "
-             "ksfd_D(l) * lap(vU);\n", "      row = vU[0];\n"),
-        ],
-        "rows_only": [
-            ("      const float raw = up[k * w.plane + w.g];\n",
-             "      const float raw = 6000.0f + (float)((i + 7 * k) & 63);\n"),
-            ("      vm[k] = raw > lo ? vp[k * w.plane + w.g] : 0.0f;\n",
-             "      vm[k] = raw > lo ? 1.0f - (float)(i & 3) : 0.0f;\n"),
-        ],
-    },
-    "march": {
-        "no_pointwise": [
-            ("  ksfd_dG(f, dg);\n",
-             "  for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
-            ("  dst[1 * ds] = ksfd_G(f);\n", "  dst[1 * ds] = f[0];\n"),
-        ],
-        "loads_only": [
-            ("    float row = graddot(xvr, xG, &c_vr[c], &c_G[c]) +\n"
-             "                graddot(xrho, xdG, &c_rho[c], &c_dG[c]) +\n"
-             "                vr * lap(xG, &c_G[c]) + "
-             "c_rho[c] * lap(xdG, &c_dG[c]);\n",
-             "    float row = c_G[c] + c_dG[c];\n"),
-            ("      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +\n"
-             "            ksfd_D(l) * lap(xvU, &c_vU[l * CN + c]);\n",
-             "      row = xvU[SW];\n"),
-        ],
-        "rows_only": [
-            ("      copy_f32(&dst[k * ds + j], &ub[k * fs + off]);\n"
-             "      copy_f32(&dst[(DOF + k) * ds + j], &vb[k * fs + off]);\n",
-             "      dst[k * ds + j] = 6000.0f + (float)((j + 7 * k) & 63);\n"
-             "      dst[(DOF + k) * ds + j] = 1.0f - (float)(j & 3);\n"),
-        ],
-    },
-}
-#: where the text of each design's body (and its helpers) starts; it
-#: ends at the kernels that wrap it
-_STARTS = {"box": "void jvp_body(",
-           "march": "// -- the march of jvp and resid"}
-#: text found in that span of one design only
-_MARKS = {
-    "box": "const Rows w = box_rows<HALO>(",
-    "march": "for (int x = xa - 2 * SW; x < xb; ++x)",
+#: the kernels timed, in the order of each line
+KERNELS = ("jvp", "resid", "delta", "rhs")
+
+#: the march bodies of the jvp and resid kernels, in the copy before
+_JVP_BEFORE = {
+    "no_pointwise": [
+        ("  ksfd_dG(f, dg);\n",
+         "  for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
+        ("  dst[1 * ds] = ksfd_G(f);\n", "  dst[1 * ds] = f[0];\n"),
+    ],
+    "loads_only": [
+        ("    float row = graddot(xvr, xG, &c_vr[c], &c_G[c]) +\n"
+         "                graddot(xrho, xdG, &c_rho[c], &c_dG[c]) +\n"
+         "                vr * lap(xG, &c_G[c]) + "
+         "c_rho[c] * lap(xdG, &c_dG[c]);\n",
+         "    float row = c_G[c] + c_dG[c];\n"),
+        ("      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +\n"
+         "            ksfd_D(l) * lap(xvU, &c_vU[l * CN + c]);\n",
+         "      row = xvU[SW];\n"),
+    ],
+    "rows_only": [
+        ("      copy_f32(&dst[k * ds + j], &ub[k * fs + off]);\n"
+         "      copy_f32(&dst[(DOF + k) * ds + j], &vb[k * fs + off]);\n",
+         "      dst[k * ds + j] = 6000.0f + 16.0f * (float)((j + 7 * k) & 63);\n"
+         "      dst[(DOF + k) * ds + j] =\n"
+         "          12.5f * (float)(((j * 5 + k * 3) & 15) - 8);\n"),
+    ],
 }
 
+#: the box bodies of delta and rhs, in the copy before
+_BOX_BEFORE = {
+    "no_pointwise": [
+        ("    s_Gc[i] = ksfd_G(f) - G_mean;\n",
+         "    s_Gc[i] = f[0] - G_mean;\n"),
+        ("    const float G0c = ksfd_G(f) - G_mean;\n",
+         "    const float G0c = f[0] - G_mean;\n"),
+        ("    const float dG = ksfd_G_delta(f, dd, s);\n",
+         "    const float dG = dd[0] + s[1];\n"),
+    ],
+    "loads_only": [
+        ("    out[g] = graddot(&s_rc[c], &s_Gc[c]) + rho * lap(&s_Gc[c]);\n",
+         "    out[g] = s_Gc[c] + rho * s_rc[c];\n"),
+        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * Uc[0] + "
+         "ksfd_s(l) * rc +\n"
+         "                                 sc[2 + DOF + l] + ksfd_D(l) * "
+         "lap(Uc);\n",
+         "      out[(1 + l) * plane + g] = Uc[0];\n"),
+        ("    out[g] = graddot(&s_d0[c], &s_Gs[c]) + "
+         "graddot(&s_r0c[c], &s_dG[c]) +\n"
+         "             drho * lap(&s_Gs[c]) + u0[g] * lap(&s_dG[c]);\n",
+         "    out[g] = s_Gs[c] + u0[g] * s_dG[c];\n"),
+        ("      out[(1 + l) * plane + g] =\n"
+         "          -ksfd_gamma(l) * dU[0] + ksfd_s(l) * drho + "
+         "ksfd_D(l) * lap(dU);\n",
+         "      out[(1 + l) * plane + g] = dU[0];\n"),
+    ],
+    "rows_only": [
+        ("      const float raw = up[k * w.plane + w.g];\n",
+         "      const float raw = 6000.0f + 16.0f * (float)((i + 7 * k) & 63);\n"),
+        ("      f[k] = u0p[k * w.plane + w.g];\n"
+         "      dd[k] = dp[k * w.plane + w.g];\n"
+         "      s[k] = u1p[k * w.plane + w.g];\n",
+         "      f[k] = 6000.0f + 16.0f * (float)((i + 7 * k) & 63);\n"
+         "      dd[k] = 12.5f * (float)(((i * 5 + k * 3) & 15) - 8);\n"
+         "      s[k] = f[k] + dd[k];\n"),
+    ],
+}
 
-def _body_span(src, design):
-    """(start, end) of the design's body text in ``src``."""
-    a = src.index(_STARTS[design])
-    return a, src.index("jvp_kernel(", a)
+#: this source's march: the policies' point and row functions and the
+#: shared fetch
+_MARCH = {
+    "no_pointwise": [
+        ("    ksfd_dG(f, dg);\n",
+         "    for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
+        ("    dst[1 * ds] = ksfd_G(f);\n", "    dst[1 * ds] = f[0];\n"),
+        ("    const float G0c = ksfd_G(f) - s[2];\n",
+         "    const float G0c = f[0] - s[2];\n"),
+        ("    const float dG = ksfd_G_delta(f, dd, u1);\n",
+         "    const float dG = dd[0] + u1[1];\n"),
+        ("    dst[1 * ds] = ksfd_G(f) - s[1 + DOF];\n",
+         "    dst[1 * ds] = f[0] - s[1 + DOF];\n"),
+    ],
+    "loads_only": [
+        ("    float row = graddot(xvr, xG, c_vr, c_G) + "
+         "graddot(xrho, xdG, c_rho, c_dG) +\n"
+         "                vr * lap(xG, c_G) + c_rho[0] * lap(xdG, c_dG);\n",
+         "    float row = c_G[0] + c_dG[0];\n"),
+        ("      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +\n"
+         "            ksfd_D(l) * lap(xvU, at.centre(4 + l));\n",
+         "      row = xvU[SW];\n"),
+        ("    out[g] = graddot(xd0, xGs, c_d0, c_Gs) + "
+         "graddot(xr0c, xdG, c_r0c, c_dG) +\n"
+         "             drho * lap(xGs, c_Gs) + u0[g] * lap(xdG, c_dG);\n",
+         "    out[g] = c_Gs[0] + u0[g] * c_dG[0];\n"),
+        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xdU[SW] +\n"
+         "                                 ksfd_s(l) * drho +\n"
+         "                                 ksfd_D(l) * lap(xdU, "
+         "at.centre(4 + l));\n",
+         "      out[(1 + l) * plane + g] = xdU[SW];\n"),
+        ("    out[g] = graddot(xrc, xGc, c_rc, c_Gc) + rho * lap(xGc, c_Gc);\n",
+         "    out[g] = c_Gc[0] + rho * c_rc[0];\n"),
+        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xUc[SW] + "
+         "ksfd_s(l) * rc +\n"
+         "                                 s[2 + DOF + l] +\n"
+         "                                 ksfd_D(l) * lap(xUc, "
+         "at.centre(2 + l));\n",
+         "      out[(1 + l) * plane + g] = xUc[SW];\n"),
+    ],
+    "rows_only": [
+        ("        copy_f32(to, &pl.p[i][k * fs + off]);\n",
+         "        *to = i == 1 ? 12.5f * (float)(((j * 5 + q * 3) & 15) - 8)\n"
+         "                     : 6000.0f + 16.0f * (float)((j + 7 * q) & 63);\n"),
+    ],
+}
+
+#: each copy of the source the probe knows: its edits, and text found
+#: in that copy only
+_DESIGNS = {
+    "march": (_MARCH, "struct Delta {"),
+    "box_delta_rhs": ({n: _JVP_BEFORE[n] + _BOX_BEFORE[n]
+                       for n in _JVP_BEFORE},
+                      "const Rows w = box_rows<HALO>("),
+}
+
+#: a policy's geometry line: its column tile, threads, blocks per SM
+_GEOMETRY = re.compile(r"(struct (Jvp|Delta|Rhs) \{\n  static constexpr int "
+                       r"MY = )\d+(, NT = KSFD_THREADS\()\d+(\), MINB = )\d+;")
 
 
 def design_of(src):
-    """"march" or "box": the design of the source's jvp_body."""
-    found = [d for d, mark in _MARKS.items()
-             if _STARTS[d] in src and mark in src[slice(*_body_span(src, d))]]
+    """"march" (every kernel marches) or "box_delta_rhs" (jvp/resid
+    march, delta/rhs keep the box body): the copy of
+    csrc/stencil3d.cu."""
+    found = [d for d, (_, mark) in _DESIGNS.items() if mark in src]
     if len(found) != 1:
-        raise RuntimeError("csrc/stencil3d.cu changed: jvp_body is neither "
-                           "the box nor the march design the probe knows")
+        raise RuntimeError("csrc/stencil3d.cu changed: it is neither the "
+                           "march nor the box_delta_rhs copy that the "
+                           "probe knows")
     return found[0]
 
 
 def variants(src):
     """The variants' sources by name, from the text of a
-    csrc/stencil3d.cu (either design)."""
+    csrc/stencil3d.cu (either copy)."""
     out = {"full": src}
-    design = design_of(src)
-    for name, edits in _EDITS[design].items():
-        a, b = _body_span(src, design)
-        body = src[a:b]
+    for name, edits in _DESIGNS[design_of(src)][0].items():
+        text = src
         for old, new in edits:
-            if body.count(old) != 1:
+            if text.count(old) != 1:
                 raise RuntimeError(
                     "csrc/stencil3d.cu changed: the probe's anchor %r is "
-                    "not found once in jvp_body" % old.strip()[:60])
-            body = body.replace(old, new)
-        out[name] = src[:a] + body + src[b:]
+                    "not found once" % old.strip()[:60])
+            text = text.replace(old, new)
+        out[name] = text
     return out
 
 
-def build_variants(header, source=CSRC3D):
+def geometry(src, spec):
+    """(name, source): ``src`` (the march) with the launch geometry of
+    ``spec``, "POLICY=MY,NT,MINB", in place of that policy's own."""
+    policy, nums = spec.split("=")
+    my, nt, minb = (int(n) for n in nums.split(","))
+    text, n = _GEOMETRY.subn(
+        lambda m: (m.group(1) + str(my) + m.group(3) + str(nt) + m.group(4)
+                   + str(minb) + ";") if m.group(2) == policy else m.group(0),
+        src)
+    if design_of(src) != "march" or text == src:
+        raise RuntimeError("csrc/stencil3d.cu: no march policy %r to give "
+                           "the geometry %r" % (policy, nums))
+    return "%s_%dx32_%db" % (policy.lower(), my, minb), text
+
+
+def build_variants(header, source=CSRC3D, geometries=()):
     """The variants' (library, build info) by name, one nvcc each, all
-    started together, for one problem's pointwise header."""
+    started together, for one problem's pointwise header; each of
+    ``geometries`` (``geometry``'s specs) adds a geometry of ``full``."""
     text = Path(source).read_text()
     tag = design_of(text)
     paths = {}
-    for name, vtext in variants(text).items():
+    out = variants(text)
+    out.update(geometry(text, spec) for spec in geometries)
+    for name, vtext in out.items():
         paths[name] = BUILD_DIR / ("probe_s3d_%s_%s.cu" % (tag, name))
         paths[name].parent.mkdir(parents=True, exist_ok=True)
         paths[name].write_text(vtext)
@@ -160,15 +257,18 @@ def build_variants(header, source=CSRC3D):
         return dict(zip(paths, built))
 
 
+#: the unsharded entries' mangled names, as ptxas reports them
+_PTXAS = (("jvp_kernelILb0", "jvp"), ("jvp_kernelILb1", "resid"),
+          ("delta_kernel", "delta"), ("rhs_kernel", "rhs"))
+
+
 def _ptxas(log):
-    """Registers and spills of the jvp and resid kernels (the unsharded
-    entries) from an ``nvcc -Xptxas -v`` log."""
+    """Registers and spills of the four unsharded kernels from an
+    ``nvcc -Xptxas -v`` log."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = next((n for m, n in (("jvp_kernelILb0", "jvp"),
-                                        ("jvp_kernelILb1", "resid"))
-                         if m in line), None)
+            name = next((n for m, n in _PTXAS if m in line), None)
         elif name and "spill stores" in line:
             out.append("%s %s" % (name, line.split(",", 1)[1].strip()))
         elif name and "Used" in line and "registers" in line:
@@ -177,39 +277,55 @@ def _ptxas(log):
     return "; ".join(out)
 
 
-def run(kern, libs, reps=20):
-    """Check ``full`` of ``libs`` (build_variants) and time every
-    variant's jvp and resid in turns on a rough state of ``kern``'s
-    problem; returns {variant: [(jvp µs, resid µs), ...]}."""
+def cases(kern, gen):
+    """Each kernel's prepared (scalar pack, operands) on a rough state
+    of ``kern``'s problem: jvp and resid on the groomed f32 state with
+    random tangents, delta with increments of scale 100, rhs on the raw
+    state."""
     build = kern.build
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(5)
     shape = build.Vshape
     scale = torch.tensor([3.0, 1.0, 0.5][:build.dof] + [0.5] * (
         build.dof - 3), device=dev).view(-1, *([1] * (len(shape) - 1)))
-    raw = 6000.0 + 1000.0 * scale * torch.randn(
-        shape, generator=gen, device=dev).abs()
-    u = build.ops.groom(raw.double()).float()
-    v, b = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+    randn = lambda: torch.randn(shape, generator=gen, device=dev,
+                                dtype=torch.float64)
+    raw = 6000.0 + 1000.0 * scale * randn().abs()
+    u64 = build.ops.groom(raw)
+    u = u64.float()
+    v, b = randn().float(), randn().float()
+    u1 = build.ops.groom(u64 + 100.0 * randn())
     t = torch.zeros((), dtype=torch.float64, device=dev)
     shift = torch.full((), 2.29, dtype=torch.float64, device=dev)
-    cases = dict(jvp=(kern.jvp, kern.jvp.prepare(u, v, t)),
-                 resid=(kern.resid, kern.resid.prepare(u, v, b, t, shift)))
+    args = dict(jvp=(u, v, t), resid=(u, v, b, t, shift),
+                delta=(u64, u1 - u64, u1, t), rhs=(raw.float(), t.float()))
+    return {name: kern.kernels[name].prepare(*args[name])
+            for name in KERNELS}
+
+
+def run(kern, libs, reps=20, exact=("full",)):
+    """Check the variants ``exact`` of ``libs`` (build_variants: ``full``
+    and the geometries) against the plain versions and time every
+    variant's four kernels in turns on a rough state of ``kern``'s
+    problem; returns {variant: [(µs per kernel), ...]}."""
+    build = kern.build
+    prepared = cases(kern, torch.Generator(device="cuda").manual_seed(5))
     times = {name: [] for name in libs}
     try:
-        build._lib = libs["full"]
-        for name, (k, (sc, ops)) in cases.items():
-            got, want = k.launch(sc, ops), k.body(sc, ops)
-            err = float((got - want).abs().max())
-            if not err <= 1e-5 * float(want.abs().max()):
-                raise RuntimeError("stencil3d.cu %s against its plain "
-                                   "version: %.3e" % (name, err))
-            del got, want
-        for name in list(libs) + list(reversed(list(libs))):
-            build._lib = libs[name]
-            times[name].append(tuple(
-                _event_us(lambda: k.launch(sc, ops), reps)
-                for k, (sc, ops) in cases.values()))
+        for variant in exact:
+            build._lib = libs[variant]
+            for name, (sc, ops) in prepared.items():
+                k = kern.kernels[name]
+                got, want = k.launch(sc, ops), k.body(sc, ops)
+                err = float((got - want).abs().max())
+                if not err <= 1e-5 * float(want.abs().max()):
+                    raise RuntimeError("stencil3d.cu %s %s against its plain "
+                                       "version: %.3e" % (variant, name, err))
+                del got, want
+        for variant in list(libs) + list(reversed(list(libs))):
+            build._lib = libs[variant]
+            times[variant].append(tuple(
+                _event_us(lambda: kern.kernels[name].launch(sc, ops), reps)
+                for name, (sc, ops) in prepared.items()))
     finally:
         build._lib = None
     return times
@@ -222,19 +338,26 @@ def main(argv=None):
     ap.add_argument("--source", default=str(CSRC3D),
                     help="the csrc/stencil3d.cu to probe (default: this "
                     "checkout's)")
+    ap.add_argument("--geometry", action="append", default=[],
+                    metavar="POLICY=MY,NT,MINB",
+                    help="also time full with this launch geometry of a "
+                    "policy (Jvp, Delta, Rhs), e.g. Delta=16,512,2")
     args = ap.parse_args(argv)
     n = args.n
     _, _, ops = problem_from_clargs(agg3d_clargs(n), n, n, n, device="cuda")
     kern = make_fused_kernels(ops)
-    built = build_variants(kern.build.header, args.source)
+    built = build_variants(kern.build.header, args.source, args.geometry)
     libs = {name: lib for name, (lib, _) in built.items()}
-    times = run(kern, libs, args.reps)
+    text = Path(args.source).read_text()
+    exact = ["full"] + [geometry(text, g)[0] for g in args.geometry]
+    times = run(kern, libs, args.reps, exact)
     for name, turns in times.items():
-        print("%d^3x3 %-12s jvp %s us, resid %s us | %s" % (
-            n, name, " / ".join("%.1f" % t[0] for t in turns),
-            " / ".join("%.1f" % t[1] for t in turns),
+        print("%d^3x3 %-12s %s | %s" % (n, name, ", ".join(
+            "%s %s us" % (k, " / ".join("%.1f" % t[i] for t in turns))
+            for i, k in enumerate(KERNELS)),
             _ptxas(built[name][1]["ptxas"])))
-    means = {name: [sum(t[i] for t in turns) / len(turns) for i in (0, 1)]
+    means = {name: {k: sum(t[i] for t in turns) / len(turns)
+                    for i, k in enumerate(KERNELS)}
              for name, turns in times.items()}
     print(json.dumps({"card": card_line(), "n": n,
                       "design": design_of(Path(args.source).read_text()),

@@ -10,7 +10,7 @@ from argparse import Namespace
 from pathlib import Path
 
 __all__ = ["OPTIONS92_PARAMS", "make_clargs", "bench_clargs",
-           "example_params", "agg3d_clargs"]
+           "example_params", "with_fields", "agg3d_clargs"]
 
 #: the repository's example option files
 EXAMPLES = Path(__file__).resolve().parents[2] / "examples"
@@ -80,9 +80,25 @@ def example_params(name):
     return params
 
 
-def agg3d_clargs(n):
+def with_fields(params, dof):
+    """aggregation3d's (or aggregation2d's) parameter lines with ``dof``
+    fields: 3 as they are, 4 with a second repellent ligand (s 0.002,
+    gamma 0.005, D 3e-6), 2 with the attractant group only."""
+    if dof == 4:
+        return [p for p in params if p != "nligands_2=1"] + [
+            "nligands_2=2", "s_2_2=0.002", "gamma_2_2=0.005", "D_2_2=3e-6"]
+    if dof == 2:
+        return [p for p in params if p != "ngroups=2" and not p.startswith(
+            ("nligands_2", "alpha_2", "beta_2", "s_2_", "gamma_2_", "D_2_"))
+        ] + ["ngroups=1"]
+    if dof != 3:
+        raise ValueError("with_fields: dof %r is not 2, 3 or 4" % (dof,))
+    return list(params)
+
+
+def agg3d_clargs(n, dof=3):
     """The parameters of examples/aggregation3d (rho plus an attractant
     and a repellent ligand group, degree 3, periodic unit cube) with
-    nelements=n."""
-    return make_clargs(params=example_params("aggregation3d")
-                       + ["nelements=%d" % n])
+    nelements=n; ``dof`` as ``with_fields`` sets it."""
+    return make_clargs(params=with_fields(
+        example_params("aggregation3d"), dof) + ["nelements=%d" % n])

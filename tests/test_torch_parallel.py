@@ -45,11 +45,12 @@ from ksfd_tpu_torch.ops.fused_stencil3d import CSRC3D
 from ksfd_tpu_torch.parallel import mesh_shape_for
 from ksfd_tpu_torch.parallel.mesh import SlabMesh
 from ksfd_tpu_torch.tools.problems import bench_clargs
+from test_torch_3d import aggregation3d_params
+from test_torch_3d import rough_state as rough_state3d
 from torch_mesh_ranks import (
     H,
     N2,
     N2_SMALL,
-    aggregation3d_params,
     rough_state,
     run_ranks,
 )
@@ -412,7 +413,7 @@ def with_clamps(u, ops):
     for i, (x, val) in enumerate(((0, 0.5 * ops.rhomin),
                                   (nx // 2 - 1, ops.rhomin),
                                   (nx // 2, np.nan), (nx - 1, ops.Umin))):
-        u[(i % 3, x) + (1,) * (u.ndim - 2)] = val
+        u[(i % len(u), x) + (1,) * (u.ndim - 2)] = val
     return u
 
 
@@ -431,13 +432,27 @@ def test_cuda_halo_bodies_match_plain_and_stitch(dim, shape, splits,
     B9 plain version, and stitched equal to the unsharded host bodies
     bit for bit (rhs, jvp, resid on a raw state with clamped and NaN
     points at the slab boundaries)."""
-    clargs = (make_clargs(params=aggregation3d_params(shape[0]))
+    _halo_stitch(dim, shape, splits, tmp_path)
+
+
+@pytest.mark.parametrize("dof", [2, 4])
+def test_cuda_halo_bodies_stitch_other_field_counts(dof, tmp_path):
+    """As test_cuda_halo_bodies_match_plain_and_stitch, 3D, with 2 and
+    with 4 fields (a point's raw values outnumber jvp's and resid's
+    window arrays at 4), on slabs of several x chunks and of sw rows."""
+    _halo_stitch(3, (140, 6, 9), (2, 4), tmp_path, dof)
+    (tmp_path / "sw").mkdir()
+    _halo_stitch(3, (8, 10, 20), (4,), tmp_path / "sw", dof)
+
+
+def _halo_stitch(dim, shape, splits, tmp_path, dof=3):
+    clargs = (make_clargs(params=aggregation3d_params(shape[0], dof))
               if dim == 3 else bench_clargs(shape[0]))
     _, grid, tops = problem_from_clargs(clargs, *shape, device="cpu")
     full = make_fused_kernels(tops)
     host = host_library(full.build.header, CSRC3D if dim == 3 else CSRC,
                         _SHIM_3D if dim == 3 else _SHIM_2D, tmp_path)
-    raw = torch.from_numpy(with_clamps(rough_state(shape), tops))
+    raw = torch.from_numpy(with_clamps(rough_state3d(shape, dof=dof), tops))
     u64 = tops.groom(raw)
     args = entry_args(tops, u64, seed=7)
     for name in ("rhs", "jvp", "resid"):
@@ -447,12 +462,13 @@ def test_cuda_halo_bodies_match_plain_and_stitch(dim, shape, splits,
         slab = make_fused_kernels(tops, mesh=meshes[0])
         for name, a in args.items():
             sc, operands = full.kernels[name].prepare(*a)
-            ref_full = host_run(host, name, False, sc, operands, shape, 3)
+            ref_full = host_run(host, name, False, sc, operands, shape, dof)
             k = slab.kernels[name]
             outs = []
             for m in meshes:
                 ops_m = slab_operands(k, m, operands)
-                out = host_run(host, name, True, sc, ops_m, m.local_shape, 3)
+                out = host_run(host, name, True, sc, ops_m, m.local_shape,
+                               dof)
                 plain = k.body(sc, ops_m)
                 err = float((out - plain).abs().max())
                 assert torch.isfinite(out).all(), (name, S)
