@@ -12,14 +12,16 @@ phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the float32 matmul precision and the kernels' builds, with
-   ptxas's registers and spills (no 3D kernel may spill), each 3D
-   kernel's threads and dynamic shared memory per block and its
-   resident blocks per SM (the library's ``ksfd_occupancy``) and, for
+   ptxas's registers and spills (no stencil kernel of any build may
+   spill), each 2D and 3D kernel's threads and shared memory per block
+   and its resident blocks per SM (the library's ``ksfd_occupancy``)
+   and, for
    csrc/pc2d.cu, the counts of
    HGMMA (wgmma) and UTMALDG (TMA) instructions in each product
    (``cuobjdump -sass``, where the toolkit has it: each must have both);
 2. each 2D kernel against its plain PyTorch version on the card at
-   1024^2 x 3 f32, with CUDA-event times of both;
+   1024^2 x 3 f32, with CUDA-event times of both, and at 200 x 136 with
+   2 and 4 fields (the march's ragged strip and x chunk);
 3. the 2D main path at 1024^2 x 3 f64: ``make_multistep_fn`` with
    default numerics, chained fixed-dt steps at h=1 (2 and 10 steps),
    with exact launch counts, a finite state and embedded error, and the
@@ -34,7 +36,8 @@ phases, each printing one line:
 7. the 3D slice at 64^3 x 3 (examples/aggregation3d's size) on the card
    and on the CPU, as phase 4;
 8. the float32 fast mode's rhs kernels against their plain versions:
-   B7 at 1024^2 x 3, B6a at 256^3 x 3 and at 40 x 36 x 20 x 3, with
+   B7 at 1024^2 x 3 (and 200 x 136 with 2 and 4 fields), B6a at 256^3 x
+   3 and at 40 x 36 x 20 x 3, with
    CUDA-event times of both and each kernel's share of its bound;
 9. the fast mode's main path (``NumericsOptions(precision="float32")``)
    at 1024^2 x 3 and at 256^3 x 3, as phases 3 and 6;
@@ -47,7 +50,8 @@ phases, each printing one line:
     pitched copy, counted, with its profiled device µs), with CUDA-event
     times of each kernel, its plain version and the basis-GEMM pc's
     cuBLAS call for the same function, the 3xTF32 tensor-core bound and
-    the earlier float32 SIMT one;
+    the earlier float32 SIMT one; both ragged sizes also with 2 and 4
+    fields;
 12. the main path with ``pc_pallas=True`` at 1024^2 x 3, f64 and f32,
     as phases 3 and 9 (its profile must show no library GEMM), and on
     the card against the CPU at 256^2 x 3;
@@ -62,11 +66,13 @@ phases, each printing one line:
     probe's state (ksfd_tpu_torch/tools/probe_coeff_kernel.py): against
     its plain version and against B1, µs per launch of both, the
     probe's slope µs/sweep of both chains, the bounds and the ms of
-    ``prepare``;
+    ``prepare``; against its plain version at 200 x 136 with 2 and 4
+    fields;
 16. the member-batched builds of B1, B2, B3 and B7 at 1024^2 x 3 for 4
     distinct members: one batched launch under ``torch.func.vmap``
     against the 4 single launches (bit for bit) and the plain version,
-    µs of both, ptxas registers and spills;
+    µs of both, ptxas registers and spills; the same, not timed, at
+    200 x 136 with 2 and 4 fields;
 17. the ensemble's fixed-dt path (EnsembleSolver, block_steps) at
     1024^2 x 3 with 1, 4 and 8 members (f64) and 8 in the fast mode:
     exact launches per ensemble step whatever the member count, ms per
@@ -82,7 +88,7 @@ phases, each printing one line:
     members, as phase 16 (with the batched launch's share of its
     bound);
 21. the member-batched fused pc (B5a, B5b) at 1024^2 x 3 for 4 distinct
-    members, as phase 16;
+    members, as phase 16 (and at 200 x 136 with 2 and 4 fields);
 22. the 3D ensemble's fixed-dt path at 256^3 x 3 with 1 and 4 members
     (f64) and 4 in the fast mode, as phase 17, with the peak device
     memory;
@@ -93,7 +99,8 @@ phases, each printing one line:
     and the pc_pallas ensemble (64^2 x 3, 3 members) on the card and
     on the CPU, as phase 19;
 25. B9, the halo-slab builds of the four 2D and the four 3D stencil
-    kernels, at 1024^2 x 3 and 256^3 x 3 on 1, 2 and 4 slabs of one
+    kernels, at 1024^2 x 3 and 256^3 x 3 (and the 2D ones at 200 x 136
+    with 2 and 4 fields) on 1, 2 and 4 slabs of one
     global state in this one process (the halo rows cut from it): each
     slab within 1e-5 of max|plain| of its plain version, the stitched
     slabs bit for bit the unsharded launch, µs per launch per slab at 2
@@ -149,6 +156,9 @@ ODD3 = (40, 36, 20)
 FIELDS3 = (2, 4)
 N_AGG = 1536                # examples/aggregation2d, the flagship
 RAGGED = (200, 136)         # a size whose pc tiles are ragged
+#: the other field counts phases 2, 8, 11, 15, 16, 21 and 25 hold the 2D
+#: kernels to at RAGGED (a ragged strip and x chunk of the march)
+FIELDS2 = (2, 4)
 RAGGED4 = (201, 137)        # both axes not divisible by 4: the pc's pitched copy
 N_CHUNK_CMP = 128
 N_HEX = 384                 # examples/hexagons2d's own size
@@ -210,10 +220,11 @@ def hex_numerics(**kw):
 
 def initial_state(grid):
     """Port of __graft_entry__._initial_state, near-uniform ~9000, in
-    any dimension: 9000 + (1, 0.7, 0.1) * sin(2 pi (x + y [+ z]))."""
+    any dimension: 9000 + (1, 0.7, 0.1) * sin(2 pi (x + y [+ z])); with
+    2 fields the first two of them, with 4 a fourth at 0.4."""
     axes = [np.arange(n) / n for n in grid.Sshape]
     s = np.sin(2 * np.pi * sum(np.meshgrid(*axes, indexing="ij")))
-    return np.stack([9000.0 + s, 9000.0 + 0.7 * s, 9000.0 + 0.1 * s])
+    return np.stack([9000.0 + a * s for a in (1.0, 0.7, 0.1, 0.4)[:grid.dof]])
 
 
 def ligand_ratios(ps):
@@ -502,7 +513,9 @@ def phase_build():
         ("2d %d^2" % N_ENS_CMP, bench_clargs(N_ENS_CMP),
          (N_ENS_CMP, N_ENS_CMP)),
     ] + [("3d %dx%dx%dx%d" % (ODD3 + (dof,)), agg3d_clargs(ODD3[0], dof),
-          ODD3) for dof in FIELDS3]
+          ODD3) for dof in FIELDS3] + [
+        ("2d %dx%dx%d" % (RAGGED + (dof,)), bench_clargs(RAGGED[0], dof),
+         RAGGED) for dof in FIELDS2]
     builds = []
     for label, clargs, shape in configs:
         # the header depends on the problem only, not on the device
@@ -531,35 +544,48 @@ def phase_build():
         "no cuobjdump" if sass is None else "; ".join(
             "%s HGMMA %d UTMALDG %d" % (n, c["HGMMA"], c["UTMALDG"])
             for n, c in sass.items() if n != "pitch copy")))
-    # every 3D kernel, unsharded and halo-slab, keeps its registers
-    spills = ptxas_spills(builds[2][1].build_info["ptxas"])
-    check(len(spills) == 8 and not any(any(v) for v in spills.values()),
-          "3D kernels spill: %s" % spills)
-    print("phase 1 build: %d libraries in %.2f s wall (nvcc s: %s) | 3D "
-          "per block: %s | %s" % (
+    # every stencil kernel of every build, unsharded and halo-slab (9 in
+    # 2D with B11, 8 in 3D), keeps its registers
+    for label, b in builds[:-1]:
+        spills = ptxas_spills(b.build_info["ptxas"])
+        check(len(spills) == (9 if label.startswith("2d") else 8)
+              and not any(any(v) for v in spills.values()),
+              "%s kernels spill: %s" % (label, spills))
+    print("phase 1 build: %d libraries in %.2f s wall (nvcc s: %s) | 2D "
+          "per block: %s | 3D per block: %s | %s" % (
               len(builds), wall,
               ", ".join("%s %.2f" % (l, b.build_info["nvcc_seconds"])
                         for l, b in builds),
-              geometry_3d(builds[2][1].library()), " | ".join(reports)))
+              launch_geometry(builds[0][1].library(),
+                              ("jvp", "resid", "delta", "rhs",
+                               "coeff_resid"), "ksfd_smem_bytes", 1),
+              launch_geometry(builds[2][1].library(),
+                              ("jvp", "resid", "delta", "rhs"),
+                              "ksfd_smem_floats", 4),
+              " | ".join(reports)))
     return reports[-2], sass
 
 
-def geometry_3d(lib):
-    """Each 3D kernel's threads and dynamic shared memory per block and
-    its resident blocks per SM, unsharded and halo-slab
+def launch_geometry(lib, names, smem_fn, smem_unit):
+    """Each kernel's threads and shared memory per block and its
+    resident blocks per SM, unsharded and halo-slab (B11 has none)
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
-    library's ``ksfd_occupancy``), from a built csrc/stencil3d.cu."""
-    for fn, n_args in (("ksfd_threads", 1), ("ksfd_smem_floats", 1),
+    library's ``ksfd_occupancy``), from a built csrc/stencil2d.cu (its
+    static shared memory, ``ksfd_smem_bytes``) or csrc/stencil3d.cu (its
+    dynamic shared memory, ``ksfd_smem_floats``)."""
+    for fn, n_args in (("ksfd_threads", 1), (smem_fn, 1),
                        ("ksfd_occupancy", 2)):
         getattr(lib, fn).argtypes = [ctypes.c_int] * n_args
         getattr(lib, fn).restype = ctypes.c_int
     out = []
-    for which, name in enumerate(("jvp", "resid", "delta", "rhs")):
-        occ = (lib.ksfd_occupancy(which, 0), lib.ksfd_occupancy(which, 1))
-        check(min(occ) > 0, "3D %s: no block resident per SM" % name)
-        out.append("%s %d threads %d B, %d blocks/SM (halo %d)" % (
-            name, lib.ksfd_threads(which), 4 * lib.ksfd_smem_floats(which),
-            *occ))
+    for which, name in enumerate(names):
+        occ = [lib.ksfd_occupancy(which, h)
+               for h in ((0,) if name == "coeff_resid" else (0, 1))]
+        check(min(occ) > 0, "%s: no block resident per SM" % name)
+        out.append("%s %d threads %d B, %d blocks/SM%s" % (
+            name, lib.ksfd_threads(which),
+            smem_unit * getattr(lib, smem_fn)(which), occ[0],
+            " (halo %d)" % occ[1] if len(occ) > 1 else ""))
     return "; ".join(out)
 
 
@@ -660,7 +686,9 @@ def time_kernels(kern, cases, label, reps, plain_reps):
 
 
 def phase_kernels(card):
-    """Each 2D kernel against its plain version on the card, 1024^2 x 3."""
+    """Each 2D kernel against its plain version on the card at 1024^2 x
+    3 (timed, with each kernel's share of its bound) and at RAGGED with
+    2 and 4 fields (a ragged strip and x chunk of the march)."""
 
     dev = torch.device("cuda")
     ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
@@ -673,10 +701,33 @@ def phase_kernels(card):
     errs, rel, lines = {}, {}, []
     compare_kernels(kern, cases, errs, rel, lines)
     times = time_kernels(kern, cases, "rough", 200, 20)
-    print("phase 2 kernels vs plain 1024^2x3 (%s): %s | ms kernel/plain: "
-          "%s" % (card, "; ".join(lines), "; ".join(
-              "%s %.4f/%.4f" % (n, a, b) for n, (a, b) in times.items())))
+    del cases, states
+    # other field counts, on the march's ragged strip and x chunk
+    for dof in FIELDS2:
+        _, kern_f, _, states = fields_case(dof)
+        compare_kernels(kern_f, kernel_cases(kern_f, kern_f.build.ops,
+                                             states, gen), {}, {}, lines)
+    print("phase 2 kernels vs plain 1024^2x3 (and %dx%dx%s fields) (%s): %s "
+          "| ms kernel/plain: %s" % (
+              RAGGED + ("/".join(map(str, FIELDS2)), card, "; ".join(lines),
+                        "; ".join("%s %.4f/%.4f (%.3f)" % (
+                            n, a, b, kernel_bound(n, kern.build)[0] / a)
+                            for n, (a, b) in times.items()))))
     return kern, errs, rel, times
+
+
+def fields_case(dof):
+    """(ps, kernels, grid, {label: state}) of the bench problem at
+    RAGGED with ``dof`` fields (tools/problems.py with_fields), on the
+    card: the rough and the near-uniform state."""
+    dev = torch.device("cuda")
+    ps, grid, ops = problem_from_clargs(bench_clargs(RAGGED[0], dof),
+                                        *RAGGED, device=dev)
+    return ps, make_fused_kernels(ops), grid, {
+        "rough_%dfields" % dof: torch.as_tensor(rough_state(grid, ps),
+                                                device=dev),
+        "initial_%dfields" % dof: torch.as_tensor(initial_state(grid),
+                                                  device=dev)}
 
 
 def phase_kernels_3d(card):
@@ -755,12 +806,19 @@ def phase_rhs_kernels(card):
         errs[key], rel[key] = e["rhs"], r["rhs"]
         out[key] = (kern, time_kernels(kern, cases, "rough", 200, 20))
         del cases, states
+    for dof in FIELDS2:
+        _, kern_f, _, states = fields_case(dof)
+        l = []
+        compare_kernels(kern_f, rhs_cases(kern_f.build.ops, states), {}, {},
+                        l)
+        lines.append("2d %dx%dx%d: %s" % (RAGGED + (dof, "; ".join(l))))
     share = {key: kernel_bound("rhs", out[key][0].build)[0]
              / out[key][1]["rhs"][0] for key in out}
-    print("phase 8 rhs kernels vs plain, B7 1024^2x3, B6a 256^3x3 and "
-          "%dx%dx%dx3 (%s): %s | ms kernel/plain (share of the bound): 2d "
-          "%.4f/%.4f (%.3f); 3d %.4f/%.4f (%.3f)" % (
-              ODD3 + (card, " | ".join(lines)) + out["2d"][1]["rhs"]
+    print("phase 8 rhs kernels vs plain, B7 1024^2x3 (and %dx%dx%s "
+          "fields), B6a 256^3x3 and %dx%dx%dx3 (%s): %s | ms kernel/plain "
+          "(share of the bound): 2d %.4f/%.4f (%.3f); 3d %.4f/%.4f (%.3f)" % (
+              RAGGED + ("/".join(map(str, FIELDS2)),) + ODD3
+              + (card, " | ".join(lines)) + out["2d"][1]["rhs"]
               + (share["2d"],) + out["3d"][1]["rhs"] + (share["3d"],)))
     return {key: (out[key][0], errs[key], rel[key], out[key][1]["rhs"])
             for key in ("2d", "3d")}
@@ -991,6 +1049,41 @@ def phase_pc_kernels(card):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     errs, rel, lines, figures = {}, {}, [], {}
+
+    def hold(pc, ops, grid, u64, what):
+        """pc_fwd and pc_inv on the scalar pack of a step from u64 and a
+        seeded v against their plain versions."""
+        sc = pc_step_scalars(ops, u64)[-1]
+        v = torch.randn(tuple(grid.Vshape), generator=gen, device=dev)
+        modes = pc.fwd(sc, v)
+        out = pc.inv(modes)
+        for name, got, ref in (("pc_fwd", modes, pc.fwd.plain(sc, v)),
+                               ("pc_inv", out, pc.inv.plain(modes))):
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(bool(torch.isfinite(got).all()),
+                  "%s %s finite" % (name, what))
+            check(err <= 1e-5 * scale, "%s %s: max err %.3e > 1e-5 * %.3e"
+                  % (name, what, err, scale))
+            errs[name] = max(errs.get(name, 0.0), err)
+            rel[name] = max(rel.get(name, 0.0), err / scale)
+            lines.append("%s/%s err %.3e (%.2e rel)" % (
+                name, what, err, err / scale))
+        return sc, v
+
+    # other field counts (2..MAX_NF a block), at both ragged sizes: read
+    # in place and through the pitched copy
+    for dof in FIELDS2:
+        for shape in (RAGGED, RAGGED4):
+            ps, grid, ops = problem_from_clargs(bench_clargs(shape[0], dof),
+                                                *shape, device=dev)
+            pc = make_fused_block_pc(grid, ops)
+            hold(pc, ops, grid, torch.as_tensor(rough_state(grid, ps),
+                                                device=dev),
+                 "%dx%dx%d/rough" % (shape + (dof,)))
+            check(pc.owner.pitch_copies == (2 * (shape == RAGGED4)),
+                  "%s: %d pitched copies" % (shape, pc.owner.pitch_copies))
     for label, clargs, shape in (
             ("%d^2" % N_BIG, bench_clargs(N_BIG), (N_BIG, N_BIG)),
             ("%d^2" % N_AGG, agg2d_clargs(N_AGG), (N_AGG, N_AGG)),
@@ -1002,23 +1095,7 @@ def phase_pc_kernels(card):
             rough=torch.as_tensor(rough_state(grid, ps), device=dev),
             initial=torch.as_tensor(initial_state(grid), device=dev))
         for sname, u64 in states.items():
-            sc = pc_step_scalars(ops, u64)[-1]
-            v = torch.randn(tuple(grid.Vshape), generator=gen, device=dev)
-            modes = pc.fwd(sc, v)
-            out = pc.inv(modes)
-            for name, got, ref in (("pc_fwd", modes, pc.fwd.plain(sc, v)),
-                                   ("pc_inv", out, pc.inv.plain(modes))):
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                scale = float(ref.abs().max())
-                what = "%s %s %s" % (name, label, sname)
-                check(bool(torch.isfinite(got).all()), what + " finite")
-                check(err <= 1e-5 * scale, "%s: max err %.3e > 1e-5 * %.3e"
-                      % (what, err, scale))
-                errs[name] = max(errs.get(name, 0.0), err)
-                rel[name] = max(rel.get(name, 0.0), err / scale)
-                lines.append("%s/%s/%s err %.3e (%.2e rel)" % (
-                    name, label, sname, err, err / scale))
+            sc, v = hold(pc, ops, grid, u64, "%s/%s" % (label, sname))
         check(pc.owner.pitch_copies == (4 * (shape == RAGGED4)),
               "%s: %d pitched copies" % (label, pc.owner.pitch_copies))
         if shape == RAGGED4:
@@ -1054,7 +1131,8 @@ def phase_pc_kernels(card):
         del states, lib, modes
     pitch_us, entry_us = figures.pop("pitch_copy")
     print("phase 11 pc kernels vs plain %d^2x3, %d^2x3, %dx%dx3 and "
-          "%dx%dx3 (%s): %s | ms kernel/plain/library (3xTF32 bound, by; "
+          "%dx%dx3 (both also x2 and x4) (%s): %s | ms kernel/plain/library "
+          "(3xTF32 bound, by; "
           "f32 SIMT bound): %s | %dx%dx3: pitched copy %.2f us of %.2f us "
           "device per entry call" % (
               N_BIG, N_AGG, RAGGED[0], RAGGED[1], RAGGED4[0], RAGGED4[1],
@@ -1285,6 +1363,23 @@ def phase_coeff_kernel(card):
     check(bool(torch.isfinite(out).all()), "B11 finite")
     check(err <= 1e-5 * scale, "B11 vs plain: max err %.3e > 1e-5 * %.3e"
           % (err, scale))
+    # other field counts, on the tile's ragged edges
+    fields = []
+    for dof in FIELDS2:
+        ps_f, kern_f, grid_f, states = fields_case(dof)
+        prep_f, b11_f = build_coeff_resid(kern_f.build.ops, kern_f)
+        u_f = states["rough_%dfields" % dof]
+        gen = torch.Generator(device=dev).manual_seed(23 + dof)
+        v_f = torch.randn(tuple(grid_f.Vshape), generator=gen, device=dev)
+        b_f = torch.randn(tuple(grid_f.Vshape), generator=gen, device=dev)
+        C_f = prep_f(u_f, t)
+        got, want = b11_f(C_f, v_f, b_f, t, shift), b11_f.plain(
+            C_f, v_f, b_f, t, shift)
+        torch.cuda.synchronize()
+        e_f = float((got - want).abs().max())
+        check(e_f <= 1e-5 * float(want.abs().max()), "B11 %d fields vs "
+              "plain: max err %.3e" % (dof, e_f))
+        fields.append("%d fields %.3e" % (dof, e_f))
     prepare, _ = build_coeff_resid(ops, kern)
     u64 = u32.double()
     p11 = b11.prepare(C, v, b, t, shift)
@@ -1298,11 +1393,13 @@ def phase_coeff_kernel(card):
     prepare_ms = cuda_ms(lambda: prepare(u64, t), 20)
     bounds = {n: kernel_bound(n, kern.build) for n in ms}
     print("phase 15 B11 coeff-field resid %d^2x3 (%s): vs plain err %.3e "
-          "(%.2e rel); vs B1 rel dev %.3e | us/launch kernel/plain: B11 "
+          "(%.2e rel); at %dx%d with %s; vs B1 rel dev %.3e | us/launch "
+          "kernel/plain: B11 "
           "%.3f/%.1f, B1 %.3f/%.1f, B1/B11 %.4f | bound us: B11 %.3f (%s), "
           "B1 %.3f (%s) | slope us/sweep (%d sweeps, min of %d): B1 %.3f, "
           "B11 %.3f, B1/B11 %.4f | prepare %.4f ms | probe launches %d" % (
-              N_BIG, card, err, err / scale, res["rel_dev"],
+              N_BIG, card, err, err / scale, RAGGED[0], RAGGED[1],
+              ", ".join(fields), res["rel_dev"],
               ms["coeff_resid"][0] * 1e3, ms["coeff_resid"][1] * 1e3,
               ms["resid"][0] * 1e3, ms["resid"][1] * 1e3,
               ms["resid"][0] / ms["coeff_resid"][0],
@@ -1345,7 +1442,33 @@ def batched_cases(ops, gen, nb, base):
     return cases
 
 
-def phase_batched_kernels(card, kern, base, phase, tag, reps=100):
+def hold_batched(k, per):
+    """One kernel's NB members ``per`` (argument tuples) under
+    ``torch.func.vmap``: one launch (counted once), equal bit for bit
+    to the NB single launches and within 1e-5 of max|plain| of the plain
+    version under vmap.  Returns (max err, scale)."""
+    from torch.func import vmap
+
+    stacked = [torch.stack(xs) for xs in zip(*per)]
+    singles = [k(*args) for args in per]
+    n0 = k.launches
+    out = vmap(k)(*stacked)
+    torch.cuda.synchronize()
+    check(k.launches == n0 + 1, "%s under vmap launched %d times"
+          % (k.name, k.launches - n0))
+    ref = vmap(k.plain)(*stacked)
+    check(all(torch.equal(out[i], singles[i]) for i in range(NB)),
+          "%s batched launch equals %d single launches bit for bit"
+          % (k.name, NB))
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= 1e-5 * scale, "%s batched vs plain: %.3e > 1e-5 * %.3e"
+          % (k.name, err, scale))
+    return err, scale
+
+
+def phase_batched_kernels(card, kern, base, phase, tag, reps=100,
+                          fields=()):
     """The member-batched builds of the four stencil kernels of ``kern``
     (B1, B2, B3 and B7 in 2D; B6a-d in 3D) at the problem's size for NB
     distinct members made from ``base``: one launch under
@@ -1353,9 +1476,8 @@ def phase_batched_kernels(card, kern, base, phase, tag, reps=100):
     single launches and within 1e-5 of max|plain| of the plain version
     under vmap; CUDA-event µs of one batched launch against NB single
     launches and the bound of NB members; ptxas registers and spills of
-    the entries."""
-    from torch.func import vmap
-
+    the entries.  ``fields``: other field counts held (not timed) at
+    RAGGED, the march's ragged strip and x chunk (2D)."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     cases = batched_cases(kern.build.ops, gen, NB, base)
     lines, figures, errs = [], {}, {}
@@ -1363,26 +1485,13 @@ def phase_batched_kernels(card, kern, base, phase, tag, reps=100):
         # one kernel's members at a time (at 256^3 each holds GBs)
         per = cases.pop(name)
         k = kern.kernels[name]
-        stacked = [torch.stack(xs) for xs in zip(*per)]
-        singles = [k(*args) for args in per]
-        n0 = k.launches
-        out = vmap(k)(*stacked)
-        torch.cuda.synchronize()
-        check(k.launches == n0 + 1, "%s under vmap launched %d times"
-              % (name, k.launches - n0))
-        ref = vmap(k.plain)(*stacked)
-        check(all(torch.equal(out[i], singles[i]) for i in range(NB)),
-              "%s batched launch equals %d single launches bit for bit"
-              % (name, NB))
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        check(err <= 1e-5 * scale, "%s batched vs plain: %.3e > 1e-5 * %.3e"
-              % (name, err, scale))
+        err, scale = hold_batched(k, per)
         errs[name] = (err, err / scale)
         prepared = [k.prepare(*args) for args in per]
         sc_b = torch.stack([p[0] for p in prepared])
         ops_b = [torch.stack(xs) for xs in zip(*[p[1] for p in prepared])]
-        check(torch.equal(k.launch(sc_b, ops_b), out),
+        check(torch.equal(k.launch(sc_b, ops_b),
+                          torch.stack([k(*args) for args in per])),
               "%s prepared batched launch equals the vmapped one" % name)
 
         def four():
@@ -1394,7 +1503,15 @@ def phase_batched_kernels(card, kern, base, phase, tag, reps=100):
                          kernel_bound(name, kern.build, NB))
         lines.append("%s bitwise equal, vs plain %.3e (%.2e rel)" % (
             name, err, err / scale))
-        del per, stacked, singles, out, ref, prepared, sc_b, ops_b
+        del per, prepared, sc_b, ops_b
+    for dof in fields:
+        _, kern_f, _, states = fields_case(dof)
+        for name, per in batched_cases(
+                kern_f.build.ops, gen, NB,
+                states["rough_%dfields" % dof]).items():
+            err, scale = hold_batched(kern_f.kernels[name], per)
+            lines.append("%dx%dx%d %s bitwise equal, vs plain %.2e rel" % (
+                RAGGED + (dof, name, err / scale)))
     ptxas = ptxas_summary(kern.build.build_info["ptxas"])
     print("phase %d batched kernels %s nb=%d (%s): %s | us batched "
           "launch / %d single launches (bound us x%d, the batched launch's "
@@ -1460,9 +1577,27 @@ def phase_batched_pc(card):
                            cuda_ms(four, 50), pc_bound(k.name, grid, NB))
         lines.append("%s bitwise equal, vs plain %.3e (%.2e rel)" % (
             k.name, err, err / scale))
-    print("phase 21 batched pc kernels %d^2x3 nb=%d (%s): %s | us batched "
-          "launch / %d single launches (bound us x%d, by): %s" % (
-              N_BIG, NB, card, "; ".join(lines), NB, NB, "; ".join(
+    # other field counts at RAGGED (not timed)
+    for dof in FIELDS2:
+        _, kern_f, grid_f, states = fields_case(dof)
+        ops_f = kern_f.build.ops
+        pc_f = make_fused_block_pc(grid_f, ops_f)
+        base_f = states["rough_%dfields" % dof]
+        per_fwd = [(pc_step_scalars(ops_f, base_f * (1.0 + 0.05 * i),
+                                    h=1.0 + i)[-1],
+                    torch.randn(tuple(grid_f.Vshape), generator=gen,
+                                device=dev)) for i in range(NB)]
+        per_inv = [(pc_f.fwd(*a),) for a in per_fwd]
+        for k, per in ((pc_f.fwd, per_fwd), (pc_f.inv, per_inv)):
+            err, scale = hold_batched(k, per)
+            lines.append("%dx%dx%d %s bitwise equal, vs plain %.2e rel" % (
+                RAGGED + (dof, k.name, err / scale)))
+    print("phase 21 batched pc kernels %d^2x3 nb=%d (and %dx%dx%s fields) "
+          "(%s): %s | us batched launch / %d single launches (bound us x%d, "
+          "by): %s" % (
+              N_BIG, NB, RAGGED[0], RAGGED[1],
+              "/".join(map(str, FIELDS2)), card, "; ".join(lines), NB, NB,
+              "; ".join(
                   "%s %.3f/%.3f (%.3f, %s)" % (n, a * 1e3, b_ * 1e3,
                                                bd[0] * 1e3, bd[1])
                   for n, (a, b_, bd) in figures.items())))
@@ -1634,7 +1769,7 @@ def phase_ensemble_fixed(card, clargs, shape, runs, phase, pc_pallas=False,
 def hex_starts(grid, n, seed):
     """n starts 9000 + 90 N(0,1) per field, member i from numpy seed
     seed + i: a stand-in for ic.py's srho0=90 noisy uniform start
-    (ROADMAP Queue A item 8 brings ic.py)."""
+    (ROADMAP Queue A item 4, A8 part 1, brings ic.py)."""
     return np.stack([
         9000.0 + 90.0 * np.random.default_rng(seed + i).standard_normal(
             tuple(grid.Vshape))
@@ -1915,7 +2050,8 @@ def halo_bound(name, build, S):
 
 
 def phase_halo_kernels(card):
-    """B9: each halo-slab kernel (2D at 1024^2 x 3, 3D at 256^3 x 3) on
+    """B9: each halo-slab kernel (2D at 1024^2 x 3 and, not timed, at
+    RAGGED with 2 and 4 fields; 3D at 256^3 x 3) on
     S in B9_SPLITS slabs of one global state, in one process, the halo
     rows cut from it: every slab within 1e-5 of max|plain| of its plain
     version, the stitched slabs bit for bit the unsharded launch under
@@ -1924,12 +2060,14 @@ def phase_halo_kernels(card):
     slab at S = B9_TIMED beside its plain version and its bound."""
     dev = torch.device("cuda")
     out = {}
+    rough2 = lambda grid, ps: torch.as_tensor(rough_state(grid, ps),
+                                              device=dev)
     for key, clargs, shape, make_rough in (
-        ("2d", bench_clargs(N_BIG), (N_BIG, N_BIG),
-         lambda grid, ps: torch.as_tensor(rough_state(grid, ps), device=dev)),
+        ("2d", bench_clargs(N_BIG), (N_BIG, N_BIG), rough2),
         ("3d", agg3d_clargs(N3_BIG), (N3_BIG,) * 3,
          lambda grid, ps: rough_state_3d(grid, ps, dev)),
-    ):
+    ) + tuple(("2d %d fields" % dof, bench_clargs(RAGGED[0], dof), RAGGED,
+               rough2) for dof in FIELDS2):
         ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
         full = make_fused_kernels(ops)
         gen = torch.Generator(device=dev).manual_seed(13)
@@ -1969,7 +2107,7 @@ def phase_halo_kernels(card):
                 del outs, ref
                 if (S == B9_TIMED and label.split("/")[0] == "rough"
                         and not label.endswith(("clamped", "floor"))
-                        and name not in times):
+                        and name not in times and shape != RAGGED):
                     ops_m = slab_operands(k, meshes[0], operands)
                     reps = 200 if key == "2d" else 20
                     times[name] = (
@@ -1978,12 +2116,12 @@ def phase_halo_kernels(card):
                         None) + halo_bound(name, full.build, S)
                     del ops_m
             lines.append("S=%d bit-equal" % S)
-        print("phase 25 B9 %s %s x3 on %s slabs (%s): every case of "
+        print("phase 25 B9 %s %s x%d on %s slabs (%s): every case of "
               "phases 2/5/8 within 1e-5 of plain (max rel %s), stitched "
               "bit-equal to the unsharded launch at every S | µs per launch "
               "per slab at S=%d kernel/plain (bound, by, share of the "
               "bound): %s" % (
-                  key, "x".join(map(str, shape)),
+                  key, "x".join(map(str, shape)), grid.dof,
                   "/".join(map(str, B9_SPLITS)), card,
                   ", ".join("%s %.2e" % kv for kv in rel.items()), B9_TIMED,
                   "; ".join("%s %.1f/%.1f (%.1f, %s, %.3f)" % (
@@ -2528,7 +2666,8 @@ def main():
         "16", phase_batched_kernels, card, b11["kern"],
         torch.as_tensor(rough_state(b11["kern"].build.ops.grid,
                                     b11["kern"].build.ops.ps),
-                        device="cuda"), 16, "%d^2x3" % N_BIG)
+                        device="cuda"), 16, "%d^2x3" % N_BIG,
+        fields=FIELDS2)
     ens = timed("17", phase_ensemble_fixed, card, bench_clargs(N_BIG),
                 (N_BIG, N_BIG), ENS_RUNS, 17)
     hexa = timed("18", phase_ensemble_adaptive, card)

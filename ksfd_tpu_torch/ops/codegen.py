@@ -25,7 +25,8 @@ literals carry an ``F`` suffix and calls are the single-precision
 ``logf``/``tanhf``/``log1pf``/``powf``/``fmaxf``; without the alias the
 literals would be ``double`` and the arithmetic would silently run in
 float64.  ``where_`` prints as a C conditional, which keeps the
-where-form semantics of the Pallas body.  No ``--use_fast_math``: the
+where-form semantics of the Pallas body.  A square prints as a product,
+as ``torch.pow(x, 2)`` computes it.  No ``--use_fast_math``: the
 delta form's accuracy rests on the exact ``log1pf``/``logf``/``tanhf``.
 """
 
@@ -33,6 +34,7 @@ import numpy as np
 import sympy as sy
 from sympy.codegen.ast import float32, real
 from sympy.printing.c import C99CodePrinter
+from sympy.printing.precedence import PRECEDENCE
 
 from .stencil import deriv_coeffs
 
@@ -55,6 +57,15 @@ class _F32Printer(C99CodePrinter):
         if name == "expm1":
             return "expm1f(%s)" % self._print(expr.args[0])
         return super()._print_Function(expr)
+
+    def _print_Pow(self, expr):
+        # a square as the product the plain version computes (torch.pow
+        # with exponent 2 squares), not powf's exp2/log2 path; in
+        # parentheses, so that a factor before it multiplies the square
+        if expr.exp == 2:
+            base = self.parenthesize(expr.base, PRECEDENCE["Mul"])
+            return "(%s*%s)" % (base, base)
+        return super()._print_Pow(expr)
 
 
 def c_expr(expr, names):

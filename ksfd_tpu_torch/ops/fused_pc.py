@@ -38,12 +38,15 @@ operands, an ``(nb, 3 + 4 nl)`` pack, the members on ``blockIdx.z``,
 the bases and lam2d shared), counted once; on the CPU the plain version
 member by member.
 
-The port's gate is wider than the reference's and stricter about what
-it refuses.  Any 2D extent runs (no 128-alignment: the kernels mask
-ragged tiles).  A 3D grid, ``pc_dtype`` float64, more than
-``MAX_NF`` fields or a with-G state raise NotImplementedError naming
-their ROADMAP item instead of falling back to the cuBLAS apply, as the
-reference falls back to its einsums (ksfd_tpu/solvers/solver.py:258-282).
+The port's gate is wider than the reference's.  Any 2D extent runs (no
+128-alignment: the kernels mask ragged tiles).  ``make_fused_block_pc``
+refuses a 3D grid, ``pc_dtype`` float64, fields outside 2..``MAX_NF``
+and a with-G state (NotImplementedError naming the ROADMAP item).  The
+solvers decide where ``pc_pallas`` takes the basis-GEMM pc instead
+(solvers/solver.py ``_pc_pallas_fallback``): only where the reference's
+gate (ksfd_tpu/solvers/solver.py:258-282) falls back to its einsums
+too, so a request that runs a fused kernel there (fields outside
+2..MAX_NF on a grid ``reference_fuses`` admits) still raises here.
 """
 
 import ctypes
@@ -57,8 +60,8 @@ from .fused_stencil import build_library, call_kernel, register_kernel
 from .stencil import laplacian_eigendecomp
 
 __all__ = ["pack_pc_scalars", "fused_pc_available", "fused_pc_refusal",
-           "make_fused_block_pc", "PCKernel", "PC_BUILD", "MAX_NF",
-           "tf32", "split_planes", "scratch_floats"]
+           "reference_fuses", "make_fused_block_pc", "PCKernel", "PC_BUILD",
+           "MAX_NF", "tf32", "split_planes", "scratch_floats"]
 
 CSRC_PC = Path(__file__).resolve().parent.parent / "csrc" / "pc2d.cu"
 #: fields per block of the CUDA kernels (their register budget)
@@ -150,13 +153,25 @@ def fused_pc_refusal(grid, ops, pc_dtype="float32"):
     if ops is not None and grid.dof != ops.nligands + 1:
         return ("pc_pallas on a with-G state (ROADMAP Queue A item 10, "
                 "A13)")
-    if grid.dof > MAX_NF or grid.dof < 2:
-        return ("pc_pallas with %d fields (the CUDA kernels take 2..%d: "
-                "ROADMAP Queue B item 1, B5)" % (grid.dof, MAX_NF))
     if pc_dtype in ("float64", "f64"):
         return ("pc_pallas with pc_dtype float64 (the fused apply is "
                 "float32: ROADMAP Queue B item 1, B5)")
+    if grid.dof > MAX_NF or grid.dof < 2:
+        return ("pc_pallas with %d fields (the CUDA kernels take 2..%d: "
+                "ROADMAP Queue B item 1, B5)" % (grid.dof, MAX_NF))
     return None
+
+
+def reference_fuses(grid):
+    """Whether the reference's gate (ksfd_tpu/ops/pallas_pc.py:66-87,
+    ``pallas_pc_available``) admits the extents of this 2D grid: a
+    128-aligned x and y, and its resident fields and y basis within half
+    of its 100 MiB scoped-VMEM limit (pallas_stencil.py:77)."""
+    if grid.dim != 2:
+        return False
+    nx, ny = (int(n) for n in grid.nps)
+    resident = grid.dof * nx * ny * 4 + ny * ny * 4
+    return nx % 128 == 0 and ny % 128 == 0 and resident <= 50 * 2 ** 20
 
 
 def fused_pc_available(grid, ops=None, pc_dtype="float32"):

@@ -44,9 +44,11 @@ Still raising NotImplementedError, each naming its ROADMAP item: the
 vmapped adaptive chunk (``device_loop=True``, Queue A item 1, A11),
 member meshes, ``shard_members`` and slab meshes (Queue A item 11,
 A14), with-G
-states and ``refresh_G`` (Queue A item 10, A13), 1D problems (Queue A
-item 3, A16) and ``pc_pallas`` on a 3D problem (the fused pc is 2D, as
-the reference's is: Queue B item 1, B5).
+states and ``refresh_G`` (Queue A item 10, A13), 1D problems (Queue
+A item 3, A16) and ``pc_pallas`` with fields outside 2..MAX_NF where
+the reference's gate runs its fused pc (Queue B item 1, B5).
+``pc_pallas`` where the reference's gate falls back (a 3D problem,
+float64 transforms) takes the basis-GEMM pc (``build_info``).
 """
 
 import dataclasses
@@ -56,12 +58,12 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from ..ops.fused_pc import fused_pc_refusal, make_fused_block_pc
+from ..ops.fused_pc import make_fused_block_pc
 from ..ops.fused_stencil import make_fused_kernels
 from ..utils.cli import NumericsOptions
 from ..utils.debug import logger
 from ..utils.exceptions import KSFDException
-from .solver import make_multistep_fn, make_step_fn
+from .solver import _pc_pallas_fallback, make_multistep_fn, make_step_fn
 from .steppers import get_tableau
 
 logENS = logger("ENSEMBLE")
@@ -179,10 +181,6 @@ class EnsembleSolver:
         if dim not in (2, 3):
             todo.append("%dD ensembles (the fused kernels are 2D and 3D): "
                         "Queue A item 3 (A16)" % dim)
-        if n.pc_pallas:
-            why = fused_pc_refusal(ops.grid, ops)
-            if why is not None:
-                todo.append(why)
         if hasattr(ops, "refresh_G"):
             todo.append("with-G states (refresh_G): Queue A item 10 (A13)")
         if todo:
@@ -242,10 +240,12 @@ class EnsembleSolver:
                 else make_fused_kernels(self.ops))
         self.kernels = kern
         self.fused_pc = (make_fused_block_pc(self.ops.grid, self.ops)
-                         if nm.pc_pallas else None)
+                         if nm.pc_pallas and _pc_pallas_fallback(
+                             nm, self.ops) is None else None)
         kw = dict(atol=self.atol, rtol=self.rtol, kernels=kern,
                   fused_pc=self.fused_pc)
         step, _ = make_step_fn(self.ops, nm, **kw)
+        self.build_info = step.build_info
         self._vstep = vmap(step)
         self._vmulti = None
         if self.block_steps > 1 and nm.adapt_type == "none":

@@ -10,8 +10,11 @@ the Chebyshev recurrence of solvers/gmres.py on an interval estimated
 on the device from the pointwise diffusivity spread.  M is the float32
 block spectral preconditioner built from the float32 state's means,
 ``dG/drho`` and ``rho_diff``: in its basis-GEMM form
-(solvers/linalg.py), or with ``pc_pallas=True`` (2D) as the fused apply
-of ops/fused_pc.py, whose scalar pack is built once per step.
+(solvers/linalg.py), or with ``pc_pallas=True`` as the fused apply of
+ops/fused_pc.py, whose scalar pack is built once per step; where the
+reference's gate falls back too (a 3D grid, float64 transforms, a mesh,
+fields outside 2..MAX_NF on extents it refuses) ``pc_pallas`` takes the
+basis-GEMM form, and ``build_info`` says why.
 
 - **float64 (default ``NumericsOptions()``)**: the state and the
   solution and embedded-difference sums are float64; each sweep's
@@ -64,9 +67,10 @@ Everything else raises NotImplementedError naming its ROADMAP item:
 the host Solver loop (Queue A item 4, A8), DIRK (item 7, A9), the
 fixed-count Krylov stage solvers (item 9), dense/direct tiers (item 5,
 A12), the fast mode without the fused kernels (item 3, A16), the FFT
-preconditioner (item 8, A4), the fused preconditioner off its 2D
-float32 gate (Queue B item 1, B5), and on a mesh the GMRES step, y
-splits and other meshes (Queue A item 11, A14).
+preconditioner (item 8, A4), with-G states (item 10, A13), on a mesh
+the GMRES step, y splits and other meshes (Queue A item 11, A14), and
+``pc_pallas`` with fields outside 2..MAX_NF where the reference's gate
+runs its fused pc (Queue B item 1, B5).
 """
 
 import dataclasses
@@ -80,6 +84,7 @@ from ..ops.fused_pc import (
     fused_pc_refusal,
     make_fused_block_pc,
     pack_pc_scalars,
+    reference_fuses,
 )
 from ..ops.fused_stencil import check_mesh, make_fused_kernels
 from ..parallel.mesh import MESH_TODO, all_reduce_max, all_reduce_sum
@@ -146,9 +151,13 @@ def _check_numerics(numerics, ops, mesh=None):
         )
     if numerics.pc_fft != "off":
         todo.append("pc_fft %r (Queue A item 8, A4)" % numerics.pc_fft)
-    # on a mesh pc_pallas takes the basis-GEMM pc, as the reference's
-    # fused pc is single-shard (solver.py:258-265)
-    if numerics.pc_pallas and mesh is None:
+    # pc_pallas falls back to the basis-GEMM pc only where the
+    # reference's gate does (_pc_pallas_fallback); where that gate runs
+    # its fused kernels, so must the port
+    if numerics.pc_pallas and ops.grid.dof != ops.nligands + 1:
+        todo.append("pc_pallas on a with-G state (Queue A item 10, A13)")
+    elif numerics.pc_pallas and mesh is None and _reference_fuses(numerics,
+                                                                  ops):
         why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
         if why is not None:
             todo.append(why)
@@ -174,6 +183,36 @@ def _check_numerics(numerics, ops, mesh=None):
         raise NotImplementedError(
             "not ported yet (see ROADMAP): " + "; ".join(todo)
         )
+
+
+def _reference_fuses(numerics, ops):
+    """Whether the reference's gate (ksfd_tpu/solvers/solver.py:258-282)
+    runs its fused pc for this single-card request: float32 transforms,
+    the physical fields only, and extents its Pallas gate admits
+    (ops/fused_pc.py reference_fuses)."""
+    return (_pc_dtype(numerics) not in ("float64", "f64")
+            and ops.grid.dof == ops.nligands + 1
+            and reference_fuses(ops.grid))
+
+
+def _pc_pallas_fallback(numerics, ops, mesh=None):
+    """Why ``pc_pallas`` takes the basis-GEMM pc here, or None (the
+    fused pc runs, ``pc_pallas`` is off, or _check_numerics refuses the
+    request).  Only where the reference's gate falls back to its einsums
+    too: on a mesh (its fused pc is single-shard; the sharded apply
+    runs), on a 3D grid, with float64 transforms, and with fields
+    outside 2..MAX_NF on extents that the reference's gate refuses.
+    With such fields on extents it admits, the reference runs its fused
+    kernels and the port has none: the request raises (Queue B item 1,
+    B5)."""
+    if not numerics.pc_pallas:
+        return None
+    if mesh is not None:
+        return "on a mesh (the fused pc is single-shard)"
+    why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
+    if why is not None and _reference_fuses(numerics, ops):
+        return None
+    return why
 
 
 def _cheb_interval(numerics, shift, rho_dmin, rho_diff, cheb_lap):
@@ -225,7 +264,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     kernels: a ``make_fused_kernels(ops, mesh)`` namespace to share
     between builds (its launch counters then count both).  fused_pc:
     likewise a ``make_fused_block_pc`` apply, used when
-    ``numerics.pc_pallas``.
+    ``numerics.pc_pallas`` and the fused pc runs here.
 
     mesh: a parallel/mesh.py SlabMesh.  The step then runs SPMD, one
     rank per x-slab: u is this rank's local slab on ``mesh.device`` (as
@@ -237,7 +276,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     rank returns the same enorm.  The GMRES step raises on a mesh.
 
     The step (or the chain namespace) carries ``build_info``: which
-    kernel build, pc and pc dtype run, the mesh shape and the path.
+    kernel build, pc and pc dtype run, the mesh shape, the path and
+    (``pc_pallas_fallback``) why ``pc_pallas`` runs the basis-GEMM pc.
     """
     if mesh is not None:
         check_mesh(ops, mesh)
@@ -254,9 +294,10 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         raise ValueError("the kernels were built for mesh %r, the step for "
                          "%r" % (kern.mesh, mesh))
     pc_fused = pc_sharded = None
+    pc_fallback = _pc_pallas_fallback(numerics, ops, mesh)
     if mesh is not None:
         pc_sharded = make_sharded_block_apply(precond, ops, mesh)
-    elif numerics.pc_pallas:
+    elif numerics.pc_pallas and pc_fallback is None:
         pc_fused = (fused_pc if fused_pc is not None
                     else make_fused_block_pc(ops.grid, ops))
     iters = numerics.ksp_iters
@@ -282,6 +323,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             else "fused (B5a, B5b)" if pc_fused else "basis-GEMM"),
         mesh_shape=None if mesh is None else mesh.shape,
         ksp_type=numerics.ksp_type, cheb=use_cheb, fast32=fast32,
+        pc_pallas_fallback=pc_fallback,
     )
 
     def source(isrc, t):
@@ -532,7 +574,7 @@ def _shared_fused_pc(ops, numerics, mesh):
     make_adaptive_chunk_fn builds, or None.  The options are checked
     first, so a refused request raises as make_step_fn would."""
     numerics = numerics or NumericsOptions()
-    if mesh is not None or not numerics.pc_pallas:
+    if not numerics.pc_pallas or _pc_pallas_fallback(numerics, ops, mesh):
         return None
     _check_numerics(numerics, ops)
     return make_fused_block_pc(ops.grid, ops)

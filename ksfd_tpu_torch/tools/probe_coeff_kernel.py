@@ -90,14 +90,13 @@ def build_coeff_resid(ops, kernels=None):
 def probe_state(grid, device, seed=0):
     """The probe's rough state (tools/probe_coeff_kernel.py:231-241):
     numpy seed 0, fields ``6000 + (3000, 1000, 500)|N(0,1)|`` in
-    float64, then v and b N(0,1) in float32."""
+    float64 (a fourth field as the third; 2 fields: the first two),
+    then v and b N(0,1) in float32."""
     rng = np.random.default_rng(seed)
     shape = tuple(grid.Sshape)
-    u = np.stack([
-        6000 + 3000 * np.abs(rng.standard_normal(shape)),
-        6000 + 1000 * np.abs(rng.standard_normal(shape)),
-        6000 + 500 * np.abs(rng.standard_normal(shape)),
-    ])
+    dof = int(grid.Vshape[0])
+    u = np.stack([6000 + s * np.abs(rng.standard_normal(shape))
+                  for s in ((3000, 1000) + (500,) * (dof - 2))])
     v = rng.standard_normal(tuple(grid.Vshape)).astype(np.float32)
     b = rng.standard_normal(tuple(grid.Vshape)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (u, v, b))

@@ -32,15 +32,12 @@ n^3 x 3:
   checked like it.
 
 The variants other than ``full`` and the geometries compute wrong
-numbers by design; they only time.  The edits know two copies of the
-source: this one (all four kernels march, design "march") and the one
-before it, where jvp/resid march and delta/rhs keep the earlier box
-body (design "box_delta_rhs", ``git show
-ba4c1c8:ksfd_tpu_torch/csrc/stencil3d.cu``), so the probe also runs on
-that copy (``--source``; no geometries there).  Run on the card:
+numbers by design; they only time.  The edits know this source only:
+to probe an older copy, run that checkout's own probe from a ``git
+archive`` of it.  Run on the card:
 
     python -m ksfd_tpu_torch.tools.probe_stencil3d [--n 256] [--reps 20]
-        [--source path/to/stencil3d.cu] [--geometry Delta=16,512,2 ...]
+        [--geometry Delta=16,512,2 ...]
 
 It prints one line per variant (µs of jvp, resid, delta and rhs, each
 turn, and ptxas's registers and spills of the four unsharded entries)
@@ -52,7 +49,6 @@ import argparse
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import torch
 
@@ -63,76 +59,11 @@ from ..utils.device import card_line
 from .probe_pc_ring import _event_us
 from .problems import agg3d_clargs
 
-__all__ = ["KERNELS", "design_of", "variants", "geometry", "build_variants",
-           "run", "main"]
+__all__ = ["KERNELS", "variants", "geometry", "build_variants", "run",
+           "main"]
 
 #: the kernels timed, in the order of each line
 KERNELS = ("jvp", "resid", "delta", "rhs")
-
-#: the march bodies of the jvp and resid kernels, in the copy before
-_JVP_BEFORE = {
-    "no_pointwise": [
-        ("  ksfd_dG(f, dg);\n",
-         "  for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
-        ("  dst[1 * ds] = ksfd_G(f);\n", "  dst[1 * ds] = f[0];\n"),
-    ],
-    "loads_only": [
-        ("    float row = graddot(xvr, xG, &c_vr[c], &c_G[c]) +\n"
-         "                graddot(xrho, xdG, &c_rho[c], &c_dG[c]) +\n"
-         "                vr * lap(xG, &c_G[c]) + "
-         "c_rho[c] * lap(xdG, &c_dG[c]);\n",
-         "    float row = c_G[c] + c_dG[c];\n"),
-        ("      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +\n"
-         "            ksfd_D(l) * lap(xvU, &c_vU[l * CN + c]);\n",
-         "      row = xvU[SW];\n"),
-    ],
-    "rows_only": [
-        ("      copy_f32(&dst[k * ds + j], &ub[k * fs + off]);\n"
-         "      copy_f32(&dst[(DOF + k) * ds + j], &vb[k * fs + off]);\n",
-         "      dst[k * ds + j] = 6000.0f + 16.0f * (float)((j + 7 * k) & 63);\n"
-         "      dst[(DOF + k) * ds + j] =\n"
-         "          12.5f * (float)(((j * 5 + k * 3) & 15) - 8);\n"),
-    ],
-}
-
-#: the box bodies of delta and rhs, in the copy before
-_BOX_BEFORE = {
-    "no_pointwise": [
-        ("    s_Gc[i] = ksfd_G(f) - G_mean;\n",
-         "    s_Gc[i] = f[0] - G_mean;\n"),
-        ("    const float G0c = ksfd_G(f) - G_mean;\n",
-         "    const float G0c = f[0] - G_mean;\n"),
-        ("    const float dG = ksfd_G_delta(f, dd, s);\n",
-         "    const float dG = dd[0] + s[1];\n"),
-    ],
-    "loads_only": [
-        ("    out[g] = graddot(&s_rc[c], &s_Gc[c]) + rho * lap(&s_Gc[c]);\n",
-         "    out[g] = s_Gc[c] + rho * s_rc[c];\n"),
-        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * Uc[0] + "
-         "ksfd_s(l) * rc +\n"
-         "                                 sc[2 + DOF + l] + ksfd_D(l) * "
-         "lap(Uc);\n",
-         "      out[(1 + l) * plane + g] = Uc[0];\n"),
-        ("    out[g] = graddot(&s_d0[c], &s_Gs[c]) + "
-         "graddot(&s_r0c[c], &s_dG[c]) +\n"
-         "             drho * lap(&s_Gs[c]) + u0[g] * lap(&s_dG[c]);\n",
-         "    out[g] = s_Gs[c] + u0[g] * s_dG[c];\n"),
-        ("      out[(1 + l) * plane + g] =\n"
-         "          -ksfd_gamma(l) * dU[0] + ksfd_s(l) * drho + "
-         "ksfd_D(l) * lap(dU);\n",
-         "      out[(1 + l) * plane + g] = dU[0];\n"),
-    ],
-    "rows_only": [
-        ("      const float raw = up[k * w.plane + w.g];\n",
-         "      const float raw = 6000.0f + 16.0f * (float)((i + 7 * k) & 63);\n"),
-        ("      f[k] = u0p[k * w.plane + w.g];\n"
-         "      dd[k] = dp[k * w.plane + w.g];\n"
-         "      s[k] = u1p[k * w.plane + w.g];\n",
-         "      f[k] = 6000.0f + 16.0f * (float)((i + 7 * k) & 63);\n"
-         "      dd[k] = 12.5f * (float)(((i * 5 + k * 3) & 15) - 8);\n"
-         "      s[k] = f[k] + dd[k];\n"),
-    ],
-}
 
 #: this source's march: the policies' point and row functions and the
 #: shared fetch
@@ -181,37 +112,16 @@ _MARCH = {
     ],
 }
 
-#: each copy of the source the probe knows: its edits, and text found
-#: in that copy only
-_DESIGNS = {
-    "march": (_MARCH, "struct Delta {"),
-    "box_delta_rhs": ({n: _JVP_BEFORE[n] + _BOX_BEFORE[n]
-                       for n in _JVP_BEFORE},
-                      "const Rows w = box_rows<HALO>("),
-}
-
 #: a policy's geometry line: its column tile, threads, blocks per SM
 _GEOMETRY = re.compile(r"(struct (Jvp|Delta|Rhs) \{\n  static constexpr int "
                        r"MY = )\d+(, NT = KSFD_THREADS\()\d+(\), MINB = )\d+;")
 
 
-def design_of(src):
-    """"march" (every kernel marches) or "box_delta_rhs" (jvp/resid
-    march, delta/rhs keep the box body): the copy of
-    csrc/stencil3d.cu."""
-    found = [d for d, (_, mark) in _DESIGNS.items() if mark in src]
-    if len(found) != 1:
-        raise RuntimeError("csrc/stencil3d.cu changed: it is neither the "
-                           "march nor the box_delta_rhs copy that the "
-                           "probe knows")
-    return found[0]
-
-
 def variants(src):
-    """The variants' sources by name, from the text of a
-    csrc/stencil3d.cu (either copy)."""
+    """The variants' sources by name, from the text of
+    csrc/stencil3d.cu."""
     out = {"full": src}
-    for name, edits in _DESIGNS[design_of(src)][0].items():
+    for name, edits in _MARCH.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
@@ -224,31 +134,30 @@ def variants(src):
 
 
 def geometry(src, spec):
-    """(name, source): ``src`` (the march) with the launch geometry of
-    ``spec``, "POLICY=MY,NT,MINB", in place of that policy's own."""
+    """(name, source): ``src`` with the launch geometry of ``spec``,
+    "POLICY=MY,NT,MINB", in place of that policy's own."""
     policy, nums = spec.split("=")
     my, nt, minb = (int(n) for n in nums.split(","))
     text, n = _GEOMETRY.subn(
         lambda m: (m.group(1) + str(my) + m.group(3) + str(nt) + m.group(4)
                    + str(minb) + ";") if m.group(2) == policy else m.group(0),
         src)
-    if design_of(src) != "march" or text == src:
+    if text == src:
         raise RuntimeError("csrc/stencil3d.cu: no march policy %r to give "
                            "the geometry %r" % (policy, nums))
     return "%s_%dx32_%db" % (policy.lower(), my, minb), text
 
 
-def build_variants(header, source=CSRC3D, geometries=()):
+def build_variants(header, geometries=()):
     """The variants' (library, build info) by name, one nvcc each, all
     started together, for one problem's pointwise header; each of
     ``geometries`` (``geometry``'s specs) adds a geometry of ``full``."""
-    text = Path(source).read_text()
-    tag = design_of(text)
+    text = CSRC3D.read_text()
     paths = {}
     out = variants(text)
     out.update(geometry(text, spec) for spec in geometries)
     for name, vtext in out.items():
-        paths[name] = BUILD_DIR / ("probe_s3d_%s_%s.cu" % (tag, name))
+        paths[name] = BUILD_DIR / ("probe_s3d_%s.cu" % name)
         paths[name].parent.mkdir(parents=True, exist_ok=True)
         paths[name].write_text(vtext)
     with ThreadPoolExecutor(len(paths)) as pool:
@@ -302,13 +211,15 @@ def cases(kern, gen):
             for name in KERNELS}
 
 
-def run(kern, libs, reps=20, exact=("full",)):
+def run(kern, libs, reps=20, exact=("full",), kernels=KERNELS):
     """Check the variants ``exact`` of ``libs`` (build_variants: ``full``
     and the geometries) against the plain versions and time every
-    variant's four kernels in turns on a rough state of ``kern``'s
+    variant's ``kernels`` in turns on a rough state of ``kern``'s
     problem; returns {variant: [(µs per kernel), ...]}."""
     build = kern.build
-    prepared = cases(kern, torch.Generator(device="cuda").manual_seed(5))
+    prepared = {name: prep for name, prep in cases(
+        kern, torch.Generator(device="cuda").manual_seed(5)).items()
+        if name in kernels}
     times = {name: [] for name in libs}
     try:
         for variant in exact:
@@ -318,8 +229,9 @@ def run(kern, libs, reps=20, exact=("full",)):
                 got, want = k.launch(sc, ops), k.body(sc, ops)
                 err = float((got - want).abs().max())
                 if not err <= 1e-5 * float(want.abs().max()):
-                    raise RuntimeError("stencil3d.cu %s %s against its plain "
-                                       "version: %.3e" % (variant, name, err))
+                    raise RuntimeError("%s %s %s against its plain version: "
+                                       "%.3e" % (build.csrc.name, variant,
+                                                 name, err))
                 del got, want
         for variant in list(libs) + list(reversed(list(libs))):
             build._lib = libs[variant]
@@ -335,9 +247,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--source", default=str(CSRC3D),
-                    help="the csrc/stencil3d.cu to probe (default: this "
-                    "checkout's)")
     ap.add_argument("--geometry", action="append", default=[],
                     metavar="POLICY=MY,NT,MINB",
                     help="also time full with this launch geometry of a "
@@ -346,9 +255,9 @@ def main(argv=None):
     n = args.n
     _, _, ops = problem_from_clargs(agg3d_clargs(n), n, n, n, device="cuda")
     kern = make_fused_kernels(ops)
-    built = build_variants(kern.build.header, args.source, args.geometry)
+    built = build_variants(kern.build.header, args.geometry)
     libs = {name: lib for name, (lib, _) in built.items()}
-    text = Path(args.source).read_text()
+    text = CSRC3D.read_text()
     exact = ["full"] + [geometry(text, g)[0] for g in args.geometry]
     times = run(kern, libs, args.reps, exact)
     for name, turns in times.items():
@@ -359,9 +268,7 @@ def main(argv=None):
     means = {name: {k: sum(t[i] for t in turns) / len(turns)
                     for i, k in enumerate(KERNELS)}
              for name, turns in times.items()}
-    print(json.dumps({"card": card_line(), "n": n,
-                      "design": design_of(Path(args.source).read_text()),
-                      "source": args.source, "us": means}))
+    print(json.dumps({"card": card_line(), "n": n, "us": means}))
 
 
 if __name__ == "__main__":

@@ -51,9 +51,10 @@ OPTIONS92_PARAMS = [
 ]
 
 
-def bench_clargs(n):
+def bench_clargs(n, dof=3):
     """The options84-class bench problem on an n x n grid: the
-    parameters of __graft_entry__._make_problem."""
+    parameters of __graft_entry__._make_problem; ``dof`` as
+    ``with_fields`` sets it."""
     params = [
         p for p in OPTIONS92_PARAMS
         if p.split("=", 1)[0]
@@ -63,7 +64,7 @@ def bench_clargs(n):
         "height=1", "rho0=murho + arho*sin(2*pi*(x+y))", "U0_1_1=",
         "U0_2_1=",
     ]
-    return make_clargs(params=params)
+    return make_clargs(params=with_fields(params, dof))
 
 
 def example_params(name):
@@ -81,18 +82,22 @@ def example_params(name):
 
 
 def with_fields(params, dof):
-    """aggregation3d's (or aggregation2d's) parameter lines with ``dof``
-    fields: 3 as they are, 4 with a second repellent ligand (s 0.002,
-    gamma 0.005, D 3e-6), 2 with the attractant group only."""
-    if dof == 4:
+    """aggregation3d's (or aggregation2d's, or the bench problem's)
+    parameter lines with ``dof`` fields: 3 as they are, 4 with a second
+    repellent ligand (s 0.002, gamma 0.005, D 3e-6), 5 also with a third
+    (s 0.003, gamma 0.004, D 4e-6), 2 with the attractant group only."""
+    if dof in (4, 5):
+        extra = ["s_2_2=0.002", "gamma_2_2=0.005", "D_2_2=3e-6"]
+        if dof == 5:
+            extra += ["s_2_3=0.003", "gamma_2_3=0.004", "D_2_3=4e-6"]
         return [p for p in params if p != "nligands_2=1"] + [
-            "nligands_2=2", "s_2_2=0.002", "gamma_2_2=0.005", "D_2_2=3e-6"]
+            "nligands_2=%d" % (dof - 2)] + extra
     if dof == 2:
         return [p for p in params if p != "ngroups=2" and not p.startswith(
             ("nligands_2", "alpha_2", "beta_2", "s_2_", "gamma_2_", "D_2_"))
         ] + ["ngroups=1"]
     if dof != 3:
-        raise ValueError("with_fields: dof %r is not 2, 3 or 4" % (dof,))
+        raise ValueError("with_fields: dof %r is not 2, 3, 4 or 5" % (dof,))
     return list(params)
 
 

@@ -690,14 +690,9 @@ def test_probe_stencil3d_variants_follow_the_source(tmp_path):
     tiles)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ksfd_tpu_torch.tools.probe_stencil3d import (
-        design_of,
-        geometry,
-        variants,
-    )
+    from ksfd_tpu_torch.tools.probe_stencil3d import geometry, variants
 
     src = CSRC3D.read_text()
-    assert design_of(src) == "march"
     out = variants(src)
     assert set(out) == {"full", "no_pointwise", "loads_only", "rows_only"}
     assert out["full"] == src and len(set(out.values())) == len(out)

@@ -11,7 +11,6 @@ those tests carry the ``cuda`` marker and skip elsewhere
 """
 
 import ctypes
-import os
 import shutil
 import subprocess
 
@@ -25,7 +24,9 @@ from ksfd_tpu.ops.pallas_stencil import make_pallas_kernels
 from ksfd_tpu_torch.interop import problem_from_clargs
 from ksfd_tpu_torch.ops import fused_stencil
 from ksfd_tpu_torch.ops.codegen import pointwise_header
-from ksfd_tpu_torch.ops.fused_stencil import CSRC, make_fused_kernels
+from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch.tools.problems import bench_clargs
+from test_torch_probe import host_kernels, host_run
 
 N = 32
 
@@ -237,90 +238,169 @@ def test_generated_header_matches_torchify(built, tmp_path):
     assert close(Gd, ref)
 
 
-_KERNEL_SHIM = r"""
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __shared__
-#define __restrict__
-#define __launch_bounds__(n)
-struct ksfd_uint3 { unsigned x, y, z; };
-static ksfd_uint3 blockIdx, threadIdx;
-static inline void __syncthreads() {}
-#include "stencil2d.cu"
-
-// one host thread walks every block of the launch grid in turn
-extern "C" int run(int which, const float* sc, const float* a,
-                   const float* b, const float* c, float* out, int nx,
-                   int ny) {
-  threadIdx = {0, 0, 0};
-  for (unsigned by = 0; by < (unsigned)((nx + TX - 1) / TX); ++by)
-    for (unsigned bx = 0; bx < (unsigned)((ny + TY - 1) / TY); ++bx) {
-      blockIdx = {bx, by, 0};
-      if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny);
-      if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny);
-      if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny);
-      if (which == 3) rhs_kernel(sc, a, out, nx, ny);
-    }
-  return 0;
-}
-"""
-
-
-@pytest.mark.parametrize("shape", [(N, N), (20, 36)])
-def test_cuda_source_bodies_match_plain(shape, tmp_path):
-    """The four kernel bodies of csrc/stencil2d.cu, compiled as host C++
-    (KSFD_NT=1), equal the plain versions to 1e-5 of max|plain| on a
-    tiled grid and on one whose tiles are ragged in both axes (the
-    periodic wrap and the bounds guards); jvp, resid and rhs on a raw
-    state with points below, at and NaN against the floors."""
-    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
-    if cxx is None:
-        pytest.skip("no C++ compiler found to compile the kernel bodies")
-    jps, _, _ = ge._make_problem(*shape)
-    _, _, tops = problem_from_clargs(jps.clargs, *shape, device="cpu")
-    fk = make_fused_kernels(tops)
-    (tmp_path / "ksfd_pointwise.cuh").write_text(fk.build.header)
-    shutil.copy(CSRC, tmp_path / os.path.basename(CSRC))
-    (tmp_path / "shim.cpp").write_text(_KERNEL_SHIM)
-    lib = tmp_path / "libkern.so"
-    proc = subprocess.run(
-        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-DKSFD_NT=1", "-I",
-         str(tmp_path), "-o", str(lib), str(tmp_path / "shim.cpp")],
-        capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    host = ctypes.CDLL(str(lib))
-    host.run.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                         + [ctypes.c_int] * 2)
-    rng = np.random.default_rng(9)
-    u = np.stack([
-        6000 + 3000 * np.abs(rng.standard_normal(shape)),
-        6000 + 1000 * np.abs(rng.standard_normal(shape)),
-        6000 + 500 * np.abs(rng.standard_normal(shape)),
-    ])
+def host_state(tops, shape, dof, seed=9):
+    """A raw rough state with points below, at and NaN against the
+    floors, and the kernels' arguments on it: jvp, resid and rhs on the
+    raw state, delta on the groomed one with increments of scale 100."""
+    rng = np.random.default_rng(seed)
+    u = np.stack([6000 + s * np.abs(rng.standard_normal(shape))
+                  for s in ((3000, 1000) + (500,) * (dof - 2))])
     u[0, 3, 5] = 0.5 * tops.rhomin
     u[0, shape[0] - 1, shape[1] - 1] = tops.rhomin
     u[1, 4, 4] = tops.Umin
-    u[2, 1, shape[1] - 1] = np.nan
+    u[dof - 1, 1, shape[1] - 1] = np.nan
     raw = torch.from_numpy(u)
     u64 = tops.groom(raw)
     v = torch.from_numpy(rng.standard_normal(u.shape))
     b = torch.from_numpy(rng.standard_normal(u.shape))
     d = torch.from_numpy(100.0 * rng.standard_normal(u.shape))
     u1 = tops.groom(u64 + d)
-    cases = [(0, fk.jvp, (raw, v, 0.5)), (1, fk.resid, (raw, v, b, 0.5, 7.5)),
-             (2, fk.delta, (u64, u1 - u64, u1, 0.5)),
-             (3, fk.kernels["rhs"], (raw, 0.5))]
-    for which, k, args in cases:
+    return dict(jvp=(raw, v, 0.5), resid=(raw, v, b, 0.5, 7.5),
+                delta=(u64, u1 - u64, u1, 0.5), rhs=(raw, 0.5))
+
+
+def host_problem(shape, dof):
+    """The bench problem's port ops at ``shape`` with ``dof`` fields (3:
+    __graft_entry__'s own parameters)."""
+    clargs = (ge._make_problem(*shape)[0].clargs if dof == 3
+              else bench_clargs(shape[0], dof))
+    return problem_from_clargs(clargs, *shape, device="cpu")[2]
+
+
+#: host cases of the 2D bodies: a tiled grid, one whose tiles are ragged
+#: in both axes, and strips and chunks of the march (40 rows: a chunk of
+#: two 16-row steps and one of 8 rows; 256 columns: four 64-column
+#: strips; 136: two and a ragged one of 8); with 2, 3 and 4 fields
+HOST_CASES = [
+    pytest.param((N, N), 3, id="shape0"),
+    pytest.param((20, 36), 3, id="shape1"),
+    pytest.param((40, 256), 3, id="strips"),
+    pytest.param((40, 136), 2, id="dof2_strips"),
+    pytest.param((40, 136), 4, id="dof4_strips"),
+    pytest.param((20, 36), 2, id="dof2_ragged"),
+    pytest.param((20, 36), 4, id="dof4_ragged"),
+]
+
+
+@pytest.mark.parametrize("shape,dof", HOST_CASES)
+def test_cuda_source_bodies_match_plain(shape, dof, tmp_path):
+    """The four kernel bodies of csrc/stencil2d.cu, compiled as host C++
+    (KSFD_NT=1), equal the plain versions to 1e-5 of max|plain| on a
+    tiled grid, on one whose tiles are ragged in both axes (the periodic
+    wrap and the bounds guards) and on strips and chunks of the march
+    (jvp, resid), with 2, 3 and 4 fields; jvp, resid and rhs on a raw
+    state with points below, at and NaN against the floors."""
+    tops = host_problem(shape, dof)
+    host = host_kernels(tops, tmp_path)
+    if host is None:
+        pytest.skip("no C++ compiler found to compile the kernel bodies")
+    fk = make_fused_kernels(tops)
+    for name, args in host_state(tops, shape, dof).items():
+        k = fk.kernels[name]
         sc, operands = k.prepare(*args)
-        ptrs = [x.data_ptr() for x in (sc, *operands)]
-        ptrs += [None] * (4 - len(ptrs))
-        out = torch.empty_like(operands[0])
-        host.run(which, *ptrs, out.data_ptr(), *shape)
+        out = host_run(host, name, sc, operands, shape, dof)
         ref = k.body(sc, operands)
-        assert torch.isfinite(out).all(), k.name
+        assert torch.isfinite(out).all(), name
         err = float((out - ref).abs().max())
-        assert err <= 1e-5 * float(ref.abs().max()), (k.name, err)
+        assert err <= 1e-5 * float(ref.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("dof", [2, 3, 4])
+def test_cuda_march_bodies_match_members(dof, tmp_path):
+    """The march's member-batched build (members slowest in its 1D
+    grid), compiled as host C++ with nb = 4, equals four single-member
+    runs bit for bit (jvp and resid, distinct states, t and shift), on
+    strips (a ragged one) and chunks of the march, with 2, 3 and 4
+    fields."""
+    shape = (40, 136)
+    tops = host_problem(shape, dof)
+    host = host_kernels(tops, tmp_path)
+    if host is None:
+        pytest.skip("no C++ compiler found to compile the kernel bodies")
+    fk = make_fused_kernels(tops)
+    per = [host_state(tops, shape, dof, seed=20 + i) for i in range(4)]
+    for name in ("jvp", "resid"):
+        k = fk.kernels[name]
+        prepared = []
+        for i, args in enumerate(per):
+            args = list(args[name])
+            args[2 if name == "jvp" else 3] = 0.1 * i
+            if name == "resid":
+                args[4] = 3.0 + i
+            prepared.append(k.prepare(*args))
+        sc_b = torch.stack([p[0] for p in prepared])
+        ops_b = [torch.stack(xs) for xs in zip(*[p[1] for p in prepared])]
+        out = host_run(host, name, sc_b, ops_b, shape, dof)
+        for i, (sc, operands) in enumerate(prepared):
+            single = host_run(host, name, sc, operands, shape, dof)
+            assert torch.equal(out[i], single), (name, i)
+            ref = k.body(sc, operands)
+            assert float((single - ref).abs().max()) <= 1e-5 * float(
+                ref.abs().max()), (name, i)
+
+
+def test_probe_stencil2d_variants_follow_the_source(tmp_path):
+    """tools/probe_stencil2d.py's variants are text edits of the march
+    of csrc/stencil2d.cu: every anchor is found once, every variant
+    differs from the source and compiles as host C++ (KSFD_NT=1),
+    ``full``, the source itself, keeps jvp and resid within 1e-5 of
+    max|plain|, the designs it checks like ``full`` (``early_reads``,
+    ``b_prefetch``)
+    and the launch geometries it times (``--geometry``) compute what
+    ``full`` computes bit for bit (on a grid of several strips and
+    chunks), and each variant that drops a part changes the kernels it
+    drops it from (``no_output_reads``: resid only)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ksfd_tpu_torch.tools.probe_stencil2d import (
+        SAME,
+        geometry,
+        variants,
+    )
+
+    src = fused_stencil.CSRC.read_text()
+    out = variants(src)
+    assert set(out) == {"full", "no_pointwise", "loads_only", "rows_only",
+                        "no_output_reads", "early_reads", "b_prefetch"}
+    assert set(SAME) == {"full", "early_reads", "b_prefetch"}
+    assert out["full"] == src and len(set(out.values())) == len(out)
+    for spec in ("32,8,24,128,4", "128,1,8,256,2"):
+        gname, text = geometry(src, spec)
+        assert text != src and gname not in out
+        out[gname] = text
+    assert "march_32x8_lx24_128t_4b" in out
+    with pytest.raises(RuntimeError):
+        geometry(src.replace("struct March {", "struct Box {"),
+                 "32,8,24,128,4")
+    shape = (40, 256)
+    tops = host_problem(shape, 3)
+    with ThreadPoolExecutor(len(out)) as pool:
+        hosts = dict(zip(out, pool.map(
+            lambda kv: host_kernels(tops, tmp_path / kv[0], source=kv[1]),
+            out.items())))
+    if hosts["full"] is None:
+        pytest.skip("no C++ compiler found to compile the kernel bodies")
+    fk = make_fused_kernels(tops)
+    args = host_state(tops, shape, 3)
+    runs = {}
+    for variant, host in hosts.items():
+        runs[variant] = {}
+        for name in ("jvp", "resid"):
+            k = fk.kernels[name]
+            sc, operands = k.prepare(*args[name])
+            runs[variant][name] = host_run(host, name, sc, operands, shape, 3)
+            if variant == "full":
+                ref = k.body(sc, operands)
+                assert float((runs["full"][name] - ref).abs().max()) <= \
+                    1e-5 * float(ref.abs().max()), name
+    for name in ("jvp", "resid"):
+        for same in [v for v in out if v.startswith("march_") or v in SAME]:
+            assert torch.equal(runs[same][name], runs["full"][name]), name
+        for variant in ("no_pointwise", "loads_only", "rows_only"):
+            assert not torch.equal(runs[variant][name], runs["full"][name])
+    assert torch.equal(runs["no_output_reads"]["jvp"], runs["full"]["jvp"])
+    assert not torch.equal(runs["no_output_reads"]["resid"],
+                           runs["full"]["resid"])
 
 
 @pytest.mark.cuda

@@ -300,27 +300,36 @@ static ksfd_uint3 blockIdx, threadIdx;
 static inline void __syncthreads() {}
 #include "stencil2d.cu"
 
-// one host thread walks every block of the launch grid; p holds the
-// operands in the entry's order (the unsharded one, or the halo-slab
-// one: each stencil operand with its lo and hi rows)
+// one host thread walks every block of the launch grid (the march's 1D
+// grid of jvp and resid as the source exports it, the tiles); p holds
+// the operands in the entry's order (the unsharded one, or the
+// halo-slab one: each stencil operand with its lo and hi rows)
 extern "C" int run(int which, int halo, const float* sc,
                    const float* const* p, float* out, int nx, int ny) {
   threadIdx = {0, 0, 0};
+  if (which < 2) {
+    for (long long bx = 0; bx < ksfd_blocks(which, nx, ny, 1); ++bx) {
+      blockIdx = {(unsigned)bx, 0, 0};
+      if (!halo && which == 0)
+        jvp_kernel<false>(sc, p[0], p[1], nullptr, out, nx, ny);
+      if (!halo && which == 1)
+        jvp_kernel<true>(sc, p[0], p[1], p[2], out, nx, ny);
+      if (halo && which == 0)
+        jvp_halo_kernel<false>(sc, p[0], p[1], p[2], p[3], p[4], p[5],
+                               nullptr, out, nx, ny);
+      if (halo && which == 1)
+        jvp_halo_kernel<true>(sc, p[0], p[1], p[2], p[3], p[4], p[5], p[6],
+                              out, nx, ny);
+    }
+    return 0;
+  }
   for (unsigned by = 0; by < (unsigned)((nx + TX - 1) / TX); ++by)
     for (unsigned bx = 0; bx < (unsigned)((ny + TY - 1) / TY); ++bx) {
       blockIdx = {bx, by, 0};
       if (!halo) {
-        if (which == 0) jvp_kernel<false>(sc, p[0], p[1], nullptr, out, nx, ny);
-        if (which == 1) jvp_kernel<true>(sc, p[0], p[1], p[2], out, nx, ny);
         if (which == 2) delta_kernel(sc, p[0], p[1], p[2], out, nx, ny);
         if (which == 3) rhs_kernel(sc, p[0], out, nx, ny);
       } else {
-        if (which == 0)
-          jvp_halo_kernel<false>(sc, p[0], p[1], p[2], p[3], p[4], p[5],
-                                 nullptr, out, nx, ny);
-        if (which == 1)
-          jvp_halo_kernel<true>(sc, p[0], p[1], p[2], p[3], p[4], p[5], p[6],
-                                out, nx, ny);
         if (which == 2)
           delta_halo_kernel(sc, p[0], p[1], p[2], p[3], p[4], p[5], p[6],
                             p[7], p[8], out, nx, ny);
@@ -423,11 +432,15 @@ def with_clamps(u, ops):
     (3, (12, 10, 20), (2, 4)),   # 6 and 3 rows: ragged 4-row tiles
     (3, (8, 10, 20), (4,)),      # sw = 2 rows: the march's window in halos
     (3, (140, 6, 9), (2,)),      # 70 rows: x chunks of 32, 32 and 6
+    (2, (72, 256), (2, 4)),      # 36 and 18 rows: the 2D march's chunks
+                                 # of 32 (two steps) and partial steps
+    (2, (8, 130), (4,)),         # sw = 2 rows: the 2D march's window in
+                                 # halos, a ragged strip of 2 columns
 ])
 def test_cuda_halo_bodies_match_plain_and_stitch(dim, shape, splits,
                                                  tmp_path):
     """The halo-slab bodies of csrc/stencil{2,3}d.cu, compiled as host
-    C++ (KSFD_NT=1), on ragged slabs, 3D slabs of sw rows and of several
+    C++ (KSFD_NT=1), on ragged slabs, slabs of sw rows and of several
     x chunks of the march: within 1e-5 of max|plain| of the
     B9 plain version, and stitched equal to the unsharded host bodies
     bit for bit (rhs, jvp, resid on a raw state with clamped and NaN
@@ -435,19 +448,25 @@ def test_cuda_halo_bodies_match_plain_and_stitch(dim, shape, splits,
     _halo_stitch(dim, shape, splits, tmp_path)
 
 
-@pytest.mark.parametrize("dof", [2, 4])
-def test_cuda_halo_bodies_stitch_other_field_counts(dof, tmp_path):
-    """As test_cuda_halo_bodies_match_plain_and_stitch, 3D, with 2 and
-    with 4 fields (a point's raw values outnumber jvp's and resid's
-    window arrays at 4), on slabs of several x chunks and of sw rows."""
-    _halo_stitch(3, (140, 6, 9), (2, 4), tmp_path, dof)
+@pytest.mark.parametrize("dim,dof", [
+    pytest.param(3, 2, id="2"), pytest.param(3, 4, id="4"),
+    pytest.param(2, 2, id="2d_dof2"), pytest.param(2, 4, id="2d_dof4"),
+])
+def test_cuda_halo_bodies_stitch_other_field_counts(dim, dof, tmp_path):
+    """As test_cuda_halo_bodies_match_plain_and_stitch, 3D and 2D, with
+    2 and with 4 fields (a point's raw values outnumber jvp's and
+    resid's window arrays at 4), on slabs of several x chunks and of sw
+    rows."""
+    big, thin = (((140, 6, 9), (8, 10, 20)) if dim == 3
+                 else ((72, 256), (8, 130)))
+    _halo_stitch(dim, big, (2, 4), tmp_path, dof)
     (tmp_path / "sw").mkdir()
-    _halo_stitch(3, (8, 10, 20), (4,), tmp_path / "sw", dof)
+    _halo_stitch(dim, thin, (4,), tmp_path / "sw", dof)
 
 
 def _halo_stitch(dim, shape, splits, tmp_path, dof=3):
     clargs = (make_clargs(params=aggregation3d_params(shape[0], dof))
-              if dim == 3 else bench_clargs(shape[0]))
+              if dim == 3 else bench_clargs(shape[0], dof))
     _, grid, tops = problem_from_clargs(clargs, *shape, device="cpu")
     full = make_fused_kernels(tops)
     host = host_library(full.build.header, CSRC3D if dim == 3 else CSRC,

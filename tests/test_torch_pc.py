@@ -29,7 +29,7 @@ import torch
 import __graft_entry__ as ge
 import chip_smoke
 import ksfd_tpu as KJ
-from ksfd_tpu.ops.pallas_pc import make_pallas_block_pc
+from ksfd_tpu.ops.pallas_pc import make_pallas_block_pc, pallas_pc_available
 from ksfd_tpu.ops.pallas_pc import pack_pc_scalars as jpack
 from ksfd_tpu.solvers import make_step_fn as jstep
 from ksfd_tpu_torch import NumericsOptions
@@ -39,12 +39,18 @@ from ksfd_tpu_torch.ops.fused_pc import (
     fused_pc_available,
     make_fused_block_pc,
     pack_pc_scalars,
+    reference_fuses,
     scratch_floats,
     split_planes,
     tf32,
 )
-from ksfd_tpu_torch.solvers import make_multistep_fn, make_step_fn
+from ksfd_tpu_torch.solvers import (
+    make_adaptive_chunk_fn,
+    make_multistep_fn,
+    make_step_fn,
+)
 from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
+from ksfd_tpu_torch.tools.problems import bench_clargs
 
 N = 128
 
@@ -231,16 +237,33 @@ def test_tf32_split_is_exact(host_pc):
         2.0 ** -21 * np.abs(a).max())
 
 
-@pytest.mark.parametrize("shape,vec", [
-    ((48, 40), 1), ((48, 40), 0), ((45, 37), 0), ((132, 68), 1)])
-def test_cuda_source_bodies_match_plain(host_pc, shape, vec):
+def port_problem(shape, dof):
+    """The port's ops of the bench problem at ``shape`` with ``dof``
+    fields (3: __graft_entry__'s own parameters)."""
+    if dof == 3:
+        return problem(shape)[3]
+    return problem_from_clargs(bench_clargs(shape[0], dof), *shape,
+                               device="cpu")[2]
+
+
+@pytest.mark.parametrize("shape,vec,dof", [
+    pytest.param((48, 40), 1, 3, id="shape0-1"),
+    pytest.param((48, 40), 0, 3, id="shape1-0"),
+    pytest.param((45, 37), 0, 3, id="shape2-0"),
+    pytest.param((132, 68), 1, 3, id="shape3-1"),
+    pytest.param((48, 40), 1, 2, id="dof2-1"),
+    pytest.param((45, 37), 0, 2, id="dof2-0"),
+    pytest.param((48, 40), 1, 4, id="dof4-1"),
+    pytest.param((45, 37), 0, 4, id="dof4-0"),
+])
+def test_cuda_source_bodies_match_plain(host_pc, shape, vec, dof):
     """The fwd (two 3xTF32 products and the arrow epilogue) and inv of
     csrc/pc2d.cu's host path, compiled as host C++, equal the plain
     versions to 1e-5 of max|plain|: one tile, ragged tiles in both axes,
     several tiles, with the state read as it lies (vec=1) and through
-    the pitched copy (vec=0).  vec=1 needs ny % 4 == 0, as the card's
-    TMA needs 16-byte row pitches."""
-    _, _, _, tops = problem(shape)
+    the pitched copy (vec=0), with 2, 3 and 4 fields.  vec=1 needs ny %
+    4 == 0, as the card's TMA needs 16-byte row pitches."""
+    tops = port_problem(shape, dof)
     x = pc_inputs(tops)
     pc = make_fused_block_pc(tops.grid, tops)
     sc = port_pack(tops, x)
@@ -283,18 +306,23 @@ def batched_pc_inputs(tops, nb):
     return torch.stack(packs), torch.stack(vs)
 
 
-@pytest.mark.parametrize("shape,vec", [((48, 40), 1), ((45, 37), 0)])
+@pytest.mark.parametrize("shape,vec,dof", [
+    pytest.param((48, 40), 1, 3, id="shape0-1"),
+    pytest.param((45, 37), 0, 3, id="shape1-0"),
+    pytest.param((48, 40), 1, 2, id="dof2-1"),
+    pytest.param((45, 37), 0, 4, id="dof4-0"),
+])
 def test_cuda_source_batched_bodies_match_single_members(host_pc, shape,
-                                                         vec):
+                                                         vec, dof):
     """The member-batched pc2d.cu host path (the members' planes in the
     tile walk, their own pack rows, the bases shared), compiled as host
     C++ with nb = 3, equals three single-member runs bit for bit, in fwd
     and inv, reading the state as it lies and through the pitched copy
-    with ragged tiles; and the plain version under vmap within 1e-5 of
-    its largest value."""
+    with ragged tiles, with 2, 3 and 4 fields; and the plain version
+    under vmap within 1e-5 of its largest value."""
     from torch.func import vmap
 
-    _, _, _, tops = problem(shape)
+    tops = port_problem(shape, dof)
     pc = make_fused_block_pc(tops.grid, tops)
     sc_b, v_b = batched_pc_inputs(tops, 3)
     modes_b, out_b = host_pc_run(host_pc, pc, sc_b, v_b, vec)
@@ -386,28 +414,131 @@ def test_pc_pallas_launch_counts_per_step(precision, per_step):
 # -- the gate --------------------------------------------------------------
 
 
-def test_pc_pallas_on_a_3d_grid_raises():
-    """The fused pc is 2D, as the reference's is; a 3D request raises
-    instead of falling back to the basis-GEMM apply."""
-    shape = (16, 8, 16)
-    _, grid, ops = problem_from_clargs(chip_smoke.agg3d_clargs(16), *shape,
-                                       device="cpu")
-    assert not fused_pc_available(grid, ops)
+def fallback_step_matches_reference(jops, tops, nm, u0, h, ref_nm=None):
+    """Where the fused pc cannot run, a ``pc_pallas`` step takes the
+    basis-GEMM pc, as the reference's does: it builds, records why,
+    launches no B5 (makes no fused pc at all), equals the port's step
+    without ``pc_pallas`` bit for bit, and is within 1e-5 of the
+    increment of the reference's step with ``pc_pallas`` (its f32
+    sweeps round apart from the port's, as in
+    test_pc_pallas_step_matches_reference).  ``ref_nm``: the
+    reference's spelling of ``nm``, where the port takes an alias."""
+    from ksfd_tpu.solvers.solver import BUILD_INFO
+
+    step_j, _ = jstep(jops, KJ.NumericsOptions(**(ref_nm or nm)), atol=0.01,
+                      rtol=1e-6)
+    u_ref, e_ref = step_j(jnp.asarray(u0), jnp.asarray(0.0), jnp.asarray(h))
+    assert not BUILD_INFO["pallas_pc"]
+    step_t, _ = make_step_fn(tops, NumericsOptions(**nm), atol=0.01,
+                             rtol=1e-6)
+    assert step_t.build_info["pc"] == "basis-GEMM"
+    assert step_t.build_info["pc_pallas_fallback"]
+    multi, _ = make_multistep_fn(tops, NumericsOptions(**nm), atol=0.01,
+                                 rtol=1e-6)
+    assert multi.fused_pc is None
+    plain_nm = dict(nm, pc_pallas=False)
+    step_0, _ = make_step_fn(tops, NumericsOptions(**plain_nm), atol=0.01,
+                             rtol=1e-6)
+    args = (torch.from_numpy(u0), torch.tensor(0.0, dtype=torch.float64),
+            torch.tensor(h, dtype=torch.float64))
+    u1, e = step_t(*args)
+    u1_0, e_0 = step_0(*args)
+    assert torch.equal(u1, u1_0) and torch.equal(e, e_0)
+    u_ref = np.asarray(u_ref)
+    inc = np.abs(u_ref - u0).max()
+    assert inc > 0 and np.isfinite(float(e_ref))
+    assert np.abs(u1.numpy() - u_ref).max() <= 1e-5 * inc
+    return step_t.build_info["pc_pallas_fallback"]
+
+
+def rough_fields(tops, seed=6):
+    """A groomed rough state of tops's field count: 6000 + (3000, 1000,
+    500, ...)|N(0,1)| from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    shape, dof = tuple(tops.grid.Sshape), tops.grid.dof
+    u = np.stack([6000 + s * np.abs(rng.standard_normal(shape))
+                  for s in (3000, 1000) + (500,) * (dof - 2)])
+    return tops.groom(torch.from_numpy(u)).numpy()
+
+
+def test_pc_pallas_on_a_3d_grid_takes_the_basis_gemm_pc(interpret):
+    """The fused pc is 2D, as the reference's is; on a 3D grid
+    ``pc_pallas`` takes the basis-GEMM pc, as the reference's gate
+    (ksfd_tpu/solvers/solver.py:258-282) does; the fused pc itself
+    still refuses the grid."""
+    from test_torch_3d import SHAPE, _problems, wave_state
+
+    jops, tops = _problems(SHAPE)
+    assert not fused_pc_available(tops.grid, tops)
+    why = fallback_step_matches_reference(
+        jops, tops, dict(pc_pallas=True), np.array(tops.groom(
+            torch.from_numpy(wave_state())).numpy()), 1.0)
+    assert "3D grid" in why
     with pytest.raises(NotImplementedError, match="Queue B item 1"):
-        make_step_fn(ops, NumericsOptions(pc_pallas=True))
-    with pytest.raises(NotImplementedError, match="Queue B item 1"):
-        make_fused_block_pc(grid, ops)
+        make_fused_block_pc(tops.grid, tops)
 
 
 @pytest.mark.parametrize("pc_dtype", ["float64", "f64"])
-def test_pc_pallas_with_float64_transforms_raises(pc_dtype):
-    _, _, _, tops = problem((32, 32))
-    nm = NumericsOptions(pc_pallas=True, pc_dtype=pc_dtype)
+def test_pc_pallas_with_float64_transforms_takes_the_basis_gemm_pc(
+        pc_dtype, interpret):
+    """With float64 transforms ``pc_pallas`` takes the basis-GEMM pc, as
+    the reference's gate does (the fused apply is float32), in both
+    precisions."""
+    _, _, jops, tops = problem((32, 32))
+    nm = dict(pc_pallas=True, pc_dtype=pc_dtype)
     assert not fused_pc_available(tops.grid, tops, pc_dtype)
-    with pytest.raises(NotImplementedError, match="Queue B item 1"):
-        make_step_fn(tops, nm)
-    with pytest.raises(NotImplementedError, match="Queue B item 1"):
-        make_multistep_fn(tops, dataclasses.replace(nm, precision="float32"))
+    why = fallback_step_matches_reference(
+        jops, tops, nm, rough_fields(tops), 1e-3,
+        dict(nm, pc_dtype="float64"))  # the reference has no "f64"
+    assert "float64" in why
+    multi, _ = make_multistep_fn(
+        tops, NumericsOptions(precision="float32", **nm))
+    assert multi.fused_pc is None
+
+
+def five_field_problems(shape):
+    """The bench problem with 5 fields at ``shape``, the reference's and
+    the port's: (jgrid, jops, tops)."""
+    clargs = bench_clargs(shape[0], 5)
+    jps = KJ.SolutionParameters(clargs)
+    jgrid = KJ.Grid(dim=2, width=1.0, height=1.0, nx=shape[0], ny=shape[1],
+                    dof=5, order=3)
+    jops = KJ.ops.PDEOperators(jps, jgrid)
+    _, tgrid, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    assert tgrid.state() == jgrid.state() and tops.grid.dof == 5
+    return jgrid, jops, tops
+
+
+def test_pc_pallas_with_five_fields_takes_the_basis_gemm_pc(interpret):
+    """With more fields than the CUDA kernels take (MAX_NF = 4), on
+    extents the reference's gate refuses (32^2: not 128-aligned),
+    ``pc_pallas`` takes the basis-GEMM pc, as the reference's does."""
+    jgrid, jops, tops = five_field_problems((32, 32))
+    assert not pallas_pc_available(jgrid, jops)
+    assert not reference_fuses(tops.grid)
+    assert not fused_pc_available(tops.grid, tops)
+    why = fallback_step_matches_reference(jops, tops, dict(pc_pallas=True),
+                                          rough_fields(tops), 1e-3)
+    assert "5 fields" in why
+
+
+def test_pc_pallas_with_five_fields_where_the_reference_fuses_raises(
+        interpret):
+    """With 5 fields on extents the reference's gate admits (128^2), the
+    reference runs its fused Pallas pc: the port has no kernel for 5
+    fields, so the step, the multistep and the chunk raise naming B5
+    rather than run the basis-GEMM pc in its place; with float64
+    transforms the reference falls back, and so does the port."""
+    jgrid, jops, tops = five_field_problems((N, N))
+    assert pallas_pc_available(jgrid, jops)
+    assert reference_fuses(tops.grid)
+    for build in (make_step_fn, make_multistep_fn, make_adaptive_chunk_fn):
+        with pytest.raises(NotImplementedError, match="5 fields.*B5"):
+            build(tops, NumericsOptions(pc_pallas=True), atol=0.01,
+                  rtol=1e-6)
+    step, _ = make_step_fn(tops, NumericsOptions(pc_pallas=True,
+                                                 pc_dtype="float64"))
+    assert "float64" in step.build_info["pc_pallas_fallback"]
 
 
 def test_fused_pc_refuses_other_devices():

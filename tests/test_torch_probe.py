@@ -33,6 +33,7 @@ from ksfd_tpu_torch.ops.fused_stencil import (
     stencil_entries,
 )
 from ksfd_tpu_torch.tools import probe_coeff_kernel as tprobe
+from ksfd_tpu_torch.tools.problems import bench_clargs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 64
@@ -164,18 +165,25 @@ static ksfd_uint3 blockIdx, threadIdx;
 static inline void __syncthreads() {}
 #include "stencil2d.cu"
 
-// one host thread walks every block of the launch grid in turn, the
-// members on blockIdx.z
+// one host thread walks every block of the launch grid in turn: the
+// march's 1D grid (jvp, resid; the members slowest) as the source
+// exports it, the tiles with the members on blockIdx.z
 extern "C" int run(int which, const float* sc, const float* a,
                    const float* b, const float* c, float* out, int nx,
                    int ny, int nb) {
   threadIdx = {0, 0, 0};
+  if (which < 2) {
+    for (long long bx = 0; bx < ksfd_blocks(which, nx, ny, nb); ++bx) {
+      blockIdx = {(unsigned)bx, 0, 0};
+      if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny);
+      if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny);
+    }
+    return 0;
+  }
   for (unsigned bz = 0; bz < (unsigned)nb; ++bz)
   for (unsigned by = 0; by < (unsigned)((nx + TX - 1) / TX); ++by)
     for (unsigned bx = 0; bx < (unsigned)((ny + TY - 1) / TY); ++bx) {
       blockIdx = {bx, by, bz};
-      if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny);
-      if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny);
       if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny);
       if (which == 3) rhs_kernel(sc, a, out, nx, ny);
       if (which == 4) coeff_resid_kernel(sc, a, b, c, out, nx, ny);
@@ -188,16 +196,19 @@ extern "C" int run(int which, const float* sc, const float* a,
 HOST_KERNELS = dict(jvp=0, resid=1, delta=2, rhs=3, coeff_resid=4)
 
 
-def host_kernels(tops, shape, tmp_path):
-    """csrc/stencil2d.cu's kernel bodies compiled as host C++ (KSFD_NT=1)
-    with the problem's header: ``run(which, sc, a, b, c, out, nx, ny,
-    nb)``, or None without a C++ compiler."""
+def host_kernels(tops, tmp_path, source=None):
+    """csrc/stencil2d.cu's kernel bodies (or the text ``source`` in its
+    place) compiled as host C++ (KSFD_NT=1) with the problem's header:
+    ``run(which, sc, a, b, c, out, nx, ny, nb)``, or None without a C++
+    compiler."""
     cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
     if cxx is None:
         return None
     fk = make_fused_kernels(tops)
+    tmp_path.mkdir(parents=True, exist_ok=True)
     (tmp_path / "ksfd_pointwise.cuh").write_text(fk.build.header)
-    shutil.copy(CSRC, tmp_path / os.path.basename(CSRC))
+    (tmp_path / os.path.basename(CSRC)).write_text(
+        CSRC.read_text() if source is None else source)
     (tmp_path / "shim.cpp").write_text(_KERNEL_SHIM)
     lib = tmp_path / "libkern.so"
     proc = subprocess.run(
@@ -223,24 +234,33 @@ def host_run(host, which, sc, operands, shape, dof):
     return out
 
 
-@pytest.mark.parametrize("shape", [(N, N), (20, 36)])
-def test_cuda_source_coeff_resid_body_matches_plain(shape, tmp_path):
+@pytest.mark.parametrize("shape,dof", [
+    pytest.param((N, N), 3, id="shape0"),
+    pytest.param((20, 36), 3, id="shape1"),
+    pytest.param((20, 36), 2, id="dof2_ragged"),
+    pytest.param((20, 36), 4, id="dof4_ragged"),
+])
+def test_cuda_source_coeff_resid_body_matches_plain(shape, dof, tmp_path):
     """``coeff_resid_kernel`` of csrc/stencil2d.cu, compiled as host C++,
     equals its plain version to 1e-5 of max|plain| on a tiled grid and
-    on one whose tiles are ragged in both axes, with clamps active."""
-    jps, _, _ = ge._make_problem(*shape)
-    _, _, tops = problem_from_clargs(jps.clargs, *shape, device="cpu")
-    host = host_kernels(tops, shape, tmp_path)
+    on one whose tiles are ragged in both axes, with clamps active; with
+    2 and 4 fields too (tools/problems.py with_fields)."""
+    if dof == 3:
+        clargs = ge._make_problem(*shape)[0].clargs
+    else:
+        clargs = bench_clargs(shape[0], dof)
+    _, _, tops = problem_from_clargs(clargs, *shape, device="cpu")
+    host = host_kernels(tops, tmp_path)
     if host is None:
         pytest.skip("no C++ compiler found to compile the kernel bodies")
     kern = make_fused_kernels(tops)
     u, v, b = tprobe.probe_state(tops.grid, "cpu", seed=4)
     u[0, 3, 5] = 0.5 * tops.rhomin
     u[1, shape[0] - 1, shape[1] - 1] = tops.Umin
-    u[2, 1, shape[1] - 1] = float("nan")
+    u[dof - 1, 1, shape[1] - 1] = float("nan")
     prepare, cresid = tprobe.build_coeff_resid(tops, kern)
     sc, operands = cresid.prepare(prepare(u, T), v, b, T, SHIFT)
-    out = host_run(host, "coeff_resid", sc, operands, shape, 3)
+    out = host_run(host, "coeff_resid", sc, operands, shape, dof)
     ref = cresid.body(sc, operands)
     assert torch.isfinite(out).all()
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
