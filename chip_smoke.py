@@ -19,9 +19,11 @@ phases, each printing one line:
    csrc/pc2d.cu, the counts of
    HGMMA (wgmma) and UTMALDG (TMA) instructions in each product
    (``cuobjdump -sass``, where the toolkit has it: each must have both);
-2. each 2D kernel against its plain PyTorch version on the card at
-   1024^2 x 3 f32, with CUDA-event times of both, and at 200 x 136 with
-   2 and 4 fields (the march's ragged strip and x chunk);
+2. each 2D kernel (B1, B2, B3: the four on one march along x, rhs in
+   phase 8) against its plain PyTorch version on the card at 1024^2 x 3
+   f32, with CUDA-event times of both and each kernel's share of its
+   bound, and at 200 x 136 with 2 and 4 fields (the march's ragged
+   strip and x chunk);
 3. the 2D main path at 1024^2 x 3 f64: ``make_multistep_fn`` with
    default numerics, chained fixed-dt steps at h=1 (2 and 10 steps),
    with exact launch counts, a finite state and embedded error, and the
@@ -570,9 +572,9 @@ def launch_geometry(lib, names, smem_fn, smem_unit):
     """Each kernel's threads and shared memory per block and its
     resident blocks per SM, unsharded and halo-slab (B11 has none)
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
-    library's ``ksfd_occupancy``), from a built csrc/stencil2d.cu (its
-    static shared memory, ``ksfd_smem_bytes``) or csrc/stencil3d.cu (its
-    dynamic shared memory, ``ksfd_smem_floats``)."""
+    library's ``ksfd_occupancy``), from a built csrc/stencil2d.cu (the
+    march's dynamic ring, B11's static tile: ``ksfd_smem_bytes``) or
+    csrc/stencil3d.cu (its dynamic shared memory, ``ksfd_smem_floats``)."""
     for fn, n_args in (("ksfd_threads", 1), (smem_fn, 1),
                        ("ksfd_occupancy", 2)):
         getattr(lib, fn).argtypes = [ctypes.c_int] * n_args

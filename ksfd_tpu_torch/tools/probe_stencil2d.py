@@ -1,59 +1,60 @@
-"""Measurement probe: where the time of the 2D jvp and resid kernels goes.
+"""Measurement probe: where the time of the 2D stencil kernels goes.
 
-B2 (jvp) and B1 (resid) of csrc/stencil2d.cu march along x: they load
-u and v, evaluate the pointwise functions (the groom, the tangent mask,
-G and dG.v) into a ring of rows and compute the star-stencil rows from
-it; resid also reads b and v at each output.  This probe builds
-variants of the source that drop one part at a time (each a text edit,
-built into ``ksfd_tpu_torch/_build/`` like the library itself) and
-times both kernels of every variant with CUDA events, in turns (in
-order, then reversed), on the 2D bench problem (tools/problems.py
-bench_clargs) at n^2 x 3 for each n given:
+The four kernels of csrc/stencil2d.cu (B2 jvp, B1 resid, B3 delta, B7
+rhs) march along x: a block loads its operands row by row, evaluates
+the pointwise functions (the groom, the tangent mask, G, dG.v or
+G_delta) into a ring of rows in shared memory and computes the
+star-stencil rows from it; resid also reads b and v at each output.
+This probe builds variants of the source that drop one part at a time
+(each a text edit, built into ``ksfd_tpu_torch/_build/`` like the
+library itself) and times the four kernels of every variant with CUDA
+events, in turns (in order, then reversed), on the 2D bench problem
+(tools/problems.py bench_clargs) at n^2 x 3 for each n given:
 
 - ``full``: the library as it is (checked against the plain versions to
   1e-5 of max|plain| first);
-- ``no_pointwise``: G and dG replaced by loaded values (the groom, the
-  tangent mask and the rows stay);
-- ``loads_only``: the evaluated values stored, no stencil rows computed:
-  each output is its centre values, read and written as before;
-- ``rows_only``: the loads of u and v replaced by constants of the
-  data's size (fields 6000-7008, tangents -100-87.5), so no global reads
-  of them and no address arithmetic for them; the evaluations and the
-  rows stay;
+- ``no_pointwise``: G, dG and G_delta replaced by loaded values (the
+  groom, the tangent mask and the rows stay);
+- ``loads_only``: the ring filled (loads and evaluations), no stencil
+  rows computed: each output is its centre values, read and written as
+  before;
+- ``rows_only``: the loads of the stencil operands replaced by
+  constants of the data's size (fields 6000-7008, tangents and
+  increments -100-87.5), so no global reads of them and no address
+  arithmetic for them; the evaluations and the rows stay;
 - ``no_output_reads``: resid writes its rows without reading b and v at
-  the outputs (jvp unchanged, a control);
-- ``early_reads`` (computes what ``full`` computes, checked like it):
-  resid reads b and v at a thread's outputs of the step into registers
-  before the step's second barrier, in place of at each output after
-  it;
-- ``b_prefetch`` (likewise): an L2 prefetch of the lines of b at the
-  step's outputs, issued at the step's start;
-- with ``--geometry TY,TX,LX,NT,MINB`` (repeatable): ``full`` with TY
-  output columns a block, steps of TX rows, chunks of LX rows, NT
-  threads and MINB resident blocks per SM (the registers ptxas sizes
-  for) in place of its own, a variant named e.g.
-  ``march_64x16_lx32_256t_3b`` that computes what ``full`` computes and
-  is checked like it.
+  the outputs (jvp, delta and rhs unchanged, a control);
+- ``centre_reads`` (computes what ``full`` computes, checked like it):
+  delta and rhs read the uncentred rho of their rows (u0's; u's,
+  groomed) at the output point from global memory, as the tile design
+  before the march did, in place of from the ring (which still carries
+  it: the variant times the read, not the ring's smaller size);
+- with ``--geometry POLICY=TY,TX,LX,NT,MINB,RX`` (repeatable; POLICY one
+  of Jvp, Delta, Rhs): ``full`` with that policy's TY output columns a
+  block, steps of TX rows, chunks of LX rows, NT threads, MINB resident
+  blocks per SM (the registers ptxas sizes for) and runs of RX rows a
+  thread in place of its own, a variant named e.g.
+  ``delta_64x16_lx32_256t_3b_r4`` that computes what ``full`` computes
+  and is checked like it.
 
 The variants that drop a part compute wrong numbers by design; they
-only time.  ``early_reads`` and ``b_prefetch`` are designs that were
-tried and not kept.  Run on the card:
+only time.  The edits know this source only: to probe an older copy,
+run that checkout's own probe from a ``git archive`` of it.  Run on the
+card:
 
     python -m ksfd_tpu_torch.tools.probe_stencil2d [--n 1024 1536]
-        [--reps 50] [--geometry ...]
+        [--reps 50] [--geometry Delta=64,16,32,256,3,4 ...]
 
-It prints one line per size and variant (µs of jvp and resid, each
-turn, and ptxas's registers and spills of the unsharded entries) and,
-last, one JSON line with the card's name and power limit and the mean
-µs per size, variant and kernel.
+It prints one line per size and variant (µs of jvp, resid, delta and
+rhs, each turn, and ptxas's registers and spills of the unsharded
+entries) and, last, one JSON line with the card's name and power limit
+and the mean µs per size, variant and kernel.
 """
 
 import argparse
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
-
-import torch
 
 from ..interop import problem_from_clargs
 from ..ops.fused_stencil import BUILD_DIR, CSRC, build_library, \
@@ -66,122 +67,80 @@ __all__ = ["KERNELS", "SAME", "variants", "geometry", "build_variants",
            "main"]
 
 #: the kernels timed, in the order of each line
-KERNELS = ("jvp", "resid")
+KERNELS = ("jvp", "resid", "delta", "rhs")
 
-#: the variants that drop a part: edits of jvp_point, jvp_rows and the
-#: step's loads
+#: the variants that drop a part: edits of the policies' point() and
+#: row() and of the march's loads
 _PARTS = {
     "no_pointwise": [
-        ("  ksfd_dG(f, dg);\n",
-         "  for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
-        ("  val[1] = ksfd_G(f);\n", "  val[1] = f[0];\n"),
+        ("    ksfd_dG(f, dg);\n",
+         "    for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
+        ("    val[1] = ksfd_G(f);\n", "    val[1] = f[0];\n"),
+        ("    const float G0c = ksfd_G(f) - s[2];\n",
+         "    const float G0c = f[0] - s[2];\n"),
+        ("    const float dG = ksfd_G_delta(f, dd, u1);\n",
+         "    const float dG = dd[0] + u1[1];\n"),
+        ("    val[1] = ksfd_G(f) - s[1 + DOF];\n",
+         "    val[1] = f[0] - s[1 + DOF];\n"),
     ],
     "loads_only": [
-        ("  float row = graddot(w[3], w[1], cen + 3 * ca, cen + 1 * ca) +\n"
-         "              graddot(w[0], w[2], cen, cen + 2 * ca) +\n"
-         "              vr * lap(w[1], cen + 1 * ca) + "
-         "w[0][SW] * lap(w[2], cen + 2 * ca);\n",
-         "  float row = w[1][SW] + w[2][SW];\n"),
-        ("    row = -ksfd_gamma(l) * w[4 + l][SW] + ksfd_s(l) * vr +\n"
-         "          ksfd_D(l) * lap(w[4 + l], cen + (4 + l) * ca);\n",
-         "    row = w[4 + l][SW];\n"),
+        ("    float row = graddot(xvr, xG, c_vr, c_G) + "
+         "graddot(xrho, xdG, c_rho, c_dG) +\n"
+         "                vr * lap(xG, c_G) + xrho[SW] * lap(xdG, c_dG);\n",
+         "    float row = c_G[0] + c_dG[0];\n"),
+        ("      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +\n"
+         "            ksfd_D(l) * lap(xvU, at.centre(4 + l));\n",
+         "      row = xvU[SW];\n"),
+        ("    out[g] = graddot(xd0, xGs, c_d0, c_Gs) + "
+         "graddot(xr0c, xdG, c_r0c, c_dG) +\n"
+         "             drho * lap(xGs, c_Gs) + rho0 * lap(xdG, c_dG);\n",
+         "    out[g] = c_Gs[0] + rho0 * c_dG[0];\n"),
+        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xdU[SW] +\n"
+         "                                 ksfd_s(l) * drho +\n"
+         "                                 ksfd_D(l) * lap(xdU, "
+         "at.centre(5 + l));\n",
+         "      out[(1 + l) * plane + g] = xdU[SW];\n"),
+        ("    out[g] = graddot(xrc, xGc, c_rc, c_Gc) + rho * lap(xGc, c_Gc);\n",
+         "    out[g] = c_Gc[0] + rho * c_rc[0];\n"),
+        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xUc[SW] + "
+         "ksfd_s(l) * rc +\n"
+         "                                 s[2 + DOF + l] +\n"
+         "                                 ksfd_D(l) * lap(xUc, "
+         "at.centre(3 + l));\n",
+         "      out[(1 + l) * plane + g] = xUc[SW];\n"),
     ],
     "rows_only": [
-        ("        raw[q] = ru[q * fs];\n"
-         "        raw[DOF + q] = rv[q * fs];\n",
-         "        raw[q] = 6000.0f + 16.0f * (float)((i + 7 * q) & 63);\n"
-         "        raw[DOF + q] = 12.5f * (float)(((i * 5 + q * 3) & 15) - 8);\n"),
+        ("          raw[op * DOF + q] = sm.rp[kk][op][col + q * fs];\n",
+         "          raw[op * DOF + q] =\n"
+         "              op == 1 ? 12.5f * (float)(((i * 5 + q * 3) & 15) - 8)\n"
+         "                      : 6000.0f + 16.0f * (float)((i + 7 * q) & 63);\n"),
     ],
     "no_output_reads": [
-        ("cen + 2 * ca);\n  out[g] = RESID ? b[g] - shift * v[g] + row : row;\n",
-         "cen + 2 * ca);\n  out[g] = row;\n"),
-        ("    const size_t gl = (1 + l) * plane + g;\n"
-         "    out[gl] = RESID ? b[gl] - shift * v[gl] + row : row;\n",
-         "    const size_t gl = (1 + l) * plane + g;\n    out[gl] = row;\n"),
+        ("    out[g] = RESID ? b[g] - s[1] * v[g] + row : row;\n",
+         "    out[g] = row;\n"),
+        ("      out[gl] = RESID ? b[gl] - s[1] * v[gl] + row : row;\n",
+         "      out[gl] = row;\n"),
     ],
 }
 
-#: the rows phase's loop head, and resid's reads of b and v at a thread's
-#: outputs of the step into registers before the barrier (early_reads)
-_ROWS = ("    __syncthreads();\n"
-         "    for (int i = threadIdx.x; i < nrow * MTY; i += MNT) {\n"
-         "      const int kx = i / MTY, ty = i - kx * MTY, y = y0 + ty;\n")
-_EARLY_ROWS = """    float bsv[RESID ? PER : 1][DOF];
-    if (RESID) {
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        const int i = threadIdx.x + p * MNT, kx = i / MTY;
-        const int y = y0 + (i - kx * MTY);
-        if (i < nrow * MTY && y < ny) {
-          const size_t g = (size_t)(x0 + kx) * ny + y;
-#pragma unroll
-          for (int q = 0; q < DOF; ++q)
-            bsv[p][q] = b[q * plane + g] - shift * v[q * plane + g];
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int i = threadIdx.x + p * MNT;
-      if (i >= nrow * MTY) break;
-      const int kx = i / MTY, ty = i - kx * MTY, y = y0 + ty;
-"""
-
-#: an L2 prefetch of resid's b lines at a step's outputs, issued at the
-#: step's start, one line a thread (b_prefetch)
-_PREFETCH_FN = """// A hint: the 128-byte line of p into L2 (nothing in the host build).
-__device__ __forceinline__ void prefetch_l2(const float* p) {
-#ifdef __CUDACC__
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-#else
-  (void)p;
-#endif
-}
-
-"""
-_PREFETCH_STEP = """    if (RESID) {
-      constexpr int NLN = (MTY + 31) / 32;
-      for (int i = threadIdx.x; i < nrow * DOF * NLN; i += MNT) {
-        const int r = i / (DOF * NLN), j = i - r * DOF * NLN;
-        const int q = j / NLN, y = y0 + 32 * (j - q * NLN);
-        if (y < ny) prefetch_l2(b + q * plane + (size_t)(x0 + r) * ny + y);
-      }
-    }
-"""
-_LANDING = "    // where the landing rows lie (the step before is past its loads)\n"
-_POINT = "// One point's window values"
-
-#: the variants that compute what full computes: designs tried
+#: the variants that compute what full computes: the tile's reads of
+#: the uncentred rho at the output point
 _SAME_EDITS = {
-    "early_reads": [
-        ("constexpr int MW = 2 * SW + 1;         // window rows of a stencil\n",
-         "constexpr int MW = 2 * SW + 1;         // window rows of a stencil\n"
-         "constexpr int PER = (MTX * MTY + MNT - 1) / MNT;\n"),
-        ("cen + 2 * ca);\n  out[g] = RESID ? b[g] - shift * v[g] + row : row;\n",
-         "cen + 2 * ca);\n  out[g] = RESID ? bs[0] + row : row;\n"),
-        ("    const size_t gl = (1 + l) * plane + g;\n"
-         "    out[gl] = RESID ? b[gl] - shift * v[gl] + row : row;\n",
-         "    const size_t gl = (1 + l) * plane + g;\n"
-         "    out[gl] = RESID ? bs[1 + l] + row : row;\n"),
-        ("                                         float shift,\n"
-         "                                         const float* __restrict__ v,\n"
-         "                                         const float* __restrict__ b,\n",
-         "                                         const float* bs,\n"),
-        ("MHY, shift, v, b, out,", "MHY, bsv[p], out,"),
-        (_ROWS, _EARLY_ROWS),
-    ],
-    "b_prefetch": [
-        (_POINT, _PREFETCH_FN + _POINT),
-        (_LANDING, _PREFETCH_STEP + _LANDING),
+    "centre_reads": [
+        ("    const float rho0 = at.centre(4)[0];\n",
+         "    const float rho0 = o.p[0][g];\n"),
+        ("    const float rho = at.centre(2)[0];\n",
+         "    const float u0 = o.p[0][g];\n"
+         "    const float rho = u0 >= KSFD_RHOMIN ? u0 : KSFD_RHOMIN;\n"),
     ],
 }
 SAME = ("full",) + tuple(_SAME_EDITS)
 
-#: the march's geometry line
-_GEOMETRY = re.compile(r"(struct March \{\n  static constexpr int TY = )\d+"
-                       r"(, TX = )\d+(, LX = )\d+(, NT = KSFD_THREADS\()\d+"
-                       r"(\), MINB = )\d+;")
+#: a policy's geometry line
+_GEOMETRY = re.compile(r"(struct (Jvp|Delta|Rhs) \{\n  static constexpr int "
+                       r"TY = )\d+(, TX = )\d+(, LX = )\d+"
+                       r"(, NT = KSFD_THREADS\()\d+(\), MINB = )\d+"
+                       r"(,\s+RX = )[^;]+;")
 
 
 def variants(src):
@@ -201,20 +160,28 @@ def variants(src):
 
 
 def geometry(src, spec):
-    """(name, source): ``src`` with the march's launch geometry of
-    ``spec``, "TY,TX,LX,NT,MINB", in place of its own."""
-    nums = [int(n) for n in spec.split(",")]
-    if len(nums) != 5:
-        raise ValueError("geometry %r: TY,TX,LX,NT,MINB" % spec)
+    """(name, source): ``src`` with the launch geometry of ``spec``,
+    "POLICY=TY,TX,LX,NT,MINB,RX", in place of that policy's own."""
+    policy, nums = spec.split("=")
+    nums = [int(n) for n in nums.split(",")]
+    if len(nums) != 6:
+        raise ValueError("geometry %r: POLICY=TY,TX,LX,NT,MINB,RX" % spec)
+
+    found = []
 
     def put(m):
-        return "".join(m.group(i + 1) + str(nums[i]) for i in range(5)) + ";"
+        if m.group(2) != policy:
+            return m.group(0)
+        found.append(policy)
+        return "".join(m.group(1 + i + (i > 0)) + str(nums[i])
+                       for i in range(6)) + ";"
 
-    text, n = _GEOMETRY.subn(put, src)
-    if n != 1:
-        raise RuntimeError("csrc/stencil2d.cu: no march to give the "
-                           "geometry %r" % spec)
-    return "march_%dx%d_lx%d_%dt_%db" % tuple(nums), text
+    text = _GEOMETRY.sub(put, src)
+    if not found:
+        raise RuntimeError("csrc/stencil2d.cu: no march policy %r to give "
+                           "the geometry %r" % (policy, nums))
+    return ("%s_%dx%d_lx%d_%dt_%db_r%d" % ((policy.lower(),) + tuple(nums)),
+            text)
 
 
 def build_variants(header, geometries=()):
@@ -240,9 +207,9 @@ def main(argv=None):
     ap.add_argument("--n", type=int, nargs="+", default=[1024])
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--geometry", action="append", default=[],
-                    metavar="TY,TX,LX,NT,MINB",
-                    help="also time full with this launch geometry of the "
-                    "march, e.g. 64,16,64,256,3")
+                    metavar="POLICY=TY,TX,LX,NT,MINB,RX",
+                    help="also time full with this launch geometry of a "
+                    "policy (Jvp, Delta, Rhs), e.g. Delta=64,16,32,256,3,4")
     args = ap.parse_args(argv)
     text = CSRC.read_text()
     exact = list(SAME) + [geometry(text, g)[0] for g in args.geometry]
@@ -255,7 +222,7 @@ def main(argv=None):
         libs = {name: lib for name, (lib, _) in built.items()}
         times = run(kern, libs, args.reps, exact, KERNELS)
         for name, turns in times.items():
-            print("%d^2x3 %-22s %s | %s" % (n, name, ", ".join(
+            print("%d^2x3 %-28s %s | %s" % (n, name, ", ".join(
                 "%s %s us" % (k, " / ".join("%.2f" % t[i] for t in turns))
                 for i, k in enumerate(KERNELS)),
                 _ptxas(built[name][1]["ptxas"])))

@@ -85,11 +85,14 @@ def with_fields(params, dof):
     """aggregation3d's (or aggregation2d's, or the bench problem's)
     parameter lines with ``dof`` fields: 3 as they are, 4 with a second
     repellent ligand (s 0.002, gamma 0.005, D 3e-6), 5 also with a third
-    (s 0.003, gamma 0.004, D 4e-6), 2 with the attractant group only."""
-    if dof in (4, 5):
+    (s 0.003, gamma 0.004, D 4e-6), 6 also with a fourth (s 0.004, gamma
+    0.003, D 5e-6), 2 with the attractant group only."""
+    if dof in (4, 5, 6):
         extra = ["s_2_2=0.002", "gamma_2_2=0.005", "D_2_2=3e-6"]
-        if dof == 5:
+        if dof >= 5:
             extra += ["s_2_3=0.003", "gamma_2_3=0.004", "D_2_3=4e-6"]
+        if dof == 6:
+            extra += ["s_2_4=0.004", "gamma_2_4=0.003", "D_2_4=5e-6"]
         return [p for p in params if p != "nligands_2=1"] + [
             "nligands_2=%d" % (dof - 2)] + extra
     if dof == 2:
@@ -97,7 +100,8 @@ def with_fields(params, dof):
             ("nligands_2", "alpha_2", "beta_2", "s_2_", "gamma_2_", "D_2_"))
         ] + ["ngroups=1"]
     if dof != 3:
-        raise ValueError("with_fields: dof %r is not 2, 3, 4 or 5" % (dof,))
+        raise ValueError("with_fields: dof %r is not one of 2 to 6"
+                         % (dof,))
     return list(params)
 
 

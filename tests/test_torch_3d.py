@@ -100,7 +100,7 @@ def rough_state(shape=SHAPE, seed=0, scale=1000.0, dof=3):
     rng = np.random.default_rng(seed)
     return np.stack([
         6000 + f * scale * np.abs(rng.standard_normal(shape))
-        for f in (3, 1, 0.5, 0.25)[:dof]
+        for f in ((3, 1, 0.5) + (0.25,) * max(0, dof - 3))[:dof]
     ])
 
 

@@ -267,16 +267,21 @@ def host_problem(shape, dof):
     return problem_from_clargs(clargs, *shape, device="cpu")[2]
 
 
-#: host cases of the 2D bodies: a tiled grid, one whose tiles are ragged
-#: in both axes, and strips and chunks of the march (40 rows: a chunk of
-#: two 16-row steps and one of 8 rows; 256 columns: four 64-column
-#: strips; 136: two and a ragged one of 8); with 2, 3 and 4 fields
+#: host cases of the 2D bodies: a grid of whole strips, one whose strip
+#: and chunk are ragged, and strips and chunks of the march (40 rows: a
+#: chunk of two 16-row steps and one of 8 rows; 256 columns: four
+#: 64-column strips; 136: two and a ragged one of 8); with 2 to 6 fields
+#: (6 the most the 2D build holds: B11's static tile; the rings pass 48
+#: KB of shared memory, opted in, from 3 fields for rhs, 5 for delta and
+#: 6 for jvp and resid)
 HOST_CASES = [
     pytest.param((N, N), 3, id="shape0"),
     pytest.param((20, 36), 3, id="shape1"),
     pytest.param((40, 256), 3, id="strips"),
     pytest.param((40, 136), 2, id="dof2_strips"),
     pytest.param((40, 136), 4, id="dof4_strips"),
+    pytest.param((40, 136), 5, id="dof5_strips"),
+    pytest.param((40, 136), 6, id="dof6_strips"),
     pytest.param((20, 36), 2, id="dof2_ragged"),
     pytest.param((20, 36), 4, id="dof4_ragged"),
 ]
@@ -284,12 +289,12 @@ HOST_CASES = [
 
 @pytest.mark.parametrize("shape,dof", HOST_CASES)
 def test_cuda_source_bodies_match_plain(shape, dof, tmp_path):
-    """The four kernel bodies of csrc/stencil2d.cu, compiled as host C++
+    """The four march bodies of csrc/stencil2d.cu, compiled as host C++
     (KSFD_NT=1), equal the plain versions to 1e-5 of max|plain| on a
-    tiled grid, on one whose tiles are ragged in both axes (the periodic
-    wrap and the bounds guards) and on strips and chunks of the march
-    (jvp, resid), with 2, 3 and 4 fields; jvp, resid and rhs on a raw
-    state with points below, at and NaN against the floors."""
+    grid of whole strips, on one whose strip and chunk are ragged (the
+    periodic wrap and the bounds guards) and on strips and chunks of the
+    march, with 2 to 6 fields; jvp, resid and rhs on a raw state with
+    points below, at and NaN against the floors."""
     tops = host_problem(shape, dof)
     host = host_kernels(tops, tmp_path)
     if host is None:
@@ -305,12 +310,12 @@ def test_cuda_source_bodies_match_plain(shape, dof, tmp_path):
         assert err <= 1e-5 * float(ref.abs().max()), (name, err)
 
 
-@pytest.mark.parametrize("dof", [2, 3, 4])
+@pytest.mark.parametrize("dof", [2, 3, 4, 5, 6])
 def test_cuda_march_bodies_match_members(dof, tmp_path):
     """The march's member-batched build (members slowest in its 1D
     grid), compiled as host C++ with nb = 4, equals four single-member
-    runs bit for bit (jvp and resid, distinct states, t and shift), on
-    strips (a ragged one) and chunks of the march, with 2, 3 and 4
+    runs bit for bit (all four kernels, distinct states, t and shift),
+    on strips (a ragged one) and chunks of the march, with 2 to 6
     fields."""
     shape = (40, 136)
     tops = host_problem(shape, dof)
@@ -319,12 +324,12 @@ def test_cuda_march_bodies_match_members(dof, tmp_path):
         pytest.skip("no C++ compiler found to compile the kernel bodies")
     fk = make_fused_kernels(tops)
     per = [host_state(tops, shape, dof, seed=20 + i) for i in range(4)]
-    for name in ("jvp", "resid"):
+    for name in ("jvp", "resid", "delta", "rhs"):
         k = fk.kernels[name]
         prepared = []
         for i, args in enumerate(per):
             args = list(args[name])
-            args[2 if name == "jvp" else 3] = 0.1 * i
+            args[dict(jvp=2, resid=3, delta=3, rhs=1)[name]] = 0.1 * i
             if name == "resid":
                 args[4] = 3.0 + i
             prepared.append(k.prepare(*args))
@@ -343,16 +348,16 @@ def test_probe_stencil2d_variants_follow_the_source(tmp_path):
     """tools/probe_stencil2d.py's variants are text edits of the march
     of csrc/stencil2d.cu: every anchor is found once, every variant
     differs from the source and compiles as host C++ (KSFD_NT=1),
-    ``full``, the source itself, keeps jvp and resid within 1e-5 of
-    max|plain|, the designs it checks like ``full`` (``early_reads``,
-    ``b_prefetch``)
-    and the launch geometries it times (``--geometry``) compute what
-    ``full`` computes bit for bit (on a grid of several strips and
-    chunks), and each variant that drops a part changes the kernels it
-    drops it from (``no_output_reads``: resid only)."""
+    ``full``, the source itself, keeps all four kernels within 1e-5 of
+    max|plain|, the design it checks like ``full`` (``centre_reads``)
+    and the launch geometries it times (``--geometry``, one per policy)
+    compute what ``full`` computes bit for bit (on a grid of several
+    strips and chunks), and each variant that drops a part changes the
+    kernels it drops it from (``no_output_reads``: resid only)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ksfd_tpu_torch.tools.probe_stencil2d import (
+        KERNELS,
         SAME,
         geometry,
         variants,
@@ -361,17 +366,19 @@ def test_probe_stencil2d_variants_follow_the_source(tmp_path):
     src = fused_stencil.CSRC.read_text()
     out = variants(src)
     assert set(out) == {"full", "no_pointwise", "loads_only", "rows_only",
-                        "no_output_reads", "early_reads", "b_prefetch"}
-    assert set(SAME) == {"full", "early_reads", "b_prefetch"}
+                        "no_output_reads", "centre_reads"}
+    assert set(SAME) == {"full", "centre_reads"}
     assert out["full"] == src and len(set(out.values())) == len(out)
-    for spec in ("32,8,24,128,4", "128,1,8,256,2"):
+    for spec in ("Jvp=32,8,24,128,4,1", "Delta=128,1,8,256,2,3",
+                 "Rhs=64,4,64,128,3,8"):
         gname, text = geometry(src, spec)
         assert text != src and gname not in out
         out[gname] = text
-    assert "march_32x8_lx24_128t_4b" in out
+    assert {"jvp_32x8_lx24_128t_4b_r1", "delta_128x1_lx8_256t_2b_r3",
+            "rhs_64x4_lx64_128t_3b_r8"} <= set(out)
     with pytest.raises(RuntimeError):
-        geometry(src.replace("struct March {", "struct Box {"),
-                 "32,8,24,128,4")
+        geometry(src.replace("struct Delta {", "struct Box {"),
+                 "Delta=32,8,24,128,4,1")
     shape = (40, 256)
     tops = host_problem(shape, 3)
     with ThreadPoolExecutor(len(out)) as pool:
@@ -385,7 +392,7 @@ def test_probe_stencil2d_variants_follow_the_source(tmp_path):
     runs = {}
     for variant, host in hosts.items():
         runs[variant] = {}
-        for name in ("jvp", "resid"):
+        for name in KERNELS:
             k = fk.kernels[name]
             sc, operands = k.prepare(*args[name])
             runs[variant][name] = host_run(host, name, sc, operands, shape, 3)
@@ -393,14 +400,14 @@ def test_probe_stencil2d_variants_follow_the_source(tmp_path):
                 ref = k.body(sc, operands)
                 assert float((runs["full"][name] - ref).abs().max()) <= \
                     1e-5 * float(ref.abs().max()), name
-    for name in ("jvp", "resid"):
-        for same in [v for v in out if v.startswith("march_") or v in SAME]:
-            assert torch.equal(runs[same][name], runs["full"][name]), name
+    for name in KERNELS:
+        for same in [v for v in out if v not in variants(src) or v in SAME]:
+            assert torch.equal(runs[same][name], runs["full"][name]), (
+                same, name)
         for variant in ("no_pointwise", "loads_only", "rows_only"):
             assert not torch.equal(runs[variant][name], runs["full"][name])
-    assert torch.equal(runs["no_output_reads"]["jvp"], runs["full"]["jvp"])
-    assert not torch.equal(runs["no_output_reads"]["resid"],
-                           runs["full"]["resid"])
+        assert torch.equal(runs["no_output_reads"][name],
+                           runs["full"][name]) == (name != "resid")
 
 
 @pytest.mark.cuda

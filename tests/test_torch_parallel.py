@@ -299,43 +299,35 @@ struct ksfd_uint3 { unsigned x, y, z; };
 static ksfd_uint3 blockIdx, threadIdx;
 static inline void __syncthreads() {}
 #include "stencil2d.cu"
+alignas(16) float ksfd_smem[SMEM_FLOATS_MAX];
 
-// one host thread walks every block of the launch grid (the march's 1D
-// grid of jvp and resid as the source exports it, the tiles); p holds
-// the operands in the entry's order (the unsharded one, or the
-// halo-slab one: each stencil operand with its lo and hi rows)
+// one host thread walks every block of the march's 1D grid as the source
+// exports it; p holds the operands in the entry's order (the unsharded
+// one, or the halo-slab one: each stencil operand with its lo and hi
+// rows)
 extern "C" int run(int which, int halo, const float* sc,
                    const float* const* p, float* out, int nx, int ny) {
   threadIdx = {0, 0, 0};
-  if (which < 2) {
-    for (long long bx = 0; bx < ksfd_blocks(which, nx, ny, 1); ++bx) {
-      blockIdx = {(unsigned)bx, 0, 0};
-      if (!halo && which == 0)
-        jvp_kernel<false>(sc, p[0], p[1], nullptr, out, nx, ny);
-      if (!halo && which == 1)
-        jvp_kernel<true>(sc, p[0], p[1], p[2], out, nx, ny);
-      if (halo && which == 0)
+  for (long long bx = 0; bx < ksfd_blocks(which, nx, ny, 1); ++bx) {
+    blockIdx = {(unsigned)bx, 0, 0};
+    if (!halo) {
+      if (which == 0) jvp_kernel<false>(sc, p[0], p[1], nullptr, out, nx, ny);
+      if (which == 1) jvp_kernel<true>(sc, p[0], p[1], p[2], out, nx, ny);
+      if (which == 2) delta_kernel(sc, p[0], p[1], p[2], out, nx, ny);
+      if (which == 3) rhs_kernel(sc, p[0], out, nx, ny);
+    } else {
+      if (which == 0)
         jvp_halo_kernel<false>(sc, p[0], p[1], p[2], p[3], p[4], p[5],
                                nullptr, out, nx, ny);
-      if (halo && which == 1)
+      if (which == 1)
         jvp_halo_kernel<true>(sc, p[0], p[1], p[2], p[3], p[4], p[5], p[6],
                               out, nx, ny);
+      if (which == 2)
+        delta_halo_kernel(sc, p[0], p[1], p[2], p[3], p[4], p[5], p[6],
+                          p[7], p[8], out, nx, ny);
+      if (which == 3) rhs_halo_kernel(sc, p[0], p[1], p[2], out, nx, ny);
     }
-    return 0;
   }
-  for (unsigned by = 0; by < (unsigned)((nx + TX - 1) / TX); ++by)
-    for (unsigned bx = 0; bx < (unsigned)((ny + TY - 1) / TY); ++bx) {
-      blockIdx = {bx, by, 0};
-      if (!halo) {
-        if (which == 2) delta_kernel(sc, p[0], p[1], p[2], out, nx, ny);
-        if (which == 3) rhs_kernel(sc, p[0], out, nx, ny);
-      } else {
-        if (which == 2)
-          delta_halo_kernel(sc, p[0], p[1], p[2], p[3], p[4], p[5], p[6],
-                            p[7], p[8], out, nx, ny);
-        if (which == 3) rhs_halo_kernel(sc, p[0], p[1], p[2], out, nx, ny);
-      }
-    }
   return 0;
 }
 """
@@ -451,12 +443,14 @@ def test_cuda_halo_bodies_match_plain_and_stitch(dim, shape, splits,
 @pytest.mark.parametrize("dim,dof", [
     pytest.param(3, 2, id="2"), pytest.param(3, 4, id="4"),
     pytest.param(2, 2, id="2d_dof2"), pytest.param(2, 4, id="2d_dof4"),
+    pytest.param(2, 5, id="2d_dof5"), pytest.param(2, 6, id="2d_dof6"),
 ])
 def test_cuda_halo_bodies_stitch_other_field_counts(dim, dof, tmp_path):
     """As test_cuda_halo_bodies_match_plain_and_stitch, 3D and 2D, with
     2 and with 4 fields (a point's raw values outnumber jvp's and
-    resid's window arrays at 4), on slabs of several x chunks and of sw
-    rows."""
+    resid's window arrays at 4), in 2D also with 5 and 6 (the most the
+    2D build holds: delta's ring passes 48 KB of shared memory at 5,
+    jvp's at 6), on slabs of several x chunks and of sw rows."""
     big, thin = (((140, 6, 9), (8, 10, 20)) if dim == 3
                  else ((72, 256), (8, 130)))
     _halo_stitch(dim, big, (2, 4), tmp_path, dof)

@@ -164,19 +164,22 @@ struct ksfd_uint3 { unsigned x, y, z; };
 static ksfd_uint3 blockIdx, threadIdx;
 static inline void __syncthreads() {}
 #include "stencil2d.cu"
+alignas(16) float ksfd_smem[SMEM_FLOATS_MAX];
 
 // one host thread walks every block of the launch grid in turn: the
-// march's 1D grid (jvp, resid; the members slowest) as the source
-// exports it, the tiles with the members on blockIdx.z
+// march's 1D grid (jvp, resid, delta, rhs; the members slowest) as the
+// source exports it, coeff_resid's tiles with the members on blockIdx.z
 extern "C" int run(int which, const float* sc, const float* a,
                    const float* b, const float* c, float* out, int nx,
                    int ny, int nb) {
   threadIdx = {0, 0, 0};
-  if (which < 2) {
+  if (which < KSFD_COEFF_RESID) {
     for (long long bx = 0; bx < ksfd_blocks(which, nx, ny, nb); ++bx) {
       blockIdx = {(unsigned)bx, 0, 0};
-      if (which == 0) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny);
-      if (which == 1) jvp_kernel<true>(sc, a, b, c, out, nx, ny);
+      if (which == KSFD_JVP) jvp_kernel<false>(sc, a, b, nullptr, out, nx, ny);
+      if (which == KSFD_RESID) jvp_kernel<true>(sc, a, b, c, out, nx, ny);
+      if (which == KSFD_DELTA) delta_kernel(sc, a, b, c, out, nx, ny);
+      if (which == KSFD_RHS) rhs_kernel(sc, a, out, nx, ny);
     }
     return 0;
   }
@@ -184,9 +187,7 @@ extern "C" int run(int which, const float* sc, const float* a,
   for (unsigned by = 0; by < (unsigned)((nx + TX - 1) / TX); ++by)
     for (unsigned bx = 0; bx < (unsigned)((ny + TY - 1) / TY); ++bx) {
       blockIdx = {bx, by, bz};
-      if (which == 2) delta_kernel(sc, a, b, c, out, nx, ny);
-      if (which == 3) rhs_kernel(sc, a, out, nx, ny);
-      if (which == 4) coeff_resid_kernel(sc, a, b, c, out, nx, ny);
+      coeff_resid_kernel(sc, a, b, c, out, nx, ny);
     }
   return 0;
 }
