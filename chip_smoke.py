@@ -80,9 +80,12 @@ phases, each printing one line:
     exact launches per ensemble step whatever the member count, ms per
     ensemble step and per member, the busy share, members against
     their own single runs;
-18. EnsembleSolver adaptive per step on examples/hexagons2d at its own
-    384^2 x 3, 4 members, with a forced fallback so that the float64
-    GMRES step runs;
+18. EnsembleSolver adaptive on examples/hexagons2d at its own 384^2 x
+    3, 4 members: per step, then with the device loop (one vmapped tier
+    step per occupied tier per attempt, its launches those calls', each
+    member against its own single-member chunk), ms per accepted
+    ensemble step and dispatches per accept of both; a forced fallback
+    so that the float64 GMRES step runs, and that step timed;
 19. the ensemble on the card and on the CPU at 64^2 x 3, 3 members,
     fixed-dt blocks and adaptive per step, agreeing in counts, t, h
     and state;
@@ -115,7 +118,14 @@ phases, each printing one line:
 27. two gloo ranks (spawned processes) time-sliced on the one card: the
     2D step and multistep, the adaptive chunk at the flagship's
     1536^2 x 3 and the 3D multistep, each against the unsharded port on
-    the card.
+    the card;
+28. the unfused step (no kernel, the RHS linearized once per step):
+    examples/peaks1d at its own 384 x 3 (1D: the adaptive chunk, the
+    multistep card vs CPU, the device-loop ensemble of 3 members), the
+    2D bench problem at 1024^2 x 3 with use_pallas=False against the
+    fused step (no stencil launch; ms/step and device ms by group of
+    both), the 3D problem at 64 x 64 x 4 (z under 2*sw+1), and each way
+    of linearizing the RHS timed in 1D and 2D.
 
 Then one JSON line of the nineteen kernels (B9's eight rows last) and,
 last, the result line.  Any failed phase raises (a failed rank fails
@@ -124,6 +134,7 @@ nothing of JAX.  Profiles and long reports go to chiprun_out/.
 """
 
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -218,6 +229,21 @@ def hex_numerics(**kw):
     return NumericsOptions(ts_type="rosw", adapt_type="basic", dt_max=1e4,
                            dt_min=1e-20, clip_low=0.1, clip_high=5.0,
                            ksp_iters=16, **kw)
+
+
+#: the coefficients that depend on t in phase 29's problem (and in
+#: tests/test_torch_tdep.py's)
+TDEP_PARAMS = ["gamma_1_1=0.01*(1 + t)", "s2=sigma**2/2*(1 + 0.1*t)"]
+
+
+def tdep_clargs(n):
+    """The bench problem at n^2 with its free energy G (through s2) and
+    one ligand decay depending on t."""
+    names = {p.split("=", 1)[0] for p in TDEP_PARAMS}
+    clargs = bench_clargs(n)
+    clargs.params = [p for p in clargs.params
+                     if p.split("=", 1)[0] not in names] + TDEP_PARAMS
+    return clargs
 
 
 def initial_state(grid):
@@ -514,6 +540,8 @@ def phase_build():
         ("2d hexagons %d^2" % N_HEX, hex_clargs(), (N_HEX, N_HEX)),
         ("2d %d^2" % N_ENS_CMP, bench_clargs(N_ENS_CMP),
          (N_ENS_CMP, N_ENS_CMP)),
+        ("2d tdep %d^2" % N_BIG, tdep_clargs(N_BIG), (N_BIG, N_BIG)),
+        ("2d tdep %d^2" % N_CMP, tdep_clargs(N_CMP), (N_CMP, N_CMP)),
     ] + [("3d %dx%dx%dx%d" % (ODD3 + (dof,)), agg3d_clargs(ODD3[0], dof),
           ODD3) for dof in FIELDS3] + [
         ("2d %dx%dx%d" % (RAGGED + (dof,)), bench_clargs(RAGGED[0], dof),
@@ -548,13 +576,22 @@ def phase_build():
             for n, c in sass.items() if n != "pitch copy")))
     # every stencil kernel of every build, unsharded and halo-slab (9 in
     # 2D with B11, 8 in 3D), keeps its registers
+    # the delta kernels of a problem whose coefficients depend on t run
+    # on no path (stage_delta_ok: the step drops delta there, as the
+    # reference does): their spills are reported, not held
+    unheld = []
     for label, b in builds[:-1]:
         spills = ptxas_spills(b.build_info["ptxas"])
+        held = {n: v for n, v in spills.items()
+                if b.ops.stage_delta_ok() or not n.startswith("delta")}
+        unheld += ["%s %s %s" % (label, n, v) for n, v in spills.items()
+                   if n not in held and any(v)]
         check(len(spills) == (9 if label.startswith("2d") else 8)
-              and not any(any(v) for v in spills.values()),
+              and not any(any(v) for v in held.values()),
               "%s kernels spill: %s" % (label, spills))
     print("phase 1 build: %d libraries in %.2f s wall (nvcc s: %s) | 2D "
-          "per block: %s | 3D per block: %s | %s" % (
+          "per block: %s | 3D per block: %s | %s | spills (bytes stored, "
+          "loaded) of kernels on no path: %s" % (
               len(builds), wall,
               ", ".join("%s %.2f" % (l, b.build_info["nvcc_seconds"])
                         for l, b in builds),
@@ -564,7 +601,7 @@ def phase_build():
               launch_geometry(builds[2][1].library(),
                               ("jvp", "resid", "delta", "rhs"),
                               "ksfd_smem_floats", 4),
-              " | ".join(reports)))
+              " | ".join(reports), "; ".join(unheld) or "none"))
     return reports[-2], sass
 
 
@@ -604,15 +641,15 @@ def clamped(u_raw, ops):
     return raw
 
 
-def kernel_cases(kern, ops, states, gen):
+def kernel_cases(kern, ops, states, gen, t=0.0):
     """(name, label, args) for each kernel on each state (f64 tensors on
-    the card): jvp and resid on the groomed f32 state and, for the rough
-    one, on a raw state with points below, at and NaN against the
-    floors; delta with increments of scale 100 (rough) or 1e-3
+    the card) at time t: jvp and resid on the groomed f32 state and, for
+    the rough one, on a raw state with points below, at and NaN against
+    the floors; delta with increments of scale 100 (rough) or 1e-3
     (near-uniform) and with a fifth of the points clamped to the
     floor."""
     shape = tuple(ops.grid.Vshape)
-    t = torch.zeros((), dtype=torch.float64, device="cuda")
+    t = torch.full((), t, dtype=torch.float64, device="cuda")
     shift = torch.full((), 1.0 / 0.435866521508459, dtype=torch.float64,
                        device="cuda")
     randn = lambda: torch.randn(shape, generator=gen, device="cuda",
@@ -639,12 +676,12 @@ def kernel_cases(kern, ops, states, gen):
     return cases
 
 
-def rhs_cases(ops, states):
+def rhs_cases(ops, states, t=0.0):
     """(name, label, args) of the rhs kernel on each state (f64 tensors
-    on the card): the f32 state as the fast mode holds it and, for the
-    rough one, a raw state with points below, at and NaN against the
-    floors (the kernel grooms)."""
-    t = torch.zeros((), dtype=torch.float32, device="cuda")
+    on the card) at time t: the f32 state as the fast mode holds it and,
+    for the rough one, a raw state with points below, at and NaN against
+    the floors (the kernel grooms)."""
+    t = torch.full((), t, dtype=torch.float32, device="cuda")
     cases = []
     for sname, u_raw in states.items():
         cases.append(("rhs", sname, (ops.groom(u_raw).float(), t)))
@@ -1780,18 +1817,112 @@ def hex_starts(grid, n, seed):
 
 #: accepted steps per member of phase 18's run
 HEX_STEPS = 24
+#: accepted steps per member of phase 18's two-tier device-loop run
+TIER_STEPS = 8
+
+
+def zero_launches(kern):
+    for k in kern.kernels.values():
+        k.launches = 0
+
+
+def launch_counts(kern):
+    return {name: k.launches for name, k in kern.kernels.items()}
+
+
+def tier_signatures(es, U1):
+    """Each device-loop tier step's launches per call (one call of its
+    vmapped build on the one-member batch U1): a call launches each
+    batched kernel once, whatever its member count."""
+    c = es._chunk
+    dev = U1.device
+    t = torch.zeros(1, dtype=torch.float64, device=dev)
+    h = torch.full((1,), 1e-8, dtype=torch.float64, device=dev)
+    sig = []
+    for step in c.steps:
+        args = (U1, t, h) + ((c.rhs0(U1, t),) if c.chain else ())
+        zero_launches(es.kernels)
+        step(*args)
+        torch.cuda.synchronize()
+        sig.append(launch_counts(es.kernels))
+    return sig
+
+
+def count_tier_calls(es):
+    """Wrap the device loop's tier steps; returns the per-tier calls."""
+    calls = [0] * len(es._chunk.steps)
+    for tier, step in enumerate(list(es._chunk.steps)):
+        def counted(*args, _tier=tier, _step=step):
+            calls[_tier] += 1
+            return _step(*args)
+        es._chunk.steps[tier] = counted
+    return calls
+
+
+def forced_escalation(step):
+    """``step`` (a tier step, vmapped or not) whose first call reports a
+    finite rejection (enorm 1e3) for its first member, which then
+    retries the same h one tier up."""
+    first = [True]
+
+    def wrapped(*args):
+        out = step(*args)
+        if not first[0]:
+            return out
+        first[0] = False
+        e = out[1].clone()
+        e.reshape(-1)[0] = 1e3
+        return (out[0], e) + tuple(out[2:])
+
+    return wrapped
+
+
+def check_device_loop(es, calls, sig, launches, label):
+    """The tier steps ran once per attempt per occupied tier (the
+    dispatch records against the wrapped steps' calls) and the kernels'
+    launches are those calls' launches (the GMRES retry and the fresh
+    f0 launch no stencil kernel)."""
+    tot = es._chunk.totals
+    occupied = tot.occupied
+    check(sum(calls) == occupied and tot.calls == calls,
+          "%s: tier-step calls %s, %d occupied tier-attempts, records %s"
+          % (label, calls, occupied, tot.calls))
+    want = {n: sum(c * sg[n] for c, sg in zip(calls, sig)) for n in launches}
+    check(launches == want, "%s: launches %s, tier calls x per-call launches"
+          " %s" % (label, launches, want))
+    return occupied
 
 
 def phase_ensemble_adaptive(card):
-    """EnsembleSolver adaptive per-step (device_loop off) on
-    examples/hexagons2d's parameters and numerics at its own 384^2 x 3,
-    4 members from noisy uniform starts, dt=1e-8, HEX_STEPS accepts:
-    per member the accepts, rejections, fallback rescues and steps, the
-    t and h range, and ms per outer iteration.  Then one forced
-    fallback (the fast step fails for member 0 once, as
-    tests/test_ensemble.py:493-562 stages it), so the float64 GMRES step
-    runs on the card: member 0 is rescued and stays on it."""
-    from ksfd_tpu_torch.solvers import EnsembleSolver
+    """EnsembleSolver adaptive on examples/hexagons2d's parameters and
+    numerics at its own 384^2 x 3, 4 members from noisy uniform starts,
+    dt=1e-8, HEX_STEPS accepts each: first per step (device_loop off),
+    then with the device loop (``device_loop=True``: per attempt one
+    vmapped tier step per occupied tier).  Per member the accepts,
+    rejections, fallback rescues and steps, the t and h range, ms per
+    accepted ensemble step and dispatches per accept of each loop.  The
+    device loop must reach HEX_STEPS for every member, run its tier
+    steps once per attempt per occupied tier with the launches those
+    calls make, and give each member the k, t and h of the port's
+    single-member chunk (make_adaptive_chunk_fn, max_attempts 128) on
+    that member alone, u within 1e-5 of max|u|; t and h to 1e-4
+    relative, as phase 14 holds the chunk's card against the CPU: the
+    pc's batched cuBLAS products round apart from the single ones in
+    the last float32 bits, the float32 sweeps carry that into each
+    embedded error norm (a cancelling sum), and h compounds it over the
+    accepts (1.7e-5 measured).  On the CPU, where a batched call runs
+    each member's plain version, they are equal
+    (tests/test_torch_ensemble_chunk.py).  Then the device loop on two
+    tiers at once (rich3 escalating to rich16 and cheb48, TIER_STEPS
+    accepts each, member 0's first attempt forced to a finite
+    rejection, so it escalates while the others stay): the tier calls
+    and launches checked as above, more tier calls than host reads, and
+    each member against its own chunk (member 0's forced alike).  Then
+    one forced fallback (the fast step fails for member 0
+    once, as tests/test_ensemble.py:493-562 stages it), so the float64
+    GMRES step runs on the card: member 0 is rescued and stays on it;
+    and the GMRES step alone, timed."""
+    from ksfd_tpu_torch.solvers import EnsembleSolver, make_adaptive_chunk_fn
 
     dev = torch.device("cuda")
     clargs = hex_clargs()
@@ -1801,17 +1932,20 @@ def phase_ensemble_adaptive(card):
     kw = dict(t0=0.0, dt=float(ps.params0["dt"]),
               tmax=float(ps.params0["tmax"]), rtol=float(ps.params0["rtol"]),
               atol=float(ps.params0["atol"]), kernels=kern)
+    # warm both loops up (the first vmapped calls), untimed
+    for dl in (False, True):
+        EnsembleSolver(ops, hex_numerics(device_loop=dl), maxsteps=2,
+                       **kw).solve(U0)
     es = EnsembleSolver(ops, hex_numerics(), maxsteps=HEX_STEPS, **kw)
     hs_seen = []
     es.add_monitor(lambda es, ks, ts, U: hs_seen.append(es.hs.copy()))
-    for k in kern.kernels.values():
-        k.launches = 0
+    zero_launches(kern)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = es.solve(U0)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kern.kernels.items()}
+    launches = launch_counts(kern)
     check((out.k == HEX_STEPS).all() and not out.diverged.any()
           and bool(torch.isfinite(out.u).all()),
           "hexagons2d ensemble: k %s diverged %s" % (out.k, out.diverged))
@@ -1825,7 +1959,100 @@ def phase_ensemble_adaptive(card):
         for i in range(4))
     natural = dict(iterations=es.iterations, secs=secs, launches=launches,
                    k=out.k.tolist(), rejections=out.snes_failures.tolist(),
-                   rescues=es.rescues.tolist())
+                   rescues=es.rescues.tolist(),
+                   ms_per_accept=secs / HEX_STEPS * 1e3,
+                   dispatches_per_accept=es.iterations / HEX_STEPS)
+
+    # the device loop
+    esd = EnsembleSolver(ops, hex_numerics(device_loop=True),
+                         maxsteps=HEX_STEPS, **kw)
+    esd._build_steps()
+    sig = tier_signatures(esd, esd._vgroom(torch.as_tensor(U0[:1],
+                                                           device=dev)))
+    calls = count_tier_calls(esd)
+    zero_launches(kern)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outd = esd.solve(U0)
+    torch.cuda.synchronize()
+    dsecs = time.perf_counter() - t0
+    dlaunches = launch_counts(kern)
+    check((outd.k == HEX_STEPS).all() and not outd.diverged.any()
+          and bool(torch.isfinite(outd.u).all()),
+          "hexagons2d device loop: k %s diverged %s" % (outd.k,
+                                                         outd.diverged))
+    occupied = check_device_loop(esd, calls, sig, dlaunches,
+                                 "hexagons2d device loop")
+    dispatches = esd._chunk.totals.dispatches
+    chunk, _ = make_adaptive_chunk_fn(ops, hex_numerics(), atol=kw["atol"],
+                                      rtol=kw["rtol"], max_attempts=128,
+                                      kernels=kern)
+    devs = []
+    for i in range(4):
+        ui = ops.groom(torch.as_tensor(U0[i], device=dev))
+        u1, t1, h1, k1, _, _ = chunk(ui, 0.0, kw["dt"], kw["tmax"],
+                                     HEX_STEPS)
+        trel = abs(t1 - outd.t[i]) / abs(t1)
+        hrel = abs(h1 - outd.h[i]) / abs(h1)
+        udev = float((u1 - outd.u[i]).abs().max() / u1.abs().max())
+        check(k1 == outd.k[i] and trel <= 1e-4 and hrel <= 1e-4
+              and udev <= 1e-5,
+              "device loop member %d vs its own chunk: k %d/%d, t %.3e h "
+              "%.3e rel, u %.3e of max|u|" % (i, outd.k[i], k1, trel, hrel,
+                                              udev))
+        devs.append((trel, hrel, udev))
+    # two tiers at once: rich3 escalating to rich16 and cheb48, member
+    # 0's first tier-0 attempt forced to a finite rejection, so that it
+    # escalates while the others stay on tier 0
+    nm2 = dataclasses.replace(hex_numerics(device_loop=True), ksp_iters=3)
+    es2 = EnsembleSolver(ops, nm2, maxsteps=TIER_STEPS, **kw)
+    es2._build_steps()
+    sig2 = tier_signatures(es2, esd._vgroom(torch.as_tensor(U0[:1],
+                                                            device=dev)))
+    calls2 = count_tier_calls(es2)
+    es2._chunk.steps[0] = forced_escalation(es2._chunk.steps[0])
+    zero_launches(kern)
+    out2 = es2.solve(U0)
+    launches2 = launch_counts(kern)
+    check((out2.k == TIER_STEPS).all() and not out2.diverged.any()
+          and bool(torch.isfinite(out2.u).all()),
+          "two-tier device loop: k %s diverged %s" % (out2.k, out2.diverged))
+    check_device_loop(es2, calls2, sig2, launches2, "two-tier device loop")
+    tot2 = es2._chunk.totals
+    check(len(es2._chunk.tiers) > 1 and calls2[1] > 0
+          and tot2.occupied > tot2.reads,
+          "two-tier device loop: tier calls %s in %d reads" % (calls2,
+                                                               tot2.reads))
+    chunk2, _ = make_adaptive_chunk_fn(ops, nm2, atol=kw["atol"],
+                                       rtol=kw["rtol"], max_attempts=128,
+                                       kernels=kern)
+    plain0 = chunk2.steps[0]
+    devs2 = []
+    for i in range(4):
+        chunk2.steps[0] = forced_escalation(plain0) if i == 0 else plain0
+        ui = ops.groom(torch.as_tensor(U0[i], device=dev))
+        u1, t1, h1, k1, _, _ = chunk2(ui, 0.0, kw["dt"], kw["tmax"],
+                                      TIER_STEPS)
+        d = (abs(t1 - out2.t[i]) / abs(t1), abs(h1 - out2.h[i]) / abs(h1),
+             float((u1 - out2.u[i]).abs().max() / u1.abs().max()))
+        check(k1 == out2.k[i] and d[0] <= 1e-4 and d[1] <= 1e-4
+              and d[2] <= 1e-5,
+              "two-tier device loop member %d vs its own chunk: k %d/%d, "
+              "t %.3e h %.3e rel, u %.3e of max|u|" % ((i, out2.k[i], k1)
+                                                       + d))
+        devs2.append(d)
+    two_tier = dict(tier_calls=calls2, reads=tot2.reads,
+                    attempts=tot2.attempts, launches=launches2,
+                    max_rel_dev_vs_own_chunk=[max(d) for d in zip(*devs2)])
+    device = dict(dispatches=dispatches, secs=dsecs, launches=dlaunches,
+                  k=outd.k.tolist(),
+                  rejections=outd.snes_failures.tolist(),
+                  rescues=esd.rescues.tolist(), tier_calls=calls,
+                  attempts=esd._chunk.totals.attempts,
+                  ms_per_accept=dsecs / HEX_STEPS * 1e3,
+                  dispatches_per_accept=dispatches / HEX_STEPS,
+                  max_rel_dev_vs_own_chunk=[max(d) for d in zip(*devs)],
+                  two_tier=two_tier)
 
     # the forced fallback: member 0's first fast step fails, its robust
     # retry runs (and is taken as accepted)
@@ -1861,14 +2088,46 @@ def phase_ensemble_adaptive(card):
           and bool(torch.isfinite(out2.u).all()),
           "forced fallback: rescues %s fbm %s k %s" % (es.rescues, es._fbm,
                                                        out2.k))
+    # the GMRES step alone, on member 0's start
+    u_fb = ops.groom(torch.as_tensor(U0[0], device=dev))
+    t_fb = torch.zeros((), dtype=torch.float64, device=dev)
+    h_fb = torch.full((), 1e-2, dtype=torch.float64, device=dev)
+    fb(u_fb, t_fb, h_fb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, e_fb = fb(u_fb, t_fb, h_fb)
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t0) / 3 * 1e3
+    check(bool(torch.isfinite(e_fb)), "the GMRES step's enorm is finite")
+    natural.update(fallback_step_ms=fb_ms, forced_fallback_secs=fsecs)
     print("phase 18 ensemble adaptive hexagons2d %d^2x3 4 members dt=1e-8 "
-          "(%s): %d accepts each in %d outer iterations, %.3f s, %.4f ms per "
-          "outer iteration | %s | launches %s | forced fallback: member 0 "
-          "rescued (its GMRES step's own enorm %.4g) and parked on the "
-          "fallback, %.3f s for 3 accepts" % (
+          "(%s): per step: %d accepts each in %d outer iterations, %.3f s, "
+          "%.4f ms per accepted ensemble step, %.4f dispatches per accept | "
+          "%s | launches %s | device loop: %d dispatches (%.4f per accept), "
+          "%d member attempts in %d tier-step calls %s, %.3f s, %.4f ms per "
+          "accepted ensemble step, rejections %s, rescues %s, launches %s "
+          "(tier calls x per-call launches %s), vs each member's own chunk: "
+          "t, h, u max rel dev %s | two tiers (rich3, member 0 forced up "
+          "once): %d accepts each, tier calls %s in %d host reads, %d member "
+          "attempts, launches %s, vs own chunks t, h, u max rel dev %s | "
+          "forced fallback: member 0 rescued (its "
+          "GMRES step's own enorm %.4g) and parked on the fallback, %.3f s "
+          "for 3 accepts; the GMRES step (J from the once-per-step "
+          "linearization) %.2f ms at h=1e-2" % (
               N_HEX, card, HEX_STEPS, natural["iterations"], secs,
-              secs / natural["iterations"] * 1e3, members, launches,
-              fb_e[0], fsecs))
+              natural["ms_per_accept"], natural["dispatches_per_accept"],
+              members, launches, dispatches,
+              device["dispatches_per_accept"], device["attempts"],
+              occupied, calls, dsecs, device["ms_per_accept"],
+              device["rejections"], device["rescues"], dlaunches, sig,
+              ["%.3e" % d for d in device["max_rel_dev_vs_own_chunk"]],
+              TIER_STEPS, calls2, tot2.reads, tot2.attempts, launches2,
+              ["%.3e" % d for d in two_tier["max_rel_dev_vs_own_chunk"]],
+              fb_e[0], fsecs, fb_ms))
+    natural["device_loop"] = device
+    natural["launches"] = {n: launches[n] + dlaunches[n] + launches2[n]
+                           for n in launches}
     return natural
 
 
@@ -2546,6 +2805,433 @@ def phase_two_ranks(card):
 
 
 
+# ------------------------------------------------------- the unfused step
+
+N_PEAKS = 384               # examples/peaks1d's own size
+PEAKS_ACCEPTS = 36          # accepts of phase 28's 1D chunk
+PEAKS_ENS_STEPS = 24        # accepts per member of phase 28's 1D ensemble
+SMALL3 = (64, 64, 4)        # a 3D extent under 2*sw+1 on z
+
+
+def peaks_clargs():
+    """The parameters of examples/peaks1d (1D, rho plus an attractant and
+    a repellent ligand group, degree 3, 384 elements)."""
+    return make_clargs(params=example_params("peaks1d"))
+
+
+def peaks_numerics(**kw):
+    """examples/peaks1d's numerics block (-ts_type rosw, -ts_adapt_type
+    basic, -ts_adapt_dt_max 10000, -ts_adapt_dt_min 1e-20,
+    -ts_adapt_clip 0.1,5) as NumericsOptions fields."""
+    from ksfd_tpu_torch import NumericsOptions
+
+    return NumericsOptions(ts_type="rosw", adapt_type="basic", dt_max=1e4,
+                           dt_min=1e-20, clip_low=0.1, clip_high=5.0, **kw)
+
+
+def step_ms(multi, u0, h, n_lo=2, n_hi=6, reps=2):
+    """Host ms per step of a multistep from the slope between ``n_lo``
+    and ``n_hi`` steps (the min over reps of each)."""
+    dev = u0.device
+    t0 = torch.zeros((), dtype=torch.float64, device=dev)
+    hh = torch.full((), h, dtype=torch.float64, device=dev)
+    best = {}
+    for n in (n_lo, n_hi):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            multi(u0, t0, hh, n)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            best[n] = min(best.get(n, secs), secs)
+    return (best[n_hi] - best[n_lo]) / (n_hi - n_lo) * 1e3
+
+
+def jvp_linearize(ops):
+    """``ops.linearize`` by ``torch.func.jvp`` of the RHS at every apply
+    (a primal evaluation with each tangent)."""
+    def linearize(u, t, primal=True):
+        def fn(uu):
+            return ops.rhs(uu, t)
+
+        return (fn(u) if primal else None,
+                lambda v: torch.func.jvp(fn, (u,), (v,))[1])
+
+    return linearize
+
+
+def fx_linearize(ops):
+    """``ops.linearize`` by ``torch.func.linearize`` once per step (one
+    make_fx trace, then the tangent graph at every apply)."""
+    def linearize(u, t, primal=True):
+        f0, jvp = torch.func.linearize(lambda uu: ops.rhs(uu, t), u)
+        return (f0 if primal else None), jvp
+
+    return linearize
+
+
+def linearization_ms(ops, numerics, u0, h):
+    """Host ms per step of the unfused multistep with each way of
+    linearizing the RHS: the port's coefficient fields
+    (PDEOperators.linearize), and in its place ``torch.func.jvp`` per
+    apply and ``torch.func.linearize`` per step; a 2-step chain after a
+    1-step warmup, and each one's 2-step state's max deviation from the
+    first's."""
+    from ksfd_tpu_torch.solvers import make_multistep_fn
+
+    dev = u0.device
+    t0 = torch.zeros((), dtype=torch.float64, device=dev)
+    hh = torch.full((), h, dtype=torch.float64, device=dev)
+    out, states = {}, {}
+    for how, lin in (("fields", None), ("jvp", jvp_linearize(ops)),
+                     ("linearize", fx_linearize(ops))):
+        if lin is not None:
+            ops.linearize = lin
+        try:
+            multi, _ = make_multistep_fn(ops, numerics, atol=0.01,
+                                         rtol=1e-6)
+            multi(u0, t0, hh, 1)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            states[how] = multi(u0, t0, hh, 2)[0]
+            torch.cuda.synchronize()
+            out[how] = (time.perf_counter() - start) / 2 * 1e3
+        finally:
+            vars(ops).pop("linearize", None)
+    devs = {how: float((u - states["fields"]).abs().max())
+            for how, u in states.items()}
+    return out, devs
+
+
+def card_vs_cpu_multistep(clargs, shape, numerics, make_state, h, nsteps):
+    """The unfused multistep on the card and on the CPU from one numpy
+    state: (card state, cpu state, u0) as numpy."""
+    from ksfd_tpu_torch.solvers import make_multistep_fn
+
+    res = {}
+    u0 = None
+    for dev in ("cpu", "cuda"):
+        ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
+        if u0 is None:
+            u0 = make_state(grid)
+        multi, _ = make_multistep_fn(ops, numerics, atol=0.01, rtol=1e-6)
+        check(multi.kernels is None, "the unfused multistep built kernels")
+        u, _, e = multi(torch.as_tensor(u0, device=dev),
+                        torch.zeros((), dtype=torch.float64, device=dev),
+                        torch.full((), h, dtype=torch.float64, device=dev),
+                        nsteps)
+        check(bool(torch.isfinite(u).all()) and bool(torch.isfinite(e)),
+              "unfused multistep finite on %s" % dev)
+        res[dev] = u.double().cpu().numpy()
+    return res["cuda"], res["cpu"], u0
+
+
+def phase_unfused(card):
+    """The unfused step (the reference's XLA path: no kernel; W from the
+    RHS linearized once per step) on the card.
+
+    (a) examples/peaks1d at its own 384 x 3 (1D): the adaptive chunk for
+        PEAKS_ACCEPTS accepts from a noisy uniform start (hex_starts);
+        the fixed-dt multistep card vs CPU, the default mixed step
+        within 1e-5 of the increment and the float64-sweep step within
+        1e-10 of max|u|; each way of linearizing the RHS timed;
+    (b) the 2D bench problem at 1024^2 x 3 with use_pallas=False, the
+        mixed step and the float64-sweep step: no stencil launch (a
+        kernel namespace passed in stays at 0); against the
+        float64-sweep step the mixed unfused state within 1e-5 of the
+        increment and the fused step's within 1e-4 (its delta kernel's
+        float32 envelope on this near-uniform state: 6.1e-5, the plain
+        versions on the CPU too); host ms/step and device ms by group of
+        all three; each way of linearizing timed;
+    (c) aggregation3d at 64 x 64 x 4 (z under 2*sw+1) from a noisy
+        uniform start: the gate refuses and the unfused step runs, card
+        vs CPU within 1e-5 of the increment;
+    (d) the 1D ensemble with the device loop, 3 members, PEAKS_ENS_STEPS
+        accepts each, its tier calls checked, each member against its
+        own chunk (k equal, t and h to 1e-4 relative, as phase 18)."""
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.ops.fused_stencil import kernels_available
+    from ksfd_tpu_torch.solvers import (
+        EnsembleSolver,
+        make_adaptive_chunk_fn,
+        make_multistep_fn,
+    )
+
+    dev = torch.device("cuda")
+    lines = []
+    fig = {}
+    # (a) peaks1d
+    clargs = peaks_clargs()
+    ps, grid, ops = problem_from_clargs(clargs, N_PEAKS, device=dev)
+    check(grid.dim == 1 and not kernels_available(grid, ops),
+          "peaks1d is 1D and off the kernel gate")
+    start = hex_starts(grid, 3, clargs.seed)
+    chunk, _ = make_adaptive_chunk_fn(ops, peaks_numerics(), atol=0.01,
+                                      rtol=1e-6)
+    u0 = ops.groom(torch.as_tensor(start[0], device=dev))
+    chunk(u0, 0.0, 1e-8, 2e5, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, t, h, k, attempts, rejected = chunk(u0, 0.0, 1e-8, 2e5,
+                                           PEAKS_ACCEPTS)
+    torch.cuda.synchronize()
+    csecs = time.perf_counter() - t0
+    check(k == PEAKS_ACCEPTS and not rejected
+          and bool(torch.isfinite(u).all()),
+          "peaks1d chunk: k %d attempts %d rejected %s" % (k, attempts,
+                                                           rejected))
+    fig["peaks1d_chunk"] = dict(ms_per_accept=csecs / k * 1e3, k=k,
+                                attempts=attempts, t=t, h=h,
+                                per_tier=chunk.stats.per_tier)
+    lines.append("(a) peaks1d %dx3 chunk: %d accepts in %d attempts %s, t "
+                 "%.6g, h %.4g, %.3f ms per accept" % (
+                     N_PEAKS, k, attempts, chunk.stats.per_tier, t, h,
+                     csecs / k * 1e3))
+    def peaks_start(g):
+        return ops.groom(torch.as_tensor(start[0], device=dev)).cpu().numpy()
+
+    for label, nm, tol in (("mixed", NumericsOptions(), None),
+                           ("f64 sweeps",
+                            NumericsOptions(sweep_dtype="float64"), 1e-10)):
+        ug, uc, u0n = card_vs_cpu_multistep(clargs, (N_PEAKS,), nm,
+                                            peaks_start, 1e-2, 4)
+        inc = float(np.abs(uc - u0n).max())
+        dev_abs = float(np.abs(ug - uc).max())
+        bound = (1e-5 * inc if tol is None
+                 else tol * float(np.abs(uc).max()))
+        check(dev_abs <= bound, "peaks1d card vs cpu %s: %.3e > %.3e" % (
+            label, dev_abs, bound))
+        lines.append("peaks1d card vs cpu 4 steps h=1e-2 %s: %.3e (%.3e of "
+                     "the increment %.4e)" % (label, dev_abs, dev_abs / inc,
+                                              inc))
+    lin1, lin1_dev = linearization_ms(ops, NumericsOptions(), u0, 1e-2)
+    fig["linearize_ms_per_step_peaks1d"] = lin1
+    lines.append("peaks1d ms/step by linearization %s (2-step state dev "
+                 "%s)" % ({k_: round(v, 4) for k_, v in lin1.items()},
+                          {k_: "%.2e" % v for k_, v in lin1_dev.items()}))
+
+    # (b) the 2D bench problem, unfused against fused
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    kern = make_fused_kernels(ops)
+    u0 = torch.as_tensor(initial_state(grid), device=dev)
+    t0_ = torch.zeros((), dtype=torch.float64, device=dev)
+    h1 = torch.full((), 1.0, dtype=torch.float64, device=dev)
+    res = {}
+    for label, nm in (("fused", NumericsOptions()),
+                      ("unfused", NumericsOptions(use_pallas=False)),
+                      ("f64 sweeps", NumericsOptions(
+                          use_pallas=False, sweep_dtype="float64"))):
+        multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6,
+                                     kernels=kern)
+        zero_launches(kern)
+        u2, _, e2 = multi(u0, t0_, h1, 2)
+        torch.cuda.synchronize()
+        launched = launch_counts(kern)
+        ms = step_ms(multi, u0, 1.0)
+        dev_ms, per_kernel = profile_device_ms(
+            lambda: multi(u0, t0_, h1, 2), 2)
+        res[label] = (u2, launched, ms, dev_ms, device_groups(per_kernel),
+                      float(e2))
+    uf, lf, msf, dmsf, gf, ef = res["fused"]
+    uu, lu, msu, dmsu, gu, eu = res["unfused"]
+    u64, l64, ms64, dms64, g64, e64 = res["f64 sweeps"]
+    inc = float((u64 - u0).abs().max())
+    dev_u = float((uu - u64).abs().max()) / inc
+    dev_f = float((uf - u64).abs().max()) / inc
+    check(all(v == 0 for v in lu.values()) and lf["resid"] > 0
+          and all(v == 0 for v in l64.values()),
+          "use_pallas=False launched %s (fused %s)" % (lu, lf))
+    # against the float64-sweep step: the unfused mixed step within
+    # 1e-5 of the increment; the fused step within its delta kernel's
+    # float32 envelope, which on this near-uniform state at 1024^2 is
+    # 6.1e-5 of the increment (the plain versions on the CPU agree)
+    check(dev_u <= 1e-5 and dev_f <= 1e-4, "1024^2 vs the f64-sweep step: "
+          "unfused %.3e, fused %.3e of the increment %.3e" % (
+              dev_u, dev_f, inc))
+    check(gu["stencil kernels"] == 0.0 and g64["stencil kernels"] == 0.0,
+          "the unfused profile shows stencil kernels: %s" % gu)
+    lin2, lin2_dev = linearization_ms(ops, NumericsOptions(use_pallas=False),
+                                      u0, 1.0)
+    fig["bench_1024"] = dict(
+        fused_ms_per_step=msf, unfused_ms_per_step=msu,
+        f64_sweeps_ms_per_step=ms64, fused_device_ms=dmsf,
+        unfused_device_ms=dmsu, f64_sweeps_device_ms=dms64,
+        fused_groups=gf, unfused_groups=gu, f64_sweeps_groups=g64,
+        unfused_launches=lu, fused_launches=lf,
+        dev_vs_f64_sweeps=dict(unfused=dev_u, fused=dev_f),
+        linearize_ms_per_step=lin2)
+    grp = lambda g: "; ".join("%s %.3f" % kv for kv in g.items())  # noqa
+    lines.append("(b) bench %d^2x3 h=1 2 steps: unfused launches %s; vs the "
+                 "f64-sweep step unfused %.3e, fused %.3e of the increment "
+                 "%.4e; emax fused %.4e unfused %.4e f64 sweeps %.4e; "
+                 "ms/step host fused %.3f unfused %.3f f64 sweeps %.3f; "
+                 "device ms/step fused %.3f (%s) unfused %.3f (%s) f64 "
+                 "sweeps %.3f (%s); unfused ms/step by linearization %s "
+                 "(2-step state dev %s)" % (
+                     N_BIG, lu, dev_u, dev_f, inc, ef, eu, e64, msf, msu,
+                     ms64, dmsf, grp(gf), dmsu, grp(gu), dms64, grp(g64),
+                     {k_: round(v, 3) for k_, v in lin2.items()},
+                     {k_: "%.2e" % v for k_, v in lin2_dev.items()}))
+    del uf, uu, u64, kern, ops
+
+    # (c) 3D with z under 2*sw+1
+    clargs3 = agg3d_clargs(SMALL3[0])
+    _, grid3, ops3 = problem_from_clargs(clargs3, *SMALL3, device=dev)
+    check(not kernels_available(grid3, ops3), "64x64x4 is off the gate")
+    ug, uc, u0n = card_vs_cpu_multistep(
+        clargs3, SMALL3, NumericsOptions(),
+        lambda g: hex_starts(g, 1, clargs3.seed)[0], 1e-2, 2)
+    inc = float(np.abs(uc - u0n).max())
+    dev_abs = float(np.abs(ug - uc).max())
+    check(dev_abs <= 1e-5 * inc, "3D 64x64x4 card vs cpu: %.3e of %.3e" % (
+        dev_abs, inc))
+    lines.append("(c) aggregation3d %dx%dx%dx3 unfused, 2 steps h=1e-2, card "
+                 "vs cpu %.3e of the increment %.4e" % (
+                     SMALL3 + (dev_abs / inc, inc)))
+
+    # (d) the 1D ensemble with the device loop
+    ps, grid, ops = problem_from_clargs(clargs, N_PEAKS, device=dev)
+    nm = peaks_numerics(device_loop=True)
+    esd = EnsembleSolver(ops, nm, t0=0.0, dt=1e-8, tmax=2e5,
+                         maxsteps=PEAKS_ENS_STEPS, rtol=1e-6, atol=0.01)
+    esd._build_steps()
+    calls = count_tier_calls(esd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = esd.solve(start)
+    torch.cuda.synchronize()
+    esecs = time.perf_counter() - t0
+    check((out.k == PEAKS_ENS_STEPS).all() and not out.diverged.any()
+          and bool(torch.isfinite(out.u).all()),
+          "peaks1d device loop: k %s" % out.k)
+    tot = esd._chunk.totals
+    occupied = tot.occupied
+    check(sum(calls) == occupied and tot.calls == calls, "peaks1d device "
+          "loop: %s calls, %d occupied tier-attempts" % (calls, occupied))
+    chunk, _ = make_adaptive_chunk_fn(ops, peaks_numerics(), atol=0.01,
+                                      rtol=1e-6, max_attempts=128)
+    worst = 0.0
+    for i in range(3):
+        ui = ops.groom(torch.as_tensor(start[i], device=dev))
+        u1, t1, h1_, k1, _, _ = chunk(ui, 0.0, 1e-8, 2e5, PEAKS_ENS_STEPS)
+        rel = max(abs(t1 - out.t[i]) / t1, abs(h1_ - out.h[i]) / h1_)
+        check(k1 == out.k[i] and rel <= 1e-4, "peaks1d device loop member "
+              "%d: k %d/%d, t/h rel %.3e" % (i, out.k[i], k1, rel))
+        worst = max(worst, rel)
+    fig["peaks1d_device_loop"] = dict(
+        ms_per_accept=esecs / PEAKS_ENS_STEPS * 1e3,
+        dispatches=tot.dispatches,
+        tier_calls=calls, rejections=out.snes_failures.tolist())
+    lines.append("(d) peaks1d device-loop ensemble 3 members: %d accepts "
+                 "each in %d dispatches, tier calls %s over %d occupied "
+                 "tier-attempts, rejections %s, %.3f ms per accepted "
+                 "ensemble step, t/h max rel dev vs own chunks %.3e" % (
+                     PEAKS_ENS_STEPS, tot.dispatches, calls, occupied,
+                     out.snes_failures.tolist(),
+                     esecs / PEAKS_ENS_STEPS * 1e3, worst))
+    print("phase 28 unfused step (%s): %s" % (card, " | ".join(lines)))
+    return fig
+
+
+# -------------------------------------- time-dependent PDE coefficients
+
+T_TDEP = 20.0               # the time phase 29's steps start at
+
+
+def phase_tdep(card):
+    """Time-dependent PDE coefficients through the kernels: each kernel
+    reads t from its scalar pack, the generated header evaluates the
+    coefficients at it, and the step drops only the delta kernel (as
+    the reference does, ksfd_tpu/solvers/solver.py:317-335).
+
+    (a) the bench problem with G and one ligand decay depending on t at
+        1024^2 x 3: each kernel against its plain version at t = 30, on
+        a rough and a near-uniform state (1e-5 of the plain version's
+        largest value); 2 mixed steps and 2 fast-mode steps from t = 20
+        launch 16 resid and no delta, and 8 rhs and 16 jvp;
+    (b) at 256^2 x 3, 4 chained mixed steps h=1e-4 from t = 20 on the
+        card (kernels) and on the CPU (plain versions): within 1e-5 of
+        the summed increment; the same steps from t = 0 differ from
+        them by more than 10 times that bound (the kernels follow t)."""
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.solvers import make_multistep_fn
+
+    dev = torch.device("cuda")
+    ps, grid, ops = problem_from_clargs(tdep_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    check(ops._G_tdep and ops._lig_tdep and not ops.stage_delta_ok(),
+          "phase 29's G and decay depend on t")
+    kern = make_fused_kernels(ops)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    states = {"rough": torch.as_tensor(rough_state(grid, ps), device=dev),
+              "wave": torch.as_tensor(initial_state(grid), device=dev)}
+    errs, rel, lines = {}, {}, []
+    compare_kernels(kern, kernel_cases(kern, ops, states, gen, t=30.0)
+                    + rhs_cases(ops, states, t=30.0), errs, rel, lines)
+    u0 = states["rough"]
+    t20 = torch.full((), T_TDEP, dtype=torch.float64, device=dev)
+    h = torch.full((), 1e-4, dtype=torch.float64, device=dev)
+    launched = {}
+    for label, nm in (("mixed", NumericsOptions()),
+                      ("fast", NumericsOptions(precision="float32"))):
+        multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6,
+                                     kernels=kern)
+        check(not multi.build_info["pallas_delta"]
+              and multi.build_info["kernel_refusal"] is None,
+              "phase 29 %s: %s" % (label, multi.build_info))
+        zero_launches(kern)
+        u2, _, e2 = multi(u0, t20, h, 2)
+        torch.cuda.synchronize()
+        launched[label] = launch_counts(kern)
+        check(bool(torch.isfinite(u2).all()) and bool(torch.isfinite(e2)),
+              "phase 29 %s steps finite" % label)
+    want = {"mixed": dict(rhs=0, jvp=0, resid=16, delta=0),
+            "fast": dict(rhs=8, jvp=16, resid=0, delta=0)}
+    check(launched == want, "phase 29 launches %s, want %s" % (launched,
+                                                               want))
+    del states, u0, u2, kern, ops
+
+    # (b) card vs CPU from t = 20, and the card from t = 0
+    clargs = tdep_clargs(N_CMP)
+    runs = {}
+    state = None
+    for where, t_start in (("cpu", T_TDEP), ("cuda", T_TDEP), ("cuda", 0.0)):
+        ps, grid, ops = problem_from_clargs(clargs, N_CMP, N_CMP,
+                                            device=where)
+        if state is None:
+            state = torch.as_tensor(rough_state(grid, ps))
+        multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01,
+                                     rtol=1e-6)
+        check(multi.kernels is not None, "phase 29 runs the kernels (on "
+              "the CPU their plain versions)")
+        t_ = torch.full((), t_start, dtype=torch.float64, device=where)
+        hh = torch.full((), 1e-4, dtype=torch.float64, device=where)
+        u = state.to(where)
+        if where == "cpu":
+            # the summed per-step increment (the CPU run starts at t = 20)
+            inc, ui = 0.0, u
+            for k in range(4):
+                un, _, _ = multi(ui, t_ + k * hh, hh, 1)
+                inc += float((un - ops.groom(ui)).abs().max())
+                ui = un
+        runs[where, t_start] = multi(u, t_, hh, 4)[0].cpu()
+    dev_abs = float((runs["cuda", T_TDEP] - runs["cpu", T_TDEP]).abs().max())
+    t_effect = float((runs["cuda", 0.0] - runs["cuda", T_TDEP]).abs().max())
+    check(dev_abs <= 1e-5 * inc and t_effect > 10 * 1e-5 * inc,
+          "phase 29 card vs cpu %.3e, t effect %.3e, 1e-5 of the summed "
+          "increment %.3e" % (dev_abs, t_effect, 1e-5 * inc))
+    print("phase 29 time-dependent coefficients (%s): %d^2x3 kernels vs "
+          "plain at t=30: %s | launches, 2 steps from t=%g: %s | %d^2x3 "
+          "card vs cpu, 4 steps h=1e-4 from t=%g: %.3e (%.3e of the summed "
+          "increment %.4e); the same steps from t=0 differ by %.3e" % (
+              card, N_BIG, "; ".join(lines), T_TDEP, launched, N_CMP,
+              T_TDEP, dev_abs, dev_abs / inc, inc, t_effect))
+    return dict(max_abs_err=errs, max_rel_err=rel, launches=launched,
+                card_vs_cpu_rel_to_increment=dev_abs / inc,
+                t_effect_rel_to_increment=t_effect / inc)
+
+
 def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
                 extra=None):
     """One row per kernel of ``kern`` (a namespace of wrappers by name,
@@ -2698,6 +3384,8 @@ def main():
     check(all(c > 0 for c in b9_totals.values()) and len(b9_totals) == 8,
           "a B9 kernel ran no launch on phase 26's paths: %s" % b9_totals)
     two_ranks = timed("27", phase_two_ranks, card)
+    unfused = timed("28", phase_unfused, card)
+    tdep = timed("29", phase_tdep, card)
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -2721,6 +3409,7 @@ def main():
     per_step["ensemble_f32"] = ens["f32", 8]["per_step"]
     per_step["ensemble_f64_pc"] = ens_pc[ENS_PC_RUNS[0]]["per_step"]
     runs2d += [f["launches"] for f in ens.values()] + [hexa["launches"]]
+    runs2d.append(unfused["bench_1024"]["fused_launches"])
     runs2d += [f["launches"] for f in ens_pc.values()]
     totals = {n: sum(c.get(n, 0) for c in runs2d)
               for n in list(kern.kernels) + ["pc_fwd", "pc_inv"]}
@@ -2797,6 +3486,8 @@ def main():
         "ensemble_aggregation3d": agg3,
         "one_rank_nccl": one_rank,
         "two_gloo_ranks_one_card": two_ranks,
+        "unfused": unfused,
+        "time_dependent_coefficients": tdep,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

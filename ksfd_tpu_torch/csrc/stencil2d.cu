@@ -215,7 +215,7 @@ coeff_resid_kernel(const float* __restrict__ sc, const float* __restrict__ C,
   v += member;
   b += member;
   out += member;
-  const float shift = sc[1];
+  const float t = sc[0], shift = sc[1];
 
   for (int i = threadIdx.x; i < HN; i += NT) {
     const int hx = i / HY, hy = i - hx * HY;
@@ -251,8 +251,8 @@ coeff_resid_kernel(const float* __restrict__ sc, const float* __restrict__ C,
     out[g] = b[g] - shift * v[g] + row;
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
-      row = -ksfd_gamma(l) * s_vU[l][c] + ksfd_s(l) * vr +
-            ksfd_D(l) * lap(&s_vU[l][c]);
+      row = -ksfd_gamma(l, t) * s_vU[l][c] + ksfd_s(l, t) * vr +
+            ksfd_D(l, t) * lap(&s_vU[l][c]);
       const size_t gl = (1 + l) * plane + g;
       out[gl] = b[gl] - shift * v[gl] + row;
     }
@@ -311,8 +311,8 @@ struct Operands {
 
 // jvp and resid: the J-action rows (with RESID, the fused Richardson
 // residual b - shift*v + J(u)v) from u and v; ring: rho, G, dG.v,
-// v_rho, v_U[NL]; sc = [t] or [t, shift] (t is unused: the generated G
-// carries no time dependence).
+// v_rho, v_U[NL]; sc = [t] or [t, shift] (t feeds the generated G and
+// the ligand coefficients, which may depend on it).
 template <bool RESID>
 struct Jvp {
   static constexpr int TY = 64, TX = 16, LX = 32, NT = KSFD_THREADS(256), MINB = 5,
@@ -331,12 +331,12 @@ struct Jvp {
       f[k] = raw[k] >= lo ? raw[k] : lo;
       vm[k] = raw[k] > lo ? raw[DOF + k] : 0.0f;
     }
-    ksfd_dG(f, dg);
+    ksfd_dG(f, s[0], dg);
     float dG = dg[0] * vm[0];
 #pragma unroll
     for (int k = 1; k < DOF; ++k) dG = dG + dg[k] * vm[k];
     val[0] = f[0];
-    val[1] = ksfd_G(f);
+    val[1] = ksfd_G(f, s[0]);
     val[2] = dG;
     val[3] = vm[0];
     val[4] = 0.0f;  // with no ligand field, the unused array
@@ -367,8 +367,8 @@ struct Jvp {
     for (int l = 0; l < NL; ++l) {
       float xvU[MW];
       at.x(4 + l, xvU);
-      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +
-            ksfd_D(l) * lap(xvU, at.centre(4 + l));
+      row = -ksfd_gamma(l, s[0]) * xvU[SW] + ksfd_s(l, s[0]) * vr +
+            ksfd_D(l, s[0]) * lap(xvU, at.centre(4 + l));
       const size_t gl = (1 + l) * plane + g;
       out[gl] = RESID ? b[gl] - s[1] * v[gl] + row : row;
     }
@@ -396,8 +396,8 @@ struct Delta {
       dd[k] = raw[DOF + k];
       u1[k] = raw[2 * DOF + k];
     }
-    const float G0c = ksfd_G(f) - s[2];
-    const float dG = ksfd_G_delta(f, dd, u1);
+    const float G0c = ksfd_G(f, s[0]) - s[2];
+    const float dG = ksfd_G_delta(f, dd, u1, s[0]);
     val[0] = dd[0];
     val[1] = G0c + dG;
     val[2] = f[0] - s[1];
@@ -430,9 +430,9 @@ struct Delta {
     for (int l = 0; l < NL; ++l) {
       float xdU[MW];
       at.x(5 + l, xdU);
-      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xdU[SW] +
-                                 ksfd_s(l) * drho +
-                                 ksfd_D(l) * lap(xdU, at.centre(5 + l));
+      out[(1 + l) * plane + g] = -ksfd_gamma(l, s[0]) * xdU[SW] +
+                                 ksfd_s(l, s[0]) * drho +
+                                 ksfd_D(l, s[0]) * lap(xdU, at.centre(5 + l));
     }
   }
 };
@@ -440,8 +440,8 @@ struct Delta {
 // rhs: the full centred RHS of the float32 fast mode (no sources: the
 // wrapper adds them) from the RAW state u, groomed here; ring: rho_c,
 // Gc, the groomed rho, Uc[NL]; sc = [t, mean_0 .. mean_{DOF-1},
-// G(means), react_1 .. react_NL] (t is unused: the generated G carries
-// no time dependence).
+// G(means), react_1 .. react_NL] (t feeds the generated G and the
+// ligand coefficients).
 struct Rhs {
   static constexpr int TY = 64, TX = 32, LX = 32, NT = KSFD_THREADS(256), MINB = 4,
                        RX = 4;
@@ -459,7 +459,7 @@ struct Rhs {
       f[k] = raw[k] >= lo ? raw[k] : lo;
     }
     val[0] = f[0] - s[1];
-    val[1] = ksfd_G(f) - s[1 + DOF];
+    val[1] = ksfd_G(f, s[0]) - s[1 + DOF];
     val[2] = f[0];
     val[3] = 0.0f;  // with no ligand field, the unused array
 #pragma unroll
@@ -484,9 +484,9 @@ struct Rhs {
     for (int l = 0; l < NL; ++l) {
       float xUc[MW];
       at.x(3 + l, xUc);
-      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xUc[SW] + ksfd_s(l) * rc +
-                                 s[2 + DOF + l] +
-                                 ksfd_D(l) * lap(xUc, at.centre(3 + l));
+      out[(1 + l) * plane + g] = -ksfd_gamma(l, s[0]) * xUc[SW] +
+                                 ksfd_s(l, s[0]) * rc + s[2 + DOF + l] +
+                                 ksfd_D(l, s[0]) * lap(xUc, at.centre(3 + l));
     }
   }
 };

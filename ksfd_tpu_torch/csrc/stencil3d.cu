@@ -247,7 +247,7 @@ struct At {
 
 // jvp and resid: the J-action rows (with RESID, the fused Richardson
 // residual b - shift*v + J(u)v) from u and v; sc = [t] or [t, shift] (t
-// is unused: the generated G carries no time dependence).
+// feeds the generated G and the ligand coefficients).
 template <bool RESID>
 struct Jvp {
   static constexpr int MY = 16, NT = KSFD_THREADS(512), MINB = 2;
@@ -267,12 +267,12 @@ struct Jvp {
       f[k] = r >= lo ? r : lo;
       vm[k] = r > lo ? raw[DOF + k] : 0.0f;
     }
-    ksfd_dG(f, dg);
+    ksfd_dG(f, s[0], dg);
     float dG = dg[0] * vm[0];
 #pragma unroll
     for (int k = 1; k < DOF; ++k) dG = dG + dg[k] * vm[k];
     dst[0] = f[0];
-    dst[1 * ds] = ksfd_G(f);
+    dst[1 * ds] = ksfd_G(f, s[0]);
     dst[2 * ds] = dG;
     dst[3 * ds] = vm[0];
 #pragma unroll
@@ -300,8 +300,8 @@ struct Jvp {
     for (int l = 0; l < NL; ++l) {
       float xvU[MW];
       at.x(4 + l, xvU);
-      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +
-            ksfd_D(l) * lap(xvU, at.centre(4 + l));
+      row = -ksfd_gamma(l, s[0]) * xvU[SW] + ksfd_s(l, s[0]) * vr +
+            ksfd_D(l, s[0]) * lap(xvU, at.centre(4 + l));
       const int jl = (1 + l) * at.mtn;
       out[(1 + l) * plane + g] =
           RESID ? at.bv[jl] - s[1] * at.bv[vs + jl] + row : row;
@@ -334,8 +334,8 @@ struct Delta {
       dd[k] = raw[lands(DOF + k)];
       u1[k] = raw[lands(2 * DOF + k)];
     }
-    const float G0c = ksfd_G(f) - s[2];
-    const float dG = ksfd_G_delta(f, dd, u1);
+    const float G0c = ksfd_G(f, s[0]) - s[2];
+    const float dG = ksfd_G_delta(f, dd, u1, s[0]);
     dst[0] = dd[0];
     dst[1 * ds] = G0c + dG;
     dst[2 * ds] = f[0] - s[1];
@@ -363,9 +363,9 @@ struct Delta {
     for (int l = 0; l < NL; ++l) {
       float xdU[MW];
       at.x(4 + l, xdU);
-      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xdU[SW] +
-                                 ksfd_s(l) * drho +
-                                 ksfd_D(l) * lap(xdU, at.centre(4 + l));
+      out[(1 + l) * plane + g] = -ksfd_gamma(l, s[0]) * xdU[SW] +
+                                 ksfd_s(l, s[0]) * drho +
+                                 ksfd_D(l, s[0]) * lap(xdU, at.centre(4 + l));
     }
   }
 };
@@ -391,7 +391,7 @@ struct Rhs {
       f[k] = r >= lo ? r : lo;
     }
     dst[0] = f[0] - s[1];
-    dst[1 * ds] = ksfd_G(f) - s[1 + DOF];
+    dst[1 * ds] = ksfd_G(f, s[0]) - s[1 + DOF];
 #pragma unroll
     for (int l = 0; l < NL; ++l) dst[(2 + l) * ds] = f[1 + l] - s[2 + l];
   }
@@ -413,9 +413,9 @@ struct Rhs {
     for (int l = 0; l < NL; ++l) {
       float xUc[MW];
       at.x(2 + l, xUc);
-      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xUc[SW] + ksfd_s(l) * rc +
-                                 s[2 + DOF + l] +
-                                 ksfd_D(l) * lap(xUc, at.centre(2 + l));
+      out[(1 + l) * plane + g] = -ksfd_gamma(l, s[0]) * xUc[SW] +
+                                 ksfd_s(l, s[0]) * rc + s[2 + DOF + l] +
+                                 ksfd_D(l, s[0]) * lap(xUc, at.centre(2 + l));
     }
   }
 };

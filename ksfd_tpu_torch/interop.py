@@ -3,8 +3,9 @@
 - ``problem_from_clargs(clargs, nx, ny, nz=None, device=None)`` builds
   the port's ``(ps, grid, ops)`` from the same argparse ``Namespace``
   that ``ksfd_tpu.SolutionParameters`` takes, as
-  ``__graft_entry__._make_problem`` builds the reference's 2D problem
-  and ``tests/test_3d.py:_problem`` its 3D one.  The dimension comes
+  ``__graft_entry__._make_problem`` builds the reference's 2D problem,
+  ``tests/test_3d.py:_problem`` its 3D one and
+  ``tests/manufactured.py:make_problem`` its 1D one.  The dimension comes
   from the parameters (``dim``).
 - ``tensors_from_numpy(arrays, device=None)`` turns arrays taken from
   the JAX package as numpy (the state, a base RHS f0, a
@@ -27,14 +28,18 @@ from .utils.device import resolve_device
 __all__ = ["problem_from_clargs", "tensors_from_numpy", "numpy_from_tensors"]
 
 
-def problem_from_clargs(clargs, nx, ny, nz=None, device=None):
-    """(ps, grid, ops) of a 2D or 3D problem on a periodic grid whose
-    dimension, extent, field count and stencil order come from the
-    parameters.  A 3D problem (``dim=3``) needs ``nz``."""
+def problem_from_clargs(clargs, nx, ny=None, nz=None, device=None):
+    """(ps, grid, ops) of a 1D, 2D or 3D problem on a periodic grid
+    whose dimension, extent, field count and stencil order come from
+    the parameters.  A 2D problem needs ``ny``, a 3D one (``dim=3``)
+    ``ny`` and ``nz``; a 1D one reads only ``nx``."""
     device = resolve_device(device)
     ps = SolutionParameters(clargs)
     dim = ps.dim
-    if dim == 2:
+    if dim == 1:
+        grid = Grid(dim=1, width=ps.width, nx=nx, dof=ps.nligands + 1,
+                    order=ps.degree)
+    elif dim == 2:
         grid = Grid(
             dim=2, width=ps.width, height=ps.height, nx=nx, ny=ny,
             dof=ps.nligands + 1, order=ps.degree,
@@ -47,9 +52,7 @@ def problem_from_clargs(clargs, nx, ny, nz=None, device=None):
             nx=nx, ny=ny, nz=nz, dof=ps.nligands + 1, order=ps.degree,
         )
     else:
-        raise NotImplementedError(
-            "dim=%d: the port runs 2D and 3D problems" % dim
-        )
+        raise ValueError("dim=%d: a grid has 1, 2 or 3 dimensions" % dim)
     return ps, grid, PDEOperators(ps, grid, device=device)
 
 

@@ -8,17 +8,24 @@ traces the sympy-lambdified JAX functions, the CUDA kernels of
 csrc/stencil2d.cu and csrc/stencil3d.cu include a header generated here
 that holds
 
-- ``ksfd_G(f)``, ``ksfd_dG(f, out)`` and ``ksfd_G_delta(f, d, s)`` as
-  ``__device__ __forceinline__`` functions of ``float`` arrays of
-  length ``KSFD_DOF`` (fields, increments, shifted fields);
+- ``ksfd_G(f, t)``, ``ksfd_dG(f, t, out)`` and ``ksfd_G_delta(f, d, s,
+  t)`` as ``__device__ __forceinline__`` functions of ``float`` arrays
+  of length ``KSFD_DOF`` (fields, increments, shifted fields) and the
+  time t, which each kernel reads from its scalar pack (``sc[0]``, as
+  the Pallas bodies read ``scv(sc_ref, b, 0)``);
 - the star stencils ``ksfd_d1x(p, stride)`` ... ``ksfd_d2y`` (and
   ``ksfd_d1z``/``ksfd_d2z`` in 3D): the first/second derivative at
   ``*p`` along an axis of that stride, a left-to-right sum of the
   nonzero coefficients (the order of the Pallas body's ``_d``);
-- the problem constants: ``KSFD_DIM``, ``KSFD_DOF``, ``KSFD_SW``, the
-  groom floors ``KSFD_RHOMIN``/``KSFD_UMIN`` and the ligand
-  coefficients ``ksfd_gamma(l)``, ``ksfd_s(l)``, ``ksfd_D(l)``, all as
-  ``F`` literals of their float32 values.
+- the problem constants: ``KSFD_DIM``, ``KSFD_DOF``, ``KSFD_SW`` and
+  the groom floors ``KSFD_RHOMIN``/``KSFD_UMIN`` as ``F`` literals of
+  their float32 values;
+- the ligand coefficients ``ksfd_gamma(l, t)``, ``ksfd_s(l, t)``,
+  ``ksfd_D(l, t)``: a constant one as the literal of its float32 value,
+  a time-dependent one as its expression of t in float32.
+
+A problem whose coefficients do not depend on t prints exactly what it
+would without the t arguments: t then appears in no expression.
 
 The printer is sympy's C99 printer with ``real`` aliased to float32, so
 literals carry an ``F`` suffix and calls are the single-precision
@@ -100,12 +107,16 @@ def _stencil_fn(name, cs):
     )
 
 
-def _table_fn(name, values):
+def _table_fn(name, exprs, t):
+    """``name(l, t)``: ligand l's coefficient, a literal where it is
+    constant, else its float32 expression of t."""
     cases = " ".join(
-        "case %d: return %s;" % (i, _flit(v)) for i, v in enumerate(values)
+        "case %d: return %s;" % (
+            i, c_expr(e, {t: "t"}) if t in e.free_symbols else _flit(float(e)))
+        for i, e in enumerate(exprs)
     )
     return (
-        "__device__ __forceinline__ float %s(int l) {\n"
+        "__device__ __forceinline__ float %s(int l, float t) {\n"
         "  switch (l) { %s }\n  return 0.0F;\n}" % (name, cases)
     )
 
@@ -113,20 +124,14 @@ def _table_fn(name, values):
 def pointwise_header(ops):
     """The generated header text for a 2D or 3D PDEOperators.
 
-    Raises NotImplementedError for a problem with time-dependent
-    coefficients (their values would have to come in at run time) or
-    without an increment form of G.  G, dG and G_delta do not depend on
-    the dimension; only the stencils do.
+    Raises NotImplementedError for a problem without an increment form
+    of G.  G, dG and G_delta do not depend on the dimension; only the
+    stencils do.
     """
     dim = ops.grid.dim
     if dim not in (2, 3):
         raise NotImplementedError(
             "CUDA kernels are 2D and 3D; a %dD problem has none" % dim
-        )
-    if ops._G_tdep or ops._lig_tdep:
-        raise NotImplementedError(
-            "time-dependent PDE coefficients are not printed into the "
-            "CUDA kernels yet"
         )
     if ops.G_delta_expr is None:
         raise NotImplementedError("G has no increment form (ops/delta.py)")
@@ -135,8 +140,7 @@ def pointwise_header(ops):
     fmap = {s: "f[%d]" % i for i, s in enumerate(ops.field_symbols)}
     dmap = {s: "d[%d]" % i for i, s in enumerate(ops.delta_symbols)}
     smap = {s: "s[%d]" % i for i, s in enumerate(ops.shifted_symbols)}
-    for m in (fmap, dmap, smap):
-        m[t] = "0.0F"  # t is absent from a time-independent G
+    fmap[t] = "t"
     lines = [
         "// Generated by ksfd_tpu_torch/ops/codegen.py; do not edit.",
         "#pragma once",
@@ -154,15 +158,16 @@ def pointwise_header(ops):
             ))
     for cname in ("gamma", "s", "D"):
         lines.append(_table_fn(
-            "ksfd_%s" % cname, [c[cname] for c in ops.lig_constants]
+            "ksfd_%s" % cname, [c[cname] for c in ops.lig_exprs], t
         ))
     lines += [
         "",
-        "__device__ __forceinline__ float ksfd_G(const float* f) {",
+        "__device__ __forceinline__ float ksfd_G(const float* f, "
+        "float t) {",
         "  return %s;" % c_expr(ops.G_expr, fmap),
         "}",
         "",
-        "__device__ __forceinline__ void ksfd_dG(const float* f, "
+        "__device__ __forceinline__ void ksfd_dG(const float* f, float t, "
         "float* out) {",
     ]
     for i, e in enumerate(ops.dG_exprs):
@@ -171,7 +176,7 @@ def pointwise_header(ops):
         "}",
         "",
         "__device__ __forceinline__ float ksfd_G_delta(const float* f, "
-        "const float* d, const float* s) {",
+        "const float* d, const float* s, float t) {",
         "  return %s;" % c_expr(ops.G_delta_expr, {**fmap, **dmap, **smap}),
         "}",
         "",

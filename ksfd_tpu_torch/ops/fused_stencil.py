@@ -89,7 +89,8 @@ from ..parallel.mesh import (
 from .codegen import pointwise_header
 from .stencil import deriv_coeffs
 
-__all__ = ["make_fused_kernels", "FusedKernel", "build_library"]
+__all__ = ["make_fused_kernels", "kernels_available", "kernel_refusal",
+           "FusedKernel", "build_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc" / "stencil2d.cu"
@@ -526,19 +527,24 @@ class _FusedBuild:
         with rho, G and each U centred on the scalar pack's means (the
         centring removes the f32 cancellation of O(1e4) fields with
         O(1e-4) derivatives); rho*lap(Gc) takes the uncentred rho."""
-        ops, dof = self.ops, self.dof
+        ops, dof, t = self.ops, self.dof, sc[0]
         fields = self._groom(u)
         rho = fields[0]
-        Gc = ops._G_fn(*fields, sc[0]) - sc[1 + dof]
+        Gc = ops._G_fn(*fields, t) - sc[1 + dof]
         rho_c = rho - sc[1]
         rows = [self.graddot(rho_c, Gc) + rho * self.lap(Gc)]
-        for l, c in enumerate(ops.lig_constants):
+        for l, (gamma, s, D) in enumerate(self.coeffs(t)):
             Uc = fields[1 + l] - sc[2 + l]
             rows.append(
-                -c["gamma"] * Uc + c["s"] * rho_c + sc[2 + dof + l]
-                + c["D"] * self.lap(Uc)
+                -gamma * Uc + s * rho_c + sc[2 + dof + l] + D * self.lap(Uc)
             )
         return torch.stack(rows)
+
+    def coeffs(self, t):
+        """Each ligand's (gamma, s, D) at t: Python floats where
+        constant, else tensors of t's dtype (the kernels' float32 t)."""
+        return [(c["gamma"](t), c["s"](t), c["D"](t))
+                for c in self.ops._lig_coeffs]
 
     def jvp_rows(self, t, u, v):
         """Counterpart of pallas_stencil.py _jvp_rows (:613)."""
@@ -554,10 +560,10 @@ class _FusedBuild:
         dG = dGs[0] * vm[0]
         for k in range(1, self.dof):
             dG = dG + dGs[k] * vm[k]
-        return self._rows(fields[0], G, dG, vm)
+        return self._rows(t, fields[0], G, dG, vm)
 
-    def _rows(self, rho, G, dG, vm):
-        """The J-action rows from the groomed rho, G, dG.v and the
+    def _rows(self, t, rho, G, dG, vm):
+        """The J-action rows at t from the groomed rho, G, dG.v and the
         masked tangents."""
         rows = [
             self.graddot(vm[0], G)
@@ -565,10 +571,9 @@ class _FusedBuild:
             + vm[0] * self.lap(G)
             + rho * self.lap(dG)
         ]
-        for l, c in enumerate(self.ops.lig_constants):
+        for l, (gamma, s, D) in enumerate(self.coeffs(t)):
             rows.append(
-                -c["gamma"] * vm[1 + l] + c["s"] * vm[0]
-                + c["D"] * self.lap(vm[1 + l])
+                -gamma * vm[1 + l] + s * vm[0] + D * self.lap(vm[1 + l])
             )
         return rows
 
@@ -595,7 +600,7 @@ class _FusedBuild:
         dG = C[2] * v[0]
         for k in range(1, dof):
             dG = dG + C[2 + k] * v[k]
-        rows = self._rows(C[0], C[1], dG, vm)
+        rows = self._rows(sc[0], C[0], C[1], dG, vm)
         return torch.stack(
             [b[f] - shift * v[f] + rows[f] for f in range(dof)]
         )
@@ -618,10 +623,9 @@ class _FusedBuild:
             + drho * self.lap(Gs)
             + f0[0] * self.lap(dG)
         ]
-        for l, c in enumerate(ops.lig_constants):
+        for l, (gamma, s, D) in enumerate(self.coeffs(t)):
             rows.append(
-                -c["gamma"] * dd[1 + l] + c["s"] * drho
-                + c["D"] * self.lap(dd[1 + l])
+                -gamma * dd[1 + l] + s * drho + D * self.lap(dd[1 + l])
             )
         return torch.stack(rows)
 
@@ -657,8 +661,8 @@ class _FusedBuild:
         G_m = torch.as_tensor(ops._G_fn(*means, t64), dtype=torch.float64,
                               device=dev)
         reacts = [
-            c["s"] * means[0] - c["gamma"] * means[1 + l]
-            for l, c in enumerate(ops.lig_constants)
+            s * means[0] - gamma * means[1 + l]
+            for l, (gamma, s, _) in enumerate(self.coeffs(t64))
         ]
         sc = torch.stack([t64] + means + [G_m] + reacts).to(torch.float32)
         return sc, self._f32(u)
@@ -767,6 +771,38 @@ def check_mesh(ops, mesh):
                          % (tuple(mesh.grid.nps), tuple(ops.grid.nps)))
 
 
+def kernel_refusal(grid, ops):
+    """Why the fused kernels cannot run this problem, or None.
+
+    Counterpart: the refusals of ksfd_tpu/ops/pallas_stencil.py:321
+    ``pallas_available`` and ops/pallas_stencil3d.py:162
+    ``pallas3d_available`` that are not about the TPU: a 1D grid, a 3D
+    extent under ``2*sw+1``, a with-G state (``dof != nligands+1``) and
+    the flux form.  The TPU's alignment rules (128 lanes, 8-row x tiles)
+    are not carried over: the CUDA kernels take any other extent.
+    Time-dependent PDE coefficients are no refusal: each kernel reads t
+    from its scalar pack (ops/codegen.py), and the step drops only the
+    delta kernel there (``stage_delta_ok``), as the reference does."""
+    if grid.dim not in (2, 3):
+        return "a %dD grid (the kernels are 2D and 3D)" % grid.dim
+    sw = int(ops.sw)
+    if grid.dim == 3 and min(int(n) for n in grid.nps) < 2 * sw + 1:
+        return ("a 3D extent under 2*sw+1 = %d (%s)"
+                % (2 * sw + 1, tuple(int(n) for n in grid.nps)))
+    if grid.dof != ops.nligands + 1:
+        return "a with-G state (dof %d, %d fields)" % (grid.dof,
+                                                         ops.nligands + 1)
+    if getattr(ops, "flux_form", False):
+        return "the flux form"
+    return None
+
+
+def kernels_available(grid, ops):
+    """Whether the fused kernels run this problem (kernel_refusal):
+    the gate the step asks before it builds them."""
+    return kernel_refusal(grid, ops) is None
+
+
 def make_fused_kernels(ops, mesh=None):
     """Build the fused kernels for a 2D or 3D PDEOperators.
 
@@ -785,18 +821,21 @@ def make_fused_kernels(ops, mesh=None):
     counterpart of ``make_pallas_kernels(mesh=)``: pad_x :718-735 and
     shardwrap :737-755), with the f64 centring means global over the
     ranks.  B11 (``coeff_resid``) has no halo-slab build.
+
+    A problem off the gate (kernel_refusal) raises ValueError: the step
+    asks ``kernels_available`` first and takes the unfused step there,
+    as the reference takes its XLA path.
     """
     if mesh is not None:
         check_mesh(ops, mesh)
+    why = kernel_refusal(ops.grid, ops)
+    if why is not None:
+        raise ValueError("no fused kernels for %s: the step takes the "
+                         "unfused path (kernels_available)" % why)
     if ops.grid.dim == 3:
         from .fused_stencil3d import make_fused_kernels_3d
 
         return make_fused_kernels_3d(ops, mesh=mesh)
-    if ops.grid.dim != 2:
-        raise NotImplementedError(
-            "fused kernels are 2D and 3D; a %dD problem has none"
-            % ops.grid.dim
-        )
     src = "ksfd_tpu/ops/pallas_stencil.py"
     lines = dict(rhs=584, jvp=648, resid=655, delta=674)
     return kernel_namespace(_FusedBuild(ops), dict(

@@ -24,7 +24,9 @@ scalar packs (pallas_stencil3d.py:603-654):
 The operands keep the natural ``(dof, nx, ny, nz)`` layout, z
 contiguous; the TPU's folded ``(dof, nx, ny*nz)`` lane layout and its
 tile planner (``_tile_plan3d``) answer Mosaic's 128-lane alignment and
-are not carried over, so any ``nx, ny, nz >= 2*sw + 1`` is accepted.
+are not carried over, so any ``nx, ny, nz >= 2*sw + 1`` is accepted
+(fused_stencil.kernel_refusal; a smaller extent takes the unfused
+step).
 On a CUDA tensor each entry launches its kernel in csrc/stencil3d.cu
 (a library of its own, built at first use); on a CPU tensor it runs
 the plain PyTorch version of fused_stencil._FusedBuild, whose
@@ -54,15 +56,8 @@ def make_fused_kernels_3d(ops, mesh=None):
     (parallel/mesh.py SlabMesh) the halo-slab builds (B9 in 3D,
     pallas_stencil3d.py pad_x :474 and shardwrap :488) on this rank's
     slab."""
-    grid = ops.grid
-    if grid.dim != 3:
+    if ops.grid.dim != 3:
         raise ValueError("make_fused_kernels_3d needs a 3D grid")
-    small = [n for n in grid.Sshape if n < 2 * ops.sw + 1]
-    if small:
-        raise ValueError(
-            "3D fused kernels need every extent >= 2*sw+1 = %d; got %s"
-            % (2 * ops.sw + 1, grid.Sshape)
-        )
     src = "ksfd_tpu/ops/pallas_stencil3d.py"
     lines = dict(rhs=366, jvp=419, resid=426, delta=440)
     return kernel_namespace(

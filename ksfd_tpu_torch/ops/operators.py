@@ -10,8 +10,10 @@ Counterpart: ksfd_tpu/ops/operators.py:PDEOperators.  The same math:
 The pointwise nonlinearity is a sympy expression compiled to a torch
 function (utils/symbolic.py torchify); the stencils are ``torch.roll``
 linear combinations (ops/stencil.py).  The exact matrix-free J-action
-is ``torch.func.jvp`` of the RHS.  The float32 kernels of the main
-path get the same expressions printed as CUDA (ops/codegen.py).
+is ``torch.func.jvp`` of the RHS; ``linearize`` gives the RHS and the
+same J-action from coefficient fields evaluated once.  The float32
+kernels of the main path get the same expressions printed as CUDA
+(ops/codegen.py).
 """
 
 import numbers
@@ -148,26 +150,25 @@ class PDEOperators:
             self._G_delta_fn = None
 
     def _build_ligand_coeffs(self):
-        """Per-ligand gamma/s/D as functions of t (TD-aware); the
-        constant values are also kept in ``lig_constants`` for the
+        """Per-ligand gamma/s/D as functions of t (TD-aware); their
+        sympy expressions of t are also kept in ``lig_exprs`` for the
         kernel code generator."""
         self._lig_coeffs = []
-        self.lig_constants = []
+        self.lig_exprs = []
         self._lig_tdep = False
         for lig in self.ps.Vgroups.ligands():
-            coeffs, consts = {}, {}
+            coeffs, exprs = {}, {}
             for cname, val in (("gamma", lig.gamma), ("s", lig.s), ("D", lig.D)):
                 expr, tdep = self._resolve_td(sy.sympify(val))
+                exprs[cname] = expr
                 if tdep:
                     coeffs[cname] = torchify((_T,), expr, name=cname)
-                    consts[cname] = None
                     self._lig_tdep = True
                 else:
                     const = float(expr)
                     coeffs[cname] = lambda t, c=const: c
-                    consts[cname] = const
             self._lig_coeffs.append(coeffs)
-            self.lig_constants.append(consts)
+            self.lig_exprs.append(exprs)
 
     def _build_s2(self):
         expr, tdep = self._resolve_td(sy.Symbol("s2"))
@@ -229,11 +230,15 @@ class PDEOperators:
     def _rhs(self, u, t, groom, sources):
         if groom:
             u = self.groom(u)
-        rho = u[0]
         G = self.G(u, t)
-        grad_G = grad_apply(G, self.spacing, self.sw)
-        grad_rho = grad_apply(rho, self.spacing, self.sw)
-        lap_G = laplacian_apply(G, self.spacing, self.sw)
+        sp, sw = self.spacing, self.sw
+        return self._assemble(u, t, grad_apply(u[0], sp, sw),
+                              grad_apply(G, sp, sw),
+                              laplacian_apply(G, sp, sw), sources)
+
+    def _assemble(self, u, t, grad_rho, grad_G, lap_G, sources):
+        """The RHS of the groomed u from grad(rho), grad(G), lap(G)."""
+        rho = u[0]
         drho = sum(gr * gG for gr, gG in zip(grad_rho, grad_G)) + rho * lap_G
         if sources and self._source_active[0]:
             drho = drho + self.sources[0](t).to(drho.dtype)
@@ -272,6 +277,65 @@ class PDEOperators:
             lambda uu: self.rhs(uu, t, groom=groom), (u,), (v,)
         )
         return jv
+
+    def linearize(self, u, t, primal=True):
+        """``(rhs(u, t), v -> J(u) v)``, the RHS and its exact J-action
+        at u, the counterpart of ``jax.linearize(lambda uu: ops.rhs(uu,
+        t), u)`` (ksfd_tpu/solvers/solver.py:400, :554-558) by the
+        product rule of the discretization: with the groomed fields, G,
+        its stencils and every dG/dfield evaluated once here, an apply
+        is
+
+            J_rho v = grad(v_rho).grad(G) + grad(rho).grad(Gv)
+                      + v_rho*lap(G) + rho*lap(Gv),  Gv = sum_i dG_i v_i
+            J_Ul v  = -gamma_l v_Ul + s_l v_rho + D_l lap(v_Ul)
+
+        on the tangent through the clamp: 1 above the floor, 0 below
+        it or at a NaN, 1/2 at the floor itself (the derivative of the
+        reference's ``jnp.maximum`` at a tie).  Stencils, no pointwise
+        transcendental, per apply.  Forward-mode AD of the RHS
+        (``torch.func.jvp``, ``torch.func.linearize``) costs far more
+        host time per apply: PERF.md section 6.
+
+        The RHS comes from the same groomed fields, G and stencils;
+        ``primal=False`` returns None in its place (the mixed path's
+        float32 W needs only the J-action)."""
+        ug = self.groom(u)
+        nf = self.nligands + 1
+        fields = [ug[i] for i in range(nf)]
+        rho = fields[0]
+        G = self._G_fn(*fields, t)
+        dGs = [fn(*fields, t) for fn in self._dG_fns]
+        sp, sw = self.spacing, self.sw
+        grad_G = grad_apply(G, sp, sw)
+        grad_rho = grad_apply(rho, sp, sw)
+        lap_G = laplacian_apply(G, sp, sw)
+        f0 = (self._assemble(ug, t, grad_rho, grad_G, lap_G, True)
+              if primal else None)
+        floors = [self.rhomin] + [self.Umin] * self.nligands
+        slopes = [torch.where(u[i] > lo, 1.0,
+                              torch.where(u[i] == lo, 0.5, 0.0)).to(u.dtype)
+                  for i, lo in enumerate(floors)]
+        coeffs = [(c["gamma"](t), c["s"](t), c["D"](t))
+                  for c in self._lig_coeffs]
+
+        def jvp(v):
+            vm = [slopes[i] * v[i] for i in range(nf)]
+            Gv = dGs[0] * vm[0]
+            for i in range(1, nf):
+                Gv = Gv + dGs[i] * vm[i]
+            grad_v = grad_apply(vm[0], sp, sw)
+            grad_Gv = grad_apply(Gv, sp, sw)
+            drho = (sum(a * b for a, b in zip(grad_v, grad_G))
+                    + sum(a * b for a, b in zip(grad_rho, grad_Gv))
+                    + vm[0] * lap_G + rho * laplacian_apply(Gv, sp, sw))
+            rows = [drho]
+            for l, (gamma, s, D) in enumerate(coeffs):
+                rows.append(-gamma * vm[1 + l] + s * vm[0]
+                            + D * laplacian_apply(vm[1 + l], sp, sw))
+            return torch.stack(rows, dim=0)
+
+        return f0, jvp
 
     # ------------------------------------------------------------------
     def stiff_coefficients(self, t):

@@ -101,8 +101,8 @@ class SlabMesh:
         dim = grid.dim
         if dim not in (2, 3):
             raise NotImplementedError(
-                "the slab mesh runs 2D and 3D grids; 1D is ROADMAP Queue A "
-                "item 3 (A16)")
+                "the slab mesh runs 2D and 3D grids; a 1D mesh is ROADMAP "
+                "Queue A item 11 (A14)")
         nx = int(grid.nps[0])
         sw = int(grid.stencil_width)
         if nx % n_x or nx // n_x < sw:

@@ -1,15 +1,17 @@
 """Ensemble integration: N independent trajectories as one batched program.
 
 Counterpart: ksfd_tpu/solvers/ensemble.py:EnsembleSolver (and
-:shard_members, which raises here), on 2D and 3D problems.  The implicit
-step of solvers/solver.py is ``torch.func.vmap``-ped, unchanged, over a
-leading member axis: under vmap each fused stencil kernel, 2D or 3D,
-and with ``pc_pallas`` (2D) each fused pc kernel launches its
-member-batched build once for all members (the vmap rule of
-ops/fused_stencil.py, the counterpart of ``jax.custom_batching``), and
-the basis-GEMM preconditioner's products become batched products.  The
-member axis stays on the card; every member carries its own t, h, step
-count, controller and fallback state on the host, in numpy.
+:shard_members, which raises here), on 1D, 2D and 3D problems.  The
+implicit step of solvers/solver.py is ``torch.func.vmap``-ped,
+unchanged, over a leading member axis: under vmap each fused stencil
+kernel, 2D or 3D, and with ``pc_pallas`` (2D) each fused pc kernel
+launches its member-batched build once for all members (the vmap rule
+of ops/fused_stencil.py, the counterpart of ``jax.custom_batching``),
+the basis-GEMM preconditioner's products become batched products, and
+the unfused step (1D, ``use_pallas=False``, the gate's refusals) runs
+its once-per-step linearization batched.  The member axis stays on
+the card; every member carries its own t, h, step count, controller and
+fallback state on the host, in numpy.
 
 Per member the semantics are the scalar host loop's: accept or reject
 by the embedded error estimate, the PETSc-style vector h controller
@@ -20,6 +22,28 @@ before it probes the fast path again), the CFL clamp, conservation,
 grooming, monitors, and noise injection.  With ``block_steps > 1`` on a
 fixed-dt run (``adapt_type="none"``) a vmapped ``make_multistep_fn``
 fuses that many steps per member between monitor calls.
+
+**The device loop** (``device_loop=True`` with adaptive steps, a solver
+other than ``banded`` and a constant ``CFL_safety_factor``: the
+reference's rule, ensemble.py:325-346) runs the adaptive chunk of
+solvers/solver.py for every member in one dispatch per outer iteration
+(``_chunk_iteration``, ensemble.py:473-629).  The reference vmaps its
+``lax.while_loop`` chunk; the port's chunk is a host controller, so the
+member axis is written out: one ``ChunkLadder`` per member (its own h
+walk, tier, park and probe state, ``max_attempts=128``), and each
+attempt runs ONE vmapped tier step (or f0-chain step) per occupied tier
+on that tier's members (gathered with ``index_select``, scattered back
+with ``index_copy``), so the member-batched kernels launch once per
+tier; all members' enorms (and CFL bounds) come to the host in one
+transfer per attempt.  The reference's batched ``lax.switch`` runs
+every tier on every member and keeps each member's own; running each
+member only on its tier gives the same result.  Each member's chunk
+stops at its next noise time (``next_noise_time``); a member already
+past it takes one accept per dispatch.  After the chunk: rejections
+count in ``snes_failures``, the members that accepted get noise,
+grooming and the CFL clamp, a stuck member gets the GMRES retry (probe
+length ``min(64, 2**streak)``), an unrescued one shrinks h and counts a
+failure; monitors run once per dispatch that accepted.
 
 The robust fallback (``ksp_type="gmres_scipy"``, solvers/gmres.py
 ``gmres_solve``) runs member by member: a Python loop over the members
@@ -40,15 +64,13 @@ Usage:
     out = es.solve(U0)            # U0: (n_members, dof, *Sshape)
     out.u, out.t, out.k, out.diverged, out.snes_failures  # per member
 
-Still raising NotImplementedError, each naming its ROADMAP item: the
-vmapped adaptive chunk (``device_loop=True``, Queue A item 1, A11),
-member meshes, ``shard_members`` and slab meshes (Queue A item 11,
-A14), with-G
-states and ``refresh_G`` (Queue A item 10, A13), 1D problems (Queue
-A item 3, A16) and ``pc_pallas`` with fields outside 2..MAX_NF where
-the reference's gate runs its fused pc (Queue B item 1, B5).
-``pc_pallas`` where the reference's gate falls back (a 3D problem,
-float64 transforms) takes the basis-GEMM pc (``build_info``).
+Still raising NotImplementedError, each naming its ROADMAP item: member
+meshes, ``shard_members`` and slab meshes (Queue A item 11, A14), with-G
+states and ``refresh_G`` (Queue A item 10, A13) and ``pc_pallas`` with
+fields outside 2..MAX_NF where the reference's gate runs its fused pc
+(Queue B item 1, B5).  ``pc_pallas`` where the reference's gate falls
+back (a 1D or 3D problem, float64 transforms) takes the basis-GEMM pc
+(``build_info``).
 """
 
 import dataclasses
@@ -59,11 +81,21 @@ import torch
 from torch.func import vmap
 
 from ..ops.fused_pc import make_fused_block_pc
-from ..ops.fused_stencil import make_fused_kernels
 from ..utils.cli import NumericsOptions
 from ..utils.debug import logger
 from ..utils.exceptions import KSFDException
-from .solver import _pc_pallas_fallback, make_multistep_fn, make_step_fn
+from .solver import (
+    ChunkLadder,
+    _pc_pallas_fallback,
+    build_chunk_tiers,
+    chunk_cfl_safety,
+    make_cfl_maxh,
+    make_multistep_fn,
+    make_step_fn,
+    next_noise_time,
+    run_attempts,
+    step_kernels,
+)
 from .steppers import get_tableau
 
 logENS = logger("ENSEMBLE")
@@ -126,7 +158,8 @@ class EnsembleSolver:
         between monitor calls.  member_offset: global index of this
         solver's first member, which seeds its noise generators.
         kernels: a ``make_fused_kernels(ops)`` namespace to share (its
-        launch counters then count the ensemble's launches)."""
+        launch counters then count the ensemble's launches; unused
+        where the step is unfused)."""
         self.ops = ops
         self.ps = ops.ps
         self.numerics = numerics or NumericsOptions()
@@ -154,6 +187,7 @@ class EnsembleSolver:
         # built lazily by solve() (or _build_steps)
         self._vstep = None
         self._vmulti = None
+        self._chunk = None
         self._fallback = None
         self.fused_pc = None
         self._vgroom = vmap(ops.groom)
@@ -172,21 +206,10 @@ class EnsembleSolver:
     def _refuse(ops, n):
         """NotImplementedError, naming its ROADMAP item, for each
         ensemble the port does not run yet."""
-        todo = []
-        dim = ops.grid.dim
-        if n.device_loop and n.adapt_type != "none":
-            todo.append("the vmapped adaptive chunk (device_loop=True, "
-                        "ensemble.py:325-346 and :473-629): Queue A item 1 "
-                        "(A11)")
-        if dim not in (2, 3):
-            todo.append("%dD ensembles (the fused kernels are 2D and 3D): "
-                        "Queue A item 3 (A16)" % dim)
         if hasattr(ops, "refresh_G"):
-            todo.append("with-G states (refresh_G): Queue A item 10 (A13)")
-        if todo:
             raise NotImplementedError(
-                "not ported yet (see ROADMAP): " + "; ".join(todo)
-            )
+                "not ported yet (see ROADMAP): with-G states (refresh_G): "
+                "Queue A item 10 (A13)")
 
     # -- monitors ---------------------------------------------------
     def add_monitor(self, monitor):
@@ -232,12 +255,12 @@ class EnsembleSolver:
     # -- steps ------------------------------------------------------
     def _build_steps(self):
         """Build the vmapped step (and, for fixed-dt blocks, the
-        vmapped multistep) on one shared kernel build and, with
-        ``pc_pallas``, one shared fused pc (``self.fused_pc``, whose
+        vmapped multistep; for the device loop, the vmapped tier steps)
+        on one shared kernel build (none where the step is unfused) and,
+        with ``pc_pallas``, one shared fused pc (``self.fused_pc``, whose
         launch counters then count the ensemble's pc launches)."""
         nm = self.numerics
-        kern = (self.kernels if self.kernels is not None
-                else make_fused_kernels(self.ops))
+        kern = step_kernels(self.ops, nm, kernels=self.kernels)
         self.kernels = kern
         self.fused_pc = (make_fused_block_pc(self.ops.grid, self.ops)
                          if nm.pc_pallas and _pc_pallas_fallback(
@@ -255,7 +278,35 @@ class EnsembleSolver:
                 return vmap(lambda u, t, h: multi(u, t, h, nblk))(U, ts, hs)
 
             self._vmulti = vmulti
+        self._chunk = None
+        if (nm.device_loop and nm.adapt_type != "none"
+                and nm.ksp_type != "banded"
+                and "CFL_safety_factor" not in self.ps.tdfuncs):
+            self._chunk = self._build_chunk(kw)
         self._fallback = None
+
+    def _build_chunk(self, kw):
+        """The device loop's pieces (ensemble.py:325-346 builds the
+        vmapped chunk): the vmapped tier steps of solvers/solver.py
+        build_chunk_tiers (chain steps where every tier chains f0); the
+        vmapped fresh RHS that starts the chain; the vmapped CFL bound
+        for a constant ``CFL_safety_factor``.  ``last`` holds the last
+        dispatch's record (tier-step calls per tier, the occupied tiers
+        of each attempt, attempts and accepts per member), ``totals``
+        the run's sums (``reads``: attempts, one host read each;
+        ``occupied``: tier-step calls)."""
+        ops = self.ops
+        tb = build_chunk_tiers(ops, self.numerics, **kw)
+        cfl = make_cfl_maxh(ops, chunk_cfl_safety(self.ps))
+        return SimpleNamespace(
+            tiers=tb.tiers, chain=tb.chain,
+            steps=[vmap(step) for step in tb.steps],
+            rhs0=vmap(lambda u, t: ops.rhs(ops.groom(u), t)),
+            cfl=None if cfl is None else vmap(cfl),
+            expo=tb.expo, max_attempts=128, max_rejects=24,
+            last=None, totals=SimpleNamespace(
+                dispatches=0, calls=[0] * len(tb.tiers), occupied=0,
+                attempts=0, reads=0))
 
     def _get_fallback(self):
         """The robust retry step ``fb(u, t, h) -> (u1, enorm)`` of ONE
@@ -343,6 +394,177 @@ class EnsembleSolver:
         lastvart = np.where(inject, ts, lastvart)
         return U, lastvart
 
+    # -- the device loop ---------------------------------------------
+    def _run_chunk(self, U, ts, hs, tmax_eff, max_acc):
+        """One dispatch of the adaptive chunk for every member: the
+        reference's vmapped ``chunk(u, t, h, tmax, max_accepts)``
+        (solver.py:1039-1212) as solvers/solver.py run_attempts over a
+        ChunkLadder per member.  Each attempt runs one vmapped step per
+        occupied tier on that tier's members, gathered with
+        ``index_select`` and scattered back with ``index_copy``, and one
+        host read brings every enorm (and CFL bound).  Returns per
+        member (U, t, h, accepts, attempts, rejected)."""
+        c = self._chunk
+        N = len(ts)
+        dev = U.device
+        ladders = [ChunkLadder(self.numerics, len(c.tiers), c.expo, hs[i],
+                               c.max_rejects) for i in range(N)]
+        cur = SimpleNamespace(U=U, f0=None)
+        if c.chain and (max_acc > 0).any():
+            # one fresh float64 RHS per dispatch starts each member's
+            # chain (the reference's f0 at chunk entry)
+            run = torch.as_tensor(np.nonzero(max_acc > 0)[0], device=dev)
+            cur.f0 = torch.zeros_like(U).index_copy(
+                0, run, c.rhs0(U.index_select(0, run),
+                               self._dev(ts[max_acc > 0])))
+
+        def attempt(tier, idx, t, h):
+            sel = torch.as_tensor(idx, device=dev)
+            tv, hv = self._dev(t), self._dev(h)
+            Ug = cur.U.index_select(0, sel)
+            if c.chain:
+                u1, enorm, f1 = c.steps[tier](Ug, tv, hv,
+                                              cur.f0.index_select(0, sel))
+            else:
+                (u1, enorm), f1 = c.steps[tier](Ug, tv, hv), None
+            e = enorm.to(torch.float64)
+            if c.cfl is not None:
+                cfl = c.cfl(self._vgroom(u1), tv + hv)
+                e = torch.stack([e, cfl.to(torch.float64)])
+
+            def commit(acc):
+                loc = torch.as_tensor(acc, device=dev)
+                glob = sel.index_select(0, loc)
+                cur.U = cur.U.index_copy(
+                    0, glob, u1.index_select(0, loc).to(U.dtype))
+                if f1 is not None:
+                    cur.f0 = cur.f0.index_copy(0, glob,
+                                               f1.index_select(0, loc))
+            return e, commit
+
+        run = run_attempts(ladders, ts, tmax_eff, max_acc, c.max_attempts,
+                           attempt)
+        calls = [sum(tier in occ for occ in run.occupied)
+                 for tier in range(len(c.tiers))]
+        k, attempts = np.array(run.k), np.array(run.attempts)
+        c.last = SimpleNamespace(calls=calls, occupied=run.occupied,
+                                 attempts=attempts, accepts=k)
+        tot = c.totals
+        tot.dispatches += 1
+        tot.calls = [a + b for a, b in zip(tot.calls, calls)]
+        tot.occupied += sum(len(occ) for occ in run.occupied)
+        tot.attempts += int(attempts.sum())
+        tot.reads += len(run.occupied)
+        return (cur.U, np.array(run.t), np.array([lad.h for lad in ladders]),
+                k, attempts, np.array([lad.rejected for lad in ladders]))
+
+    def _post_accept(self, U, ts, hs, lastvart, mask, conserve, Nw0):
+        """The post-accept sequence (noise, groom, CFL clamp) on the
+        members in ``mask`` (ensemble.py:452-467); grooming the others
+        again is a no-op."""
+        if noise_active(self.ps):
+            U, lastvart = self._inject_noise(U, ts, lastvart, mask,
+                                             conserve, Nw0)
+        U = self._vgroom(U)
+        hs = self._cfl_clamp(U, ts, hs, mask)
+        return U, hs, lastvart
+
+    def _chunk_iteration(self, U, ts, hs, ks, snes, consec, diverged,
+                         lastvart, active, conserve, Nw0):
+        """One device-loop outer iteration (ensemble.py:473-629): every
+        active member not parked on the fallback runs the chunk, bounded
+        at its next noise time (one accept per dispatch past it) and by
+        its remaining accepts; the chunk's rejections count as failures;
+        a stuck or parked member takes the robust fallback step."""
+        n = self.numerics
+        N = len(ts)
+        fbm = active & self._fbm
+        chunk_active = active & ~self._fbm
+        kacc = np.zeros(N, dtype=int)
+        rej = np.zeros(N, dtype=bool)
+        if chunk_active.any():
+            tmax_eff = np.full(N, self.tmax)
+            if noise_active(self.ps):
+                for i in np.nonzero(chunk_active)[0]:
+                    tn = next_noise_time(self.ps, float(lastvart[i]),
+                                         self.tmax)
+                    if tn is not None and tn < tmax_eff[i]:
+                        tmax_eff[i] = tn
+            max_acc = np.where(chunk_active, self.maxsteps - ks, 0)
+            straddled = chunk_active & (tmax_eff < ts)
+            tmax_eff = np.where(straddled, self.tmax, tmax_eff)
+            max_acc = np.where(straddled, np.minimum(max_acc, 1), max_acc)
+            U, t1, h1, kacc, attempts, rej = self._run_chunk(
+                U, ts, hs, tmax_eff, max_acc)
+            logENS("chunk accepted/attempts", kacc, attempts)
+            snes = snes + np.where(active, np.maximum(0, attempts - kacc), 0)
+            ts = np.where(active, t1, ts)
+            hs = np.where(active, h1, hs)
+            ks = ks + np.where(active, kacc, 0)
+        anyacc = active & (kacc > 0)
+        consec = np.where(anyacc, 0, consec)
+        if anyacc.any():
+            U, hs, lastvart = self._post_accept(U, ts, hs, lastvart, anyacc,
+                                                conserve, Nw0)
+        stuck = chunk_active & rej
+        # a zero-accept stuck exit doubles the next fallback probe
+        self._rejstreak = np.where(
+            stuck & (kacc == 0), self._rejstreak + 1,
+            np.where(chunk_active, 0, self._rejstreak))
+        need_fb = stuck | fbm
+        if need_fb.any():
+            fb = self._get_fallback()
+            ebn = np.full(N, np.nan)
+            rescued = np.zeros(N, dtype=bool)
+            if fb is not None:
+                if stuck.any():
+                    logENS("chunk stuck members", np.nonzero(stuck)[0])
+                    self._fbprobe = np.where(
+                        stuck, np.minimum(64, 1 << np.minimum(
+                            self._rejstreak, 6)), self._fbprobe)
+                    self._fbacc = np.where(stuck, 0, self._fbacc)
+                    self._fbm = self._fbm | stuck
+                u1b = {}
+                for i in np.nonzero(need_fb)[0]:
+                    ub, eb = fb(U[i], self._dev(ts[i]), self._dev(hs[i]))
+                    u1b[i], ebn[i] = ub, float(eb)
+                rescued = need_fb & np.isfinite(ebn) & (ebn <= 1.0)
+                if rescued.any():
+                    logENS("fallback accepted members",
+                           np.nonzero(rescued)[0])
+                    U = U.clone()
+                    for i in np.nonzero(rescued)[0]:
+                        U[i] = u1b[i].to(U.dtype)
+                    ts = np.where(rescued, ts + hs, ts)
+                    ks = ks + rescued
+                    anyacc = anyacc | rescued
+                    consec = np.where(rescued, 0, consec)
+                    hs = np.where(rescued, self._h_accept_vec(hs, ebn), hs)
+                    self.rescues += rescued & stuck
+                    U, hs, lastvart = self._post_accept(
+                        U, ts, hs, lastvart, rescued, conserve, Nw0)
+                    # hysteresis: leave the fallback after fb_probe
+                    # accepts (the rescue counts as the first)
+                    self._fbacc = np.where(rescued, self._fbacc + 1,
+                                           self._fbacc)
+                    leave = rescued & (
+                        self._fbacc % np.maximum(self._fbprobe, 1) == 0)
+                    self._fbm = self._fbm & ~leave
+            failed = need_fb & ~rescued
+            snes = snes + failed
+            consec = np.where(failed, consec + 1, consec)
+            hs = np.where(failed,
+                          self._h_reject_vec(hs, ebn, np.isfinite(ebn)), hs)
+            # a one-shot probe whose retry failed hands the shrunk h back
+            # to the chunk
+            self._fbm = self._fbm & ~(failed & (self._fbprobe <= 1))
+            diverged = diverged | (consec > n.max_snes_failures)
+        if anyacc.any():
+            self.u = U
+            self.ks, self.ts, self.hs = ks, ts, hs
+            self.monitor(ks, ts, U)
+        return U, ts, hs, ks, snes, consec, diverged, lastvart
+
     # -- the loop ----------------------------------------------------
     def solve(self, U0):
         """Integrate every member to tmax/maxsteps.  Returns a
@@ -369,6 +591,7 @@ class EnsembleSolver:
         self._fbm = np.zeros(N, dtype=bool)
         self._fbacc = np.zeros(N, dtype=int)
         self._fbprobe = np.full(N, 64, dtype=int)
+        self._rejstreak = np.zeros(N, dtype=int)
         # per member: fast-path failures the fallback rescued
         self.rescues = np.zeros(N, dtype=int)
         self.iterations = 0
@@ -395,6 +618,12 @@ class EnsembleSolver:
             if not active.any():
                 break
             self.iterations += 1
+            if self._chunk is not None:
+                U, ts, hs, ks, snes, consec, diverged, lastvart = (
+                    self._chunk_iteration(U, ts, hs, ks, snes, consec,
+                                          diverged, lastvart, active,
+                                          conserve, Nw0))
+                continue
             nblk = 1
             if self._vmulti is not None:
                 nblk = max(1, min(self.block_steps,
@@ -474,12 +703,8 @@ class EnsembleSolver:
                 hs = np.where(accepted,
                               min(max(self.dt0, n.dt_min), n.dt_max), hs)
             if accepted.any():
-                if noise_active(self.ps):
-                    U, lastvart = self._inject_noise(
-                        U, ts, lastvart, accepted, conserve, Nw0
-                    )
-                U = self._vgroom(U)
-                hs = self._cfl_clamp(U, ts, hs, accepted)
+                U, hs, lastvart = self._post_accept(
+                    U, ts, hs, lastvart, accepted, conserve, Nw0)
                 self.u = U
                 self.ks, self.ts, self.hs = ks, ts, hs
                 self.monitor(ks, ts, U)

@@ -1,11 +1,12 @@
 """Spectral preconditioners for the implicit stage solves.
 
 Counterpart: ksfd_tpu/solvers/linalg.py:SpectralPreconditioner and
-:BlockSpectralPreconditioner, in their basis-GEMM form, 2D and 3D.  On
-the periodic uniform grid the discrete Laplacian is diagonalized
+:BlockSpectralPreconditioner, in their basis-GEMM form, 1D, 2D and 3D.
+On the periodic uniform grid the discrete Laplacian is diagonalized
 exactly by the orthonormal real-DFT basis (ops/stencil.py
-real_dft_basis), so a transform is ``Qx^T @ v @ Qy`` per field in 2D
-and its inverse ``Qx @ c @ Qy^T`` — plain matrix products, which the
+real_dft_basis), so a transform is ``v @ Qx`` per field in 1D,
+``Qx^T @ v @ Qy`` in 2D and its inverse ``c @ Qx^T`` or ``Qx @ c @
+Qy^T`` — plain matrix products, which the
 reference leaves to XLA and the port leaves to ``torch.matmul``.  In 3D
 the reference's four-operand einsums (``"fijm,ik,jl,mn->fkln"`` and
 ``"fkln,ik,jl,mn->fijm"``) are written as three single-axis products,
@@ -70,11 +71,6 @@ class SpectralPreconditioner(nn.Module):
 
     def __init__(self, grid, compute_dtype=None, device=None):
         super().__init__()
-        if grid.dim not in (2, 3):
-            raise NotImplementedError(
-                "spectral preconditioner in %dD: the port runs 2D and 3D "
-                "problems" % grid.dim
-            )
         if compute_dtype not in _DTYPES:
             raise NotImplementedError("pc dtype %r" % (compute_dtype,))
         device = resolve_device(device)
@@ -115,9 +111,11 @@ class SpectralPreconditioner(nn.Module):
                 "(make_sharded_block_apply, on a slab mesh)")
 
     def _forward(self, v):
-        """(dof, *Sshape) -> real spectral coefficients: Qx^T v Qy in
-        2D, "fijm,ik,jl,mn->fkln" in 3D."""
+        """(dof, *Sshape) -> real spectral coefficients: v Qx in 1D
+        ("fi,ik->fk"), Qx^T v Qy in 2D, "fijm,ik,jl,mn->fkln" in 3D."""
         self._unsharded()
+        if self.dim == 1:
+            return torch.matmul(v, self.Qx)
         if self.dim == 2:
             return torch.matmul(torch.matmul(self.Qx.T, v), self.Qy)
         f, nx, ny, nz = v.shape
@@ -127,8 +125,10 @@ class SpectralPreconditioner(nn.Module):
         return c.reshape(f, nx, ny, nz)
 
     def _inverse(self, c):
-        """The inverse transform: Qx c Qy^T in 2D,
-        "fkln,ik,jl,mn->fijm" in 3D."""
+        """The inverse transform: c Qx^T in 1D ("fk,ik->fi"), Qx c Qy^T
+        in 2D, "fkln,ik,jl,mn->fijm" in 3D."""
+        if self.dim == 1:
+            return torch.matmul(c, self.Qx.T)
         if self.dim == 2:
             return torch.matmul(torch.matmul(self.Qx, c), self.Qy.T)
         f, nx, ny, nz = c.shape

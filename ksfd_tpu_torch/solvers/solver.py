@@ -1,58 +1,86 @@
 """The implicit step, the fixed-dt multistep loop and the adaptive chunk.
 
 Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn,
-:make_multistep_fn, :make_adaptive_chunk_fn and :chunk_cfl_safety on a
-single device, on 2D and 3D periodic grids, in its two precisions.  A
-step is one ROS34PW2 Rosenbrock-W step of 4 stages, each stage solve
-``ksp_iters`` float32 preconditioner applications: Richardson sweeps
-``x = M(b)`` then ``x += M(b - W x)``, or (``ksp_type="chebyshev"``)
-the Chebyshev recurrence of solvers/gmres.py on an interval estimated
-on the device from the pointwise diffusivity spread.  M is the float32
-block spectral preconditioner built from the float32 state's means,
-``dG/drho`` and ``rho_diff``: in its basis-GEMM form
+:make_multistep_fn, :make_adaptive_chunk_fn, :chunk_cfl_safety and
+:next_noise_time on a single device, on 1D, 2D and 3D periodic grids,
+in its two precisions.  A step is one ROS34PW2 Rosenbrock-W step of 4
+stages, each stage solve ``ksp_iters`` preconditioner applications:
+Richardson sweeps ``x = M(b)`` then ``x += M(b - W x)``, or
+(``ksp_type="chebyshev"``) the Chebyshev recurrence of solvers/gmres.py
+on an interval estimated on the device from the pointwise diffusivity
+spread.  M is the float32 block spectral preconditioner built from the
+state's means, ``dG/drho`` and ``rho_diff``: in its basis-GEMM form
 (solvers/linalg.py), or with ``pc_pallas=True`` as the fused apply of
 ops/fused_pc.py, whose scalar pack is built once per step; where the
-reference's gate falls back too (a 3D grid, float64 transforms, a mesh,
-fields outside 2..MAX_NF on extents it refuses) ``pc_pallas`` takes the
-basis-GEMM form, and ``build_info`` says why.
+reference's gate falls back too (a 1D or 3D grid, float64 transforms, a
+mesh, fields outside 2..MAX_NF on extents it refuses) ``pc_pallas``
+takes the basis-GEMM form, and ``build_info`` says why.
 
-- **float64 (default ``NumericsOptions()``)**: the state and the
-  solution and embedded-difference sums are float64; each sweep's
-  residual is the fused resid kernel (ops/fused_stencil.py,
-  ops/fused_stencil3d.py); stages 2-4 get their right-hand side as
-  ``f32(f0) + delta(...)``; the multistep chains f0 from step to step
-  through the delta kernel, with one fresh float64 ``ops.rhs`` per
-  block.  Per step with 3 sweeps: 8 resid launches (2 per stage solve)
-  and 4 delta launches (3 stage right-hand sides and the f0 advance),
-  no rhs or jvp; with ``pc_pallas`` also 12 pc_fwd and 12 pc_inv.
+The step kind is the reference's (solver.py:296-335, :391-424).  The
+fused kernels (ops/fused_stencil.py, ops/fused_stencil3d.py) run where
+``use_pallas`` and the gate (``kernels_available``: 2D, or 3D with every
+extent at least ``2*sw+1``, the physical fields only, no flux form)
+allow; elsewhere the step is **unfused**, as the reference's XLA path.
+Time-dependent PDE coefficients keep the kernels, which read t from
+their scalar packs, and drop only the delta kernel (the stage
+right-hand sides from ``ops.rhs`` at each stage time), as the
+reference does.
+
+- **float64 with float32 sweeps (default ``NumericsOptions()``), the
+  mixed path**: the state and the solution and embedded-difference sums
+  are float64, the sweeps float32.  With the kernels each sweep's
+  residual is the fused resid kernel; stages 2-4 get their right-hand
+  side as ``f32(f0) + delta(...)`` from the delta kernel; the multistep
+  chains f0 from step to step through the delta kernel, with one fresh
+  float64 ``ops.rhs`` per block.  Per step with 3 sweeps: 8 resid
+  launches (2 per stage solve) and 4 delta launches (3 stage right-hand
+  sides and the f0 advance), no rhs or jvp; with ``pc_pallas`` also 12
+  pc_fwd and 12 pc_inv.  With ``-stage_delta 0`` or time-dependent
+  coefficients the stage right-hand sides come from the float64
+  ``ops.rhs`` at each stage time (8 resid launches, no delta);
+  unfused, W is float32, from the float32 RHS linearized once per
+  step, and the stage right-hand sides come from ``ops.rhs``.
+- **float64 sweeps (``sweep_dtype="float64"``)**: f0 and the J-action
+  from the float64 RHS linearized once per step, W = shift*v - J v and
+  the sweeps in float64, stage right-hand sides from ``ops.rhs``; no
+  kernel.
 - **float32 fast mode (``precision="float32"``)**, the reference's
   ``fast32`` branch: u, t and h are cast to float32 and everything
-  after is float32.  f0 and every stage right-hand side come from the
-  rhs kernel (the stage states are not groomed first: the kernel
-  grooms), W is ``shift*v - jvp(u, v, t)`` with the jvp kernel, and
-  the solve is the plain ``richardson_solve`` (or ``chebyshev_solve``);
-  no f0 chain.  Per step with 3 sweeps: 4 rhs launches (f0 and stages
-  2-4) and 8 jvp launches (2 per stage solve), no resid or delta.
-  ``stage_delta`` and ``sweep_dtype`` are ignored, as the reference
-  ignores them.
+  after is float32.  With the kernels f0 and every stage right-hand
+  side come from the rhs kernel (the stage states are not groomed
+  first: the kernel grooms), W is ``shift*v - jvp(u, v, t)`` with the
+  jvp kernel, and the solve is the plain ``richardson_solve`` (or
+  ``chebyshev_solve``); no f0 chain.  Per step with 3 sweeps: 4 rhs
+  launches (f0 and stages 2-4) and 8 jvp launches (2 per stage solve),
+  no resid or delta.  Unfused (``use_pallas=False``, the reference's
+  XLA-f32 RHS) f0 and W come from the float32 RHS linearized once per
+  step.  ``stage_delta`` and ``sweep_dtype`` are ignored, as the
+  reference ignores them.
+- **float64 GMRES (``ksp_type="gmres_scipy"``)**, the robust retry step
+  of the ensemble (solvers/ensemble.py) and, later, of the host Solver:
+  W = shift*I - J in float64 from the RHS linearized once per step,
+  the basis-GEMM (or fused) pc as M with its statistics from the
+  float64 state, the restarted GMRES of solvers/gmres.py
+  ``gmres_solve`` (``ksp_rtol``, ``ksp_restart``, ``ksp_max_it``),
+  stage right-hand sides from the float64 ``ops.rhs`` with
+  ``stage_delta=False`` (as the fallback builds it) or ``f0 + delta``
+  otherwise, all combinations in float64 (solver.py:399-401, :431-435,
+  :607-615).  It is never mixed32 (:529-539).  In the fast mode the same
+  solve runs in float32 on the jvp kernel's W.  No f0 chain.
+
+The unfused step's linearization (ops/operators.py
+PDEOperators.linearize) evaluates the groomed fields, G, its stencils
+and every dG/dfield once per step; each W apply is then stencils and
+products, the counterpart of applying ``jax.linearize``'s tangent
+function.  It runs under ``torch.func.vmap`` (the ensemble), which
+``torch.func.linearize`` does not, and costs a fraction of forward-mode
+AD's host time per apply (PERF.md section 6).
 
 Every scalar of a step (t, h, shift, the means, ``rho_diff``, the
 Chebyshev interval, ``emax``) stays a 0-d tensor on the state's device:
 a step makes no host round trip.  The adaptive chunk's controller runs
 on the host and reads one scalar per attempt (see
 make_adaptive_chunk_fn).
-
-- **float64 GMRES (``ksp_type="gmres_scipy"``)**, the robust retry step
-  of the ensemble (solvers/ensemble.py) and, later, of the host Solver:
-  W = shift*I - J in float64 through ``ops.jacobian_action``, the
-  basis-GEMM (or fused) pc as M with its statistics from the float64
-  state, the restarted GMRES of solvers/gmres.py ``gmres_solve``
-  (``ksp_rtol``, ``ksp_restart``, ``ksp_max_it``), stage right-hand
-  sides from the float64 ``ops.rhs`` with ``stage_delta=False`` (as
-  the fallback builds it) or ``f0 + delta`` otherwise, all combinations
-  in float64 (solver.py:399-401, :431-435, :607-615).  It is never
-  mixed32 (:529-539).  In the fast mode the same solve runs in float32
-  on the jvp kernel's W.  No f0 chain.
 
 ``EnsembleSolver`` vmaps these steps unchanged (``torch.func.vmap``):
 each fused kernel call launches its member-batched build once.
@@ -66,11 +94,11 @@ than one rank), global means, pc statistics and error norms.
 Everything else raises NotImplementedError naming its ROADMAP item:
 the host Solver loop (Queue A item 4, A8), DIRK (item 7, A9), the
 fixed-count Krylov stage solvers (item 9), dense/direct tiers (item 5,
-A12), the fast mode without the fused kernels (item 3, A16), the FFT
-preconditioner (item 8, A4), with-G states (item 10, A13), on a mesh
-the GMRES step, y splits and other meshes (Queue A item 11, A14), and
-``pc_pallas`` with fields outside 2..MAX_NF where the reference's gate
-runs its fused pc (Queue B item 1, B5).
+A12), the FFT preconditioner (item 8, A4), with-G states (item 10,
+A13), on a mesh the GMRES step, the unfused step, y splits and other
+meshes (Queue A item 11, A14), and ``pc_pallas`` with fields outside
+2..MAX_NF where the reference's gate runs its fused pc (Queue B item 1,
+B5).
 """
 
 import dataclasses
@@ -86,7 +114,7 @@ from ..ops.fused_pc import (
     pack_pc_scalars,
     reference_fuses,
 )
-from ..ops.fused_stencil import check_mesh, make_fused_kernels
+from ..ops.fused_stencil import check_mesh, kernel_refusal, make_fused_kernels
 from ..parallel.mesh import MESH_TODO, all_reduce_max, all_reduce_sum
 from .gmres import (
     chebyshev_solve,
@@ -99,7 +127,8 @@ from .linalg import BlockSpectralPreconditioner, make_sharded_block_apply
 from .steppers import get_tableau, wlte_norm_delta
 
 __all__ = ["make_step_fn", "make_multistep_fn", "make_adaptive_chunk_fn",
-           "chunk_cfl_safety", "Solver"]
+           "build_chunk_tiers", "run_attempts", "chunk_cfl_safety",
+           "next_noise_time", "step_kernels", "Solver"]
 
 
 def _fast32(numerics):
@@ -131,7 +160,6 @@ def _krylov(numerics):
 
 def _check_numerics(numerics, ops, mesh=None):
     """Raise NotImplementedError for any request off the ported paths."""
-    fast32 = _fast32(numerics)
     krylov = _krylov(numerics)
     todo = []
     if numerics.ksp_type not in ("richardson", "chebyshev", "gmres_scipy"):
@@ -144,11 +172,6 @@ def _check_numerics(numerics, ops, mesh=None):
     if numerics.precision not in ("float64", "f64", "float32", "f32"):
         todo.append("precision %r (the reference has only float64 and "
                     "float32)" % numerics.precision)
-    if fast32 and not numerics.use_pallas:
-        todo.append(
-            "the float32 fast mode without the fused kernels "
-            "(use_pallas=False, the XLA-f32 RHS: Queue A item 3, A16)"
-        )
     if numerics.pc_fft != "off":
         todo.append("pc_fft %r (Queue A item 8, A4)" % numerics.pc_fft)
     # pc_pallas falls back to the basis-GEMM pc only where the
@@ -169,20 +192,32 @@ def _check_numerics(numerics, ops, mesh=None):
                     "on a mesh: Queue A item 11, A14)" % numerics.pc_dtype)
     if mesh is not None and krylov:
         todo.append("the GMRES step on a mesh (%s)" % MESH_TODO)
-    # the float64 GMRES step runs no sweeps and takes its stage RHS
-    # from ops.rhs when the delta kernel is off (solver.py:607-615)
-    if not fast32 and not krylov and numerics.sweep_dtype not in (
-            "float32", "f32"):
-        todo.append("float64 sweeps (Queue A item 3, A16)")
-    if not fast32 and not krylov and not (numerics.use_pallas
-                                          and numerics.stage_delta):
-        todo.append("stage RHS without the delta kernel (Queue A item 3, A16)")
-    if not ops.stage_delta_ok():
-        todo.append("time-dependent PDE coefficients (Queue A item 3, A16)")
+    if mesh is not None and _step_refusal(numerics, ops) is not None:
+        todo.append("the unfused step on a mesh (%s)" % MESH_TODO)
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP): " + "; ".join(todo)
         )
+
+
+def _step_refusal(numerics, ops):
+    """Why steps of these numerics launch no fused kernel, or None:
+    ``use_pallas=False``, or the gate's refusal (ops/fused_stencil.py
+    kernel_refusal), as the reference asks ``pallas_available``
+    (solver.py:296-330)."""
+    if not numerics.use_pallas:
+        return "use_pallas=False"
+    return kernel_refusal(ops.grid, ops)
+
+
+def step_kernels(ops, numerics=None, mesh=None, kernels=None):
+    """The ``make_fused_kernels`` namespace that steps of these numerics
+    launch (``kernels`` when given), or None where they take the
+    unfused step (_step_refusal)."""
+    if _step_refusal(numerics or NumericsOptions(), ops) is not None:
+        return None
+    return kernels if kernels is not None else make_fused_kernels(
+        ops, mesh=mesh)
 
 
 def _reference_fuses(numerics, ops):
@@ -247,24 +282,33 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     """Build the implicit step ``(u, t, h) -> (u1, enorm)``.
 
     Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn.  u is a
-    (dof, nx, ny[, nz]) tensor; t and h are 0-d tensors on u's device,
+    (dof, nx[, ny[, nz]]) tensor; t and h are 0-d tensors on u's device,
     float64 on the default path.  In the float32 fast mode u, t and h
     are cast to float32 and u1 and enorm come back float32.  enorm <= 1
     means the step meets atol/rtol; a failed solve shows as a
     non-finite enorm.
 
+    The step kind follows the reference's (solver.py:296-335, :391-424):
+    the fused kernels run where ``use_pallas`` and the gate
+    (``kernels_available``) allow; the delta kernel only on the mixed
+    path with ``stage_delta`` and time-independent coefficients.  Off
+    the kernels the step is unfused (module docstring), its J-action
+    from ``ops.linearize`` once per step.
+
     chain_f0: return ``SimpleNamespace(step)`` instead, where
     ``step(u, t, h, f0) -> (u1, enorm, f1)`` takes the RHS f0 at
     (groom(u), t) and returns the RHS at groom(u1), advanced by the
-    delta kernel.  None when ineligible (active sources, the fast
-    mode, which has no delta kernel on its path, or the GMRES step).  The
+    delta kernel.  None when ineligible (no delta kernel on the path:
+    the fast mode, the GMRES step, the unfused step, ``-stage_delta 0``
+    or time-dependent coefficients; or active sources).  The
     reference's ``advance`` (the Solver's re-base after a fallback
     step) comes with the Solver, ROADMAP Queue A item 4 (A8).
 
     kernels: a ``make_fused_kernels(ops, mesh)`` namespace to share
-    between builds (its launch counters then count both).  fused_pc:
-    likewise a ``make_fused_block_pc`` apply, used when
-    ``numerics.pc_pallas`` and the fused pc runs here.
+    between builds (its launch counters then count both); ignored where
+    the step launches no kernel.  fused_pc: likewise a
+    ``make_fused_block_pc`` apply, used when ``numerics.pc_pallas`` and
+    the fused pc runs here.
 
     mesh: a parallel/mesh.py SlabMesh.  The step then runs SPMD, one
     rank per x-slab: u is this rank's local slab on ``mesh.device`` (as
@@ -273,11 +317,15 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     on more than one rank; ``pc_pallas`` takes it too, the reference's
     fused pc being single-shard), and the means, the pc statistics, the
     Chebyshev interval and enorm are global over the ranks, so every
-    rank returns the same enorm.  The GMRES step raises on a mesh.
+    rank returns the same enorm.  The GMRES step and the unfused step
+    raise on a mesh.
 
     The step (or the chain namespace) carries ``build_info``: which
-    kernel build, pc and pc dtype run, the mesh shape, the path and
-    (``pc_pallas_fallback``) why ``pc_pallas`` runs the basis-GEMM pc.
+    kernel build, pc and pc dtype run, the mesh shape, the path
+    (``mixed32``, ``pallas_rhs``/``_jvp``/``_resid``/``_delta`` as the
+    reference's BUILD_INFO, solver.py:362-379; ``kernel_refusal`` says
+    why no kernel runs) and (``pc_pallas_fallback``) why ``pc_pallas``
+    runs the basis-GEMM pc.
     """
     if mesh is not None:
         check_mesh(ops, mesh)
@@ -288,9 +336,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     precond = BlockSpectralPreconditioner(
         ops.grid, ops, compute_dtype=pc_dtype, device=ops.device
     )
-    kern = (kernels if kernels is not None
-            else make_fused_kernels(ops, mesh=mesh))
-    if kern.mesh is not mesh:
+    kern = step_kernels(ops, numerics, mesh, kernels)
+    if kern is not None and kern.mesh is not mesh:
         raise ValueError("the kernels were built for mesh %r, the step for "
                          "%r" % (kern.mesh, mesh))
     pc_fused = pc_sharded = None
@@ -304,10 +351,17 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     nf = ops.nligands + 1
     fast32 = _fast32(numerics)
     krylov = _krylov(numerics)
-    # the float64 GMRES step's stage RHS: f0 + the delta kernel, or (with
-    # -stage_delta 0, as the fallback builds it) the float64 ops.rhs
-    krylov_delta = (krylov and numerics.use_pallas and numerics.stage_delta
-                    and ops.stage_delta_ok())
+    sweep32 = numerics.sweep_dtype in ("float32", "f32")
+    # the reference's static path choice (solver.py:318-335, :362-379):
+    # the rhs kernel in the fast mode, the delta kernel on the f32-sweep
+    # path with stage_delta and time-independent coefficients, and the
+    # mixed-precision sweeps (f32 W and solve, f64 stage RHS) wherever
+    # the sweeps are f32 and the state is not
+    pallas_rhs = kern is not None and fast32
+    pallas_delta = (kern is not None and not fast32 and numerics.stage_delta
+                    and sweep32 and ops.stage_delta_ok())
+    mixed32 = (not fast32 and numerics.ksp_type in ("richardson", "chebyshev")
+               and sweep32)
     use_cheb = numerics.ksp_type == "chebyshev"
 
     def gmres(W, bi, Minv):
@@ -318,18 +372,25 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     # turns the per-step diffusivity spread into the Chebyshev interval
     cheb_lap = float((-precond.lam).max()) if use_cheb else None
     build_info = dict(
-        kernels=kern.kind, pc_dtype=pc_dtype,
+        kernels=None if kern is None else kern.kind,
+        kernel_refusal=_step_refusal(numerics, ops), pc_dtype=pc_dtype,
         pc=("sharded basis-GEMM, one all_reduce per apply" if pc_sharded
             else "fused (B5a, B5b)" if pc_fused else "basis-GEMM"),
         mesh_shape=None if mesh is None else mesh.shape,
         ksp_type=numerics.ksp_type, cheb=use_cheb, fast32=fast32,
-        pc_pallas_fallback=pc_fallback,
+        mixed32=mixed32, pallas_rhs=pallas_rhs,
+        pallas_jvp=kern is not None, pallas_resid=kern is not None,
+        pallas_delta=pallas_delta, pc_pallas_fallback=pc_fallback,
     )
 
     def source(isrc, t):
         """Source ``isrc`` at t on this rank's rows."""
         src = ops.sources[isrc](t)
         return src if mesh is None else mesh.rows(src)
+
+    def rhs(x, t):
+        """The float64 (or, on a float32 x, float32) RHS."""
+        return ops.rhs(x, t, mesh=mesh)
 
     def global_means(x):
         """Per-field means of x (f32 on the sweep paths), over the mesh."""
@@ -346,9 +407,9 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         shift = 1.0 / (h * tab.gamma)
         u32 = u.to(torch.float32)
         # preconditioner statistics from the f32 view of the state on
-        # the sweep paths, from the state itself on the GMRES path (the
+        # the mixed path, from the state itself elsewhere (the
         # reference's ``ustat``, solver.py:451-453)
-        ustat = u if krylov else u32
+        ustat = u32 if mixed32 else u
         means = global_means(ustat)
         # pointwise effective rho diffusivity bound (linalg docstring)
         dG0 = ops._dG_fns[0](*[ustat[i] for i in range(nf)], t)
@@ -379,82 +440,89 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                     v, shift, t, means, rho_diff=rho_diff
                 )
 
-        if fast32:
+        # f0, the J-action and the stage RHS (solver.py:391-424): the
+        # fast mode's kernels; the mixed path's float64 RHS (its W
+        # comes below); else the RHS linearized once per step
+        if pallas_rhs:
             f0 = kern.rhs(u, t)
             # the kernel grooms the (ungroomed) stage states itself
-            stage_eval = kern.rhs
+            stage_rhs = kern.rhs
 
-            def W(v):
-                return shift * v - kern.jvp(u, v, t)
-
-            def solve(bi):
-                if krylov:
-                    return gmres(W, bi, Minv)
-                if use_cheb:
-                    return chebyshev_solve(W, bi, Minv, iters=iters,
-                                           lmin=cheb_ab[0], lmax=cheb_ab[1])
-                return richardson_solve(W, bi, Minv, iters=iters)
-        elif krylov:
-            # the float64 GMRES step (solver.py:607-615): W = shift*I - J
-            # in float64 through the exact J-action, stage solves and
-            # combinations in float64
-            f0 = ops.rhs(u, t)
-
-            def W(v):
-                return shift * v - ops.jacobian_action(u, t, v)
-
-            def solve(bi):
-                return gmres(W, bi, Minv)
-
-            def stage_eval(Ui, ti):
-                if not krylov_delta:
-                    return ops.rhs(Ui, ti)
-                Ug = ops.groom(Ui)
-                fi = f0 + kern.delta(u, Ug - u, Ug, t).to(f0.dtype)
-                for isrc, active in enumerate(ops._source_active):
-                    if active and ops.sources[isrc].tdep:
-                        src = ops.sources[isrc]
-                        fi[isrc] += (src(ti) - src(t)).to(f0.dtype)
-                return fi
+            def jvp_fn(v):
+                return kern.jvp(u, v, t)
+        elif mixed32:
+            f0 = rhs(u, t) if f0_chained is None else f0_chained
+            jvp_fn = None
+            stage_rhs = rhs
         else:
-            f0 = (ops.rhs(u, t, mesh=mesh) if f0_chained is None
-                  else f0_chained)
-            t32 = t.to(torch.float32)
-            shift32 = shift.to(torch.float32)
+            f0, jvp_fn = ops.linearize(u, t)
+            stage_rhs = rhs
 
-            def resid32(x, b):
-                return kern.resid(u32, x, b, t32, shift32)
-
-            def solve(bi):
-                # f32 storage: the sweeps carry only f32 information
-                if use_cheb:
-                    return chebyshev_solve_resid(
-                        resid32, bi.to(torch.float32), Minv, iters=iters,
-                        lmin=cheb_ab[0], lmax=cheb_ab[1],
-                    )
-                return richardson_solve_resid(
-                    resid32, bi.to(torch.float32), Minv, iters=iters
-                )
-
-            f032 = f0.to(torch.float32)
+        if pallas_delta:
+            # f(Ui, ti) as f0 + the increment kernel, plus the exact
+            # change of any time-dependent source; in f32 where its only
+            # consumer is the f32 sweep chain (solver.py:680-713)
+            fbase = f0.to(torch.float32) if mixed32 else f0
 
             def stage_eval(Ui, ti):
-                """f(Ui, ti) = f32(f0) + the increment kernel, plus the
-                exact change of any time-dependent source."""
                 Ug = ops.groom(Ui)
-                fi = f032 + kern.delta(u, Ug - u, Ug, t)
+                fi = fbase + kern.delta(u, Ug - u, Ug, t).to(fbase.dtype)
                 for isrc, active in enumerate(ops._source_active):
                     if active and ops.sources[isrc].tdep:
                         fi[isrc] += (source(isrc, ti)
-                                     - source(isrc, t)).to(torch.float32)
+                                     - source(isrc, t)).to(fbase.dtype)
                 return fi
+        else:
+            stage_eval = stage_rhs
+
+        if jvp_fn is not None:
+            def W(v):
+                return shift * v - jvp_fn(v)
+
+        if mixed32:
+            # the f32 sweep chain (solver.py:519-558): the resid kernel,
+            # or W32 from the float32 RHS linearized once per step
+            t32 = t.to(torch.float32)
+            shift32 = shift.to(torch.float32)
+            resid32 = W32 = None
+            if kern is not None:
+                def resid32(x, b):
+                    return kern.resid(u32, x, b, t32, shift32)
+            else:
+                _, jvp32 = ops.linearize(u32, t32, primal=False)
+
+                def W32(v):
+                    return shift32 * v - jvp32(v)
+
+        def solve(bi):
+            if mixed32:
+                # f32 storage: the sweeps carry only f32 information
+                b32 = bi.to(torch.float32)
+                if resid32 is not None:
+                    if use_cheb:
+                        return chebyshev_solve_resid(
+                            resid32, b32, Minv, iters=iters,
+                            lmin=cheb_ab[0], lmax=cheb_ab[1])
+                    return richardson_solve_resid(resid32, b32, Minv,
+                                                  iters=iters)
+                if use_cheb:
+                    return chebyshev_solve(W32, b32, Minv, iters=iters,
+                                           lmin=cheb_ab[0], lmax=cheb_ab[1])
+                return richardson_solve(W32, b32, Minv, iters=iters)
+            if krylov:
+                return gmres(W, bi, Minv)
+            if use_cheb:
+                return chebyshev_solve(W, bi, Minv, iters=iters,
+                                       lmin=cheb_ab[0], lmax=cheb_ab[1])
+            return richardson_solve(W, bi, Minv, iters=iters)
 
         Ys = []
 
         def _ysum(coeffs, scale=1.0):
-            """sum_j coeffs[j]*scale * Y_j in f32 storage, or None.  A
-            0-d float64 scale does not promote the f32 terms, as the
-            reference's weakly typed step size does not."""
+            """sum_j coeffs[j]*scale * Y_j (f32 storage on the mixed
+            path, the state's dtype elsewhere), or None.  A 0-d float64
+            scale does not promote the f32 terms, as the reference's
+            weakly typed step size does not."""
             acc = None
             for j, cj in enumerate(coeffs):
                 if cj:
@@ -472,7 +540,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 bi = stage_eval(Ui, t + tab.alpha[i] * h)
             csum = _ysum(tab.c[i][:i], scale=inv_h)
             if csum is not None:
-                # bi feeds the f32 solve: one downcast, then the f32 sum
+                # on the mixed path bi feeds the f32 solve: one
+                # downcast, then the f32 sum
                 bi = bi.to(csum.dtype) + csum
             Ys.append(solve(bi))
         # solution and embedded-difference sums in the state's dtype
@@ -490,7 +559,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         return u, u1, wlte_norm_delta(u1, d, atol, rtol, mesh=mesh)
 
     if chain_f0:
-        if fast32 or krylov or any(ops._source_active):
+        if not (mixed32 and pallas_delta) or any(ops._source_active):
             return None, tab
 
         def step_chain(u, t, h, f0):
@@ -523,16 +592,17 @@ def make_multistep_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     once per call and chained through the delta kernel.  In the
     float32 fast mode u, t and h are cast to float32 once before the
     loop, t accumulates in float32, the plain step loop runs (no f0
-    chain) and u, t and emax come back float32.  Returns (fn, tableau);
-    ``fn.kernels`` and ``fn.fused_pc`` (None without ``pc_pallas``) hold
+    chain) and u, t and emax come back float32.  The unfused step has
+    no f0 chain either.  Returns (fn, tableau);
+    ``fn.kernels`` (None on the unfused step) and ``fn.fused_pc`` (None
+    without ``pc_pallas``) hold
     the kernel wrappers the steps share, and their launch counters;
     ``kernels`` and ``fused_pc`` pass in ones to share.  With a
     ``mesh`` (parallel/mesh.py) every rank passes its local slab and
     gets its slab back (make_step_fn; the fresh f0 is the sharded
     ``ops.rhs``).
     """
-    kern = (kernels if kernels is not None
-            else make_fused_kernels(ops, mesh=mesh))
+    kern = step_kernels(ops, numerics, mesh, kernels)
     pc = (fused_pc if fused_pc is not None
           else _shared_fused_pc(ops, numerics, mesh))
     step, tab = make_step_fn(
@@ -586,6 +656,73 @@ def chunk_cfl_safety(ps):
     ksfd_tpu/solvers/solver.py:chunk_cfl_safety."""
     s = float(ps.values0.get("CFL_safety_factor", 0.0) or 0.0)
     return s if s > 0.0 else None
+
+
+def next_noise_time(ps, lastvart, tmax):
+    """Smallest t in (lastvart, tmax] with VTF(t) - VTF(lastvart) >= 1,
+    or None when no injection is due before tmax, by bisection to about
+    1e-12 relative; the variance timing function is a clock
+    (nondecreasing).  Counterpart: ksfd_tpu/solvers/solver.py:117
+    next_noise_time, which bounds a chunk so that noise lands on the
+    same accepted step as in the per-step loop."""
+    fn = ps.funcs["variance_timing_function"]
+    target = float(fn(lastvart)) + 1.0
+    if float(fn(tmax)) < target:
+        return None
+    lo, hi = float(lastvart), float(tmax)
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        if float(fn(mid)) >= target:
+            hi = mid
+        else:
+            lo = mid
+        if hi - lo <= 1e-12 * max(1.0, abs(hi)):
+            break
+    return hi
+
+
+def chunk_tiers(numerics):
+    """The adaptive chunk's solve tiers ``[(ksp_type, ksp_iters), ...]``:
+    the primary solver, then (for richardson and chebyshev only, as the
+    reference's ``esc_ok``, solver.py:995-999: GMRES ignores ksp_iters,
+    so a rejection shrinks h instead) ``ksp_iters_max`` sweeps, then
+    ``ksp_iters_max2`` applications as Chebyshev when ``esc_cheb`` and
+    the block pc (solver.py:1010-1021)."""
+    tiers = [(numerics.ksp_type, int(numerics.ksp_iters))]
+    esc_iters = int(getattr(numerics, "ksp_iters_max", 0) or 0)
+    if (esc_iters > int(numerics.ksp_iters)
+            and numerics.ksp_type in ("richardson", "chebyshev")):
+        tiers.append((numerics.ksp_type, esc_iters))
+        esc2 = int(getattr(numerics, "ksp_iters_max2", 0) or 0)
+        if esc2 > esc_iters:
+            top_type = numerics.ksp_type
+            if numerics.esc_cheb and numerics.pc_type == "block":
+                top_type = "chebyshev"
+            tiers.append((top_type, esc2))
+    return tiers
+
+
+def make_cfl_maxh(ops, cfl_safety, mesh=None):
+    """``cfl_maxh(u, t)``: safety * min over axes of spacing*sw /
+    max|v_axis| (inf where the velocity vanishes), a 0-d tensor, for a
+    constant ``cfl_safety`` > 0; else None.  The chunk's post-accept
+    clamp (solver.py:963-977); it runs under ``torch.func.vmap``."""
+    if cfl_safety is None or float(cfl_safety) <= 0.0:
+        return None
+    safety = float(cfl_safety)
+    reach = [float(s) * ops.grid.stencil_width for s in ops.grid.spacing]
+
+    def cfl_maxh(u, t):
+        vmax = torch.stack([v.abs().max()
+                            for v in ops.velocity(u, t, mesh=mesh)])
+        if mesh is not None:
+            vmax = all_reduce_max(vmax, mesh)
+        reach_t = torch.tensor(reach, dtype=vmax.dtype, device=vmax.device)
+        hs = torch.where(vmax > 0.0,
+                         reach_t / torch.clamp(vmax, min=1e-300), math.inf)
+        return safety * hs.min()
+
+    return cfl_maxh
 
 
 #: accepts a rescued step parks on its tier before probing
@@ -712,7 +849,8 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     transfer).  u keeps the caller's dtype (a fast-mode attempt's
     float32 state is cast back, as the reference's carry is).
     ``chunk.stats`` holds the last call's per-attempt records
-    ``(tier, enorm, h)``, the attempts per tier and the tier at exit.
+    ``(tier, enorm, h)``, the attempts per tier and the tier at exit;
+    ``chunk.steps`` the tier steps the attempts call (build_chunk_tiers).
 
     With a ``mesh`` (parallel/mesh.py) every rank runs the chunk on its
     slab: each attempt's enorm and CFL bound are global over the ranks
@@ -721,97 +859,146 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     """
     numerics = numerics or NumericsOptions()
     _check_numerics(numerics, ops, mesh)
-    kern = (kernels if kernels is not None
-            else make_fused_kernels(ops, mesh=mesh))
+    kern = step_kernels(ops, numerics, mesh, kernels)
     pc = _shared_fused_pc(ops, numerics, mesh)
-    tiers = [(numerics.ksp_type, int(numerics.ksp_iters))]
-    esc_iters = int(getattr(numerics, "ksp_iters_max", 0) or 0)
-    # escalation only for the sweep solvers (the reference's esc_ok,
-    # solver.py:995-999): GMRES ignores ksp_iters, so a rejection
-    # shrinks h instead
-    if (esc_iters > int(numerics.ksp_iters)
-            and numerics.ksp_type in ("richardson", "chebyshev")):
-        tiers.append((numerics.ksp_type, esc_iters))
-        esc2 = int(getattr(numerics, "ksp_iters_max2", 0) or 0)
-        if esc2 > esc_iters:
-            top_type = numerics.ksp_type
-            if numerics.esc_cheb and numerics.pc_type == "block":
-                top_type = "chebyshev"
-            tiers.append((top_type, esc2))
-    builds = []
-    for kt, it in tiers:
-        nm_t = dataclasses.replace(numerics, ksp_type=kt, ksp_iters=it)
-        kw = dict(atol=atol, rtol=rtol, tableau=tableau, kernels=kern,
-                  fused_pc=pc, mesh=mesh)
-        step, tab = make_step_fn(ops, nm_t, **kw)
-        chain, _ = make_step_fn(ops, nm_t, chain_f0=True, **kw)
-        builds.append((step, chain))
-    use_chain = all(c is not None for _, c in builds)
-    ntiers = len(builds)
+    tb = build_chunk_tiers(ops, numerics, atol=atol, rtol=rtol,
+                           tableau=tableau, kernels=kern, fused_pc=pc,
+                           mesh=mesh)
+    ntiers = len(tb.tiers)
     if max_attempts is None:
         max_attempts = ntiers * int(max_rejects)
-    expo = -1.0 / (tab.order + 1)
-    safety = None
-    if cfl_safety is not None and float(cfl_safety) > 0.0:
-        safety = float(cfl_safety)
-        reach = [float(s) * ops.grid.stencil_width
-                 for s in ops.grid.spacing]
-
-    def cfl_maxh(u, t):
-        """safety * min over axes of spacing*sw / max|v_axis| (inf where
-        the velocity vanishes), a 0-d tensor."""
-        vmax = torch.stack([v.abs().max()
-                            for v in ops.velocity(u, t, mesh=mesh)])
-        if mesh is not None:
-            vmax = all_reduce_max(vmax, mesh)
-        reach_t = torch.tensor(reach, dtype=vmax.dtype, device=vmax.device)
-        hs = torch.where(vmax > 0.0,
-                         reach_t / torch.clamp(vmax, min=1e-300), math.inf)
-        return safety * hs.min()
+    cfl_maxh = make_cfl_maxh(ops, cfl_safety, mesh)
 
     def chunk(u, t, h, tmax, max_accepts):
         dev = u.device
-        t, tmax = float(t), float(tmax)
-        ladder = ChunkLadder(numerics, ntiers, expo, h, max_rejects)
+        ladder = ChunkLadder(numerics, ntiers, tb.expo, h, max_rejects)
         f64 = lambda x: torch.full((), x, dtype=torch.float64, device=dev)
-        f0 = ops.rhs(ops.groom(u), f64(t), mesh=mesh) if use_chain else None
-        k = attempts = 0
-        records = []
-        while (attempts < max_attempts and k < int(max_accepts)
-               and t <= tmax and not ladder.rejected):
-            tier, h = ladder.tier, ladder.h
-            step, chain = builds[tier]
-            if use_chain:
-                u1, enorm, f1 = chain.step(u, f64(t), f64(h), f0)
+        cur = SimpleNamespace(u=u, f0=None)
+        if tb.chain:
+            cur.f0 = ops.rhs(ops.groom(u), f64(float(t)), mesh=mesh)
+
+        def attempt(tier, idx, ts, hs):
+            t_, h_ = f64(ts[0]), f64(hs[0])
+            if tb.chain:
+                u1, enorm, f1 = tb.steps[tier](cur.u, t_, h_, cur.f0)
             else:
-                u1, enorm = step(u, f64(t), f64(h))
-            if safety is None:
-                # the one host read of the attempt
-                enorm, cfl_h = float(enorm), math.inf
-            else:
-                cfl = cfl_maxh(ops.groom(u1), f64(t + h))
-                enorm, cfl_h = torch.stack(
-                    [enorm.to(cfl.dtype), cfl]).tolist()
-            records.append((tier, enorm, h))
-            attempts += 1
-            if ladder.update(enorm, cfl_h):
-                u = u1.to(u.dtype)
-                if use_chain:
-                    f0 = f1
-                t = t + h
-                k += 1
+                (u1, enorm), f1 = tb.steps[tier](cur.u, t_, h_), None
+            e = enorm.to(torch.float64).reshape(1)
+            if cfl_maxh is not None:
+                cfl = cfl_maxh(ops.groom(u1), f64(ts[0] + hs[0]))
+                e = torch.stack([e, cfl.to(torch.float64).reshape(1)])
+
+            def commit(acc):
+                cur.u = u1.to(u.dtype)
+                if f1 is not None:
+                    cur.f0 = f1
+            return e, commit
+
+        run = run_attempts([ladder], [t], [tmax], [max_accepts],
+                           max_attempts, attempt)
+        records = run.records[0]
         per_tier = [0] * ntiers
         for tier, _, _ in records:
             per_tier[tier] += 1
         chunk.stats = SimpleNamespace(records=records, per_tier=per_tier,
-                                      tier=ladder.tier, tiers=tiers)
-        return u, t, ladder.h, k, attempts, ladder.rejected
+                                      tier=ladder.tier, tiers=tb.tiers)
+        return (cur.u, run.t[0], ladder.h, run.k[0], run.attempts[0],
+                ladder.rejected)
 
     chunk.stats = None
-    chunk.tiers = tiers
+    chunk.tiers, chunk.steps = tb.tiers, tb.steps
     chunk.kernels, chunk.fused_pc = kern, pc
-    chunk.build_info = step.build_info
-    return chunk, tab
+    chunk.build_info = tb.build_info
+    return chunk, tb.tab
+
+
+def build_chunk_tiers(ops, numerics, **kw):
+    """The adaptive chunk's tier steps, one per ``chunk_tiers(numerics)``
+    entry, built by make_step_fn with ``kw``: each tier's step ``(u, t,
+    h) -> (u1, enorm)`` or, where every tier can chain f0, its chain
+    step ``(u, t, h, f0) -> (u1, enorm, f1)``.  Returns a namespace of
+    ``tiers``, ``steps``, ``chain`` (which kind the steps are), the
+    controller's exponent ``expo``, the tableau and the first tier's
+    ``build_info``.  make_adaptive_chunk_fn and the ensemble's device
+    loop (solvers/ensemble.py, which vmaps the steps) share it."""
+    tiers = chunk_tiers(numerics)
+    builds = []
+    for kt, it in tiers:
+        nm_t = dataclasses.replace(numerics, ksp_type=kt, ksp_iters=it)
+        step, tab = make_step_fn(ops, nm_t, **kw)
+        chain, _ = make_step_fn(ops, nm_t, chain_f0=True, **kw)
+        builds.append((step, chain))
+    use_chain = all(c is not None for _, c in builds)
+    return SimpleNamespace(
+        tiers=tiers, chain=use_chain,
+        steps=[c.step if use_chain else s for s, c in builds],
+        expo=-1.0 / (tab.order + 1), tab=tab,
+        build_info=builds[0][0].build_info)
+
+
+def run_attempts(ladders, t, tmax, max_accepts, max_attempts, attempt):
+    """The adaptive chunk's attempt loop (ksfd_tpu/solvers/solver.py
+    :1039-1212, ``lax.while_loop``) over members, each with its own
+    ChunkLadder.  A member attempts while it has attempts left
+    (``max_attempts``), accepts to take (``max_accepts[i]``), its t is at
+    most ``tmax[i]`` and its ladder is not stuck.
+
+    ``attempt(tier, idx, ts, hs) -> (e, commit)`` runs the tier's step
+    on the members ``idx`` (all on that tier) at their t and h and
+    returns their error norms ``e``, a float64 device tensor of shape
+    (n,), or (2, n) with the CFL bounds on the next h after them;
+    ``commit(acc)`` keeps the results of the members at positions
+    ``acc`` of ``idx``.  Each attempt runs every occupied tier before
+    its one host read of all the norms; then each member's ladder moves
+    and the accepted results are kept.  The single-member chunk is the
+    case of one member.  Returns per member t, accepts ``k``,
+    ``attempts`` and ``records`` ``[(tier, enorm, h), ...]``, and per
+    attempt the occupied tiers (``occupied``)."""
+    n_mem = len(ladders)
+    t = [float(x) for x in t]
+    tmax = [float(x) for x in tmax]
+    max_accepts = [int(x) for x in max_accepts]
+    k = [0] * n_mem
+    attempts = [0] * n_mem
+    records = [[] for _ in range(n_mem)]
+    occupied = []
+    while True:
+        groups = {}
+        for i in range(n_mem):
+            if (attempts[i] < max_attempts and k[i] < max_accepts[i]
+                    and t[i] <= tmax[i] and not ladders[i].rejected):
+                groups.setdefault(ladders[i].tier, []).append(i)
+        if not groups:
+            break
+        outs = []
+        for tier in sorted(groups):
+            idx = groups[tier]
+            e, commit = attempt(tier, idx, [t[i] for i in idx],
+                                [ladders[i].h for i in idx])
+            outs.append((tier, idx, e, commit))
+        occupied.append(sorted(groups))
+        # the one host read of the attempt
+        vals = torch.cat([e.reshape(-1) for _, _, e, _ in outs]).tolist()
+        pos = 0
+        for tier, idx, e, commit in outs:
+            n = len(idx)
+            es = vals[pos:pos + n]
+            cfls = (vals[pos + n:pos + 2 * n] if e.dim() == 2
+                    else [math.inf] * n)
+            pos += e.numel()
+            acc = []
+            for j, i in enumerate(idx):
+                h = ladders[i].h
+                records[i].append((tier, es[j], h))
+                attempts[i] += 1
+                if ladders[i].update(es[j], cfls[j]):
+                    acc.append(j)
+                    t[i] = t[i] + h
+                    k[i] += 1
+            if acc:
+                commit(acc)
+    return SimpleNamespace(t=t, k=k, attempts=attempts, records=records,
+                           occupied=occupied)
 
 
 class Solver:

@@ -69,14 +69,14 @@ KERNELS = ("jvp", "resid", "delta", "rhs")
 #: shared fetch
 _MARCH = {
     "no_pointwise": [
-        ("    ksfd_dG(f, dg);\n",
+        ("    ksfd_dG(f, s[0], dg);\n",
          "    for (int k = 0; k < DOF; ++k) dg[k] = f[k];\n"),
-        ("    dst[1 * ds] = ksfd_G(f);\n", "    dst[1 * ds] = f[0];\n"),
-        ("    const float G0c = ksfd_G(f) - s[2];\n",
+        ("    dst[1 * ds] = ksfd_G(f, s[0]);\n", "    dst[1 * ds] = f[0];\n"),
+        ("    const float G0c = ksfd_G(f, s[0]) - s[2];\n",
          "    const float G0c = f[0] - s[2];\n"),
-        ("    const float dG = ksfd_G_delta(f, dd, u1);\n",
+        ("    const float dG = ksfd_G_delta(f, dd, u1, s[0]);\n",
          "    const float dG = dd[0] + u1[1];\n"),
-        ("    dst[1 * ds] = ksfd_G(f) - s[1 + DOF];\n",
+        ("    dst[1 * ds] = ksfd_G(f, s[0]) - s[1 + DOF];\n",
          "    dst[1 * ds] = f[0] - s[1 + DOF];\n"),
     ],
     "loads_only": [
@@ -84,24 +84,24 @@ _MARCH = {
          "graddot(xrho, xdG, c_rho, c_dG) +\n"
          "                vr * lap(xG, c_G) + c_rho[0] * lap(xdG, c_dG);\n",
          "    float row = c_G[0] + c_dG[0];\n"),
-        ("      row = -ksfd_gamma(l) * xvU[SW] + ksfd_s(l) * vr +\n"
-         "            ksfd_D(l) * lap(xvU, at.centre(4 + l));\n",
+        ("      row = -ksfd_gamma(l, s[0]) * xvU[SW] + ksfd_s(l, s[0]) * vr +\n"
+         "            ksfd_D(l, s[0]) * lap(xvU, at.centre(4 + l));\n",
          "      row = xvU[SW];\n"),
         ("    out[g] = graddot(xd0, xGs, c_d0, c_Gs) + "
          "graddot(xr0c, xdG, c_r0c, c_dG) +\n"
          "             drho * lap(xGs, c_Gs) + u0[g] * lap(xdG, c_dG);\n",
          "    out[g] = c_Gs[0] + u0[g] * c_dG[0];\n"),
-        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xdU[SW] +\n"
-         "                                 ksfd_s(l) * drho +\n"
-         "                                 ksfd_D(l) * lap(xdU, "
+        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l, s[0]) * xdU[SW] +\n"
+         "                                 ksfd_s(l, s[0]) * drho +\n"
+         "                                 ksfd_D(l, s[0]) * lap(xdU, "
          "at.centre(4 + l));\n",
          "      out[(1 + l) * plane + g] = xdU[SW];\n"),
         ("    out[g] = graddot(xrc, xGc, c_rc, c_Gc) + rho * lap(xGc, c_Gc);\n",
          "    out[g] = c_Gc[0] + rho * c_rc[0];\n"),
-        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l) * xUc[SW] + "
-         "ksfd_s(l) * rc +\n"
-         "                                 s[2 + DOF + l] +\n"
-         "                                 ksfd_D(l) * lap(xUc, "
+        ("      out[(1 + l) * plane + g] = -ksfd_gamma(l, s[0]) * xUc[SW] +\n"
+         "                                 ksfd_s(l, s[0]) * rc + "
+         "s[2 + DOF + l] +\n"
+         "                                 ksfd_D(l, s[0]) * lap(xUc, "
          "at.centre(2 + l));\n",
          "      out[(1 + l) * plane + g] = xUc[SW];\n"),
     ],

@@ -10,7 +10,7 @@ heads (it raises even when a module dict supplies them) and prints
 ``Max(-1/2, x)`` as ``torch.max(-1/2, x)``, which fails on a float and
 a tensor.  ``_TorchPrinter`` adds those rules: ``Max``/``Min`` become
 ``torch.clamp`` against the numeric arguments and ``torch.maximum``/
-``torch.minimum`` between tensors.
+``torch.minimum`` between tensors; a constant power prints as a float.
 """
 
 import keyword
@@ -78,6 +78,17 @@ class _TorchPrinter(TorchPrinter):
                 out, bound, lim,
             )
         return out
+
+    def _print_Pow(self, expr):
+        # a constant power (pi**2 in a manufactured source) as a float,
+        # a constant base by Python's power: torch.pow takes no pair of
+        # numbers
+        if expr.is_number and expr.is_real:
+            return repr(float(expr))
+        if expr.base.is_number:
+            return "(%s)**(%s)" % (self._print(expr.base),
+                                   self._print(expr.exp))
+        return super()._print_Pow(expr)
 
     def _print_Max(self, expr):
         return self._minmax(expr, "torch.maximum", "min")

@@ -41,7 +41,7 @@ from ksfd_tpu_torch.interop import (
     tensors_from_numpy,
 )
 from ksfd_tpu_torch.ops.codegen import pointwise_header
-from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch.ops.fused_stencil import kernels_available, make_fused_kernels
 from ksfd_tpu_torch.ops.fused_stencil3d import CSRC3D
 from ksfd_tpu_torch.ops.stencil import deriv_coeffs
 from ksfd_tpu_torch.solvers import linalg as tlinalg
@@ -341,10 +341,23 @@ def test_launch_counts_per_step(problems):
 
 
 def test_small_extent_rejected():
+    """The kernels still reject a 3D extent under 2*sw+1, and the gate
+    says so; the step then takes the unfused path (the reference's XLA
+    path where pallas3d_available refuses), which runs and launches
+    nothing (tests/test_torch_unfused.py holds it against the
+    reference)."""
     clargs = make_clargs(params=aggregation3d_params(8))
     _, _, ops = problem_from_clargs(clargs, 8, 4, 8, device="cpu")
     with pytest.raises(ValueError, match="2\\*sw\\+1"):
         make_fused_kernels(ops)
+    assert not kernels_available(ops.grid, ops)
+    multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01,
+                                 rtol=1e-6)
+    assert multi.kernels is None and multi.build_info["kernels"] is None
+    assert "2*sw+1" in multi.build_info["kernel_refusal"]
+    u, _, e = multi(torch.from_numpy(wave_state((8, 4, 8))), scalar(0.0),
+                    scalar(1.0), 2)
+    assert bool(torch.isfinite(u).all()) and float(e) < 1.0
 
 
 # ------------------------------------------------- generated code on the host
@@ -366,9 +379,9 @@ extern "C" void eval_all(int n, const float* f, const float* d,
                          const float* s, float* G, float* dG, float* Gd) {
   for (int i = 0; i < n; ++i) {
     const float* fi = f + i * KSFD_DOF;
-    G[i] = ksfd_G(fi);
-    ksfd_dG(fi, dG + i * KSFD_DOF);
-    Gd[i] = ksfd_G_delta(fi, d + i * KSFD_DOF, s + i * KSFD_DOF);
+    G[i] = ksfd_G(fi, 0.0F);
+    ksfd_dG(fi, 0.0F, dG + i * KSFD_DOF);
+    Gd[i] = ksfd_G_delta(fi, d + i * KSFD_DOF, s + i * KSFD_DOF, 0.0F);
   }
 }
 extern "C" void stencils(const float* p, float* out) {

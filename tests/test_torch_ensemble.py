@@ -16,6 +16,7 @@ ensemble equals its members' own runs.
 """
 
 import argparse
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -538,13 +539,15 @@ def test_refused_ensembles_raise(prob):
     _, tops = prob
     _, _, ops3 = problem_from_clargs(
         make_clargs(params=aggregation3d_params(8)), 8, 8, 8, device="cpu")
-    cases = [
-        (tops, NumericsOptions(device_loop=True), r"Queue A item 1 \(A11\)"),
-        (ops3, NumericsOptions(device_loop=True), r"Queue A item 1 \(A11\)"),
-    ]
-    for ops, nm, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            EnsembleSolver(ops, nm)
+    # with-G states raise; adaptive device-loop ensembles run since the
+    # device loop was ported (tests/test_torch_ensemble_chunk.py)
+    for ops in (tops, ops3):
+        with_g = copy.copy(ops)
+        with_g.refresh_G = lambda u, t: u
+        with pytest.raises(NotImplementedError,
+                           match=r"Queue A item 10 \(A13\)"):
+            EnsembleSolver(with_g, NumericsOptions())
+        EnsembleSolver(ops, NumericsOptions(device_loop=True))
     # 3D ensembles and pc_pallas ensembles run (in 3D on the basis-GEMM
     # pc: test_pc_pallas_3d_ensemble_takes_the_basis_gemm_pc)
     EnsembleSolver(ops3, NumericsOptions())

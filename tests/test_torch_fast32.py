@@ -183,8 +183,8 @@ def test_scalar_pack(prob):
     g = np.asarray(prob.jops.groom(jnp.asarray(u.astype(np.float64))))
     means = g.reshape(dof, -1).mean(axis=1)
     G_m = float(tops._G_fn(*[torch.tensor(m) for m in means], 0.25))
-    reacts = [c["s"] * means[0] - c["gamma"] * means[1 + l]
-              for l, c in enumerate(tops.lig_constants)]
+    reacts = [c["s"](0.25) * means[0] - c["gamma"](0.25) * means[1 + l]
+              for l, c in enumerate(tops._lig_coeffs)]
     ref = np.array([0.25, *means, G_m, *reacts]).astype(np.float32)
     np.testing.assert_array_equal(sc.numpy(), ref)
     assert u32.dtype == torch.float32 and u32.is_contiguous()
@@ -344,7 +344,12 @@ def test_fast_mode_ignores_mixed_path_options(prob, change):
     assert u1.dtype == torch.float32 and bool(torch.isfinite(e))
 
 
-def test_fast_mode_time_dependent_coefficients_raise():
+def test_fast_mode_time_dependent_coefficients_raise(interpret):
+    """Time-dependent PDE coefficients no longer raise: the kernels read
+    t from their scalar packs, so the fast mode runs its rhs and jvp
+    kernels there (delta, which the fast mode never runs, stays off),
+    and its step agrees with the reference's, whose Pallas kernels run
+    in interpret mode, on the bound of the other fast-mode steps."""
     jps, _, _ = ge._make_problem(N, N)
     clargs = jps.clargs
     clargs.params = [p for p in clargs.params
@@ -352,8 +357,38 @@ def test_fast_mode_time_dependent_coefficients_raise():
         "gamma_1_1=0.01*(1 + t)"]
     _, _, tops = problem_from_clargs(clargs, N, N, device="cpu")
     assert not tops.stage_delta_ok()
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_step_fn(tops, FAST)
+    kern = make_fused_kernels(tops)
+    calls = {name: 0 for name in kern.kernels}
+    for name, k in kern.kernels.items():
+        def counted(*a, _name=name, _body=k._body):
+            calls[_name] += 1
+            return _body(*a)
+        k._body = counted
+    step, _ = make_step_fn(tops, FAST, atol=0.01, rtol=1e-6, kernels=kern)
+    info = step.build_info
+    assert info["kernel_refusal"] is None and info["pallas_rhs"]
+    assert info["pallas_jvp"] and not info["pallas_delta"]
+    jps = KJ.SolutionParameters(clargs)
+    jgrid = KJ.Grid(dim=2, width=1.0, height=1.0, nx=N, ny=N,
+                    dof=jps.nligands + 1, order=jps.degree)
+    jops = KJ.ops.PDEOperators(jps, jgrid)
+    u0 = np.array(jops.groom(jnp.asarray(rough_state((N, N)))))
+    t0, h = 20.0, 1e-3
+    step_j, _ = jstep(jops, KJ.NumericsOptions(precision="float32"),
+                      atol=0.01, rtol=1e-6)
+    u_ref, _ = step_j(jnp.asarray(u0), jnp.asarray(t0), jnp.asarray(h))
+    u1, e = step(torch.from_numpy(u0),
+                 torch.tensor(t0, dtype=torch.float64),
+                 torch.tensor(h, dtype=torch.float64))
+    assert calls == dict(rhs=4, jvp=8, resid=0, delta=0)
+    assert u1.dtype == torch.float32 and bool(torch.isfinite(e))
+    u_ref = np.asarray(u_ref)
+    assert np.abs(u1.numpy() - u_ref).max() <= _bound(u_ref, u0)
+    # the coefficient's change since t = 0 shows far above that bound
+    u_at0, _ = step(torch.from_numpy(u0),
+                    torch.tensor(0.0, dtype=torch.float64),
+                    torch.tensor(h, dtype=torch.float64))
+    assert np.abs(u_at0.numpy() - u_ref).max() > 10 * _bound(u_ref, u0)
 
 
 # ------------------------------------------------------------- on a card

@@ -171,9 +171,9 @@ extern "C" void eval_all(int n, const float* f, const float* d,
                          const float* s, float* G, float* dG, float* Gd) {
   for (int i = 0; i < n; ++i) {
     const float* fi = f + i * KSFD_DOF;
-    G[i] = ksfd_G(fi);
-    ksfd_dG(fi, dG + i * KSFD_DOF);
-    Gd[i] = ksfd_G_delta(fi, d + i * KSFD_DOF, s + i * KSFD_DOF);
+    G[i] = ksfd_G(fi, 0.0F);
+    ksfd_dG(fi, 0.0F, dG + i * KSFD_DOF);
+    Gd[i] = ksfd_G_delta(fi, d + i * KSFD_DOF, s + i * KSFD_DOF, 0.0F);
   }
 }
 """

@@ -134,13 +134,15 @@ def test_launch_counts_per_step(problems):
 @pytest.mark.parametrize("change", [
     dict(ksp_type="gmres"), dict(ksp_type="gmres_rolled"),
     dict(ksp_type="dense"), dict(pc_type="spectral"),
-    dict(precision="float32", use_pallas=False),
+    dict(ksp_type="gmres_restarted"),
     dict(precision="bfloat16"), dict(pc_fft="on"),
     # pc_pallas with float64 transforms takes the basis-GEMM pc, as the
     # reference's does (tests/test_torch_pc.py); the banded tier does not
     dict(ksp_type="banded"),
-    dict(pc_dtype="bfloat16"), dict(sweep_dtype="float64"),
-    dict(stage_delta=False), dict(use_pallas=False),
+    # the unfused step runs use_pallas=False, float64 sweeps and
+    # -stage_delta 0 (tests/test_torch_unfused.py)
+    dict(pc_dtype="bfloat16"), dict(ksp_type="direct"),
+    dict(pc_fft="auto"), dict(ksp_type="lu"),
     dict(ts_type="arkimex"),
 ])
 def test_off_path_options_raise(problems, change):
