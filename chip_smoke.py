@@ -7,8 +7,8 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs twenty-seven
-phases, each printing one line:
+header, and csrc/pc2d.cu, all started together) and runs thirty phases,
+each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the float32 matmul precision and the kernels' builds, with
@@ -125,7 +125,16 @@ phases, each printing one line:
     2D bench problem at 1024^2 x 3 with use_pallas=False against the
     fused step (no stencil launch; ms/step and device ms by group of
     both), the 3D problem at 64 x 64 x 4 (z under 2*sw+1), and each way
-    of linearizing the RHS timed in 1D and 2D.
+    of linearizing the RHS timed in 1D and 2D;
+29. time-dependent coefficients through the kernels (each against its
+    plain version, the launches of the mixed and fast steps, card vs
+    CPU);
+30. the host Solver (phase_solver): options93 at 128 x 3 for 2080 fixed
+    steps within 5% of the reference's relative error; the flagship at
+    1536^2 x 3 from ``ic.start_values`` with the device loop, its
+    launches exact, beside the bare chunk on the same start; the Solver
+    on the card against the CPU at 128^2 x 3; examples/noise1d's
+    injections, conservation and draws.
 
 Then one JSON line of the nineteen kernels (B9's eight rows last) and,
 last, the result line.  Any failed phase raises (a failed rank fails
@@ -136,6 +145,7 @@ nothing of JAX.  Profiles and long reports go to chiprun_out/.
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import sys
@@ -1806,13 +1816,29 @@ def phase_ensemble_fixed(card, clargs, shape, runs, phase, pc_pallas=False,
 
 
 def hex_starts(grid, n, seed):
-    """n starts 9000 + 90 N(0,1) per field, member i from numpy seed
-    seed + i: a stand-in for ic.py's srho0=90 noisy uniform start
-    (ROADMAP Queue A item 4, A8 part 1, brings ic.py)."""
+    """n pointwise noisy uniform starts 9000 + 90 N(0,1) per field and
+    point, member i from numpy seed seed + i (phase 28's; phases 18, 24
+    and 30 start from ic.start_values, ic_starts)."""
     return np.stack([
         9000.0 + 90.0 * np.random.default_rng(seed + i).standard_normal(
             tuple(grid.Vshape))
         for i in range(n)])
+
+
+def ic_starts(clargs, grid, ps, n, seed):
+    """n fresh starts of ``ic.start_values`` (the problem's srho0 field
+    on its coarse randgrid plus rho0, the ligands given or at their
+    local steady state), member i drawn from the process Generator
+    seeded ``seed + i``, made on the CPU: numpy (n, dof, *Sshape)."""
+    from ksfd_tpu_torch import ic
+    from ksfd_tpu_torch.randomfield import Generator
+
+    out = []
+    for i in range(n):
+        Generator(seed + i)
+        u, _ = ic.start_values(clargs, grid, ps, device="cpu")
+        out.append(u.numpy())
+    return np.stack(out)
 
 
 #: accepted steps per member of phase 18's run
@@ -1895,7 +1921,8 @@ def check_device_loop(es, calls, sig, launches, label):
 
 def phase_ensemble_adaptive(card):
     """EnsembleSolver adaptive on examples/hexagons2d's parameters and
-    numerics at its own 384^2 x 3, 4 members from noisy uniform starts,
+    numerics at its own 384^2 x 3, 4 members from ic.start_values
+    (srho0=90 on a 96^2 randgrid, member i seeded seed + i: ic_starts),
     dt=1e-8, HEX_STEPS accepts each: first per step (device_loop off),
     then with the device loop (``device_loop=True``: per attempt one
     vmapped tier step per occupied tier).  Per member the accepts,
@@ -1928,7 +1955,7 @@ def phase_ensemble_adaptive(card):
     clargs = hex_clargs()
     ps, grid, ops = problem_from_clargs(clargs, N_HEX, N_HEX, device=dev)
     kern = make_fused_kernels(ops)
-    U0 = hex_starts(grid, 4, clargs.seed)
+    U0 = ic_starts(clargs, grid, ps, 4, clargs.seed)
     kw = dict(t0=0.0, dt=float(ps.params0["dt"]),
               tmax=float(ps.params0["tmax"]), rtol=float(ps.params0["rtol"]),
               atol=float(ps.params0["atol"]), kernels=kern)
@@ -2214,8 +2241,8 @@ AGG3D_STEPS = 24
 def phase_ensemble_adaptive_3d(card):
     """EnsembleSolver adaptive per step (device_loop off) on
     examples/aggregation3d's parameters and numerics at its own 64^3 x 3,
-    4 members from 9000 + 90 N(0,1) starts (hex_starts, the stand-in
-    for srho0=90), dt=1e-6, AGG3D_STEPS accepts: per member the accepts,
+    4 members from ic.start_values (srho0=90 on a 16^3 randgrid,
+    ic_starts), dt=1e-6, AGG3D_STEPS accepts: per member the accepts,
     rejections, fallback rescues and the t and h range, ms per outer
     iteration and the launches (each one batched launch for all
     members)."""
@@ -2226,7 +2253,7 @@ def phase_ensemble_adaptive_3d(card):
     clargs = agg3d_clargs(n)
     ps, grid, ops = problem_from_clargs(clargs, n, n, n, device=dev)
     kern = make_fused_kernels(ops)
-    U0 = hex_starts(grid, 4, clargs.seed)
+    U0 = ic_starts(clargs, grid, ps, 4, clargs.seed)
     es = EnsembleSolver(ops, agg3d_numerics(), t0=0.0,
                         dt=float(ps.params0["dt"]),
                         tmax=float(ps.params0["tmax"]),
@@ -3232,6 +3259,266 @@ def phase_tdep(card):
                 t_effect_rel_to_increment=t_effect / inc)
 
 
+#: phase 30's depths: (b) the flagship's accepted steps from dt=1e-8,
+#: (c) the card-vs-CPU run's, (d) noise1d's
+FLAG_ACCEPTS = 64
+SOLVER_CMP_ACCEPTS = 16
+NOISE_ACCEPTS = 200
+N_SOLVER_CMP = 128
+N_NOISE = 512               # examples/noise1d's own size
+#: options93's relative error within this share of the reference's
+GATE_SHARE = 0.05
+
+
+def tier_launches(chunk, ops, u, t):
+    """Launches of each tier step of a chunk for one attempt from u at t
+    (h=1e-8), by tier: {kernel: launches}."""
+    wrappers = chunk_wrappers(chunk)
+    f64 = lambda x: torch.full((), x, dtype=torch.float64, device=u.device)
+    f0 = ops.rhs(u, f64(t)) if chunk.chain else None
+    out = []
+    for step in chunk.steps:
+        for k in wrappers.values():
+            k.launches = 0
+        if chunk.chain:
+            step(u, f64(t), f64(1e-8), f0)
+        else:
+            step(u, f64(t), f64(1e-8))
+        torch.cuda.synchronize()
+        out.append({n: k.launches for n, k in wrappers.items()})
+    return out
+
+
+def solver_run(solver, u0):
+    """``solver.solve(u0)`` synchronised: (u, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = solver.solve(u0)
+    torch.cuda.synchronize()
+    return u, time.perf_counter() - t0
+
+
+def phase_solver(card):
+    """The port's host Solver (solvers/solver.py Solver) on the card.
+
+    (a) options93 (ksfd_tpu_torch/tools/validate.py): the manufactured
+        1D problem at its full 128 x 3, 2080 fixed steps of dt=1 with
+        default numerics; the relative error against the exact state
+        within GATE_SHARE of the reference's 6.18e-5; ms per step;
+    (b) the flagship, examples/aggregation2d at its full 1536^2 x 3,
+        from ``ic.start_values`` (srho0=90, the clargs' seed), its
+        numerics with ``device_loop=True``, FLAG_ACCEPTS accepts from
+        dt=1e-8 (after an untimed run of 2): ms per accepted step, the
+        chunk's tier calls, host reads, retries, fallback steps and
+        rescues; the resid (B1) and delta (B3) launches of the run equal
+        each tier's launches per attempt times its calls, and no rhs or
+        jvp launch; beside it the bare chunk (make_adaptive_chunk_fn,
+        as phase 13) on the same start and the same accepts: equal
+        k, t, h and state where the Solver took one dispatch, and the
+        Solver's host ms per accept over the chunk's;
+    (c) the Solver on the card and on the CPU (plain versions) at
+        128^2 x 3 of the flagship's spacing, the device loop, from one
+        ic start, SOLVER_CMP_ACCEPTS accepts: k and failures equal, t
+        and h to 1e-4 relative, u within 1e-5 of max|u| (phase 18's
+        bounds: batched cuBLAS products round apart);
+    (d) examples/noise1d at its own 512 x 3 through the Solver with the
+        device loop, NOISE_ACCEPTS accepts: every injection at the first
+        accept past the variance timing function's next time (each
+        chunk bounded there), worms conserved to 1e-12 after each, and
+        the draws log(rho'/rho)/sd with mean 0 and variance 1."""
+    from ksfd_tpu_torch.solvers import Solver, make_adaptive_chunk_fn
+    from ksfd_tpu_torch.solvers.solver import next_noise_time
+    from ksfd_tpu_torch.tools import validate
+    from ksfd_tpu_torch.tools.flagship import example_numerics
+
+    dev = torch.device("cuda")
+    lines = []
+    fig = {}
+    # (a) options93
+    gate = validate.run_gate(nx=128, steps=2080, device=dev)
+    rel = gate["rel_err"]
+    ref = validate.REFERENCE_REL_ERR
+    check(gate["steps"] == 2080 and abs(rel - ref) <= GATE_SHARE * ref,
+          "options93 relative error %.4e, reference %.3g" % (rel, ref))
+    fig["options93"] = dict(rel_err=rel, max_abs_err=gate["max_abs_err"],
+                            ms_per_step=gate["wall_s"] / 2080 * 1e3)
+    lines.append("(a) options93 128x3 2080 steps dt=1: relative error %.4e "
+                 "(reference %.3g), %.3f ms/step" % (
+                     rel, ref, fig["options93"]["ms_per_step"]))
+    # (b) the flagship
+    clargs = agg2d_clargs(N_AGG)
+    ps, grid, ops = problem_from_clargs(clargs, N_AGG, N_AGG, device=dev)
+    kern = make_fused_kernels(ops)
+    u0 = torch.as_tensor(ic_starts(clargs, grid, ps, 1, clargs.seed)[0],
+                         device=dev)
+    p0 = ps.params0
+    kw = dict(t0=0.0, dt=float(p0["dt"]), tmax=float(p0["tmax"]),
+              rtol=float(p0["rtol"]), atol=float(p0["atol"]), kernels=kern)
+    nm = example_numerics()
+    Solver(ops, nm, maxsteps=2, **kw).solve(u0)
+    solver = Solver(ops, nm, maxsteps=FLAG_ACCEPTS, **kw)
+    zero_launches(kern)
+    u_s, secs = solver_run(solver, u0)
+    launches = launch_counts(kern)
+    st = solver.stats
+    check(solver.k == FLAG_ACCEPTS and not solver.diverged
+          and bool(torch.isfinite(u_s).all()),
+          "flagship Solver: k=%d diverged=%s" % (solver.k, solver.diverged))
+    per_tier = tier_launches(solver._chunk, ops, ops.groom(u0), 0.0)
+    want = {n: sum(c * pt[n] for c, pt in zip(st.tier_calls, per_tier))
+            for n in launches}
+    check(launches == want and launches["resid"] > 0
+          and launches["delta"] > 0 and launches["rhs"] == launches["jvp"]
+          == 0, "flagship Solver launches %s, want %s (tier calls %s, per "
+          "attempt %s)" % (launches, want, st.tier_calls, per_tier))
+    chunk, _ = make_adaptive_chunk_fn(ops, nm, atol=kw["atol"],
+                                      rtol=kw["rtol"], max_attempts=128,
+                                      kernels=kern)
+    ug0 = ops.groom(u0)
+    run_chunk(chunk, ug0, 0.0, kw["dt"], 2)
+    (uc, tc, hc, kc, attc, rejc), csecs, _ = run_chunk(
+        chunk, ug0, 0.0, kw["dt"], FLAG_ACCEPTS)
+    if st.dispatches == 1:
+        check(kc == solver.k and tc == solver.t and hc == solver.h
+              and torch.equal(ops.groom(uc), u_s),
+              "flagship Solver vs its bare chunk: k %d/%d t %r/%r h %r/%r"
+              % (solver.k, kc, solver.t, tc, solver.h, hc))
+    fig["flagship"] = dict(
+        accepts=solver.k, t=solver.t, h=solver.h,
+        ms_per_accept=secs / solver.k * 1e3,
+        chunk_ms_per_accept=csecs / kc * 1e3,
+        host_ms_per_accept=(secs - csecs) / solver.k * 1e3,
+        tier_calls=st.tier_calls, host_reads=st.chunk_attempts
+        + st.step_attempts, dispatches=st.dispatches,
+        on_device_rejections=st.chunk_rejections,
+        host_retries=st.host_retries, fallback_steps=st.fallback_steps,
+        exact_rescues=st.exact_rescues, launches=launches,
+        launches_per_attempt=per_tier)
+    lines.append(
+        "(b) aggregation2d %d^2x3 from ic.start_values, device loop, %d "
+        "accepts from dt=1e-8 to t=%.6g (h %.4g): %.3f ms/accept (bare "
+        "chunk on the same start %.3f, the Solver's host %.3f), %d "
+        "dispatches, tier calls %s, %d host reads, %d on-device "
+        "rejections, %d host retries, %d fallback steps, %d exact "
+        "rescues; launches %s = tier calls x per attempt %s" % (
+            N_AGG, solver.k, solver.t, solver.h,
+            fig["flagship"]["ms_per_accept"],
+            fig["flagship"]["chunk_ms_per_accept"],
+            fig["flagship"]["host_ms_per_accept"], st.dispatches,
+            st.tier_calls, fig["flagship"]["host_reads"],
+            st.chunk_rejections, st.host_retries, st.fallback_steps,
+            st.exact_rescues, launches, per_tier))
+    del solver, chunk, kern, ops, u0, u_s, uc, ug0
+    # (c) card vs CPU
+    n = N_SOLVER_CMP
+    clargs = agg2d_small_clargs(n)
+    out = {}
+    start = None
+    for where in ("cuda", "cpu"):
+        ps, grid, ops = problem_from_clargs(clargs, n, n, device=where)
+        if start is None:
+            start = ic_starts(clargs, grid, ps, 1, clargs.seed)[0]
+        s = Solver(ops, nm, t0=0.0, dt=1e-8, tmax=2e5,
+                   maxsteps=SOLVER_CMP_ACCEPTS, rtol=float(ps.params0["rtol"]),
+                   atol=float(ps.params0["atol"]))
+        u = s.solve(start).cpu().numpy()
+        out[where] = (s, u)
+    (sg, ug), (sc, uc) = out["cuda"], out["cpu"]
+    dev_abs = float(np.abs(ug - uc).max())
+    scale = float(np.abs(uc).max())
+    check(sg.k == sc.k == SOLVER_CMP_ACCEPTS
+          and sg.snes_failures == sc.snes_failures
+          and abs(sg.t - sc.t) <= 1e-4 * abs(sc.t)
+          and abs(sg.h - sc.h) <= 1e-4 * abs(sc.h)
+          and dev_abs <= 1e-5 * scale,
+          "Solver card vs cpu %d^2: k %d/%d failures %d/%d t %r/%r h %r/%r "
+          "u %.3e of %.4e" % (n, sg.k, sc.k, sg.snes_failures,
+                              sc.snes_failures, sg.t, sc.t, sg.h, sc.h,
+                              dev_abs, scale))
+    lines.append("(c) %d^2x3 card vs cpu, %d accepts: t %.6g/%.6g h %.4g/"
+                 "%.4g, failures %d, u %.3e of max|u| %.4e" % (
+                     n, sg.k, sg.t, sc.t, sg.h, sc.h, sg.snes_failures,
+                     dev_abs, scale))
+    fig["card_vs_cpu"] = dict(accepts=sg.k, t=(sg.t, sc.t), h=(sg.h, sc.h),
+                              u_max_abs_dev=dev_abs)
+    del out
+    # (d) noise1d
+    clargs = make_clargs(params=example_params("noise1d")
+                         + ["nelements=%d" % N_NOISE])
+    ps, grid, ops = problem_from_clargs(clargs, N_NOISE, device=dev)
+    u0 = torch.as_tensor(ic_starts(clargs, grid, ps, 1, clargs.seed)[0],
+                         device=dev)
+    p0 = ps.params0
+    solver = Solver(ops, example_numerics(), t0=0.0, dt=float(p0["dt"]),
+                    tmax=float(p0["tmax"]), maxsteps=NOISE_ACCEPTS,
+                    rtol=float(p0["rtol"]), atol=float(p0["atol"]),
+                    rng_state=clargs.seed)
+    check(solver._chunk is not None, "noise1d runs the device loop")
+    draws, marks, exits = [], [], []
+    add_variance = solver.add_variance
+
+    def recorded(u, dt, t):
+        u1 = add_variance(u, dt, t)
+        sd = math.sqrt(float(ps.funcs["variance_rate"](t)) * dt)
+        draws.append((torch.log(u1[0] / u[0]) / sd).cpu().numpy())
+        return u1
+    solver.add_variance = recorded
+    chunk = solver._chunk
+
+    def bounded(u, t, h, tmax, max_acc):
+        """The chunk, its bound and exit recorded."""
+        res = chunk(u, t, h, tmax, max_acc)
+        bounded.stats = chunk.stats
+        acc = [hh for _, e, hh in chunk.stats.records if e <= 1.0]
+        exits.append((t, tmax, res[1], acc[-1] if acc else None))
+        return res
+    bounded.tiers = chunk.tiers
+    solver._chunk = bounded
+    solver.add_monitor(lambda s, k, t, u: marks.append(
+        (t, s.lastvart, float(torch.sum(u[0])))))
+    u, secs = solver_run(solver, u0)
+    Nw = marks[0][2]
+    vtf = ps.funcs["variance_timing_function"]
+    injections = [(t, lv) for t, lv, _ in marks[1:] if lv == t]
+    check(solver.k == NOISE_ACCEPTS and len(injections) >= 3
+          and len(injections) == len(draws) == solver.stats.injections,
+          "noise1d: k=%d, %d injections, %d draws" % (
+              solver.k, len(injections), len(draws)))
+    prev = 0.0
+    for t_i, _ in injections:
+        tn = next_noise_time(ps, prev, float(p0["tmax"]))
+        hit = [e for e in exits if e[2] == t_i]
+        check(tn is not None and hit and abs(hit[0][1] - tn) <= 1e-12 * tn
+              and t_i >= tn and t_i - hit[0][3] <= tn
+              and float(vtf(t_i)) - float(vtf(prev)) >= 1.0,
+              "noise1d injection at t=%r: next noise time %r, exit %s" % (
+                  t_i, tn, hit))
+        prev = t_i
+    cons = max(abs(w - Nw) / Nw for t, lv, w in marks[1:] if lv == t)
+    check(cons <= 1e-12, "noise1d conservation %.3e" % cons)
+    z = np.concatenate(draws)
+    zmean, zvar = float(z.mean()), float(z.var())
+    check(abs(zmean) <= 5.0 / math.sqrt(z.size)
+          and abs(zvar - 1.0) <= 5.0 * math.sqrt(2.0 / z.size),
+          "noise1d draws: mean %.4f variance %.4f of %d" % (
+              zmean, zvar, z.size))
+    fig["noise1d"] = dict(accepts=solver.k, t=solver.t,
+                          injections=[t for t, _ in injections],
+                          conservation=cons, z_mean=zmean, z_var=zvar,
+                          ms_per_accept=secs / solver.k * 1e3,
+                          dispatches=solver.stats.dispatches)
+    lines.append("(d) noise1d %dx3, %d accepts to t=%.6g in %d dispatches "
+                 "(%.3f ms/accept): %d injections at t %s, each the first "
+                 "accept past the next noise time; conservation %.2e; "
+                 "draws mean %.4f variance %.4f of %d" % (
+                     N_NOISE, solver.k, solver.t, solver.stats.dispatches,
+                     fig["noise1d"]["ms_per_accept"], len(injections),
+                     ["%.6g" % t for t, _ in injections], cons, zmean, zvar,
+                     z.size))
+    print("phase 30 host Solver (%s): %s" % (card, " | ".join(lines)))
+    return fig
+
+
 def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
                 extra=None):
     """One row per kernel of ``kern`` (a namespace of wrappers by name,
@@ -3386,6 +3673,7 @@ def main():
     two_ranks = timed("27", phase_two_ranks, card)
     unfused = timed("28", phase_unfused, card)
     tdep = timed("29", phase_tdep, card)
+    solver30 = timed("30", phase_solver, card)
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -3411,6 +3699,12 @@ def main():
     runs2d += [f["launches"] for f in ens.values()] + [hexa["launches"]]
     runs2d.append(unfused["bench_1024"]["fused_launches"])
     runs2d += [f["launches"] for f in ens_pc.values()]
+    # the host Solver's flagship run (phase 30 (b)), B1 and B3 only;
+    # per accepted step of that run
+    flag = solver30["flagship"]
+    runs2d.append(flag["launches"])
+    per_step["solver_flagship"] = {n: c / flag["accepts"]
+                                   for n, c in flag["launches"].items()}
     totals = {n: sum(c.get(n, 0) for c in runs2d)
               for n in list(kern.kernels) + ["pc_fwd", "pc_inv"]}
     per_step3 = {"f64": {n: c // 10 for n, c in counts3.items()},
@@ -3488,6 +3782,7 @@ def main():
         "two_gloo_ranks_one_card": two_ranks,
         "unfused": unfused,
         "time_dependent_coefficients": tdep,
+        "solver": solver30,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@ unchanged).  It imports torch and never jax, and it mirrors the
 reference's module layout: each docstring names its counterpart as
 ``ksfd_tpu/<file>:<function>``.
 
-What runs so far is the fixed-dt multistep and the adaptive chunk
+What runs so far is the host Solver (solvers/solver.py Solver, with
+fresh starts from ic.py and the exact tiers of solvers/banded_path.py,
+solvers/direct.py and the dense LU step), the fixed-dt multistep and
+the adaptive chunk
 (solvers/solver.py make_multistep_fn, make_adaptive_chunk_fn) on 2D
 and 3D periodic problems, with default numerics (a float64 state) and
 in the float32 fast mode (``NumericsOptions(precision="float32")``),

@@ -54,9 +54,9 @@ the loop is that retry, not a way around a batched kernel.
 
 Noise: one ``torch.Generator`` on the state's device per member,
 seeded from ``(rng_key, member_offset + i)``, drawn only when the
-member injects.  It cannot reproduce JAX's PRNG keys bit for bit
-(ROADMAP Queue A item 4, A8), so noise runs are held to statistics and
-to the reference's injection times.
+member injects.  It cannot reproduce JAX's PRNG keys bit for bit, so
+noise runs are held to statistics and to the reference's injection
+times.
 
 Usage:
     es = EnsembleSolver(ops, numerics, t0=.., dt=.., tmax=..,
@@ -93,6 +93,7 @@ from .solver import (
     make_multistep_fn,
     make_step_fn,
     next_noise_time,
+    noise_active,
     run_attempts,
     step_kernels,
 )
@@ -108,16 +109,6 @@ def shard_members(U, devices=None):
     raise NotImplementedError(
         "members sharded over several cards (member meshes) are ROADMAP "
         "Queue A item 11 (A14)"
-    )
-
-
-def noise_active(ps):
-    """Whether variance injection is configured at all.  Counterpart:
-    ksfd_tpu/solvers/solver.py:noise_active."""
-    v0 = ps.values0
-    return (
-        bool(v0.get("variance_rate", 0.0))
-        or "variance_rate" in ps.tdfuncs
     )
 
 

@@ -1,9 +1,10 @@
-"""The implicit step, the fixed-dt multistep loop and the adaptive chunk.
+"""The implicit step, the fixed-dt multistep loop, the adaptive chunk and
+the host Solver.
 
 Counterpart: ksfd_tpu/solvers/solver.py:make_step_fn,
-:make_multistep_fn, :make_adaptive_chunk_fn, :chunk_cfl_safety and
-:next_noise_time on a single device, on 1D, 2D and 3D periodic grids,
-in its two precisions.  A step is one ROS34PW2 Rosenbrock-W step of 4
+:make_multistep_fn, :make_adaptive_chunk_fn, :chunk_cfl_safety,
+:next_noise_time, :route_petsc_direct and :Solver on a single device,
+on 1D, 2D and 3D periodic grids, in its two precisions.  A step is one ROS34PW2 Rosenbrock-W step of 4
 stages, each stage solve ``ksp_iters`` preconditioner applications:
 Richardson sweeps ``x = M(b)`` then ``x += M(b - W x)``, or
 (``ksp_type="chebyshev"``) the Chebyshev recurrence of solvers/gmres.py
@@ -57,7 +58,7 @@ reference does.
   step.  ``stage_delta`` and ``sweep_dtype`` are ignored, as the
   reference ignores them.
 - **float64 GMRES (``ksp_type="gmres_scipy"``)**, the robust retry step
-  of the ensemble (solvers/ensemble.py) and, later, of the host Solver:
+  of the ensemble (solvers/ensemble.py) and of the host Solver:
   W = shift*I - J in float64 from the RHS linearized once per step,
   the basis-GEMM (or fused) pc as M with its statistics from the
   float64 state, the restarted GMRES of solvers/gmres.py
@@ -91,23 +92,36 @@ x-slab, each on its local slab: the halo-slab kernels (B9), the sharded
 basis-GEMM pc (one all_reduce per apply, bfloat16 by default on more
 than one rank), global means, pc statistics and error norms.
 
+**The exact tiers** (solver.py:200-254, :1297-1328): ``ksp_type``
+dense or direct LU-factors W = shift*I - J once per step, J the RHS's
+linearization applied to the identity, and each stage solve is two
+triangular solves (``torch.linalg.lu_factor``/``lu_solve``, a
+small-problem tier); banded (1D) and lu (any dimension) are the host
+steps of solvers/banded_path.py and solvers/direct.py, which make_step_fn
+returns with the step's contract.  No exact tier launches a kernel.
+
+**The Solver** runs the reference's host loop over these: the fixed-dt
+blocks, the per-step adaptive loop with its GMRES fallback and exact-LU
+rescue, and the device loop's chunk (class docstring).
+
 Everything else raises NotImplementedError naming its ROADMAP item:
-the host Solver loop (Queue A item 4, A8), DIRK (item 7, A9), the
-fixed-count Krylov stage solvers (item 9), dense/direct tiers (item 5,
-A12), the FFT preconditioner (item 8, A4), with-G states (item 10,
-A13), on a mesh the GMRES step, the unfused step, y splits and other
-meshes (Queue A item 11, A14), and ``pc_pallas`` with fields outside
-2..MAX_NF where the reference's gate runs its fused pc (Queue B item 1,
-B5).
+DIRK (Queue A item 7, A9), the fixed-count Krylov stage solvers (item
+9), the FFT preconditioner (item 8, A4), with-G states (item 10, A13),
+on a mesh the GMRES step, the unfused step, the exact tiers, the
+Solver, y splits and other meshes (Queue A item 11, A14), and
+``pc_pallas`` with fields outside 2..MAX_NF where the reference's gate
+runs its fused pc (Queue B item 1, B5).
 """
 
 import dataclasses
 import math
+from datetime import datetime
 from types import SimpleNamespace
 
 import torch
 
 from ..utils.cli import NumericsOptions
+from ..utils.debug import logger
 from ..ops.fused_pc import (
     fused_pc_refusal,
     make_fused_block_pc,
@@ -126,13 +140,31 @@ from .gmres import (
 from .linalg import BlockSpectralPreconditioner, make_sharded_block_apply
 from .steppers import get_tableau, wlte_norm_delta
 
+logTS = logger("TS")
+
 __all__ = ["make_step_fn", "make_multistep_fn", "make_adaptive_chunk_fn",
            "build_chunk_tiers", "run_attempts", "chunk_cfl_safety",
-           "next_noise_time", "step_kernels", "Solver"]
+           "next_noise_time", "noise_active", "step_kernels",
+           "route_petsc_direct", "Solver", "print_monitor",
+           "history_monitor"]
+
+
+#: the exact tiers: dense LU in the step (``use_dense``), and the host
+#: steps of solvers/banded_path.py (1D) and solvers/direct.py
+EXACT_KSP = ("dense", "direct", "banded", "lu")
+
+
+def _use_dense(numerics):
+    """The reference's ``use_dense`` (solver.py:200): exact dense LU
+    stage solves."""
+    return numerics.ksp_type in ("dense", "direct")
 
 
 def _fast32(numerics):
-    return numerics.precision in ("float32", "f32")
+    """The float32 fast mode; the exact tiers ignore ``precision``, as
+    the reference's ``fast32`` does (solver.py:254)."""
+    return (numerics.precision in ("float32", "f32")
+            and numerics.ksp_type not in EXACT_KSP)
 
 
 def _to_f32(u, t, h):
@@ -162,11 +194,14 @@ def _check_numerics(numerics, ops, mesh=None):
     """Raise NotImplementedError for any request off the ported paths."""
     krylov = _krylov(numerics)
     todo = []
-    if numerics.ksp_type not in ("richardson", "chebyshev", "gmres_scipy"):
+    if numerics.ksp_type not in ("richardson", "chebyshev",
+                                 "gmres_scipy") + EXACT_KSP:
         todo.append(
-            "ksp_type %r (dense/direct/banded/lu: Queue A item 5, A12; "
-            "fixed-count Krylov: Queue A item 9)" % numerics.ksp_type
+            "ksp_type %r (fixed-count Krylov: Queue A item 9)"
+            % numerics.ksp_type
         )
+    if mesh is not None and numerics.ksp_type in EXACT_KSP:
+        todo.append("the exact tiers on a mesh (%s)" % MESH_TODO)
     if numerics.pc_type != "block":
         todo.append("pc_type %r (Queue A item 8, A4)" % numerics.pc_type)
     if numerics.precision not in ("float64", "f64", "float32", "f32"):
@@ -207,6 +242,8 @@ def _step_refusal(numerics, ops):
     (solver.py:296-330)."""
     if not numerics.use_pallas:
         return "use_pallas=False"
+    if numerics.ksp_type in EXACT_KSP:
+        return "ksp_type=%s (an exact tier)" % numerics.ksp_type
     return kernel_refusal(ops.grid, ops)
 
 
@@ -277,6 +314,27 @@ def _cheb_interval(numerics, shift, rho_dmin, rho_diff, cheb_lap):
     return lmin, b_hi
 
 
+def _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0=False):
+    """The host exact step of ``ksp_type`` banded (1D, the native cyclic
+    banded LU) or lu (sparse SuperLU, any dimension), with the step's
+    contract, as the reference's Solver builds them
+    (solver.py:1297-1328); no f0 chain.  (The DIRK tableaus, which
+    the reference refuses here, raise in get_tableau: Queue A item 7.)"""
+    if chain_f0:
+        return None, tab
+    if numerics.ksp_type == "banded":
+        from .banded_path import make_banded_step as make
+    else:
+        from .direct import make_sparse_step as make
+    step = make(ops, tab, atol=atol, rtol=rtol)
+    step.build_info = dict(
+        ksp_type=numerics.ksp_type, kernels=None,
+        kernel_refusal=_step_refusal(numerics, ops), pc=None,
+        mesh_shape=None, host="probes and stage RHS on %s, assembly, "
+        "factorization and solves on the host" % ops.device)
+    return step, tab
+
+
 def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                  mesh=None, chain_f0=False, kernels=None, fused_pc=None):
     """Build the implicit step ``(u, t, h) -> (u1, enorm)``.
@@ -300,9 +358,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     (groom(u), t) and returns the RHS at groom(u1), advanced by the
     delta kernel.  None when ineligible (no delta kernel on the path:
     the fast mode, the GMRES step, the unfused step, ``-stage_delta 0``
-    or time-dependent coefficients; or active sources).  The
-    reference's ``advance`` (the Solver's re-base after a fallback
-    step) comes with the Solver, ROADMAP Queue A item 4 (A8).
+    or time-dependent coefficients; or active sources).
 
     kernels: a ``make_fused_kernels(ops, mesh)`` namespace to share
     between builds (its launch counters then count both); ignored where
@@ -332,8 +388,11 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     numerics = numerics or NumericsOptions()
     _check_numerics(numerics, ops, mesh)
     tab = tableau or get_tableau(numerics.ts_type)
+    if numerics.ksp_type in ("banded", "lu"):
+        return _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0)
+    use_dense = _use_dense(numerics)
     pc_dtype = _pc_dtype(numerics, mesh)
-    precond = BlockSpectralPreconditioner(
+    precond = None if use_dense else BlockSpectralPreconditioner(
         ops.grid, ops, compute_dtype=pc_dtype, device=ops.device
     )
     kern = step_kernels(ops, numerics, mesh, kernels)
@@ -342,7 +401,9 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                          "%r" % (kern.mesh, mesh))
     pc_fused = pc_sharded = None
     pc_fallback = _pc_pallas_fallback(numerics, ops, mesh)
-    if mesh is not None:
+    if use_dense:
+        pass
+    elif mesh is not None:
         pc_sharded = make_sharded_block_apply(precond, ops, mesh)
     elif numerics.pc_pallas and pc_fallback is None:
         pc_fused = (fused_pc if fused_pc is not None
@@ -375,7 +436,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         kernels=None if kern is None else kern.kind,
         kernel_refusal=_step_refusal(numerics, ops), pc_dtype=pc_dtype,
         pc=("sharded basis-GEMM, one all_reduce per apply" if pc_sharded
-            else "fused (B5a, B5b)" if pc_fused else "basis-GEMM"),
+            else "fused (B5a, B5b)" if pc_fused
+            else None if use_dense else "basis-GEMM"),
         mesh_shape=None if mesh is None else mesh.shape,
         ksp_type=numerics.ksp_type, cheb=use_cheb, fast32=fast32,
         mixed32=mixed32, pallas_rhs=pallas_rhs,
@@ -405,6 +467,22 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             u, t, h = _to_f32(u, t, h)
         u = ops.groom(u)
         shift = 1.0 / (h * tab.gamma)
+        if use_dense:
+            # f0 and J from the RHS linearized once per step, J as a
+            # matrix (its action on the identity), W = shift*I - J
+            # LU-factored once; each stage solve two triangular solves
+            # (linalg.py:399 dense_solve_factory)
+            f0, jvp_fn = ops.linearize(u, t)
+            n_dof = u.numel()
+            eye = torch.eye(n_dof, dtype=u.dtype, device=u.device)
+            J = torch.func.vmap(jvp_fn)(eye.reshape((n_dof,) + u.shape))
+            W_mat = shift * eye - J.reshape(n_dof, n_dof).T
+            lu_piv = torch.linalg.lu_factor(W_mat)
+
+            def solve(bi):
+                y = torch.linalg.lu_solve(*lu_piv, bi.reshape(-1, 1))
+                return y.reshape(bi.shape)
+            return _combine(u, f0, t, h, rhs, solve)
         u32 = u.to(torch.float32)
         # preconditioner statistics from the f32 view of the state on
         # the mixed path, from the state itself elsewhere (the
@@ -516,6 +594,11 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                                        lmin=cheb_ab[0], lmax=cheb_ab[1])
             return richardson_solve(W, bi, Minv, iters=iters)
 
+        return _combine(u, f0, t, h, stage_eval, solve)
+
+    def _combine(u, f0, t, h, stage_eval, solve):
+        """The stages and the step from f0, the stage RHS and the stage
+        solve: returns (groomed u, u1, enorm)."""
         Ys = []
 
         def _ysum(coeffs, scale=1.0):
@@ -821,7 +904,8 @@ class ChunkLadder:
 
 def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
                            tableau=None, max_attempts=None, mesh=None,
-                           max_rejects=24, cfl_safety=None, kernels=None):
+                           max_rejects=24, cfl_safety=None, kernels=None,
+                           fused_pc=None):
     """The adaptive integrator chunk ``chunk(u, t, h, tmax, max_accepts)
     -> (u, t, h, k, attempts, rejected)``, and the tableau.
 
@@ -840,7 +924,8 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     ``kernels``) and one fused pc; the f0 chain (one fresh float64 RHS
     per call, advanced by the delta kernel on accepts) is used only when
     every tier can chain.  ``cfl_safety`` > 0 clamps the post-accept h
-    by the velocity CFL bound of the groomed new state.
+    by the velocity CFL bound of the groomed new state.  ``kernels`` and
+    ``fused_pc`` pass in a kernel build and a fused pc to share.
 
     ``lax.while_loop``/``lax.switch`` become a host-side controller: the
     ladder state, the counters, t and h are Python numbers, each attempt
@@ -850,7 +935,8 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     float32 state is cast back, as the reference's carry is).
     ``chunk.stats`` holds the last call's per-attempt records
     ``(tier, enorm, h)``, the attempts per tier and the tier at exit;
-    ``chunk.steps`` the tier steps the attempts call (build_chunk_tiers).
+    ``chunk.steps`` the tier steps the attempts call (build_chunk_tiers;
+    chain steps where ``chunk.chain``).
 
     With a ``mesh`` (parallel/mesh.py) every rank runs the chunk on its
     slab: each attempt's enorm and CFL bound are global over the ranks
@@ -860,7 +946,8 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
     numerics = numerics or NumericsOptions()
     _check_numerics(numerics, ops, mesh)
     kern = step_kernels(ops, numerics, mesh, kernels)
-    pc = _shared_fused_pc(ops, numerics, mesh)
+    pc = (fused_pc if fused_pc is not None
+          else _shared_fused_pc(ops, numerics, mesh))
     tb = build_chunk_tiers(ops, numerics, atol=atol, rtol=rtol,
                            tableau=tableau, kernels=kern, fused_pc=pc,
                            mesh=mesh)
@@ -906,7 +993,7 @@ def make_adaptive_chunk_fn(ops, numerics=None, atol=1e-5, rtol=1e-5,
                 ladder.rejected)
 
     chunk.stats = None
-    chunk.tiers, chunk.steps = tb.tiers, tb.steps
+    chunk.tiers, chunk.steps, chunk.chain = tb.tiers, tb.steps, tb.chain
     chunk.kernels, chunk.fused_pc = kern, pc
     chunk.build_info = tb.build_info
     return chunk, tb.tab
@@ -1001,11 +1088,662 @@ def run_attempts(ladders, t, tmax, max_accepts, max_attempts, attempt):
                            occupied=occupied)
 
 
-class Solver:
-    """Counterpart: ksfd_tpu/solvers/solver.py:Solver."""
+def noise_active(ps):
+    """Whether variance injection is configured at all (the Solver and
+    the EnsembleSolver share it).  Counterpart:
+    ksfd_tpu/solvers/solver.py:noise_active."""
+    v0 = ps.values0
+    return (
+        bool(v0.get("variance_rate", 0.0))
+        or "variance_rate" in ps.tdfuncs
+    )
 
-    def __init__(self, ops, numerics=None, **kwargs):
-        raise NotImplementedError(
-            "the host Solver loop (noise, monitors, I/O, fallback) is "
-            "ROADMAP Queue A item 4 (A8)"
+
+#: the reference's DIRK tableaus (Queue A item 7, A9)
+_DIRK = ("arkimex", "ark324", "ark436")
+
+
+def route_petsc_direct(numerics, grid):
+    """Apply a PETSc-block direct-solve request (``petsc_direct``: the
+    reference options' ``-ksp_type preonly -pc_type lu``, its MUMPS
+    configuration) to the grid: the native banded LU in 1D, sparse LU
+    at any dimension, when the grid is under the Solver's routing cap
+    and the tableau is a Rosenbrock one; else the iterative stack stays,
+    with a note on stderr.  Returns (possibly replaced) numerics.
+    Counterpart: ksfd_tpu/solvers/solver.py:route_petsc_direct."""
+    import sys
+
+    if not getattr(numerics, "petsc_direct", False):
+        return numerics
+    # the 1D banded LU is O(N*b^2), not SuperLU's ~N^1.5 fill, so it
+    # affords a much larger whole-run cap
+    route_cap = (Solver.BANDED_ROUTE_MAX_DOFS if grid.dim == 1
+                 else Solver.PETSC_ROUTE_MAX_DOFS)
+    reason = None
+    if numerics.ts_type in _DIRK:
+        reason = "DIRK tableau (the direct tier is Rosenbrock-only)"
+    elif grid.n_dofs > route_cap:
+        reason = (
+            "grid too large for per-step host factorization "
+            "(%d > %d dofs); the iterative stack plays MUMPS's "
+            "at-scale role" % (grid.n_dofs, route_cap)
         )
+    if reason is not None:
+        print("ksfd: PETSc direct-solve request kept on the iterative "
+              "stack: %s" % reason, file=sys.stderr)
+        return numerics
+    kt = "banded" if grid.dim == 1 else "lu"
+    print("ksfd: PETSc '-ksp_type preonly -pc_type lu' routed to the "
+          "exact direct tier: -ksp_type %s" % kt, file=sys.stderr)
+    return dataclasses.replace(numerics, ksp_type=kt)
+
+
+class Solver:
+    """The outer adaptive implicit solver on the host (the reference's
+    KSFDTS/implicitTS analog).  Counterpart:
+    ksfd_tpu/solvers/solver.py:Solver.
+
+    Usage:
+        solver = Solver(ops, numerics, t0=.., dt=.., tmax=.., maxsteps=..)
+        solver.add_monitor(print_monitor)
+        u_final = solver.solve(u0)
+
+    Monitors are callables ``monitor(solver, k, t, u)`` called after
+    every accepted step (after every block or chunk exit in those
+    modes) and once at k=0 before stepping.  The state stays on
+    ``ops.device`` (the card unless the problem was built elsewhere);
+    the loop, the controller and the tiers' bookkeeping run on the host
+    in Python numbers, reading one scalar per step attempt.
+
+    Modes, as the reference's: fixed-dt blocks (``block_steps > 1`` with
+    ``adapt_type="none"``: make_multistep_fn), the per-step loop
+    (make_step_fn; a rejected step retries at the same h on the float64
+    GMRES fallback and parks there for 64 accepts; after
+    ``LU_RESCUE_AFTER`` consecutive failures the exact sparse-LU step,
+    parked for 4 accepts) and, with ``device_loop`` and adaptive steps,
+    the adaptive chunk (make_adaptive_chunk_fn, ``max_attempts=128``),
+    bounded at the next noise time, with a stuck chunk retried on the
+    host.  ``ksp_type`` banded and lu are host exact steps
+    (banded_path.py, direct.py), dense and direct exact dense LU in the
+    step.
+
+    ``rng_state`` takes the place of the reference's ``rng_key``: the
+    noise stream is a ``torch.Generator`` on the state's device, seeded
+    0 when None, from an int seed, or resumed from a generator state (a
+    uint8 tensor, ``solver.rng_state`` of an earlier run); a resumed run
+    continues bit for bit.  ``kernels`` shares a ``make_fused_kernels``
+    namespace (its launch counters then count the Solver's launches).
+    ``mesh`` raises: the Solver on a slab mesh is ROADMAP Queue A item
+    11 (A14).  ``stats`` counts what the loop ran (see solve).
+    """
+
+    default_hmin = 1e-20
+    #: consecutive failures before the exact-LU rescue
+    LU_RESCUE_AFTER = 8
+    #: the largest problem the rescue factors (SuperLU fill ~N^1.5)
+    LU_RESCUE_MAX_DOFS = 200_000
+    #: the whole-run routing cap of route_petsc_direct at >= 2D (8192 =
+    #: 64^2 x 2 exactly)
+    PETSC_ROUTE_MAX_DOFS = 8_192
+    #: the 1D routing cap for the native banded LU
+    BANDED_ROUTE_MAX_DOFS = 262_144
+
+    def __init__(
+        self,
+        ops,
+        numerics=None,
+        t0=0.0,
+        dt=0.001,
+        tmax=20.0,
+        maxsteps=100,
+        rtol=1e-5,
+        atol=1e-5,
+        hmin=None,
+        rng_state=None,
+        lastvart=None,
+        block_steps=1,
+        k0=0,
+        mesh=None,
+        kernels=None,
+    ):
+        """As the reference's constructor.  block_steps > 1 (fixed-dt
+        runs only): that many steps per make_multistep_fn call between
+        monitor calls; noise, CFL and conservation then act at block
+        boundaries.  k0: the starting step counter of a resumed run."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "not ported yet (see ROADMAP): the Solver on a slab mesh, "
+                "Queue A item 11 (A14)")
+        if hasattr(ops, "refresh_G"):
+            raise NotImplementedError(
+                "not ported yet (see ROADMAP): with-G states (refresh_G): "
+                "Queue A item 10 (A13)")
+        self.ops = ops
+        self.ps = ops.ps
+        self.numerics = numerics or NumericsOptions()
+        self.t0 = float(t0)
+        self.dt0 = float(dt)
+        self.tmax = float(tmax)
+        self.maxsteps = int(maxsteps)
+        self.rtol = float(rtol)
+        self.atol = float(atol)
+        self.hmin = float(hmin) if hmin else self.default_hmin
+        self.rng_state = rng_state
+        self.lastvart = lastvart
+        self.monitors = []
+        self.diverged = False
+        self.snes_failures = 0  # stage-solve/step rejections, for parity
+        self.block_steps = int(block_steps)
+        self._multi = None
+        self._chunk = None
+        self._fallback_fn = None
+        self._lu_step = None
+        self._lu_errors = 0
+        self._lu_mode = False
+        self._lu_accepts = 0
+        self._lu_probe = 4  # LU steps cost seconds: a short park
+        self._fb_mode = False
+        self._fb_accepts = 0
+        self._fb_probe = 64  # accepts between fast-path re-probes
+        self._chunk_rej_streak = 0
+        n = self.numerics
+        kw = dict(atol=self.atol, rtol=self.rtol)
+        if n.ksp_type in ("banded", "lu"):
+            # host exact steps (the reference's MUMPS role): no block,
+            # chunk or kernels
+            self.kernels = self.fused_pc = None
+            self.step_fn, self.tableau = make_step_fn(ops, n, **kw)
+        else:
+            self.kernels = step_kernels(ops, n, kernels=kernels)
+            self.fused_pc = _shared_fused_pc(ops, n, None)
+            kw.update(kernels=self.kernels, fused_pc=self.fused_pc)
+            self.step_fn, self.tableau = make_step_fn(ops, n, **kw)
+            if self.block_steps > 1 and n.adapt_type == "none":
+                self._multi, _ = make_multistep_fn(ops, n, **kw)
+            if (n.device_loop and n.adapt_type != "none"
+                    and not self._dynamics_need_host()):
+                # 128 attempts per dispatch amortize the exit's host work
+                self._chunk, _ = make_adaptive_chunk_fn(
+                    ops, n, max_attempts=128,
+                    cfl_safety=self._chunk_cfl_safety(), **kw)
+        self._kw = kw
+        self.build_info = dict(self.step_fn.build_info)
+        self._rng = None
+        # current state (exposed for monitors)
+        self.k0 = int(k0)
+        self.k = self.k0
+        self.t = self.t0
+        self.h = self.dt0
+        self.u = None
+        self.CFL_maxh = None
+        self.last_enorm = None
+        self.stats = None
+
+    # -- monitors -------------------------------------------------------
+    def add_monitor(self, monitor):
+        self.monitors.append(monitor)
+
+    def monitor(self, k, t, u):
+        for m in self.monitors:
+            m(self, k, t, u)
+
+    # -- physics helpers ------------------------------------------------
+    def _dev(self, x):
+        """A host number as a 0-d float64 tensor on the state's device."""
+        return torch.tensor(float(x), dtype=torch.float64,
+                            device=self.ops.device)
+
+    def count_worms(self, u):
+        return float(torch.sum(u[0]))
+
+    def conserve_worms(self, u, Nworms):
+        """Rescale rho so sum(rho) == Nworms (KSFD/ksfdts.py:248-256)."""
+        correction = Nworms / float(torch.sum(u[0]))
+        return torch.cat([(u[0] * correction)[None], u[1:]], dim=0)
+
+    def is_noise_time(self, t, lastvart):
+        """VTF(t) - VTF(lastvart) >= 1 (KSFD/ksfdts.py:258-266), from
+        the two parameter functions it needs."""
+        vrate = self.ps.funcs["variance_rate"](t)
+        if not vrate or vrate <= 0.0:
+            return False
+        vtf = self.ps.funcs["variance_timing_function"]
+        return float(vtf(t)) - float(vtf(lastvart)) >= 1.0
+
+    @property
+    def rng_state(self):
+        """The noise stream's state (a uint8 tensor once it has drawn;
+        before that what the constructor was given)."""
+        return self._rng.get_state() if self._rng is not None \
+            else self._rng_init
+
+    @rng_state.setter
+    def rng_state(self, state):
+        self._rng_init = state
+        self._rng = None
+
+    def _generator(self):
+        if self._rng is None:
+            gen = torch.Generator(device=self.ops.device)
+            init = self._rng_init
+            if isinstance(init, torch.Tensor):
+                gen.set_state(init)
+            else:
+                gen.manual_seed(0 if init is None else int(init))
+            self._rng = gen
+        return self._rng
+
+    def add_variance(self, u, dt, t):
+        """Geometric Brownian noise: rho *= exp(sqrt(rate*dt) * N(0,1)),
+        the normal drawn on the state's device from the Solver's
+        generator (KSFD/ksfdts.py:268-284)."""
+        vrate = float(self.ps.funcs["variance_rate"](t))
+        if not vrate or vrate <= 0.0:
+            return u
+        sd = math.sqrt(vrate * dt)
+        stn = torch.randn(u[0].shape, generator=self._generator(),
+                          dtype=u.dtype, device=u.device)
+        return torch.cat([(u[0] * torch.exp(sd * stn))[None], u[1:]], dim=0)
+
+    def CFL_step(self, u, t):
+        """The largest stable h by the worm-velocity CFL
+        (KSFD/ksfdts.py:302-319): min over axes of spacing*sw/max|v|."""
+        vmaxs = torch.stack([v.abs().max() for v in self.ops.velocity(
+            u, self._dev(t))]).tolist()
+        sw = self.ops.grid.stencil_width
+        return float(min(
+            math.inf if v == 0.0 else s * sw / v
+            for v, s in zip(vmaxs, self.ops.grid.spacing)))
+
+    def _post_accept(self, u, k, t, h, conserve, Nworms):
+        """The post-accept sequence of the step path and the chunk's
+        exit, in the reference's order: noise, conserve, groom, (with-G
+        states' refresh_G: A13, refused at construction), CFL clamp,
+        monitor.  Returns (u, h), h possibly CFL-clamped."""
+        if self.is_noise_time(t, self.lastvart):
+            u = self.add_variance(u, t - self.lastvart, t)
+            if conserve:
+                u = self.conserve_worms(u, Nworms)
+            self.lastvart = t
+            self.stats.injections += 1
+        u = self.ops.groom(u)
+        self.u, self.k, self.t, self.h = u, k, t, h
+        self.CFL_check(u, t)
+        self.monitor(k, t, u)
+        return u, self.h
+
+    def CFL_check(self, u, t):
+        self.CFL_maxh = self.CFL_step(u, t)
+        safety = float(self.ps.funcs["CFL_safety_factor"](t))
+        if safety > 0.0:
+            maxh = safety * self.CFL_maxh
+            if self.h > maxh:
+                logTS("CFL step exceeded, truncating to", maxh)
+                self.h = maxh
+
+    def _dynamics_need_host(self):
+        """Only a time-dependent CFL safety factor forces the per-step
+        loop: a constant one clamps inside the chunk, and noise bounds
+        each chunk at the next injection time."""
+        return "CFL_safety_factor" in self.ps.tdfuncs
+
+    def _chunk_cfl_safety(self):
+        return chunk_cfl_safety(self.ps)
+
+    def _noise_active(self):
+        return noise_active(self.ps)
+
+    def _next_noise_time(self, lastvart, tmax):
+        """next_noise_time memoized on (lastvart, tmax): the chunk asks
+        before every dispatch, the answer changes at injections."""
+        key = (float(lastvart), float(tmax))
+        cached = getattr(self, "_nnt_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        tn = next_noise_time(self.ps, lastvart, tmax)
+        self._nnt_cache = (key, tn)
+        return tn
+
+    def _get_fallback(self):
+        """The robust retry step: float64 GMRES stage solves
+        (``gmres_scipy``, restart 12, 4 restarts, stage RHS from the
+        float64 RHS), as the reference builds it (solver.py:1476-1535);
+        None unless the fast solver is Richardson."""
+        if self.numerics.ksp_type not in ("richardson",):
+            return None
+        if self._fallback_fn is None:
+            nm = dataclasses.replace(
+                self.numerics, ksp_type="gmres_scipy",
+                ksp_restart=12, ksp_max_it=4, stage_delta=False,
+                snes_iters=max(4, self.numerics.snes_iters),
+            )
+            self._fallback_fn, _ = make_step_fn(self.ops, nm, **self._kw)
+        return self._fallback_fn
+
+    def _get_exact_step(self):
+        """The last-resort exact sparse-LU step (the reference's MUMPS
+        role) after LU_RESCUE_AFTER consecutive failures, or None:
+        already an exact ksp_type, over LU_RESCUE_MAX_DOFS, or disabled
+        by two errors this run."""
+        if self.numerics.ksp_type in EXACT_KSP:
+            return None
+        if self.ops.grid.n_dofs > self.LU_RESCUE_MAX_DOFS:
+            return None
+        if self._lu_errors >= 2:
+            return None
+        if self._lu_step is None:
+            from .direct import make_sparse_step
+
+            self._lu_step = make_sparse_step(
+                self.ops, self.tableau, atol=self.atol, rtol=self.rtol
+            )
+        return self._lu_step
+
+    def _try_exact(self, u, t, h):
+        """One exact-LU step, exception-guarded: a failure degrades to
+        the ordinary reject-and-shrink path; two disable the tier for
+        the run.  Returns (u1, enorm) or None."""
+        exact = self._get_exact_step()
+        if exact is None:
+            return None
+        try:
+            u1, enorm = exact(u, t, h)
+            self.stats.exact_steps += 1
+            return u1, float(enorm)
+        except Exception as exc:
+            self._lu_errors += 1
+            logTS("exact LU step failed (%s): %s" % (
+                type(exc).__name__,
+                "tier disabled for this run" if self._lu_errors >= 2
+                else "will retry once"))
+            return None
+
+    # -- adaptive control ------------------------------------------------
+    def _new_h_accept(self, h, enorm):
+        n = self.numerics
+        expo = -1.0 / (self.tableau.order + 1)
+        if enorm <= 0.0:
+            hfac = n.clip_high
+        else:
+            hfac = n.safety * float(enorm) ** expo
+        hfac = min(max(hfac, n.clip_low), n.clip_high)
+        return min(max(h * hfac, n.dt_min), n.dt_max)
+
+    def _new_h_reject(self, h, enorm, finite):
+        n = self.numerics
+        if not finite:
+            hfac = n.rollback_factor
+        else:
+            expo = -1.0 / (self.tableau.order + 1)
+            hfac = n.safety * float(enorm) ** expo
+            hfac = min(max(hfac, n.clip_low), 0.9)
+        return max(h * hfac, n.dt_min)
+
+    # -- the loop ---------------------------------------------------------
+    def _chunk_iteration(self, u, k, t, h, tmax_eff, conserve, Nworms,
+                         failures):
+        """One dispatch of the adaptive chunk and what follows its exit
+        (solver.py:1734-1849).  Returns (u, k, t, h, failures, stop):
+        ``stop`` when the run diverged."""
+        n = self.numerics
+        st = self.stats
+        u1, tnew, hnew, kacc, attempts, rej = self._chunk(
+            u, t, h, tmax_eff, self.maxsteps - k)
+        kacc, attempts, rej = int(kacc), int(attempts), bool(rej)
+        cs = self._chunk.stats
+        st.dispatches += 1
+        st.chunk_attempts += attempts
+        st.chunk_accepts += kacc
+        st.tier_calls = [a + b for a, b in zip(st.tier_calls, cs.per_tier)]
+        # on-device rejections are solve failures for parity accounting
+        st.chunk_rejections += max(0, attempts - kacc)
+        self.snes_failures += max(0, attempts - kacc)
+        if n.monitor:
+            print("  TSAdapt chunk: %d accepted / %d attempts, h %.3g -> "
+                  "%.3g%s" % (kacc, attempts, h, float(hnew),
+                              " (rejected; host retry)" if rej else ""),
+                  flush=True)
+        h = float(hnew)
+        if kacc > 0:
+            failures = 0
+            k += kacc
+            t = float(tnew)
+            self.last_enorm = None
+            u, h = self._post_accept(u1, k, t, h, conserve, Nworms)
+        if not rej:
+            self._chunk_rej_streak = 0
+            return u, k, t, h, failures, False
+        # the chunk is stuck at this h: retry on the host through the
+        # robust fallback, with a probe that doubles on every immediate
+        # re-rejection, so a marginal stiff phase settles on it
+        self._chunk_rej_streak = (self._chunk_rej_streak + 1 if kacc == 0
+                                  else 0)
+        if self._get_fallback() is None:
+            # no robust fallback for this ksp_type: count the stuck chunk
+            # as a failed step, then the exact-LU retry at the same h or
+            # a shrunk h
+            self.snes_failures += 1
+            failures += 1
+            if failures > n.max_snes_failures:
+                self.diverged = True
+                return u, k, t, h, failures, True
+            if (failures >= self.LU_RESCUE_AFTER
+                    and self._get_exact_step() is not None):
+                self._lu_mode = True
+                self._lu_accepts = 0
+                self._lu_probe = 1
+                print("ksfd: fused chunk rejected at t=%.6g; exact LU retry "
+                      "engaged (h=%.3g)" % (t, h), flush=True)
+                return u, k, t, h, failures, False
+            h = self._new_h_reject(h, math.nan, False)
+            logTS("chunk rejected; no fallback, h ->", h)
+            return u, k, t, h, failures, False
+        self._fb_mode = True
+        self._fb_accepts = 0
+        self._fb_probe = min(64, 1 << self._chunk_rej_streak)
+        st.host_retries += 1
+        print("ksfd: fused chunk rejected at t=%.6g; robust host retry "
+              "engaged (h=%.3g, probe=%d)" % (t, h, self._fb_probe),
+              flush=True)
+        return u, k, t, h, failures, False
+
+    def solve(self, u0, t=None):
+        """Run the timestepper from u0 (an array or tensor; it moves to
+        ``ops.device``).  Returns the final state tensor.
+
+        ``self.stats`` counts the run: ``dispatches`` of the chunk, its
+        ``chunk_attempts`` (one host read each), ``chunk_accepts``,
+        ``chunk_rejections`` and ``tier_calls`` per tier; the host
+        loop's ``step_attempts`` (one host read each, block calls
+        included), ``fallback_steps``, ``exact_steps``,
+        ``host_retries`` (a stuck chunk or a rejected step handed to
+        the fallback), ``exact_rescues`` (accepts of the exact tier
+        after LU_RESCUE_AFTER failures) and ``injections``."""
+        n = self.numerics
+        adapt = n.adapt_type != "none"
+        u = torch.as_tensor(u0, device=self.ops.device)
+        self.t = self.t0 if t is None else float(t)
+        self.h = min(max(self.dt0, n.dt_min), n.dt_max)
+        self.k = self.k0
+        self.diverged = False
+        # the fallback and rescue state is per run; lastvart persists
+        # (resume flows assign it between __init__ and solve)
+        self._fb_mode = False
+        self._fb_accepts = 0
+        self._fb_probe = 64
+        self._chunk_rej_streak = 0
+        self._lu_mode = False
+        self._lu_accepts = 0
+        self._lu_probe = 4
+        self._lu_errors = 0
+        ntiers = len(self._chunk.tiers) if self._chunk is not None else 0
+        self.stats = SimpleNamespace(
+            dispatches=0, chunk_attempts=0, chunk_accepts=0,
+            chunk_rejections=0, tier_calls=[0] * ntiers, step_attempts=0,
+            fallback_steps=0, exact_steps=0, host_retries=0,
+            exact_rescues=0, injections=0)
+        st = self.stats
+        k, t, h = self.k, self.t, self.h
+        u = self.ops.groom(u)
+        self.u = u
+        Nworms = self.count_worms(u)
+        if self.lastvart is None:
+            if "lastvart" in self.ps.params0:
+                self.lastvart = float(self.ps.params0["lastvart"])
+            else:
+                self.lastvart = t
+        cw = self.ps.params0["conserve_worms"]
+        conserve = False if cw == "False" else bool(cw)
+        self.CFL_check(u, t)
+        self.monitor(k, t, u)
+        failures = 0
+        while (not self.diverged and k < self.maxsteps and t <= self.tmax
+               and h >= self.hmin):
+            self.k, self.t, self.h = k, t, h
+            # noise bounds the chunk: it exits at the next injection
+            # time, so the host injects at the same accepted step as
+            # the per-step loop would
+            tmax_eff = self.tmax
+            if self._chunk is not None and self._noise_active():
+                tn = self._next_noise_time(self.lastvart, self.tmax)
+                if tn is not None and tn < tmax_eff:
+                    tmax_eff = tn
+            if (self._chunk is not None and not self._fb_mode
+                    and not self._lu_mode and t <= tmax_eff):
+                u, k, t, h, failures, stop = self._chunk_iteration(
+                    u, k, t, h, tmax_eff, conserve, Nworms, failures)
+                if stop:
+                    break
+                continue
+            nblk = 1
+            st.step_attempts += 1
+            if self._multi is not None:
+                nblk = max(1, min(self.block_steps, self.maxsteps - k))
+                u1, _, enorm = self._multi(u, self._dev(t), self._dev(h),
+                                           nblk)
+            elif self._lu_mode:
+                res = self._try_exact(u, t, h)
+                if res is None:
+                    # the tier was just disabled mid-park
+                    self._lu_mode = False
+                    u1, enorm = self.step_fn(u, self._dev(t), self._dev(h))
+                else:
+                    u1, enorm = res
+            elif self._fb_mode:
+                st.fallback_steps += 1
+                u1, enorm = self._get_fallback()(u, self._dev(t),
+                                                 self._dev(h))
+            else:
+                u1, enorm = self.step_fn(u, self._dev(t), self._dev(h))
+            enorm = float(enorm)
+            finite = math.isfinite(enorm)
+            logTS("step attempt k,t,h,enorm", k, t, h, enorm)
+            rejected = (adapt and (not finite or enorm > 1.0)) or (
+                not adapt and not finite)
+            if (rejected and not self._fb_mode and self._multi is None
+                    and self._get_fallback() is not None):
+                # retry the same h on the robust solver before shrinking
+                st.fallback_steps += 1
+                u1b, enormb = self._get_fallback()(u, self._dev(t),
+                                                   self._dev(h))
+                enormb = float(enormb)
+                if math.isfinite(enormb) and (not adapt or enormb <= 1.0):
+                    u1, enorm, finite, rejected = u1b, enormb, True, False
+                    self._fb_mode = True
+                    self._fb_accepts = 0
+                    self._fb_probe = 64
+                    st.host_retries += 1
+                    logTS("fallback solver engaged at h", h)
+            if (rejected and nblk == 1 and not self._lu_mode
+                    and failures + 1 >= self.LU_RESCUE_AFTER):
+                # the iterative tiers failed LU_RESCUE_AFTER times in a
+                # row: the exact sparse-LU step at the same h
+                res = self._try_exact(u, t, h)
+                if res is not None:
+                    u1x, enormx = res
+                    if math.isfinite(enormx) and (not adapt
+                                                  or enormx <= 1.0):
+                        u1, enorm, finite, rejected = (u1x, enormx, True,
+                                                       False)
+                        # park on the exact tier briefly (it costs
+                        # seconds a step)
+                        self._lu_mode = True
+                        self._lu_accepts = 0
+                        self._lu_probe = 4
+                        self._fb_mode = False
+                        st.exact_rescues += 1
+                        logTS("exact LU rescue accepted at h", h)
+            if rejected:
+                self.snes_failures += 1
+                failures += 1
+                if failures > n.max_snes_failures:
+                    self.diverged = True
+                    break
+                hnew = self._new_h_reject(h, enorm, finite)
+                if n.monitor:  # -ts_adapt_monitor analog
+                    print("  TSAdapt %s step %d REJECTED t=%.6g enorm=%.3g "
+                          "h %.3g -> %.3g" % (n.adapt_type, k, t, enorm, h,
+                                              hnew), flush=True)
+                h = hnew
+                if self._fb_mode and self._fb_probe == 1:
+                    # a one-shot chunk retry failed too: hand the shrunk
+                    # h back to the chunk
+                    self._fb_mode = False
+                if self._lu_mode and self._lu_probe == 1:
+                    self._lu_mode = False
+                continue
+            failures = 0
+            if self._lu_mode:
+                self._lu_accepts += 1
+                if self._lu_accepts >= self._lu_probe:
+                    self._lu_mode = False  # probe the iterative path
+            elif self._fb_mode:
+                self._fb_accepts += 1
+                if self._fb_accepts % self._fb_probe == 0:
+                    self._fb_mode = False  # probe the fast path again
+            k += nblk
+            t = t + nblk * h
+            self.last_enorm = enorm
+            u = u1
+            hprev = h
+            if adapt and finite:
+                h = self._new_h_accept(h, enorm)
+            elif not adapt:
+                # fixed dt: restore the nominal dt after a retry shrank h
+                h = min(max(self.dt0, n.dt_min), n.dt_max)
+            if n.monitor:  # -ts_adapt_monitor analog
+                print("  TSAdapt %s step %d accepted t=%.6g enorm=%.3g "
+                      "h %.3g -> %.3g" % (n.adapt_type, k, t, enorm, hprev,
+                                          h), flush=True)
+            u, h = self._post_accept(u, k, t, h, conserve, Nworms)
+        self.u, self.k, self.t, self.h = u, k, t, h
+        return u
+
+
+# ---------------------------------------------------------------------
+# standard monitors (reference: KSFD/ksfdts.py:337-497)
+# ---------------------------------------------------------------------
+
+def print_monitor(solver, k, t, u):
+    """A status line per accepted step on stdout.  Counterpart:
+    ksfd_tpu/solvers/solver.py:print_monitor."""
+    h = solver.h
+    clock = datetime.now().strftime("%H:%M:%S")
+    if getattr(solver, "_lastt", None) is not None:
+        out = "clock: %s, step %3d t=%8.3g dt=%8.3g h=%8.3g" % (
+            clock, k, t, t - solver._lastt, h)
+    else:
+        out = "clock: %s, step %3d t=%8.3g h=%8.3g" % (clock, k, t, h)
+    if solver.CFL_maxh is not None:
+        out += " CFL=%8.3g" % (solver.CFL_maxh,)
+    print(out, flush=True)
+    solver._lastt = t
+
+
+def history_monitor(solver, k, t, u):
+    """Append (step, h, t, a host copy of u) to ``solver.history``.
+    Counterpart: ksfd_tpu/solvers/solver.py:history_monitor."""
+    if not hasattr(solver, "history"):
+        solver.history = []
+    solver.history.append(dict(step=k, h=solver.h, t=t,
+                               u=u.detach().cpu().numpy().copy()))

@@ -6,6 +6,7 @@ here as the port's own copy (the port imports nothing of the JAX
 package or its tests).
 """
 
+import shlex
 from argparse import Namespace
 from pathlib import Path
 
@@ -69,7 +70,9 @@ def bench_clargs(n, dof=3):
 
 def example_params(name):
     """The ``name=value`` parameter lines of examples/<name>, up to its
-    numerics block, without ``nelements``."""
+    numerics block, without ``nelements``; each line split by shell
+    rules, as the reference's parser reads an options file (a quoted
+    ``'rho0=...'`` loses its quotes)."""
     params = []
     with open(EXAMPLES / name) as fh:
         for line in fh:
@@ -77,7 +80,7 @@ def example_params(name):
             if line.startswith(("--petsc", "--numerics")):
                 break
             if line and not line.startswith(("#", "--", "nelements=")):
-                params.append(line)
+                params += shlex.split(line, comments=True)
     return params
 
 

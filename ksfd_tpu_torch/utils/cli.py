@@ -1,8 +1,8 @@
 """Numerics options of the command line.
 
 Counterpart: ksfd_tpu/utils/cli.py.  Only ``NumericsOptions`` is ported
-so far; the ``Parser`` and the ``--petsc`` block translation wait for
-the solver host loop (ROADMAP Queue A items 4 and 6, A8).
+so far; the ``Parser`` and the ``--petsc`` block translation come with
+the I/O and the entry point (ROADMAP Queue A item 6, A8 part 2).
 """
 
 from dataclasses import dataclass, field, asdict

@@ -27,6 +27,7 @@ from ksfd_tpu.solvers import linalg as jlinalg
 from ksfd_tpu.solvers import make_multistep_fn as jmultistep
 from ksfd_tpu.solvers import make_step_fn as jstep
 from ksfd_tpu_torch import NumericsOptions
+from ksfd_tpu_torch import ic as tic
 from ksfd_tpu_torch.interop import (
     numpy_from_tensors,
     problem_from_clargs,
@@ -133,16 +134,19 @@ def test_launch_counts_per_step(problems):
 
 @pytest.mark.parametrize("change", [
     dict(ksp_type="gmres"), dict(ksp_type="gmres_rolled"),
-    dict(ksp_type="dense"), dict(pc_type="spectral"),
+    # the exact tiers (dense, direct, banded, lu) run
+    # (tests/test_torch_direct.py); their places hold options that still
+    # raise
+    dict(ksp_type="gmres_fixed"), dict(pc_type="spectral"),
     dict(ksp_type="gmres_restarted"),
     dict(precision="bfloat16"), dict(pc_fft="on"),
     # pc_pallas with float64 transforms takes the basis-GEMM pc, as the
-    # reference's does (tests/test_torch_pc.py); the banded tier does not
-    dict(ksp_type="banded"),
+    # reference's does (tests/test_torch_pc.py)
+    dict(pc_type="none"),
     # the unfused step runs use_pallas=False, float64 sweeps and
     # -stage_delta 0 (tests/test_torch_unfused.py)
-    dict(pc_dtype="bfloat16"), dict(ksp_type="direct"),
-    dict(pc_fft="auto"), dict(ksp_type="lu"),
+    dict(pc_dtype="bfloat16"), dict(ts_type="ark324"),
+    dict(pc_fft="auto"), dict(ts_type="ark436"),
     dict(ts_type="arkimex"),
 ])
 def test_off_path_options_raise(problems, change):
@@ -155,7 +159,9 @@ def test_off_path_options_raise(problems, change):
 @pytest.mark.parametrize("build,item", [
     (lambda ops: tsolver.make_adaptive_chunk_fn(ops, mesh=object()),
      "A14"),
-    (lambda ops: tsolver.Solver(ops), "A8"),
+    # the Solver runs (tests/test_torch_host_solver.py); resuming from a
+    # checkpoint is A8's I/O part
+    (lambda ops: tic.resume_values(None, ops.grid, ops.ps), "A8"),
 ], ids=["<lambda>-item 14", "<lambda>-item 8"])
 def test_later_entry_points_raise(problems, build, item):
     _, tops = problems
@@ -220,9 +226,14 @@ def test_port_source_has_no_jax_import():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "ksfd_tpu_torch")):
         paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
-    for name in ("fused_stencil3d.py", "ensemble.py",
+    for name in ("fused_stencil3d.py", "ensemble.py", "ic.py",
+                 "randomfield.py", os.path.join("native", "banded.py"),
+                 "banded_path.py", "direct.py",
                  os.path.join("tools", "probe_coeff_kernel.py"),
-                 os.path.join("tools", "problems.py")):
+                 os.path.join("tools", "problems.py"),
+                 os.path.join("tools", "validate.py"),
+                 os.path.join("tools", "flagship.py"),
+                 os.path.join("tools", "peakstats.py")):
         assert any(p.endswith(name) for p in paths), name
     for path in paths:
         with open(path) as fh:
