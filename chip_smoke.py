@@ -7,7 +7,7 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs thirty phases,
+header, and csrc/pc2d.cu, all started together) and runs thirty-one phases,
 each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -134,7 +134,16 @@ each printing one line:
     1536^2 x 3 from ``ic.start_values`` with the device loop, its
     launches exact, beside the bare chunk on the same start; the Solver
     on the card against the CPU at 128^2 x 3; examples/noise1d's
-    injections, conservation and draws.
+    injections, conservation and draws;
+31. the driver, ``ksfd_tpu_torch.ksfdsolver.main`` (``python -m
+    ksfd_tpu_torch``), in this process (phase_entry_point):
+    examples/aggregation2d at 1536^2 x 3 with its own ``--numerics
+    -device_loop 1 --`` for 64 accepts, bit for bit phase 30's flagship
+    run with exactly 512 resid and 256 delta launches; the options92
+    gate (examples/eigenmode1d to t = 2e4 on the banded exact tier);
+    ``--ensemble=4`` on examples/hexagons2d against EnsembleSolver run
+    directly; and, without h5py, ``--save`` refused before any step
+    (with it, a 3 + 3 resume against 6 straight steps).
 
 Then one JSON line of the nineteen kernels (B9's eight rows last) and,
 last, the result line.  Any failed phase raises (a failed rank fails
@@ -3408,6 +3417,7 @@ def phase_solver(card):
             st.tier_calls, fig["flagship"]["host_reads"],
             st.chunk_rejections, st.host_retries, st.fallback_steps,
             st.exact_rescues, launches, per_tier))
+    u_flag = u_s.cpu()  # phase 31 (a) runs the same start through the CLI
     del solver, chunk, kern, ops, u0, u_s, uc, ug0
     # (c) card vs CPU
     n = N_SOLVER_CMP
@@ -3516,6 +3526,251 @@ def phase_solver(card):
                      ["%.6g" % t for t, _ in injections], cons, zmean, zvar,
                      z.size))
     print("phase 30 host Solver (%s): %s" % (card, " | ".join(lines)))
+    return fig, u_flag
+
+
+#: phase 31's cut of examples/hexagons2d's --ensemble run: members and
+#: accepted steps per member
+CLI_MEMBERS = 4
+CLI_ENS_ACCEPTS = 8
+#: where phase 31 writes its options files (and, with h5py, its series)
+CLI_DIR = os.path.join(OUT_DIR, "phase31")
+
+
+def cut_options(example, name, **lines):
+    """examples/<example> without its --save and --check lines, with
+    the parameter lines ``lines`` in place of the file's, written under
+    CLI_DIR: '@<path>' (the card's machine has no h5py, and the
+    driver refuses duplicated parameters)."""
+    os.makedirs(CLI_DIR, exist_ok=True)
+    with open(os.path.join(ROOT, "examples", example)) as fh:
+        src = fh.read().splitlines()
+    src = [ln for ln in src if not ln.startswith(("--save=", "--check="))
+           and ln.split("=", 1)[0] not in lines]
+    path = os.path.join(CLI_DIR, name)
+    with open(path, "w") as fh:
+        fh.write("\n".join(src + ["%s=%s" % kv for kv in lines.items()])
+                 + "\n")
+    return "@" + path
+
+
+def drive_cli(*argv):
+    """``ksfd_tpu_torch.ksfdsolver.main`` in this process on argv,
+    recording the Solver or EnsembleSolver it builds: (status, the
+    solver, its monitor records [(perf_counter, k, t)], seconds from
+    the call to the first monitor call (the CLI's setup: parsing,
+    sympy, the problem and its kernels' build or load, the start),
+    seconds of the rest)."""
+    from ksfd_tpu_torch import ksfdsolver
+
+    seen = []
+    bases = {name: getattr(ksfdsolver, name)
+             for name in ("Solver", "EnsembleSolver")}
+
+    def recording(base):
+        class Recorded(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.records = []
+                self.add_monitor(lambda s, k, t, u: s.records.append(
+                    (time.perf_counter(), k, t)))
+                seen.append(self)
+        return Recorded
+
+    for name, base in bases.items():
+        setattr(ksfdsolver, name, recording(base))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        status = ksfdsolver.main("ksfd_tpu_torch", *argv)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        for name, base in bases.items():
+            setattr(ksfdsolver, name, base)
+    s = seen[-1] if seen else None
+    setup = s.records[0][0] - t0 if s is not None and s.records else None
+    return status, s, setup, t1 - (t0 + setup) if setup is not None else None
+
+
+def phase_entry_point(card, flag30, u_flag):
+    """The port's driver (ksfd_tpu_torch/ksfdsolver.py main, what
+    ``python -m ksfd_tpu_torch`` runs) in this process on the card.
+
+    (a) examples/aggregation2d at its full 1536^2 x 3 without its
+        --save/--check lines, maxsteps=FLAG_ACCEPTS, with the example's
+        own ``--numerics -device_loop 1 --``: k, t, h and the state
+        equal phase 30 (b)'s direct Solver run bit for bit (the same
+        seed, the same start); exactly FLAG_ACCEPTS x (8, 4) resid (B1)
+        and delta (B3) launches, phase 30 (b)'s, and no other; the
+        CLI's setup seconds apart from its ms per accept;
+    (b) options92: examples/eigenmode1d cut to tmax=20000 (as
+        tests/test_gates.py:40 cuts it), its PETSc block routed to the
+        banded exact tier: 100 <= k <= 500, the last step longer than
+        2000, 4 peaks, 200 < min rho < 600, 20000 < max rho < 28000;
+        steps, failures, seconds;
+    (c) --ensemble=CLI_MEMBERS on examples/hexagons2d at its own
+        384^2 x 3 with -device_loop 1, CLI_ENS_ACCEPTS accepts: every
+        member's k, t, h and state equal EnsembleSolver run directly on
+        the same starts (ic_starts, member i seeded seed + i; noise
+        seed = seed); ms per accepted ensemble step;
+    (d) without h5py (the card's machine has none): 'h5py: absent', and
+        --save raises the KSFDException naming h5py before any step;
+        with h5py: 3 steps with checkpoints and a --resume of 3 more
+        against 6 straight steps (tests/test_torch_driver.py's 1D
+        problem), bit for bit."""
+    from ksfd_tpu_torch import KSFDException
+    from ksfd_tpu_torch.solvers import EnsembleSolver
+    from ksfd_tpu_torch.utils.cli import decode_numerics
+
+    lines = []
+    fig = {}
+    loop = ("--numerics", "-device_loop", "1", "--")
+    # (a) the flagship
+    opt = cut_options("aggregation2d", "aggregation2d",
+                      maxsteps=FLAG_ACCEPTS)
+    status, s, setup, rest = drive_cli(opt, *loop)
+    launches = launch_counts(s.kernels)
+    want = {"resid": 8 * FLAG_ACCEPTS, "delta": 4 * FLAG_ACCEPTS,
+            "jvp": 0, "rhs": 0}
+    check(status == 0 and s.k == flag30["accepts"] == FLAG_ACCEPTS
+          and s.t == flag30["t"] and s.h == flag30["h"]
+          and torch.equal(s.u.cpu(), u_flag),
+          "the CLI's flagship against phase 30 (b): status %d k %d/%d t %r/%r "
+          "h %r/%r" % (status, s.k, flag30["accepts"], s.t, flag30["t"],
+                       s.h, flag30["h"]))
+    check(launches == want == flag30["launches"],
+          "the CLI's flagship launches %s, want %s (phase 30 (b) %s)" % (
+              launches, want, flag30["launches"]))
+    fig["flagship"] = dict(
+        accepts=s.k, t=s.t, h=s.h, setup_s=setup,
+        ms_per_accept=rest / s.k * 1e3,
+        solver_ms_per_accept_phase30=flag30["ms_per_accept"],
+        dispatches=s.stats.dispatches, tier_calls=s.stats.tier_calls,
+        launches=launches)
+    lines.append(
+        "(a) python -m ksfd_tpu_torch @examples/aggregation2d (no --save/"
+        "--check, maxsteps=%d) --numerics -device_loop 1 --, %d^2x3: setup "
+        "%.2f s (parse, sympy, kernels, start), %.3f ms/accept (phase 30 "
+        "(b) %.3f), %d dispatches; k, t=%.6g, h=%.4g and state equal phase "
+        "30 (b) bit for bit; launches %s" % (
+            FLAG_ACCEPTS, N_AGG, setup, fig["flagship"]["ms_per_accept"],
+            flag30["ms_per_accept"], s.stats.dispatches, s.t, s.h,
+            launches))
+    del s
+    # (b) options92
+    opt = cut_options("eigenmode1d", "eigenmode1d", tmax=20000)
+    t0 = time.perf_counter()
+    status, s, setup, rest = drive_cli(opt)
+    secs = time.perf_counter() - t0
+    rho = s.u[0].cpu().numpy()
+    (_, k_prev, t_prev), (_, k_last, t_last) = s.records[-2:]
+    peaks = int((np.diff(np.r_[rho > rho.mean(), (rho > rho.mean())[0]]
+                         .astype(int)) == 1).sum())
+    check(status == 0 and s.numerics.ksp_type == "banded"
+          and 100 <= s.k <= 500 and t_last >= 20000.0
+          and t_last - t_prev > 2000.0 and peaks == 4
+          and 200.0 < rho.min() < 600.0 and 20000.0 < rho.max() < 28000.0
+          and float(s.u[1:].min()) > 0.0,
+          "options92: status %d ksp %s k %d last step %.4g peaks %d rho "
+          "[%.4g, %.4g]" % (status, s.numerics.ksp_type, s.k,
+                            t_last - t_prev, peaks, rho.min(), rho.max()))
+    fig["options92"] = dict(steps=s.k, failures=s.snes_failures,
+                            seconds=secs, setup_s=setup, t=t_last,
+                            last_step=t_last - t_prev, peaks=peaks,
+                            rho_min=float(rho.min()),
+                            rho_max=float(rho.max()))
+    lines.append(
+        "(b) options92 (eigenmode1d 128x3, tmax=2e4, banded exact tier): "
+        "%d steps, %d failures, %.2f s (setup %.2f), last step %.4g, %d "
+        "peaks, rho [%.2f, %.2f]" % (
+            s.k, s.snes_failures, secs, setup, t_last - t_prev, peaks,
+            rho.min(), rho.max()))
+    del s
+    # (c) the ensemble
+    opt = cut_options("hexagons2d", "hexagons2d", maxsteps=CLI_ENS_ACCEPTS)
+    argv = (opt, "--ensemble=%d" % CLI_MEMBERS) + loop
+    status, es, setup, rest = drive_cli(*argv)
+    ens_launches = launch_counts(es.kernels)
+    from ksfd_tpu_torch import ksfdsolver
+
+    clargs = ksfdsolver.parse_commandline(list(argv))
+    ps, grid, ops = problem_from_clargs(clargs, N_HEX, N_HEX, device="cuda")
+    p0 = ps.params0
+    direct = EnsembleSolver(
+        ops, decode_numerics(clargs.numerics, petsc_tokens=clargs.petsc),
+        t0=0.0, dt=float(p0["dt"]), tmax=float(p0["tmax"]),
+        maxsteps=CLI_ENS_ACCEPTS, rtol=float(p0["rtol"]),
+        atol=float(p0["atol"]), rng_key=clargs.seed)
+    out = direct.solve(ic_starts(clargs, grid, ps, CLI_MEMBERS, clargs.seed))
+    check(status == 0 and (es.ks == out.k).all() and (es.ks ==
+          CLI_ENS_ACCEPTS).all() and (es.ts == out.t).all()
+          and (es.hs == out.h).all() and torch.equal(es.u, out.u)
+          and ens_launches["resid"] > 0 and ens_launches["delta"] > 0,
+          "--ensemble=%d against EnsembleSolver: status %d k %s/%s t %s/%s "
+          "launches %s" % (CLI_MEMBERS, status, es.ks, out.k, es.ts, out.t,
+                           ens_launches))
+    fig["ensemble"] = dict(members=CLI_MEMBERS, accepts=CLI_ENS_ACCEPTS,
+                           setup_s=setup,
+                           ms_per_ensemble_accept=rest / CLI_ENS_ACCEPTS
+                           * 1e3, t=list(es.ts), launches=ens_launches)
+    lines.append(
+        "(c) --ensemble=%d hexagons2d %d^2x3, device loop, %d accepts: setup "
+        "%.2f s, %.3f ms per accepted ensemble step; k, t, h and states "
+        "equal EnsembleSolver run directly bit for bit; launches %s" % (
+            CLI_MEMBERS, N_HEX, CLI_ENS_ACCEPTS, setup,
+            fig["ensemble"]["ms_per_ensemble_accept"], ens_launches))
+    del es, direct, out, ops
+    # (d) h5py
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        h5 = False
+    else:
+        h5 = True
+    tiny = os.path.join(CLI_DIR, "tiny")
+    common = ["tmax=1e6", "width=1", "nelements=16", "dim=1", "degree=3",
+              "atol=0.01", "rtol=1e-6", "sigma=0.02357", "s2=sigma**2/2",
+              "Nworms=0", "srho0=0", "rho0=9000+100*sin(2*pi*x)",
+              "ngroups=1", "nligands_1=1", "alpha_1=1500",
+              "beta_1=5.56e-4", "s_1_1=0.01", "gamma_1_1=0.01",
+              "D_1_1=1e-6"]
+    if not h5:
+        try:
+            status, s, _, _ = drive_cli("--save=" + tiny, "dt=0.1",
+                                        "maxsteps=2", *common)
+        except KSFDException as e:
+            refused = str(e)
+        else:
+            refused = None
+        check(refused is not None and "h5py" in refused,
+              "--save without h5py: %r" % (refused,))
+        fig["h5py"] = dict(present=False, refusal=refused)
+        lines.append("(d) h5py: absent; --save refused before any step: %s"
+                     % refused)
+    else:
+        from ksfd_tpu_torch.io import TimeSeries
+        from ksfd_tpu_torch.tools.lastcheckpoint import last_checkpoint
+
+        sa = drive_cli("--save=" + tiny + "A", "dt=0.1", "maxsteps=6",
+                       *common)[1]
+        drive_cli("--check=" + tiny + "cp", "dt=0.1", "maxsteps=3", *common)
+        cp = last_checkpoint(tiny + "cp")
+        sc = drive_cli("--save=" + tiny + "C", "--resume=" + cp,
+                       "maxsteps=6", *common)[1]
+        ta, tc = (TimeSeries(p, mode="r") for p in (tiny + "A", tiny + "C"))
+        ua = ta.retrieve_by_time(ta.sorted_times()[-1])
+        uc = tc.retrieve_by_time(tc.sorted_times()[-1])
+        check(cp.endswith("_3_") and sa.k == sc.k == 6 and sa.t == sc.t
+              and np.array_equal(ua, uc),
+              "3 + 3 resume on the card: %s k %d/%d t %r/%r" % (
+                  cp, sa.k, sc.k, sa.t, sc.t))
+        ta.close()
+        tc.close()
+        fig["h5py"] = dict(present=True, resume_k=sc.k, t=sc.t)
+        lines.append("(d) h5py: present; 3 + 3 resume equal to 6 straight "
+                     "steps bit for bit (t=%.6g)" % sc.t)
+    print("phase 31 entry point (%s): %s" % (card, " | ".join(lines)))
     return fig
 
 
@@ -3673,7 +3928,9 @@ def main():
     two_ranks = timed("27", phase_two_ranks, card)
     unfused = timed("28", phase_unfused, card)
     tdep = timed("29", phase_tdep, card)
-    solver30 = timed("30", phase_solver, card)
+    solver30, u_flag = timed("30", phase_solver, card)
+    cli31 = timed("31", phase_entry_point, card, solver30["flagship"], u_flag)
+    del u_flag
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -3705,6 +3962,11 @@ def main():
     runs2d.append(flag["launches"])
     per_step["solver_flagship"] = {n: c / flag["accepts"]
                                    for n, c in flag["launches"].items()}
+    # the driver's flagship and --ensemble runs (phase 31 (a), (c))
+    cli = cli31["flagship"]
+    runs2d += [cli["launches"], cli31["ensemble"]["launches"]]
+    per_step["cli_flagship"] = {n: c / cli["accepts"]
+                                for n, c in cli["launches"].items()}
     totals = {n: sum(c.get(n, 0) for c in runs2d)
               for n in list(kern.kernels) + ["pc_fwd", "pc_inv"]}
     per_step3 = {"f64": {n: c // 10 for n, c in counts3.items()},
@@ -3783,6 +4045,7 @@ def main():
         "unfused": unfused,
         "time_dependent_coefficients": tdep,
         "solver": solver30,
+        "entry_point": cli31,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

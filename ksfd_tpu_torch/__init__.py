@@ -5,16 +5,19 @@ unchanged).  It imports torch and never jax, and it mirrors the
 reference's module layout: each docstring names its counterpart as
 ``ksfd_tpu/<file>:<function>``.
 
-What runs so far is the host Solver (solvers/solver.py Solver, with
-fresh starts from ic.py and the exact tiers of solvers/banded_path.py,
-solvers/direct.py and the dense LU step), the fixed-dt multistep and
-the adaptive chunk
-(solvers/solver.py make_multistep_fn, make_adaptive_chunk_fn) on 2D
-and 3D periodic problems, with default numerics (a float64 state) and
-in the float32 fast mode (``NumericsOptions(precision="float32")``),
-the fused pc (``pc_pallas``), the float64 GMRES fallback step and, on
-2D problems, ``solvers.EnsembleSolver`` (members batched through the
-kernels' member axis), with the float32 kernels of ops/fused_stencil.py,
+What runs: the driver ``python -m ksfd_tpu_torch @<optionsfile>``
+(ksfdsolver.py: the reference's command line, options files and PETSc
+blocks, ``--ensemble``; HDF5 series, checkpoints and resume through
+io/ where h5py is installed), the host Solver (solvers/solver.py
+Solver, with fresh starts and resumes from ic.py and the exact tiers of
+solvers/banded_path.py, solvers/direct.py and the dense LU step), the
+fixed-dt multistep and the adaptive chunk (solvers/solver.py
+make_multistep_fn, make_adaptive_chunk_fn) on 1D, 2D and 3D periodic
+problems, with default numerics (a float64 state) and in the float32
+fast mode (``NumericsOptions(precision="float32")``), the fused pc
+(``pc_pallas``), the float64 GMRES fallback step and
+``solvers.EnsembleSolver`` (members batched through the kernels' member
+axis), with the float32 kernels of ops/fused_stencil.py,
 ops/fused_stencil3d.py and ops/fused_pc.py written in CUDA for Hopper
 (csrc/stencil2d.cu, csrc/stencil3d.cu, csrc/pc2d.cu).  The step, the
 multistep and the chunk also run SPMD over torch.distributed ranks, one
@@ -31,6 +34,8 @@ from .utils import (  # noqa: E402
     KSFDException,
     NumericsOptions,
     Parameter,
+    Parser,
+    decode_numerics,
     ParameterList,
     default_parameters,
     find_duplicates,
@@ -50,6 +55,8 @@ __all__ = [
     "KSFDException",
     "NumericsOptions",
     "Parameter",
+    "Parser",
+    "decode_numerics",
     "ParameterList",
     "default_parameters",
     "find_duplicates",

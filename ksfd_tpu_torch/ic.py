@@ -1,11 +1,13 @@
-"""Initial values: fresh starts (and, later, checkpoint resume).
+"""Initial values: fresh starts and checkpoint resume.
 
 Counterpart: ksfd_tpu/ic.py (the reference's ksfdsolver2.py:500-639).
 A fresh start is rho0 plus a smooth random field drawn on a coarse grid
 (randomfield.py), the ligands given or at their local steady state.
-Resuming from a checkpoint reads a TimeSeries, which is I/O: ROADMAP
-Queue A item 6 (A8 part 2).
+A resume or restart reads the last snapshot of a TimeSeries (io/).
 """
+
+import os
+import sys
 
 import numpy as np
 import torch
@@ -13,7 +15,12 @@ import torch
 from .grid import Grid
 from .ops.spatial import SpatialExpression
 from .randomfield import Generator, random_function
+from .io.timeseries import TimeSeries, parse_filename
+from .utils.debug import logger
 from .utils.device import resolve_device
+from .utils.exceptions import KSFDException
+
+logMAIN = logger("MAIN")
 
 __all__ = ["initial_values", "start_values", "resume_values"]
 
@@ -22,7 +29,7 @@ def initial_values(clargs, grid, ps, device=None):
     """(state, t0, extras) for a fresh or resumed run.  Counterpart:
     ksfd_tpu/ic.py:initial_values."""
     if clargs.resume or clargs.restart:
-        return resume_values(clargs, grid, ps)
+        return resume_values(clargs, grid, ps, device=device)
     u, t = start_values(clargs, grid, ps, device=device)
     return u, t, {}
 
@@ -84,10 +91,82 @@ def start_values(clargs, grid, ps, device=None):
     return torch.from_numpy(u).to(device), float(ps.t0)
 
 
-def resume_values(clargs, grid, ps):
-    """Counterpart: ksfd_tpu/ic.py:resume_values, which reads a
-    TimeSeries checkpoint."""
-    raise NotImplementedError(
-        "not ported yet (see ROADMAP): resume and restart read a "
-        "TimeSeries checkpoint, the I/O of Queue A item 6 (A8 part 2)"
+def resume_values(clargs, grid, ps, device=None):
+    """Resume (keep t) or restart (t = t0) from the last snapshot of the
+    TimeSeries ``clargs.resume`` or ``clargs.restart``: ``(u, t,
+    extras)``, u a float64 tensor on ``device`` (the card unless given).
+    Counterpart: ksfd_tpu/ic.py:resume_values.
+
+    dt and lastvart (written into ``ps.params0``) come from a ``dt=`` or
+    ``lastvart=`` parameter on the command line, else the file's
+    '/solver_state' or '/info', else the spacing of the last two
+    snapshots, else the default (ksfdsolver2.py:525-578).  A resume's
+    extras carry the step counter ``k`` and the noise generator's
+    ``rng_state`` where the file has them.  A checkpoint of the JAX
+    package holds a JAX key instead, which cannot be continued here:
+    the noise chain then restarts from --seed, and a line on stderr
+    says so.
+
+    One process: a complete slab set reads as one series (the virtual
+    slab view); one rank's slab of a run on another rank count raises,
+    naming tools/tsmerge.py, as the reference does.
+    """
+    device = resolve_device(device)
+    prefix = clargs.resume or clargs.restart
+    cpf = TimeSeries(
+        prefix, grid=grid, mode="r",
+        retries=clargs.series_retries,
+        retry_interval=clargs.series_retry_interval,
     )
+    full_box = tuple((0, int(n)) for n in grid.nps)
+    box = cpf.ranges if cpf.ranges is not None else full_box
+    if box != full_box:
+        _, fsize, frank, _ = parse_filename(os.path.basename(cpf.filename))
+        cpf.close()
+        raise KSFDException(
+            "cannot resume slab series %r (written by %d ranks) with one "
+            "process; merge it first: python -m "
+            "ksfd_tpu_torch.tools.tsmerge %s -o <merged>"
+            % (cpf.filename, fsize, prefix)
+        )
+    stimes = cpf.sorted_times()
+    tlast = stimes[-1]
+    state = cpf.load_solver_state()
+    jax_key = "solver_state/rng_key" in cpf.tsf
+    dtparams = [p for p in clargs.params if p.startswith("dt=")]
+    lastvartparams = [p for p in clargs.params if p.startswith("lastvart=")]
+    extras = {}
+    if clargs.resume:
+        t = float(tlast)
+        if dtparams:
+            ps.params0["dt"] = float(dtparams[0][3:])
+        elif "dt" in state:
+            ps.params0["dt"] = float(state["dt"])
+        elif len(stimes) >= 2:
+            ps.params0["dt"] = float(tlast - stimes[-2])
+        if lastvartparams:
+            ps.params0["lastvart"] = float(lastvartparams[0][9:])
+        elif "lastvart" in state:
+            ps.params0["lastvart"] = float(state["lastvart"])
+        elif len(stimes) >= 2:
+            ps.params0["lastvart"] = float(tlast - stimes[-2])
+        else:
+            ps.params0["lastvart"] = t
+        if "rng_state" in state:
+            extras["rng_state"] = state["rng_state"]
+        elif jax_key:
+            print("ksfd: %s holds the JAX package's noise key, which this "
+                  "package cannot continue; the noise chain restarts from "
+                  "--seed=%d" % (cpf.filename, clargs.seed), file=sys.stderr)
+        if "k" in state:
+            extras["k"] = int(state["k"])
+    else:
+        t = float(ps.t0)
+        if lastvartparams:
+            ps.params0["lastvart"] = float(lastvartparams[0][9:])
+        else:
+            ps.params0["lastvart"] = float(ps.t0)
+    values = np.asarray(cpf.retrieve_by_time(tlast)).reshape(cpf.local_shape)
+    cpf.close()
+    logMAIN("resumed at t", t, "from", prefix)
+    return torch.from_numpy(values).to(device), t, extras

@@ -1,0 +1,390 @@
+"""Solve the Keller-Segel PDE system with ksfd_tpu_torch, on the card.
+
+Counterpart: ksfdsolver.py (the JAX package's driver, the reference's
+ksfdsolver2.py), with the same command-line grammar:
+
+- options ``--name=value`` controlling how to solve (save, check,
+  resume, restart, seed, onestep, showparams, source, ensemble, ...);
+- parameters ``name=value`` with sympy-expression values describing the
+  problem;
+- a numerics block ``--numerics ... --`` or a reference PETSc block
+  ``--petsc ... --``;
+- ``@optionsfile`` indirection with '#' comments.
+
+    python -m ksfd_tpu_torch @examples/aggregation2d --numerics \\
+        -device_loop 1 --
+    KSFD_PLATFORM=cpu python -m ksfd_tpu_torch @examples/eigenmode1d
+
+It runs on the CUDA card and raises where there is none;
+``KSFD_PLATFORM=cpu`` (the JAX package's own switch) runs it on the CPU.
+Saving, checkpoints and resuming need h5py; without it those options
+raise before any step.  Refused, each naming its ROADMAP item:
+``--with_g`` (Queue A item 10, A13), ``--flux_form`` (item 9), several
+processes (item 11, A14) and, as in the reference, ``--noperiodic``.
+"""
+
+import contextlib
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .grid import Grid
+from .ic import initial_values, start_values
+from .io import (
+    TimeSeries,
+    h5py_module,
+    make_checkpoint_monitor,
+    make_save_monitor,
+    write_info,
+)
+from .models import SolutionParameters
+from .ops import PDEOperators, SpatialExpression
+from .parallel.distributed import process_count
+from .randomfield import DEFAULT_SEED, Generator
+from .solvers import EnsembleSolver, Solver
+from .solvers.solver import print_monitor, route_petsc_direct
+from .utils import find_duplicates
+from .utils.cli import Parser, decode_numerics
+from .utils.device import resolve_device
+from .utils.exceptions import KSFDException
+
+__all__ = ["parse_commandline", "catch_signals", "decode_sources",
+           "run_device", "run_ensemble", "main"]
+
+
+def parse_commandline(args=None):
+    """The parsed command line.  Counterpart:
+    ksfdsolver.py:parse_commandline (the same options and defaults)."""
+    parser = Parser(description="Solve Keller-Segel PDEs (PyTorch/CUDA)")
+    parser.add_argument("--cappotential", choices=["tophat", "witch"],
+                        default="tophat",
+                        help="potential function for capping rho")
+    parser.add_argument("--save",
+                        help="filename prefix in which to save results")
+    parser.add_argument("--save_every", type=int, default=1,
+                        help="minimum steps between saved snapshots "
+                             "(default 1 = every accepted step; the "
+                             "final state is always saved)")
+    parser.add_argument("--check", help="filename prefix for checkpoints")
+    parser.add_argument("--resume",
+                        help="resume from last point of a TimeSeries")
+    parser.add_argument("--restart",
+                        help="restart (t=t0) from last point of a TimeSeries")
+    parser.add_argument("--series_retries", type=int, default=0,
+                        help="# retries to open TimeSeries")
+    parser.add_argument("--series_retry_interval", type=int, default=60,
+                        help="time (s) between open retries")
+    parser.add_argument("--mpiok", action="store_true",
+                        help="accepted for compatibility: a single-"
+                             "process reader opens a complete slab set "
+                             "as one series")
+    parser.add_argument("--showparams", action="store_true",
+                        help="print all parameters and exit")
+    parser.add_argument("--noperiodic", action="store_true",
+                        help="not implemented: only periodic BCs exist")
+    parser.add_argument("--onestep", action="store_true",
+                        help="exit after one step (a build check)")
+    parser.add_argument("--solver", default="tpu", help="accepted for compat")
+    parser.add_argument("--seed", type=int, default=DEFAULT_SEED,
+                        help="random number generator seed")
+    parser.add_argument("--source", type=str, action="append", default=[],
+                        help="source function for rho, U_1_1, ...")
+    parser.add_argument("--flux_form", action="store_true",
+                        help="the conservative flux discretization (not "
+                             "ported: ROADMAP Queue A item 9)")
+    parser.add_argument("--with_g", action="store_true",
+                        help="carry the free energy G as a stored field "
+                             "(not ported: ROADMAP Queue A item 10, A13)")
+    parser.add_argument("--xprof", metavar="DIR",
+                        help="write a torch.profiler chrome trace of the "
+                             "solve to DIR")
+    parser.add_argument("--ensemble", type=int, default=0, metavar="N",
+                        help="integrate N ensemble members (fresh starts "
+                             "seeded seed..seed+N-1, independent noise "
+                             "streams) as one batched program; members "
+                             "save to <save>_m<i>")
+    parser.add_argument("params", type=str, nargs="*",
+                        help="parameter values (name=value, sympy exprs)")
+    return parser.parse_args(args=args)
+
+
+def catch_signals():
+    """Turn catchable signals into KeyboardInterrupt so that files
+    close.  Counterpart: ksfdsolver.py:catch_signals."""
+    import signal as sig
+
+    def handler(signum, frame):
+        raise KeyboardInterrupt("Caught signal " + str(signum))
+
+    for name in (
+        "SIGHUP", "SIGINT", "SIGPIPE", "SIGALRM", "SIGTERM", "SIGXCPU",
+        "SIGXFSZ", "SIGVTALRM", "SIGPROF", "SIGUSR1", "SIGUSR2", "SIGQUIT",
+    ):
+        try:
+            sig.signal(getattr(sig, name), handler)
+        except (OSError, ValueError, AttributeError):
+            pass  # not on this platform, or not the main thread
+
+
+def decode_sources(sargs, ps, grid, device=None):
+    """--source=<field>=<expr> list -> per-field SpatialExpressions.
+    Counterpart: ksfdsolver.py:decode_sources."""
+    device = resolve_device(device)
+    sources = [0.0] * (ps.nligands + 1)
+    keys = [arg.split("=", maxsplit=1)[0] for arg in sargs]
+    dups = find_duplicates(keys)
+    if dups:
+        raise KSFDException("duplicated sources: " + ", ".join(dups))
+    names = ["rho"] + [lig.name() for lig in ps.groups.ligands()]
+    for k in keys:
+        if k not in names:
+            raise KSFDException("unknown function: " + k)
+    for snum, name in enumerate(keys):
+        _, val = sargs[snum].split("=", maxsplit=1)
+        sources[names.index(name)] = SpatialExpression(
+            ps, grid, val, name="src_" + name, device=device)
+    return [
+        s if isinstance(s, SpatialExpression)
+        else SpatialExpression(ps, grid, s, device=device)
+        for s in sources
+    ]
+
+
+def run_device():
+    """The card, or the CPU where ``KSFD_PLATFORM=cpu`` (the switch the
+    JAX package reads, ksfd_tpu/__init__.py:31); without a card and
+    without that switch, RuntimeError."""
+    cpu = os.environ.get("KSFD_PLATFORM", "").lower() == "cpu"
+    return resolve_device("cpu" if cpu else None)
+
+
+@contextlib.contextmanager
+def xprof_trace(directory):
+    """A torch.profiler chrome trace of the block into ``directory``
+    (the counterpart of the JAX driver's ``jax.profiler.trace``), or
+    nothing for ``directory`` None."""
+    if not directory:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    try:
+        with prof:
+            yield
+    finally:
+        prof.export_chrome_trace(os.path.join(directory,
+                                              "ksfd_trace.json"))
+
+
+def _refuse(clargs):
+    """Raise, before any step, for what the port does not run."""
+    if clargs.noperiodic:
+        raise KSFDException("--noperiodic not implemented: BCs are periodic")
+    if clargs.with_g:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP): --with_g, with-G states: Queue "
+            "A item 10 (A13)")
+    if clargs.flux_form:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP): --flux_form, the conservative "
+            "discretization: Queue A item 9")
+    nprocs = max(process_count(), int(os.environ.get("KSFD_NUM_PROCS", 1)))
+    if nprocs > 1:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP): a run over %d processes (the "
+            "Solver on a mesh and slab I/O): Queue A item 11 (A14)"
+            % nprocs)
+    if clargs.save or clargs.check or clargs.resume or clargs.restart:
+        h5py_module()
+
+
+def _open_series(prefix, grid, clargs):
+    return TimeSeries(prefix, grid=grid, mode="w",
+                      retries=clargs.series_retries,
+                      retry_interval=clargs.series_retry_interval)
+
+
+def run_ensemble(clargs, ps, grid, ops, numerics):
+    """--ensemble=N: N fresh starts, member i from ``Generator(seed +
+    i)``, integrated by one EnsembleSolver (noise seed ``seed``, member
+    offset 0); member i saves to ``<save>_m<i>`` with '/info/member'.
+    Counterpart: ksfdsolver.py:run_ensemble, in one process (members
+    over several processes, ``shard_members``, are ROADMAP Queue A item
+    11, A14).  Returns the exit status."""
+    N = int(clargs.ensemble)
+    if clargs.resume or clargs.restart or clargs.check:
+        raise KSFDException(
+            "--ensemble supports fresh starts only "
+            "(no --resume/--restart/--check)"
+        )
+    members = []
+    t0 = float(ps.t0)
+    for i in range(N):
+        Generator(seed=clargs.seed + i)
+        u0, t0 = start_values(clargs, grid, ps, device=ops.device)
+        members.append(u0)
+    U0 = torch.stack(members)
+    p0 = ps.params0
+    maxsteps = 1 if clargs.onestep else int(p0["maxsteps"])
+    es = EnsembleSolver(
+        ops, numerics, t0=t0, dt=float(p0["dt"]), tmax=float(p0["tmax"]),
+        maxsteps=maxsteps, rtol=float(p0["rtol"]), atol=float(p0["atol"]),
+        rng_key=clargs.seed, member_offset=0,
+    )
+    series = []
+    if clargs.save:
+        for i in range(N):
+            ts_i = _open_series("%s_m%d" % (clargs.save, i), grid, clargs)
+            write_info(ts_i, clargs=clargs, ps=ps, sources=ops.sources)
+            ts_i.try_to_set("/info/member", i)
+            ts_i.flush()
+            series.append(ts_i)
+    every = max(1, int(clargs.save_every))
+    lastk = [None] * N
+
+    def store_members(ks, ts, U, force=False):
+        Uh = U.detach().cpu().numpy()
+        for i, s in enumerate(series):
+            k = int(ks[i])
+            if lastk[i] == k:
+                continue
+            if not force and lastk[i] is not None and k - lastk[i] < every:
+                continue
+            if not s.tsFile:
+                s.reopen()
+            s.store(Uh[i], float(ts[i]), k=k)
+            s.temp_close()
+            lastk[i] = k
+
+    def ens_print(es_, ks, ts, U):
+        print("clock: %s, steps %d-%d t=[%.6g, %.6g] h=[%.3g, %.3g]" % (
+            time.strftime("%H:%M:%S"), int(np.min(ks)), int(np.max(ks)),
+            float(np.min(ts)), float(np.max(ts)), float(np.min(es_.hs)),
+            float(np.max(es_.hs))), flush=True)
+
+    es.add_monitor(ens_print)
+    if series:
+        es.add_monitor(lambda es_, ks, ts, U: store_members(ks, ts, U))
+    status = 0
+    out = None
+    try:
+        with xprof_trace(clargs.xprof):
+            out = es.solve(U0)
+    except KeyboardInterrupt as e:
+        print("KeyboardInterrupt:", str(e))
+    except Exception as e:  # the run's boundary: report, then save
+        print("Exception:", str(e))
+        import traceback
+
+        traceback.print_exc()
+        status = 1
+    if series:
+        if es.u is not None and es.ks is not None:
+            try:
+                store_members(es.ks, es.ts, es.u, force=True)
+            except Exception as e:
+                print("final save failed:", str(e))
+        for s in series:
+            s.close()
+    if out is not None:
+        print("members = %d, diverged = %d, solve failures = %d" % (
+            N, int(np.sum(out.diverged)), int(np.sum(out.snes_failures))))
+    return status
+
+
+def main(*args):
+    """Run the command line ``args`` (``sys.argv`` when none: args[0]
+    is the program name); returns the exit status.  Counterpart:
+    ksfdsolver.py:main."""
+    args = list(args) if args else sys.argv
+    clargs = parse_commandline(args[1:])
+    catch_signals()
+    _refuse(clargs)
+    ps = SolutionParameters(clargs)
+    Generator(seed=clargs.seed)
+    if clargs.showparams:
+        for n, p, d, h in ps.params0.params():
+            print("{n}={val} -- {h}".format(n=n, val=p(), h=h))
+        return 0
+    numerics = decode_numerics(clargs.numerics, petsc_tokens=clargs.petsc)
+    device = run_device()
+    grid = Grid(
+        dim=ps.dim,
+        dof=ps.nligands + 1,
+        width=ps.width, height=ps.height, depth=ps.depth,
+        nx=ps.nwidth, ny=ps.nheight, nz=ps.ndepth,
+        order=ps.degree,
+    )
+    sources = decode_sources(clargs.source, ps, grid, device=device)
+    ops = PDEOperators(ps, grid, sources=sources, device=device)
+    if int(clargs.ensemble or 0) >= 1:
+        return run_ensemble(clargs, ps, grid, ops, numerics)
+    u0, t, extras = initial_values(clargs, grid, ps, device=device)
+    # a PETSc '-ksp_type preonly -pc_type lu' block asks for exact
+    # direct solves (the reference's MUMPS configuration)
+    numerics = route_petsc_direct(numerics, grid)
+    p0 = ps.params0
+    tseries = None
+    if clargs.save:
+        tseries = _open_series(clargs.save, grid, clargs)
+        write_info(tseries, clargs=clargs, ps=ps, sources=sources)
+        tseries.try_to_set("/info/dt", float(p0["dt"]))
+        if "lastvart" in p0:
+            tseries.try_to_set("/info/lastvart", float(p0["lastvart"]))
+        tseries.flush()
+    maxsteps = 1 if clargs.onestep else int(p0["maxsteps"])
+    solver = Solver(
+        ops,
+        numerics,
+        t0=t,
+        dt=float(p0["dt"]),
+        tmax=float(p0["tmax"]),
+        maxsteps=maxsteps,
+        rtol=float(p0["rtol"]),
+        atol=float(p0["atol"]),
+        # the noise stream: the checkpoint's, else seeded from --seed
+        rng_state=extras.get("rng_state", clargs.seed),
+        lastvart=float(p0["lastvart"]) if "lastvart" in p0 else None,
+        k0=int(extras.get("k", 0)),
+    )
+    solver.add_monitor(print_monitor)
+    if tseries is not None:
+        save_monitor, closer = make_save_monitor(tseries,
+                                                 every=clargs.save_every)
+        solver.add_monitor(save_monitor)
+    if clargs.check:
+        solver.add_monitor(make_checkpoint_monitor(
+            clargs.check, grid, clargs=clargs, ps=ps, sources=sources,
+            retries=clargs.series_retries,
+            retry_interval=clargs.series_retry_interval))
+    status = 0
+    try:
+        with xprof_trace(clargs.xprof):
+            solver.solve(u0, t=t)
+    except KeyboardInterrupt as e:
+        print("KeyboardInterrupt:", str(e))
+    except Exception as e:  # the run's boundary: report, then save
+        print("Exception:", str(e))
+        import traceback
+
+        traceback.print_exc()
+        status = 1
+    if tseries is not None:
+        if solver.u is not None:
+            # --save_every thinning: the last accepted state always
+            # lands, also after an interrupt or an exception
+            try:
+                save_monitor(solver, solver.k, solver.t, solver.u,
+                             force=True)
+            except Exception as e:
+                print("final save failed:", str(e))
+        closer()
+        tseries.close()
+    print("solve failures =", solver.snes_failures)
+    return status

@@ -19,7 +19,8 @@ rank's slab) and ``global_from_local`` / ``local_values`` (this rank's
 block, as numpy or as the slab tensor); ``SlabMesh.gather`` assembles
 the global state again on every rank.  ``owned_box`` and
 ``process_box`` give the block's spatial ranges, as the reference's do
-for the slab files its I/O writes (that I/O is ROADMAP Queue A item 6).
+for the slab files its I/O writes (the port's slab I/O comes with the
+Solver on a mesh, ROADMAP Queue A item 11, A14).
 """
 
 import os

@@ -7,7 +7,7 @@ from .params import (
     default_parameters,
     find_duplicates,
 )
-from .cli import NumericsOptions
+from .cli import NumericsOptions, Parser, decode_numerics
 from .device import resolve_device
 
 __all__ = [
@@ -23,5 +23,7 @@ __all__ = [
     "default_parameters",
     "find_duplicates",
     "NumericsOptions",
+    "Parser",
+    "decode_numerics",
     "resolve_device",
 ]

@@ -1,13 +1,115 @@
-"""Numerics options of the command line.
+"""Command-line parsing: @file indirection and the numerics options.
 
-Counterpart: ksfd_tpu/utils/cli.py.  Only ``NumericsOptions`` is ported
-so far; the ``Parser`` and the ``--petsc`` block translation come with
-the I/O and the entry point (ROADMAP Queue A item 6, A8 part 2).
+Counterpart: ksfd_tpu/utils/cli.py (the reference's ksfdargparse.py and
+ksfdsolver2.py grammar).  The same grammar and the same decoding:
+
+- options ``--name=value``; parameters ``name=value`` (sympy
+  expressions);
+- subsystem blocks ``--numerics <args...> --`` (the native numerics)
+  and ``--petsc <args...> --`` (a reference PETSc block: the options
+  with a meaning here are translated, the rest recorded in
+  ``unrecognized`` and noted on stderr);
+- ``@optionsfile`` indirection with '#' comments (shlex rules).
+
+``decode_numerics`` decodes every token the reference decodes, also
+those of paths the port does not run yet (``-ts_type arkimex``): the
+refusal is the Solver's (solvers/solver.py, solvers/steppers.py).
 """
 
+import re
+import shlex
+import sys
+from argparse import ArgumentParser, SUPPRESS
 from dataclasses import dataclass, field, asdict
 
-__all__ = ["NumericsOptions"]
+from .debug import logger
+from .exceptions import KSFDException
+
+logMAIN = logger("MAIN")
+
+__all__ = ["Parser", "NumericsOptions", "decode_numerics"]
+
+
+class Parser(ArgumentParser):
+    """ArgumentParser with @file indirection and subsystem extraction.
+    Counterpart: ksfd_tpu/utils/cli.py:Parser.
+
+    ``parse_args`` returns the usual Namespace, plus attributes named
+    after each subsystem ('numerics', 'petsc') holding the raw token
+    lists of the corresponding blocks.
+    """
+
+    subsystems = ["numerics", "petsc"]
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(
+            *args, fromfile_prefix_chars="@", allow_abbrev=False, **kwargs
+        )
+        # for the help message only: the blocks are stripped before the
+        # arguments reach argparse
+        for subsystem in self.subsystems:
+            self.add_argument(
+                "--" + subsystem,
+                action="append",
+                default=SUPPRESS,
+                help="{s} subsystem arguments; terminate with --".format(
+                    s=subsystem),
+            )
+
+    def convert_arg_line_to_args(self, arg_line):
+        return shlex.split(arg_line, comments=True)
+
+    def _extract_subsystem_blocks(self, tokens):
+        """One left-to-right scan pulling out '--<name> ... --' blocks.
+
+        Returns (remaining_tokens, {name: block_tokens}).  A block runs
+        from its introducer to the next bare '--' (or the end); repeated
+        blocks of one subsystem concatenate; '--numerics=<tokens>' is a
+        self-contained block.
+        """
+        blocks = {name: [] for name in self.subsystems}
+        rest = []
+        stream = iter(tokens)
+        for tok in stream:
+            name = inline = None
+            if tok.startswith("--"):
+                body = tok[2:]
+                if body in blocks:
+                    name = body
+                elif "=" in body:
+                    head, _, val = body.partition("=")
+                    if head in blocks:
+                        name, inline = head, shlex.split(val)
+            if name is None:
+                rest.append(tok)
+                continue
+            if inline is not None:
+                blocks[name].extend(inline)
+                continue
+            for inner in stream:
+                if inner == "--":
+                    break
+                blocks[name].append(inner)
+        return rest, blocks
+
+    def parse_args(self, args=None, namespace=None):
+        if args is None:
+            args = sys.argv[1:]
+        args = self._read_args_from_files(list(args))
+        args, blocks = self._extract_subsystem_blocks(args)
+        # argparse cannot interleave positionals (parameters) with
+        # optionals: the name=value tokens go last, which keeps their
+        # order and allows 'prog @file --resume=x maxsteps=2'
+        params = [a for a in args if _is_param(a)]
+        args = [a for a in args if not _is_param(a)] + params
+        ns = super().parse_args(args, namespace=namespace)
+        for subsystem in self.subsystems:
+            setattr(ns, subsystem, blocks[subsystem])
+        return ns
+
+
+def _is_param(arg):
+    return re.match(r"^[A-Za-z_]\w*=", arg) is not None
 
 
 @dataclass
@@ -187,3 +289,250 @@ class NumericsOptions:
 
     def asdict(self):
         return asdict(self)
+
+
+_TS_TYPE_MAP = {
+    "rosw": "rosw",
+    # the implicit (ESDIRK) part of PETSc's default ARKIMEX3 scheme,
+    # ARK324L2SA (the DIRK path: ROADMAP Queue A item 7, A9)
+    "arkimex": "arkimex",
+    "beuler": "beuler",
+}
+
+_FALSE = ("0", "false", "False")
+_PRECISIONS = {"f32": "float32", "f64": "float64",
+               "float32": "float32", "float64": "float64"}
+
+
+def decode_numerics(tokens, petsc_tokens=()):
+    """NumericsOptions from --numerics tokens and/or a PETSc block.
+    Counterpart: ksfd_tpu/utils/cli.py:decode_numerics.
+
+    Native tokens have PETSc's ``-key value`` shape (``-ts_type rosw
+    -ksp_rtol 1e-10``); the PETSc block is read first, so a native token
+    wins.  A bad or missing value raises KSFDException; a token with no
+    meaning here is recorded in ``unrecognized`` and noted on stderr.
+    ``-ksp_type preonly`` with ``-pc_type lu`` (the reference's MUMPS
+    configuration) sets ``petsc_direct`` unless a native ``-ksp_type``
+    was given.
+    """
+    opts = NumericsOptions()
+    toks = list(petsc_tokens) + list(tokens)
+    i = 0
+    arkimex_scheme = None
+    saw_preonly = saw_pc_lu = explicit_ksp = False
+    pending_notes = []
+
+    def take_value(i):
+        if i + 1 < len(toks) and not toks[i + 1].startswith("-"):
+            return toks[i + 1], i + 2
+        # numeric values may start with '-' ('-ts_adapt_clip -0.1,5')
+        if i + 1 < len(toks):
+            nxt = toks[i + 1]
+            try:
+                for part in nxt.split(","):
+                    float(part)
+                return nxt, i + 2
+            except ValueError:
+                pass
+        return None, i + 1
+
+    def bad(tok, val, want=""):
+        return KSFDException(
+            "bad or missing value for numerics option "
+            "{t}: {v!r}{w}".format(t=tok, v=val, w=want))
+
+    def fnum(val, tok):
+        try:
+            return float(val)
+        except (TypeError, ValueError):
+            raise bad(tok, val)
+
+    def inum(val, tok):
+        try:
+            return int(val)
+        except (TypeError, ValueError):
+            raise bad(tok, val)
+
+    def note(tok, val):
+        opts.unrecognized.append("{t} {v}".format(t=tok, v=val))
+
+    while i < len(toks):
+        tok = toks[i]
+        key = tok.lstrip("-")
+        if key == "ts_type":
+            val, i = take_value(i)
+            if val in _TS_TYPE_MAP:
+                opts.ts_type = _TS_TYPE_MAP[val]
+            else:
+                note(tok, val)
+        elif key == "ts_arkimex_type":
+            # the scheme within -ts_type arkimex: 3 is ARK324L2SA, 4 is
+            # ARK436L2SA; applied after the loop iff ts_type is arkimex
+            val, i = take_value(i)
+            if val in ("3", "ark324", "ark324l2sa"):
+                arkimex_scheme = "ark324"
+            elif val in ("4", "ark436", "ark436l2sa"):
+                arkimex_scheme = "ark436"
+            else:
+                note(tok, val)
+        elif key == "ts_adapt_type":
+            val, i = take_value(i)
+            if val in ("none", "basic"):
+                opts.adapt_type = val
+            else:
+                # other PETSc adaptors map to basic, and are recorded
+                opts.adapt_type = "basic"
+                note(tok, val)
+        elif key == "ts_adapt_dt_max":
+            val, i = take_value(i)
+            opts.dt_max = fnum(val, tok)
+        elif key == "ts_adapt_dt_min":
+            val, i = take_value(i)
+            opts.dt_min = fnum(val, tok)
+        elif key == "ts_adapt_clip":
+            val, i = take_value(i)
+            try:
+                lo, hi = val.split(",")
+            except (AttributeError, TypeError, ValueError):
+                raise bad(tok, val, " (want lo,hi)")
+            opts.clip_low, opts.clip_high = fnum(lo, tok), fnum(hi, tok)
+        elif key == "ts_adapt_scale_solve_failed":
+            val, i = take_value(i)
+            opts.rollback_factor = fnum(val, tok)
+        elif key == "ts_adapt_safety":
+            val, i = take_value(i)
+            opts.safety = fnum(val, tok)
+        elif key == "ts_max_snes_failures":
+            val, i = take_value(i)
+            opts.max_snes_failures = inum(val, tok)
+        elif key == "snes_type":
+            val, i = take_value(i)
+            if val == "ksponly":
+                # one linear solve per implicit stage, the reference's
+                # configuration
+                opts.snes_iters = 1
+            else:
+                note(tok, val)
+        elif key == "snes_iters":
+            val, i = take_value(i)
+            opts.snes_iters = inum(val, tok)
+        elif key == "ksp_max_it":
+            val, i = take_value(i)
+            opts.ksp_max_it = inum(val, tok)
+        elif key == "ksp_rtol":
+            val, i = take_value(i)
+            opts.ksp_rtol = fnum(val, tok)
+        elif key == "ksp_iters":
+            val, i = take_value(i)
+            opts.ksp_iters = inum(val, tok)
+        elif key == "ksp_iters_max":
+            val, i = take_value(i)
+            opts.ksp_iters_max = inum(val, tok)
+        elif key == "ksp_iters_max2":
+            val, i = take_value(i)
+            opts.ksp_iters_max2 = inum(val, tok)
+        elif key == "esc_cheb":
+            val, i = take_value(i)
+            opts.esc_cheb = str(val) not in _FALSE
+        elif key == "cheb_lmin":
+            val, i = take_value(i)
+            opts.cheb_lmin = fnum(val, tok)
+        elif key == "cheb_lmax":
+            val, i = take_value(i)
+            opts.cheb_lmax = fnum(val, tok)
+        elif key == "cheb_safety":
+            val, i = take_value(i)
+            opts.cheb_safety = fnum(val, tok)
+        elif key in ("ksp_restart", "ksp_gmres_restart"):
+            val, i = take_value(i)
+            opts.ksp_restart = inum(val, tok)
+        elif key == "ksp_type":
+            val, i = take_value(i)
+            if val in (
+                "richardson", "chebyshev", "gmres", "gmres_restarted",
+                "gmres_rolled", "gmres_scipy", "dense", "direct",
+                "banded", "lu",
+            ):
+                opts.ksp_type = val
+                # a native selection overrides the PETSc-pair routing
+                explicit_ksp = True
+            elif val == "preonly":
+                saw_preonly = True
+                pending_notes.append(
+                    "ksp_type preonly (kept default; exact direct "
+                    "solves: -ksp_type lu any-dim, banded 1D)"
+                )
+            else:
+                note(tok, val)
+        elif key == "pc_type":
+            val, i = take_value(i)
+            if val in ("spectral", "block", "none"):
+                opts.pc_type = val
+            elif val in ("lu", "cholesky"):
+                saw_pc_lu = True
+                pending_notes.append("{t} {v}".format(t=tok, v=val))
+            else:
+                note(tok, val)
+        elif key == "device_loop":
+            val, i = take_value(i)
+            opts.device_loop = str(val) not in _FALSE
+        elif key == "use_pallas":
+            val, i = take_value(i)
+            opts.use_pallas = str(val) not in _FALSE
+        elif key == "stage_delta":
+            val, i = take_value(i)
+            opts.stage_delta = str(val) not in _FALSE
+        elif key == "precision":
+            val, i = take_value(i)
+            opts.precision = _PRECISIONS.get(val, opts.precision)
+        elif key in ("ksp_sweep_dtype", "sweep_dtype"):
+            val, i = take_value(i)
+            opts.sweep_dtype = _PRECISIONS.get(val, opts.sweep_dtype)
+        elif key == "pc_dtype":
+            val, i = take_value(i)
+            opts.pc_dtype = dict(_PRECISIONS, bf16="bfloat16",
+                                 bfloat16="bfloat16", auto="auto").get(
+                                     val, opts.pc_dtype)
+        elif key == "pc_pallas":
+            val, i = take_value(i)
+            opts.pc_pallas = str(val) not in _FALSE
+        elif key == "pc_fft":
+            val, i = take_value(i)
+            opts.pc_fft = {
+                "0": "off", "false": "off", "off": "off",
+                "1": "on", "true": "on", "on": "on",
+                "auto": "auto",
+            }.get(str(val), opts.pc_fft)
+        elif key in ("ts_adapt_monitor", "snes_monitor", "ksp_monitor",
+                     "monitor"):
+            val, i = take_value(i)
+            opts.monitor = str(val) not in _FALSE
+        else:
+            # consume an attached value if one follows
+            val, i = take_value(i)
+            opts.unrecognized.append(tok if val is None else
+                                     "{t} {v}".format(t=tok, v=val))
+    if arkimex_scheme is not None and opts.ts_type == "arkimex":
+        opts.ts_type = arkimex_scheme
+    if saw_preonly and saw_pc_lu and not explicit_ksp:
+        # the reference's MUMPS configuration: an exact direct solve,
+        # routed once the grid is known (solvers.route_petsc_direct)
+        opts.petsc_direct = True
+        opts.unrecognized.append(
+            "ksp_type preonly + pc_type lu: exact direct solve "
+            "requested (routed onto -ksp_type banded/lu at startup "
+            "when the grid fits a host factorization)"
+        )
+    else:
+        opts.unrecognized.extend(pending_notes)
+    if opts.unrecognized:
+        # the -options_left analog: a typo in a numerics block is never
+        # silently absorbed
+        print(
+            "ksfd: numerics options ignored or translated: "
+            + "; ".join(opts.unrecognized),
+            file=sys.stderr,
+        )
+        logMAIN("ignored numerics options:", opts.unrecognized)
+    return opts

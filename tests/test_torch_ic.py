@@ -173,14 +173,44 @@ def test_start_values_draw_from_the_port_generator():
     assert abs(float(u1[0].mean()) - 9000.0) < 50.0
 
 
-def test_initial_values_and_resume():
+def test_initial_values_and_resume(tmp_path):
+    """A fresh start, then resume and restart from a written series:
+    the last snapshot, t (kept or t0), dt and lastvart by the
+    reference's priority (a dt= parameter over the file's), k and the
+    noise generator's state; the reference reads the file the same
+    way."""
+    from ksfd_tpu_torch.io import TimeSeries
+
     clargs = problem_clargs("options92-1d")
     ps = SolutionParameters(clargs)
-    _, tg = grids_for(ps)
+    jg, tg = grids_for(ps)
     u, t, extras = tic.initial_values(clargs, tg, ps, device="cpu")
     assert t == 0.0 and extras == {}
     ref, _ = tic.start_values(clargs, tg, ps, device="cpu")
     assert torch.equal(u, ref)
-    clargs.resume = "solutions/run"
-    with pytest.raises(NotImplementedError, match="A8"):
-        tic.initial_values(clargs, tg, ps, device="cpu")
+    prefix = str(tmp_path / "run")
+    ts = TimeSeries(prefix, grid=tg, mode="w")
+    u_last = u * 1.01
+    ts.store(u.numpy(), 0.0, k=0)
+    ts.store(u_last.numpy(), 1.5, k=7)
+    gen = torch.Generator().manual_seed(4)
+    ts.save_solver_state(t=1.5, dt=0.3, lastvart=1.25,
+                         rng_state=gen.get_state(), k=7)
+    ts.close()
+    nodt = [p for p in clargs.params if not p.startswith("dt=")]
+    for params, dt in ((clargs.params, 1.0), (nodt, 0.3)):
+        cl = make_clargs(params=params, resume=prefix)
+        tps, jps = SolutionParameters(cl), KJ.SolutionParameters(cl)
+        got, t1, ex = tic.initial_values(cl, tg, tps, device="cpu")
+        assert t1 == 1.5 and ex["k"] == 7 and torch.equal(u_last, got)
+        assert torch.equal(ex["rng_state"], gen.get_state())
+        assert (tps.params0["dt"], tps.params0["lastvart"]) == (dt, 1.25)
+        ju, jt, jex = jic.resume_values(cl, jg, jps)
+        np.testing.assert_array_equal(np.asarray(ju), got.numpy())
+        assert (jt, jex["k"]) == (t1, 7)
+        assert (jps.params0["dt"], jps.params0["lastvart"]) == (dt, 1.25)
+    cl = make_clargs(params=clargs.params, restart=prefix)
+    tps = SolutionParameters(cl)
+    got, t2, ex = tic.initial_values(cl, tg, tps, device="cpu")
+    assert t2 == 0.0 and ex == {} and torch.equal(u_last, got)
+    assert tps.params0["lastvart"] == 0.0

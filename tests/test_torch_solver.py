@@ -27,7 +27,7 @@ from ksfd_tpu.solvers import linalg as jlinalg
 from ksfd_tpu.solvers import make_multistep_fn as jmultistep
 from ksfd_tpu.solvers import make_step_fn as jstep
 from ksfd_tpu_torch import NumericsOptions
-from ksfd_tpu_torch import ic as tic
+from ksfd_tpu_torch import io as tio
 from ksfd_tpu_torch.interop import (
     numpy_from_tensors,
     problem_from_clargs,
@@ -159,9 +159,11 @@ def test_off_path_options_raise(problems, change):
 @pytest.mark.parametrize("build,item", [
     (lambda ops: tsolver.make_adaptive_chunk_fn(ops, mesh=object()),
      "A14"),
-    # the Solver runs (tests/test_torch_host_solver.py); resuming from a
-    # checkpoint is A8's I/O part
-    (lambda ops: tic.resume_values(None, ops.grid, ops.ps), "A8"),
+    # the Solver runs (tests/test_torch_host_solver.py) and resumes
+    # from a checkpoint (tests/test_torch_driver.py); a slab series,
+    # one block per rank, waits for the Solver on a mesh
+    (lambda ops: tio.snapshot_block(torch.zeros(ops.grid.Vshape),
+                                    ((0, 1),) * ops.grid.dim), "A14"),
 ], ids=["<lambda>-item 14", "<lambda>-item 8"])
 def test_later_entry_points_raise(problems, build, item):
     _, tops = problems
