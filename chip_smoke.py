@@ -7,8 +7,8 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs thirty-one phases,
-each printing one line:
+header, and csrc/pc2d.cu, all started together) and runs thirty-three
+phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the float32 matmul precision and the kernels' builds, with
@@ -143,9 +143,25 @@ each printing one line:
     gate (examples/eigenmode1d to t = 2e4 on the banded exact tier);
     ``--ensemble=4`` on examples/hexagons2d against EnsembleSolver run
     directly; and, without h5py, ``--save`` refused before any step
-    (with it, a 3 + 3 resume against 6 straight steps).
+    (with it, a 3 + 3 resume against 6 straight steps);
+32. the DIRK path (phase_dirk): the chained multistep at 1024^2 x 3
+    with ARK324 and ARK436 (f64) and ARK324 in the fast mode, exact
+    launches per step, ms/step and the device split beside phases 3 and
+    9; card vs CPU at 128^2 x 3; the flagship through ``main`` with
+    ``-ts_type arkimex`` on its device loop, launches = tier calls x per
+    attempt; the first steps of the reference's arkimex gate
+    (examples/eigenmode1d, tests/test_gates.py:80; the whole gate is
+    ``python -m ksfd_tpu_torch.tools.arkimex_gate``), its GMRES
+    fallback on the card; ``--ensemble=4`` on hexagons2d with arkimex;
+33. the pc forms (phase_pc_forms): the FFT block pc, the spectral pc
+    and the single-card bfloat16 block pc on the 2D main path at
+    1024^2 x 3, f64 and f32, beside the basis-GEMM pc (the FFT pc's
+    profile must show cuFFT and no GEMM), the FFT block pc at 256^3 x
+    3, and each form card vs CPU at 128^2 x 3.
 
-Then one JSON line of the nineteen kernels (B9's eight rows last) and,
+Then one JSON line of the nineteen kernels (B9's eight rows last) and
+of every phase's figures, the card's line, one short line per kernel
+(µs, bound, plain and library µs, launches per step on each path) and,
 last, the result line.  Any failed phase raises (a failed rank fails
 phase 27), so the exit code is not 0 and no result prints.  It imports
 nothing of JAX.  Profiles and long reports go to chiprun_out/.
@@ -168,6 +184,9 @@ import torch
 # __graft_entry__._make_problem's parameters and tests/helpers.py's
 from ksfd_tpu_torch.interop import problem_from_clargs
 from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch.tools import arkimex_gate
+# ``main`` in this process, recording the solver it builds (phases 31-32)
+from ksfd_tpu_torch.tools.arkimex_gate import drive_main as drive_cli
 from ksfd_tpu_torch.utils.device import card_line
 from ksfd_tpu_torch.tools.problems import (  # noqa: F401 (re-exported)
     OPTIONS92_PARAMS,
@@ -448,13 +467,16 @@ def library_gemms(per_kernel):
 
 def device_groups(per_kernel):
     """Device ms by group (library GEMMs, the fused pc's kernels, the
-    stencil kernels, the rest) of a profile's ms by kernel name."""
+    stencil kernels, cuFFT's kernels (the FFT pc), the rest) of a
+    profile's ms by kernel name."""
     groups = {"gemm": 0.0, "pc kernels": 0.0, "stencil kernels": 0.0,
-              "other": 0.0}
+              "fft": 0.0, "other": 0.0}
     for key, ms in per_kernel.items():
         low = key.lower()
         if "pc_gemm" in low:
             groups["pc kernels"] += ms
+        elif "fft" in low:
+            groups["fft"] += ms
         elif any(w in low for w in _LIBRARY_GEMM):
             groups["gemm"] += ms
         elif "ksfd" in low or any(
@@ -564,7 +586,9 @@ def phase_build():
     ] + [("3d %dx%dx%dx%d" % (ODD3 + (dof,)), agg3d_clargs(ODD3[0], dof),
           ODD3) for dof in FIELDS3] + [
         ("2d %dx%dx%d" % (RAGGED + (dof,)), bench_clargs(RAGGED[0], dof),
-         RAGGED) for dof in FIELDS2]
+         RAGGED) for dof in FIELDS2] + [
+        ("2d %d^2" % N_DIRK_CMP, bench_clargs(N_DIRK_CMP),
+         (N_DIRK_CMP, N_DIRK_CMP))]
     builds = []
     for label, clargs, shape in configs:
         # the header depends on the problem only, not on the device
@@ -883,13 +907,18 @@ def phase_rhs_kernels(card):
 
 
 def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
-                    pc_pallas=False):
+                    pc_pallas=False, extra=None, per_step=None, label="",
+                    figures=None, h=1.0):
     """make_multistep_fn at ``shape`` x 3, default numerics (f64) or the
     float32 fast mode, with the basis-GEMM pc or (``pc_pallas``) the
     fused pc, fixed dt h=1, from the near-uniform initial state: exact
     launch counts of the 2- and 10-step chains (each counted from 0 just
     before the chain), slope timing and a profiled 2-step chain, which
-    on the fused pc's path must show no library GEMM."""
+    on the fused pc's path must show no library GEMM.  ``extra``: more
+    NumericsOptions fields (a DIRK ``ts_type``, a pc form), with the
+    launches ``per_step`` they make and a ``label`` for the line and the
+    profile's file; ``figures`` (a dict) receives the device ms per step,
+    its groups and the busy share; ``h`` another step size."""
     from ksfd_tpu_torch import NumericsOptions
     from ksfd_tpu_torch.solvers import make_multistep_fn
 
@@ -897,9 +926,10 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
     ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
     kern = make_fused_kernels(ops)
     numerics = NumericsOptions(precision="float32" if fast32 else "float64",
-                               pc_pallas=pc_pallas)
-    per_step = (dict(rhs=4, jvp=8, resid=0, delta=0) if fast32
-                else dict(rhs=0, jvp=0, resid=8, delta=4))
+                               pc_pallas=pc_pallas, **(extra or {}))
+    if per_step is None:
+        per_step = (dict(rhs=4, jvp=8, resid=0, delta=0) if fast32
+                    else dict(rhs=0, jvp=0, resid=8, delta=4))
     if pc_pallas:
         per_step.update(pc_fwd=12, pc_inv=12)
     multi, _ = make_multistep_fn(ops, numerics, atol=0.01,
@@ -910,7 +940,7 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
         wrappers.update(multi.fused_pc.kernels)
     u0 = torch.as_tensor(initial_state(grid), device=dev)
     t0 = torch.zeros((), dtype=torch.float64, device=dev)
-    h = torch.full((), 1.0, dtype=torch.float64, device=dev)
+    h = torch.full((), h, dtype=torch.float64, device=dev)
 
     counts = {}
     for n in (2, 10):
@@ -958,10 +988,11 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     os.makedirs(OUT_DIR, exist_ok=True)
-    prec = ("f32" if fast32 else "f64") + (" pc_pallas" if pc_pallas else "")
-    fname = "main_path_profile%s%s%s.txt" % (
+    prec = (("f32" if fast32 else "f64") + (" pc_pallas" if pc_pallas else "")
+            + (" " + label if label else ""))
+    fname = "main_path_profile%s%s%s%s.txt" % (
         "" if len(shape) == 2 else "_3d", "_pc" if pc_pallas else "",
-        "_f32" if fast32 else "")
+        "_f32" if fast32 else "", "_" + label if label else "")
     with open(os.path.join(OUT_DIR, fname), "w") as fh:
         fh.write("%s\n2-step chain, %s x 3 %s, h=%g\n%s\n" % (
             card, tag, prec, float(h), table))
@@ -982,6 +1013,12 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
               "the pc_pallas chain runs the pc kernels and no library GEMM: "
               "%s" % library_gemms(per_kernel))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    if figures is not None:
+        figures.update(ms_per_step=step_s * 1e3, device_ms=device_ms,
+                       busy=device_ms / (step_s * 1e3), groups=groups,
+                       launches_per_step=dict(per_step), build_info={
+                           k: multi.build_info[k] for k in
+                           ("pc", "pc_dtype", "mixed32", "fast32")})
     print("phase %d main path %s x3 %s h=%g (%s): counts %s; emax %.6e; "
           "max|u10-u0| %.6e; %.4f ms/step (2-step %.4f s, 10-step %.4f s); "
           "%.6e DOF-updates/s | profiled device ms/step %.4f (busy %.3f of "
@@ -996,19 +1033,23 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
 
 
 def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase,
-                      fast32=False, pc_pallas=False):
+                      fast32=False, pc_pallas=False, extra=None, rel=1e-5):
     """The slice at ``shape`` x 3 on the card (kernels) and on the CPU
     (plain versions) from one state made on the CPU: 4 chained steps at
     h=1e-4, agreeing to 1e-5 of the summed per-step increment (f64), or
     in the float32 fast mode to 1e-4 of it plus 4 float32 ulps of the
-    state, which is float32 itself."""
+    state, which is float32 itself.  ``extra``: more NumericsOptions
+    fields (named in the line); ``rel`` another float64 bound (the
+    bfloat16 pc's, whose M rounds apart on the two devices)."""
     from ksfd_tpu_torch import NumericsOptions
     from ksfd_tpu_torch.solvers import make_multistep_fn
 
     numerics = NumericsOptions(precision="float32" if fast32 else "float64",
-                               pc_pallas=pc_pallas)
+                               pc_pallas=pc_pallas, **(extra or {}))
     if pc_pallas:
         tag += " pc_pallas"
+    if extra:
+        tag += " " + " ".join("%s=%s" % kv for kv in sorted(extra.items()))
     runs = {}
     state = None
     for dev in ("cpu", "cuda"):
@@ -1036,14 +1077,15 @@ def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase,
         tol = 1e-4 * inc + ulps
         terms = "1e-4*inc %.6e + 4 ulps of max|u| %.6e" % (1e-4 * inc, ulps)
     else:
-        tol = 1e-5 * inc
-        terms = "1e-5*inc %.6e" % tol
+        tol = rel * inc
+        terms = "%g*inc %.6e" % (rel, tol)
     check(dev_abs <= tol, "card vs cpu: %.3e > %s" % (dev_abs, terms))
     print("phase %d card vs cpu %s x3 %s rough h=1e-4 x4 (%s): max dev "
           "%.3e, summed increment %.6e, dev/inc %.3e, bound %.6e (%s); "
           "emax cuda %.6e cpu %.6e" % (
               phase, tag, "f32" if fast32 else "f64", card, dev_abs, inc,
               dev_abs / inc, tol, terms, runs["cuda"][1], runs["cpu"][1]))
+    return dict(max_dev=dev_abs, increment=inc, bound=tol)
 
 
 def pc_step_scalars(ops, u64, h=1.0):
@@ -3554,45 +3596,6 @@ def cut_options(example, name, **lines):
     return "@" + path
 
 
-def drive_cli(*argv):
-    """``ksfd_tpu_torch.ksfdsolver.main`` in this process on argv,
-    recording the Solver or EnsembleSolver it builds: (status, the
-    solver, its monitor records [(perf_counter, k, t)], seconds from
-    the call to the first monitor call (the CLI's setup: parsing,
-    sympy, the problem and its kernels' build or load, the start),
-    seconds of the rest)."""
-    from ksfd_tpu_torch import ksfdsolver
-
-    seen = []
-    bases = {name: getattr(ksfdsolver, name)
-             for name in ("Solver", "EnsembleSolver")}
-
-    def recording(base):
-        class Recorded(base):
-            def __init__(self, *a, **kw):
-                super().__init__(*a, **kw)
-                self.records = []
-                self.add_monitor(lambda s, k, t, u: s.records.append(
-                    (time.perf_counter(), k, t)))
-                seen.append(self)
-        return Recorded
-
-    for name, base in bases.items():
-        setattr(ksfdsolver, name, recording(base))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        status = ksfdsolver.main("ksfd_tpu_torch", *argv)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-    finally:
-        for name, base in bases.items():
-            setattr(ksfdsolver, name, base)
-    s = seen[-1] if seen else None
-    setup = s.records[0][0] - t0 if s is not None and s.records else None
-    return status, s, setup, t1 - (t0 + setup) if setup is not None else None
-
-
 def phase_entry_point(card, flag30, u_flag):
     """The port's driver (ksfd_tpu_torch/ksfdsolver.py main, what
     ``python -m ksfd_tpu_torch`` runs) in this process on the card.
@@ -3774,6 +3777,235 @@ def phase_entry_point(card, flag30, u_flag):
     return fig
 
 
+#: phase 32's DIRK paths at 1024^2 x 3: (label, NumericsOptions fields,
+#: fast mode, launches per chained step at 3 sweeps, h).  The fast mode
+#: runs at h=1e-2: at h=1 its float32 stage values, whose rounding the
+#: ESDIRK combination adds to u undamped, blow up on the near-uniform
+#: 1024^2 state, in the reference too (error norms 44.9, then 83795, on
+#: the CPU through its XLA path)
+DIRK_PATHS = [
+    ("ark324", dict(ts_type="arkimex"), False,
+     dict(rhs=0, jvp=0, resid=12, delta=10), 1.0),
+    ("ark436", dict(ts_type="ark436"), False,
+     dict(rhs=0, jvp=0, resid=20, delta=16), 1.0),
+    ("ark324", dict(ts_type="arkimex"), True,
+     dict(rhs=10, jvp=12, resid=0, delta=0), 1e-2),
+]
+N_DIRK_CMP = 128
+#: phase 32 (d) runs the arkimex gate's first steps, past its first
+#: failures: the whole gate (python -m ksfd_tpu_torch.tools.arkimex_gate)
+#: is its GMRES fallback for most of its steps, launch-bound on the card
+#: (390.58 s in PR 16's chip run), past this script's time limit
+DIRK_GATE_HEAD = 12
+
+
+def phase_dirk(card, rosw_flag, rosw_f64, rosw_f32):
+    """Phase 32, the DIRK path (ARK324 and ARK436, solvers/solver.py
+    ``_combine_dirk``) on the card.
+
+    (a) the fixed-dt chained multistep at 1024^2 x 3, ARK324 and ARK436
+        in float64 at h=1 and ARK324 in the fast mode at h=1e-2
+        (DIRK_PATHS; phase_main_path:
+        exact launches per step, slope-timed ms/step, the profiled
+        device split), beside phases 3 and 9's ROS34PW2 figures;
+    (b) card against CPU at 128^2 x 3 for 4 steps, ARK324 f64 and f32
+        and ARK436 f64, within phase 4's and 10's gates;
+    (c) the flagship (examples/aggregation2d, 1536^2 x 3) through
+        ``main`` with ``--numerics -device_loop 1 -ts_type arkimex --``
+        for FLAG_ACCEPTS accepts from ic.start_values: ms per accept
+        beside phase 31 (a)'s rosw run, launches = tier calls x per
+        attempt (rich3: 12 resid, 10 delta);
+    (d) the reference's arkimex gate (tests/test_gates.py:80,
+        tools/arkimex_gate.py: examples/eigenmode1d cut to tmax=2e4
+        with ``-ts_type arkimex`` at its ``-snes_type ksponly``), its
+        first DIRK_GATE_HEAD steps: the card, finite, the float64 GMRES
+        fallback run (the whole gate is the tool's own run);
+    (e) ``--ensemble=4`` on examples/hexagons2d at 384^2 x 3 with
+        arkimex on the device loop, CLI_ENS_ACCEPTS accepts."""
+    fig = {}
+    big = "%d^2" % N_BIG
+    for label, extra, fast32, per_step, h in DIRK_PATHS:
+        key = "%s_%s" % (label, "f32" if fast32 else "f64")
+        f = {}
+        counts, step_s, _ = phase_main_path(
+            card, big, bench_clargs(N_BIG), (N_BIG, N_BIG), 32,
+            fast32=fast32, extra=extra, per_step=per_step, label=label,
+            figures=f, h=h)
+        f.update(launches=counts, h=h)
+        f["ms_per_step_rosw"] = (rosw_f32 if fast32 else rosw_f64)[
+            "ms_per_step"]
+        f["device_ms_rosw"] = (rosw_f32 if fast32 else rosw_f64)[
+            "device_ms"]
+        fig[key] = f
+    cmp = "%d^2" % N_DIRK_CMP
+    for extra, fast32 in ((dict(ts_type="arkimex"), False),
+                          (dict(ts_type="arkimex"), True),
+                          (dict(ts_type="ark436"), False)):
+        fig["card_vs_cpu_%s_%s" % (extra["ts_type"], "f32" if fast32
+                                   else "f64")] = phase_card_vs_cpu(
+            card, cmp, bench_clargs(N_DIRK_CMP), (N_DIRK_CMP,) * 2,
+            rough_state, 32, fast32=fast32, extra=extra)
+    lines = []
+    ark = ("--numerics", "-device_loop", "1", "-ts_type", "arkimex", "--")
+    # (c) the flagship through main
+    opt = cut_options("aggregation2d", "aggregation2d_arkimex",
+                      maxsteps=FLAG_ACCEPTS)
+    status, s, setup, rest = drive_cli(opt, *ark)
+    launches = launch_counts(s.kernels)
+    st = s.stats
+    per_tier = tier_launches(s._chunk, s.ops, s.ops.groom(s.u), s.t)
+    want = {n: sum(c * pt[n] for c, pt in zip(st.tier_calls, per_tier))
+            for n in launches}
+    check(status == 0 and s.k == FLAG_ACCEPTS and not s.diverged
+          and s.tableau.name == "ark324l2sa"
+          and bool(torch.isfinite(s.u).all()),
+          "the arkimex flagship: status %d k %d diverged %s tableau %s" % (
+              status, s.k, s.diverged, s.tableau.name))
+    check(launches == want and per_tier[0] == dict(
+        rhs=0, jvp=0, resid=12, delta=10),
+          "the arkimex flagship's launches %s, want %s (tier calls %s, per "
+          "attempt %s)" % (launches, want, st.tier_calls, per_tier))
+    fig["flagship"] = dict(
+        accepts=s.k, t=s.t, h=s.h, setup_s=setup,
+        ms_per_accept=rest / s.k * 1e3,
+        rosw_ms_per_accept_phase31=rosw_flag["ms_per_accept"],
+        rosw_t_phase31=rosw_flag["t"], dispatches=st.dispatches,
+        tier_calls=st.tier_calls, on_device_rejections=st.chunk_rejections,
+        host_retries=st.host_retries, fallback_steps=st.fallback_steps,
+        launches=launches, launches_per_attempt=per_tier)
+    lines.append(
+        "(c) python -m ksfd_tpu_torch @examples/aggregation2d (maxsteps=%d) "
+        "--numerics -device_loop 1 -ts_type arkimex --, %d^2x3: setup %.2f "
+        "s, %.3f ms/accept to t=%.6g (rosw, phase 31 (a): %.3f to t=%.6g), "
+        "%d dispatches, tier calls %s, %d on-device rejections, %d host "
+        "retries; launches %s = tier calls x per attempt %s" % (
+            FLAG_ACCEPTS, N_AGG, setup, fig["flagship"]["ms_per_accept"],
+            s.t, rosw_flag["ms_per_accept"], rosw_flag["t"], st.dispatches,
+            st.tier_calls, st.chunk_rejections, st.host_retries, launches,
+            per_tier))
+    del s
+    # (d) the arkimex gate's first steps (the whole gate: the tool)
+    gate = arkimex_gate.run(maxsteps=DIRK_GATE_HEAD)
+    check(gate["ok"] and gate["device"].startswith("cuda")
+          and gate["fallback_steps"] > 0,
+          "the arkimex gate's first %d steps: %s" % (DIRK_GATE_HEAD, gate))
+    fig["arkimex_gate_head"] = gate
+    lines.append(
+        "(d) the arkimex gate's first %d steps (eigenmode1d 128x3, "
+        "-ts_type arkimex, -snes_type ksponly, iterative: the direct tier "
+        "is Rosenbrock-only): to t=%.6g, %d failures, %d fallback steps "
+        "(GMRES, 4 Newton iterations), %.2f s (setup %.2f); the whole "
+        "gate is python -m ksfd_tpu_torch.tools.arkimex_gate" % (
+            gate["steps"], gate["t"], gate["failures"],
+            gate["fallback_steps"], gate["seconds"], gate["setup_s"]))
+    # (e) the ensemble
+    opt = cut_options("hexagons2d", "hexagons2d_arkimex",
+                      maxsteps=CLI_ENS_ACCEPTS)
+    status, es, setup, rest = drive_cli(opt, "--ensemble=%d" % CLI_MEMBERS,
+                                        *ark)
+    ens_launches = launch_counts(es.kernels)
+    check(status == 0 and (es.ks == CLI_ENS_ACCEPTS).all()
+          and es.tableau.name == "ark324l2sa"
+          and bool(torch.isfinite(es.u).all())
+          and ens_launches["resid"] > 0 and ens_launches["delta"] > 0,
+          "--ensemble=%d arkimex: status %d k %s launches %s" % (
+              CLI_MEMBERS, status, es.ks, ens_launches))
+    fig["ensemble"] = dict(members=CLI_MEMBERS, accepts=CLI_ENS_ACCEPTS,
+                           setup_s=setup,
+                           ms_per_ensemble_accept=rest / CLI_ENS_ACCEPTS
+                           * 1e3, t=list(es.ts), launches=ens_launches,
+                           tier_calls=list(es._chunk.totals.calls))
+    lines.append(
+        "(e) --ensemble=%d hexagons2d %d^2x3 -ts_type arkimex (ksponly), "
+        "device loop, %d accepts: setup %.2f s, %.3f ms per accepted "
+        "ensemble step, tier calls %s; launches %s" % (
+            CLI_MEMBERS, N_HEX, CLI_ENS_ACCEPTS, setup,
+            fig["ensemble"]["ms_per_ensemble_accept"],
+            list(es._chunk.totals.calls), ens_launches))
+    del es
+    print("phase 32 DIRK (%s): %s" % (card, " | ".join(lines)))
+    return fig
+
+
+#: phase 33's pc forms: (label, NumericsOptions fields)
+PC_FORMS = [("fft", dict(pc_fft="on")), ("spectral", dict(pc_type="spectral")),
+            ("bf16", dict(pc_dtype="bfloat16"))]
+
+
+def phase_pc_forms(card, gemm_f64, gemm_f32):
+    """Phase 33, the preconditioner forms beside the block pc's basis
+    GEMMs (solvers/linalg.py): the FFT block pc (``pc_fft`` on, cuFFT
+    through torch.fft), the spectral pc and the single-card bfloat16
+    block pc, each on the 2D main path at 1024^2 x 3 in float64 and the
+    fast mode (phase_main_path: the default launches per step, ms/step,
+    the device split against phases 3 and 9's basis-GEMM pc); the FFT
+    block pc at 256^3 x 3; each form on the card against the CPU at
+    128^2 x 3 (within 1e-5 of the increment; the bfloat16 pc within
+    1e-4, its M rounding apart on the two devices, as its CPU test
+    against the reference holds it)."""
+    fig = {}
+    big = "%d^2" % N_BIG
+    for label, extra in PC_FORMS:
+        for fast32 in (False, True):
+            f = {}
+            counts, _, _ = phase_main_path(
+                card, big, bench_clargs(N_BIG), (N_BIG, N_BIG), 33,
+                fast32=fast32, extra=extra, label=label, figures=f)
+            gemm = gemm_f32 if fast32 else gemm_f64
+            f.update(launches=counts,
+                     basis_gemm_ms_per_step=gemm["ms_per_step"],
+                     basis_gemm_device_ms=gemm["device_ms"],
+                     basis_gemm_groups=gemm["groups"])
+            if label == "fft":
+                check(f["groups"]["fft"] > 0 and f["groups"]["gemm"] == 0,
+                      "the FFT pc's profile shows cuFFT and no GEMM: %s"
+                      % f["groups"])
+            fig["%s_%s" % (label, "f32" if fast32 else "f64")] = f
+    f = {}
+    counts, _, _ = phase_main_path(
+        card, "%d^3" % N3_BIG, agg3d_clargs(N3_BIG), (N3_BIG,) * 3, 33,
+        extra=dict(pc_fft="on"), label="fft", figures=f)
+    f["launches"] = counts
+    fig["fft_3d_f64"] = f
+    cmp = "%d^2" % N_DIRK_CMP
+    for label, extra in PC_FORMS:
+        fig["card_vs_cpu_" + label] = phase_card_vs_cpu(
+            card, cmp, bench_clargs(N_DIRK_CMP), (N_DIRK_CMP,) * 2,
+            rough_state, 33, extra=extra,
+            rel=1e-4 if label == "bf16" else 1e-5)
+    print("phase 33 pc forms (%s): device ms/step f64, f32 (basis-GEMM "
+          "%.4f, %.4f): %s" % (
+              card, gemm_f64["device_ms"], gemm_f32["device_ms"],
+              "; ".join("%s %.4f, %.4f (GEMM %.4f, %.4f; FFT %.4f, %.4f)" % (
+                  label, fig[label + "_f64"]["device_ms"],
+                  fig[label + "_f32"]["device_ms"],
+                  fig[label + "_f64"]["groups"]["gemm"],
+                  fig[label + "_f32"]["groups"]["gemm"],
+                  fig[label + "_f64"]["groups"]["fft"],
+                  fig[label + "_f32"]["groups"]["fft"])
+                  for label, _ in PC_FORMS)))
+    return fig
+
+
+def kernel_lines(rows):
+    """One short line per kernel row: µs, bound µs, plain µs, library µs
+    and the launches per step on each path (the tail of the output keeps
+    them where the kernels line may be cut)."""
+    us = lambda x: "-" if x is None else "%.2f" % (1e3 * x)
+    out = []
+    for r in rows:
+        per = r.get("launches_per_step", {})
+        out.append("kernel %s: %s us (bound %s us, by %s; plain %s us; "
+                   "library %s us); launches %d; per step: %s" % (
+                       r["name"], us(r["ms"]), us(r["bound_ms"]),
+                       r["bound_by"], us(r["plain_ms"]),
+                       us(r["library_ms"]), r["launches"],
+                       ", ".join("%s %s" % (p, ("%g" % c) if isinstance(
+                           c, (int, float)) else c)
+                                 for p, c in per.items())))
+    return out
+
+
 def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
                 extra=None):
     """One row per kernel of ``kern`` (a namespace of wrappers by name,
@@ -3847,9 +4079,10 @@ def main():
     card = phase_device()
     ptxas_pc, sass_pc = timed("build", phase_build)
     kern, errs, rel, times = timed("2", phase_kernels, card)
+    main_f64, main_f32 = {}, {}
     counts, step_s, rate = timed(
         "3", phase_main_path, card, "%d^2" % N_BIG, bench_clargs(N_BIG),
-        (N_BIG, N_BIG), 3)
+        (N_BIG, N_BIG), 3, figures=main_f64)
     timed("4", phase_card_vs_cpu, card, "%d^2" % N_CMP, bench_clargs(N_CMP),
           (N_CMP, N_CMP), rough_state, 4)
     kern3, errs3, rel3, times3 = timed("5", phase_kernels_3d, card)
@@ -3862,7 +4095,7 @@ def main():
     rhs = timed("8", phase_rhs_kernels, card)
     counts32, step32_s, rate32 = timed(
         "9 2d", phase_main_path, card, "%d^2" % N_BIG, bench_clargs(N_BIG),
-        (N_BIG, N_BIG), 9, fast32=True)
+        (N_BIG, N_BIG), 9, fast32=True, figures=main_f32)
     counts32_3, step32_3_s, rate32_3 = timed(
         "9 3d", phase_main_path, card, "%d^3" % N3_BIG,
         agg3d_clargs(N3_BIG), (N3_BIG,) * 3, 9, fast32=True)
@@ -3931,6 +4164,9 @@ def main():
     solver30, u_flag = timed("30", phase_solver, card)
     cli31 = timed("31", phase_entry_point, card, solver30["flagship"], u_flag)
     del u_flag
+    dirk32 = timed("32", phase_dirk, card, cli31["flagship"], main_f64,
+                   main_f32)
+    forms33 = timed("33", phase_pc_forms, card, main_f64, main_f32)
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -3967,13 +4203,31 @@ def main():
     runs2d += [cli["launches"], cli31["ensemble"]["launches"]]
     per_step["cli_flagship"] = {n: c / cli["accepts"]
                                 for n, c in cli["launches"].items()}
+    # the DIRK paths (phase 32) and the pc forms (phase 33): per step of
+    # the chained multistep, per accepted step of the driver's arkimex
+    # flagship
+    for prefix, figs in (("dirk_", dirk32), ("pc_", forms33)):
+        for key, f in figs.items():
+            # the 2D multistep runs: 10 steps each
+            if key.endswith(("_f64", "_f32")) and "launches" in f \
+                    and key != "fft_3d_f64":
+                per_step[prefix + key] = {n: c // 10
+                                          for n, c in f["launches"].items()}
+                runs2d.append(f["launches"])
+    ark = dirk32["flagship"]
+    runs2d += [ark["launches"], dirk32["ensemble"]["launches"]]
+    per_step["cli_flagship_arkimex"] = {n: c / ark["accepts"]
+                                        for n, c in ark["launches"].items()}
     totals = {n: sum(c.get(n, 0) for c in runs2d)
               for n in list(kern.kernels) + ["pc_fwd", "pc_inv"]}
     per_step3 = {"f64": {n: c // 10 for n, c in counts3.items()},
                  "f32": {n: c // 10 for n, c in counts32_3.items()},
                  "ensemble_f64": ens3["f64", 1]["per_step"],
                  "ensemble_f32": ens3[ENS3_RUNS[-1]]["per_step"]}
-    runs3d = [counts3, counts32_3, agg3["launches"]] + [
+    per_step3["pc_fft_f64"] = {n: c // 10 for n, c in
+                               forms33["fft_3d_f64"]["launches"].items()}
+    runs3d = [counts3, counts32_3, agg3["launches"],
+              forms33["fft_3d_f64"]["launches"]] + [
         f["launches"] for f in ens3.values()]
     totals3 = {n: sum(c.get(n, 0) for c in runs3d) for n in kern3.kernels}
     big = "%d^2" % N_BIG
@@ -4009,19 +4263,19 @@ def main():
                                "coeff_resid": b11["probe"]["coeff_us"]},
         "prepare_ms": b11["prepare_ms"],
     }
-    print(card)
+    rows = (kernel_rows(kern, "ksfd_tpu_torch/csrc/stencil2d.cu",
+                        per_step, totals, errs, rel, times, "",
+                        extra=batched_keys(batched, batched_errs))
+            + [b11_row]
+            + kernel_rows(kern3, "ksfd_tpu_torch/csrc/stencil3d.cu",
+                          per_step3, totals3, errs3, rel3, times3, "3d",
+                          extra=batched_keys(batched3, batched3_errs))
+            + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
+                          totals, pc_errs, pc_rel, pc_times, "",
+                          extra=pc_extra)
+            + b9_rows(halo, one_rank, b9_totals))
     print(json.dumps({
-        "kernels": kernel_rows(kern, "ksfd_tpu_torch/csrc/stencil2d.cu",
-                               per_step, totals, errs, rel, times, "",
-                               extra=batched_keys(batched, batched_errs))
-        + [b11_row]
-        + kernel_rows(kern3, "ksfd_tpu_torch/csrc/stencil3d.cu",
-                      per_step3, totals3, errs3, rel3, times3, "3d",
-                      extra=batched_keys(batched3, batched3_errs))
-        + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
-                      totals, pc_errs, pc_rel, pc_times, "",
-                      extra=pc_extra)
-        + b9_rows(halo, one_rank, b9_totals),
+        "kernels": rows,
         "ptxas_pc2d": ptxas_pc,
         "sass_pc2d": sass_pc,
         "ms_per_step": step_s * 1e3, "dof_updates_per_s": rate,
@@ -4046,7 +4300,14 @@ def main():
         "time_dependent_coefficients": tdep,
         "solver": solver30,
         "entry_point": cli31,
+        "dirk": dirk32,
+        "pc_forms": forms33,
     }))
+    # the card, and one short line per kernel, where the returned end of
+    # the output keeps them
+    print(card)
+    for line in kernel_lines(rows):
+        print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

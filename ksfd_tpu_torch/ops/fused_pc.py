@@ -162,12 +162,14 @@ def fused_pc_refusal(grid, ops, pc_dtype="float32"):
     return None
 
 
-def reference_fuses(grid):
+def reference_fuses(grid, use_fft=False):
     """Whether the reference's gate (ksfd_tpu/ops/pallas_pc.py:66-87,
     ``pallas_pc_available``) admits the extents of this 2D grid: a
     128-aligned x and y, and its resident fields and y basis within half
-    of its 100 MiB scoped-VMEM limit (pallas_stencil.py:77)."""
-    if grid.dim != 2:
+    of its 100 MiB scoped-VMEM limit (pallas_stencil.py:77).  Never with
+    the FFT pc (``use_fft``): the reference fuses only the basis form
+    (ksfd_tpu/solvers/solver.py:258-263, ``not precond.use_fft``)."""
+    if grid.dim != 2 or use_fft:
         return False
     nx, ny = (int(n) for n in grid.nps)
     resident = grid.dof * nx * ny * 4 + ny * ny * 4

@@ -1,4 +1,13 @@
-from .steppers import Tableau, ROS34PW2, BEULER, get_tableau, wlte_norm_delta
+from .steppers import (
+    ARK324,
+    ARK436,
+    BEULER,
+    DIRKTableau,
+    ROS34PW2,
+    Tableau,
+    get_tableau,
+    wlte_norm_delta,
+)
 from .linalg import SpectralPreconditioner, BlockSpectralPreconditioner
 from .gmres import (
     chebyshev_solve,
@@ -17,8 +26,11 @@ from .ensemble import EnsembleSolver, shard_members
 
 __all__ = [
     "Tableau",
+    "DIRKTableau",
     "ROS34PW2",
     "BEULER",
+    "ARK324",
+    "ARK436",
     "get_tableau",
     "wlte_norm_delta",
     "SpectralPreconditioner",

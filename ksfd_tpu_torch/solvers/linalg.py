@@ -1,49 +1,59 @@
 """Spectral preconditioners for the implicit stage solves.
 
 Counterpart: ksfd_tpu/solvers/linalg.py:SpectralPreconditioner and
-:BlockSpectralPreconditioner, in their basis-GEMM form, 1D, 2D and 3D.
+:BlockSpectralPreconditioner, 1D, 2D and 3D, in both of their forms.
 On the periodic uniform grid the discrete Laplacian is diagonalized
 exactly by the orthonormal real-DFT basis (ops/stencil.py
-real_dft_basis), so a transform is ``v @ Qx`` per field in 1D,
-``Qx^T @ v @ Qy`` in 2D and its inverse ``c @ Qx^T`` or ``Qx @ c @
-Qy^T`` — plain matrix products, which the
-reference leaves to XLA and the port leaves to ``torch.matmul``.  In 3D
-the reference's four-operand einsums (``"fijm,ik,jl,mn->fkln"`` and
+real_dft_basis), so the **basis-GEMM form**'s transform is ``v @ Qx``
+per field in 1D, ``Qx^T @ v @ Qy`` in 2D and its inverse ``c @ Qx^T``
+or ``Qx @ c @ Qy^T`` — plain matrix products, which the reference
+leaves to XLA and the port leaves to ``torch.matmul``.  In 3D the
+reference's four-operand einsums (``"fijm,ik,jl,mn->fkln"`` and
 ``"fkln,ik,jl,mn->fijm"``) are written as three single-axis products,
-last axis first, so no intermediate is larger than the state.  The
-per-mode arrow solve between them is elementwise tensor arithmetic (XLA
-code in the reference too, ``_arrow_solve``).  Behind ``-pc_pallas 1``
-the whole 2D apply is the hand-written CUDA pair of ops/fused_pc.py
-instead.
+so no intermediate is larger than the state.  The per-mode arrow solve
+between them is elementwise tensor arithmetic (XLA code in the
+reference too, ``_arrow_solve``).  Behind ``-pc_pallas 1`` the whole 2D
+apply is the hand-written CUDA pair of ops/fused_pc.py instead.
 
-The transforms run in the compute dtype (float32 by default, as
-``pc_dtype`` auto resolves on one device).  On the card a float32
-product must run in full float32: the caller keeps
+The **FFT form** (``use_fft``, ``-pc_fft``) applies the same circulant
+inverse through ``torch.fft.rfftn``/``irfftn`` over the field axes:
+complex64 coefficients on the rfft shape, ``lam`` the discrete
+stencil's exact symbol there (ops/stencil.py laplacian_symbol).  As the
+reference's, it is float32 whatever ``pc_dtype`` asks (its clamp,
+linalg.py:110-125).
+
+The transforms run in the transform dtype, ``pc_dtype`` (float32 by
+default, as ``pc_dtype`` auto resolves on one device).  bfloat16, on
+one card or on a mesh, runs the forward products on bfloat16 operands
+and stores their intermediates and the mode coefficients in bfloat16;
+the mode arithmetic, and the inverse products from the bf16-rounded
+coefficients and bases, run in float32, so the final inverse output is
+float32 (the reference's ``preferred_element_type``: a bf16 x bf16
+product is exact in float32).  On the card a float32 product must run
+in full float32: the caller keeps
 ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default;
 chip_smoke.py sets and records it).
 
 On a slab mesh (parallel/mesh.py) the apply is
-``make_sharded_block_apply``, the counterpart of linalg.py:295: the
-forward products contract only this rank's x rows, the partial mode
-coefficients are cast to the transform dtype and summed over the ranks
-in ONE all_reduce per apply, the arrow solve runs replicated, and the
-inverse products give only the local rows.  There ``pc_dtype``
-bfloat16 (the default on more than one rank) runs the transforms on
-bfloat16 operands and stores their intermediates and the reduced
-coefficients in bfloat16, the mode arithmetic and the inverse products
-in float32; bfloat16 runs in no other apply.
-Not ported yet: the FFT form (``pc_fft``, ROADMAP Queue A item 8, A4).
+``make_sharded_block_apply``, the counterpart of linalg.py:295, on the
+same products (``forward_products``, ``inverse_products``) with this
+rank's rows of Qx: the partial mode coefficients are cast to the
+transform dtype and summed over the ranks in ONE all_reduce per apply,
+the arrow solve runs replicated, and the inverse products give only
+the local rows.  The FFT form is single-card only, as the reference's
+is (an FFT along the split axis would gather).
 """
 
 import torch
 from torch import nn
 
-from ..ops.stencil import laplacian_eigendecomp
+from ..ops.stencil import laplacian_eigendecomp, laplacian_symbol
 from ..parallel.mesh import all_reduce_sum
 from ..utils.device import resolve_device
 
 __all__ = ["SpectralPreconditioner", "BlockSpectralPreconditioner",
-           "make_sharded_block_apply"]
+           "make_sharded_block_apply", "forward_products",
+           "inverse_products"]
 
 _DTYPES = {
     None: torch.float32,
@@ -56,20 +66,68 @@ _DTYPES = {
 }
 
 
+def forward_products(v, qx, qy=None, qz=None, slab=False, nx=None):
+    """The forward basis transform of ``v`` (dof, nx, ...) against the
+    per-axis bases: ``v qx`` in 1D, ``(qx^T v) qy`` in 2D, and in 3D the
+    last axis first (``v qz``, then ``qy^T``, then ``qx^T``).  With
+    ``slab`` v holds a rank's x rows and ``qx`` (rows, nx) its rows of
+    the x basis: the x contraction comes last (in 2D ``qx^T (v qy)``),
+    and ``nx`` is the global extent.  The products run in the operands'
+    dtype, so bfloat16 operands give bfloat16 intermediates and
+    coefficients."""
+    if qy is None:
+        return torch.matmul(v, qx)
+    if qz is None:
+        if slab:
+            return torch.matmul(qx.T, torch.matmul(v, qy))
+        return torch.matmul(torch.matmul(qx.T, v), qy)
+    f, rows = v.shape[0], v.shape[1]
+    nx = qx.shape[1] if nx is None else nx
+    c = torch.matmul(v, qz)                                   # m -> n
+    c = torch.matmul(qy.T, c)                                 # j -> l
+    c = torch.matmul(qx.T, c.reshape(f, rows, -1))            # i -> k
+    return c.reshape((f, nx) + tuple(v.shape[2:]))
+
+
+def inverse_products(c, qx, qy=None, qz=None, slab=False):
+    """The inverse basis transform of the mode coefficients ``c`` (dof,
+    nx, ...): ``c qx^T`` in 1D, ``(qx c) qy^T`` in 2D, and in 3D the last
+    axis first (``qz^T``, then ``qy``, then ``qx``), in the operands'
+    dtype.  With ``slab`` ``qx`` (rows, nx) holds a rank's rows of the x
+    basis and the x product comes first, giving only those rows."""
+    if qy is None:
+        return torch.matmul(c, qx.T)
+    if qz is None:
+        return torch.matmul(torch.matmul(qx, c), qy.T)
+    f, rest = c.shape[0], tuple(c.shape[2:])
+    if not slab:
+        o = torch.matmul(c, qz.T)                             # n -> m
+        o = torch.matmul(qy, o)                               # l -> j
+        o = torch.matmul(qx, o.reshape(f, c.shape[1], -1))    # k -> i
+        return o.reshape(c.shape)
+    o = torch.matmul(qx, c.reshape(f, c.shape[1], -1))        # k -> i
+    o = o.reshape((f, qx.shape[0]) + rest)
+    o = torch.matmul(qy, o)                                   # l -> j
+    return torch.matmul(o, qz.T)                              # n -> m
+
+
 class SpectralPreconditioner(nn.Module):
     """M^{-1} for W = shift*I - J, inverting each field's stiff part
     ``decay_f - diff_f * Laplacian`` exactly per Fourier mode.
 
     Counterpart: ksfd_tpu/solvers/linalg.py:SpectralPreconditioner.
-    Buffers: ``Qx``, ``Qy`` (and ``Qz`` in 3D), the per-axis bases;
+    Buffers of the basis-GEMM form: ``Qx``, ``Qy`` (and ``Qz`` in 3D),
+    the per-axis bases in the transform dtype (with bfloat16 also
+    ``Qx_cd`` etc., the same bf16 values in float32, for the inverse);
     ``lam``, the total Laplacian eigenvalue per mode (<= 0, float64,
-    shape ``grid.Sshape``); and ``lam_cd``, the same values in the
-    compute dtype (not saved: it follows ``lam`` on load), so an apply
-    does not re-cast the whole mode array.  Buffers live on ``device``,
-    the card unless given (utils/device.py).
+    shape ``grid.Sshape``).  The FFT form (``use_fft``) has no basis and
+    ``lam`` on the rfft shape in float32, as the reference's.
+    ``lam_cd`` holds ``lam`` in the compute dtype (not saved: it follows
+    ``lam`` on load), so an apply does not re-cast the whole mode array.
+    Buffers live on ``device``, the card unless given (utils/device.py).
     """
 
-    def __init__(self, grid, compute_dtype=None, device=None):
+    def __init__(self, grid, compute_dtype=None, device=None, use_fft=False):
         super().__init__()
         if compute_dtype not in _DTYPES:
             raise NotImplementedError("pc dtype %r" % (compute_dtype,))
@@ -77,65 +135,75 @@ class SpectralPreconditioner(nn.Module):
         td = _DTYPES[compute_dtype]
         # bfloat16: bf16 transforms (the bases stored so), f32 modes
         cd = torch.float32 if td == torch.bfloat16 else td
+        self.use_fft = bool(use_fft)
         self.transform_dtype = td
-        self.compute_dtype = cd
         self.dim = grid.dim
         self.sshape = tuple(grid.Sshape)
         sw = grid.stencil_width
-        lam = None
-        for d, name in enumerate(("Qx", "Qy", "Qz")[: grid.dim]):
-            Q, ld = laplacian_eigendecomp(
-                int(grid.nps[d]), float(grid.spacing[d]), sw
-            )
-            self.register_buffer(
-                name, torch.as_tensor(Q, dtype=td, device=device)
-            )
-            # total eigenvalue per mode: lam_x (+ lam_y (+ lam_z))
-            lam = ld if lam is None else lam[..., None] + ld
-        # lam stays float64 like the reference's numpy total
-        self.register_buffer(
-            "lam", torch.as_tensor(lam, dtype=torch.float64, device=device)
-        )
+        self._bases = ("Qx", "Qy", "Qz")[: grid.dim]
+        if self.use_fft:
+            # float32 whatever pc_dtype asks (the reference's clamp)
+            cd = torch.float32
+            self._bases = ()
+            lam = torch.as_tensor(laplacian_symbol(
+                [int(n) for n in grid.nps],
+                [float(s) for s in grid.spacing], sw), dtype=cd)
+        else:
+            lam = None
+            for d, name in enumerate(self._bases):
+                Q, ld = laplacian_eigendecomp(
+                    int(grid.nps[d]), float(grid.spacing[d]), sw
+                )
+                self.register_buffer(
+                    name, torch.as_tensor(Q, dtype=td, device=device)
+                )
+                if td != cd:
+                    self.register_buffer(
+                        name + "_cd", getattr(self, name).to(cd),
+                        persistent=False)
+                # total eigenvalue per mode: lam_x (+ lam_y (+ lam_z))
+                lam = ld if lam is None else lam[..., None] + ld
+            # lam stays float64 like the reference's numpy total
+            lam = torch.as_tensor(lam, dtype=torch.float64)
+        self.compute_dtype = cd
+        self.register_buffer("lam", lam.to(device))
         self.register_buffer("lam_cd", self.lam.to(cd), persistent=False)
         self.register_load_state_dict_post_hook(
-            lambda module, keys: module._sync_lam_cd()
+            lambda module, keys: module._sync_cd()
         )
 
-    def _sync_lam_cd(self):
+    def _sync_cd(self):
         self.lam_cd = self.lam.to(self.compute_dtype)
+        if self.transform_dtype != self.compute_dtype:
+            for name in self._bases:
+                setattr(self, name + "_cd",
+                        getattr(self, name).to(self.compute_dtype))
 
-    def _unsharded(self):
-        if self.transform_dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bfloat16 transforms run only in the sharded apply "
-                "(make_sharded_block_apply, on a slab mesh)")
+    def _fft_axes(self):
+        return tuple(range(1, 1 + self.dim))
 
     def _forward(self, v):
-        """(dof, *Sshape) -> real spectral coefficients: v Qx in 1D
-        ("fi,ik->fk"), Qx^T v Qy in 2D, "fijm,ik,jl,mn->fkln" in 3D."""
-        self._unsharded()
-        if self.dim == 1:
-            return torch.matmul(v, self.Qx)
-        if self.dim == 2:
-            return torch.matmul(torch.matmul(self.Qx.T, v), self.Qy)
-        f, nx, ny, nz = v.shape
-        c = torch.matmul(v, self.Qz)               # m -> n
-        c = torch.matmul(self.Qy.T, c)             # j -> l
-        c = torch.matmul(self.Qx.T, c.reshape(f, nx, ny * nz))  # i -> k
-        return c.reshape(f, nx, ny, nz)
+        """(dof, *Sshape) -> spectral coefficients: complex64 rfftn
+        coefficients in the FFT form; else real coefficients of v's
+        shape in the transform dtype (forward_products)."""
+        if self.use_fft:
+            return torch.fft.rfftn(v.to(torch.float32), dim=self._fft_axes())
+        return forward_products(
+            v.to(self.transform_dtype),
+            *(getattr(self, name) for name in self._bases))
 
     def _inverse(self, c):
-        """The inverse transform: c Qx^T in 1D ("fk,ik->fi"), Qx c Qy^T
-        in 2D, "fkln,ik,jl,mn->fijm" in 3D."""
-        if self.dim == 1:
-            return torch.matmul(c, self.Qx.T)
-        if self.dim == 2:
-            return torch.matmul(torch.matmul(self.Qx, c), self.Qy.T)
-        f, nx, ny, nz = c.shape
-        v = torch.matmul(c, self.Qz.T)             # n -> m
-        v = torch.matmul(self.Qy, v)               # l -> j
-        v = torch.matmul(self.Qx, v.reshape(f, nx, ny * nz))    # k -> i
-        return v.reshape(f, nx, ny, nz)
+        """The inverse transform, in the compute dtype: irfftn in the FFT
+        form, else inverse_products on the coefficients rounded to the
+        transform dtype (a bf16 pc rounds none of the inverse's
+        intermediates to bf16)."""
+        if self.use_fft:
+            return torch.fft.irfftn(c, s=self.sshape, dim=self._fft_axes())
+        td, cd = self.transform_dtype, self.compute_dtype
+        sfx = "" if td == cd else "_cd"
+        return inverse_products(
+            c.to(td).to(cd),
+            *(getattr(self, name + sfx) for name in self._bases))
 
     def apply(self, v, shift, diff, decay):
         """v: (dof, *Sshape); diff/decay: per-field scalars."""
@@ -169,8 +237,10 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
     ``rho_diff`` = max_x(rho * dG/drho) when given.
     """
 
-    def __init__(self, grid, ops, compute_dtype=None, device=None):
-        super().__init__(grid, compute_dtype=compute_dtype, device=device)
+    def __init__(self, grid, ops, compute_dtype=None, device=None,
+                 use_fft=False):
+        super().__init__(grid, compute_dtype=compute_dtype, device=device,
+                         use_fft=use_fft)
         self.ops = ops
         self.nfields = ops.nligands + 1
 
@@ -229,57 +299,40 @@ def make_sharded_block_apply(precond, ops, mesh):
     ``apply(v, shift, t, means, rho_diff)`` with v this rank's slab.
 
     Counterpart: ksfd_tpu/solvers/linalg.py:make_sharded_block_apply.
-    The forward products contract only the local x rows against this
-    rank's rows of Qx (the local y (and z) products first, so each
-    rank's work is its share); the partial mode coefficients are cast to
-    the transform dtype (bfloat16 on the wire under ``pc_dtype``
-    bfloat16: the forward products' operands and outputs are bf16) and
-    summed over the ranks; the arrow solve runs replicated in the
-    compute dtype; the inverse products give only the local rows, in
-    the compute dtype from the transform-dtype coefficients and bases
-    (the reference's ``preferred_element_type=cd``: a bf16 pc rounds
-    none of its inverse's intermediates to bf16), with no further
-    collective.  The products are plain ``torch.matmul``, as the
-    single-card pc's are.
+    The forward products (``forward_products``) contract only the local
+    x rows against this rank's rows of Qx (the local y (and z) products
+    first, so each rank's work is its share); the partial mode
+    coefficients are cast to the transform dtype (bfloat16 on the wire
+    under ``pc_dtype`` bfloat16) and summed over the ranks; the arrow
+    solve runs replicated in the compute dtype; the inverse products
+    (``inverse_products``) give only the local rows, in the compute
+    dtype from the transform-dtype coefficients and bases, as the
+    single-card apply's, with no further collective.  The FFT form
+    raises: it is single-card only (the reference's sharded apply also
+    excludes it).
     """
+    if precond.use_fft:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP): the FFT pc on a mesh (the "
+            "reference's is single-shard too), Queue A item 11 (A14)")
     td, cd = precond.transform_dtype, precond.compute_dtype
-    dim = precond.dim
+    rest = precond._bases[1:]
     qx = mesh.rows(precond.Qx).contiguous()        # (nx_loc, nx), td
-    qxT = qx.T.contiguous()
-    last = precond.Qz if dim == 3 else precond.Qy
-    Qy = precond.Qy
-    # the inverse's operands: the td-rounded bases and coefficients, its
-    # products and their outputs in cd (a bf16 x bf16 product is exact
-    # in f32), as the reference's preferred_element_type=cd inverse
+    fwd = [getattr(precond, name) for name in rest]
+    # the inverse's operands: the td-rounded bases in cd (exact)
     qx_i = qx.to(cd)
-    Qy_i = Qy.to(cd)
-    lastT_i = last.T.to(cd).contiguous()
-
-    def forward(v):
-        f, nloc = v.shape[0], v.shape[1]
-        c = torch.matmul(v.to(td), last)                  # m -> n (y in 2D)
-        if dim == 3:
-            c = torch.matmul(Qy.T, c)                     # j -> l
-        c = torch.matmul(qxT, c.reshape(f, nloc, -1))     # local i -> k
-        return c.reshape((f, mesh.nx) + tuple(v.shape[2:]))
-
-    def inverse(c):
-        f, rest = c.shape[0], tuple(c.shape[2:])
-        c = c.to(td).to(cd).reshape(f, mesh.nx, -1)
-        o = torch.matmul(qx_i, c)                         # k -> local i
-        o = o.reshape((f, mesh.nx_loc) + rest)
-        if dim == 3:
-            o = torch.matmul(Qy_i, o)                     # l -> j
-        return torch.matmul(o, lastT_i)                   # n -> m
+    inv = [getattr(precond, name).to(cd) for name in rest]
 
     def apply(v, shift, t, means, rho_diff):
         if v.shape[0] != precond.nfields:
             raise NotImplementedError(
                 "extra trailing fields (the with-G state) are ROADMAP "
                 "Queue A item 10 (A13)")
+        c = forward_products(v.to(td), qx, *fwd, slab=True, nx=mesh.nx)
         # THE collective: the partial coefficients, in the transform dtype
-        c = all_reduce_sum(forward(v).to(td), mesh)
+        c = all_reduce_sum(c.to(td), mesh)
         outs = precond._arrow_solve(c.to(cd), shift, t, means, rho_diff)
-        return inverse(outs).to(v.dtype)
+        return inverse_products(outs.to(td).to(cd), qx_i, *inv,
+                                slab=True).to(v.dtype)
 
     return apply

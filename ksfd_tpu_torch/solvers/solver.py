@@ -104,11 +104,33 @@ returns with the step's contract.  No exact tier launches a kernel.
 blocks, the per-step adaptive loop with its GMRES fallback and exact-LU
 rescue, and the device loop's chunk (class docstring).
 
+**The DIRK path** (``ts_type`` arkimex, ark324, ark436: the ESDIRK
+tableaus of solvers/steppers.py; solver.py:643-688) runs on every
+route above (``_combine_dirk``): stage i solves ``U_i = u0 + h sum_{j<i}
+A_ij f_j + h gamma f(U_i)`` by ``max(1, snes_iters)`` modified-Newton
+iterations with the held W, ``U <- U - shift * solve(U - h gamma f(U) -
+r)``, from the predictor ``U_i = r``.  Its stage right-hand sides feed
+float64 combinations, so on the mixed path they are ``f0 + delta`` in
+float64 (never the Rosenbrock stages' float32 ``f32(f0) + delta``).
+Per step with 3 sweeps and 2 Newton iterations ARK324 launches 12
+resid and 9 delta (ARK436 20 and 15; ``snes_iters`` 1 6 and 6), and the
+f0 chain one delta more; in the fast mode 10 rhs and 12 jvp.  The host
+exact steps (banded, lu) are Rosenbrock-only and raise ValueError.
+
+**The preconditioner forms** (solver.py:217-263): ``pc_type`` block
+(above) or spectral (each field's stiff part, ``ops.stiff_coefficients``),
+each in its basis-GEMM form or, with ``pc_fft`` on (auto: without a mesh
+and with one visible device), its float32 FFT form; ``pc_dtype``
+bfloat16 on one card or a mesh; ``pc_type`` none with the GMRES step
+and the exact tiers.  ``pc_pallas`` fuses only the block pc's basis
+form, as the reference's does.
+
 Everything else raises NotImplementedError naming its ROADMAP item:
-DIRK (Queue A item 7, A9), the fixed-count Krylov stage solvers (item
-9), the FFT preconditioner (item 8, A4), with-G states (item 10, A13),
+the fixed-count Krylov stage solvers and ``pc_type`` none with
+Richardson or Chebyshev (Queue A item 9), with-G states (item 10, A13),
 on a mesh the GMRES step, the unfused step, the exact tiers, the
-Solver, y splits and other meshes (Queue A item 11, A14), and
+Solver, the FFT and spectral pcs, y splits and other meshes (Queue A
+item 11, A14), and
 ``pc_pallas`` with fields outside 2..MAX_NF where the reference's gate
 runs its fused pc (Queue B item 1, B5).
 """
@@ -137,8 +159,12 @@ from .gmres import (
     richardson_solve,
     richardson_solve_resid,
 )
-from .linalg import BlockSpectralPreconditioner, make_sharded_block_apply
-from .steppers import get_tableau, wlte_norm_delta
+from .linalg import (
+    BlockSpectralPreconditioner,
+    SpectralPreconditioner,
+    make_sharded_block_apply,
+)
+from .steppers import DIRKTableau, get_tableau, wlte_norm_delta
 
 logTS = logger("TS")
 
@@ -185,6 +211,19 @@ def _pc_dtype(numerics, mesh=None):
     return "bfloat16" if mesh is not None and mesh.n_x > 1 else "float32"
 
 
+def _pc_fft(numerics, ops, mesh=None):
+    """Whether the pc takes its FFT form (solver.py:217-230): ``pc_fft``
+    on; off; auto only without a mesh and with one visible device of the
+    state's kind (the reference's ``len(jax.devices()) == 1``: the CPU
+    is one device, the card one of ``torch.cuda.device_count()``)."""
+    if numerics.pc_fft == "on":
+        return True
+    if numerics.pc_fft == "off" or mesh is not None:
+        return False
+    return (torch.device(ops.device).type != "cuda"
+            or torch.cuda.device_count() == 1)
+
+
 def _krylov(numerics):
     """The tolerance-based GMRES stage solve of the robust fallback."""
     return numerics.ksp_type == "gmres_scipy"
@@ -202,13 +241,23 @@ def _check_numerics(numerics, ops, mesh=None):
         )
     if mesh is not None and numerics.ksp_type in EXACT_KSP:
         todo.append("the exact tiers on a mesh (%s)" % MESH_TODO)
-    if numerics.pc_type != "block":
-        todo.append("pc_type %r (Queue A item 8, A4)" % numerics.pc_type)
+    if numerics.pc_type not in ("block", "spectral", "none"):
+        todo.append("pc_type %r (the reference has block, spectral and "
+                    "none)" % numerics.pc_type)
+    elif (numerics.pc_type == "none"
+          and numerics.ksp_type in ("richardson", "chebyshev")):
+        todo.append("pc_type none with ksp_type %s (the reference solves "
+                    "it with gmres_fixed: Queue A item 9)"
+                    % numerics.ksp_type)
+    elif mesh is not None and numerics.pc_type != "block":
+        todo.append("pc_type %s on a mesh (the sharded apply is the block "
+                    "pc's: %s)" % (numerics.pc_type, MESH_TODO))
     if numerics.precision not in ("float64", "f64", "float32", "f32"):
         todo.append("precision %r (the reference has only float64 and "
                     "float32)" % numerics.precision)
-    if numerics.pc_fft != "off":
-        todo.append("pc_fft %r (Queue A item 8, A4)" % numerics.pc_fft)
+    if mesh is not None and numerics.pc_fft == "on":
+        todo.append("pc_fft on on a mesh (the FFT pc is single-card, as "
+                    "the reference's: %s)" % MESH_TODO)
     # pc_pallas falls back to the basis-GEMM pc only where the
     # reference's gate does (_pc_pallas_fallback); where that gate runs
     # its fused kernels, so must the port
@@ -219,12 +268,10 @@ def _check_numerics(numerics, ops, mesh=None):
         why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
         if why is not None:
             todo.append(why)
-    pc_dtypes = ("auto", "float32", "f32", "float64", "f64")
-    if mesh is not None:
-        pc_dtypes += ("bfloat16", "bf16")
-    if numerics.pc_dtype not in pc_dtypes:
-        todo.append("pc_dtype %r (bfloat16 runs only in the sharded apply "
-                    "on a mesh: Queue A item 11, A14)" % numerics.pc_dtype)
+    if numerics.pc_dtype not in ("auto", "float32", "f32", "float64", "f64",
+                                 "bfloat16", "bf16"):
+        todo.append("pc_dtype %r (the reference has float32, float64 and "
+                    "bfloat16)" % numerics.pc_dtype)
     if mesh is not None and krylov:
         todo.append("the GMRES step on a mesh (%s)" % MESH_TODO)
     if mesh is not None and _step_refusal(numerics, ops) is not None:
@@ -259,12 +306,14 @@ def step_kernels(ops, numerics=None, mesh=None, kernels=None):
 
 def _reference_fuses(numerics, ops):
     """Whether the reference's gate (ksfd_tpu/solvers/solver.py:258-282)
-    runs its fused pc for this single-card request: float32 transforms,
-    the physical fields only, and extents its Pallas gate admits
-    (ops/fused_pc.py reference_fuses)."""
-    return (_pc_dtype(numerics) not in ("float64", "f64")
+    runs its fused pc for this single-card request: the block pc in its
+    basis form, float32 transforms, the physical fields only, and
+    extents its Pallas gate admits (ops/fused_pc.py reference_fuses)."""
+    return (numerics.pc_type == "block"
+            and _pc_dtype(numerics) not in ("float64", "f64")
             and ops.grid.dof == ops.nligands + 1
-            and reference_fuses(ops.grid))
+            and reference_fuses(ops.grid,
+                                use_fft=_pc_fft(numerics, ops)))
 
 
 def _pc_pallas_fallback(numerics, ops, mesh=None):
@@ -272,15 +321,22 @@ def _pc_pallas_fallback(numerics, ops, mesh=None):
     fused pc runs, ``pc_pallas`` is off, or _check_numerics refuses the
     request).  Only where the reference's gate falls back to its einsums
     too: on a mesh (its fused pc is single-shard; the sharded apply
-    runs), on a 3D grid, with float64 transforms, and with fields
-    outside 2..MAX_NF on extents that the reference's gate refuses.
-    With such fields on extents it admits, the reference runs its fused
-    kernels and the port has none: the request raises (Queue B item 1,
-    B5)."""
+    runs), with another pc than the block pc's basis form (the spectral
+    or no pc, or the FFT form: ``pc_fft``), on a 3D grid, with float64
+    transforms, and with fields outside 2..MAX_NF on extents that the
+    reference's gate refuses.  With such fields on extents it admits,
+    the reference runs its fused kernels and the port has none: the
+    request raises (Queue B item 1, B5)."""
     if not numerics.pc_pallas:
         return None
     if mesh is not None:
         return "on a mesh (the fused pc is single-shard)"
+    if numerics.pc_type != "block":
+        return "pc_type %s (the fused pc is the block pc's)" % (
+            numerics.pc_type)
+    if _pc_fft(numerics, ops):
+        return ("the FFT pc (the reference fuses only the basis form: "
+                "solver.py:258-263)")
     why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
     if why is not None and _reference_fuses(numerics, ops):
         return None
@@ -291,7 +347,9 @@ def _cheb_interval(numerics, shift, rho_dmin, rho_diff, cheb_lap):
     """The Chebyshev interval (lmin, lmax) of M^{-1}W as float32 0-d
     tensors on the device (ksfd_tpu/solvers/solver.py:436-495).
 
-    With ``cheb_lmin`` > 0 the knobs give it.  Otherwise it is estimated
+    With ``cheb_lmin`` > 0 the knobs give it, and without the block pc's
+    statistics (``rho_diff`` None: the spectral pc) ``cheb_lmin`` or
+    0.05 does, as the reference's default.  Otherwise it is estimated
     per step: the pc bounds the rho diffusivity by its maximum
     ``rho_diff``, so per mode the preconditioned eigenvalue is about
     ``(shift + d|lam|) / (shift + rho_diff|lam|)``, smallest at the
@@ -300,11 +358,11 @@ def _cheb_interval(numerics, shift, rho_dmin, rho_diff, cheb_lap):
     ``cheb_safety`` widens it downward, and the clip keeps it inside
     ``[1e-4, lmax/2]``."""
     f32 = torch.float32
-    dev = rho_diff.device
+    dev = shift.device
     b_hi = torch.full((), numerics.cheb_lmax, dtype=f32, device=dev)
-    if numerics.cheb_lmin > 0:
-        return torch.full((), numerics.cheb_lmin, dtype=f32,
-                          device=dev), b_hi
+    if numerics.cheb_lmin > 0 or rho_diff is None:
+        a0 = numerics.cheb_lmin if numerics.cheb_lmin > 0 else 0.05
+        return torch.full((), a0, dtype=f32, device=dev), b_hi
     s32 = shift.to(f32)
     dmin = torch.clamp(rho_dmin.to(f32), min=0.0)
     a_auto = (s32 + dmin * cheb_lap) / (s32 + rho_diff.to(f32) * cheb_lap)
@@ -318,8 +376,15 @@ def _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0=False):
     """The host exact step of ``ksp_type`` banded (1D, the native cyclic
     banded LU) or lu (sparse SuperLU, any dimension), with the step's
     contract, as the reference's Solver builds them
-    (solver.py:1297-1328); no f0 chain.  (The DIRK tableaus, which
-    the reference refuses here, raise in get_tableau: Queue A item 7.)"""
+    (solver.py:1297-1328); no f0 chain.  A DIRK tableau raises
+    ValueError with the reference Solver's message (solver.py:1310-1315;
+    the reference's make_step_fn instead runs float64 Richardson sweeps
+    here, ROADMAP Queue C, which is not copied)."""
+    if isinstance(tab, DIRKTableau):
+        raise ValueError(
+            "ksp_type=%s supports the Rosenbrock tableaus only; use "
+            "-ts_type rosw (or a non-direct ksp_type with arkimex)"
+            % numerics.ksp_type)
     if chain_f0:
         return None, tab
     if numerics.ksp_type == "banded":
@@ -388,20 +453,29 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     numerics = numerics or NumericsOptions()
     _check_numerics(numerics, ops, mesh)
     tab = tableau or get_tableau(numerics.ts_type)
+    is_dirk = isinstance(tab, DIRKTableau)
     if numerics.ksp_type in ("banded", "lu"):
         return _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0)
     use_dense = _use_dense(numerics)
     pc_dtype = _pc_dtype(numerics, mesh)
-    precond = None if use_dense else BlockSpectralPreconditioner(
-        ops.grid, ops, compute_dtype=pc_dtype, device=ops.device
-    )
+    use_fft = _pc_fft(numerics, ops, mesh)
+    block_pc = numerics.pc_type == "block" and not use_dense
+    precond = None
+    if block_pc:
+        precond = BlockSpectralPreconditioner(
+            ops.grid, ops, compute_dtype=pc_dtype, device=ops.device,
+            use_fft=use_fft)
+    elif numerics.pc_type == "spectral" and not use_dense:
+        precond = SpectralPreconditioner(
+            ops.grid, compute_dtype=pc_dtype, device=ops.device,
+            use_fft=use_fft)
     kern = step_kernels(ops, numerics, mesh, kernels)
     if kern is not None and kern.mesh is not mesh:
         raise ValueError("the kernels were built for mesh %r, the step for "
                          "%r" % (kern.mesh, mesh))
     pc_fused = pc_sharded = None
     pc_fallback = _pc_pallas_fallback(numerics, ops, mesh)
-    if use_dense:
+    if not block_pc:
         pass
     elif mesh is not None:
         pc_sharded = make_sharded_block_apply(precond, ops, mesh)
@@ -431,13 +505,16 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                            maxiter=numerics.ksp_max_it)
     # the Laplacian's largest |eigenvalue|, a build-time constant that
     # turns the per-step diffusivity spread into the Chebyshev interval
-    cheb_lap = float((-precond.lam).max()) if use_cheb else None
+    cheb_lap = (float((-precond.lam).max())
+                if use_cheb and precond is not None else None)
     build_info = dict(
         kernels=None if kern is None else kern.kind,
         kernel_refusal=_step_refusal(numerics, ops), pc_dtype=pc_dtype,
         pc=("sharded basis-GEMM, one all_reduce per apply" if pc_sharded
             else "fused (B5a, B5b)" if pc_fused
-            else None if use_dense else "basis-GEMM"),
+            else None if precond is None
+            else ("" if block_pc else "spectral ")
+            + ("FFT" if use_fft else "basis-GEMM")),
         mesh_shape=None if mesh is None else mesh.shape,
         ksp_type=numerics.ksp_type, cheb=use_cheb, fast32=fast32,
         mixed32=mixed32, pallas_rhs=pallas_rhs,
@@ -482,24 +559,27 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             def solve(bi):
                 y = torch.linalg.lu_solve(*lu_piv, bi.reshape(-1, 1))
                 return y.reshape(bi.shape)
-            return _combine(u, f0, t, h, rhs, solve)
+            return combine(u, f0, t, h, rhs, solve)
         u32 = u.to(torch.float32)
-        # preconditioner statistics from the f32 view of the state on
-        # the mixed path, from the state itself elsewhere (the
-        # reference's ``ustat``, solver.py:451-453)
-        ustat = u32 if mixed32 else u
-        means = global_means(ustat)
-        # pointwise effective rho diffusivity bound (linalg docstring)
-        dG0 = ops._dG_fns[0](*[ustat[i] for i in range(nf)], t)
-        rho_d = ustat[0] * dG0
-        rho_diff = torch.max(rho_d)
-        rho_dmin = torch.min(rho_d) if use_cheb else None
-        if mesh is not None:
-            # the max (and for Chebyshev the min): one reduction
-            ext = all_reduce_max(torch.stack(
-                [rho_diff] + ([-rho_dmin] if use_cheb else [])), mesh)
-            rho_diff = ext[0]
-            rho_dmin = -ext[1] if use_cheb else None
+        rho_diff = rho_dmin = Minv = None
+        if block_pc:
+            # preconditioner statistics from the f32 view of the state
+            # on the mixed path, from the state itself elsewhere (the
+            # reference's ``ustat``, solver.py:451-453)
+            ustat = u32 if mixed32 else u
+            means = global_means(ustat)
+            # pointwise effective rho diffusivity bound (linalg
+            # docstring)
+            dG0 = ops._dG_fns[0](*[ustat[i] for i in range(nf)], t)
+            rho_d = ustat[0] * dG0
+            rho_diff = torch.max(rho_d)
+            rho_dmin = torch.min(rho_d) if use_cheb else None
+            if mesh is not None:
+                # the max (and for Chebyshev the min): one reduction
+                ext = all_reduce_max(torch.stack(
+                    [rho_diff] + ([-rho_dmin] if use_cheb else [])), mesh)
+                rho_diff = ext[0]
+                rho_dmin = -ext[1] if use_cheb else None
         cheb_ab = _cheb_interval(numerics, shift, rho_dmin, rho_diff,
                                  cheb_lap) if use_cheb else None
 
@@ -512,11 +592,17 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
 
             def Minv(v):
                 return pc_fused(sc_pc, v.to(torch.float32)).to(v.dtype)
-        else:
+        elif block_pc:
             def Minv(v):
                 return precond.apply_linearized(
                     v, shift, t, means, rho_diff=rho_diff
                 )
+        elif precond is not None:
+            # the spectral pc: each field's stiff part (solver.py:513-515)
+            diff, decay = ops.stiff_coefficients(t)
+
+            def Minv(v):
+                return precond.apply(v, shift, diff, decay)
 
         # f0, the J-action and the stage RHS (solver.py:391-424): the
         # fast mode's kernels; the mixed path's float64 RHS (its W
@@ -539,8 +625,10 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         if pallas_delta:
             # f(Ui, ti) as f0 + the increment kernel, plus the exact
             # change of any time-dependent source; in f32 where its only
-            # consumer is the f32 sweep chain (solver.py:680-713)
-            fbase = f0.to(torch.float32) if mixed32 else f0
+            # consumer is the f32 sweep chain (the Rosenbrock stages,
+            # solver.py:680-713), in f0's float64 on the DIRK path,
+            # whose stage values feed float64 combinations (:405-424)
+            fbase = f0.to(torch.float32) if mixed32 and not is_dirk else f0
 
             def stage_eval(Ui, ti):
                 Ug = ops.groom(Ui)
@@ -594,7 +682,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                                        lmin=cheb_ab[0], lmax=cheb_ab[1])
             return richardson_solve(W, bi, Minv, iters=iters)
 
-        return _combine(u, f0, t, h, stage_eval, solve)
+        return combine(u, f0, t, h, stage_eval, solve)
 
     def _combine(u, f0, t, h, stage_eval, solve):
         """The stages and the step from f0, the stage RHS and the stage
@@ -640,6 +728,45 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 term = dm * Yj
                 d = term if d is None else d + term
         return u, u1, wlte_norm_delta(u1, d, atol, rtol, mesh=mesh)
+
+    def _combine_dirk(u, f0, t, h, stage_eval, solve):
+        """The ESDIRK stages and the step (solver.py:643-688): stage i
+        solves ``U_i = r_i + h gamma f(U_i)``, ``r_i = u0 + h sum_{j<i}
+        A_ij f_j``, by ``max(1, snes_iters)`` modified-Newton iterations
+        with the held W from the predictor ``U_i = r_i`` (the reference
+        measured its extrapolated start as worse, :656-668); the
+        solution and the embedded difference ``d = h sum (bhat_j - b_j)
+        f_j`` from exact Python-float weights, zero weights skipped.
+        The solve's float32 result on the mixed path is cast up before
+        the update.  Returns (groomed u, u1, enorm)."""
+        newton_iters = max(1, int(numerics.snes_iters))
+        shift = 1.0 / (h * tab.gamma)
+        fs = [f0]
+        for i in range(1, tab.stages):
+            r = u
+            for j in range(i):
+                if tab.A[i][j]:
+                    r = r + (h * tab.A[i][j]) * fs[j]
+            ti = t + tab.c[i] * h
+            Ui = r
+            fUi = stage_eval(Ui, ti)
+            for _ in range(newton_iters):
+                res = Ui - (h * tab.gamma) * fUi - r
+                Ui = Ui - shift * solve(res).to(u.dtype)
+                fUi = stage_eval(Ui, ti)
+            fs.append(fUi)
+        u1 = u
+        d = None
+        for j in range(tab.stages):
+            if tab.b[j]:
+                u1 = u1 + (h * tab.b[j]) * fs[j]
+            db = tab.bhat[j] - tab.b[j]
+            if db:
+                term = (h * db) * fs[j]
+                d = term if d is None else d + term
+        return u, u1, wlte_norm_delta(u1, d, atol, rtol, mesh=mesh)
+
+    combine = _combine_dirk if is_dirk else _combine
 
     if chain_f0:
         if not (mixed32 and pallas_delta) or any(ops._source_active):
@@ -1099,10 +1226,6 @@ def noise_active(ps):
     )
 
 
-#: the reference's DIRK tableaus (Queue A item 7, A9)
-_DIRK = ("arkimex", "ark324", "ark436")
-
-
 def route_petsc_direct(numerics, grid):
     """Apply a PETSc-block direct-solve request (``petsc_direct``: the
     reference options' ``-ksp_type preonly -pc_type lu``, its MUMPS
@@ -1120,7 +1243,7 @@ def route_petsc_direct(numerics, grid):
     route_cap = (Solver.BANDED_ROUTE_MAX_DOFS if grid.dim == 1
                  else Solver.PETSC_ROUTE_MAX_DOFS)
     reason = None
-    if numerics.ts_type in _DIRK:
+    if isinstance(get_tableau(numerics.ts_type), DIRKTableau):
         reason = "DIRK tableau (the direct tier is Rosenbrock-only)"
     elif grid.n_dofs > route_cap:
         reason = (
@@ -1407,8 +1530,11 @@ class Solver:
     def _get_fallback(self):
         """The robust retry step: float64 GMRES stage solves
         (``gmres_scipy``, restart 12, 4 restarts, stage RHS from the
-        float64 RHS), as the reference builds it (solver.py:1476-1535);
-        None unless the fast solver is Richardson."""
+        float64 RHS), as the reference builds it (solver.py:1476-1535),
+        with at least 4 modified-Newton iterations per DIRK stage (a
+        retry at the one iteration of -snes_type ksponly would mostly
+        re-fail; rosw ignores them); None unless the fast solver is
+        Richardson."""
         if self.numerics.ksp_type not in ("richardson",):
             return None
         if self._fallback_fn is None:
@@ -1423,9 +1549,12 @@ class Solver:
     def _get_exact_step(self):
         """The last-resort exact sparse-LU step (the reference's MUMPS
         role) after LU_RESCUE_AFTER consecutive failures, or None:
-        already an exact ksp_type, over LU_RESCUE_MAX_DOFS, or disabled
-        by two errors this run."""
+        already an exact ksp_type, a DIRK tableau (the exact steps are
+        Rosenbrock-only, solver.py:1558), over LU_RESCUE_MAX_DOFS, or
+        disabled by two errors this run."""
         if self.numerics.ksp_type in EXACT_KSP:
+            return None
+        if isinstance(self.tableau, DIRKTableau):
             return None
         if self.ops.grid.n_dofs > self.LU_RESCUE_MAX_DOFS:
             return None

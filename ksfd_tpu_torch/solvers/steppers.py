@@ -21,8 +21,10 @@ m2 = b2 G^{-1}, alpha_i = sum_j A_ij — computed numerically from the
 published (A, Gamma, b, b2) tableau at import time.
 
 Counterpart: ksfd_tpu/solvers/steppers.py.  The Rosenbrock tableaus
-are numpy and copied unchanged; the ESDIRK (ARKIMEX) tableaus wait for
-the DIRK path (ROADMAP Queue A item 7, A9).
+are numpy and copied unchanged, and so are the ESDIRK (ARKIMEX)
+tableaus ARK324 and ARK436 (``DIRKTableau``: untransformed Butcher
+arrays, stage-time fractions in ``c``), which the step runs by
+modified Newton (solvers/solver.py, ``_combine_dirk``).
 
 Like PETSc TSROSW, f is evaluated at shifted stage times but no
 explicit df/dt term enters the stage solves; the W-property absorbs
@@ -37,7 +39,8 @@ import torch
 from ..parallel.mesh import all_reduce_sum
 
 __all__ = [
-    "Tableau", "ROS34PW2", "BEULER", "get_tableau", "wlte_norm_delta",
+    "Tableau", "DIRKTableau", "ROS34PW2", "BEULER", "ARK324", "ARK436",
+    "get_tableau", "wlte_norm_delta",
 ]
 
 
@@ -137,20 +140,123 @@ BEULER = _transform(
     embedded_order=1,
 )
 
+
+@dataclass(frozen=True)
+class DIRKTableau:
+    """Diagonally-implicit RK tableau (untransformed Butcher arrays).
+
+    Used for the ARKIMEX-class ESDIRK methods: stage i solves the
+    nonlinear equation U_i = u0 + h*sum_{j<=i} A[i][j] f(U_j) by
+    modified Newton with the step-start Jacobian (the original KSFD
+    runs always used '-snes_type ksponly', i.e. ONE Newton iteration
+    per stage: the PETSc block of its options84; here the iteration
+    count is NumericsOptions.snes_iters).
+
+    Counterpart: ksfd_tpu/solvers/steppers.py:DIRKTableau.
+    """
+
+    name: str
+    gamma: float          # the (repeated) diagonal entry
+    A: tuple              # full lower-triangular incl. diagonal
+    b: tuple              # solution weights (order `order`)
+    bhat: tuple           # embedded weights (order `embedded_order`)
+    c: tuple              # stage time fractions (row sums of A)
+    order: int
+    embedded_order: int
+
+    @property
+    def stages(self):
+        return len(self.b)
+
+
+def _dirk(name, A, b, bhat, order, embedded_order):
+    A = [[float(x) for x in row] for row in A]
+    # the consumer (solver.py's DIRK loop) hardcodes the ESDIRK
+    # structure: stage 0 explicit (fs = [f0]), stages 1.. implicit
+    # with the shared diagonal gamma
+    assert len(A) >= 2, "ESDIRK tableaus need >= 2 stages"
+    assert A[0][0] == 0.0, "stage 0 must be explicit (ESDIRK)"
+    c = [sum(row) for row in A]
+    diag = [A[i][i] for i in range(1, len(A))]
+    gamma = diag[0]
+    assert all(abs(d - gamma) < 1e-14 for d in diag), "not singly diagonal"
+    tt = lambda M: tuple(tuple(float(x) for x in row) for row in M)
+    tv = lambda v: tuple(float(x) for x in v)
+    return DIRKTableau(
+        name=name, gamma=float(gamma), A=tt(A), b=tv(b), bhat=tv(bhat),
+        c=tv(c), order=order, embedded_order=embedded_order,
+    )
+
+
+# Kennedy & Carpenter (2003) ARK3(2)4L[2]SA — the ESDIRK implicit part
+# of PETSc's TSARKIMEX3, the default '-ts_type arkimex' scheme: 4
+# stages (first explicit), stiffly accurate (b = last row), L-stable,
+# order 3 with an order-2 embedded pair.  Order conditions verified
+# exactly in rationals (sum b = 1, b.c = 1/2, b.c^2 = 1/3, bAc = 1/6).
+_ag = 1767732205903.0 / 4055673282236.0
+ARK324 = _dirk(
+    "ark324l2sa",
+    A=[
+        [0.0, 0.0, 0.0, 0.0],
+        [_ag, _ag, 0.0, 0.0],
+        [2746238789719.0 / 10658868560708.0,
+         -640167445237.0 / 6845629431997.0, _ag, 0.0],
+        [1471266399579.0 / 7840856788654.0,
+         -4482444167858.0 / 7529755066697.0,
+         11266239266428.0 / 11593286722821.0, _ag],
+    ],
+    b=[1471266399579.0 / 7840856788654.0,
+       -4482444167858.0 / 7529755066697.0,
+       11266239266428.0 / 11593286722821.0, _ag],
+    bhat=[2756255671327.0 / 12835298489170.0,
+          -10771552573575.0 / 22201958757719.0,
+          9247589265047.0 / 10645013368117.0,
+          2193209047091.0 / 5459859503100.0],
+    order=3,
+    embedded_order=2,
+)
+
+# Kennedy & Carpenter (2003) ARK4(3)6L[2]SA — the ESDIRK implicit
+# part of PETSc's TSARKIMEX4, selected by '-ts_arkimex_type 4' (the
+# leftover option in the reference's options84 PETSc block): 6 stages
+# (first explicit), stiffly accurate, L-stable, order 4 with an
+# order-3 embedded pair.  gamma = 1/4; c = [0, 1/2, 83/250, 31/50,
+# 17/20, 1].  Order conditions (sum b = 1, b.c = 1/2, b.c^2 = 1/3,
+# b.c^3 = 1/4, b.A.c = 1/6) pinned by tests/test_torch_arkimex.py.
+ARK436 = _dirk(
+    "ark436l2sa",
+    A=[
+        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        [0.25, 0.25, 0.0, 0.0, 0.0, 0.0],
+        [8611.0 / 62500.0, -1743.0 / 31250.0, 0.25, 0.0, 0.0, 0.0],
+        [5012029.0 / 34652500.0, -654441.0 / 2922500.0,
+         174375.0 / 388108.0, 0.25, 0.0, 0.0],
+        [15267082809.0 / 155376265600.0, -71443401.0 / 120774400.0,
+         730878875.0 / 902184768.0, 2285395.0 / 8070912.0, 0.25, 0.0],
+        [82889.0 / 524892.0, 0.0, 15625.0 / 83664.0,
+         69875.0 / 102672.0, -2260.0 / 8211.0, 0.25],
+    ],
+    b=[82889.0 / 524892.0, 0.0, 15625.0 / 83664.0,
+       69875.0 / 102672.0, -2260.0 / 8211.0, 0.25],
+    bhat=[4586570599.0 / 29645900160.0, 0.0,
+          178811875.0 / 945068544.0, 814220225.0 / 1159782912.0,
+          -3700637.0 / 11593932.0, 61727.0 / 225920.0],
+    order=4,
+    embedded_order=3,
+)
+
 _TABLEAUS = {
     "rosw": ROS34PW2,
     "ros34pw2": ROS34PW2,
     "beuler": BEULER,
+    "arkimex": ARK324,
+    "ark324": ARK324,
+    "ark436": ARK436,
 }
 
 
 def get_tableau(name):
     """Counterpart: ksfd_tpu/solvers/steppers.py:get_tableau."""
-    if name in ("arkimex", "ark324", "ark436"):
-        raise NotImplementedError(
-            "ESDIRK tableau %r: the DIRK path is ROADMAP Queue A item 7 (A9)"
-            % name
-        )
     return _TABLEAUS[name]
 
 

@@ -12,8 +12,8 @@ ksfdsolver2.py grammar).  The same grammar and the same decoding:
 - ``@optionsfile`` indirection with '#' comments (shlex rules).
 
 ``decode_numerics`` decodes every token the reference decodes, also
-those of paths the port does not run yet (``-ts_type arkimex``): the
-refusal is the Solver's (solvers/solver.py, solvers/steppers.py).
+those of paths the port does not run yet (``-ksp_type gmres``): the
+refusal is the step's (solvers/solver.py ``_check_numerics``).
 """
 
 import re
@@ -119,8 +119,8 @@ class NumericsOptions:
     Counterpart: ksfd_tpu/utils/cli.py:NumericsOptions — the same
     fields with the same defaults, so one options object describes a
     run of either package.  The comments below are the reference's; the
-    port builds only the default path (see solvers/solver.py) and
-    raises NotImplementedError for the rest.
+    port raises NotImplementedError, naming the ROADMAP item, for the
+    options it does not run yet (solvers/solver.py _check_numerics).
     """
 
     ts_type: str = "rosw"        # rosw (ROS34PW2 W-method) | arkimex
@@ -294,7 +294,7 @@ class NumericsOptions:
 _TS_TYPE_MAP = {
     "rosw": "rosw",
     # the implicit (ESDIRK) part of PETSc's default ARKIMEX3 scheme,
-    # ARK324L2SA (the DIRK path: ROADMAP Queue A item 7, A9)
+    # ARK324L2SA (the DIRK path, solvers/solver.py _combine_dirk)
     "arkimex": "arkimex",
     "beuler": "beuler",
 }

@@ -416,8 +416,10 @@ def test_solver_refusals():
     _, tops, _ = problem(32)
     with pytest.raises(NotImplementedError, match="A14"):
         Solver(tops, NumericsOptions(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        Solver(tops, NumericsOptions(ts_type="arkimex"))
+    # the DIRK path runs (tests/test_torch_arkimex.py); the exact host
+    # steps refuse its tableaus, as the reference's Solver does
+    with pytest.raises(ValueError, match="Rosenbrock tableaus only"):
+        Solver(tops, NumericsOptions(ts_type="arkimex", ksp_type="banded"))
     nm = dataclasses.replace(NumericsOptions(), ksp_type="gmres")
     with pytest.raises(NotImplementedError, match="item 9"):
         Solver(tops, nm)

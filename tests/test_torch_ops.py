@@ -80,7 +80,8 @@ def test_laplacian_eigendecomp_bit_equal(n, sw):
     np.testing.assert_array_equal(lt, lj)
 
 
-@pytest.mark.parametrize("name", ["rosw", "ros34pw2", "beuler"])
+@pytest.mark.parametrize("name", ["rosw", "ros34pw2", "beuler", "arkimex",
+                                  "ark324", "ark436"])
 def test_tableau_bit_equal(name):
     assert dataclasses.asdict(tsteppers.get_tableau(name)) == (
         dataclasses.asdict(jsteppers.get_tableau(name))
@@ -88,8 +89,18 @@ def test_tableau_bit_equal(name):
 
 
 def test_esdirk_tableau_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        tsteppers.get_tableau("arkimex")
+    """The ESDIRK tableaus, refused until the DIRK path was ported
+    (ROADMAP Queue A item 7), are DIRKTableaus under the reference's
+    names, and an unknown name still raises."""
+    assert tsteppers.get_tableau("arkimex") is tsteppers.ARK324
+    assert tsteppers.get_tableau("ark324") is tsteppers.ARK324
+    assert tsteppers.get_tableau("ark436") is tsteppers.ARK436
+    for tab in (tsteppers.ARK324, tsteppers.ARK436):
+        assert isinstance(tab, tsteppers.DIRKTableau)
+        assert type(tab).__name__ == type(
+            jsteppers.get_tableau(tab.name[:6])).__name__
+    with pytest.raises(KeyError):
+        tsteppers.get_tableau("ark999")
 
 
 def test_numerics_options_same_fields_and_defaults():

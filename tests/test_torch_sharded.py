@@ -316,17 +316,18 @@ def test_pc_pallas_on_a_mesh_takes_the_sharded_basis_gemm_pc(port2d):
     (lambda ops, m: make_adaptive_chunk_fn(
         ops, NumericsOptions(ksp_type="gmres_scipy"), mesh=m),
      r"Queue A item 11 \(A14\)"),
-    (lambda ops, m: make_step_fn(ops, NumericsOptions(pc_dtype="bfloat16")),
-     r"Queue A item 11, A14"),
+    (lambda ops, m: make_step_fn(ops, NumericsOptions(pc_fft="on"), mesh=m),
+     r"Queue A item 11 \(A14\)"),
     (lambda ops, m: make_step_fn(ops, NumericsOptions(), mesh=object()),
      r"Queue A item 11 \(A14\)"),
     (lambda ops, m: shard_members(torch.zeros(2, 3, 8, 8)),
      r"Queue A item 11 \(A14\)"),
-], ids=["gmres-step", "gmres-chunk", "bf16-no-mesh", "other-mesh",
+], ids=["gmres-step", "gmres-chunk", "fft-on-mesh", "other-mesh",
         "member-mesh"])
 def test_refusals(port2d, build, match):
-    """The GMRES step on a mesh, bfloat16 without a mesh, a mesh that is
-    not a slab mesh and member meshes raise, naming the ROADMAP item."""
+    """The GMRES step on a mesh, the FFT pc on a mesh (``pc_fft`` on: it
+    is single-card, as the reference's is), a mesh that is not a slab
+    mesh and member meshes raise, naming the ROADMAP item."""
     grid, ops = port2d
     with pytest.raises(NotImplementedError, match=match):
         build(ops, fake_mesh(grid, 2))

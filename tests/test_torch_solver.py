@@ -132,28 +132,46 @@ def test_launch_counts_per_step(problems):
     assert abs(float(t) - 3 * H) < 1e-15
 
 
+# each case keeps the id it had when the list held the options that
+# the DIRK path and the pc forms now run (test_ported_options_step)
 @pytest.mark.parametrize("change", [
     dict(ksp_type="gmres"), dict(ksp_type="gmres_rolled"),
     # the exact tiers (dense, direct, banded, lu) run
-    # (tests/test_torch_direct.py); their places hold options that still
-    # raise
-    dict(ksp_type="gmres_fixed"), dict(pc_type="spectral"),
-    dict(ksp_type="gmres_restarted"),
-    dict(precision="bfloat16"), dict(pc_fft="on"),
+    # (tests/test_torch_direct.py)
+    dict(ksp_type="gmres_fixed"), dict(ksp_type="gmres_restarted"),
+    dict(precision="bfloat16"),
     # pc_pallas with float64 transforms takes the basis-GEMM pc, as the
-    # reference's does (tests/test_torch_pc.py)
+    # reference's does (tests/test_torch_pc.py); pc_type none runs with
+    # the GMRES step and the exact tiers (tests/test_torch_pc_forms.py)
     dict(pc_type="none"),
-    # the unfused step runs use_pallas=False, float64 sweeps and
-    # -stage_delta 0 (tests/test_torch_unfused.py)
-    dict(pc_dtype="bfloat16"), dict(ts_type="ark324"),
-    dict(pc_fft="auto"), dict(ts_type="ark436"),
-    dict(ts_type="arkimex"),
-])
+], ids=["change0", "change1", "change2", "change4", "change5", "change7"])
 def test_off_path_options_raise(problems, change):
     _, tops = problems
     numerics = dataclasses.replace(NumericsOptions(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP|item"):
         make_step_fn(tops, numerics)
+
+
+@pytest.mark.parametrize("change", [
+    dict(pc_type="spectral"), dict(pc_fft="on"), dict(pc_dtype="bfloat16"),
+    dict(ts_type="ark324"), dict(pc_fft="auto"), dict(ts_type="ark436"),
+    dict(ts_type="arkimex"),
+], ids=["change3", "change6", "change8", "change9", "change10", "change11",
+        "change12"])
+def test_ported_options_step(change):
+    """The options that raised until the DIRK path (ROADMAP Queue A item
+    7) and the pc forms (item 8) were ported build and take one finite
+    32^2 step on the CPU, as test_off_path_options_raise's cases once
+    raised under the same ids."""
+    jps, _, _ = ge._make_problem(32, 32)
+    _, _, tops = problem_from_clargs(jps.clargs, 32, 32, device="cpu")
+    numerics = dataclasses.replace(NumericsOptions(), **change)
+    step, _ = make_step_fn(tops, numerics, atol=0.01, rtol=1e-6)
+    u0 = torch.from_numpy(rough_state()[:, :32, :32].copy())
+    u1, enorm = step(u0, scalar(0.0), scalar(H))
+    assert u1.shape == u0.shape and u1.dtype == torch.float64
+    assert bool(torch.isfinite(u1).all()) and bool(torch.isfinite(enorm))
+    assert float((u1 - u0).abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("build,item", [
