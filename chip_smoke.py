@@ -157,7 +157,17 @@ phases, each printing one line:
     and the single-card bfloat16 block pc on the 2D main path at
     1024^2 x 3, f64 and f32, beside the basis-GEMM pc (the FFT pc's
     profile must show cuFFT and no GEMM), the FFT block pc at 256^3 x
-    3, and each form card vs CPU at 128^2 x 3.
+    3, and each form card vs CPU at 128^2 x 3;
+34. B5 at 1, 5 and 6 fields (phase_b5_fields): each entry at 1024^2
+    against its plain version, nb=4 bit for bit against four single
+    launches, µs beside the bound and cuBLAS; the ``-pc_pallas 1`` main
+    path at 1024^2 x 5 and card vs CPU at 128^2 x 5;
+35. the fixed-count Krylov tiers, with-G states and the flux form
+    (phase_krylov_with_g_flux): ``-ksp_type gmres_rolled`` on the f64
+    main path at 1024^2 x 3 (B2 inside the float64 step, exact
+    launches), card vs CPU, its chunk; gmres and ``-pc_type none`` card
+    vs CPU; ``--with_g`` through ``main`` on the flagship; the flux form
+    at 1024^2 x 3 with sum(rho)'s drift.
 
 Then one JSON line of the nineteen kernels (B9's eight rows last) and
 of every phase's figures, the card's line, one short line per kernel
@@ -287,10 +297,12 @@ def tdep_clargs(n):
 def initial_state(grid):
     """Port of __graft_entry__._initial_state, near-uniform ~9000, in
     any dimension: 9000 + (1, 0.7, 0.1) * sin(2 pi (x + y [+ z])); with
-    2 fields the first two of them, with 4 a fourth at 0.4."""
+    1 or 2 fields the first of them, with 4 to 6 more at 0.4, 0.3,
+    0.2."""
     axes = [np.arange(n) / n for n in grid.Sshape]
     s = np.sin(2 * np.pi * sum(np.meshgrid(*axes, indexing="ij")))
-    return np.stack([9000.0 + a * s for a in (1.0, 0.7, 0.1, 0.4)[:grid.dof]])
+    return np.stack([9000.0 + a * s for a in
+                     (1.0, 0.7, 0.1, 0.4, 0.3, 0.2)[:grid.dof]])
 
 
 def ligand_ratios(ps):
@@ -498,13 +510,16 @@ _PTXAS_NAMES = (("rhs_kernel", "rhs"), ("jvp_kernelILb0", "jvp"),
 
 
 #: csrc/pc2d.cu's pc_gemm_tc<NF, NACC, EPI> instances (the plain
-#: products, one field per block, and the forward entry's second product
-#: with the arrow epilogue, all fields per block) and the pitched copy
-_PTXAS_PC_NAMES = tuple(
-    ("pc_gemm_tcILi%dELi%dELb%dE" % (nf, nacc, e), "%s nf=%d" % (what, nf))
-    for nf in (2, 3, 4)
-    for nacc, e, what in ((1, 0, "product"), (nf, 1, "product+arrow"))
-) + (("pc_gemm_pitch_copy", "pitch copy"),)
+#: product, one field per block, for every entry and field count; the
+#: forward entry's second product with the arrow epilogue, all fields per
+#: block, for 1 to 4 fields), the arrow pass above 4 fields and the
+#: pitched copy
+_PTXAS_PC_NAMES = (("pc_gemm_tcILi1ELi1ELb0E", "product"),) + tuple(
+    ("pc_gemm_tcILi%dELi%dELb1E" % (nf, nf), "product+arrow nf=%d" % nf)
+    for nf in (1, 2, 3, 4)
+) + (("pc_arrow_pass", "arrow pass"), ("pc_gemm_pitch_copy", "pitch copy"))
+#: the pc2d.cu kernels that are no tensor-core product
+_PC_NO_MMA = ("arrow pass", "pitch copy")
 
 
 def sass_counts(path, ops=("HGMMA", "UTMALDG")):
@@ -610,13 +625,13 @@ def phase_build():
     sass = sass_counts(PC_BUILD.build_info["path"])
     if sass is not None:
         check(all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
-                  for n, c in sass.items() if n != "pitch copy")
-              and len(sass) == 7, "pc2d.cu's products without HGMMA or "
-              "UTMALDG: %s" % sass)
+                  for n, c in sass.items() if n not in _PC_NO_MMA)
+              and len(sass) == len(_PTXAS_PC_NAMES), "pc2d.cu's products "
+              "without HGMMA or UTMALDG: %s" % sass)
     reports.append("pc2d SASS: %s" % (
         "no cuobjdump" if sass is None else "; ".join(
             "%s HGMMA %d UTMALDG %d" % (n, c["HGMMA"], c["UTMALDG"])
-            for n, c in sass.items() if n != "pitch copy")))
+            for n, c in sass.items() if n not in _PC_NO_MMA)))
     # every stencil kernel of every build, unsharded and halo-slab (9 in
     # 2D with B11, 8 in 3D), keeps its registers
     # the delta kernels of a problem whose coefficients depend on t run
@@ -3987,6 +4002,261 @@ def phase_pc_forms(card, gemm_f64, gemm_f32):
     return fig
 
 
+#: phase 34's field counts of B5 beyond 2..4: 1 (no ligand, the NF = 1
+#: instance) and 5, 6 (the plain second product and the arrow pass)
+B5_FIELDS = (1, 5, 6)
+#: the 5-field pc_pallas main path of phase 34
+PC_NF = 5
+
+
+def phase_b5_fields(card):
+    """Phase 34, B5 (pc2d.cu) at the field counts pc2d.cu took last:
+
+    (a) B5a (pc_fwd) and B5b (pc_inv) at 1024^2 x nf for nf in B5_FIELDS
+        (tools/problems.py with_fields: the bench problem with no ligand
+        or with 4 and 5 ligands), the scalar pack of a step at h=1 from
+        the rough state and a seeded v: within 1e-5 of max|plain|; NB
+        members under vmap one launch, bit for bit the NB single
+        launches; CUDA-event ms of each entry, its plain version and the
+        basis-GEMM pc's cuBLAS products for the same apply, and the
+        bound (3xTF32, scaled by nf; pc_bound);
+    (b) the ``-pc_pallas 1`` main path at 1024^2 x PC_NF (phase_main_path:
+        12 pc_fwd and 12 pc_inv per step beside 8 resid and 4 delta,
+        ms/step, device ms, no library GEMM), and card against CPU at
+        128^2 x PC_NF within 1e-5 of the increment."""
+    from ksfd_tpu_torch.ops.fused_pc import make_fused_block_pc
+    from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    fig, lines = {"fields": {}}, []
+    for dof in B5_FIELDS:
+        ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG, dof), N_BIG,
+                                            N_BIG, device=dev)
+        check(grid.dof == dof, "%d fields: grid dof %d" % (dof, grid.dof))
+        pc = make_fused_block_pc(grid, ops)
+        base = torch.as_tensor(rough_state(grid, ps), device=dev)
+        shift, t, means, rho_diff, sc = pc_step_scalars(ops, base)
+        v = torch.randn(tuple(grid.Vshape), generator=gen, device=dev)
+        modes = pc.fwd(sc, v)
+        out = pc.inv(modes)
+        per = {}
+        for name, got, ref in (("pc_fwd", modes, pc.fwd.plain(sc, v)),
+                               ("pc_inv", out, pc.inv.plain(modes))):
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= 1e-5 * scale,
+                  "%s with %d fields: max err %.3e > 1e-5 * %.3e"
+                  % (name, dof, err, scale))
+            per[name] = dict(max_abs_err=err, max_rel_err=err / scale)
+        per_fwd = [(pc_step_scalars(ops, base * (1.0 + 0.05 * i),
+                                    h=1.0 + i)[-1],
+                    torch.randn(tuple(grid.Vshape), generator=gen,
+                                device=dev)) for i in range(NB)]
+        per_inv = [(pc.fwd(*a),) for a in per_fwd]
+        for k, args in ((pc.fwd, per_fwd), (pc.inv, per_inv)):
+            err, scale = hold_batched(k, args)
+            per[k.name]["nb%d_bitwise" % NB] = True
+            per[k.name]["nb%d_max_rel_err" % NB] = err / scale
+        lib = BlockSpectralPreconditioner(grid, ops, compute_dtype="float32",
+                                          device=dev)
+        fwd_in = pc.fwd.prepare(sc, v)
+        inv_in = pc.inv.prepare(modes)
+        for name, k, args, library in (
+                ("pc_fwd", pc.fwd, fwd_in,
+                 lambda: lib._arrow_solve(lib._forward(v), shift, t, means,
+                                          rho_diff)),
+                ("pc_inv", pc.inv, inv_in, lambda: lib._inverse(modes))):
+            bound_ms, bound_by, _ = pc_bound(name, grid)
+            per[name].update(
+                ms=cuda_ms(lambda: k.launch(*args), 30),
+                plain_ms=cuda_ms(lambda: k.body(*args), 5),
+                library_ms=cuda_ms(library, 5),
+                bound_ms=bound_ms, bound_by=bound_by)
+        fig["fields"][dof] = per
+        lines.append("%d^2x%d: %s" % (N_BIG, dof, "; ".join(
+            "%s %.2f us (bound %.2f, %s; plain %.2f; cuBLAS %.2f), err "
+            "%.2e rel, nb=%d bitwise" % (
+                n, f["ms"] * 1e3, f["bound_ms"] * 1e3, f["bound_by"],
+                f["plain_ms"] * 1e3, f["library_ms"] * 1e3,
+                f["max_rel_err"], NB) for n, f in per.items())))
+        del pc, base, lib, modes, out, per_fwd, per_inv, fwd_in, inv_in
+    f = {}
+    counts, _, _ = phase_main_path(
+        card, "%d^2" % N_BIG, bench_clargs(N_BIG, PC_NF), (N_BIG, N_BIG), 34,
+        pc_pallas=True, label="nf%d" % PC_NF, figures=f)
+    f["launches"] = counts
+    fig["pc_pallas_nf%d" % PC_NF] = f
+    fig["card_vs_cpu_pc_pallas_nf%d" % PC_NF] = phase_card_vs_cpu(
+        card, "%d^2 %d fields" % (N_DIRK_CMP, PC_NF),
+        bench_clargs(N_DIRK_CMP, PC_NF), (N_DIRK_CMP,) * 2, rough_state, 34,
+        pc_pallas=True)
+    print("phase 34 B5 at %s fields (%s): %s | pc_pallas %d^2x%d: %.4f "
+          "ms/step, device %.4f ms, launches/10 steps %s" % (
+              "/".join(map(str, B5_FIELDS)), card, " | ".join(lines), N_BIG,
+              PC_NF, f["ms_per_step"], f["device_ms"], counts))
+    return fig
+
+
+#: phase 35's gmres_rolled: GMRES(ROLLED_M), ROLLED_CYCLES cycles per
+#: stage solve (the defaults, 50 cycles of GMRES(20), would take some 4200
+#: jvp launches a step)
+ROLLED_M, ROLLED_CYCLES = 8, 2
+ROLLED = dict(ksp_type="gmres_rolled", ksp_restart=ROLLED_M,
+              ksp_max_it=ROLLED_CYCLES)
+#: jvp launches per step of the mixed gmres_rolled path: 4 stage solves,
+#: each ROLLED_CYCLES cycles of one residual and ROLLED_M Arnoldi W applies
+ROLLED_JVP = 4 * ROLLED_CYCLES * (ROLLED_M + 1)
+ROLLED_CHUNK_ACCEPTS = 12
+
+
+def phase_krylov_with_g_flux(card, cli_flagship):
+    """Phase 35, the fixed-count Krylov tiers, with-G states and the
+    flux form on the card.
+
+    (a) ``-ksp_type gmres_rolled`` (ROLLED) on the 2D main path at
+        1024^2 x 3 in float64: mixed32, W = shift v - jvp(v) from B2
+        inside the float64 step, the stage right-hand sides on B3; exact
+        launches per chained step (ROLLED_JVP jvp, 4 delta, no resid),
+        ms/step, device ms; card against CPU at 128^2 x 3; the adaptive
+        chunk with gmres_rolled (one tier) for ROLLED_CHUNK_ACCEPTS
+        accepts at 1024^2 x 3 from the near-uniform state, launches =
+        attempts x (ROLLED_JVP, 4);
+    (b) ``-ksp_type gmres`` and ``-pc_type none -ksp_type richardson``
+        card against CPU at 128^2 x 3 (no full-width timing: each is a
+        float64 GMRES of 3 W applies per stage, off the main path);
+    (c) ``--with_g`` through ``main`` on examples/aggregation2d at its
+        1536^2 x (3+1), device loop, FLAG_ACCEPTS accepts from phase
+        31's start: the unfused step (no stencil kernel: the kernels
+        refuse with-G states, as the reference's do), ms per accept
+        beside phase 31 (a)'s, and the stored G slot against ``ops.G``
+        of the fields after the last accept (max relative difference,
+        float64);
+    (d) ``flux_form=True`` on the 2D cell at 1024^2 x 3, float64: the
+        unfused step (the kernels refuse it), slope-timed ms/step over
+        a chain, and sum(rho)'s drift over 10 chained steps (conserved to
+        the float32 sweeps' roundoff)."""
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.solvers import make_adaptive_chunk_fn
+    from ksfd_tpu_torch.solvers import make_multistep_fn
+
+    dev = torch.device("cuda")
+    fig, lines = {}, []
+    big = "%d^2" % N_BIG
+    # (a) gmres_rolled over B2 on the f64 path
+    f = {}
+    counts, _, _ = phase_main_path(
+        card, big, bench_clargs(N_BIG), (N_BIG, N_BIG), 35, extra=ROLLED,
+        per_step=dict(rhs=0, jvp=ROLLED_JVP, resid=0, delta=4),
+        label="gmres_rolled", figures=f)
+    check(f["build_info"]["mixed32"], "gmres_rolled runs mixed32")
+    f["launches"] = counts
+    fig["gmres_rolled_f64"] = f
+    cmp = "%d^2" % N_DIRK_CMP
+    fig["card_vs_cpu_gmres_rolled"] = phase_card_vs_cpu(
+        card, cmp, bench_clargs(N_DIRK_CMP), (N_DIRK_CMP,) * 2, rough_state,
+        35, extra=ROLLED)
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev)
+    kern = make_fused_kernels(ops)
+    chunk, _ = make_adaptive_chunk_fn(ops, NumericsOptions(**ROLLED),
+                                      atol=0.01, rtol=1e-6, kernels=kern)
+    check(chunk.tiers == [("gmres_rolled", 3)] and chunk.chain,
+          "the gmres_rolled chunk: one chained tier, %s" % chunk.tiers)
+    u0 = torch.as_tensor(initial_state(grid), device=dev)
+    zero_launches(kern)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, t, h, k, attempts, rej = chunk(u0, 0.0, 1.0, 1e9,
+                                      ROLLED_CHUNK_ACCEPTS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts(kern)
+    check(k == ROLLED_CHUNK_ACCEPTS and not rej
+          and bool(torch.isfinite(u).all())
+          and launches == dict(rhs=0, jvp=attempts * ROLLED_JVP, resid=0,
+                               delta=4 * attempts),
+          "the gmres_rolled chunk: k %d attempts %d rejected %s launches %s"
+          % (k, attempts, rej, launches))
+    fig["gmres_rolled_chunk"] = dict(accepts=k, attempts=attempts, t=t,
+                                     h=h, ms_per_accept=secs / k * 1e3,
+                                     launches=launches)
+    lines.append(
+        "(a) gmres_rolled GMRES(%d) x %d f64 %s x3: %.4f ms/step, device "
+        "%.4f ms (%s), launches/10 steps %s; chunk %d accepts in %d "
+        "attempts, %.3f ms/accept, launches %s" % (
+            ROLLED_M, ROLLED_CYCLES, big, f["ms_per_step"], f["device_ms"],
+            "; ".join("%s %.4f" % kv for kv in f["groups"].items()),
+            counts, k, attempts, secs / k * 1e3, launches))
+    del chunk, kern, ops, u, u0
+    # (b) gmres and pc_type none with Richardson, card vs CPU
+    for label, extra in (("gmres", dict(ksp_type="gmres")),
+                         ("pc_none_richardson", dict(pc_type="none"))):
+        fig["card_vs_cpu_" + label] = phase_card_vs_cpu(
+            card, cmp, bench_clargs(N_DIRK_CMP), (N_DIRK_CMP,) * 2,
+            rough_state, 35, extra=extra)
+    # (c) --with_g through main
+    opt = cut_options("aggregation2d", "aggregation2d_with_g",
+                      maxsteps=FLAG_ACCEPTS)
+    status, s, setup, rest = drive_cli(opt, "--with_g", "--numerics",
+                                       "-device_loop", "1", "--")
+    g_ops = s.ops
+    G = g_ops.G(s.u[:-1], s.t)
+    g_dev = float(((s.u[-1] - G).abs() / G.abs().clamp(min=1e-300)).max())
+    check(status == 0 and s.k == FLAG_ACCEPTS and s.u.shape[0] == 4
+          and s.kernels is None and g_dev <= 1e-12
+          and bool(torch.isfinite(s.u).all()),
+          "--with_g: status %d k %d dof %d kernels %s G rel dev %.3e" % (
+              status, s.k, s.u.shape[0], s.kernels, g_dev))
+    fig["with_g"] = dict(accepts=s.k, t=s.t, h=s.h, setup_s=setup,
+                         ms_per_accept=rest / s.k * 1e3,
+                         rosw_ms_per_accept_phase31=cli_flagship[
+                             "ms_per_accept"],
+                         dispatches=s.stats.dispatches,
+                         tier_calls=s.stats.tier_calls,
+                         G_max_rel_dev=g_dev, kernel_refusal=s.build_info[
+                             "kernel_refusal"])
+    lines.append(
+        "(c) --with_g aggregation2d %d^2x(3+1), device loop: setup %.2f s, "
+        "%.3f ms/accept (phase 31 without G %.3f), k %d, t=%.6g, tier calls "
+        "%s; the unfused step (%s: no stencil launch); G slot vs ops.G max "
+        "rel %.3e" % (N_AGG, setup, rest / s.k * 1e3,
+                      cli_flagship["ms_per_accept"], s.k, s.t,
+                      s.stats.tier_calls, s.build_info["kernel_refusal"],
+                      g_dev))
+    del s, g_ops, G
+    # (d) the flux form
+    ps, grid, ops = problem_from_clargs(bench_clargs(N_BIG), N_BIG, N_BIG,
+                                        device=dev, flux_form=True)
+    multi, _ = make_multistep_fn(ops, NumericsOptions(), atol=0.01,
+                                 rtol=1e-6)
+    check(multi.kernels is None
+          and multi.build_info["kernel_refusal"] == "the flux form",
+          "the flux form's step is unfused: %s" % multi.build_info)
+    u0 = ops.groom(torch.as_tensor(rough_state(grid, ps), device=dev))
+    ms = step_ms(multi, u0, 1e-2)
+    tt = torch.zeros((), dtype=torch.float64, device=dev)
+    u, _, emax = multi(u0, tt, torch.full_like(tt, 1e-2), 10)
+    s0, s1 = float(u0[0].sum()), float(u[0].sum())
+    moved = float((u[0] - u0[0]).abs().sum())
+    drift = abs(s1 - s0)
+    check(bool(torch.isfinite(u).all()) and math.isfinite(float(emax))
+          and drift <= 4 * 2.0 ** -23 * moved,
+          "flux form: sum(rho) drift %.3e > 4 ulps of sum|drho| %.3e"
+          % (drift, moved))
+    fig["flux_form"] = dict(ms_per_step=ms, sum_rho=s0, drift=drift,
+                            drift_rel=drift / abs(s0),
+                            sum_abs_drho=moved, emax=float(emax))
+    lines.append(
+        "(d) flux form %s x3 f64 h=1e-2 (unfused): %.4f ms/step; sum(rho) "
+        "%.10e, drift over 10 steps %.3e (%.3e rel; sum|drho| %.3e)" % (
+            big, ms, s0, drift, drift / abs(s0), moved))
+    print("phase 35 Krylov tiers, with-G, flux form (%s): %s" % (
+        card, " | ".join(lines)))
+    return fig
+
+
 def kernel_lines(rows):
     """One short line per kernel row: µs, bound µs, plain µs, library µs
     and the launches per step on each path (the tail of the output keeps
@@ -4167,6 +4437,9 @@ def main():
     dirk32 = timed("32", phase_dirk, card, cli31["flagship"], main_f64,
                    main_f32)
     forms33 = timed("33", phase_pc_forms, card, main_f64, main_f32)
+    b5_34 = timed("34", phase_b5_fields, card)
+    krylov35 = timed("35", phase_krylov_with_g_flux, card,
+                     cli31["flagship"])
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -4216,6 +4489,13 @@ def main():
                 runs2d.append(f["launches"])
     ark = dirk32["flagship"]
     runs2d += [ark["launches"], dirk32["ensemble"]["launches"]]
+    # B5 at 5 fields and gmres_rolled over B2 (phases 34, 35): per step
+    # of the 10-step chains; the gmres_rolled chunk's launches
+    for key, f in (("f64_pc_nf%d" % PC_NF, b5_34["pc_pallas_nf%d" % PC_NF]),
+                   ("gmres_rolled_f64", krylov35["gmres_rolled_f64"])):
+        per_step[key] = {n: c // 10 for n, c in f["launches"].items()}
+        runs2d.append(f["launches"])
+    runs2d.append(krylov35["gmres_rolled_chunk"]["launches"])
     per_step["cli_flagship_arkimex"] = {n: c / ark["accepts"]
                                         for n, c in ark["launches"].items()}
     totals = {n: sum(c.get(n, 0) for c in runs2d)
@@ -4248,6 +4528,9 @@ def main():
         pc_extra[n].update(bound_ms_f32_simt=pc_figs[big][n][5],
                            bound_ms_1536_f32_simt=pc_figs[agg][n][5],
                            pitch_copy_us=pc_figs["pitch_copy_us"])
+        # phase 34: the same entry at 1024^2 with 1, 5 and 6 fields
+        pc_extra[n]["fields_1024"] = {
+            str(dof): per[n] for dof, per in b5_34["fields"].items()}
     b11_row = {
         "name": "coeff_resid", "route": "cuda",
         "source": "ksfd_tpu_torch/csrc/stencil2d.cu",
@@ -4302,6 +4585,8 @@ def main():
         "entry_point": cli31,
         "dirk": dirk32,
         "pc_forms": forms33,
+        "b5_fields": {k: v for k, v in b5_34.items() if k != "fields"},
+        "krylov_with_g_flux": krylov35,
     }))
     # the card, and one short line per kernel, where the returned end of
     # the output keeps them

@@ -38,8 +38,18 @@
 //
 // Kernel (pc_gemm_tc): a block owns a BM x BN = 128 x 64 tile of D for
 // NACC planes: 1 for the plain products (the grid walks tiles x fields x
-// members), all nf fields of a member for fwd P2, whose epilogue is the
-// arrow inverse in registers (it needs every field of a mode).  Three
+// members), all nf fields of a member for fwd P2 with nf <= MAX_NF = 4,
+// whose epilogue is the arrow inverse in registers (it needs every field
+// of a mode).  Above MAX_NF fields the epilogue's nf accumulator tiles
+// would not fit the 232 registers a consumer thread has (5 x 32 + 32 =
+// 192 at nf = 5, past the budget from 6 on): there fwd P2 is a plain
+// product into the output and an elementwise pass (pc_arrow_pass) solves
+// each mode's arrow in place, reading and writing the nf mode planes
+// once more (2 nf n^2 floats: about 13 us at 1024^2 x 5 against some 130
+// us of products at the 3xTF32 bound).  Narrower tiles (BN = 32) would
+// keep the epilogue at the price of twice the B tile loads per output;
+// the pass is the simpler of the two and leaves the products as they
+// are for every field count.  Three
 // warpgroups: warpgroup 0 (setmaxnreg 40) has one thread issue TMA loads
 // of the NACC A tiles and the B hi/lo tiles (BK = 32 floats = 128 B rows,
 // 128-byte swizzle, out-of-range boxes zero-filled) into a ring of
@@ -57,6 +67,9 @@
 // of the scratch (pc_gemm_pitch_copy, part of the same call).  Scratch
 // (floats): nb nf (ny nxp + nx nyp), nxp and nyp the extents rounded up
 // to 4 (ops/fused_pc.py scratch_floats); the wrapper allocates it.
+//
+// Fields: any nf >= 1.  nf = 1 (no ligand) is the NF = 1 instance, whose
+// arrow is x = c0 / (shift - rho_diff lam).
 //
 // Members: every entry takes nb >= 1; A planes and outputs are (nb, nf,
 // ., .) and the scalar pack (nb, 3 + 4 NL); a block's work depends on
@@ -148,43 +161,35 @@ KSFD_HD Walk make_walk(int M, int N, int K, int ldd, size_t dst_plane) {
   return w;
 }
 
-// The arrow inverse of one mode, the arithmetic of pallas_pc.py:164-183
-// from sc = [shift, rho_diff, rho_mean, dG_1..dG_nl, s_1..s_nl,
-// gamma_1..gamma_nl, D_1..D_nl] (one member's row) and lam = lam2d at
-// the mode; cs[f] in, x[f] out.
-template <int NF>
-struct Arrow {
-  static constexpr int NL = NF - 1;
-  float shift, rho_diff, nrdG[NL], ms[NL], gam[NL], Dl[NL];
-  KSFD_HD Arrow(const float* sc) {
-    shift = sc[0];
-    rho_diff = sc[1];
-    const float rho_mean = sc[2];
-    for (int l = 0; l < NL; ++l) {
-      nrdG[l] = -rho_mean * sc[3 + l];   // (-rho_mean * dG_l)
-      ms[l] = -sc[3 + NL + l];           // c_l = -s_l
-      gam[l] = sc[3 + 2 * NL + l];
-      Dl[l] = sc[3 + 3 * NL + l];
-    }
+// The arrow inverse of one mode, the arithmetic of pallas_pc.py:164-183,
+// in place on the nf mode values x[f * stride], from sc = [shift,
+// rho_diff, rho_mean, dG_1..dG_nl, s_1..s_nl, gamma_1..gamma_nl,
+// D_1..D_nl] (one member's row) and lam = lam2d at the mode.  Each inv_d
+// is computed again for the back substitution (the same value bit for
+// bit).  The fwd epilogue inlines it with nf a constant (1 to MAX_NF =
+// 4); the arrow pass above MAX_NF fields runs it with nf at run time.
+KSFD_HD void arrow_solve(const float* sc, int nf, float lm, float* x,
+                         size_t stride) {
+  const int nl = nf - 1;
+  const float shift = sc[0], rho_diff = sc[1], rho_mean = sc[2];
+  float schur = shift - rho_diff * lm;
+  float num = x[0];
+  for (int l = 0; l < nl; ++l) {
+    const float inv_d = 1.0f / (shift + sc[3 + 2 * nl + l]
+                                - sc[3 + 3 * nl + l] * lm);
+    const float b_over_d = (-rho_mean * sc[3 + l]) * lm * inv_d;
+    schur = schur - b_over_d * (-sc[3 + nl + l]);
+    num = num - b_over_d * x[(1 + l) * stride];
   }
-  KSFD_HD void solve(float lm, const float (&cs)[NF], float (&x)[NF]) const {
-    float schur = shift - rho_diff * lm;
-    float num = cs[0];
-    float inv_d[NL];
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      inv_d[l] = 1.0f / (shift + gam[l] - Dl[l] * lm);
-      const float b_over_d = nrdG[l] * lm * inv_d[l];
-      schur = schur - b_over_d * ms[l];
-      num = num - b_over_d * cs[1 + l];
-    }
-    const float x_r = num / schur;
-    x[0] = x_r;
-#pragma unroll
-    for (int l = 0; l < NL; ++l)
-      x[1 + l] = (cs[1 + l] - ms[l] * x_r) * inv_d[l];
+  const float x_r = num / schur;
+  x[0] = x_r;
+  for (int l = 0; l < nl; ++l) {
+    const float inv_d = 1.0f / (shift + sc[3 + 2 * nl + l]
+                                - sc[3 + 3 * nl + l] * lm);
+    x[(1 + l) * stride] = (x[(1 + l) * stride] - (-sc[3 + nl + l]) * x_r)
+                          * inv_d;
   }
-};
+}
 
 // One output element (m, n) of the tile's group: the plain store of a
 // product, or (EPI, fwd P2, m = ky, n = kx) the arrow inverse of all NF
@@ -196,9 +201,10 @@ KSFD_HD void store_element(const Walk& w, int group, int m, int n,
   const size_t g = (size_t)n * w.ldd + m;
   if constexpr (EPI) {
     static_assert(NACC == NF, "the arrow epilogue holds every field");
-    const Arrow<NF> arrow(sc + (size_t)group * (3 + 4 * (NF - 1)));
     float x[NF];
-    arrow.solve(lam[g], acc, x);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) x[f] = acc[f];
+    arrow_solve(sc + (size_t)group * (3 + 4 * (NF - 1)), NF, lam[g], x, 1);
 #pragma unroll
     for (int f = 0; f < NF; ++f)
       dst[((size_t)group * NF + f) * w.dst_plane + g] = x[f];
@@ -462,6 +468,20 @@ __global__ void pc_gemm_pitch_copy(const float* __restrict__ src,
   dst[r * nyp + (i - r * ny)] = src[i];
 }
 
+// The arrow pass above MAX_NF fields: thread i solves mode i % plane of
+// member i / plane in place on the (nb, nf, nx, ny) modes.  Bound:
+// bytes.
+__global__ void pc_arrow_pass(float* __restrict__ modes,
+                              const float* __restrict__ sc,
+                              const float* __restrict__ lam, int nf,
+                              size_t plane, int nb) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= plane * nb) return;
+  const size_t member = i / plane, g = i - member * plane;
+  arrow_solve(sc + member * (3 + 4 * (nf - 1)), nf, lam[g],
+            modes + member * nf * plane + g, plane);
+}
+
 PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
   if (!fn) {
@@ -523,7 +543,6 @@ bool aligned16(const float* p) { return (uintptr_t)p % 16 == 0; }
 
 // P1 of both entries: the state (or its pitched copy) times the y basis
 // into the S^T planes of tmp
-template <int NF>
 int first_product(const float* state, const float* by, const Plan& p,
                   int nx, int ny, cudaStream_t s) {
   const float* a = state;
@@ -535,10 +554,10 @@ int first_product(const float* state, const float* by, const Plan& p,
     if (err != cudaSuccess) return (int)err;
     a = p.pitched;
   }
-  return product<NF, 1, false>(a, p.lda1, p.planes, by, p.nyp,
-                               make_walk(nx, ny, ny, p.nxp,
-                                         (size_t)ny * p.nxp),
-                               p.st, nullptr, nullptr, s);
+  return product<1, 1, false>(a, p.lda1, p.planes, by, p.nyp,
+                              make_walk(nx, ny, ny, p.nxp,
+                                        (size_t)ny * p.nxp),
+                              p.st, nullptr, nullptr, s);
 }
 
 template <int NF>
@@ -546,7 +565,7 @@ int fwd(const float* sc, const float* v, const float* bx, const float* by,
         const float* lam, float* tmp, float* out, int nx, int ny, int nb,
         cudaStream_t s) {
   const Plan p = make_plan(NF, nx, ny, nb, tmp, aligned16(v));
-  int err = first_product<NF>(v, by, p, nx, ny, s);
+  int err = first_product(v, by, p, nx, ny, s);
   if (err) return err;
   // c = arrow^{-1}((S^T Qx)^T): M = ny (ky), N = nx (kx), K = nx
   return product<NF, NF, true>(p.st, p.nxp, p.planes, bx, p.nxp,
@@ -554,24 +573,42 @@ int fwd(const float* sc, const float* v, const float* bx, const float* by,
                                out, sc, lam, s);
 }
 
-template <int NF>
+// fwd above MAX_NF fields: P2 as the plain product into out, then the
+// arrow pass in place
+int fwd_any(const float* sc, const float* v, const float* bx,
+            const float* by, const float* lam, float* tmp, float* out,
+            int nf, int nx, int ny, int nb, cudaStream_t s) {
+  const Plan p = make_plan(nf, nx, ny, nb, tmp, aligned16(v));
+  int err = first_product(v, by, p, nx, ny, s);
+  if (err) return err;
+  err = product<1, 1, false>(p.st, p.nxp, p.planes, bx, p.nxp,
+                             make_walk(ny, nx, nx, ny, (size_t)nx * ny),
+                             out, nullptr, nullptr, s);
+  if (err) return err;
+  const size_t n = (size_t)nx * ny * nb;
+  pc_arrow_pass<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      out, sc, lam, nf, (size_t)nx * ny, nb);
+  return (int)cudaGetLastError();
+}
+
 int inv(const float* c, const float* bx, const float* by, float* tmp,
-        float* out, int nx, int ny, int nb, cudaStream_t s) {
-  const Plan p = make_plan(NF, nx, ny, nb, tmp, aligned16(c));
-  int err = first_product<NF>(c, by, p, nx, ny, s);
+        float* out, int nf, int nx, int ny, int nb, cudaStream_t s) {
+  const Plan p = make_plan(nf, nx, ny, nb, tmp, aligned16(c));
+  int err = first_product(c, by, p, nx, ny, s);
   if (err) return err;
   // out = (S^T Qx^T-stored)^T: M = ny (y), N = nx (x), K = nx
-  return product<NF, 1, false>(p.st, p.nxp, p.planes, bx, p.nxp,
-                               make_walk(ny, nx, nx, ny, (size_t)nx * ny),
-                               out, nullptr, nullptr, s);
+  return product<1, 1, false>(p.st, p.nxp, p.planes, bx, p.nxp,
+                              make_walk(ny, nx, nx, ny, (size_t)nx * ny),
+                              out, nullptr, nullptr, s);
 }
 #endif  // __CUDACC__
 
 }  // namespace
 
 #ifdef __CUDACC__
-// nf is 2..4 (ops/fused_pc.py MAX_NF): fwd P2 keeps nf accumulator tiles
-// in registers, so each nf is its own instance.  nb: members, >= 1.
+// nf >= 1: for nf <= 4 (ops/fused_pc.py MAX_NF) fwd P2 keeps nf
+// accumulator tiles in registers, so each such nf is its own instance;
+// above, fwd_any.  nb: members, >= 1.
 // bx and by: the [hi; lo] planes of the x and y basis of the entry
 // (fwd: Qx^T, Qy^T; inv: Qx, Qy), rows padded to nxp and nyp floats.
 extern "C" {
@@ -580,12 +617,15 @@ int ksfd_pc_fwd(const float* sc, const float* v, const float* bx,
                 const float* by, const float* lam, float* tmp, float* out,
                 int nf, int nx, int ny, int nb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (nb < 1 || nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nf < 1 || nx < 1 || ny < 1)
+    return (int)cudaErrorInvalidValue;
   switch (nf) {
+    case 1: return fwd<1>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, s);
     case 2: return fwd<2>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, s);
     case 3: return fwd<3>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, s);
     case 4: return fwd<4>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      return fwd_any(sc, v, bx, by, lam, tmp, out, nf, nx, ny, nb, s);
   }
 }
 
@@ -593,13 +633,9 @@ int ksfd_pc_inv(const float* c, const float* bx, const float* by,
                 float* tmp, float* out, int nf, int nx, int ny, int nb,
                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (nb < 1 || nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
-  switch (nf) {
-    case 2: return inv<2>(c, bx, by, tmp, out, nx, ny, nb, s);
-    case 3: return inv<3>(c, bx, by, tmp, out, nx, ny, nb, s);
-    case 4: return inv<4>(c, bx, by, tmp, out, nx, ny, nb, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (nb < 1 || nf < 1 || nx < 1 || ny < 1)
+    return (int)cudaErrorInvalidValue;
+  return inv(c, bx, by, tmp, out, nf, nx, ny, nb, s);
 }
 
 }  // extern "C"
@@ -657,7 +693,6 @@ void product(const float* a, int lda, int planes, const float* bt, int ldb,
   }
 }
 
-template <int NF>
 void first_product(const float* state, const float* by, const Plan& p,
                    int nx, int ny) {
   const float* a = state;
@@ -666,9 +701,9 @@ void first_product(const float* state, const float* by, const Plan& p,
       for (int j = 0; j < ny; ++j) p.pitched[r * p.nyp + j] = state[r * ny + j];
     a = p.pitched;
   }
-  product<NF, 1, false>(a, p.lda1, p.planes, by, p.nyp,
-                        make_walk(nx, ny, ny, p.nxp, (size_t)ny * p.nxp),
-                        p.st, nullptr, nullptr);
+  product<1, 1, false>(a, p.lda1, p.planes, by, p.nyp,
+                       make_walk(nx, ny, ny, p.nxp, (size_t)ny * p.nxp),
+                       p.st, nullptr, nullptr);
 }
 
 template <int NF>
@@ -676,20 +711,34 @@ void fwd(const float* sc, const float* v, const float* bx, const float* by,
          const float* lam, float* tmp, float* out, int nx, int ny, int nb,
          bool direct) {
   const Plan p = make_plan(NF, nx, ny, nb, tmp, direct);
-  first_product<NF>(v, by, p, nx, ny);
+  first_product(v, by, p, nx, ny);
   product<NF, NF, true>(p.st, p.nxp, p.planes, bx, p.nxp,
                         make_walk(ny, nx, nx, ny, (size_t)nx * ny), out, sc,
                         lam);
 }
 
-template <int NF>
+void fwd_any(const float* sc, const float* v, const float* bx,
+             const float* by, const float* lam, float* tmp, float* out,
+             int nf, int nx, int ny, int nb, bool direct) {
+  const Plan p = make_plan(nf, nx, ny, nb, tmp, direct);
+  first_product(v, by, p, nx, ny);
+  product<1, 1, false>(p.st, p.nxp, p.planes, bx, p.nxp,
+                       make_walk(ny, nx, nx, ny, (size_t)nx * ny), out,
+                       nullptr, nullptr);
+  const size_t plane = (size_t)nx * ny;
+  for (int member = 0; member < nb; ++member)
+    for (size_t g = 0; g < plane; ++g)
+      arrow_solve(sc + (size_t)member * (3 + 4 * (nf - 1)), nf, lam[g],
+                out + (size_t)member * nf * plane + g, plane);
+}
+
 void inv(const float* c, const float* bx, const float* by, float* tmp,
-         float* out, int nx, int ny, int nb, bool direct) {
-  const Plan p = make_plan(NF, nx, ny, nb, tmp, direct);
-  first_product<NF>(c, by, p, nx, ny);
-  product<NF, 1, false>(p.st, p.nxp, p.planes, bx, p.nxp,
-                        make_walk(ny, nx, nx, ny, (size_t)nx * ny), out,
-                        nullptr, nullptr);
+         float* out, int nf, int nx, int ny, int nb, bool direct) {
+  const Plan p = make_plan(nf, nx, ny, nb, tmp, direct);
+  first_product(c, by, p, nx, ny);
+  product<1, 1, false>(p.st, p.nxp, p.planes, bx, p.nxp,
+                       make_walk(ny, nx, nx, ny, (size_t)nx * ny), out,
+                       nullptr, nullptr);
 }
 
 }  // namespace
@@ -702,11 +751,13 @@ extern "C" {
 int ksfd_pc_fwd_host(const float* sc, const float* v, const float* bx,
                      const float* by, const float* lam, float* tmp,
                      float* out, int nf, int nx, int ny, int nb, int direct) {
+  if (nf < 1) return 1;
   switch (nf) {
+    case 1: fwd<1>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, direct); break;
     case 2: fwd<2>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, direct); break;
     case 3: fwd<3>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, direct); break;
     case 4: fwd<4>(sc, v, bx, by, lam, tmp, out, nx, ny, nb, direct); break;
-    default: return 1;
+    default: fwd_any(sc, v, bx, by, lam, tmp, out, nf, nx, ny, nb, direct);
   }
   return 0;
 }
@@ -714,12 +765,8 @@ int ksfd_pc_fwd_host(const float* sc, const float* v, const float* bx,
 int ksfd_pc_inv_host(const float* c, const float* bx, const float* by,
                      float* tmp, float* out, int nf, int nx, int ny, int nb,
                      int direct) {
-  switch (nf) {
-    case 2: inv<2>(c, bx, by, tmp, out, nx, ny, nb, direct); break;
-    case 3: inv<3>(c, bx, by, tmp, out, nx, ny, nb, direct); break;
-    case 4: inv<4>(c, bx, by, tmp, out, nx, ny, nb, direct); break;
-    default: return 1;
-  }
+  if (nf < 1) return 1;
+  inv(c, bx, by, tmp, out, nf, nx, ny, nb, direct);
   return 0;
 }
 

@@ -6,7 +6,11 @@
   ``__graft_entry__._make_problem`` builds the reference's 2D problem,
   ``tests/test_3d.py:_problem`` its 3D one and
   ``tests/manufactured.py:make_problem`` its 1D one.  The dimension comes
-  from the parameters (``dim``).
+  from the parameters (``dim``).  ``with_g=True`` builds the with-G
+  problem (ops/operators_with_g.py: the grid and the state carry the G
+  field last, nligands+2 fields, as the reference driver's
+  ``--with_g`` run and its stored states do); ``flux_form=True`` the
+  conservative discretization.
 - ``tensors_from_numpy(arrays, device=None)`` turns arrays taken from
   the JAX package as numpy (the state, a base RHS f0, a
   preconditioner's Q/lam) into tensors, keeping dtype and the
@@ -22,17 +26,21 @@ import torch
 
 from .grid import Grid
 from .models import SolutionParameters
-from .ops import PDEOperators
+from .ops import PDEOperators, WithGOperators, with_g_grid
 from .utils.device import resolve_device
 
 __all__ = ["problem_from_clargs", "tensors_from_numpy", "numpy_from_tensors"]
 
 
-def problem_from_clargs(clargs, nx, ny=None, nz=None, device=None):
+def problem_from_clargs(clargs, nx, ny=None, nz=None, device=None,
+                        with_g=False, flux_form=False):
     """(ps, grid, ops) of a 1D, 2D or 3D problem on a periodic grid
     whose dimension, extent, field count and stencil order come from
     the parameters.  A 2D problem needs ``ny``, a 3D one (``dim=3``)
-    ``ny`` and ``nz``; a 1D one reads only ``nx``."""
+    ``ny`` and ``nz``; a 1D one reads only ``nx``.  With ``with_g`` the
+    grid and ops are the with-G ones (a reference with-G state, numpy
+    ``(nligands+2, ...)``, crosses as it is); ``flux_form`` as
+    PDEOperators takes it."""
     device = resolve_device(device)
     ps = SolutionParameters(clargs)
     dim = ps.dim
@@ -53,7 +61,12 @@ def problem_from_clargs(clargs, nx, ny=None, nz=None, device=None):
         )
     else:
         raise ValueError("dim=%d: a grid has 1, 2 or 3 dimensions" % dim)
-    return ps, grid, PDEOperators(ps, grid, device=device)
+    if with_g:
+        grid = with_g_grid(grid)
+        return ps, grid, WithGOperators(ps, grid, flux_form=flux_form,
+                                        device=device)
+    return ps, grid, PDEOperators(ps, grid, flux_form=flux_form,
+                                  device=device)
 
 
 def _map(fn, arrays):

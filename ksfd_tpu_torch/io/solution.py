@@ -63,20 +63,17 @@ class Solution:
 
     @property
     def derivatives(self):
-        """PDEOperators rebuilt from the stored problem (lazily).  A
-        with-G run's stored state raises (ROADMAP Queue A item 10,
-        A13)."""
+        """PDEOperators rebuilt from the stored problem (lazily);
+        WithGOperators for a with-G run's stored state (its trailing G
+        field), as ksfd_tpu/io/solution.py:74-76."""
         if self._derivatives is None and self.solutionParameters is not None:
             ps = self.solutionParameters
-            if self.grid.dof == ps.nligands + 2:
-                raise NotImplementedError(
-                    "not ported yet (see ROADMAP): with-G states: Queue A "
-                    "item 10 (A13)")
-            from ..ops import PDEOperators
+            from ..ops import PDEOperators, WithGOperators
 
-            self._derivatives = PDEOperators(ps, self.grid,
-                                             sources=self.sources,
-                                             device=self.device)
+            cls = (WithGOperators if self.grid.dof == ps.nligands + 2
+                   else PDEOperators)
+            self._derivatives = cls(ps, self.grid, sources=self.sources,
+                                    device=self.device)
         return self._derivatives
 
     derivs = derivatives

@@ -18,9 +18,11 @@ ksfdsolver2.py), with the same command-line grammar:
 It runs on the CUDA card and raises where there is none;
 ``KSFD_PLATFORM=cpu`` (the JAX package's own switch) runs it on the CPU.
 Saving, checkpoints and resuming need h5py; without it those options
-raise before any step.  Refused, each naming its ROADMAP item:
-``--with_g`` (Queue A item 10, A13), ``--flux_form`` (item 9), several
-processes (item 11, A14) and, as in the reference, ``--noperiodic``.
+raise before any step.  ``--with_g`` carries G as a stored last field
+(ops/operators_with_g.py; with ``--ensemble`` it is a KSFDException, as
+in the reference), ``--flux_form`` runs the conservative
+discretization.  Refused: several processes (ROADMAP Queue A item 11,
+A14) and, as in the reference, ``--noperiodic``.
 """
 
 import contextlib
@@ -41,7 +43,7 @@ from .io import (
     write_info,
 )
 from .models import SolutionParameters
-from .ops import PDEOperators, SpatialExpression
+from .ops import PDEOperators, SpatialExpression, WithGOperators, with_g_grid
 from .parallel.distributed import process_count
 from .randomfield import DEFAULT_SEED, Generator
 from .solvers import EnsembleSolver, Solver
@@ -93,11 +95,12 @@ def parse_commandline(args=None):
     parser.add_argument("--source", type=str, action="append", default=[],
                         help="source function for rho, U_1_1, ...")
     parser.add_argument("--flux_form", action="store_true",
-                        help="the conservative flux discretization (not "
-                             "ported: ROADMAP Queue A item 9)")
+                        help="the conservative flux discretization of "
+                             "the rho row (sum(rho) conserved to "
+                             "roundoff)")
     parser.add_argument("--with_g", action="store_true",
-                        help="carry the free energy G as a stored field "
-                             "(not ported: ROADMAP Queue A item 10, A13)")
+                        help="carry the free energy G as a stored last "
+                             "field, refreshed after every accepted step")
     parser.add_argument("--xprof", metavar="DIR",
                         help="write a torch.profiler chrome trace of the "
                              "solve to DIR")
@@ -186,14 +189,8 @@ def _refuse(clargs):
     """Raise, before any step, for what the port does not run."""
     if clargs.noperiodic:
         raise KSFDException("--noperiodic not implemented: BCs are periodic")
-    if clargs.with_g:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP): --with_g, with-G states: Queue "
-            "A item 10 (A13)")
-    if clargs.flux_form:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP): --flux_form, the conservative "
-            "discretization: Queue A item 9")
+    if clargs.with_g and int(clargs.ensemble or 0) >= 1:
+        raise KSFDException("--ensemble does not support --with_g")
     nprocs = max(process_count(), int(os.environ.get("KSFD_NUM_PROCS", 1)))
     if nprocs > 1:
         raise NotImplementedError(
@@ -322,13 +319,34 @@ def main(*args):
         order=ps.degree,
     )
     sources = decode_sources(clargs.source, ps, grid, device=device)
-    ops = PDEOperators(ps, grid, sources=sources, device=device)
     if int(clargs.ensemble or 0) >= 1:
+        ops = PDEOperators(ps, grid, sources=sources,
+                           flux_form=clargs.flux_form, device=device)
         return run_ensemble(clargs, ps, grid, ops, numerics)
-    u0, t, extras = initial_values(clargs, grid, ps, device=device)
-    # a PETSc '-ksp_type preonly -pc_type lu' block asks for exact
-    # direct solves (the reference's MUMPS configuration)
-    numerics = route_petsc_direct(numerics, grid)
+    if clargs.with_g:
+        # the G slot last: a resumed series carries it, a fresh start
+        # gets zeros, which the Solver's first refresh_G fills
+        full_grid = with_g_grid(grid)
+        ops = WithGOperators(ps, full_grid, sources=sources,
+                             flux_form=clargs.flux_form, device=device)
+        if clargs.resume or clargs.restart:
+            u0, t, extras = initial_values(clargs, full_grid, ps,
+                                           device=device)
+        else:
+            u0p, t, extras = initial_values(clargs, grid, ps,
+                                            device=device)
+            u0 = torch.cat([torch.as_tensor(u0p, device=device),
+                            torch.zeros((1,) + tuple(grid.Sshape),
+                                        dtype=torch.float64,
+                                        device=device)])
+        grid = full_grid
+    else:
+        ops = PDEOperators(ps, grid, sources=sources,
+                           flux_form=clargs.flux_form, device=device)
+        u0, t, extras = initial_values(clargs, grid, ps, device=device)
+        # a PETSc '-ksp_type preonly -pc_type lu' block asks for exact
+        # direct solves (the reference's MUMPS configuration)
+        numerics = route_petsc_direct(numerics, grid)
     p0 = ps.params0
     tseries = None
     if clargs.save:

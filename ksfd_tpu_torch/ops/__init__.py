@@ -8,6 +8,7 @@ from .stencil import (
 )
 from .spatial import SpatialExpression
 from .operators import PDEOperators
+from .operators_with_g import WithGOperators, with_g_grid
 
 __all__ = [
     "deriv_apply",
@@ -18,4 +19,6 @@ __all__ = [
     "shift",
     "SpatialExpression",
     "PDEOperators",
+    "WithGOperators",
+    "with_g_grid",
 ]

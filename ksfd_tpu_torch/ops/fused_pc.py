@@ -38,15 +38,21 @@ operands, an ``(nb, 3 + 4 nl)`` pack, the members on ``blockIdx.z``,
 the bases and lam2d shared), counted once; on the CPU the plain version
 member by member.
 
+**Fields.**  Any field count: up to ``MAX_NF`` the arrow inverse is the
+epilogue of fwd's second product; above it the second product is plain
+and an elementwise pass of the same source solves the arrows (csrc/pc2d.cu
+explains why).  One field (no ligand) is ``x = c0 / (shift - rho_diff
+lam)``.
+
 The port's gate is wider than the reference's.  Any 2D extent runs (no
 128-alignment: the kernels mask ragged tiles).  ``make_fused_block_pc``
-refuses a 3D grid, ``pc_dtype`` float64, fields outside 2..``MAX_NF``
-and a with-G state (NotImplementedError naming the ROADMAP item).  The
-solvers decide where ``pc_pallas`` takes the basis-GEMM pc instead
-(solvers/solver.py ``_pc_pallas_fallback``): only where the reference's
-gate (ksfd_tpu/solvers/solver.py:258-282) falls back to its einsums
-too, so a request that runs a fused kernel there (fields outside
-2..MAX_NF on a grid ``reference_fuses`` admits) still raises here.
+refuses a 3D grid, ``pc_dtype`` float64 and a with-G state
+(NotImplementedError naming the reason).  The solvers take the
+basis-GEMM pc there instead (solvers/solver.py ``_pc_pallas_fallback``),
+as the reference's gate (ksfd_tpu/solvers/solver.py:258-282,
+ksfd_tpu/ops/pallas_pc.py:66-87) falls back to its einsums there too;
+a with-G state's trailing G field then takes the basis-GEMM pc's
+shift-only inverse.
 """
 
 import ctypes
@@ -64,7 +70,8 @@ __all__ = ["pack_pc_scalars", "fused_pc_available", "fused_pc_refusal",
            "MAX_NF", "tf32", "split_planes", "scratch_floats"]
 
 CSRC_PC = Path(__file__).resolve().parent.parent / "csrc" / "pc2d.cu"
-#: fields per block of the CUDA kernels (their register budget)
+#: the most fields whose arrow inverse is fwd's epilogue (the consumer
+#: threads' register budget); above, a separate arrow pass
 MAX_NF = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
@@ -122,7 +129,8 @@ def scratch_floats(nf, nx, ny, nb):
     """Floats of an entry's scratch: the S^T planes of the first
     product (nb nf x ny x nxp) and room for the state's pitched copy
     (nb nf x nx x nyp), the extents padded to multiples of 4
-    (csrc/pc2d.cu make_plan)."""
+    (csrc/pc2d.cu make_plan).  The arrow pass above MAX_NF fields works
+    in place on the output and needs none."""
     p4 = lambda n: -(-n // 4) * 4
     return nb * nf * (ny * p4(nx) + nx * p4(ny))
 
@@ -151,14 +159,11 @@ def fused_pc_refusal(grid, ops, pc_dtype="float32"):
         return ("pc_pallas on a %dD grid (the fused pc is 2D, as the "
                 "reference's is: ROADMAP Queue B item 1, B5)" % grid.dim)
     if ops is not None and grid.dof != ops.nligands + 1:
-        return ("pc_pallas on a with-G state (ROADMAP Queue A item 10, "
-                "A13)")
+        return ("pc_pallas on a with-G state (the fused pc takes the "
+                "physical fields only, as the reference's does)")
     if pc_dtype in ("float64", "f64"):
         return ("pc_pallas with pc_dtype float64 (the fused apply is "
                 "float32: ROADMAP Queue B item 1, B5)")
-    if grid.dof > MAX_NF or grid.dof < 2:
-        return ("pc_pallas with %d fields (the CUDA kernels take 2..%d: "
-                "ROADMAP Queue B item 1, B5)" % (grid.dof, MAX_NF))
     return None
 
 
@@ -178,8 +183,8 @@ def reference_fuses(grid, use_fft=False):
 
 def fused_pc_available(grid, ops=None, pc_dtype="float32"):
     """Whether the fused apply runs for this grid and pc dtype: a 2D
-    grid of the physical fields only (``dof == nligands + 1``), 2 to
-    MAX_NF of them, float32 transforms.  Any extent: no alignment."""
+    grid of the physical fields only (``dof == nligands + 1``), any
+    number of them, float32 transforms.  Any extent: no alignment."""
     return fused_pc_refusal(grid, ops, pc_dtype) is None
 
 

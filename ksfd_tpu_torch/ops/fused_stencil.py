@@ -461,10 +461,10 @@ class _FusedBuild:
 
     def __init__(self, ops, csrc=CSRC):
         grid = ops.grid
-        if grid.dof != ops.nligands + 1:
-            raise NotImplementedError(
-                "with-G states are ROADMAP Queue A item 10 (A13)"
-            )
+        why = kernel_refusal(grid, ops)
+        if why is not None:
+            raise ValueError("no fused kernels for %s (kernels_available)"
+                             % why)
         self.ops = ops
         self.csrc = Path(csrc)
         self.dim = grid.dim

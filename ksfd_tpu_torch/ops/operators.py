@@ -4,7 +4,10 @@ Counterpart: ksfd_tpu/ops/operators.py:PDEOperators.  The same math:
 
 - free energy   G = V(U..) + Vcap(rho) + s2*log(rho)
 - worm density  drho/dt = grad(rho).grad(G) + rho*laplacian(G) + source
-                (the product-rule discretization of div(rho grad G))
+                (the product-rule discretization of div(rho grad G));
+                with ``flux_form=True`` the conservative
+                sum_d D1_d(rho * D1_d(G)), which conserves sum(rho) to
+                roundoff (the first-derivative stencil is antisymmetric)
 - each ligand   dU/dt = -gamma*U + s*rho + D*laplacian(U) + source
 
 The pointwise nonlinearity is a sympy expression compiled to a torch
@@ -26,7 +29,8 @@ from ..utils.device import resolve_device
 from ..utils.exceptions import KSFDException
 from ..utils.symbolic import torchify
 from .spatial import SpatialExpression
-from .stencil import grad_apply, laplacian_apply
+from .stencil import deriv_apply, grad_apply, laplacian_apply
+from .stencil import laplacian_symbol as _laplacian_symbol
 
 __all__ = ["PDEOperators"]
 
@@ -44,6 +48,10 @@ class PDEOperators:
     grid : Grid with dof == ps.nligands + 1
     sources : optional list of nligands+1 source terms (expressions /
         SpatialExpressions), rho first.
+    flux_form : the conservative discretization of the rho row (module
+        docstring); the fused kernels refuse it (ops/fused_stencil.py
+        kernel_refusal), so its steps are unfused, as the reference's
+        are XLA (ksfd_tpu/ops/pallas_stencil.py:332-336).
     device : where source terms are evaluated and the step's buffers
         live; the card unless given (utils/device.py).  The operators
         act on tensors of any device.
@@ -51,11 +59,7 @@ class PDEOperators:
 
     def __init__(self, ps, grid, sources=None, flux_form=False,
                  device=None):
-        if flux_form:
-            raise NotImplementedError(
-                "flux_form=True (the conservative discretization) is not "
-                "ported; ROADMAP Queue A item 9 lists it"
-            )
+        self.flux_form = bool(flux_form)
         self.ps = ps
         self.grid = grid
         self.dim = grid.dim
@@ -218,6 +222,12 @@ class PDEOperators:
         it runs on the slab padded by its neighbours' halo rows and is
         cropped back, and the sources add this rank's rows."""
         if mesh is not None:
+            if self.flux_form:
+                # its rho row reads 2*sw rows beyond the slab; its step
+                # is unfused, which a mesh refuses anyway
+                raise NotImplementedError(
+                    "the flux form on a mesh (ROADMAP Queue A item 11, "
+                    "A14)")
             sw = self.sw
             out = self._rhs(self._padded(u, mesh), t, groom, False)
             out = out[:, sw:-sw].contiguous()
@@ -232,14 +242,29 @@ class PDEOperators:
             u = self.groom(u)
         G = self.G(u, t)
         sp, sw = self.spacing, self.sw
-        return self._assemble(u, t, grad_apply(u[0], sp, sw),
-                              grad_apply(G, sp, sw),
-                              laplacian_apply(G, sp, sw), sources)
+        return self._assemble(u, t, self._drho(u[0], grad_apply(G, sp, sw),
+                                               G), sources)
 
-    def _assemble(self, u, t, grad_rho, grad_G, lap_G, sources):
-        """The RHS of the groomed u from grad(rho), grad(G), lap(G)."""
+    def _drho(self, rho, grad_G, G=None, grad_rho=None, lap_G=None):
+        """The rho row without its source: the flux form's sum over the
+        axes of D1_d(rho * dG/dx_d) (ksfd_tpu/ops/operators.py:225-230),
+        else grad(rho).grad(G) + rho lap(G), from G or from grad(rho)
+        and lap(G) given."""
+        sp, sw = self.spacing, self.sw
+        if self.flux_form:
+            drho = None
+            for d, gG in enumerate(grad_G):
+                div_d = deriv_apply(rho * gG, d, sp, sw)
+                drho = div_d if drho is None else drho + div_d
+            return drho
+        if grad_rho is None:
+            grad_rho, lap_G = grad_apply(rho, sp, sw), laplacian_apply(G, sp,
+                                                                       sw)
+        return sum(gr * gG for gr, gG in zip(grad_rho, grad_G)) + rho * lap_G
+
+    def _assemble(self, u, t, drho, sources):
+        """The RHS of the groomed u from its rho row ``drho``."""
         rho = u[0]
-        drho = sum(gr * gG for gr, gG in zip(grad_rho, grad_G)) + rho * lap_G
         if sources and self._source_active[0]:
             drho = drho + self.sources[0](t).to(drho.dtype)
         outs = [drho]
@@ -255,6 +280,11 @@ class PDEOperators:
                 dU = dU + self.sources[1 + l](t).to(dU.dtype)
             outs.append(dU)
         return torch.stack(outs, dim=0)
+
+    def dfdt(self, u, t=None):
+        """The RHS at t (t0 when None): the reference-compatible name,
+        ksfd_tpu/ops/operators.py:dfdt."""
+        return self.rhs(u, self.ps.t0 if t is None else t)
 
     def velocity(self, u, t=None, mesh=None):
         """Worm velocity grad(G) of the groomed state: shape
@@ -292,8 +322,9 @@ class PDEOperators:
 
         on the tangent through the clamp: 1 above the floor, 0 below
         it or at a NaN, 1/2 at the floor itself (the derivative of the
-        reference's ``jnp.maximum`` at a tie).  Stencils, no pointwise
-        transcendental, per apply.  Forward-mode AD of the RHS
+        reference's ``jnp.maximum`` at a tie).  In the flux form the rho
+        row is ``sum_d D1_d(v_rho dG/dx_d + rho dGv/dx_d)``.  Stencils,
+        no pointwise transcendental, per apply.  Forward-mode AD of the RHS
         (``torch.func.jvp``, ``torch.func.linearize``) costs far more
         host time per apply: PERF.md section 6.
 
@@ -308,9 +339,11 @@ class PDEOperators:
         dGs = [fn(*fields, t) for fn in self._dG_fns]
         sp, sw = self.spacing, self.sw
         grad_G = grad_apply(G, sp, sw)
-        grad_rho = grad_apply(rho, sp, sw)
-        lap_G = laplacian_apply(G, sp, sw)
-        f0 = (self._assemble(ug, t, grad_rho, grad_G, lap_G, True)
+        flux = self.flux_form
+        grad_rho = None if flux else grad_apply(rho, sp, sw)
+        lap_G = None if flux else laplacian_apply(G, sp, sw)
+        f0 = (self._assemble(ug, t, self._drho(rho, grad_G, G, grad_rho,
+                                               lap_G), True)
               if primal else None)
         floors = [self.rhomin] + [self.Umin] * self.nligands
         slopes = [torch.where(u[i] > lo, 1.0,
@@ -324,11 +357,17 @@ class PDEOperators:
             Gv = dGs[0] * vm[0]
             for i in range(1, nf):
                 Gv = Gv + dGs[i] * vm[i]
-            grad_v = grad_apply(vm[0], sp, sw)
             grad_Gv = grad_apply(Gv, sp, sw)
-            drho = (sum(a * b for a, b in zip(grad_v, grad_G))
-                    + sum(a * b for a, b in zip(grad_rho, grad_Gv))
-                    + vm[0] * lap_G + rho * laplacian_apply(Gv, sp, sw))
+            if flux:
+                drho = None
+                for d, (gG, gGv) in enumerate(zip(grad_G, grad_Gv)):
+                    div_d = deriv_apply(vm[0] * gG + rho * gGv, d, sp, sw)
+                    drho = div_d if drho is None else drho + div_d
+            else:
+                grad_v = grad_apply(vm[0], sp, sw)
+                drho = (sum(a * b for a, b in zip(grad_v, grad_G))
+                        + sum(a * b for a, b in zip(grad_rho, grad_Gv))
+                        + vm[0] * lap_G + rho * laplacian_apply(Gv, sp, sw))
             rows = [drho]
             for l, (gamma, s, D) in enumerate(coeffs):
                 rows.append(-gamma * vm[1 + l] + s * vm[0]
@@ -346,6 +385,12 @@ class PDEOperators:
             diff.append(c["D"](t))
             decay.append(c["gamma"](t))
         return diff, decay
+
+    def laplacian_symbol(self):
+        """The DFT eigenvalues of the discrete Laplacian on this grid
+        (ops/stencil.py laplacian_symbol).  Counterpart:
+        ksfd_tpu/ops/operators.py:laplacian_symbol."""
+        return _laplacian_symbol(self.grid.nps, self.spacing, self.sw)
 
     def linearization_coefficients(self, means, t):
         """Mean-state linearization data for the block preconditioner:

@@ -6,12 +6,16 @@ from .steppers import (
     ROS34PW2,
     Tableau,
     get_tableau,
+    wlte_norm,
     wlte_norm_delta,
 )
 from .linalg import SpectralPreconditioner, BlockSpectralPreconditioner
 from .gmres import (
     chebyshev_solve,
     chebyshev_solve_resid,
+    gmres_fixed,
+    gmres_restarted,
+    gmres_rolled,
     gmres_solve,
     richardson_solve,
     richardson_solve_resid,
@@ -32,6 +36,7 @@ __all__ = [
     "ARK324",
     "ARK436",
     "get_tableau",
+    "wlte_norm",
     "wlte_norm_delta",
     "SpectralPreconditioner",
     "BlockSpectralPreconditioner",
@@ -39,6 +44,9 @@ __all__ = [
     "richardson_solve_resid",
     "chebyshev_solve",
     "chebyshev_solve_resid",
+    "gmres_fixed",
+    "gmres_rolled",
+    "gmres_restarted",
     "gmres_solve",
     "make_step_fn",
     "make_multistep_fn",

@@ -64,12 +64,17 @@ Usage:
     out = es.solve(U0)            # U0: (n_members, dof, *Sshape)
     out.u, out.t, out.k, out.diverged, out.snes_failures  # per member
 
+With-G states (ops/operators_with_g.py) refresh every member's G slot
+after grooming, at the start and after every accepted step
+(ensemble.py:640-646, :465-469).  The fixed-count Krylov tiers
+(``ksp_type`` gmres, gmres_rolled, gmres_restarted, and ``pc_type`` none
+with Richardson or Chebyshev) run under vmap as the sweeps do: they read
+nothing on the host.
+
 Still raising NotImplementedError, each naming its ROADMAP item: member
-meshes, ``shard_members`` and slab meshes (Queue A item 11, A14), with-G
-states and ``refresh_G`` (Queue A item 10, A13) and ``pc_pallas`` with
-fields outside 2..MAX_NF where the reference's gate runs its fused pc
-(Queue B item 1, B5).  ``pc_pallas`` where the reference's gate falls
-back (a 1D or 3D problem, float64 transforms) takes the basis-GEMM pc
+meshes, ``shard_members`` and slab meshes (Queue A item 11, A14).
+``pc_pallas`` where the reference's gate falls back (a 1D or 3D problem,
+float64 transforms, a with-G state) takes the basis-GEMM pc
 (``build_info``).
 """
 
@@ -170,7 +175,6 @@ class EnsembleSolver:
                 "Solver only); ensembles need a device stage solver"
                 % n.ksp_type
             )
-        self._refuse(ops, n)
         self.tableau = get_tableau(n.ts_type)
         self.block_steps = int(block_steps)
         self.member_offset = int(member_offset)
@@ -182,6 +186,8 @@ class EnsembleSolver:
         self._fallback = None
         self.fused_pc = None
         self._vgroom = vmap(ops.groom)
+        self._vrefresh = (vmap(ops.refresh_G) if hasattr(ops, "refresh_G")
+                          else None)
         self._vmax_fn = vmap(
             lambda u, t: torch.stack(
                 [torch.max(torch.abs(v)) for v in ops.velocity(u, t)]
@@ -193,14 +199,13 @@ class EnsembleSolver:
         self.diverged = None
         self.snes_failures = None
 
-    @staticmethod
-    def _refuse(ops, n):
-        """NotImplementedError, naming its ROADMAP item, for each
-        ensemble the port does not run yet."""
-        if hasattr(ops, "refresh_G"):
-            raise NotImplementedError(
-                "not ported yet (see ROADMAP): with-G states (refresh_G): "
-                "Queue A item 10 (A13)")
+    def _groom(self, U, ts):
+        """Groom every member, then (with-G states) refresh its G slot
+        at its own t; both are idempotent on members groomed before."""
+        U = self._vgroom(U)
+        if self._vrefresh is not None:
+            U = self._vrefresh(U, self._dev(ts))
+        return U
 
     # -- monitors ---------------------------------------------------
     def add_monitor(self, monitor):
@@ -450,13 +455,13 @@ class EnsembleSolver:
                 k, attempts, np.array([lad.rejected for lad in ladders]))
 
     def _post_accept(self, U, ts, hs, lastvart, mask, conserve, Nw0):
-        """The post-accept sequence (noise, groom, CFL clamp) on the
-        members in ``mask`` (ensemble.py:452-467); grooming the others
-        again is a no-op."""
+        """The post-accept sequence (noise, groom, refresh_G, CFL clamp)
+        on the members in ``mask`` (ensemble.py:452-467); grooming the
+        others again is a no-op."""
         if noise_active(self.ps):
             U, lastvart = self._inject_noise(U, ts, lastvart, mask,
                                              conserve, Nw0)
-        U = self._vgroom(U)
+        U = self._groom(U, ts)
         hs = self._cfl_clamp(U, ts, hs, mask)
         return U, hs, lastvart
 
@@ -570,8 +575,8 @@ class EnsembleSolver:
         N = U.shape[0]
         if self._vstep is None:
             self._build_steps()
-        U = self._vgroom(U)
         ts = np.full(N, self.t0)
+        U = self._groom(U, ts)
         hs = np.full(N, min(max(self.dt0, n.dt_min), n.dt_max))
         ks = np.zeros(N, dtype=int)
         diverged = np.zeros(N, dtype=bool)

@@ -1,18 +1,20 @@
-"""Stage solvers: fixed-count Richardson and Chebyshev, and restarted GMRES.
+"""Stage solvers: fixed-count Richardson, Chebyshev and GMRES, and
+restarted GMRES to a tolerance.
 
 Counterpart: ksfd_tpu/solvers/gmres.py:richardson_solve,
-:richardson_solve_resid, :_cheb_core, :chebyshev_solve and
-:chebyshev_solve_resid, and ksfd_tpu/solvers/linalg.py:gmres_solve.
-The Richardson and Chebyshev application counts are static and there
-is no data-dependent control flow: solve quality is judged by the
-caller's embedded step-error control.  PyTorch runs eagerly, so the
-sweeps are a plain Python loop (the reference's unroll and platform
-gating, gmres.py:97 and :154-175, works around XLA and is not ported).
-``gmres_solve`` is the tolerance-based restarted GMRES of the robust
-fallback step (``ksp_type="gmres_scipy"``); its convergence test reads
-one scalar per restart on the host.  The fixed-count Krylov solvers
-(``gmres_fixed``, ``gmres_rolled``, ``gmres_restarted``) wait for
-ROADMAP Queue A item 9.
+:richardson_solve_resid, :_cheb_core, :chebyshev_solve,
+:chebyshev_solve_resid, :gmres_fixed, :gmres_rolled and
+:gmres_restarted, and ksfd_tpu/solvers/linalg.py:gmres_solve.
+The Richardson, Chebyshev and fixed-count GMRES iteration counts are
+static and there is no data-dependent control flow and no host read:
+solve quality is judged by the caller's embedded step-error control,
+and the ensemble's ``torch.func.vmap`` takes every one of them.
+PyTorch runs eagerly, so the sweeps and the Arnoldi steps are plain
+Python loops (the reference's unroll, rolled ``fori_loop`` and platform
+gating, gmres.py:97, :154-175 and :208-316, work around XLA and are not
+ported).  ``gmres_solve`` is the tolerance-based restarted GMRES of the
+robust fallback step (``ksp_type="gmres_scipy"``); its convergence test
+reads one scalar per restart on the host.
 """
 
 import math
@@ -20,7 +22,8 @@ import math
 import torch
 
 __all__ = ["richardson_solve", "richardson_solve_resid", "chebyshev_solve",
-           "chebyshev_solve_resid", "gmres_solve"]
+           "chebyshev_solve_resid", "gmres_fixed", "gmres_rolled",
+           "gmres_restarted", "gmres_solve"]
 
 
 def richardson_solve(op, b, M, iters=12, x0=None):
@@ -83,6 +86,165 @@ def chebyshev_solve_resid(resid, b, M, iters=16, lmin=0.05, lmax=1.05):
     """chebyshev_solve with a fused residual callable
     resid(x, b) = b - W x (the resid kernel of ops/fused_stencil.py)."""
     return _cheb_core(lambda x: resid(x, b), b, M, iters, lmin, lmax)
+
+
+def _identity(v):
+    return v
+
+
+def _safe(x):
+    """x where x > 0, else 1: the fixed-count solvers' breakdown guard."""
+    return torch.where(x > 0, x, torch.ones_like(x))
+
+
+def _norm(x):
+    return torch.sqrt(torch.sum(x * x))
+
+
+def gmres_fixed(op, b, M=None, iters=8, x0=None):
+    """GMRES(iters) from x0 (zero when None), left-preconditioned: it
+    minimizes ``|M(b - op(x))|`` over the Krylov space of ``M(op(.))``.
+
+    Counterpart: ksfd_tpu/solvers/gmres.py:gmres_fixed, step for step:
+    classical Gram-Schmidt with one re-orthogonalization (CGS2), Givens
+    rotations applied as each column arrives, back substitution.
+    Breakdown contract: ``_safe`` division turns a breakdown (a zero new
+    basis norm or a singular R) into a finite, possibly wrong answer,
+    which the caller's embedded error estimate judges; a vanishing
+    preconditioned initial residual gives the zero correction.
+    """
+    M = _identity if M is None else M
+    shape, m = b.shape, int(iters)
+
+    def A(v):
+        return M(op(v.reshape(shape))).reshape(-1)
+
+    r0 = (M(b) if x0 is None else M(b - op(x0))).reshape(-1)
+    beta = _norm(r0)
+    Vs = [r0 / _safe(beta)]
+    Rcols, cs, sn = [], [], []
+    g = [beta] + [torch.zeros_like(beta) for _ in range(m)]
+    for j in range(m):
+        w = A(Vs[j])
+        h = [torch.sum(Vi * w) for Vi in Vs]
+        for hi, Vi in zip(h, Vs):
+            w = w - hi * Vi
+        h2 = [torch.sum(Vi * w) for Vi in Vs]
+        for hi, Vi in zip(h2, Vs):
+            w = w - hi * Vi
+        h = [a + c for a, c in zip(h, h2)]
+        hlast = _norm(w)
+        Vs.append(w / _safe(hlast))
+        col = h + [hlast]
+        for i in range(j):
+            t0 = cs[i] * col[i] + sn[i] * col[i + 1]
+            t1 = -sn[i] * col[i] + cs[i] * col[i + 1]
+            col[i], col[i + 1] = t0, t1
+        denom = torch.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+        cs.append(col[j] / _safe(denom))
+        sn.append(col[j + 1] / _safe(denom))
+        col[j] = denom
+        Rcols.append(col[:j + 1])
+        gj = cs[j] * g[j] + sn[j] * g[j + 1]
+        g[j + 1] = -sn[j] * g[j] + cs[j] * g[j + 1]
+        g[j] = gj
+    y = [None] * m
+    for j in range(m - 1, -1, -1):
+        acc = g[j]
+        for k in range(j + 1, m):
+            acc = acc - Rcols[k][j] * y[k]
+        y[j] = acc / _safe(Rcols[j][j])
+    x = torch.zeros_like(r0)
+    for j in range(m):
+        x = x + y[j] * Vs[j]
+    x = torch.where(beta > 0, x, torch.zeros_like(x))
+    if x0 is not None:
+        x = x + x0.reshape(-1)
+    return x.reshape(shape)
+
+
+def gmres_rolled(op, b, M=None, iters=12, restarts=4, x0=None):
+    """Restarted GMRES(iters), ``restarts`` cycles, left-preconditioned.
+
+    Counterpart: ksfd_tpu/solvers/gmres.py:gmres_rolled, its arithmetic:
+    per cycle the Krylov basis as the rows of one matrix (CGS2 as two
+    matrix-vector products with it), the Givens rotations applied to
+    each new column as one accumulated ``(m+1, m+1)`` rotation matrix,
+    back substitution with a zero diagonal guarded.  The reference's
+    basis matrix holds ``m+1`` rows from the start and its products read
+    the rows not yet made as zeros; here the products read only the rows
+    made so far, which adds the same exact zeros.  Its breakdown
+    contract is gmres_fixed's.
+    """
+    M = _identity if M is None else M
+    shape, m = b.shape, int(iters)
+    eye = torch.eye(m + 1, dtype=b.dtype, device=b.device)
+    # the rotation of rows (j, j+1) is eye + cj-1 on both diagonal places,
+    # +sj above and -sj below them (a sum, so that vmap takes it)
+    units = [(eye[:, j:j + 1] * eye[j:j + 1, :],
+              eye[:, j + 1:j + 2] * eye[j + 1:j + 2, :],
+              eye[:, j:j + 1] * eye[j + 1:j + 2, :],
+              eye[:, j + 1:j + 2] * eye[j:j + 1, :]) for j in range(m)]
+
+    def A(v):
+        return M(op(v.reshape(shape))).reshape(-1)
+
+    def cycle(x):
+        r0 = M(b - op(x.reshape(shape))).reshape(-1)
+        beta = _norm(r0)
+        rows = [r0 / _safe(beta)]
+        Rcols = []
+        Om = eye
+        g = [beta] + [torch.zeros_like(beta) for _ in range(m)]
+        zero = torch.zeros_like(beta)
+        for j in range(m):
+            w = A(rows[j])
+            V = torch.stack(rows)
+            h1 = V @ w
+            w = w - h1 @ V
+            h2 = V @ w
+            w = w - h2 @ V
+            hlast = _norm(w)
+            rows.append(w / _safe(hlast))
+            h = torch.cat([h1 + h2, hlast[None]]
+                          + [zero[None]] * (m - 1 - j))
+            col = Om @ h
+            denom = torch.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+            cj = col[j] / _safe(denom)
+            sj = col[j + 1] / _safe(denom)
+            ejj, e11, ej1, e1j = units[j]
+            Om = (eye + (cj - 1.0) * (ejj + e11) + sj * ej1
+                  - sj * e1j) @ Om
+            Rcols.append(torch.cat([col[:j], denom[None],
+                                    zero.expand(m - 1 - j)]))
+            gj = cj * g[j] + sj * g[j + 1]
+            g[j + 1] = -sj * g[j] + cj * g[j + 1]
+            g[j] = gj
+        y = [None] * m
+        for j in range(m - 1, -1, -1):
+            acc = g[j]
+            for k in range(j + 1, m):
+                acc = acc - Rcols[k][j] * y[k]
+            rjj = Rcols[j][j]
+            y[j] = acc / torch.where(rjj != 0, rjj, torch.ones_like(rjj))
+        dx = torch.stack(y) @ torch.stack(rows[:m])
+        dx = torch.where(beta > 0, dx, torch.zeros_like(dx))
+        return x + dx
+
+    x = (torch.zeros_like(b) if x0 is None else x0).reshape(-1)
+    for _ in range(int(restarts)):
+        x = cycle(x)
+    return x.reshape(shape)
+
+
+def gmres_restarted(op, b, M=None, iters=8, restarts=3):
+    """GMRES(iters) restarted ``restarts`` times: gmres_fixed from the
+    last cycle's answer.  Counterpart:
+    ksfd_tpu/solvers/gmres.py:gmres_restarted."""
+    x = None
+    for _ in range(int(restarts)):
+        x = gmres_fixed(op, b, M=M, iters=iters, x0=x)
+    return x
 
 
 def _safe_normalize(x, thresh=None, raw=False):

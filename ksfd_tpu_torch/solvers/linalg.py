@@ -244,9 +244,11 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
         self.ops = ops
         self.nfields = ops.nligands + 1
 
-    def _arrow_solve(self, c, shift, t, means, rho_diff):
+    def _arrow_solve(self, c, shift, t, means, rho_diff, nextra=0):
         """Per-mode arrow-system solve on transformed coefficients c
-        (counterpart: BlockSpectralPreconditioner._arrow_solve)."""
+        (counterpart: BlockSpectralPreconditioner._arrow_solve); each of
+        ``nextra`` trailing fields past the physical ones (a with-G
+        state's G) gets the shift-only inverse ``c / shift``."""
         cd = self.compute_dtype
         dev = c.device
         cast = lambda x: torch.as_tensor(x, dtype=cd, device=dev)
@@ -278,19 +280,18 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
         for l in range(nf - 1):
             c_l, d_l = xs_den[l]
             outs.append((c[1 + l] - c_l * x_r) / d_l)
+        for extra in range(nf, nf + nextra):
+            outs.append(c[extra] / shift)
         return torch.stack(outs, dim=0)
 
     def apply_linearized(self, v, shift, t, means, rho_diff=None):
         """v: (dof, *Sshape); means: per-field scalars of the STATE
         being linearized (not of v, which is a residual).  Returns the
-        result in v's dtype."""
-        if v.shape[0] != self.nfields:
-            raise NotImplementedError(
-                "extra trailing fields (the with-G state) are ROADMAP "
-                "Queue A item 10 (A13)"
-            )
+        result in v's dtype.  Fields past the physical ones (a with-G
+        state's G) take the shift-only inverse."""
         c = self._forward(v.to(self.compute_dtype))
-        outs = self._arrow_solve(c, shift, t, means, rho_diff)
+        outs = self._arrow_solve(c, shift, t, means, rho_diff,
+                                 nextra=v.shape[0] - self.nfields)
         return self._inverse(outs).to(v.dtype)
 
 
@@ -324,14 +325,11 @@ def make_sharded_block_apply(precond, ops, mesh):
     inv = [getattr(precond, name).to(cd) for name in rest]
 
     def apply(v, shift, t, means, rho_diff):
-        if v.shape[0] != precond.nfields:
-            raise NotImplementedError(
-                "extra trailing fields (the with-G state) are ROADMAP "
-                "Queue A item 10 (A13)")
         c = forward_products(v.to(td), qx, *fwd, slab=True, nx=mesh.nx)
         # THE collective: the partial coefficients, in the transform dtype
         c = all_reduce_sum(c.to(td), mesh)
-        outs = precond._arrow_solve(c.to(cd), shift, t, means, rho_diff)
+        outs = precond._arrow_solve(c.to(cd), shift, t, means, rho_diff,
+                                    nextra=v.shape[0] - precond.nfields)
         return inverse_products(outs.to(td).to(cd), qx_i, *inv,
                                 slab=True).to(v.dtype)
 

@@ -14,8 +14,8 @@ state's means, ``dG/drho`` and ``rho_diff``: in its basis-GEMM form
 (solvers/linalg.py), or with ``pc_pallas=True`` as the fused apply of
 ops/fused_pc.py, whose scalar pack is built once per step; where the
 reference's gate falls back too (a 1D or 3D grid, float64 transforms, a
-mesh, fields outside 2..MAX_NF on extents it refuses) ``pc_pallas``
-takes the basis-GEMM form, and ``build_info`` says why.
+mesh, a with-G state) ``pc_pallas`` takes the basis-GEMM form, and
+``build_info`` says why.
 
 The step kind is the reference's (solver.py:296-335, :391-424).  The
 fused kernels (ops/fused_stencil.py, ops/fused_stencil3d.py) run where
@@ -68,6 +68,20 @@ reference does.
   otherwise, all combinations in float64 (solver.py:399-401, :431-435,
   :607-615).  It is never mixed32 (:529-539).  In the fast mode the same
   solve runs in float32 on the jvp kernel's W.  No f0 chain.
+- **The fixed-count Krylov tiers** (solver.py:571-633, solvers/gmres.py):
+  ``ksp_type`` gmres (``gmres_fixed`` of ``ksp_iters``), gmres_restarted
+  (GMRES(8) restarted ``max(3, ksp_iters // 3)`` times) and
+  gmres_rolled (GMRES(``ksp_restart``), ``ksp_max_it`` cycles), and
+  ``pc_type`` none with Richardson or Chebyshev (``gmres_fixed`` of
+  ``ksp_iters`` without a pc).  gmres_rolled with the float32 sweeps
+  and a pc is mixed32: its W is ``shift*v - jvp(u32, v)``, **the jvp
+  kernel** (B2) inside the float64 step (unfused: the float32 RHS
+  linearized once per step), its right-hand sides ``f32(f0) + delta``
+  with the delta kernel and the f0 chain, as the Richardson sweeps'; per
+  step 4 ``ksp_max_it (ksp_restart + 1)`` jvp and 4 delta launches, no
+  resid.  The others solve in the state's dtype on W from the RHS
+  linearized once per step (the fast mode's jvp kernel), the stage
+  right-hand sides ``f0 + delta`` where the delta kernel runs.
 
 The unfused step's linearization (ops/operators.py
 PDEOperators.linearize) evaluates the groomed fields, G, its stencils
@@ -125,14 +139,15 @@ bfloat16 on one card or a mesh; ``pc_type`` none with the GMRES step
 and the exact tiers.  ``pc_pallas`` fuses only the block pc's basis
 form, as the reference's does.
 
+**With-G states** (ops/operators_with_g.py) take the unfused step, the
+pc's shift-only inverse on the trailing G field, and ``pc_pallas``
+falls back to the basis-GEMM pc there, as the reference's gate does;
+the Solver refreshes the G slot after every accepted step.
+
 Everything else raises NotImplementedError naming its ROADMAP item:
-the fixed-count Krylov stage solvers and ``pc_type`` none with
-Richardson or Chebyshev (Queue A item 9), with-G states (item 10, A13),
-on a mesh the GMRES step, the unfused step, the exact tiers, the
+on a mesh the GMRES steps, the unfused step, the exact tiers, the
 Solver, the FFT and spectral pcs, y splits and other meshes (Queue A
-item 11, A14), and
-``pc_pallas`` with fields outside 2..MAX_NF where the reference's gate
-runs its fused pc (Queue B item 1, B5).
+item 11, A14).
 """
 
 import dataclasses
@@ -155,6 +170,9 @@ from ..parallel.mesh import MESH_TODO, all_reduce_max, all_reduce_sum
 from .gmres import (
     chebyshev_solve,
     chebyshev_solve_resid,
+    gmres_fixed,
+    gmres_restarted,
+    gmres_rolled,
     gmres_solve,
     richardson_solve,
     richardson_solve_resid,
@@ -178,6 +196,9 @@ __all__ = ["make_step_fn", "make_multistep_fn", "make_adaptive_chunk_fn",
 #: the exact tiers: dense LU in the step (``use_dense``), and the host
 #: steps of solvers/banded_path.py (1D) and solvers/direct.py
 EXACT_KSP = ("dense", "direct", "banded", "lu")
+#: the GMRES stage solvers: fixed-count (solvers/gmres.py) and, last, the
+#: tolerance-based one of the robust fallback
+GMRES_KSP = ("gmres", "gmres_rolled", "gmres_restarted", "gmres_scipy")
 
 
 def _use_dense(numerics):
@@ -231,24 +252,18 @@ def _krylov(numerics):
 
 def _check_numerics(numerics, ops, mesh=None):
     """Raise NotImplementedError for any request off the ported paths."""
-    krylov = _krylov(numerics)
     todo = []
-    if numerics.ksp_type not in ("richardson", "chebyshev",
-                                 "gmres_scipy") + EXACT_KSP:
+    if numerics.ksp_type not in ("richardson", "chebyshev") + GMRES_KSP \
+            + EXACT_KSP:
         todo.append(
-            "ksp_type %r (fixed-count Krylov: Queue A item 9)"
-            % numerics.ksp_type
-        )
+            "ksp_type %r (the reference has richardson, chebyshev, %s and "
+            "%s)" % (numerics.ksp_type, ", ".join(GMRES_KSP),
+                     ", ".join(EXACT_KSP)))
     if mesh is not None and numerics.ksp_type in EXACT_KSP:
         todo.append("the exact tiers on a mesh (%s)" % MESH_TODO)
     if numerics.pc_type not in ("block", "spectral", "none"):
         todo.append("pc_type %r (the reference has block, spectral and "
                     "none)" % numerics.pc_type)
-    elif (numerics.pc_type == "none"
-          and numerics.ksp_type in ("richardson", "chebyshev")):
-        todo.append("pc_type none with ksp_type %s (the reference solves "
-                    "it with gmres_fixed: Queue A item 9)"
-                    % numerics.ksp_type)
     elif mesh is not None and numerics.pc_type != "block":
         todo.append("pc_type %s on a mesh (the sharded apply is the block "
                     "pc's: %s)" % (numerics.pc_type, MESH_TODO))
@@ -258,22 +273,12 @@ def _check_numerics(numerics, ops, mesh=None):
     if mesh is not None and numerics.pc_fft == "on":
         todo.append("pc_fft on on a mesh (the FFT pc is single-card, as "
                     "the reference's: %s)" % MESH_TODO)
-    # pc_pallas falls back to the basis-GEMM pc only where the
-    # reference's gate does (_pc_pallas_fallback); where that gate runs
-    # its fused kernels, so must the port
-    if numerics.pc_pallas and ops.grid.dof != ops.nligands + 1:
-        todo.append("pc_pallas on a with-G state (Queue A item 10, A13)")
-    elif numerics.pc_pallas and mesh is None and _reference_fuses(numerics,
-                                                                  ops):
-        why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
-        if why is not None:
-            todo.append(why)
     if numerics.pc_dtype not in ("auto", "float32", "f32", "float64", "f64",
                                  "bfloat16", "bf16"):
         todo.append("pc_dtype %r (the reference has float32, float64 and "
                     "bfloat16)" % numerics.pc_dtype)
-    if mesh is not None and krylov:
-        todo.append("the GMRES step on a mesh (%s)" % MESH_TODO)
+    if mesh is not None and numerics.ksp_type in GMRES_KSP:
+        todo.append("the GMRES steps on a mesh (%s)" % MESH_TODO)
     if mesh is not None and _step_refusal(numerics, ops) is not None:
         todo.append("the unfused step on a mesh (%s)" % MESH_TODO)
     if todo:
@@ -308,7 +313,8 @@ def _reference_fuses(numerics, ops):
     """Whether the reference's gate (ksfd_tpu/solvers/solver.py:258-282)
     runs its fused pc for this single-card request: the block pc in its
     basis form, float32 transforms, the physical fields only, and
-    extents its Pallas gate admits (ops/fused_pc.py reference_fuses)."""
+    extents its Pallas gate admits (ops/fused_pc.py reference_fuses).
+    The port fuses wherever this holds, and on more extents."""
     return (numerics.pc_type == "block"
             and _pc_dtype(numerics) not in ("float64", "f64")
             and ops.grid.dof == ops.nligands + 1
@@ -322,11 +328,9 @@ def _pc_pallas_fallback(numerics, ops, mesh=None):
     request).  Only where the reference's gate falls back to its einsums
     too: on a mesh (its fused pc is single-shard; the sharded apply
     runs), with another pc than the block pc's basis form (the spectral
-    or no pc, or the FFT form: ``pc_fft``), on a 3D grid, with float64
-    transforms, and with fields outside 2..MAX_NF on extents that the
-    reference's gate refuses.  With such fields on extents it admits,
-    the reference runs its fused kernels and the port has none: the
-    request raises (Queue B item 1, B5)."""
+    or no pc, or the FFT form: ``pc_fft``), on a 1D or 3D grid, with
+    float64 transforms and on a with-G state (ops/fused_pc.py
+    fused_pc_refusal)."""
     if not numerics.pc_pallas:
         return None
     if mesh is not None:
@@ -337,10 +341,7 @@ def _pc_pallas_fallback(numerics, ops, mesh=None):
     if _pc_fft(numerics, ops):
         return ("the FFT pc (the reference fuses only the basis form: "
                 "solver.py:258-263)")
-    why = fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
-    if why is not None and _reference_fuses(numerics, ops):
-        return None
-    return why
+    return fused_pc_refusal(ops.grid, ops, _pc_dtype(numerics))
 
 
 def _cheb_interval(numerics, shift, rho_dmin, rho_diff, cheb_lap):
@@ -486,6 +487,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     nf = ops.nligands + 1
     fast32 = _fast32(numerics)
     krylov = _krylov(numerics)
+    ksp = numerics.ksp_type
     sweep32 = numerics.sweep_dtype in ("float32", "f32")
     # the reference's static path choice (solver.py:318-335, :362-379):
     # the rhs kernel in the fast mode, the delta kernel on the f32-sweep
@@ -495,8 +497,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     pallas_rhs = kern is not None and fast32
     pallas_delta = (kern is not None and not fast32 and numerics.stage_delta
                     and sweep32 and ops.stage_delta_ok())
-    mixed32 = (not fast32 and numerics.ksp_type in ("richardson", "chebyshev")
-               and sweep32)
+    mixed32 = (not fast32 and sweep32 and precond is not None
+               and ksp in ("richardson", "chebyshev", "gmres_rolled"))
     use_cheb = numerics.ksp_type == "chebyshev"
 
     def gmres(W, bi, Minv):
@@ -651,7 +653,12 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             t32 = t.to(torch.float32)
             shift32 = shift.to(torch.float32)
             resid32 = W32 = None
-            if kern is not None:
+            if kern is not None and ksp == "gmres_rolled":
+                # the Krylov tier's W over the jvp kernel
+                # (solver.py:541-545)
+                def W32(v):
+                    return shift32 * v - kern.jvp(u32, v, t32)
+            elif kern is not None:
                 def resid32(x, b):
                     return kern.resid(u32, x, b, t32, shift32)
             else:
@@ -664,6 +671,10 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             if mixed32:
                 # f32 storage: the sweeps carry only f32 information
                 b32 = bi.to(torch.float32)
+                if ksp == "gmres_rolled":
+                    return gmres_rolled(W32, b32, Minv,
+                                        iters=numerics.ksp_restart,
+                                        restarts=numerics.ksp_max_it)
                 if resid32 is not None:
                     if use_cheb:
                         return chebyshev_solve_resid(
@@ -677,6 +688,18 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 return richardson_solve(W32, b32, Minv, iters=iters)
             if krylov:
                 return gmres(W, bi, Minv)
+            if ksp == "gmres":
+                return gmres_fixed(W, bi, Minv, iters=iters)
+            if ksp == "gmres_rolled":
+                return gmres_rolled(W, bi, Minv, iters=numerics.ksp_restart,
+                                    restarts=numerics.ksp_max_it)
+            if ksp == "gmres_restarted":
+                return gmres_restarted(W, bi, Minv, iters=8,
+                                       restarts=max(3, iters // 3))
+            if Minv is None:
+                # Richardson and Chebyshev need a pc: without one the
+                # fixed-count GMRES solves (solver.py:629-633)
+                return gmres_fixed(W, bi, None, iters=iters)
             if use_cheb:
                 return chebyshev_solve(W, bi, Minv, iters=iters,
                                        lmin=cheb_ab[0], lmax=cheb_ab[1])
@@ -1337,10 +1360,6 @@ class Solver:
             raise NotImplementedError(
                 "not ported yet (see ROADMAP): the Solver on a slab mesh, "
                 "Queue A item 11 (A14)")
-        if hasattr(ops, "refresh_G"):
-            raise NotImplementedError(
-                "not ported yet (see ROADMAP): with-G states (refresh_G): "
-                "Queue A item 10 (A13)")
         self.ops = ops
         self.ps = ops.ps
         self.numerics = numerics or NumericsOptions()
@@ -1480,20 +1499,28 @@ class Solver:
 
     def _post_accept(self, u, k, t, h, conserve, Nworms):
         """The post-accept sequence of the step path and the chunk's
-        exit, in the reference's order: noise, conserve, groom, (with-G
-        states' refresh_G: A13, refused at construction), CFL clamp,
-        monitor.  Returns (u, h), h possibly CFL-clamped."""
+        exit, in the reference's order: noise, conserve, groom, with-G
+        states' refresh_G, CFL clamp, monitor.  Returns (u, h), h possibly
+        CFL-clamped."""
         if self.is_noise_time(t, self.lastvart):
             u = self.add_variance(u, t - self.lastvart, t)
             if conserve:
                 u = self.conserve_worms(u, Nworms)
             self.lastvart = t
             self.stats.injections += 1
-        u = self.ops.groom(u)
+        u = self._groom(u, t)
         self.u, self.k, self.t, self.h = u, k, t, h
         self.CFL_check(u, t)
         self.monitor(k, t, u)
         return u, self.h
+
+    def _groom(self, u, t):
+        """groom, then (a with-G state's operators) refresh_G: the G
+        slot from the groomed fields at t."""
+        u = self.ops.groom(u)
+        if hasattr(self.ops, "refresh_G"):
+            u = self.ops.refresh_G(u, t)
+        return u
 
     def CFL_check(self, u, t):
         self.CFL_maxh = self.CFL_step(u, t)
@@ -1713,7 +1740,7 @@ class Solver:
             exact_rescues=0, injections=0)
         st = self.stats
         k, t, h = self.k, self.t, self.h
-        u = self.ops.groom(u)
+        u = self._groom(u, t)
         self.u = u
         Nworms = self.count_worms(u)
         if self.lastvart is None:

@@ -40,7 +40,7 @@ from ..parallel.mesh import all_reduce_sum
 
 __all__ = [
     "Tableau", "DIRKTableau", "ROS34PW2", "BEULER", "ARK324", "ARK436",
-    "get_tableau", "wlte_norm_delta",
+    "get_tableau", "wlte_norm", "wlte_norm_delta",
 ]
 
 
@@ -258,6 +258,17 @@ _TABLEAUS = {
 def get_tableau(name):
     """Counterpart: ksfd_tpu/solvers/steppers.py:get_tableau."""
     return _TABLEAUS[name]
+
+
+def wlte_norm(u, uhat, atol, rtol):
+    """PETSc-style weighted local truncation error (2-norm),
+    ``sqrt(mean(((u - uhat) / (atol + rtol*max(|u|, |uhat|)))**2))``;
+    accept the step when it is <= 1.  Counterpart:
+    ksfd_tpu/solvers/steppers.py:wlte_norm.  A 0-d tensor on u's
+    device."""
+    w = atol + rtol * torch.maximum(torch.abs(u), torch.abs(uhat))
+    e = (u - uhat) / w
+    return torch.sqrt(torch.mean(e * e))
 
 
 def wlte_norm_delta(u1, d, atol, rtol, mesh=None):

@@ -89,7 +89,8 @@ def with_fields(params, dof):
     parameter lines with ``dof`` fields: 3 as they are, 4 with a second
     repellent ligand (s 0.002, gamma 0.005, D 3e-6), 5 also with a third
     (s 0.003, gamma 0.004, D 4e-6), 6 also with a fourth (s 0.004, gamma
-    0.003, D 5e-6), 2 with the attractant group only."""
+    0.003, D 5e-6), 2 with the attractant group only, 1 with no ligand
+    (rho alone: ngroups=0)."""
     if dof in (4, 5, 6):
         extra = ["s_2_2=0.002", "gamma_2_2=0.005", "D_2_2=3e-6"]
         if dof >= 5:
@@ -98,12 +99,15 @@ def with_fields(params, dof):
             extra += ["s_2_4=0.004", "gamma_2_4=0.003", "D_2_4=5e-6"]
         return [p for p in params if p != "nligands_2=1"] + [
             "nligands_2=%d" % (dof - 2)] + extra
-    if dof == 2:
-        return [p for p in params if p != "ngroups=2" and not p.startswith(
-            ("nligands_2", "alpha_2", "beta_2", "s_2_", "gamma_2_", "D_2_"))
-        ] + ["ngroups=1"]
+    if dof in (1, 2):
+        drop = ("nligands_2", "alpha_2", "beta_2", "s_2_", "gamma_2_",
+                "D_2_")
+        if dof == 1:
+            drop += tuple(p.replace("2", "1", 1) for p in drop)
+        return [p for p in params if p != "ngroups=2"
+                and not p.startswith(drop)] + ["ngroups=%d" % (dof - 1)]
     if dof != 3:
-        raise ValueError("with_fields: dof %r is not one of 2 to 6"
+        raise ValueError("with_fields: dof %r is not one of 1 to 6"
                          % (dof,))
     return list(params)
 

@@ -11,9 +11,9 @@ ksfdsolver2.py grammar).  The same grammar and the same decoding:
   ``unrecognized`` and noted on stderr);
 - ``@optionsfile`` indirection with '#' comments (shlex rules).
 
-``decode_numerics`` decodes every token the reference decodes, also
-those of paths the port does not run yet (``-ksp_type gmres``): the
-refusal is the step's (solvers/solver.py ``_check_numerics``).
+``decode_numerics`` decodes every token the reference decodes; where
+the port refuses a combination (on a slab mesh, ROADMAP Queue A item
+11), the refusal is the step's (solvers/solver.py ``_check_numerics``).
 """
 
 import re
@@ -119,8 +119,11 @@ class NumericsOptions:
     Counterpart: ksfd_tpu/utils/cli.py:NumericsOptions — the same
     fields with the same defaults, so one options object describes a
     run of either package.  The comments below are the reference's; the
-    port raises NotImplementedError, naming the ROADMAP item, for the
-    options it does not run yet (solvers/solver.py _check_numerics).
+    port runs every ksp_type and pc_type of the reference (gmres,
+    gmres_rolled and gmres_restarted are the fixed-count Krylov tiers of
+    solvers/gmres.py) and raises NotImplementedError, naming the ROADMAP
+    item, for what it does not run yet (solvers/solver.py
+    _check_numerics).
     """
 
     ts_type: str = "rosw"        # rosw (ROS34PW2 W-method) | arkimex

@@ -210,9 +210,13 @@ def test_driver_ensemble_equals_the_ensemble_solver(tmp_path):
         ts.close()
 
 
+# with_g: --with_g runs since it was ported, with --ensemble it is the
+# reference's KSFDException; flux_form runs (exc None):
+# tests/test_torch_with_g.py holds both runs
 REFUSED = {
-    "with_g": (["--with_g"], NotImplementedError, "A13"),
-    "flux_form": (["--flux_form"], NotImplementedError, "item 9"),
+    "with_g": (["--with_g", "--ensemble=2"], KSFDException,
+               "does not support --with_g"),
+    "flux_form": (["--flux_form"], None, None),
     "noperiodic": (["--noperiodic"], KSFDException, "periodic"),
     "ensemble_check": (["--ensemble=2", "--check=cp"], KSFDException,
                        "fresh starts"),
@@ -223,6 +227,10 @@ REFUSED = {
 def test_driver_refusals(tmp_path, capsys, case):
     argv, exc, match = REFUSED[case]
     opt = options(tmp_path, "opts", "dt=1\nmaxsteps=2\n" + COMMON + FIXED)
+    if exc is None:
+        assert run(opt, *argv) == 0
+        assert "step   2" in capsys.readouterr().out
+        return
     with pytest.raises(exc, match=match):
         run(opt, *argv)
     assert "step" not in capsys.readouterr().out

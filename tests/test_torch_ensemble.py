@@ -251,14 +251,16 @@ def test_gmres_scipy_step_matches_reference(prob, interpret, stage_delta,
 
 
 def test_gmres_scipy_refusals(prob):
-    """gmres_scipy runs; the fixed-count Krylov solvers keep raising."""
+    """gmres_scipy runs, and so do the fixed-count Krylov solvers since
+    they were ported (tests/test_torch_krylov.py); gmres_scipy never
+    chains f0."""
     _, tops = prob
     make_step_fn(tops, NumericsOptions(ksp_type="gmres_scipy"))
     make_step_fn(tops, NumericsOptions(ksp_type="gmres_scipy",
                                        stage_delta=False, use_pallas=False))
     for kt in ("gmres", "gmres_rolled", "gmres_restarted"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make_step_fn(tops, NumericsOptions(ksp_type=kt))
+        step, _ = make_step_fn(tops, NumericsOptions(ksp_type=kt))
+        assert step.build_info["ksp_type"] == kt
     chain, _ = make_step_fn(tops, NumericsOptions(ksp_type="gmres_scipy"),
                             chain_f0=True)
     assert chain is None
@@ -539,14 +541,13 @@ def test_refused_ensembles_raise(prob):
     _, tops = prob
     _, _, ops3 = problem_from_clargs(
         make_clargs(params=aggregation3d_params(8)), 8, 8, 8, device="cpu")
-    # with-G states raise; adaptive device-loop ensembles run since the
-    # device loop was ported (tests/test_torch_ensemble_chunk.py)
+    # with-G states run since they were ported (their operators'
+    # refresh_G after every groom: tests/test_torch_with_g.py), and so do
+    # adaptive device-loop ensembles (tests/test_torch_ensemble_chunk.py)
     for ops in (tops, ops3):
         with_g = copy.copy(ops)
         with_g.refresh_G = lambda u, t: u
-        with pytest.raises(NotImplementedError,
-                           match=r"Queue A item 10 \(A13\)"):
-            EnsembleSolver(with_g, NumericsOptions())
+        assert EnsembleSolver(with_g, NumericsOptions())._vrefresh is not None
         EnsembleSolver(ops, NumericsOptions(device_loop=True))
     # 3D ensembles and pc_pallas ensembles run (in 3D on the basis-GEMM
     # pc: test_pc_pallas_3d_ensemble_takes_the_basis_gemm_pc)

@@ -420,9 +420,12 @@ def test_solver_refusals():
     # steps refuse its tableaus, as the reference's Solver does
     with pytest.raises(ValueError, match="Rosenbrock tableaus only"):
         Solver(tops, NumericsOptions(ts_type="arkimex", ksp_type="banded"))
-    nm = dataclasses.replace(NumericsOptions(), ksp_type="gmres")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Solver(tops, nm)
+    # the fixed-count Krylov tiers run since they were ported
+    # (tests/test_torch_krylov.py): no fallback, one chunk tier
+    nm = dataclasses.replace(NumericsOptions(), ksp_type="gmres",
+                             device_loop=True)
+    s = Solver(tops, nm)
+    assert s._get_fallback() is None and s._chunk.tiers == [("gmres", 3)]
 
 
 def test_measurement_tools_run_small():

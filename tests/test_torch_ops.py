@@ -237,10 +237,20 @@ def test_stage_delta_ok_and_stiff_coefficients(problems):
 
 
 def test_flux_form_not_ported(problems):
-    _, tops = problems
-    with pytest.raises(NotImplementedError, match="flux_form"):
-        KT.ops.PDEOperators(tops.ps, tops.grid, flux_form=True,
-                            device="cpu")
+    """The flux form was ported since this test pinned its refusal: its
+    RHS equals the reference's to 1e-12 relative
+    (tests/test_torch_with_g.py holds its J-action, steps and
+    conservation)."""
+    jops, tops = problems
+    fops = KT.ops.PDEOperators(tops.ps, tops.grid, flux_form=True,
+                               device="cpu")
+    jf = type(jops)(jops.ps, jops.grid, flux_form=True)
+    u = np.asarray(jops.groom(np.full(tops.grid.Vshape, 9000.0)
+                              + 90 * np.random.default_rng(2)
+                              .standard_normal(tops.grid.Vshape)))
+    got = fops.rhs(torch.from_numpy(u), 0.0).numpy()
+    ref = np.asarray(jf.rhs(u, 0.0))
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
 def test_spatial_source_matches(problems):

@@ -255,14 +255,21 @@ def port_problem(shape, dof):
     pytest.param((45, 37), 0, 2, id="dof2-0"),
     pytest.param((48, 40), 1, 4, id="dof4-1"),
     pytest.param((45, 37), 0, 4, id="dof4-0"),
+    pytest.param((48, 40), 1, 1, id="dof1-1"),
+    pytest.param((45, 37), 0, 1, id="dof1-0"),
+    pytest.param((48, 40), 1, 5, id="dof5-1"),
+    pytest.param((45, 37), 0, 5, id="dof5-0"),
+    pytest.param((132, 68), 1, 6, id="dof6-1"),
+    pytest.param((45, 37), 0, 6, id="dof6-0"),
 ])
 def test_cuda_source_bodies_match_plain(host_pc, shape, vec, dof):
-    """The fwd (two 3xTF32 products and the arrow epilogue) and inv of
-    csrc/pc2d.cu's host path, compiled as host C++, equal the plain
-    versions to 1e-5 of max|plain|: one tile, ragged tiles in both axes,
-    several tiles, with the state read as it lies (vec=1) and through
-    the pitched copy (vec=0), with 2, 3 and 4 fields.  vec=1 needs ny %
-    4 == 0, as the card's TMA needs 16-byte row pitches."""
+    """The fwd (two 3xTF32 products and the arrow epilogue, or above
+    MAX_NF = 4 fields the plain second product and the arrow pass) and
+    inv of csrc/pc2d.cu's host path, compiled as host C++, equal the
+    plain versions to 1e-5 of max|plain|: one tile, ragged tiles in both
+    axes, several tiles, with the state read as it lies (vec=1) and
+    through the pitched copy (vec=0), with 1 to 6 fields.  vec=1 needs
+    ny % 4 == 0, as the card's TMA needs 16-byte row pitches."""
     tops = port_problem(shape, dof)
     x = pc_inputs(tops)
     pc = make_fused_block_pc(tops.grid, tops)
@@ -311,6 +318,9 @@ def batched_pc_inputs(tops, nb):
     pytest.param((45, 37), 0, 3, id="shape1-0"),
     pytest.param((48, 40), 1, 2, id="dof2-1"),
     pytest.param((45, 37), 0, 4, id="dof4-0"),
+    pytest.param((45, 37), 0, 1, id="dof1-0"),
+    pytest.param((48, 40), 1, 5, id="dof5-1"),
+    pytest.param((45, 37), 0, 6, id="dof6-0"),
 ])
 def test_cuda_source_batched_bodies_match_single_members(host_pc, shape,
                                                          vec, dof):
@@ -318,8 +328,9 @@ def test_cuda_source_batched_bodies_match_single_members(host_pc, shape,
     tile walk, their own pack rows, the bases shared), compiled as host
     C++ with nb = 3, equals three single-member runs bit for bit, in fwd
     and inv, reading the state as it lies and through the pitched copy
-    with ragged tiles, with 2, 3 and 4 fields; and the plain version
-    under vmap within 1e-5 of its largest value."""
+    with ragged tiles, with 1 to 6 fields (above 4 the arrow pass per
+    member); and the plain version under vmap within 1e-5 of its largest
+    value."""
     from torch.func import vmap
 
     tops = port_problem(shape, dof)
@@ -457,7 +468,7 @@ def rough_fields(tops, seed=6):
     rng = np.random.default_rng(seed)
     shape, dof = tuple(tops.grid.Sshape), tops.grid.dof
     u = np.stack([6000 + s * np.abs(rng.standard_normal(shape))
-                  for s in (3000, 1000) + (500,) * (dof - 2)])
+                  for s in ((3000, 1000) + (500,) * (dof - 2))[:dof]])
     return tops.groom(torch.from_numpy(u)).numpy()
 
 
@@ -509,36 +520,80 @@ def five_field_problems(shape):
     return jgrid, jops, tops
 
 
+def fused_step_matches_reference(jops, tops, u0, h, ref_fuses):
+    """A default-numerics ``pc_pallas`` step of the port (the fused pc's
+    plain version on the CPU) within 1e-5 of the increment of the
+    reference's (its fused Pallas pc in interpret mode where its gate
+    admits the grid, ``ref_fuses``, else its einsum pc)."""
+    from ksfd_tpu.solvers.solver import BUILD_INFO
+
+    step_j, _ = jstep(jops, KJ.NumericsOptions(pc_pallas=True), atol=0.01,
+                      rtol=1e-6)
+    assert BUILD_INFO["pallas_pc"] is ref_fuses
+    u_ref, e_ref = step_j(jnp.asarray(u0), jnp.asarray(0.0), jnp.asarray(h))
+    step_t, _ = make_step_fn(tops, NumericsOptions(pc_pallas=True),
+                             atol=0.01, rtol=1e-6)
+    assert step_t.build_info["pc"] == "fused (B5a, B5b)"
+    assert step_t.build_info["pc_pallas_fallback"] is None
+    u1, e = step_t(torch.from_numpy(u0),
+                   torch.tensor(0.0, dtype=torch.float64),
+                   torch.tensor(h, dtype=torch.float64))
+    u_ref = np.asarray(u_ref)
+    inc = np.abs(u_ref - u0).max()
+    assert inc > 0 and np.isfinite(float(e_ref)) and np.isfinite(float(e))
+    assert np.abs(u1.numpy() - u_ref).max() <= 1e-5 * inc
+
+
 def test_pc_pallas_with_five_fields_takes_the_basis_gemm_pc(interpret):
-    """With more fields than the CUDA kernels take (MAX_NF = 4), on
-    extents the reference's gate refuses (32^2: not 128-aligned),
-    ``pc_pallas`` takes the basis-GEMM pc, as the reference's does."""
+    """5 fields on extents the reference's gate refuses (32^2: not
+    128-aligned): the reference takes its einsum pc; the port, whose
+    gate admits any 2D extent and (since the arrow pass) any field
+    count, runs its fused pc, within 1e-5 of the increment of the
+    reference's step.  (Until then the port took the basis-GEMM pc
+    here, as the name says.)"""
     jgrid, jops, tops = five_field_problems((32, 32))
     assert not pallas_pc_available(jgrid, jops)
     assert not reference_fuses(tops.grid)
-    assert not fused_pc_available(tops.grid, tops)
-    why = fallback_step_matches_reference(jops, tops, dict(pc_pallas=True),
-                                          rough_fields(tops), 1e-3)
-    assert "5 fields" in why
+    assert fused_pc_available(tops.grid, tops)
+    fused_step_matches_reference(jops, tops, rough_fields(tops), 1e-3,
+                                 False)
 
 
 def test_pc_pallas_with_five_fields_where_the_reference_fuses_raises(
         interpret):
-    """With 5 fields on extents the reference's gate admits (128^2), the
-    reference runs its fused Pallas pc: the port has no kernel for 5
-    fields, so the step, the multistep and the chunk raise naming B5
-    rather than run the basis-GEMM pc in its place; with float64
-    transforms the reference falls back, and so does the port."""
+    """5 fields at 128^2, where the reference's gate runs its fused
+    Pallas pc: the port's fused pc runs too (it raised here, naming B5,
+    until pc2d.cu took any field count), the step within 1e-5 of the
+    increment of the reference's interpret-mode step; the multistep and
+    the chunk build on it; with float64 transforms both fall back."""
     jgrid, jops, tops = five_field_problems((N, N))
     assert pallas_pc_available(jgrid, jops)
     assert reference_fuses(tops.grid)
-    for build in (make_step_fn, make_multistep_fn, make_adaptive_chunk_fn):
-        with pytest.raises(NotImplementedError, match="5 fields.*B5"):
-            build(tops, NumericsOptions(pc_pallas=True), atol=0.01,
-                  rtol=1e-6)
+    fused_step_matches_reference(jops, tops, rough_fields(tops), 1e-3, True)
+    for build in (make_multistep_fn, make_adaptive_chunk_fn):
+        fn, _ = build(tops, NumericsOptions(pc_pallas=True), atol=0.01,
+                      rtol=1e-6)
+        assert fn.fused_pc is not None
     step, _ = make_step_fn(tops, NumericsOptions(pc_pallas=True,
                                                  pc_dtype="float64"))
     assert "float64" in step.build_info["pc_pallas_fallback"]
+
+
+@pytest.mark.parametrize("dof", [1, 6])
+def test_pc_pallas_at_other_field_counts_matches_reference(dof,
+                                                           interpret):
+    """1 field (no ligand: the arrow is ``c0 / (shift - rho_diff
+    lam)``) and 6 (the arrow pass) at 128^2: the port's fused pc's
+    plain version through the step against the reference's
+    interpret-mode Pallas pc, within 1e-5 of the increment."""
+    clargs = bench_clargs(N, dof)
+    jps = KJ.SolutionParameters(clargs)
+    jgrid = KJ.Grid(dim=2, width=1.0, height=1.0, nx=N, ny=N, dof=dof,
+                    order=3)
+    jops = KJ.ops.PDEOperators(jps, jgrid)
+    _, _, tops = problem_from_clargs(clargs, N, N, device="cpu")
+    assert tops.grid.dof == dof and pallas_pc_available(jgrid, jops)
+    fused_step_matches_reference(jops, tops, rough_fields(tops), 1e-3, True)
 
 
 def test_fused_pc_refuses_other_devices():

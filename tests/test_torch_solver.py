@@ -133,18 +133,12 @@ def test_launch_counts_per_step(problems):
 
 
 # each case keeps the id it had when the list held the options that
-# the DIRK path and the pc forms now run (test_ported_options_step)
+# the DIRK path, the pc forms and the fixed-count Krylov tiers now run
+# (test_ported_options_step); "gmres_fixed" is no ksp_type of the
+# reference's (its solver function, ksp_type gmres)
 @pytest.mark.parametrize("change", [
-    dict(ksp_type="gmres"), dict(ksp_type="gmres_rolled"),
-    # the exact tiers (dense, direct, banded, lu) run
-    # (tests/test_torch_direct.py)
-    dict(ksp_type="gmres_fixed"), dict(ksp_type="gmres_restarted"),
-    dict(precision="bfloat16"),
-    # pc_pallas with float64 transforms takes the basis-GEMM pc, as the
-    # reference's does (tests/test_torch_pc.py); pc_type none runs with
-    # the GMRES step and the exact tiers (tests/test_torch_pc_forms.py)
-    dict(pc_type="none"),
-], ids=["change0", "change1", "change2", "change4", "change5", "change7"])
+    dict(ksp_type="gmres_fixed"), dict(precision="bfloat16"),
+], ids=["change2", "change5"])
 def test_off_path_options_raise(problems, change):
     _, tops = problems
     numerics = dataclasses.replace(NumericsOptions(), **change)
@@ -155,14 +149,18 @@ def test_off_path_options_raise(problems, change):
 @pytest.mark.parametrize("change", [
     dict(pc_type="spectral"), dict(pc_fft="on"), dict(pc_dtype="bfloat16"),
     dict(ts_type="ark324"), dict(pc_fft="auto"), dict(ts_type="ark436"),
-    dict(ts_type="arkimex"),
+    dict(ts_type="arkimex"), dict(ksp_type="gmres"),
+    dict(ksp_type="gmres_rolled", ksp_restart=6, ksp_max_it=2),
+    dict(ksp_type="gmres_restarted"), dict(pc_type="none"),
 ], ids=["change3", "change6", "change8", "change9", "change10", "change11",
-        "change12"])
+        "change12", "change0", "change1", "change4", "change7"])
 def test_ported_options_step(change):
     """The options that raised until the DIRK path (ROADMAP Queue A item
-    7) and the pc forms (item 8) were ported build and take one finite
-    32^2 step on the CPU, as test_off_path_options_raise's cases once
-    raised under the same ids."""
+    7), the pc forms (item 8) and the fixed-count Krylov tiers (item 9)
+    were ported build and take one finite 32^2 step on the CPU, as
+    test_off_path_options_raise's cases once raised under the same ids
+    (tests/test_torch_krylov.py holds the Krylov steps against the
+    reference's)."""
     jps, _, _ = ge._make_problem(32, 32)
     _, _, tops = problem_from_clargs(jps.clargs, 32, 32, device="cpu")
     numerics = dataclasses.replace(NumericsOptions(), **change)
