@@ -7,7 +7,7 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs thirty-three
+header, and csrc/pc2d.cu, all started together) and runs thirty-six
 phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -167,13 +167,23 @@ phases, each printing one line:
     main path at 1024^2 x 3 (B2 inside the float64 step, exact
     launches), card vs CPU, its chunk; gmres and ``-pc_type none`` card
     vs CPU; ``--with_g`` through ``main`` on the flagship; the flux form
-    at 1024^2 x 3 with sum(rho)'s drift.
+    at 1024^2 x 3 with sum(rho)'s drift;
+36. the Solver on an x-slab mesh and the driver over several processes
+    (phase_mesh_solver): the flagship through ``Solver(mesh=)`` on a
+    one-rank NCCL mesh against phase 30's one-card Solver (the same k,
+    host reads and rejections, exact B9 launches); two gloo ranks
+    spawned on the card: the flagship through ``Solver(mesh=)`` with
+    equal records on both ranks, one noise injection on the 2D cell
+    drawn bit for bit as on one card, then ``main`` over their group
+    (the flagship cut to 16 steps, rank 0 alone printing; --ensemble=4
+    on hexagons2d, members 0-1 and 2-3).
 
-Then one JSON line of the nineteen kernels (B9's eight rows last) and
+Then one JSON line of the nineteen kernels (B9's eight rows last, with
+the mesh Solver's launches per accepted step) and
 of every phase's figures, the card's line, one short line per kernel
 (µs, bound, plain and library µs, launches per step on each path) and,
 last, the result line.  Any failed phase raises (a failed rank fails
-phase 27), so the exit code is not 0 and no result prints.  It imports
+phases 27 and 36), so the exit code is not 0 and no result prints.  It imports
 nothing of JAX.  Profiles and long reports go to chiprun_out/.
 """
 
@@ -4257,6 +4267,395 @@ def phase_krylov_with_g_flux(card, cli_flagship):
     return fig
 
 
+# ------------------------------------------- the Solver on an x-slab mesh
+
+#: phase 36's depths: (b) the flagship's accepts on two gloo ranks, (c)
+#: the driver's steps over two processes, its --ensemble accepts
+MESH_FLAG_ACCEPTS = 16
+MESH_CLI_STEPS = 16
+#: (b)'s noise run: the 2D cell at h=1, one injection in two steps
+MESH_NOISE_PARAMS = ["variance_rate=1e-4", "variance_timing_function=t/2",
+                     "conserve_worms=True"]
+
+
+def mesh_solver_records(solver):
+    """A Solver's records for equality across ranks: k, t, h, failures,
+    stats and the monitor records it gathered."""
+    return dict(k=solver.k, t=solver.t, h=solver.h,
+                failures=solver.snes_failures, stats=vars(solver.stats),
+                records=list(getattr(solver, "mesh_records", [])))
+
+
+def mesh_flagship(dev, make_mesh, accepts):
+    """The flagship (examples/aggregation2d at 1536^2 x 3 from
+    ``ic.start_values``, its numerics with the device loop, from
+    dt=1e-8) through ``Solver(mesh=)`` on ``make_mesh(grid)`` for
+    ``accepts`` accepts after an untimed run of 2: the Solver, its
+    gathered state, seconds, the B9 launches of the timed run (counts
+    set to 0 just before it), the launches each tier's attempt makes and
+    the start."""
+    from ksfd_tpu_torch.parallel import distribute
+    from ksfd_tpu_torch.solvers import Solver
+    from ksfd_tpu_torch.tools.flagship import example_numerics
+
+    clargs = agg2d_clargs(N_AGG)
+    ps, grid, ops = problem_from_clargs(clargs, N_AGG, N_AGG, device=dev)
+    mesh = make_mesh(grid)
+    u0 = torch.as_tensor(ic_starts(clargs, grid, ps, 1, clargs.seed)[0],
+                         device=dev)
+    p0 = ps.params0
+    kw = dict(t0=0.0, dt=float(p0["dt"]), tmax=float(p0["tmax"]),
+              rtol=float(p0["rtol"]), atol=float(p0["atol"]), mesh=mesh)
+    nm = example_numerics()
+    warm = Solver(ops, nm, maxsteps=2, **kw)
+    u_loc = distribute(u0, grid, mesh)[0]
+    warm.solve(u_loc)
+    solver = Solver(ops, nm, maxsteps=accepts, kernels=warm.kernels, **kw)
+    solver.mesh_records = []
+    solver.add_monitor(lambda s_, k, t, u: s_.mesh_records.append(
+        (k, t, s_.h, s_.CFL_maxh)))
+    kern = solver.kernels
+    check(kern.kind.startswith("halo-slab"), kern.kind)
+    zero_launches(kern)
+    u_s, secs = solver_run(solver, u_loc)
+    launches = launch_counts(kern)
+    per_tier = tier_launches(solver._chunk, ops, ops.groom(u_loc), 0.0)
+    st = solver.stats
+    want = {n: sum(c * pt[n] for c, pt in zip(st.tier_calls, per_tier))
+            for n in launches}
+    check(solver.k == accepts and not solver.diverged
+          and bool(torch.isfinite(u_s).all()),
+          "mesh Solver flagship: k=%d diverged=%s" % (solver.k,
+                                                     solver.diverged))
+    check(launches == want and launches["resid"] > 0
+          and launches["delta"] > 0 and launches["rhs"] == launches["jvp"]
+          == 0, "mesh Solver B9 launches %s, want %s (tier calls %s, per "
+          "attempt %s)" % (launches, want, st.tier_calls, per_tier))
+    return solver, mesh.gather(u_s), secs, launches, per_tier, u0
+
+
+def mesh_noise(dev, make_mesh):
+    """(b)'s noise run: the 2D cell (bench 1024^2 x 3, near-uniform
+    state, h=1, fixed dt) with one injection in two steps, conserving
+    worms: the Solver on ``make_mesh(grid)`` (on one card for
+    ``make_mesh`` None), the normal it drew (at the global shape), the
+    largest conservation error and the (gathered) state."""
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import distribute
+    from ksfd_tpu_torch.solvers import Solver
+
+    clargs = bench_clargs(N_BIG)
+    clargs.params = list(clargs.params) + MESH_NOISE_PARAMS
+    ps, grid, ops = problem_from_clargs(clargs, N_BIG, N_BIG, device=dev)
+    mesh = None if make_mesh is None else make_mesh(grid)
+    u0 = torch.as_tensor(initial_state(grid), device=dev)
+    s = Solver(ops, NumericsOptions(adapt_type="none", pc_dtype="float32"),
+               t0=0.0, dt=1.0, tmax=1e9, maxsteps=2, rtol=1e-6, atol=0.01,
+               rng_state=7, mesh=mesh)
+    s.mesh_records = []
+    s.add_monitor(lambda s_, k, t, u: s_.mesh_records.append(
+        (k, t, s_.h, s_.count_worms(u))))
+    draws = []
+    randn = torch.randn
+
+    def recorded(*a, **k):
+        x = randn(*a, **k)
+        draws.append(x)
+        return x
+    torch.randn = recorded
+    try:
+        u = s.solve(u0 if mesh is None else distribute(u0, grid, mesh)[0])
+    finally:
+        torch.randn = randn
+    check(s.stats.injections == 1 and len(draws) == 1,
+          "noise run: %d injections, %d draws" % (s.stats.injections,
+                                                  len(draws)))
+    nworms = s.mesh_records[0][3]
+    cons = max(abs(r[3] - nworms) / nworms for r in s.mesh_records)
+    check(cons <= 1e-12, "noise run conservation %.3e" % cons)
+    return s, draws[0], cons, u if mesh is None else mesh.gather(u)
+
+
+def _mesh_rank(rank, n, store, queue):
+    """One of phase 36's gloo ranks on the one card: (b) the flagship
+    and the noise run through ``Solver(mesh=)``, then (c) the driver's
+    ``main`` over the same process group (the flagship cut to
+    MESH_CLI_STEPS steps, then --ensemble=4 hexagons2d), its standard
+    output captured."""
+    import contextlib
+    import io
+    import traceback
+
+    import torch.distributed as dist
+
+    from ksfd_tpu_torch.parallel import grid_mesh
+    from ksfd_tpu_torch.parallel.distributed import process_count
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=n)
+        dev = torch.device("cuda", 0)
+        out = {}
+
+        def make_mesh(grid):
+            mesh = grid_mesh(grid, device=dev)
+            check(mesh.backend == "gloo" and mesh.n_x == n, repr(mesh))
+            return mesh
+        solver, u_s, secs, launches, per_tier, u0 = mesh_flagship(
+            dev, make_mesh, MESH_FLAG_ACCEPTS)
+        out["flagship"] = dict(
+            mesh_solver_records(solver), secs=secs, launches=launches,
+            launches_per_attempt=per_tier,
+            ms_per_accept=secs / solver.k * 1e3,
+            finite=bool(torch.isfinite(u_s).all()),
+            pc_dtype=solver.build_info["pc_dtype"])
+        del solver, u_s, u0
+        s, draw, cons, u = mesh_noise(dev, make_mesh)
+        out["noise"] = dict(mesh_solver_records(s), conservation=cons)
+        if rank == 0:
+            s1, draw1, cons1, u1 = mesh_noise(dev, None)
+            inc = float((u1 - torch.as_tensor(initial_state(
+                s1.ops.grid), device=dev)).abs().max())
+            out["noise"].update(
+                draw_equal=bool(torch.equal(draw, draw1)),
+                dev_over_inc=float((u - u1).abs().max()) / inc,
+                injections_one_card=s1.stats.injections)
+        del s, draw, u
+        torch.cuda.empty_cache()
+        # (c) the driver over the same group: main sees two processes
+        check(process_count() == n, "process group")
+        loop = ("--numerics", "-device_loop", "1", "--")
+        for key, argv in (
+                ("cli_flagship", (cut_options(
+                    "aggregation2d", "aggregation2d_mesh%d" % rank,
+                    maxsteps=MESH_CLI_STEPS),) + loop),
+                ("cli_ensemble", (cut_options(
+                    "hexagons2d", "hexagons2d_mesh%d" % rank,
+                    maxsteps=CLI_ENS_ACCEPTS),
+                    "--ensemble=%d" % CLI_MEMBERS) + loop)):
+            text = io.StringIO()
+            dist.barrier()
+            with contextlib.redirect_stdout(text):
+                status, s, setup, rest = drive_cli(*argv)
+            out[key] = dict(status=status, stdout=text.getvalue(),
+                            setup_s=setup, rest_s=rest)
+            if key == "cli_flagship":
+                out[key].update(mesh_solver_records(s),
+                                mesh=repr(s.mesh),
+                                launches=launch_counts(s.kernels))
+            else:
+                out[key].update(ks=[int(k) for k in s.ks],
+                                ts=[float(t) for t in s.ts],
+                                member_offset=int(s.member_offset))
+            del s
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def phase_mesh_solver(card, flag30, u_flag, cli31):
+    """Phase 36, the Solver on an x-slab mesh and the driver over
+    several processes (solvers/solver.py ``Solver(mesh=)``,
+    ksfd_tpu_torch/ksfdsolver.py ``main``).
+
+    (a) the flagship at 1536^2 x 3 from ``ic.start_values`` through
+        ``Solver(mesh=)`` on a one-rank NCCL mesh, FLAG_ACCEPTS accepts
+        (after an untimed 2), as phase 30 (b): the same k, attempts and
+        on-device rejections as phase 30 (b)'s one-card Solver, the
+        state within 1e-5 of its increment; the B9 launches (resid,
+        delta halo builds) equal each tier's launches per attempt times
+        its calls; ms per accept against phase 30 (b)'s;
+    (b) two gloo ranks spawned on the card, time-sliced: the same
+        flagship through ``Solver(mesh=)`` for MESH_FLAG_ACCEPTS
+        accepts, every record and ``stats`` equal on both ranks, exact
+        B9 launches; and the 2D cell with ``variance_rate`` set, one
+        injection in two steps: the normal drawn at the global shape
+        equal to the one-card draw bit for bit, worms conserved to
+        1e-12;
+    (c) on the same two processes, ksfdsolver's ``main`` over their
+        group: examples/aggregation2d cut to MESH_CLI_STEPS steps (no
+        --save: the card's machine has no h5py), both exit 0, rank 0
+        prints the monitor lines and rank 1 none, the ranks' records
+        equal; then --ensemble=CLI_MEMBERS hexagons2d at 384^2 x 3 for
+        CLI_ENS_ACCEPTS accepts, members 0-1 and 2-3, their k equal and
+        t to 1e-6 relative of phase 31 (c)'s one-process run.
+    A rank that fails fails the phase.  Two ranks sharing one card are
+    no scaling figure."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fig, lines = {}, []
+    # (a)
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % free_port(), world_size=1, rank=0)
+    try:
+        from ksfd_tpu_torch.parallel import grid_mesh
+
+        def make_mesh(grid):
+            mesh = grid_mesh(grid, device=dev)
+            check(mesh.backend == "nccl" and mesh.n_x == 1, repr(mesh))
+            return mesh
+        solver, u_s, secs, launches, per_tier, u0 = mesh_flagship(
+            dev, make_mesh, FLAG_ACCEPTS)
+    finally:
+        dist.destroy_process_group()
+    st = solver.stats
+    u_one = u_flag.to(dev)
+    inc = float((u_one - solver.ops.groom(u0)).abs().max())
+    dev_abs = float((u_s - u_one).abs().max())
+    same = (solver.k == flag30["accepts"]
+            and st.chunk_attempts + st.step_attempts == flag30["host_reads"]
+            and st.chunk_rejections == flag30["on_device_rejections"]
+            and st.tier_calls == flag30["tier_calls"])
+    check(same and dev_abs <= 1e-5 * inc,
+          "one-rank NCCL mesh Solver vs phase 30 (b): k %d/%d host reads "
+          "%d/%d rejections %d/%d tier calls %s/%s; %.3e of the increment"
+          % (solver.k, flag30["accepts"], st.chunk_attempts
+             + st.step_attempts, flag30["host_reads"], st.chunk_rejections,
+             flag30["on_device_rejections"], st.tier_calls,
+             flag30["tier_calls"], dev_abs / inc))
+    fig["one_rank_nccl"] = dict(
+        accepts=solver.k, t=solver.t, h=solver.h,
+        ms_per_accept=secs / solver.k * 1e3,
+        ms_per_accept_one_card_phase30=flag30["ms_per_accept"],
+        tier_calls=st.tier_calls, host_reads=st.chunk_attempts
+        + st.step_attempts, on_device_rejections=st.chunk_rejections,
+        dispatches=st.dispatches, dev_over_inc=dev_abs / inc,
+        launches=launches, launches_per_attempt=per_tier)
+    lines.append(
+        "(a) Solver(mesh=) one-rank NCCL, aggregation2d %d^2x3 from "
+        "ic.start_values, %d accepts to t=%.6g: %.3f ms/accept (one card, "
+        "phase 30 (b): %.3f); tier calls %s, %d host reads, %d on-device "
+        "rejections as phase 30 (b); state %.3e of the increment; B9 "
+        "launches %s = tier calls x per attempt %s" % (
+            N_AGG, solver.k, solver.t, fig["one_rank_nccl"]["ms_per_accept"],
+            flag30["ms_per_accept"], st.tier_calls,
+            fig["one_rank_nccl"]["host_reads"], st.chunk_rejections,
+            dev_abs / inc, launches, per_tier))
+    del solver, u_s, u0, u_one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # (b) and (c): two gloo ranks on the card
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="ksfd_mesh_"), "store")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, N_RANKS, store, queue))
+             for r in range(N_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in procs:
+            rank, res, err = queue.get(timeout=600)
+            if err is not None:
+                errors.append("rank %d:\n%s" % (rank, err))
+                break
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=120 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    check(not errors, "phase 36 ranks failed:\n" + "\n".join(errors))
+    wall = time.perf_counter() - t0
+    r0, r1 = results[0], results[1]
+    rec_keys = ("k", "t", "h", "failures", "stats", "records")
+    for key in ("flagship", "noise", "cli_flagship"):
+        for rk in rec_keys:
+            check(r0[key][rk] == r1[key][rk], "phase 36 %s: the ranks' %s "
+                  "differ: %r / %r" % (key, rk, r0[key][rk], r1[key][rk]))
+    flag = r0["flagship"]
+    check(flag["k"] == MESH_FLAG_ACCEPTS and flag["finite"]
+          and flag["launches"] == r1["flagship"]["launches"],
+          "two-rank flagship: %r" % {k: flag[k] for k in ("k", "launches")})
+    noise = r0["noise"]
+    check(noise["draw_equal"] and noise["injections_one_card"] == 1
+          and noise["stats"]["injections"] == 1,
+          "two-rank noise draw against the one card: %r" % noise)
+    cli = (r0["cli_flagship"], r1["cli_flagship"])
+    monitor = [sum("clock:" in ln and "step" in ln
+                   for ln in c["stdout"].splitlines()) for c in cli]
+    check(cli[0]["status"] == cli[1]["status"] == 0
+          and cli[0]["k"] == MESH_CLI_STEPS
+          and monitor[0] >= 2 and monitor[1] == 0
+          and cli[0]["launches"]["resid"] > 0
+          and cli[0]["launches"]["delta"] > 0,
+          "two-process driver: status %s k %d, monitor lines %s, "
+          "launches %s" % ([c["status"] for c in cli], cli[0]["k"],
+                           monitor, cli[0]["launches"]))
+    ens = (r0["cli_ensemble"], r1["cli_ensemble"])
+    ts1 = cli31["ensemble"]["t"]
+    ens_ts = ens[0]["ts"] + ens[1]["ts"]
+    ens_dt = max(abs(a - b) / abs(b) for a, b in zip(ens_ts, ts1))
+    check(ens[0]["status"] == ens[1]["status"] == 0
+          and ens[0]["member_offset"] == 0
+          and ens[1]["member_offset"] == CLI_MEMBERS // N_RANKS
+          and ens[0]["ks"] + ens[1]["ks"] == [CLI_ENS_ACCEPTS] * CLI_MEMBERS
+          and ens_dt <= 1e-6
+          and "members 0-1" in ens[0]["stdout"]
+          and "members 2-3" in ens[1]["stdout"],
+          "two-process --ensemble=%d: status %s ks %s t %s / %s" % (
+              CLI_MEMBERS, [e["status"] for e in ens], ens[0]["ks"]
+              + ens[1]["ks"], ens_ts, ts1))
+    fig["two_gloo_ranks"] = dict(
+        wall_s=wall, flagship={k: flag[k] for k in (
+            "k", "t", "h", "ms_per_accept", "launches",
+            "launches_per_attempt", "pc_dtype")},
+        flagship_tier_calls=flag["stats"]["tier_calls"],
+        noise=dict(draw_equal=noise["draw_equal"],
+                   conservation=noise["conservation"],
+                   dev_over_inc=noise["dev_over_inc"]),
+        cli_flagship=dict(steps=cli[0]["k"], t=cli[0]["t"],
+                          setup_s=[c["setup_s"] for c in cli],
+                          ms_per_accept=[c["rest_s"] / c["k"] * 1e3
+                                         for c in cli],
+                          launches=cli[0]["launches"],
+                          monitor_lines=monitor),
+        cli_ensemble=dict(setup_s=[e["setup_s"] for e in ens],
+                          ms_per_ensemble_accept=[
+                              e["rest_s"] / CLI_ENS_ACCEPTS * 1e3
+                              for e in ens],
+                          t_rel_dev=ens_dt))
+    lines.append(
+        "(b) two gloo ranks on the card (not a scaling figure; %.1f s wall "
+        "with the spawn): the flagship through Solver(mesh=), %d accepts "
+        "to t=%.6g (pc %s): %.3f ms/accept, tier calls %s, records and "
+        "stats equal on both ranks, B9 launches %s per rank = tier calls x "
+        "per attempt; the 2D cell %d^2x3 with one noise injection: the "
+        "global-shape draw equal to the one card's bit for bit, "
+        "conservation %.2e, state %.3e of the increment from the one "
+        "card's" % (wall, flag["k"], flag["t"], flag["pc_dtype"],
+                    flag["ms_per_accept"], flag["stats"]["tier_calls"],
+                    flag["launches"], N_BIG, noise["conservation"],
+                    noise["dev_over_inc"]))
+    lines.append(
+        "(c) main over the two processes' group: aggregation2d cut to %d "
+        "steps, exit 0 on both, monitor lines %s (rank 0, rank 1), setup "
+        "%s s, %s ms/accept, launches %s; --ensemble=%d hexagons2d %d^2x3, "
+        "%d accepts: members 0-1 and 2-3, setup %s s, %s ms per accepted "
+        "ensemble step, t within %.2e of phase 31 (c)'s one process" % (
+            MESH_CLI_STEPS, monitor,
+            ["%.2f" % c["setup_s"] for c in cli],
+            ["%.3f" % (c["rest_s"] / c["k"] * 1e3) for c in cli],
+            cli[0]["launches"], CLI_MEMBERS, N_HEX, CLI_ENS_ACCEPTS,
+            ["%.2f" % e["setup_s"] for e in ens],
+            ["%.3f" % (e["rest_s"] / CLI_ENS_ACCEPTS * 1e3) for e in ens],
+            ens_dt))
+    print("phase 36 Solver on an x-slab mesh, driver over processes (%s): "
+          "%s" % (card, " | ".join(lines)))
+    return fig
+
+
 def kernel_lines(rows):
     """One short line per kernel row: µs, bound µs, plain µs, library µs
     and the launches per step on each path (the tail of the output keeps
@@ -4311,17 +4710,21 @@ def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
     return rows
 
 
-def b9_rows(halo, one_rank, totals):
+def b9_rows(halo, one_rank, totals, mesh_per_accept=None):
     """The kernels line's B9 rows: phase 25's errors and times per slab
     (``halo``), phase 26's launches per step on each path
-    (``one_rank``) and the launches it counted (``totals``)."""
+    (``one_rank``), phase 36's per accepted step of the mesh Solver's
+    flagship (``mesh_per_accept``, 2D) and the launches counted on
+    those runs (``totals``)."""
     rows = []
     for dim, src in (("2d", "stencil2d.cu"), ("3d", "stencil3d.cu")):
         slab, errs, rel, times = halo[dim]
+        per_step = {"one_rank_" + k[3:]: f["launches_per_step"]
+                    for k, f in one_rank.items() if k.startswith(dim)}
+        if dim == "2d" and mesh_per_accept:
+            per_step.update(mesh_per_accept)
         rows += kernel_rows(
-            slab, "ksfd_tpu_torch/csrc/" + src,
-            {"one_rank_" + k[3:]: f["launches_per_step"]
-             for k, f in one_rank.items() if k.startswith(dim)},
+            slab, "ksfd_tpu_torch/csrc/" + src, per_step,
             {n: totals[dim, n] for n in slab.kernels}, errs, rel, times,
             "_halo" + ("3d" if dim == "3d" else ""),
             extra={n: {"slabs": B9_TIMED, "per": "launch per slab"}
@@ -4433,13 +4836,15 @@ def main():
     tdep = timed("29", phase_tdep, card)
     solver30, u_flag = timed("30", phase_solver, card)
     cli31 = timed("31", phase_entry_point, card, solver30["flagship"], u_flag)
-    del u_flag
     dirk32 = timed("32", phase_dirk, card, cli31["flagship"], main_f64,
                    main_f32)
     forms33 = timed("33", phase_pc_forms, card, main_f64, main_f32)
     b5_34 = timed("34", phase_b5_fields, card)
     krylov35 = timed("35", phase_krylov_with_g_flux, card,
                      cli31["flagship"])
+    mesh36 = timed("36", phase_mesh_solver, card, solver30["flagship"],
+                   u_flag, cli31)
+    del u_flag
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -4510,6 +4915,16 @@ def main():
               forms33["fft_3d_f64"]["launches"]] + [
         f["launches"] for f in ens3.values()]
     totals3 = {n: sum(c.get(n, 0) for c in runs3d) for n in kern3.kernels}
+    # the mesh Solver's flagship (phase 36 (a), one-rank NCCL; (b), per
+    # rank of two gloo ranks): B9's 2D resid and delta, per accepted step
+    mesh_per_accept = {}
+    for key, f in (("mesh_solver_one_rank_nccl", mesh36["one_rank_nccl"]),
+                   ("mesh_solver_two_gloo_ranks",
+                    mesh36["two_gloo_ranks"]["flagship"])):
+        acc = f.get("accepts", f.get("k"))
+        mesh_per_accept[key] = {n: c / acc for n, c in f["launches"].items()}
+        for n, c in f["launches"].items():
+            b9_totals[("2d", n)] = b9_totals.get(("2d", n), 0) + c
     big = "%d^2" % N_BIG
     agg = "%d^2" % N_AGG
     pc_times = {n: pc_figs[big][n][:5] for n in ("pc_fwd", "pc_inv")}
@@ -4556,7 +4971,7 @@ def main():
             + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
                           totals, pc_errs, pc_rel, pc_times, "",
                           extra=pc_extra)
-            + b9_rows(halo, one_rank, b9_totals))
+            + b9_rows(halo, one_rank, b9_totals, mesh_per_accept))
     print(json.dumps({
         "kernels": rows,
         "ptxas_pc2d": ptxas_pc,
@@ -4587,6 +5002,7 @@ def main():
         "pc_forms": forms33,
         "b5_fields": {k: v for k, v in b5_34.items() if k != "fields"},
         "krylov_with_g_flux": krylov35,
+        "mesh_solver": mesh36,
     }))
     # the card, and one short line per kernel, where the returned end of
     # the output keeps them

@@ -20,9 +20,11 @@ fast mode (``NumericsOptions(precision="float32")``), the fused pc
 axis), with the float32 kernels of ops/fused_stencil.py,
 ops/fused_stencil3d.py and ops/fused_pc.py written in CUDA for Hopper
 (csrc/stencil2d.cu, csrc/stencil3d.cu, csrc/pc2d.cu).  The step, the
-multistep and the chunk also run SPMD over torch.distributed ranks, one
-per x-slab (``mesh=``, parallel/), with the halo-slab builds of the
-stencil kernels.  Importing the
+multistep, the chunk and the host Solver also run SPMD over
+torch.distributed ranks, one per x-slab (``mesh=``, parallel/), with
+the halo-slab builds of the stencil kernels, and the driver
+(``python -m ksfd_tpu_torch``) runs one such rank per process.
+Importing the
 package sets no global torch state (no default dtype, no default
 device): tensors carry their own dtype and device, float64 for the
 state as in the reference, float32 in the fast mode.

@@ -16,6 +16,7 @@ from .grid import Grid
 from .ops.spatial import SpatialExpression
 from .randomfield import Generator, random_function
 from .io.timeseries import TimeSeries, parse_filename
+from .parallel.distributed import process_count, process_index
 from .utils.debug import logger
 from .utils.device import resolve_device
 from .utils.exceptions import KSFDException
@@ -108,13 +109,19 @@ def resume_values(clargs, grid, ps, device=None):
     says so.
 
     One process: a complete slab set reads as one series (the virtual
-    slab view); one rank's slab of a run on another rank count raises,
-    naming tools/tsmerge.py, as the reference does.
+    slab view).  Over N ranks (torch.distributed) each rank reads its
+    own ``<prefix>s<N>r<k>.h5`` and returns its block, with the block's
+    box in ``extras['box']`` (the driver checks it against the block its
+    mesh gives the rank); a series of one process is read whole by
+    every rank.  A slab of a run on another rank count, another rank's
+    slab, or a lone slab read by one process raises naming
+    tools/tsmerge.py, as the reference does.
     """
     device = resolve_device(device)
     prefix = clargs.resume or clargs.restart
+    nprocs, rank = process_count(), process_index()
     cpf = TimeSeries(
-        prefix, grid=grid, mode="r",
+        prefix, grid=grid, mode="r", size=nprocs, rank=rank,
         retries=clargs.series_retries,
         retry_interval=clargs.series_retry_interval,
     )
@@ -122,13 +129,14 @@ def resume_values(clargs, grid, ps, device=None):
     box = cpf.ranges if cpf.ranges is not None else full_box
     if box != full_box:
         _, fsize, frank, _ = parse_filename(os.path.basename(cpf.filename))
-        cpf.close()
-        raise KSFDException(
-            "cannot resume slab series %r (written by %d ranks) with one "
-            "process; merge it first: python -m "
-            "ksfd_tpu_torch.tools.tsmerge %s -o <merged>"
-            % (cpf.filename, fsize, prefix)
-        )
+        if nprocs == 1 or fsize != nprocs or frank != rank:
+            cpf.close()
+            raise KSFDException(
+                "cannot resume slab series %r (written by %d ranks) with "
+                "%d process(es); merge it first: python -m "
+                "ksfd_tpu_torch.tools.tsmerge %s -o <merged>"
+                % (cpf.filename, fsize, nprocs, prefix)
+            )
     stimes = cpf.sorted_times()
     tlast = stimes[-1]
     state = cpf.load_solver_state()
@@ -168,5 +176,8 @@ def resume_values(clargs, grid, ps, device=None):
             ps.params0["lastvart"] = float(ps.t0)
     values = np.asarray(cpf.retrieve_by_time(tlast)).reshape(cpf.local_shape)
     cpf.close()
-    logMAIN("resumed at t", t, "from", prefix)
+    if box != full_box:
+        extras["box"] = box
+    logMAIN("resumed at t", t, "from", prefix,
+            "box", box if box != full_box else "full")
     return torch.from_numpy(values).to(device), t, extras

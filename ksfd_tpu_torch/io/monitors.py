@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..utils.debug import logger
+from ..utils.exceptions import KSFDException
 from .timeseries import TimeSeries
 
 logSERIES = logger("SERIES")
@@ -43,14 +44,22 @@ def pickleunp(arr):
 
 def snapshot_block(u, ranges):
     """The block of state ``u`` that a TimeSeries stores, as numpy: the
-    whole state for ``ranges`` None.  Counterpart:
-    ksfd_tpu/io/monitors.py:snapshot_block.  A slab series (a block per
-    rank) raises: slab I/O comes with the Solver on a mesh, ROADMAP
-    Queue A item 11 (A14)."""
+    whole state for ``ranges`` None; for a slab series (``ranges``, a
+    ``(lo, hi)`` per spatial axis) ``u`` itself when it is that block (a
+    rank's slab on a mesh), else that block of the global ``u``.
+    Counterpart: ksfd_tpu/io/monitors.py:snapshot_block.  A ``u`` that
+    is neither raises KSFDException."""
     if ranges is not None:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP): slab series, one block per "
-            "rank, Queue A item 11 (A14)")
+        block = tuple(int(hi) - int(lo) for lo, hi in ranges)
+        if tuple(u.shape[1:]) != block:
+            if len(ranges) != len(u.shape) - 1 or any(
+                    not 0 <= int(lo) < int(hi) <= n
+                    for (lo, hi), n in zip(ranges, u.shape[1:])):
+                raise KSFDException(
+                    "state of shape %s holds neither the block %r nor a "
+                    "grid containing it" % (tuple(u.shape), tuple(ranges)))
+            u = u[(slice(None),) + tuple(slice(int(lo), int(hi))
+                                         for lo, hi in ranges)]
     if isinstance(u, torch.Tensor):
         return u.detach().cpu().numpy()
     return np.asarray(u)

@@ -21,8 +21,23 @@ Saving, checkpoints and resuming need h5py; without it those options
 raise before any step.  ``--with_g`` carries G as a stored last field
 (ops/operators_with_g.py; with ``--ensemble`` it is a KSFDException, as
 in the reference), ``--flux_form`` runs the conservative
-discretization.  Refused: several processes (ROADMAP Queue A item 11,
-A14) and, as in the reference, ``--noperiodic``.
+discretization.  Refused, as in the reference: ``--noperiodic``.
+
+Several processes (the mpiexec analog, as the reference's driver):
+
+    KSFD_COORDINATOR=localhost:29500 KSFD_NUM_PROCS=2 KSFD_PROC_ID=$i \\
+        python -m ksfd_tpu_torch @examples/aggregation2d
+
+starts one torch.distributed rank per process (parallel/distributed.py:
+NCCL with one card per rank, gloo with ``KSFD_PLATFORM=cpu``), each
+integrating its x-slab of the grid through the Solver on the slab mesh
+(parallel/mesh.py); only rank 0 prints the monitor lines, and each rank
+writes and resumes its own ``<save>s<N>r<k>.h5`` with its box in
+``/ranges`` (``python -m ksfd_tpu_torch.tools.tsmerge <save> -o <out>``
+merges them).  ``--ensemble=N`` puts N/nprocs members on each process
+instead, each process writing its own members' series.  A caller that
+made its own process group (two gloo ranks on one card) runs ``main``
+over it.
 """
 
 import contextlib
@@ -44,7 +59,14 @@ from .io import (
 )
 from .models import SolutionParameters
 from .ops import PDEOperators, SpatialExpression, WithGOperators, with_g_grid
-from .parallel.distributed import process_count
+from .parallel import (
+    global_from_local,
+    grid_mesh,
+    maybe_init_distributed,
+    process_box,
+    process_count,
+    process_index,
+)
 from .randomfield import DEFAULT_SEED, Generator
 from .solvers import EnsembleSolver, Solver
 from .solvers.solver import print_monitor, route_petsc_direct
@@ -164,11 +186,23 @@ def run_device():
     return resolve_device("cpu" if cpu else None)
 
 
+def _init_processes():
+    """``maybe_init_distributed`` on the run's device (NCCL on the card,
+    gloo with ``KSFD_PLATFORM=cpu``) when the ``KSFD_*`` variables ask
+    for several processes; returns whether it made the process group
+    (a group the caller made already is used as it is)."""
+    keys = ("KSFD_COORDINATOR", "KSFD_NUM_PROCS", "KSFD_PROC_ID")
+    if not all(os.environ.get(k) for k in keys):
+        return False
+    return maybe_init_distributed(device=run_device())
+
+
 @contextlib.contextmanager
-def xprof_trace(directory):
+def xprof_trace(directory, rank=None):
     """A torch.profiler chrome trace of the block into ``directory``
-    (the counterpart of the JAX driver's ``jax.profiler.trace``), or
-    nothing for ``directory`` None."""
+    (the counterpart of the JAX driver's ``jax.profiler.trace``), one
+    file per rank when ``rank`` is given, or nothing for ``directory``
+    None."""
     if not directory:
         yield
         return
@@ -181,48 +215,66 @@ def xprof_trace(directory):
         with prof:
             yield
     finally:
-        prof.export_chrome_trace(os.path.join(directory,
-                                              "ksfd_trace.json"))
+        prof.export_chrome_trace(os.path.join(
+            directory, "ksfd_trace%s.json" % (
+                "" if rank is None else "_r%d" % rank)))
 
 
 def _refuse(clargs):
-    """Raise, before any step, for what the port does not run."""
+    """Raise, before any step, for what the port does not run: the
+    reference's refusals, h5py missing for the I/O options, and a
+    several-process request (``KSFD_NUM_PROCS`` above 1) that started
+    no process group because ``KSFD_COORDINATOR`` or ``KSFD_PROC_ID`` is
+    missing (each process would run the whole problem alone)."""
     if clargs.noperiodic:
         raise KSFDException("--noperiodic not implemented: BCs are periodic")
     if clargs.with_g and int(clargs.ensemble or 0) >= 1:
         raise KSFDException("--ensemble does not support --with_g")
-    nprocs = max(process_count(), int(os.environ.get("KSFD_NUM_PROCS", 1)))
-    if nprocs > 1:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP): a run over %d processes (the "
-            "Solver on a mesh and slab I/O): Queue A item 11 (A14)"
-            % nprocs)
+    asked = int(os.environ.get("KSFD_NUM_PROCS", 1))
+    if asked > 1 and process_count() == 1:
+        raise KSFDException(
+            "KSFD_NUM_PROCS=%d without a process group: set "
+            "KSFD_COORDINATOR (host:port of rank 0) and KSFD_PROC_ID (this "
+            "process's rank) too" % asked)
     if clargs.save or clargs.check or clargs.resume or clargs.restart:
         h5py_module()
 
 
-def _open_series(prefix, grid, clargs):
+def _open_series(prefix, grid, clargs, size=1, rank=0, ranges=None):
     return TimeSeries(prefix, grid=grid, mode="w",
                       retries=clargs.series_retries,
-                      retry_interval=clargs.series_retry_interval)
+                      retry_interval=clargs.series_retry_interval,
+                      size=size, rank=rank, ranges=ranges)
 
 
 def run_ensemble(clargs, ps, grid, ops, numerics):
     """--ensemble=N: N fresh starts, member i from ``Generator(seed +
-    i)``, integrated by one EnsembleSolver (noise seed ``seed``, member
-    offset 0); member i saves to ``<save>_m<i>`` with '/info/member'.
-    Counterpart: ksfdsolver.py:run_ensemble, in one process (members
-    over several processes, ``shard_members``, are ROADMAP Queue A item
-    11, A14).  Returns the exit status."""
+    i)``, integrated by one EnsembleSolver per process (noise seed
+    ``seed``); member i saves to ``<save>_m<i>`` with '/info/member'.
+    Counterpart: ksfdsolver.py:run_ensemble.  Over several processes the
+    members go contiguously over them (``N % nproc == 0``): process p
+    integrates members ``m0 = p * N // nproc`` onward on its own device,
+    with no collective, its EnsembleSolver given
+    ``member_offset=m0``, and writes those members' series itself;
+    starts and noise streams follow the global member index, so each
+    member's trajectory and series are the one-process run's.  Returns
+    the exit status."""
     N = int(clargs.ensemble)
     if clargs.resume or clargs.restart or clargs.check:
         raise KSFDException(
             "--ensemble supports fresh starts only "
             "(no --resume/--restart/--check)"
         )
+    nproc, pid = process_count(), process_index()
+    if N % nproc:
+        raise KSFDException(
+            "--ensemble=%d members must divide evenly over %d processes "
+            "(members slab contiguously per process)" % (N, nproc))
+    nloc = N // nproc
+    m0 = pid * nloc  # the process's first global member index
     members = []
     t0 = float(ps.t0)
-    for i in range(N):
+    for i in range(m0, m0 + nloc):
         Generator(seed=clargs.seed + i)
         u0, t0 = start_values(clargs, grid, ps, device=ops.device)
         members.append(u0)
@@ -232,18 +284,18 @@ def run_ensemble(clargs, ps, grid, ops, numerics):
     es = EnsembleSolver(
         ops, numerics, t0=t0, dt=float(p0["dt"]), tmax=float(p0["tmax"]),
         maxsteps=maxsteps, rtol=float(p0["rtol"]), atol=float(p0["atol"]),
-        rng_key=clargs.seed, member_offset=0,
+        rng_key=clargs.seed, member_offset=m0,
     )
     series = []
     if clargs.save:
-        for i in range(N):
+        for i in range(m0, m0 + nloc):
             ts_i = _open_series("%s_m%d" % (clargs.save, i), grid, clargs)
             write_info(ts_i, clargs=clargs, ps=ps, sources=ops.sources)
             ts_i.try_to_set("/info/member", i)
             ts_i.flush()
             series.append(ts_i)
     every = max(1, int(clargs.save_every))
-    lastk = [None] * N
+    lastk = [None] * nloc
 
     def store_members(ks, ts, U, force=False):
         Uh = U.detach().cpu().numpy()
@@ -259,9 +311,11 @@ def run_ensemble(clargs, ps, grid, ops, numerics):
             s.temp_close()
             lastk[i] = k
 
+    slab = "" if nproc == 1 else " members %d-%d," % (m0, m0 + nloc - 1)
+
     def ens_print(es_, ks, ts, U):
-        print("clock: %s, steps %d-%d t=[%.6g, %.6g] h=[%.3g, %.3g]" % (
-            time.strftime("%H:%M:%S"), int(np.min(ks)), int(np.max(ks)),
+        print("clock: %s,%s steps %d-%d t=[%.6g, %.6g] h=[%.3g, %.3g]" % (
+            time.strftime("%H:%M:%S"), slab, int(np.min(ks)), int(np.max(ks)),
             float(np.min(ts)), float(np.max(ts)), float(np.min(es_.hs)),
             float(np.max(es_.hs))), flush=True)
 
@@ -271,7 +325,7 @@ def run_ensemble(clargs, ps, grid, ops, numerics):
     status = 0
     out = None
     try:
-        with xprof_trace(clargs.xprof):
+        with xprof_trace(clargs.xprof, None if nproc == 1 else pid):
             out = es.solve(U0)
     except KeyboardInterrupt as e:
         print("KeyboardInterrupt:", str(e))
@@ -290,16 +344,30 @@ def run_ensemble(clargs, ps, grid, ops, numerics):
         for s in series:
             s.close()
     if out is not None:
-        print("members = %d, diverged = %d, solve failures = %d" % (
-            N, int(np.sum(out.diverged)), int(np.sum(out.snes_failures))))
+        print("members = %d%s diverged = %d, solve failures = %d" % (
+            nloc, slab or ",", int(np.sum(out.diverged)),
+            int(np.sum(out.snes_failures))))
     return status
 
 
 def main(*args):
     """Run the command line ``args`` (``sys.argv`` when none: args[0]
     is the program name); returns the exit status.  Counterpart:
-    ksfdsolver.py:main."""
+    ksfdsolver.py:main.  Over several processes (module docstring) each
+    rank integrates its slab through ``Solver(mesh=)``; the process
+    group that main makes it also ends."""
     args = list(args) if args else sys.argv
+    owns_group = _init_processes()
+    try:
+        return _main(args)
+    finally:
+        if owns_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args):
     clargs = parse_commandline(args[1:])
     catch_signals()
     _refuse(clargs)
@@ -347,10 +415,27 @@ def main(*args):
         # a PETSc '-ksp_type preonly -pc_type lu' block asks for exact
         # direct solves (the reference's MUMPS configuration)
         numerics = route_petsc_direct(numerics, grid)
+    nprocs, rank = process_count(), process_index()
+    mesh = slab = None
+    if nprocs > 1:
+        # one x-slab per rank (ksfdsolver.py:424-448): a resume read
+        # only this rank's slab, whose box (the file's /ranges) must be
+        # the block this run's mesh gives the rank
+        mesh = grid_mesh(grid, shape=(nprocs,) + (1,) * (grid.dim - 1),
+                         device=device)
+        slab = process_box(grid, mesh)
+        box = extras.get("box")
+        if box is not None and tuple(box) != tuple(slab):
+            raise KSFDException(
+                "checkpoint slab %r does not match this run's "
+                "decomposition %r; tsmerge the series first"
+                % (tuple(box), tuple(slab)))
+        u0 = global_from_local(u0, grid, mesh, box=box)
     p0 = ps.params0
     tseries = None
     if clargs.save:
-        tseries = _open_series(clargs.save, grid, clargs)
+        tseries = _open_series(clargs.save, grid, clargs, size=nprocs,
+                               rank=rank, ranges=slab)
         write_info(tseries, clargs=clargs, ps=ps, sources=sources)
         tseries.try_to_set("/info/dt", float(p0["dt"]))
         if "lastvart" in p0:
@@ -370,8 +455,10 @@ def main(*args):
         rng_state=extras.get("rng_state", clargs.seed),
         lastvart=float(p0["lastvart"]) if "lastvart" in p0 else None,
         k0=int(extras.get("k", 0)),
+        mesh=mesh,
     )
-    solver.add_monitor(print_monitor)
+    if rank == 0:  # the reference's printMonitor is rank 0's
+        solver.add_monitor(print_monitor)
     if tseries is not None:
         save_monitor, closer = make_save_monitor(tseries,
                                                  every=clargs.save_every)
@@ -380,10 +467,11 @@ def main(*args):
         solver.add_monitor(make_checkpoint_monitor(
             clargs.check, grid, clargs=clargs, ps=ps, sources=sources,
             retries=clargs.series_retries,
-            retry_interval=clargs.series_retry_interval))
+            retry_interval=clargs.series_retry_interval,
+            size=nprocs, rank=rank, ranges=slab))
     status = 0
     try:
-        with xprof_trace(clargs.xprof):
+        with xprof_trace(clargs.xprof, None if mesh is None else rank):
             solver.solve(u0, t=t)
     except KeyboardInterrupt as e:
         print("KeyboardInterrupt:", str(e))
@@ -404,5 +492,6 @@ def main(*args):
                 print("final save failed:", str(e))
         closer()
         tseries.close()
-    print("solve failures =", solver.snes_failures)
+    if rank == 0:
+        print("solve failures =", solver.snes_failures)
     return status

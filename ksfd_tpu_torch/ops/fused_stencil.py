@@ -388,7 +388,9 @@ class SlabKernel(FusedKernel):
     CPU tensor it runs the plain version: the unsharded plain body on
     each operand padded by ``torch.cat`` of lo, the slab and hi, cropped
     to the slab.  No member axis (a batched build is never sharded,
-    pallas_stencil.py:526), so a call does not go through the vmap op.
+    pallas_stencil.py:526), so a call does not go through the vmap op,
+    and a call under ``torch.func.vmap`` (an ensemble on a slab mesh)
+    raises on either device before its halo exchange.
     """
 
     def __init__(self, name, owner, prepare, body, replaces, mesh):
@@ -397,6 +399,8 @@ class SlabKernel(FusedKernel):
         self.n_st, self.n_own = HALO_OPERANDS[name]
 
     def __call__(self, *args):
+        if torch._C._functorch.is_batchedtensor(args[0]):
+            self.run_batched(None, None)
         dev = args[0].device
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(

@@ -24,7 +24,7 @@ import numbers
 import sympy as sy
 import torch
 
-from ..parallel.mesh import halo_rows
+from ..parallel.mesh import MESH_TODO, halo_rows
 from ..utils.device import resolve_device
 from ..utils.exceptions import KSFDException
 from ..utils.symbolic import torchify
@@ -223,11 +223,9 @@ class PDEOperators:
         cropped back, and the sources add this rank's rows."""
         if mesh is not None:
             if self.flux_form:
-                # its rho row reads 2*sw rows beyond the slab; its step
-                # is unfused, which a mesh refuses anyway
+                # its rho row reads 2*sw rows beyond the slab
                 raise NotImplementedError(
-                    "the flux form on a mesh (ROADMAP Queue A item 11, "
-                    "A14)")
+                    "the flux form on a mesh (%s)" % MESH_TODO)
             sw = self.sw
             out = self._rhs(self._padded(u, mesh), t, groom, False)
             out = out[:, sw:-sw].contiguous()
@@ -308,7 +306,7 @@ class PDEOperators:
         )
         return jv
 
-    def linearize(self, u, t, primal=True):
+    def linearize(self, u, t, primal=True, mesh=None):
         """``(rhs(u, t), v -> J(u) v)``, the RHS and its exact J-action
         at u, the counterpart of ``jax.linearize(lambda uu: ops.rhs(uu,
         t), u)`` (ksfd_tpu/solvers/solver.py:400, :554-558) by the
@@ -330,7 +328,36 @@ class PDEOperators:
 
         The RHS comes from the same groomed fields, G and stencils;
         ``primal=False`` returns None in its place (the mixed path's
-        float32 W needs only the J-action)."""
+        float32 W needs only the J-action).
+
+        With a ``mesh`` (parallel/mesh.py SlabMesh) u is this rank's
+        slab: it is padded once here with its neighbours' ``sw`` halo
+        rows, each v in every apply, and the rows of the slab are cut
+        back, as ``rhs(mesh=)`` does (one stencil of pointwise fields
+        reads at most ``sw`` rows beyond the slab); the sources add this
+        rank's rows.  The unfused step and the float64 GMRES W apply on
+        a mesh use it, where the reference linearizes its sharded array
+        with ``jax.linearize``."""
+        if mesh is not None:
+            if self.flux_form:
+                raise NotImplementedError(
+                    "the flux form on a mesh (%s)" % MESH_TODO)
+            sw = self.sw
+            f0, jvp_pad = self._linearize(self._padded(u, mesh), t, primal,
+                                          False)
+            if f0 is not None:
+                f0 = f0[:, sw:-sw].contiguous()
+                for i, active in enumerate(self._source_active):
+                    if active:
+                        f0[i] += mesh.rows(self.sources[i](t)).to(f0.dtype)
+
+            def jvp_slab(v):
+                return jvp_pad(self._padded(v, mesh))[:, sw:-sw]
+
+            return f0, jvp_slab
+        return self._linearize(u, t, primal, True)
+
+    def _linearize(self, u, t, primal, sources):
         ug = self.groom(u)
         nf = self.nligands + 1
         fields = [ug[i] for i in range(nf)]
@@ -343,7 +370,7 @@ class PDEOperators:
         grad_rho = None if flux else grad_apply(rho, sp, sw)
         lap_G = None if flux else laplacian_apply(G, sp, sw)
         f0 = (self._assemble(ug, t, self._drho(rho, grad_G, G, grad_rho,
-                                               lap_G), True)
+                                               lap_G), sources)
               if primal else None)
         floors = [self.rhomin] + [self.Umin] * self.nligands
         slopes = [torch.where(u[i] > lo, 1.0,

@@ -73,12 +73,12 @@ class WithGOperators(PDEOperators):
         dphys = super().rhs(phys, t, groom=groom, mesh=mesh)
         return torch.cat([dphys, torch.zeros_like(G)[None]], dim=0)
 
-    def linearize(self, u, t, primal=True):
+    def linearize(self, u, t, primal=True, mesh=None):
         """``(rhs(u, t), v -> J(u) v)`` of the full state: the physical
         fields' (PDEOperators.linearize) and a zero G row; the G slot
         enters neither."""
         phys, G = self.split(u)
-        f0, jvp = super().linearize(phys, t, primal=primal)
+        f0, jvp = super().linearize(phys, t, primal=primal, mesh=mesh)
         zero = torch.zeros_like(G)[None]
         if f0 is not None:
             f0 = torch.cat([f0, zero], dim=0)

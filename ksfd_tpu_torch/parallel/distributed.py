@@ -19,8 +19,9 @@ rank's slab) and ``global_from_local`` / ``local_values`` (this rank's
 block, as numpy or as the slab tensor); ``SlabMesh.gather`` assembles
 the global state again on every rank.  ``owned_box`` and
 ``process_box`` give the block's spatial ranges, as the reference's do
-for the slab files its I/O writes (the port's slab I/O comes with the
-Solver on a mesh, ROADMAP Queue A item 11, A14).
+for the slab files its I/O writes: the driver (ksfdsolver.py main)
+runs the Solver on the rank's slab, and each rank writes and resumes
+its own ``<save>s<N>r<k>.h5`` with that box in ``/ranges``.
 """
 
 import os
@@ -53,9 +54,14 @@ def maybe_init_distributed(coordinator=None, num_processes=None,
     (``KSFD_PROC_ID``).  A no-op returning False when any is missing.
     backend: ``nccl`` when ``device`` (the card unless given) is a CUDA
     device, else ``gloo``.  With NCCL each rank takes the card
-    ``process_id % device_count``.  Counterpart:
+    ``process_id % device_count``.  A no-op returning False as well
+    when a process group already exists: a caller that made its own
+    group (two gloo ranks sharing one card, which NCCL cannot pair)
+    then runs the driver over it.  Counterpart:
     ksfd_tpu/parallel/distributed.py:maybe_init_distributed.
     """
+    if dist.is_available() and dist.is_initialized():
+        return False
     coordinator = coordinator or os.environ.get("KSFD_COORDINATOR")
     if num_processes is None and "KSFD_NUM_PROCS" in os.environ:
         num_processes = int(os.environ["KSFD_NUM_PROCS"])

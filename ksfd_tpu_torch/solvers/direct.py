@@ -18,10 +18,12 @@ dimension; solvers/banded_path.py is the 1D counterpart.
    matvecs) before factoring, so an operator with wider coupling fails
    loudly.
 
-Selected by ``ksp_type='lu'``, and the host Solver's rescue tier.  The
-state lives on one device: ``gather_global``/``place_like`` are the
-reference's one-process forms (a slab mesh is ROADMAP Queue A item 11,
-A14).
+Selected by ``ksp_type='lu'``, and the host Solver's rescue tier.  On a
+slab mesh (parallel/mesh.py) the exact tiers are the reference's
+replicated host solve (ksfd_tpu/solvers/solver.py:1297-1307): every
+rank gathers the global state (``SlabMesh.gather``), runs the identical
+factorization and solves, and keeps its own rows (``place_like``):
+``replicated_step`` wraps a one-card exact step so.
 """
 
 import numpy as np
@@ -37,24 +39,49 @@ __all__ = [
     "make_sparse_step",
     "gather_global",
     "place_like",
+    "replicated_step",
     "exact_stages",
 ]
 
 
 def gather_global(u):
     """Host numpy copy of the state.  Counterpart: ksfd_tpu/solvers/
-    direct.py:gather_global on one process."""
+    direct.py:gather_global on one process; on a slab mesh
+    ``replicated_step`` gathers the slabs on the device
+    (``SlabMesh.gather``) before the one-card step's own copy."""
     return u.detach().cpu().numpy() if isinstance(u, torch.Tensor) \
         else np.asarray(u)
 
 
-def place_like(u_np, like):
-    """The host result as a tensor with ``like``'s device and dtype.
-    Counterpart: ksfd_tpu/solvers/direct.py:place_like on one process."""
+def place_like(u_np, like, mesh=None):
+    """The host (or device) result as a tensor with ``like``'s device
+    and dtype; with a ``mesh`` only this rank's rows of the global
+    result.  Counterpart: ksfd_tpu/solvers/direct.py:place_like."""
+    u = u_np if isinstance(u_np, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(u_np))
+    if mesh is not None:
+        u = mesh.rows(u, axis=1).contiguous()
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(u_np)).to(
-            device=like.device, dtype=like.dtype)
-    return torch.from_numpy(np.ascontiguousarray(u_np))
+        return u.to(device=like.device, dtype=like.dtype)
+    return u
+
+
+def replicated_step(step, mesh):
+    """A one-card exact step ``(u, t, h) -> (u1, enorm)`` on a slab mesh:
+    every rank gathers the global state, runs ``step`` on it (the
+    identical factorization and solves), keeps its rows and returns the
+    ranks' largest enorm, so every rank takes the same decision even
+    where a device's rounding could differ.  The reference's replicated
+    host solve (ksfd_tpu/solvers/direct.py:52 gather_global, :73
+    place_like); the global state is bounded by the Solver's routing and
+    rescue caps."""
+    from ..parallel.mesh import all_reduce_max
+
+    def rstep(u, t, h):
+        u1, enorm = step(mesh.gather(u), t, h)
+        return place_like(u1, u, mesh), all_reduce_max(enorm, mesh)
+
+    return rstep
 
 
 def axis_strides(nps, sw):
@@ -254,7 +281,8 @@ def make_sparse_step(ops, tab, atol, rtol):
     ksfd_tpu/solvers/direct.py:make_sparse_step.  The probes and stage
     RHS run on the operators' device; the assembly, one SuperLU
     factorization per step (shift and J are fixed over the stages) and
-    the triangular solves on the host."""
+    the triangular solves on the host (on a slab mesh wrapped in
+    ``replicated_step``)."""
     from scipy.sparse.linalg import splu
 
     grid = ops.grid

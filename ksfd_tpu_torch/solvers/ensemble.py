@@ -71,8 +71,12 @@ after grooming, at the start and after every accepted step
 with Richardson or Chebyshev) run under vmap as the sweeps do: they read
 nothing on the host.
 
-Still raising NotImplementedError, each naming its ROADMAP item: member
-meshes, ``shard_members`` and slab meshes (Queue A item 11, A14).
+Members go on ranks, not on devices: ``--ensemble`` over several
+processes (ksfdsolver.py run_ensemble) gives each process a contiguous
+slab of members, and ``shard_members`` places a process's members on
+its one device.  Still raising NotImplementedError naming its ROADMAP
+item: an ensemble on a slab mesh (the halo-slab kernels have no member
+axis; Queue A item 11, A14).
 ``pc_pallas`` where the reference's gate falls back (a 1D or 3D problem,
 float64 transforms, a with-G state) takes the basis-GEMM pc
 (``build_info``).
@@ -110,11 +114,22 @@ __all__ = ["EnsembleSolver", "shard_members", "noise_active"]
 
 
 def shard_members(U, devices=None):
-    """Counterpart: ksfd_tpu/solvers/ensemble.py:shard_members."""
-    raise NotImplementedError(
-        "members sharded over several cards (member meshes) are ROADMAP "
-        "Queue A item 11 (A14)"
-    )
+    """The members ``U`` placed for one EnsembleSolver.  Counterpart:
+    ksfd_tpu/solvers/ensemble.py:shard_members, whose member axis
+    divides over a process's local devices.  The port runs one rank per
+    card and puts members on ranks instead (ksfdsolver.py run_ensemble:
+    contiguous member slabs, one per process), so a process holds its
+    members on one device: ``U`` on ``devices[0]`` (its own device when
+    None), and ValueError for more than one device."""
+    devices = list(devices) if devices is not None else []
+    if len(devices) > 1:
+        raise ValueError(
+            "shard_members: %d devices given; the port puts members on "
+            "ranks, one device each (--ensemble over KSFD_NUM_PROCS "
+            "processes, ksfdsolver.py run_ensemble), not on several "
+            "devices of one process" % len(devices))
+    U = torch.as_tensor(U)
+    return U.to(torch.device(devices[0])) if devices else U
 
 
 def _member_seed(seed, index):

@@ -15,11 +15,23 @@ gating, gmres.py:97, :154-175 and :208-316, work around XLA and are not
 ported).  ``gmres_solve`` is the tolerance-based restarted GMRES of the
 robust fallback step (``ksp_type="gmres_scipy"``); its convergence test
 reads one scalar per restart on the host.
+
+On a slab mesh (``mesh=``, parallel/mesh.py) every GMRES solver takes
+this rank's slab of b and of the operator's vectors, and each inner
+product and norm is summed over the ranks (one ``all_reduce_sum`` per
+Gram-Schmidt pass and per norm), so every rank holds the same Krylov
+coefficients and takes the same breakdown and convergence decisions;
+the small least-squares problems then run alike on every rank.  The
+reference gets the same from XLA on its sharded arrays.  Richardson and
+Chebyshev take no inner product.  Without a mesh the order of
+operations is the one-card path's.
 """
 
 import math
 
 import torch
+
+from ..parallel.mesh import all_reduce_sum
 
 __all__ = ["richardson_solve", "richardson_solve_resid", "chebyshev_solve",
            "chebyshev_solve_resid", "gmres_fixed", "gmres_rolled",
@@ -97,11 +109,22 @@ def _safe(x):
     return torch.where(x > 0, x, torch.ones_like(x))
 
 
-def _norm(x):
-    return torch.sqrt(torch.sum(x * x))
+def _gsum(x, mesh):
+    """x summed over the mesh's ranks (x itself without a mesh)."""
+    return x if mesh is None else all_reduce_sum(x, mesh)
 
 
-def gmres_fixed(op, b, M=None, iters=8, x0=None):
+def _norm(x, mesh=None):
+    return torch.sqrt(_gsum(torch.sum(x * x), mesh))
+
+
+def _dots(Vs, w, mesh):
+    """The inner products of w with each of Vs, over the mesh."""
+    h = [torch.sum(Vi * w) for Vi in Vs]
+    return h if mesh is None else list(all_reduce_sum(torch.stack(h), mesh))
+
+
+def gmres_fixed(op, b, M=None, iters=8, x0=None, mesh=None):
     """GMRES(iters) from x0 (zero when None), left-preconditioned: it
     minimizes ``|M(b - op(x))|`` over the Krylov space of ``M(op(.))``.
 
@@ -111,7 +134,8 @@ def gmres_fixed(op, b, M=None, iters=8, x0=None):
     Breakdown contract: ``_safe`` division turns a breakdown (a zero new
     basis norm or a singular R) into a finite, possibly wrong answer,
     which the caller's embedded error estimate judges; a vanishing
-    preconditioned initial residual gives the zero correction.
+    preconditioned initial residual gives the zero correction.  With a
+    ``mesh`` b and x0 are this rank's slabs (module docstring).
     """
     M = _identity if M is None else M
     shape, m = b.shape, int(iters)
@@ -120,20 +144,20 @@ def gmres_fixed(op, b, M=None, iters=8, x0=None):
         return M(op(v.reshape(shape))).reshape(-1)
 
     r0 = (M(b) if x0 is None else M(b - op(x0))).reshape(-1)
-    beta = _norm(r0)
+    beta = _norm(r0, mesh)
     Vs = [r0 / _safe(beta)]
     Rcols, cs, sn = [], [], []
     g = [beta] + [torch.zeros_like(beta) for _ in range(m)]
     for j in range(m):
         w = A(Vs[j])
-        h = [torch.sum(Vi * w) for Vi in Vs]
+        h = _dots(Vs, w, mesh)
         for hi, Vi in zip(h, Vs):
             w = w - hi * Vi
-        h2 = [torch.sum(Vi * w) for Vi in Vs]
+        h2 = _dots(Vs, w, mesh)
         for hi, Vi in zip(h2, Vs):
             w = w - hi * Vi
         h = [a + c for a, c in zip(h, h2)]
-        hlast = _norm(w)
+        hlast = _norm(w, mesh)
         Vs.append(w / _safe(hlast))
         col = h + [hlast]
         for i in range(j):
@@ -163,7 +187,7 @@ def gmres_fixed(op, b, M=None, iters=8, x0=None):
     return x.reshape(shape)
 
 
-def gmres_rolled(op, b, M=None, iters=12, restarts=4, x0=None):
+def gmres_rolled(op, b, M=None, iters=12, restarts=4, x0=None, mesh=None):
     """Restarted GMRES(iters), ``restarts`` cycles, left-preconditioned.
 
     Counterpart: ksfd_tpu/solvers/gmres.py:gmres_rolled, its arithmetic:
@@ -174,7 +198,7 @@ def gmres_rolled(op, b, M=None, iters=12, restarts=4, x0=None):
     basis matrix holds ``m+1`` rows from the start and its products read
     the rows not yet made as zeros; here the products read only the rows
     made so far, which adds the same exact zeros.  Its breakdown
-    contract is gmres_fixed's.
+    contract is gmres_fixed's; ``mesh`` as there.
     """
     M = _identity if M is None else M
     shape, m = b.shape, int(iters)
@@ -191,7 +215,7 @@ def gmres_rolled(op, b, M=None, iters=12, restarts=4, x0=None):
 
     def cycle(x):
         r0 = M(b - op(x.reshape(shape))).reshape(-1)
-        beta = _norm(r0)
+        beta = _norm(r0, mesh)
         rows = [r0 / _safe(beta)]
         Rcols = []
         Om = eye
@@ -200,11 +224,11 @@ def gmres_rolled(op, b, M=None, iters=12, restarts=4, x0=None):
         for j in range(m):
             w = A(rows[j])
             V = torch.stack(rows)
-            h1 = V @ w
+            h1 = _gsum(V @ w, mesh)
             w = w - h1 @ V
-            h2 = V @ w
+            h2 = _gsum(V @ w, mesh)
             w = w - h2 @ V
-            hlast = _norm(w)
+            hlast = _norm(w, mesh)
             rows.append(w / _safe(hlast))
             h = torch.cat([h1 + h2, hlast[None]]
                           + [zero[None]] * (m - 1 - j))
@@ -237,21 +261,21 @@ def gmres_rolled(op, b, M=None, iters=12, restarts=4, x0=None):
     return x.reshape(shape)
 
 
-def gmres_restarted(op, b, M=None, iters=8, restarts=3):
+def gmres_restarted(op, b, M=None, iters=8, restarts=3, mesh=None):
     """GMRES(iters) restarted ``restarts`` times: gmres_fixed from the
     last cycle's answer.  Counterpart:
     ksfd_tpu/solvers/gmres.py:gmres_restarted."""
     x = None
     for _ in range(int(restarts)):
-        x = gmres_fixed(op, b, M=M, iters=iters, x0=x)
+        x = gmres_fixed(op, b, M=M, iters=iters, x0=x, mesh=mesh)
     return x
 
 
-def _safe_normalize(x, thresh=None, raw=False):
+def _safe_normalize(x, thresh=None, raw=False, mesh=None):
     """(x / |x|, |x|), or (0, 0) where |x| <= thresh (the dtype's eps by
     default) or is NaN: jax.scipy.sparse.linalg's _safe_normalize, on
     the device.  ``raw`` adds |x| itself."""
-    norm = torch.sqrt(torch.sum(x * x))
+    norm = _norm(x, mesh)
     if thresh is None:
         thresh = torch.finfo(x.dtype).eps
     use = norm > thresh
@@ -259,7 +283,7 @@ def _safe_normalize(x, thresh=None, raw=False):
     return out + (norm,) if raw else out
 
 
-def _gmres_restart(op, M, b, x0, unit, rnorm, restart):
+def _gmres_restart(op, M, b, x0, unit, rnorm, restart, mesh=None):
     """One restart of jax.scipy.sparse.linalg's _gmres_batched: the
     ``restart`` Arnoldi steps of the left-preconditioned operator
     ``M(op(.))`` (one classical Gram-Schmidt pass each, as its
@@ -275,10 +299,11 @@ def _gmres_restart(op, M, b, x0, unit, rnorm, restart):
     alive = torch.ones((), dtype=torch.bool, device=b.device)
     for k in range(restart):
         v = M(op(V[k].reshape(shape))).reshape(n)
-        _, v_norm_0 = _safe_normalize(v)
-        h = V @ v
+        _, v_norm_0 = _safe_normalize(v, mesh=mesh)
+        h = _gsum(V @ v, mesh)
         v = v - h @ V
-        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
+        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0,
+                                           mesh=mesh)
         h = h.clone()
         h[k + 1] = v_norm_1
         V[k + 1] = torch.where(alive, unit_v, V[k + 1])
@@ -290,10 +315,11 @@ def _gmres_restart(op, M, b, x0, unit, rnorm, restart):
     y = torch.cholesky_solve((H @ beta)[:, None],
                              torch.linalg.cholesky_ex(H @ H.T)[0])[:, 0]
     x = x0 + (y @ V[:-1]).reshape(shape)
-    return (x,) + _safe_normalize(M(b - op(x)), raw=True)
+    return (x,) + _safe_normalize(M(b - op(x)), raw=True, mesh=mesh)
 
 
-def gmres_solve(op, b, M=None, tol=1e-8, restart=20, maxiter=50, x0=None):
+def gmres_solve(op, b, M=None, tol=1e-8, restart=20, maxiter=50, x0=None,
+                mesh=None):
     """Restarted GMRES on a matrix-free operator, in b's dtype.
 
     Counterpart: ksfd_tpu/solvers/linalg.py:gmres_solve, which is
@@ -310,14 +336,17 @@ def gmres_solve(op, b, M=None, tol=1e-8, restart=20, maxiter=50, x0=None):
     stops as converged and returns its iterate, the zero start when the
     operator or b is non-finite from the outset, whose zero increment
     has error norm 0: a robust retry of a non-finite state would be
-    accepted (ROADMAP Queue C).
+    accepted (ROADMAP Queue C).  With a ``mesh`` b is this rank's slab,
+    the Krylov space's dimension is bounded by the global size, and
+    every rank reads the same norms (module docstring).
     """
     if M is None:
         M = lambda v: v  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
-    restart = min(int(restart), b.numel())
-    atol = tol * torch.sqrt(torch.sum(b * b))
-    unit, rnorm, raw = _safe_normalize(M(b - op(x)), raw=True)
+    restart = min(int(restart),
+                  b.numel() * (1 if mesh is None else mesh.n_x))
+    atol = tol * _norm(b, mesh)
+    unit, rnorm, raw = _safe_normalize(M(b - op(x)), raw=True, mesh=mesh)
     for _ in range(int(maxiter)):
         norm, limit, raw = torch.stack(
             [rnorm, atol.to(rnorm.dtype), raw]).tolist()
@@ -326,5 +355,5 @@ def gmres_solve(op, b, M=None, tol=1e-8, restart=20, maxiter=50, x0=None):
         if not norm > limit:
             break
         x, unit, rnorm, raw = _gmres_restart(op, M, b, x, unit, rnorm,
-                                             restart)
+                                             restart, mesh)
     return x

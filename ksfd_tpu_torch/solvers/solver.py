@@ -101,10 +101,13 @@ make_adaptive_chunk_fn).
 each fused kernel call launches its member-batched build once.
 
 **On a slab mesh** (``mesh=``, parallel/mesh.py) the step, the
-multistep and the chunk run SPMD, one torch.distributed rank per
-x-slab, each on its local slab: the halo-slab kernels (B9), the sharded
-basis-GEMM pc (one all_reduce per apply, bfloat16 by default on more
-than one rank), global means, pc statistics and error norms.
+multistep, the chunk and the Solver run SPMD, one torch.distributed
+rank per x-slab, each on its local slab: the halo-slab kernels (B9),
+the sharded basis-GEMM pc (one all_reduce per apply, bfloat16 by default
+on more than one rank), global means, pc statistics and error norms;
+the GMRES steps with their inner products summed over the ranks, the
+unfused step on the slab's RHS linearized with its halo rows, and the
+exact tiers as the reference's replicated host solve.
 
 **The exact tiers** (solver.py:200-254, :1297-1328): ``ksp_type``
 dense or direct LU-factors W = shift*I - J once per step, J the RHS's
@@ -145,9 +148,9 @@ falls back to the basis-GEMM pc there, as the reference's gate does;
 the Solver refreshes the G slot after every accepted step.
 
 Everything else raises NotImplementedError naming its ROADMAP item:
-on a mesh the GMRES steps, the unfused step, the exact tiers, the
-Solver, the FFT and spectral pcs, y splits and other meshes (Queue A
-item 11, A14).
+on a mesh the FFT, spectral and no pc, the flux form, with-G states,
+members (the halo-slab kernels have no member axis), y splits and other
+meshes (Queue A item 11, A14).
 """
 
 import dataclasses
@@ -167,6 +170,7 @@ from ..ops.fused_pc import (
 )
 from ..ops.fused_stencil import check_mesh, kernel_refusal, make_fused_kernels
 from ..parallel.mesh import MESH_TODO, all_reduce_max, all_reduce_sum
+from .direct import replicated_step
 from .gmres import (
     chebyshev_solve,
     chebyshev_solve_resid,
@@ -259,12 +263,11 @@ def _check_numerics(numerics, ops, mesh=None):
             "ksp_type %r (the reference has richardson, chebyshev, %s and "
             "%s)" % (numerics.ksp_type, ", ".join(GMRES_KSP),
                      ", ".join(EXACT_KSP)))
-    if mesh is not None and numerics.ksp_type in EXACT_KSP:
-        todo.append("the exact tiers on a mesh (%s)" % MESH_TODO)
     if numerics.pc_type not in ("block", "spectral", "none"):
         todo.append("pc_type %r (the reference has block, spectral and "
                     "none)" % numerics.pc_type)
-    elif mesh is not None and numerics.pc_type != "block":
+    elif (mesh is not None and numerics.pc_type != "block"
+          and numerics.ksp_type not in EXACT_KSP):
         todo.append("pc_type %s on a mesh (the sharded apply is the block "
                     "pc's: %s)" % (numerics.pc_type, MESH_TODO))
     if numerics.precision not in ("float64", "f64", "float32", "f32"):
@@ -277,10 +280,10 @@ def _check_numerics(numerics, ops, mesh=None):
                                  "bfloat16", "bf16"):
         todo.append("pc_dtype %r (the reference has float32, float64 and "
                     "bfloat16)" % numerics.pc_dtype)
-    if mesh is not None and numerics.ksp_type in GMRES_KSP:
-        todo.append("the GMRES steps on a mesh (%s)" % MESH_TODO)
-    if mesh is not None and _step_refusal(numerics, ops) is not None:
-        todo.append("the unfused step on a mesh (%s)" % MESH_TODO)
+    if mesh is not None and ops.flux_form:
+        todo.append("the flux form on a mesh (%s)" % MESH_TODO)
+    if mesh is not None and ops.grid.dof != ops.nligands + 1:
+        todo.append("with-G states on a mesh (%s)" % MESH_TODO)
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP): " + "; ".join(todo)
@@ -373,11 +376,14 @@ def _cheb_interval(numerics, shift, rho_dmin, rho_diff, cheb_lap):
     return lmin, b_hi
 
 
-def _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0=False):
+def _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0=False,
+                     mesh=None):
     """The host exact step of ``ksp_type`` banded (1D, the native cyclic
     banded LU) or lu (sparse SuperLU, any dimension), with the step's
     contract, as the reference's Solver builds them
-    (solver.py:1297-1328); no f0 chain.  A DIRK tableau raises
+    (solver.py:1297-1328); no f0 chain.  On a ``mesh`` it is the
+    reference's replicated host solve (solvers/direct.py
+    replicated_step).  A DIRK tableau raises
     ValueError with the reference Solver's message (solver.py:1310-1315;
     the reference's make_step_fn instead runs float64 Richardson sweeps
     here, ROADMAP Queue C, which is not copied)."""
@@ -393,11 +399,16 @@ def _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0=False):
     else:
         from .direct import make_sparse_step as make
     step = make(ops, tab, atol=atol, rtol=rtol)
+    if mesh is not None:
+        step = replicated_step(step, mesh)
     step.build_info = dict(
         ksp_type=numerics.ksp_type, kernels=None,
         kernel_refusal=_step_refusal(numerics, ops), pc=None,
-        mesh_shape=None, host="probes and stage RHS on %s, assembly, "
-        "factorization and solves on the host" % ops.device)
+        mesh_shape=None if mesh is None else mesh.shape,
+        host="probes and stage RHS on %s, assembly, factorization and "
+        "solves on the host%s" % (
+            ops.device, "" if mesh is None else
+            "; replicated on every rank from the gathered state"))
     return step, tab
 
 
@@ -439,8 +450,14 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     on more than one rank; ``pc_pallas`` takes it too, the reference's
     fused pc being single-shard), and the means, the pc statistics, the
     Chebyshev interval and enorm are global over the ranks, so every
-    rank returns the same enorm.  The GMRES step and the unfused step
-    raise on a mesh.
+    rank returns the same enorm.  The GMRES steps reduce their inner
+    products over the ranks (solvers/gmres.py), the unfused step and the
+    float64 GMRES W apply linearize the slab with its halo rows
+    (``ops.linearize(mesh=)``), and the exact tiers are the reference's
+    replicated host solve: every rank gathers the global state, runs the
+    one-card exact step on it and keeps its rows
+    (solvers/direct.py replicated_step).  The spectral and no pc, the FFT
+    pc, the flux form and with-G states raise on a mesh.
 
     The step (or the chain namespace) carries ``build_info``: which
     kernel build, pc and pc dtype run, the mesh shape, the path
@@ -456,8 +473,21 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     tab = tableau or get_tableau(numerics.ts_type)
     is_dirk = isinstance(tab, DIRKTableau)
     if numerics.ksp_type in ("banded", "lu"):
-        return _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0)
+        return _host_exact_step(ops, numerics, tab, atol, rtol, chain_f0,
+                                mesh)
     use_dense = _use_dense(numerics)
+    if mesh is not None and use_dense:
+        # the replicated dense solve: the one-card step on the gathered
+        # state (it launches no kernel and has no f0 chain)
+        step, tab = make_step_fn(ops, numerics, atol=atol, rtol=rtol,
+                                 tableau=tab)
+        if chain_f0:
+            return None, tab
+        rstep = replicated_step(step, mesh)
+        rstep.build_info = dict(step.build_info, mesh_shape=mesh.shape,
+                                host="replicated on every rank from the "
+                                "gathered state")
+        return rstep, tab
     pc_dtype = _pc_dtype(numerics, mesh)
     use_fft = _pc_fft(numerics, ops, mesh)
     block_pc = numerics.pc_type == "block" and not use_dense
@@ -504,7 +534,14 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     def gmres(W, bi, Minv):
         return gmres_solve(W, bi, Minv, tol=numerics.ksp_rtol,
                            restart=numerics.ksp_restart,
-                           maxiter=numerics.ksp_max_it)
+                           maxiter=numerics.ksp_max_it, mesh=mesh)
+
+    def linearize(x, tt, primal=True):
+        """The RHS linearized once per step (on a mesh, the slab with
+        its halo rows)."""
+        if mesh is None:
+            return ops.linearize(x, tt, primal=primal)
+        return ops.linearize(x, tt, primal=primal, mesh=mesh)
     # the Laplacian's largest |eigenvalue|, a build-time constant that
     # turns the per-step diffusivity spread into the Chebyshev interval
     cheb_lap = (float((-precond.lam).max())
@@ -621,7 +658,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             jvp_fn = None
             stage_rhs = rhs
         else:
-            f0, jvp_fn = ops.linearize(u, t)
+            f0, jvp_fn = linearize(u, t)
             stage_rhs = rhs
 
         if pallas_delta:
@@ -662,7 +699,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 def resid32(x, b):
                     return kern.resid(u32, x, b, t32, shift32)
             else:
-                _, jvp32 = ops.linearize(u32, t32, primal=False)
+                _, jvp32 = linearize(u32, t32, primal=False)
 
                 def W32(v):
                     return shift32 * v - jvp32(v)
@@ -674,7 +711,8 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 if ksp == "gmres_rolled":
                     return gmres_rolled(W32, b32, Minv,
                                         iters=numerics.ksp_restart,
-                                        restarts=numerics.ksp_max_it)
+                                        restarts=numerics.ksp_max_it,
+                                        mesh=mesh)
                 if resid32 is not None:
                     if use_cheb:
                         return chebyshev_solve_resid(
@@ -689,17 +727,18 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             if krylov:
                 return gmres(W, bi, Minv)
             if ksp == "gmres":
-                return gmres_fixed(W, bi, Minv, iters=iters)
+                return gmres_fixed(W, bi, Minv, iters=iters, mesh=mesh)
             if ksp == "gmres_rolled":
                 return gmres_rolled(W, bi, Minv, iters=numerics.ksp_restart,
-                                    restarts=numerics.ksp_max_it)
+                                    restarts=numerics.ksp_max_it, mesh=mesh)
             if ksp == "gmres_restarted":
                 return gmres_restarted(W, bi, Minv, iters=8,
-                                       restarts=max(3, iters // 3))
+                                       restarts=max(3, iters // 3),
+                                       mesh=mesh)
             if Minv is None:
                 # Richardson and Chebyshev need a pc: without one the
                 # fixed-count GMRES solves (solver.py:629-633)
-                return gmres_fixed(W, bi, None, iters=iters)
+                return gmres_fixed(W, bi, None, iters=iters, mesh=mesh)
             if use_cheb:
                 return chebyshev_solve(W, bi, Minv, iters=iters,
                                        lmin=cheb_ab[0], lmax=cheb_ab[1])
@@ -1319,8 +1358,22 @@ class Solver:
     uint8 tensor, ``solver.rng_state`` of an earlier run); a resumed run
     continues bit for bit.  ``kernels`` shares a ``make_fused_kernels``
     namespace (its launch counters then count the Solver's launches).
-    ``mesh`` raises: the Solver on a slab mesh is ROADMAP Queue A item
-    11 (A14).  ``stats`` counts what the loop ran (see solve).
+    ``stats`` counts what the loop ran (see solve).
+
+    ``mesh`` (a parallel/mesh.py SlabMesh): the loop runs SPMD, one
+    torch.distributed rank per x-slab, each on its slab (``solve`` takes
+    and returns the slab).  The steps, the
+    multistep, the chunk, the GMRES fallback and the exact tiers are
+    built on the mesh and share one kernel build (its halo-slab entries,
+    B9).  Every decision is taken from values that every rank holds
+    equal: the error norms and the CFL bound are all-reduced, the worm
+    count is summed over the ranks, and the noise is drawn from the
+    Solver's generator (seeded alike on every rank) at the global shape,
+    each rank keeping its rows, so the injected field is the one-rank
+    run's.  Accepts, rejections, tiers, fallbacks, rescues and
+    ``stats`` are then equal on every rank; monitors get the rank's
+    slab.  What the mesh does not run (the flux form, with-G states, the
+    spectral, no and FFT pcs) raises as make_step_fn does.
     """
 
     default_hmin = 1e-20
@@ -1357,9 +1410,8 @@ class Solver:
         monitor calls; noise, CFL and conservation then act at block
         boundaries.  k0: the starting step counter of a resumed run."""
         if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet (see ROADMAP): the Solver on a slab mesh, "
-                "Queue A item 11 (A14)")
+            check_mesh(ops, mesh)
+        self.mesh = mesh
         self.ops = ops
         self.ps = ops.ps
         self.numerics = numerics or NumericsOptions()
@@ -1390,14 +1442,16 @@ class Solver:
         self._chunk_rej_streak = 0
         n = self.numerics
         kw = dict(atol=self.atol, rtol=self.rtol)
+        if mesh is not None:
+            kw.update(mesh=mesh)
         if n.ksp_type in ("banded", "lu"):
             # host exact steps (the reference's MUMPS role): no block,
             # chunk or kernels
             self.kernels = self.fused_pc = None
             self.step_fn, self.tableau = make_step_fn(ops, n, **kw)
         else:
-            self.kernels = step_kernels(ops, n, kernels=kernels)
-            self.fused_pc = _shared_fused_pc(ops, n, None)
+            self.kernels = step_kernels(ops, n, mesh, kernels=kernels)
+            self.fused_pc = _shared_fused_pc(ops, n, mesh)
             kw.update(kernels=self.kernels, fused_pc=self.fused_pc)
             self.step_fn, self.tableau = make_step_fn(ops, n, **kw)
             if self.block_steps > 1 and n.adapt_type == "none":
@@ -1436,11 +1490,15 @@ class Solver:
                             device=self.ops.device)
 
     def count_worms(self, u):
-        return float(torch.sum(u[0]))
+        """sum(rho), over the mesh's ranks on a mesh."""
+        total = torch.sum(u[0])
+        if self.mesh is not None:
+            total = all_reduce_sum(total, self.mesh)
+        return float(total)
 
     def conserve_worms(self, u, Nworms):
         """Rescale rho so sum(rho) == Nworms (KSFD/ksfdts.py:248-256)."""
-        correction = Nworms / float(torch.sum(u[0]))
+        correction = Nworms / self.count_worms(u)
         return torch.cat([(u[0] * correction)[None], u[1:]], dim=0)
 
     def is_noise_time(self, t, lastvart):
@@ -1478,20 +1536,34 @@ class Solver:
     def add_variance(self, u, dt, t):
         """Geometric Brownian noise: rho *= exp(sqrt(rate*dt) * N(0,1)),
         the normal drawn on the state's device from the Solver's
-        generator (KSFD/ksfdts.py:268-284)."""
+        generator (KSFD/ksfdts.py:268-284).  On a mesh the normal is
+        drawn at the global shape and each rank keeps its rows, as the
+        reference's draw on the global array (solver.py:1394-1409): the
+        field is the one-rank run's."""
         vrate = float(self.ps.funcs["variance_rate"](t))
         if not vrate or vrate <= 0.0:
             return u
         sd = math.sqrt(vrate * dt)
-        stn = torch.randn(u[0].shape, generator=self._generator(),
+        shape = u[0].shape if self.mesh is None else tuple(
+            int(n) for n in self.ops.grid.nps)
+        stn = torch.randn(shape, generator=self._generator(),
                           dtype=u.dtype, device=u.device)
+        if self.mesh is not None:
+            stn = self.mesh.rows(stn)
         return torch.cat([(u[0] * torch.exp(sd * stn))[None], u[1:]], dim=0)
 
     def CFL_step(self, u, t):
         """The largest stable h by the worm-velocity CFL
-        (KSFD/ksfdts.py:302-319): min over axes of spacing*sw/max|v|."""
-        vmaxs = torch.stack([v.abs().max() for v in self.ops.velocity(
-            u, self._dev(t))]).tolist()
+        (KSFD/ksfdts.py:302-319): min over axes of spacing*sw/max|v|,
+        the maxima over the mesh's ranks on a mesh."""
+        if self.mesh is None:
+            vs = self.ops.velocity(u, self._dev(t))
+        else:
+            vs = self.ops.velocity(u, self._dev(t), mesh=self.mesh)
+        vmax = torch.stack([v.abs().max() for v in vs])
+        if self.mesh is not None:
+            vmax = all_reduce_max(vmax, self.mesh)
+        vmaxs = vmax.tolist()
         sw = self.ops.grid.stencil_width
         return float(min(
             math.inf if v == 0.0 else s * sw / v
@@ -1591,8 +1663,9 @@ class Solver:
             from .direct import make_sparse_step
 
             self._lu_step = make_sparse_step(
-                self.ops, self.tableau, atol=self.atol, rtol=self.rtol
-            )
+                self.ops, self.tableau, atol=self.atol, rtol=self.rtol)
+            if self.mesh is not None:
+                self._lu_step = replicated_step(self._lu_step, self.mesh)
         return self._lu_step
 
     def _try_exact(self, u, t, h):
@@ -1705,7 +1778,8 @@ class Solver:
 
     def solve(self, u0, t=None):
         """Run the timestepper from u0 (an array or tensor; it moves to
-        ``ops.device``).  Returns the final state tensor.
+        ``ops.device``).  Returns the final state tensor.  On a mesh u0
+        and the result are this rank's slab.
 
         ``self.stats`` counts the run: ``dispatches`` of the chunk, its
         ``chunk_attempts`` (one host read each), ``chunk_accepts``,

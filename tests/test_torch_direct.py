@@ -458,8 +458,10 @@ def test_route_petsc_direct_matches_reference():
 
 
 def test_exact_tiers_refused_where_not_ported(problems):
-    """The exact tiers on a mesh raise (A14); banded on a 2D grid raises
-    as the reference's does."""
+    """The exact tiers on a mesh that is not a slab mesh raise (A14;
+    on a slab mesh they are the replicated host solve:
+    tests/test_torch_mesh_solver.py); banded on a 2D grid raises as the
+    reference's does."""
     _, tops, _ = problems["2d"]
     with pytest.raises(NotImplementedError, match="A14"):
         make_step_fn(tops, NumericsOptions(ksp_type="lu"), mesh=object())

@@ -237,9 +237,15 @@ def test_driver_refusals(tmp_path, capsys, case):
 
 
 def test_driver_refuses_several_processes(tmp_path, monkeypatch):
+    """Several processes run (tests/test_torch_distributed.py); a
+    KSFD_NUM_PROCS request that made no process group (no coordinator,
+    no rank) is refused before any step, naming what is missing."""
     monkeypatch.setenv("KSFD_NUM_PROCS", "2")
+    monkeypatch.delenv("KSFD_COORDINATOR", raising=False)
+    monkeypatch.delenv("KSFD_PROC_ID", raising=False)
     opt = options(tmp_path, "opts", "dt=1\nmaxsteps=2\n" + COMMON + FIXED)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(KSFDException,
+                       match="KSFD_COORDINATOR.*KSFD_PROC_ID"):
         run(opt)
 
 

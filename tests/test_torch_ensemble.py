@@ -556,8 +556,14 @@ def test_refused_ensembles_raise(prob):
     # device_loop with fixed dt runs no chunk in the reference either
     EnsembleSolver(tops, NumericsOptions(device_loop=True,
                                          adapt_type="none"))
-    with pytest.raises(NotImplementedError, match=r"Queue A item 11 \(A14\)"):
-        shard_members(torch.zeros(2, 3, N, N))
+    # members go on ranks (ksfdsolver.py run_ensemble over processes):
+    # shard_members keeps a process's members on its one device; the
+    # halo-slab kernels of a slab mesh have no member axis
+    # (tests/test_torch_mesh_solver.py)
+    U = torch.zeros(2, 3, N, N)
+    assert shard_members(U) is U
+    with pytest.raises(ValueError, match="members on ranks"):
+        shard_members(U, devices=["cpu", "cpu"])
     with pytest.raises(KSFDException, match="direct solve"):
         EnsembleSolver(tops, NumericsOptions(ksp_type="lu"))
     es = EnsembleSolver(tops, NumericsOptions(ksp_type="chebyshev"))

@@ -264,9 +264,17 @@ def test_tsmerge_rebuilds_checkpoints_and_slabs(tmp_path):
 
 
 def test_snapshot_block_of_a_slab_raises():
-    """Slab I/O comes with the Solver on a mesh (Queue A item 11)."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        tio.snapshot_block(torch.zeros(3, 16, 8), HALVES[0])
+    """A slab series stores a rank's block: the rank's slab itself, or
+    that block cut from the global state; a state that holds neither
+    raises."""
+    full = torch.arange(3 * 16 * 8, dtype=torch.float64).reshape(3, 16, 8)
+    for box in HALVES:
+        want = full[:, box[0][0]:box[0][1]].numpy()
+        np.testing.assert_array_equal(tio.snapshot_block(full, box), want)
+        np.testing.assert_array_equal(
+            tio.snapshot_block(torch.from_numpy(want), box), want)
+    with pytest.raises(KSFDException, match="neither the block"):
+        tio.snapshot_block(torch.zeros(3, 4, 8), HALVES[1])
 
 
 def test_series_without_h5py_raises(monkeypatch, tmp_path):

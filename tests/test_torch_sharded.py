@@ -50,7 +50,6 @@ from ksfd_tpu_torch.solvers import (
     make_adaptive_chunk_fn,
     make_multistep_fn,
     make_step_fn,
-    shard_members,
 )
 from torch_mesh_ranks import (
     CFL_SAFETY,
@@ -310,24 +309,40 @@ def test_pc_pallas_on_a_mesh_takes_the_sharded_basis_gemm_pc(port2d):
     assert multi.kernels.kind == "halo-slab (B9) over 2 x-slabs"
 
 
+def vmapped_mesh_step(ops, m):
+    """The mesh's step vmapped over two members (an ensemble on a slab
+    mesh)."""
+    step, _ = make_step_fn(ops, NumericsOptions(), mesh=fake_mesh(
+        ops.grid, 1))
+    t = torch.zeros((), dtype=torch.float64)
+    h = torch.full((), H, dtype=torch.float64)
+    U = torch.from_numpy(np.stack([initial_state((64, 64))] * 2))
+    return torch.func.vmap(lambda u: step(u, t, h)[0])(U)
+
+
 @pytest.mark.parametrize("build,match", [
-    (lambda ops, m: make_step_fn(ops, NumericsOptions(ksp_type="gmres_scipy"),
-                                 mesh=m), r"Queue A item 11 \(A14\)"),
+    (lambda ops, m: make_step_fn(ops, NumericsOptions(
+        ksp_type="gmres_scipy", pc_type="spectral"), mesh=m),
+     r"Queue A item 11 \(A14\)"),
     (lambda ops, m: make_adaptive_chunk_fn(
-        ops, NumericsOptions(ksp_type="gmres_scipy"), mesh=m),
+        ops, NumericsOptions(ksp_type="gmres", pc_type="none"), mesh=m),
      r"Queue A item 11 \(A14\)"),
     (lambda ops, m: make_step_fn(ops, NumericsOptions(pc_fft="on"), mesh=m),
      r"Queue A item 11 \(A14\)"),
     (lambda ops, m: make_step_fn(ops, NumericsOptions(), mesh=object()),
      r"Queue A item 11 \(A14\)"),
-    (lambda ops, m: shard_members(torch.zeros(2, 3, 8, 8)),
-     r"Queue A item 11 \(A14\)"),
+    (vmapped_mesh_step, r"Queue A item 11 \(A14\)"),
 ], ids=["gmres-step", "gmres-chunk", "fft-on-mesh", "other-mesh",
         "member-mesh"])
 def test_refusals(port2d, build, match):
-    """The GMRES step on a mesh, the FFT pc on a mesh (``pc_fft`` on: it
-    is single-card, as the reference's is), a mesh that is not a slab
-    mesh and member meshes raise, naming the ROADMAP item."""
+    """What stays refused on a mesh raises, naming the ROADMAP item: the
+    GMRES step with the spectral pc and the GMRES chunk without a pc
+    (the GMRES steps themselves run since their inner products reduce
+    over the ranks: tests/test_torch_mesh_solver.py; the sharded apply
+    is the block pc's), the FFT pc (``pc_fft`` on: it is single-card,
+    as the reference's is), a mesh that is not a slab mesh, and members
+    on a slab mesh (the halo-slab kernels have no member axis;
+    ``shard_members`` puts members on ranks)."""
     grid, ops = port2d
     with pytest.raises(NotImplementedError, match=match):
         build(ops, fake_mesh(grid, 2))

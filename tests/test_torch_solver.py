@@ -27,13 +27,13 @@ from ksfd_tpu.solvers import linalg as jlinalg
 from ksfd_tpu.solvers import make_multistep_fn as jmultistep
 from ksfd_tpu.solvers import make_step_fn as jstep
 from ksfd_tpu_torch import NumericsOptions
-from ksfd_tpu_torch import io as tio
 from ksfd_tpu_torch.interop import (
     numpy_from_tensors,
     problem_from_clargs,
     tensors_from_numpy,
 )
 from ksfd_tpu_torch.ops.fused_stencil import make_fused_kernels
+from ksfd_tpu_torch.parallel.mesh import SlabMesh
 from ksfd_tpu_torch import ops as KT_ops
 from ksfd_tpu_torch import solvers as tsolver
 from ksfd_tpu_torch.solvers import linalg as tlinalg
@@ -175,11 +175,13 @@ def test_ported_options_step(change):
 @pytest.mark.parametrize("build,item", [
     (lambda ops: tsolver.make_adaptive_chunk_fn(ops, mesh=object()),
      "A14"),
-    # the Solver runs (tests/test_torch_host_solver.py) and resumes
-    # from a checkpoint (tests/test_torch_driver.py); a slab series,
-    # one block per rank, waits for the Solver on a mesh
-    (lambda ops: tio.snapshot_block(torch.zeros(ops.grid.Vshape),
-                                    ((0, 1),) * ops.grid.dim), "A14"),
+    # the Solver runs on a slab mesh and writes slab series
+    # (tests/test_torch_mesh_solver.py, tests/test_torch_distributed.py);
+    # the spectral pc on a mesh waits (the sharded apply is the block
+    # pc's)
+    (lambda ops: tsolver.make_step_fn(
+        ops, NumericsOptions(pc_type="spectral"), mesh=SlabMesh(
+            ops.grid, None, 2, 0, "gloo", "cpu", ["cpu"] * 2)), "A14"),
 ], ids=["<lambda>-item 14", "<lambda>-item 8"])
 def test_later_entry_points_raise(problems, build, item):
     _, tops = problems

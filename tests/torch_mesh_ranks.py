@@ -10,6 +10,7 @@ JAX, so the test modules compare the results with the reference in the
 parent process.
 """
 
+import math
 import os
 import tempfile
 import traceback
@@ -300,6 +301,195 @@ def case_chunk(ctx):
             u=mesh.gather(u).numpy(), t=t, h=h, k=k, attempts=attempts,
             rejected=rejected, records=repr(chunk.stats.records),
             per_tier=repr(chunk.stats.per_tier))
+    return out
+
+
+# ---- the Solver on a slab mesh (tests/test_torch_mesh_solver.py) -----
+
+#: the Solver cases' grid (the bench problem), the dense tier's, and
+#: their steps
+N_SOLVER = 32
+N_DENSE = 16
+SOLVER_STEPS = 4
+ADAPT_ACCEPTS = 6
+#: noise every step of dt=1 (tests/test_torch_host_solver.py's NOISE)
+NOISE_PARAMS = ["variance_rate=1e-4", "variance_timing_function=t",
+                "conserve_worms=True"]
+#: a CFL factor that clamps h from the third step of the smooth start
+CFL_SAFETY_SOLVER = 1e-5
+CFL_PARAMS = ["CFL_safety_factor=%g" % CFL_SAFETY_SOLVER]
+
+
+def solver_problem(n, extra=()):
+    """The bench problem at n^2 with parameter lines ``extra``."""
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.tools.problems import bench_clargs
+
+    clargs = bench_clargs(n)
+    clargs.params = list(clargs.params) + list(extra)
+    return problem_from_clargs(clargs, n, n, device="cpu")
+
+
+def solver_run(ops, numerics, u0, mesh=None, fail_first=False, **kw):
+    """A Solver run from the global state u0 (numpy): on a mesh each
+    rank passes its slab.  Returns the gathered final state, k, t, h,
+    the failures, ``stats`` as a dict and the monitor records ``(k, t,
+    h, CFL_maxh, sum(rho))``; ``fail_first`` makes the first step
+    attempt's error norm non-finite (the GMRES fallback then retries
+    it).  The test module runs the one-rank Solver through it too."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import distribute
+    from ksfd_tpu_torch.solvers import Solver
+
+    s = Solver(ops, numerics, mesh=mesh, **kw)
+    if fail_first:
+        step = s.step_fn
+
+        def failing(u, t, h):
+            u1, e = step(u, t, h)
+            failing.calls += 1
+            return u1, e * math.nan if failing.calls == 1 else e
+        failing.calls = 0
+        s.step_fn = failing
+    records = []
+    s.add_monitor(lambda sv, k, t, u: records.append(
+        (k, t, sv.h, sv.CFL_maxh, sv.count_worms(u))))
+    u = torch.from_numpy(u0)
+    if mesh is not None:
+        u = distribute(u, ops.grid, mesh)[0]
+    u = s.solve(u)
+    if mesh is not None:
+        u = mesh.gather(u)
+    st = vars(s.stats)
+    return dict(u=u.numpy(), k=s.k, t=s.t, h=s.h,
+                failures=s.snes_failures, stats=repr(st), records=records,
+                info=repr(s.build_info))
+
+
+def solver_cases():
+    """(label, extra parameters, NumericsOptions fields, Solver keywords,
+    start, fail_first) of every Solver run that the mesh cases and the
+    test module's one-rank runs share."""
+    adapt = dict(t0=0.0, dt=H, tmax=1e9, rtol=1e-6, atol=0.01)
+    fixed = dict(adapt, maxsteps=SOLVER_STEPS)
+    return [
+        ("block", (), dict(adapt_type="none", pc_dtype="float32"),
+         dict(fixed, block_steps=2), "rough", False),
+        ("adaptive", (), dict(pc_dtype="float32"),
+         dict(adapt, maxsteps=ADAPT_ACCEPTS), "rough", False),
+        ("device_loop", (), dict(pc_dtype="float32", device_loop=True),
+         dict(adapt, maxsteps=ADAPT_ACCEPTS), "rough", False),
+        ("noise", NOISE_PARAMS, dict(adapt_type="none", pc_dtype="float32"),
+         dict(fixed, dt=1.0, maxsteps=3), "smooth", False),
+        ("cfl", CFL_PARAMS, dict(pc_dtype="float32"),
+         dict(adapt, dt=1.0, maxsteps=SOLVER_STEPS), "smooth", False),
+        ("cfl_loop", CFL_PARAMS, dict(pc_dtype="float32",
+                                      device_loop=True),
+         dict(adapt, dt=1.0, maxsteps=SOLVER_STEPS), "smooth", False),
+        ("fallback", (), dict(adapt_type="none", pc_dtype="float64"),
+         dict(fixed, maxsteps=2), "rough", True),
+    ]
+
+
+def solver_start(kind, n):
+    return (rough_state((n, n)) if kind == "rough"
+            else initial_state((n, n)))
+
+
+def case_mesh_solver(ctx):
+    """Every run of ``solver_cases`` through the Solver on this rank's
+    slab, with the torch.randn draws of the noise run recorded."""
+    import torch
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import grid_mesh
+
+    out = {}
+    for label, extra, nm, kw, start, fail in solver_cases():
+        _, grid, ops = solver_problem(N_SOLVER, extra)
+        mesh = grid_mesh(grid, shape=(ctx["n"], 1), device="cpu")
+        draws = []
+        randn = torch.randn
+
+        def recorded(*a, **k):
+            x = randn(*a, **k)
+            draws.append(x.numpy().copy())
+            return x
+        torch.randn = recorded
+        try:
+            out[label] = solver_run(ops, NumericsOptions(**nm),
+                                    solver_start(start, N_SOLVER),
+                                    mesh=mesh, fail_first=fail, **kw)
+        finally:
+            torch.randn = randn
+        out[label]["draws"] = draws
+    return out
+
+
+def mesh_steps():
+    """(label, n, NumericsOptions fields) of the single steps that the
+    mesh cases and the test module's one-rank steps share: the GMRES
+    tiers, the unfused step and the exact tiers."""
+    return [
+        ("gmres_scipy", N_SOLVER, dict(ksp_type="gmres_scipy",
+                                       ksp_restart=12, ksp_max_it=4,
+                                       stage_delta=False,
+                                       pc_dtype="float64")),
+        ("gmres", N_SOLVER, dict(ksp_type="gmres", pc_dtype="float64")),
+        ("gmres_restarted", N_SOLVER, dict(ksp_type="gmres_restarted",
+                                           pc_dtype="float64")),
+        ("gmres_rolled", N_SOLVER, dict(ksp_type="gmres_rolled",
+                                        ksp_restart=8, ksp_max_it=2,
+                                        sweep_dtype="float64",
+                                        pc_dtype="float64")),
+        ("gmres_rolled_mixed", N_SOLVER, dict(ksp_type="gmres_rolled",
+                                              ksp_restart=8, ksp_max_it=2,
+                                              pc_dtype="float32")),
+        ("unfused", N_SOLVER, dict(use_pallas=False, pc_dtype="float32")),
+        ("unfused_f64", N_SOLVER, dict(use_pallas=False,
+                                       sweep_dtype="float64",
+                                       pc_dtype="float64")),
+        ("lu", N_SOLVER, dict(ksp_type="lu")),
+        ("dense", N_DENSE, dict(ksp_type="dense")),
+    ]
+
+
+def mesh_step(ops, nm, n, mesh=None):
+    """One step of ``nm`` from the groomed rough state at h=H: the
+    (gathered) state, enorm and build info."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import distribute
+    from ksfd_tpu_torch.solvers import make_step_fn
+
+    step, _ = make_step_fn(ops, nm, atol=0.01, rtol=1e-6, mesh=mesh)
+    u0 = ops.groom(torch.from_numpy(rough_state((n, n))))
+    if mesh is not None:
+        u0 = distribute(u0, ops.grid, mesh)[0]
+    u1, e = step(u0, torch.zeros((), dtype=torch.float64),
+                 torch.full((), H, dtype=torch.float64))
+    if mesh is not None:
+        u1 = mesh.gather(u1)
+    return dict(u=u1.numpy(), enorm=float(e), info=repr(step.build_info))
+
+
+def case_mesh_steps(ctx):
+    """Every step of ``mesh_steps`` on this rank's slab."""
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import grid_mesh
+
+    out = {}
+    for label, n, nm in mesh_steps():
+        _, grid, ops = solver_problem(n)
+        out[label] = mesh_step(ops, NumericsOptions(**nm), n,
+                               mesh=grid_mesh(grid, shape=(ctx["n"], 1),
+                                              device="cpu"))
+    try:
+        grid_mesh(grid, shape=(1, ctx["n"]), device="cpu")
+        out["y_split"] = "no error"
+    except NotImplementedError as e:
+        out["y_split"] = str(e)
     return out
 
 
