@@ -176,14 +176,23 @@ phases, each printing one line:
     equal records on both ranks, one noise injection on the 2D cell
     drawn bit for bit as on one card, then ``main`` over their group
     (the flagship cut to 16 steps, rank 0 alone printing; --ensemble=4
-    on hexagons2d, members 0-1 and 2-3).
+    on hexagons2d, members 0-1 and 2-3);
+37. what the reference's mesh runs beyond the x split, and the last
+    tools (phase_mesh_forms): on a one-rank NCCL mesh against the one
+    card, the flagship with ``-pc_type spectral`` and ``-pc_fft on``
+    (B9 launches), the flux form and a with-G state on the 2D cell,
+    options93 on a 1D mesh, a 4-member hexagons2d ensemble split over
+    the mesh (per step and device loop); two gloo ranks on the card: a
+    (1, 2) y split at 256^2 x 3 and ``main`` on eigenmode1d's 1D mesh;
+    ``tools/probe_hgap.py`` on the flagship after 150 accepts.
 
 Then one JSON line of the nineteen kernels (B9's eight rows last, with
 the mesh Solver's launches per accepted step) and
 of every phase's figures, the card's line, one short line per kernel
 (µs, bound, plain and library µs, launches per step on each path) and,
 last, the result line.  Any failed phase raises (a failed rank fails
-phases 27 and 36), so the exit code is not 0 and no result prints.  It imports
+phases 27, 36 and 37), so the exit code is not 0 and no result
+prints.  It imports
 nothing of JAX.  Profiles and long reports go to chiprun_out/.
 """
 
@@ -2381,7 +2390,8 @@ def slab_meshes(grid, S, device="cuda"):
     from ksfd_tpu_torch.parallel.mesh import SlabMesh
 
     dev = str(torch.device(device, torch.cuda.current_device()))
-    return [SlabMesh(grid, None, S, r, "gloo", dev, [dev] * S)
+    return [SlabMesh(grid, None, (S,) + (1,) * (grid.dim - 1), r, "gloo",
+                     dev, [dev] * S)
             for r in range(S)]
 
 
@@ -2557,7 +2567,8 @@ def phase_one_rank_nccl(card):
         ):
             ps, grid, ops = problem_from_clargs(clargs, *shape, device=dev)
             mesh = grid_mesh(grid, device=dev)
-            check(mesh.backend == "nccl" and mesh.n_x == 1, "one-rank mesh")
+            check(mesh.backend == "nccl" and mesh.shape[0] == 1,
+                  "one-rank mesh")
             if key == "2d_f64":
                 # host µs per call of the mesh's two communications
                 x3 = torch.ones(3, dtype=torch.float64, device=dev)
@@ -2753,7 +2764,7 @@ def _gloo_paths(rank):
                                         device=dev)
     h_env = 1e-3 * (64.0 / N_BIG) ** 2
     mesh = grid_mesh(grid, device=dev)
-    check(mesh.backend == "gloo" and mesh.n_x == N_RANKS, repr(mesh))
+    check(mesh.backend == "gloo" and mesh.shape[0] == N_RANKS, repr(mesh))
     states = dict(
         pallas=ops.groom(torch.as_tensor(pallas_rough_state(grid.Sshape),
                                          device=dev)),
@@ -4286,10 +4297,11 @@ def mesh_solver_records(solver):
                 records=list(getattr(solver, "mesh_records", [])))
 
 
-def mesh_flagship(dev, make_mesh, accepts):
+def mesh_flagship(dev, make_mesh, accepts, numerics=None):
     """The flagship (examples/aggregation2d at 1536^2 x 3 from
-    ``ic.start_values``, its numerics with the device loop, from
-    dt=1e-8) through ``Solver(mesh=)`` on ``make_mesh(grid)`` for
+    ``ic.start_values``, its numerics with the device loop, or
+    ``numerics``, from dt=1e-8) through ``Solver(mesh=)`` on
+    ``make_mesh(grid)`` for
     ``accepts`` accepts after an untimed run of 2: the Solver, its
     gathered state, seconds, the B9 launches of the timed run (counts
     set to 0 just before it), the launches each tier's attempt makes and
@@ -4306,7 +4318,7 @@ def mesh_flagship(dev, make_mesh, accepts):
     p0 = ps.params0
     kw = dict(t0=0.0, dt=float(p0["dt"]), tmax=float(p0["tmax"]),
               rtol=float(p0["rtol"]), atol=float(p0["atol"]), mesh=mesh)
-    nm = example_numerics()
+    nm = numerics or example_numerics()
     warm = Solver(ops, nm, maxsteps=2, **kw)
     u_loc = distribute(u0, grid, mesh)[0]
     warm.solve(u_loc)
@@ -4400,7 +4412,7 @@ def _mesh_rank(rank, n, store, queue):
 
         def make_mesh(grid):
             mesh = grid_mesh(grid, device=dev)
-            check(mesh.backend == "gloo" and mesh.n_x == n, repr(mesh))
+            check(mesh.backend == "gloo" and mesh.shape[0] == n, repr(mesh))
             return mesh
         solver, u_s, secs, launches, per_tier, u0 = mesh_flagship(
             dev, make_mesh, MESH_FLAG_ACCEPTS)
@@ -4501,7 +4513,7 @@ def phase_mesh_solver(card, flag30, u_flag, cli31):
 
         def make_mesh(grid):
             mesh = grid_mesh(grid, device=dev)
-            check(mesh.backend == "nccl" and mesh.n_x == 1, repr(mesh))
+            check(mesh.backend == "nccl" and mesh.shape[0] == 1, repr(mesh))
             return mesh
         solver, u_s, secs, launches, per_tier, u0 = mesh_flagship(
             dev, make_mesh, FLAG_ACCEPTS)
@@ -4653,6 +4665,369 @@ def phase_mesh_solver(card, flag30, u_flag, cli31):
             ens_dt))
     print("phase 36 Solver on an x-slab mesh, driver over processes (%s): "
           "%s" % (card, " | ".join(lines)))
+    return fig
+
+
+#: phase 37: accepts of the flagship's pc forms on a one-rank mesh, of
+#: the mesh ensemble, steps of options93 on a 1D mesh, of the 2D cell's
+#: flux form and with-G state, of the two ranks' y split and the 1D
+#: driver; probe_hgap's start, step sizes and tiers
+FORM_ACCEPTS = 16
+MESH_ENS_ACCEPTS = 8
+MESH_1D_STEPS = 64
+FORM_STEPS = 4
+N_SPLIT_CARD = 256
+SPLIT_STEPS = 4
+EIG_CLI_STEPS = 20
+HGAP_ACCEPTS = 150
+HGAP_HS = (1.0, 4.0, 16.0, 64.0)
+HGAP_TIERS = ("rich3", "rich16", "cheb48")
+
+
+def dev_over_inc(label, u_mesh, u_one, u0, tol=1e-5):
+    """max|u_mesh - u_one| over the increment max|u_one - u0|, checked
+    at most ``tol``."""
+    inc = float((u_one - u0).abs().max())
+    rel = float((u_mesh - u_one).abs().max()) / inc
+    check(rel <= tol, "%s: mesh vs one card %.3e of the increment > %g"
+          % (label, rel, tol))
+    return rel
+
+
+def _form_rank(rank, n, store, queue):
+    """One of phase 37 (b)'s two gloo ranks on the card: the 2D cell at
+    N_SPLIT_CARD^2 x 3 split (1, 2), SPLIT_STEPS fixed steps, then the
+    driver's ``main`` over the group on examples/eigenmode1d cut to
+    EIG_CLI_STEPS steps (its 1D mesh, the banded tier)."""
+    import contextlib
+    import io
+    import traceback
+
+    import torch.distributed as dist
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.solvers import make_multistep_fn
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=n)
+        dev = torch.device("cuda", 0)
+        out = {}
+        ps, grid, ops = problem_from_clargs(bench_clargs(N_SPLIT_CARD),
+                                            N_SPLIT_CARD, N_SPLIT_CARD,
+                                            device=dev)
+        mesh = grid_mesh(grid, shape=(1, n), device=dev)
+        u0 = ops.groom(torch.as_tensor(rough_state(grid, ps), device=dev))
+        nm = NumericsOptions(pc_dtype="float32")
+        tt = torch.zeros((), dtype=torch.float64, device=dev)
+        hh = torch.full_like(tt, 1e-3)
+        multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6,
+                                     mesh=mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        u, _, emax = multi(distribute(u0, grid, mesh)[0], tt, hh,
+                           SPLIT_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        u = mesh.gather(u)
+        out["split"] = dict(emax=float(emax), ms_per_step=secs
+                            / SPLIT_STEPS * 1e3, box=mesh.box,
+                            info=repr(multi.build_info))
+        if rank == 0:
+            one, _ = make_multistep_fn(ops, dataclasses.replace(
+                nm, use_pallas=False), atol=0.01, rtol=1e-6)
+            u1, _, _ = one(u0, tt, hh, SPLIT_STEPS)
+            out["split"]["dev_over_inc"] = dev_over_inc(
+                "(b) y split", u, u1, u0)
+        del multi, u, u0
+        text = io.StringIO()
+        dist.barrier()
+        with contextlib.redirect_stdout(text):
+            status, s, setup, rest = drive_cli(cut_options(
+                "eigenmode1d", "eigenmode1d_mesh%d" % rank,
+                maxsteps=EIG_CLI_STEPS))
+        out["cli"] = dict(status=status, stdout=text.getvalue(),
+                          setup_s=setup, rest_s=rest, k=s.k, t=s.t,
+                          mesh=repr(s.mesh), box=s.mesh.box,
+                          stats=vars(s.stats))
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def phase_mesh_forms(card):
+    """Phase 37, the mesh does all that the reference's mesh does
+    (parallel/mesh.py, solvers/linalg.py ``make_sharded_apply``,
+    solvers/ensemble.py ``EnsembleSolver(mesh=)``) and the last tools.
+
+    (a) on a one-rank NCCL mesh, each held against the one-card port at
+        1e-5 of the increment: the flagship at 1536^2 x 3 from
+        ``ic.start_values`` (phase 30's cell) for FORM_ACCEPTS accepts
+        with ``-pc_type spectral`` and with ``-pc_fft on`` (the same k;
+        its B9 launches = tier calls x per attempt); the flux form and
+        a with-G state on the 2D cell at 1024^2 x 3 (FORM_STEPS fixed
+        steps, unfused: no launch); options93 on a 1D mesh (128 x 3,
+        MESH_1D_STEPS steps); a 4-member hexagons2d 384^2 x 3 ensemble
+        split over the mesh, MESH_ENS_ACCEPTS accepts per step and in
+        the device loop (the unfused step: the same k, t and h to 1e-4
+        relative, as phase 18 holds members, against the one-card
+        ensemble with ``use_pallas=False``);
+    (b) two gloo ranks time-sliced on the card: the 2D cell at 256^2 x 3
+        split (1, 2), SPLIT_STEPS steps against one card; the driver's
+        ``main`` over the two processes on examples/eigenmode1d cut to
+        EIG_CLI_STEPS steps (its 1D mesh, boxes (0, 64) and (64, 128));
+    (c) tools/probe_hgap.py on the flagship at 1536^2 x 3 after
+        HGAP_ACCEPTS accepts: enorm(h) for HGAP_TIERS over HGAP_HS and
+        each tier's slope-timed ms per step.
+    """
+    import multiprocessing as mp
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import distribute, grid_mesh
+    from ksfd_tpu_torch.solvers import (
+        EnsembleSolver, Solver, make_multistep_fn)
+    from ksfd_tpu_torch.tools import probe_hgap, validate
+    from ksfd_tpu_torch.tools.flagship import example_numerics
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fig, lines = {}, []
+    f64 = lambda x: torch.full((), x, dtype=torch.float64, device=dev)
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % free_port(), world_size=1, rank=0)
+    try:
+        def make_mesh(grid):
+            mesh = grid_mesh(grid, device=dev)
+            check(mesh.backend == "nccl" and mesh.size == 1, repr(mesh))
+            return mesh
+        # (a) the flagship's pc forms
+        for key, change in (("spectral", dict(pc_type="spectral")),
+                            ("fft", dict(pc_fft="on"))):
+            nm = example_numerics(**change)
+            solver, u_s, secs, launches, per_tier, u0 = mesh_flagship(
+                dev, make_mesh, FORM_ACCEPTS, numerics=nm)
+            ops = solver.ops
+            kw = dict(t0=0.0, dt=solver.dt0, tmax=solver.tmax,
+                      rtol=solver.rtol, atol=solver.atol)
+            # the one card warmed as the mesh run is (2 untimed accepts)
+            Solver(ops, nm, maxsteps=2, **kw).solve(u0)
+            one = Solver(ops, nm, maxsteps=FORM_ACCEPTS, **kw)
+            u_one, secs_one = solver_run(one, u0)
+            check(one.k == solver.k, "(a) %s: k %d vs one card %d"
+                  % (key, solver.k, one.k))
+            fig[key] = dict(
+                accepts=solver.k, t=solver.t, pc=solver.build_info["pc"],
+                ms_per_accept=secs / solver.k * 1e3,
+                ms_per_accept_one_card=secs_one / one.k * 1e3,
+                b9_launches=launches, launches_per_attempt=per_tier,
+                tier_calls=solver.stats.tier_calls,
+                dev_over_inc=dev_over_inc("(a) flagship " + key, u_s, u_one,
+                                          ops.groom(u0)))
+            del solver, u_s, u_one, one, u0, ops
+            torch.cuda.empty_cache()
+        lines.append("(a) flagship %d^2x3 on a one-rank NCCL mesh, %d "
+                     "accepts: %s" % (N_AGG, FORM_ACCEPTS, "; ".join(
+                         "%s (%s): %.3f ms/accept (one card %.3f), B9 %s, "
+                         "%.2e of the increment" % (
+                             k, fig[k]["pc"], fig[k]["ms_per_accept"],
+                             fig[k]["ms_per_accept_one_card"],
+                             fig[k]["b9_launches"], fig[k]["dev_over_inc"])
+                         for k in ("spectral", "fft"))))
+        # (a) the flux form and a with-G state on the 2D cell
+        tt, hh = f64(0.0), f64(1e-3)
+        nm = NumericsOptions(pc_dtype="float32")
+        for key in ("flux_form", "with_g"):
+            ps, grid, ops = problem_from_clargs(
+                bench_clargs(N_BIG), N_BIG, N_BIG, device=dev,
+                flux_form=key == "flux_form", with_g=key == "with_g")
+            mesh = make_mesh(grid)
+            base = torch.as_tensor(rough_state(grid, ps) if key != "with_g"
+                                   else np.concatenate([rough_state(
+                                       grid, ps), np.zeros((1,) + tuple(
+                                           grid.Sshape))]), device=dev)
+            u0 = ops.groom(base)
+            if key == "with_g":
+                u0 = ops.refresh_G(u0, 0.0)
+            multi, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6,
+                                         mesh=mesh)
+            check(multi.kernels is None, "(a) %s: unfused" % key)
+            multi(distribute(u0, grid, mesh)[0], tt, hh, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u, _, _ = multi(distribute(u0, grid, mesh)[0], tt, hh,
+                            FORM_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            one, _ = make_multistep_fn(ops, nm, atol=0.01, rtol=1e-6)
+            u1, _, _ = one(u0, tt, hh, FORM_STEPS)
+            fig[key] = dict(ms_per_step=secs / FORM_STEPS * 1e3,
+                            dev_over_inc=dev_over_inc(
+                                "(a) " + key, mesh.gather(u), u1, u0))
+            del multi, one, u, u1, u0, ops
+            torch.cuda.empty_cache()
+        # (a) options93 on a 1D mesh
+        ps, grid, ops = validate.make_problem(128, device=dev)
+        mesh = make_mesh(grid)
+        u0 = torch.as_tensor(validate.exact_state(grid, 0.0), device=dev)
+        kw = dict(t0=0.0, dt=1.0, tmax=1e9, maxsteps=MESH_1D_STEPS,
+                  rtol=1e-6, atol=0.01)
+        nm = NumericsOptions(adapt_type="none")
+        s1d = Solver(ops, nm, mesh=mesh, **kw)
+        u_m, secs = solver_run(s1d, distribute(u0, grid, mesh)[0])
+        one = Solver(ops, nm, **kw)
+        u_one, _ = solver_run(one, u0)
+        fig["options93_1d"] = dict(
+            steps=s1d.k, mesh_shape=mesh.shape,
+            ms_per_step=secs / s1d.k * 1e3,
+            dev_over_inc=dev_over_inc("(a) options93 1D", mesh.gather(u_m),
+                                      u_one, u0))
+        lines.append("flux form / with-G %d^2x3 %d steps (unfused): %.3f / "
+                     "%.3f ms/step, %.2e / %.2e of the increment; options93 "
+                     "128x3 on a %s mesh, %d steps: %.3f ms/step, %.2e" % (
+                         N_BIG, FORM_STEPS, fig["flux_form"]["ms_per_step"],
+                         fig["with_g"]["ms_per_step"],
+                         fig["flux_form"]["dev_over_inc"],
+                         fig["with_g"]["dev_over_inc"], mesh.shape,
+                         s1d.k, fig["options93_1d"]["ms_per_step"],
+                         fig["options93_1d"]["dev_over_inc"]))
+        # (a) the ensemble split over the mesh
+        clargs = hex_clargs()
+        ps, grid, ops = problem_from_clargs(clargs, N_HEX, N_HEX, device=dev)
+        mesh = make_mesh(grid)
+        U0 = torch.as_tensor(ic_starts(clargs, grid, ps, 4, clargs.seed),
+                             device=dev)
+        kw = dict(t0=0.0, dt=float(ps.params0["dt"]),
+                  tmax=float(ps.params0["tmax"]),
+                  rtol=float(ps.params0["rtol"]),
+                  atol=float(ps.params0["atol"]), maxsteps=MESH_ENS_ACCEPTS)
+        ens = {}
+        for dl in (False, True):
+            nm = hex_numerics(device_loop=dl)
+            es = EnsembleSolver(ops, nm, mesh=mesh, **kw)
+            U_loc = mesh.local(U0, first=2).contiguous()
+            EnsembleSolver(ops, nm, mesh=mesh, **dict(kw, maxsteps=2)).solve(
+                U_loc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = es.solve(U_loc)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ref = EnsembleSolver(ops, dataclasses.replace(
+                nm, use_pallas=False), **kw).solve(U0)
+            t_rel = float(np.max(np.abs(out.t - ref.t) / np.abs(ref.t)))
+            h_rel = float(np.max(np.abs(out.h - ref.h) / np.abs(ref.h)))
+            check(es.build_info["kernels"] is None
+                  and list(out.k) == list(ref.k) == [MESH_ENS_ACCEPTS] * 4
+                  and t_rel <= 1e-4 and h_rel <= 1e-4,
+                  "(a) mesh ensemble (device loop %s): k %s / %s, t %.2e h "
+                  "%.2e relative" % (dl, out.k, ref.k, t_rel, h_rel))
+            ens["device_loop" if dl else "per_step"] = dict(
+                ms_per_ensemble_accept=secs / MESH_ENS_ACCEPTS * 1e3,
+                t_rel=t_rel, h_rel=h_rel, k=[int(k) for k in out.k])
+            del es, out, ref
+        fig["ensemble_hexagons2d"] = ens
+        lines.append("4-member hexagons2d %d^2x3 split over the mesh, %d "
+                     "accepts: %s" % (N_HEX, MESH_ENS_ACCEPTS, "; ".join(
+                         "%s %.3f ms per ensemble accept, t %.1e h %.1e of "
+                         "the one card's" % (k, v["ms_per_ensemble_accept"],
+                                             v["t_rel"], v["h_rel"])
+                         for k, v in ens.items())))
+        del ops, U0
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # (b) two gloo ranks on the card
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="ksfd_forms_"), "store")
+    procs = [ctx.Process(target=_form_rank, args=(r, N_RANKS, store, queue))
+             for r in range(N_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in procs:
+            rank, res, err = queue.get(timeout=600)
+            if err is not None:
+                errors.append("rank %d:\n%s" % (rank, err))
+                break
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=120 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    check(not errors, "phase 37 ranks failed:\n" + "\n".join(errors))
+    wall = time.perf_counter() - t0
+    r0, r1 = results[0], results[1]
+    half = N_SPLIT_CARD // 2
+    check(r0["split"]["box"] == ((0, N_SPLIT_CARD), (0, half))
+          and r1["split"]["box"] == ((0, N_SPLIT_CARD),
+                                     (half, N_SPLIT_CARD))
+          and r0["split"]["emax"] == r1["split"]["emax"]
+          and "'kernels': None" in r0["split"]["info"],
+          "(b) y split: %r / %r" % (r0["split"], r1["split"]))
+    cli = (r0["cli"], r1["cli"])
+    check(cli[0]["status"] == cli[1]["status"] == 0
+          and cli[0]["k"] == cli[1]["k"] == EIG_CLI_STEPS
+          and cli[0]["stats"] == cli[1]["stats"]
+          and cli[0]["box"] == ((0, 64),) and cli[1]["box"] == ((64, 128),),
+          "(b) 1D driver: %r" % ([{k: c[k] for k in ("status", "k", "box")}
+                                  for c in cli],))
+    fig["two_gloo_ranks"] = dict(
+        wall_s=wall, split_ms_per_step=[r["split"]["ms_per_step"]
+                                        for r in (r0, r1)],
+        split_dev_over_inc=r0["split"]["dev_over_inc"],
+        cli_eigenmode1d=dict(steps=cli[0]["k"], t=cli[0]["t"],
+                             setup_s=[c["setup_s"] for c in cli],
+                             ms_per_step=[c["rest_s"] / c["k"] * 1e3
+                                          for c in cli]))
+    lines.append("(b) two gloo ranks on the card (not a scaling figure, "
+                 "%.1f s wall with the spawn): %d^2x3 split (1, 2), %d "
+                 "steps: %s ms/step, %.2e of the increment; eigenmode1d "
+                 "through main on its 1D mesh, %d steps to t=%.6g: %s "
+                 "ms/step" % (wall, N_SPLIT_CARD, SPLIT_STEPS,
+                              ["%.3f" % x for x in fig["two_gloo_ranks"][
+                                  "split_ms_per_step"]],
+                              r0["split"]["dev_over_inc"], cli[0]["k"],
+                              cli[0]["t"], ["%.3f" % x for x in fig[
+                                  "two_gloo_ranks"]["cli_eigenmode1d"][
+                                  "ms_per_step"]]))
+    # (c) probe_hgap
+    t0 = time.perf_counter()
+    ops, u, t = probe_hgap.rough_state(None, HGAP_ACCEPTS, device=dev,
+                                       out=lambda s: None)
+    start_s = time.perf_counter() - t0
+    hgap = probe_hgap.probe(ops, u, t, list(HGAP_HS), list(HGAP_TIERS),
+                            time_steps=True, out=lambda s: None)
+    check(all(math.isfinite(e) for row in hgap["curves"].values()
+              for e in row), "(c) probe_hgap: %r" % hgap)
+    hgap.update(t=t, start_s=start_s)
+    fig["probe_hgap"] = hgap
+    del ops, u
+    torch.cuda.empty_cache()
+    lines.append("(c) probe_hgap on the flagship %d^2x3 after %d accepts "
+                 "(t=%.6g, %.1f s to reach): enorm over h %s: %s; largest h "
+                 "with enorm <= 1: %s; ms/step %s" % (
+                     N_AGG, HGAP_ACCEPTS, t, start_s, list(HGAP_HS),
+                     {k: ["%.3g" % e for e in v]
+                      for k, v in hgap["curves"].items()},
+                     hgap["sustained"],
+                     {k: round(v, 3)
+                      for k, v in hgap["ms_per_step"].items()}))
+    print("phase 37 the mesh's forms, splits and ensembles, probe_hgap "
+          "(%s): %s" % (card, " | ".join(lines)))
     return fig
 
 
@@ -4845,6 +5220,7 @@ def main():
     mesh36 = timed("36", phase_mesh_solver, card, solver30["flagship"],
                    u_flag, cli31)
     del u_flag
+    forms37 = timed("37", phase_mesh_forms, card)
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -4920,7 +5296,13 @@ def main():
     mesh_per_accept = {}
     for key, f in (("mesh_solver_one_rank_nccl", mesh36["one_rank_nccl"]),
                    ("mesh_solver_two_gloo_ranks",
-                    mesh36["two_gloo_ranks"]["flagship"])):
+                    mesh36["two_gloo_ranks"]["flagship"]),
+                   ("mesh_solver_spectral_one_rank_nccl", dict(
+                       accepts=forms37["spectral"]["accepts"],
+                       launches=forms37["spectral"]["b9_launches"])),
+                   ("mesh_solver_fft_one_rank_nccl", dict(
+                       accepts=forms37["fft"]["accepts"],
+                       launches=forms37["fft"]["b9_launches"]))):
         acc = f.get("accepts", f.get("k"))
         mesh_per_accept[key] = {n: c / acc for n, c in f["launches"].items()}
         for n, c in f["launches"].items():
@@ -5003,6 +5385,7 @@ def main():
         "b5_fields": {k: v for k, v in b5_34.items() if k != "fields"},
         "krylov_with_g_flux": krylov35,
         "mesh_solver": mesh36,
+        "mesh_forms": forms37,
     }))
     # the card, and one short line per kernel, where the returned end of
     # the output keeps them

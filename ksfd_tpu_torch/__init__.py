@@ -21,8 +21,10 @@ axis), with the float32 kernels of ops/fused_stencil.py,
 ops/fused_stencil3d.py and ops/fused_pc.py written in CUDA for Hopper
 (csrc/stencil2d.cu, csrc/stencil3d.cu, csrc/pc2d.cu).  The step, the
 multistep, the chunk and the host Solver also run SPMD over
-torch.distributed ranks, one per x-slab (``mesh=``, parallel/), with
-the halo-slab builds of the stencil kernels, and the driver
+torch.distributed ranks, one per box of the grid (``mesh=``,
+parallel/: x splits with the halo-slab builds of the stencil kernels,
+y and z splits and 1D grids on the unfused step), as do the pc forms,
+the flux form, with-G states and ``EnsembleSolver``, and the driver
 (``python -m ksfd_tpu_torch``) runs one such rank per process.
 Importing the
 package sets no global torch state (no default dtype, no default

@@ -30,8 +30,11 @@ Several processes (the mpiexec analog, as the reference's driver):
 
 starts one torch.distributed rank per process (parallel/distributed.py:
 NCCL with one card per rank, gloo with ``KSFD_PLATFORM=cpu``), each
-integrating its x-slab of the grid through the Solver on the slab mesh
-(parallel/mesh.py); only rank 0 prints the monitor lines, and each rank
+integrating its box of the grid through the Solver on the mesh
+(parallel/mesh.py: the split ``mesh_shape_for`` picks, as the
+reference's: an x split where ``nx % (8 nprocs) == 0``, else the most
+balanced one, e.g. (2, 2) for 4 processes on 24x32; a 1D grid splits
+x); only rank 0 prints the monitor lines, and each rank
 writes and resumes its own ``<save>s<N>r<k>.h5`` with its box in
 ``/ranges`` (``python -m ksfd_tpu_torch.tools.tsmerge <save> -o <out>``
 merges them).  ``--ensemble=N`` puts N/nprocs members on each process
@@ -354,7 +357,7 @@ def main(*args):
     """Run the command line ``args`` (``sys.argv`` when none: args[0]
     is the program name); returns the exit status.  Counterpart:
     ksfdsolver.py:main.  Over several processes (module docstring) each
-    rank integrates its slab through ``Solver(mesh=)``; the process
+    rank integrates its box through ``Solver(mesh=)``; the process
     group that main makes it also ends."""
     args = list(args) if args else sys.argv
     owns_group = _init_processes()
@@ -418,11 +421,12 @@ def _main(args):
     nprocs, rank = process_count(), process_index()
     mesh = slab = None
     if nprocs > 1:
-        # one x-slab per rank (ksfdsolver.py:424-448): a resume read
-        # only this rank's slab, whose box (the file's /ranges) must be
-        # the block this run's mesh gives the rank
-        mesh = grid_mesh(grid, shape=(nprocs,) + (1,) * (grid.dim - 1),
-                         device=device)
+        # one box per rank, the split the reference's mesh_shape_for
+        # picks (ksfdsolver.py:371-390, grid_mesh(grid)); grid_mesh
+        # raises where it would leave ranks idle.  A resume read only
+        # this rank's block, whose box (the file's /ranges) must be the
+        # one this run's mesh gives the rank
+        mesh = grid_mesh(grid, device=device)
         slab = process_box(grid, mesh)
         box = extras.get("box")
         if box is not None and tuple(box) != tuple(slab):

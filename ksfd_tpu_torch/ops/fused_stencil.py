@@ -63,7 +63,9 @@ mesh=)``: pad_x :718-735, shardwrap :737-755, padded_src :539).  With a
 centring means are global sums over the ranks over the global point
 count, and the CUDA entries ``ksfd_<name>_halo`` read the halo rows
 where they lie (no padded copy).  Their plain versions pad each operand
-by ``torch.cat`` and crop.  A halo-slab build has no member axis.
+by ``torch.cat`` and crop.  A halo-slab build has no member axis, and
+a mesh that splits y or z runs none (``mesh_kernel_refusal``, the
+reference's ``pallas_mesh_ok``): the step is unfused there.
 """
 
 import ctypes
@@ -81,7 +83,6 @@ from types import SimpleNamespace
 import torch
 
 from ..parallel.mesh import (
-    MESH_TODO,
     SlabMesh,
     all_reduce_sum,
     exchange_halos,
@@ -90,7 +91,7 @@ from .codegen import pointwise_header
 from .stencil import deriv_coeffs
 
 __all__ = ["make_fused_kernels", "kernels_available", "kernel_refusal",
-           "FusedKernel", "build_library"]
+           "mesh_kernel_refusal", "FusedKernel", "build_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc" / "stencil2d.cu"
@@ -389,8 +390,9 @@ class SlabKernel(FusedKernel):
     each operand padded by ``torch.cat`` of lo, the slab and hi, cropped
     to the slab.  No member axis (a batched build is never sharded,
     pallas_stencil.py:526), so a call does not go through the vmap op,
-    and a call under ``torch.func.vmap`` (an ensemble on a slab mesh)
-    raises on either device before its halo exchange.
+    and a call under ``torch.func.vmap`` raises on either device before
+    its halo exchange (an ensemble on a mesh takes the unfused step,
+    solvers/ensemble.py, and never reaches it).
     """
 
     def __init__(self, name, owner, prepare, body, replaces, mesh):
@@ -410,8 +412,9 @@ class SlabKernel(FusedKernel):
 
     def run_batched(self, sc, operands):
         raise NotImplementedError(
-            "a halo-slab build has no member axis (pallas_stencil.py:526); "
-            "ensembles on a mesh are ROADMAP Queue A item 11 (A14)")
+            "a halo-slab build has no member axis (pallas_stencil.py:526, "
+            "as the reference's): EnsembleSolver(mesh=) takes the unfused "
+            "step")
 
     def body(self, sc, operands):
         sw = self._owner.ops.sw
@@ -744,7 +747,7 @@ def kernel_namespace(build, replaces, mesh=None, sharded=None):
                              getattr(b, "plain_" + name), sharded[name], mesh)
             for name in STEP_ENTRIES
         }
-        kind = "halo-slab (B9) over %d x-slabs" % mesh.n_x
+        kind = "halo-slab (B9) over %d x-slabs" % mesh.size
     kernels = {name: made[name] for name in STEP_ENTRIES}
     ops = b.ops
 
@@ -754,7 +757,7 @@ def kernel_namespace(build, replaces, mesh=None, sharded=None):
             if active:
                 src = ops.sources[i](t)
                 if mesh is not None:
-                    src = mesh.rows(src)
+                    src = mesh.local(src)
                 out[i] += src.to(torch.float32)
         return out
 
@@ -763,16 +766,41 @@ def kernel_namespace(build, replaces, mesh=None, sharded=None):
 
 
 def check_mesh(ops, mesh):
-    """Refuse a mesh the port does not run: anything but a SlabMesh of
-    this problem's grid (parallel/mesh.py)."""
+    """Refuse a mesh this problem cannot run on: anything but a
+    parallel/mesh.py SlabMesh (what ``grid_mesh`` makes) of this
+    problem's grid, and a split whose blocks are narrower than the
+    operator's reach (``ops.reach``: the flux form reads ``2*sw`` rows,
+    and a block takes halo rows from its next neighbours only)."""
     if not isinstance(mesh, SlabMesh):
-        raise NotImplementedError(
-            "mesh %r: the port runs parallel.grid_mesh's x-slab mesh; "
-            "other meshes are %s" % (type(mesh).__name__, MESH_TODO))
+        raise TypeError(
+            "mesh %r: the port runs the meshes of parallel.grid_mesh "
+            "(SlabMesh)" % type(mesh).__name__)
     if tuple(int(n) for n in mesh.grid.nps) != tuple(
             int(n) for n in ops.grid.nps):
         raise ValueError("the mesh splits a %s grid, the problem's is %s"
                          % (tuple(mesh.grid.nps), tuple(ops.grid.nps)))
+    reach = int(getattr(ops, "reach", ops.sw))
+    for d in mesh.padded_axes():
+        if mesh.local_shape[d] < reach:
+            raise ValueError(
+                "mesh shape %s: %d rows of axis %s per rank, narrower than "
+                "the stencil reach %d of this problem%s"
+                % (mesh.shape, mesh.local_shape[d], mesh.axis_names[d],
+                   reach, " (the flux form)" if reach > ops.sw else ""))
+
+
+def mesh_kernel_refusal(mesh):
+    """Why the halo-slab kernels cannot run on this mesh, or None.
+    Counterpart: ksfd_tpu/ops/pallas_stencil.py:pallas_mesh_ok, whose
+    kernels run only where the leading spatial axis is the only split
+    one (the TPU's 8-row tiles are not carried over): a y or z split
+    takes the unfused step, as the reference takes its XLA step."""
+    if mesh is None or mesh.x_only:
+        return None
+    return ("a mesh %s that splits %s (the halo-slab kernels split x "
+            "only, pallas_mesh_ok)" % (mesh.shape, "/".join(
+                a for a, s in zip(mesh.axis_names, mesh.shape)
+                if s > 1 and a != "x")))
 
 
 def kernel_refusal(grid, ops):
@@ -832,7 +860,7 @@ def make_fused_kernels(ops, mesh=None):
     """
     if mesh is not None:
         check_mesh(ops, mesh)
-    why = kernel_refusal(ops.grid, ops)
+    why = kernel_refusal(ops.grid, ops) or mesh_kernel_refusal(mesh)
     if why is not None:
         raise ValueError("no fused kernels for %s: the step takes the "
                          "unfused path (kernels_available)" % why)

@@ -24,7 +24,6 @@ import numbers
 import sympy as sy
 import torch
 
-from ..parallel.mesh import MESH_TODO, halo_rows
 from ..utils.device import resolve_device
 from ..utils.exceptions import KSFDException
 from ..utils.symbolic import torchify
@@ -207,32 +206,34 @@ class PDEOperators:
         t = self.ps.t0 if t is None else t
         return self._G_fn(*[u[i] for i in range(self.nligands + 1)], t)
 
-    def _padded(self, u, mesh):
-        """A rank's slab with the ``sw`` halo rows of its neighbours on
-        each side (parallel/mesh.py halo_rows): the roll stencils on it
-        are exact on the slab's own rows, which ``[:, sw:-sw]`` keeps."""
-        lo, hi = halo_rows(u, self.sw, mesh)
-        return torch.cat([lo, u, hi], dim=1)
+    @property
+    def reach(self):
+        """How many rows beyond a point the RHS and its J-action read:
+        ``sw`` for the product-rule rho row (one stencil of pointwise
+        fields), ``2*sw`` for the flux form's ``D1_d(rho D1_d G)`` (two
+        first-derivative stencils along one axis, each of reach ``sw``
+        with nonzero end coefficients).  The stencils are stars: no
+        read leaves the point's own row, column or pillar."""
+        return 2 * self.sw if self.flux_form else self.sw
+
+    def _add_local_sources(self, out, t, mesh):
+        for i, active in enumerate(self._source_active):
+            if active:
+                out[i] += mesh.local(self.sources[i](t)).to(out.dtype)
+        return out
 
     def rhs(self, u, t, groom=True, mesh=None):
         """du/dt of the full system; u: (dof, *Sshape).
 
         With a ``mesh`` (parallel/mesh.py SlabMesh) u is this rank's
-        slab: the product-rule RHS reads only ``sw`` rows beyond it, so
-        it runs on the slab padded by its neighbours' halo rows and is
-        cropped back, and the sources add this rank's rows."""
+        block: the RHS reads ``reach`` rows beyond it, so it runs on the
+        block padded by its neighbours' halo rows along each padded axis
+        (``mesh.pad``) and is cropped back, and the sources add this
+        rank's block."""
         if mesh is not None:
-            if self.flux_form:
-                # its rho row reads 2*sw rows beyond the slab
-                raise NotImplementedError(
-                    "the flux form on a mesh (%s)" % MESH_TODO)
-            sw = self.sw
-            out = self._rhs(self._padded(u, mesh), t, groom, False)
-            out = out[:, sw:-sw].contiguous()
-            for i, active in enumerate(self._source_active):
-                if active:
-                    out[i] += mesh.rows(self.sources[i](t)).to(out.dtype)
-            return out
+            r = self.reach
+            out = mesh.crop(self._rhs(mesh.pad(u, r), t, groom, False), r)
+            return self._add_local_sources(out.contiguous(), t, mesh)
         return self._rhs(u, t, groom, True)
 
     def _rhs(self, u, t, groom, sources):
@@ -288,14 +289,17 @@ class PDEOperators:
         """Worm velocity grad(G) of the groomed state: shape
         (dim, *Sshape).  Counterpart: ksfd_tpu/ops/operators.py:velocity
         (the adaptive chunk's CFL clamp reads it).  With a ``mesh`` u is
-        this rank's slab, padded by its neighbours' halo rows and the
-        result cropped to the slab, as ``rhs``."""
+        this rank's block, padded by its neighbours' ``sw`` halo rows and
+        the result cropped to the block, as ``rhs``."""
         t = self.ps.t0 if t is None else t
         if mesh is not None:
             sw = self.sw
-            return self.velocity(self._padded(u, mesh), t)[:, sw:-sw]
-        u = self.groom(u)
-        G = self.G(u, t)
+            return mesh.crop(self._velocity(mesh.pad(u, sw), t), sw)
+        return self._velocity(u, t)
+
+    def _velocity(self, u, t):
+        u = PDEOperators.groom(self, u)
+        G = PDEOperators.G(self, u, t)
         return torch.stack(grad_apply(G, self.spacing, self.sw), dim=0)
 
     def jacobian_action(self, u, t, v, groom=True):
@@ -331,28 +335,21 @@ class PDEOperators:
         float32 W needs only the J-action).
 
         With a ``mesh`` (parallel/mesh.py SlabMesh) u is this rank's
-        slab: it is padded once here with its neighbours' ``sw`` halo
-        rows, each v in every apply, and the rows of the slab are cut
-        back, as ``rhs(mesh=)`` does (one stencil of pointwise fields
-        reads at most ``sw`` rows beyond the slab); the sources add this
-        rank's rows.  The unfused step and the float64 GMRES W apply on
-        a mesh use it, where the reference linearizes its sharded array
-        with ``jax.linearize``."""
+        block: it is padded once here with its neighbours' ``reach``
+        halo rows (``mesh.pad``), each v in every apply, and the block's
+        own points are cut back, as ``rhs(mesh=)`` does; the sources add
+        this rank's block.  The unfused step and the float64 GMRES W
+        apply on a mesh use it, where the reference linearizes its
+        sharded array with ``jax.linearize``."""
         if mesh is not None:
-            if self.flux_form:
-                raise NotImplementedError(
-                    "the flux form on a mesh (%s)" % MESH_TODO)
-            sw = self.sw
-            f0, jvp_pad = self._linearize(self._padded(u, mesh), t, primal,
-                                          False)
+            r = self.reach
+            f0, jvp_pad = self._linearize(mesh.pad(u, r), t, primal, False)
             if f0 is not None:
-                f0 = f0[:, sw:-sw].contiguous()
-                for i, active in enumerate(self._source_active):
-                    if active:
-                        f0[i] += mesh.rows(self.sources[i](t)).to(f0.dtype)
+                f0 = self._add_local_sources(mesh.crop(f0, r).contiguous(),
+                                             t, mesh)
 
             def jvp_slab(v):
-                return jvp_pad(self._padded(v, mesh))[:, sw:-sw]
+                return mesh.crop(jvp_pad(mesh.pad(v, r)), r)
 
             return f0, jvp_slab
         return self._linearize(u, t, primal, True)

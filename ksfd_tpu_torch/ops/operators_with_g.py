@@ -13,7 +13,9 @@ The fused kernels refuse a with-G state (ops/fused_stencil.py
 kernel_refusal), so its steps are unfused, as the reference's are XLA
 (ksfd_tpu/ops/pallas_stencil.py:324-330); the block pc applies a
 shift-only inverse to the G field (solvers/linalg.py, ``nextra``) and
-``pc_pallas`` takes that basis-GEMM pc.
+``pc_pallas`` takes that basis-GEMM pc.  On a mesh each rank holds its
+block of every field, G included: ``refresh_G`` is pointwise (the
+groomed fields and G at each point), so it needs no halo rows.
 """
 
 import torch

@@ -1,9 +1,10 @@
-"""Multi-process execution: one rank per x-slab.
+"""Multi-process execution: one rank per box of the grid.
 
 Counterpart: ksfd_tpu/parallel/distributed.py.  The reference starts
 one JAX process per host from ``KSFD_COORDINATOR``, ``KSFD_NUM_PROCS``
 and ``KSFD_PROC_ID`` and joins every device into one global mesh.  The
-port starts one torch.distributed rank per slab from the same
+port starts one torch.distributed rank per box (an x-slab, or a
+block of an x, y[, z] split) from the same
 variables (the mpiexec analog):
 
     KSFD_COORDINATOR=localhost:29500 KSFD_NUM_PROCS=2 KSFD_PROC_ID=$i \\
@@ -94,9 +95,12 @@ def process_index():
 
 def process_box(grid, mesh):
     """The spatial block ``((lo, hi), ...)`` of the global state that
-    this rank's slab holds.  Counterpart:
-    ksfd_tpu/parallel/distributed.py:process_box."""
-    return ((mesh.x0, mesh.x1),) + tuple((0, int(n)) for n in grid.nps[1:])
+    this rank holds, split in any axis (parallel/mesh.py SlabMesh.box).
+    Counterpart: ksfd_tpu/parallel/distributed.py:process_box."""
+    if tuple(int(n) for n in grid.nps) != mesh.nps:
+        raise KSFDException("the mesh splits a %s grid, not %s"
+                            % (mesh.nps, tuple(int(n) for n in grid.nps)))
+    return mesh.box
 
 
 def owned_box(u_loc, mesh):

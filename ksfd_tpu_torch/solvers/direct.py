@@ -60,7 +60,7 @@ def place_like(u_np, like, mesh=None):
     u = u_np if isinstance(u_np, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(u_np))
     if mesh is not None:
-        u = mesh.rows(u, axis=1).contiguous()
+        u = mesh.local(u, first=1).contiguous()
     if isinstance(like, torch.Tensor):
         return u.to(device=like.device, dtype=like.dtype)
     return u

@@ -74,9 +74,20 @@ nothing on the host.
 Members go on ranks, not on devices: ``--ensemble`` over several
 processes (ksfdsolver.py run_ensemble) gives each process a contiguous
 slab of members, and ``shard_members`` places a process's members on
-its one device.  Still raising NotImplementedError naming its ROADMAP
-item: an ensemble on a slab mesh (the halo-slab kernels have no member
-axis; Queue A item 11, A14).
+its one device.
+
+**On a mesh** (``mesh=``, parallel/mesh.py: each member split over the
+ranks' boxes, ``U`` this rank's ``(n_members, dof, *block)``) the
+ensemble runs the reference's "xla" flavour (ksfd_tpu/solvers/
+ensemble.py:210-290: ``use_pallas=False``, the unfused step, no
+kernel; the reference has no batched mesh-sharded kernel either,
+pallas_stencil.py:524-526): the same vmapped steps, whose halo pads,
+reductions and gathers run as the mesh's custom ops with ONE collective
+for all members (parallel/mesh.py).  Every decision comes from
+all-reduced values (each member's error norm, CFL bound, means and
+conserved mass), so every rank takes the same one; the noise is drawn
+at the global shape and each rank keeps its block, per step and in the
+device loop.
 ``pc_pallas`` where the reference's gate falls back (a 1D or 3D problem,
 float64 transforms, a with-G state) takes the basis-GEMM pc
 (``build_info``).
@@ -90,6 +101,8 @@ import torch
 from torch.func import vmap
 
 from ..ops.fused_pc import make_fused_block_pc
+from ..ops.fused_stencil import check_mesh
+from ..parallel.mesh import all_reduce_max, all_reduce_sum
 from ..utils.cli import NumericsOptions
 from ..utils.debug import logger
 from ..utils.exceptions import KSFDException
@@ -161,6 +174,7 @@ class EnsembleSolver:
         block_steps=1,
         member_offset=0,
         kernels=None,
+        mesh=None,
     ):
         """As the reference's constructor.  ``rng_key`` is the noise
         seed, an integer (None: 0), where the reference takes a
@@ -170,10 +184,18 @@ class EnsembleSolver:
         solver's first member, which seeds its noise generators.
         kernels: a ``make_fused_kernels(ops)`` namespace to share (its
         launch counters then count the ensemble's launches; unused
-        where the step is unfused)."""
+        where the step is unfused).  mesh: a parallel/mesh.py SlabMesh;
+        each member is then split over its ranks and the steps are
+        unfused (module docstring)."""
         self.ops = ops
         self.ps = ops.ps
         self.numerics = numerics or NumericsOptions()
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(ops, mesh)
+            # the reference's "xla" flavour on a sharded state
+            self.numerics = dataclasses.replace(self.numerics,
+                                                use_pallas=False)
         self.t0 = float(t0)
         self.dt0 = float(dt)
         self.tmax = float(tmax)
@@ -205,7 +227,8 @@ class EnsembleSolver:
                           else None)
         self._vmax_fn = vmap(
             lambda u, t: torch.stack(
-                [torch.max(torch.abs(v)) for v in ops.velocity(u, t)]
+                [torch.max(torch.abs(v))
+                 for v in ops.velocity(u, t, mesh=mesh)]
             )
         )
         # per-member state, filled by solve()
@@ -271,13 +294,14 @@ class EnsembleSolver:
         with ``pc_pallas``, one shared fused pc (``self.fused_pc``, whose
         launch counters then count the ensemble's pc launches)."""
         nm = self.numerics
-        kern = step_kernels(self.ops, nm, kernels=self.kernels)
+        mesh = self.mesh
+        kern = step_kernels(self.ops, nm, mesh, kernels=self.kernels)
         self.kernels = kern
         self.fused_pc = (make_fused_block_pc(self.ops.grid, self.ops)
                          if nm.pc_pallas and _pc_pallas_fallback(
-                             nm, self.ops) is None else None)
+                             nm, self.ops, mesh) is None else None)
         kw = dict(atol=self.atol, rtol=self.rtol, kernels=kern,
-                  fused_pc=self.fused_pc)
+                  fused_pc=self.fused_pc, mesh=mesh)
         step, _ = make_step_fn(self.ops, nm, **kw)
         self.build_info = step.build_info
         self._vstep = vmap(step)
@@ -306,13 +330,13 @@ class EnsembleSolver:
         of each attempt, attempts and accepts per member), ``totals``
         the run's sums (``reads``: attempts, one host read each;
         ``occupied``: tier-step calls)."""
-        ops = self.ops
+        ops, mesh = self.ops, self.mesh
         tb = build_chunk_tiers(ops, self.numerics, **kw)
-        cfl = make_cfl_maxh(ops, chunk_cfl_safety(self.ps))
+        cfl = make_cfl_maxh(ops, chunk_cfl_safety(self.ps), mesh)
         return SimpleNamespace(
             tiers=tb.tiers, chain=tb.chain,
             steps=[vmap(step) for step in tb.steps],
-            rhs0=vmap(lambda u, t: ops.rhs(ops.groom(u), t)),
+            rhs0=vmap(lambda u, t: ops.rhs(ops.groom(u), t, mesh=mesh)),
             cfl=None if cfl is None else vmap(cfl),
             expo=tb.expo, max_attempts=128, max_rejects=24,
             last=None, totals=SimpleNamespace(
@@ -336,6 +360,7 @@ class EnsembleSolver:
             self._fallback, _ = make_step_fn(
                 self.ops, nm, atol=self.atol, rtol=self.rtol,
                 kernels=self.kernels, fused_pc=self.fused_pc,
+                mesh=self.mesh,
             )
         return self._fallback
 
@@ -345,6 +370,12 @@ class EnsembleSolver:
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=self.ops.device)
 
+    def _sum(self, x, dim=None):
+        """torch.sum, over the mesh's ranks on a mesh."""
+        total = torch.sum(x) if dim is None else torch.sum(x, dim=dim)
+        return total if self.mesh is None else all_reduce_sum(total,
+                                                              self.mesh)
+
     def _select(self, mask, a, b):
         """Per member: a where mask, else b (mask a numpy bool vector)."""
         sel = self._dev(mask, torch.bool).reshape(
@@ -352,8 +383,12 @@ class EnsembleSolver:
         return torch.where(sel, a, b)
 
     def _cfl_maxh(self, U, ts):
-        """Per-member max stable h (Solver.CFL_step vectorized)."""
-        vmaxs = self._vmax_fn(U, self._dev(ts)).cpu().numpy()
+        """Per-member max stable h (Solver.CFL_step vectorized; on a
+        mesh the maxima over the ranks)."""
+        vmaxs = self._vmax_fn(U, self._dev(ts))
+        if self.mesh is not None:
+            vmaxs = all_reduce_max(vmaxs, self.mesh)
+        vmaxs = vmaxs.cpu().numpy()
         sw = self.ops.grid.stencil_width
         sp = np.asarray(self.ops.grid.spacing, dtype=float)
         with np.errstate(divide="ignore"):
@@ -395,12 +430,17 @@ class EnsembleSolver:
         if not inject.any():
             return U, lastvart
         U = U.clone()
+        mesh = self.mesh
+        shape = U.shape[2:] if mesh is None else self.ops.grid.Sshape
         for i in np.nonzero(inject)[0]:
-            stn = torch.randn(U.shape[2:], generator=self._gens[i],
+            # on a mesh the draw at the global shape, this rank's block
+            stn = torch.randn(shape, generator=self._gens[i],
                               dtype=U.dtype, device=U.device)
+            if mesh is not None:
+                stn = mesh.local(stn)
             rho = U[i, 0] * torch.exp(sds[i] * stn)
             if conserve:
-                rho = rho * (float(Nw0[i]) / torch.sum(rho))
+                rho = rho * (float(Nw0[i]) / self._sum(rho))
             U[i, 0] = rho
         lastvart = np.where(inject, ts, lastvart)
         return U, lastvart
@@ -614,7 +654,7 @@ class EnsembleSolver:
         lastvart = np.full(N, self.t0)
         conserve = self.ps.params0["conserve_worms"]
         conserve = False if conserve == "False" else bool(conserve)
-        Nw0 = torch.sum(U[:, 0].reshape(N, -1), dim=1).cpu().numpy()
+        Nw0 = self._sum(U[:, 0].reshape(N, -1), dim=1).cpu().numpy()
         hs = self._cfl_clamp(U, ts, hs, np.ones(N, dtype=bool))
         self.u = U
         self.ks, self.ts, self.hs = ks, ts, hs

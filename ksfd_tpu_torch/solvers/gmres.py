@@ -16,8 +16,8 @@ ported).  ``gmres_solve`` is the tolerance-based restarted GMRES of the
 robust fallback step (``ksp_type="gmres_scipy"``); its convergence test
 reads one scalar per restart on the host.
 
-On a slab mesh (``mesh=``, parallel/mesh.py) every GMRES solver takes
-this rank's slab of b and of the operator's vectors, and each inner
+On a mesh (``mesh=``, parallel/mesh.py) every GMRES solver takes
+this rank's block of b and of the operator's vectors, and each inner
 product and norm is summed over the ranks (one ``all_reduce_sum`` per
 Gram-Schmidt pass and per norm), so every rank holds the same Krylov
 coefficients and takes the same breakdown and convergence decisions;
@@ -344,7 +344,7 @@ def gmres_solve(op, b, M=None, tol=1e-8, restart=20, maxiter=50, x0=None,
         M = lambda v: v  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
     restart = min(int(restart),
-                  b.numel() * (1 if mesh is None else mesh.n_x))
+                  b.numel() * (1 if mesh is None else mesh.size))
     atol = tol * _norm(b, mesh)
     unit, rnorm, raw = _safe_normalize(M(b - op(x)), raw=True, mesh=mesh)
     for _ in range(int(maxiter)):

@@ -34,14 +34,16 @@ in full float32: the caller keeps
 ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default;
 chip_smoke.py sets and records it).
 
-On a slab mesh (parallel/mesh.py) the apply is
-``make_sharded_block_apply``, the counterpart of linalg.py:295, on the
-same products (``forward_products``, ``inverse_products``) with this
-rank's rows of Qx: the partial mode coefficients are cast to the
-transform dtype and summed over the ranks in ONE all_reduce per apply,
-the arrow solve runs replicated, and the inverse products give only
-the local rows.  The FFT form is single-card only, as the reference's
-is (an FFT along the split axis would gather).
+On a mesh (parallel/mesh.py) the apply of the block and of the
+spectral pc is ``make_sharded_apply``, the counterpart of
+linalg.py:295, on the same products (``forward_products``,
+``inverse_products``) with this rank's rows of each split axis's basis:
+the partial mode coefficients are cast to the transform dtype and
+summed over the ranks in ONE all_reduce per apply, the per-mode solve
+runs replicated, and the inverse products give only the local block.
+The FFT form gathers the state there, as XLA gathers for the
+reference's (an FFT along a split axis); a transpose-based distributed
+FFT is later speed work (ROADMAP).
 """
 
 import torch
@@ -52,8 +54,7 @@ from ..parallel.mesh import all_reduce_sum
 from ..utils.device import resolve_device
 
 __all__ = ["SpectralPreconditioner", "BlockSpectralPreconditioner",
-           "make_sharded_block_apply", "forward_products",
-           "inverse_products"]
+           "make_sharded_apply", "forward_products", "inverse_products"]
 
 _DTYPES = {
     None: torch.float32,
@@ -66,14 +67,14 @@ _DTYPES = {
 }
 
 
-def forward_products(v, qx, qy=None, qz=None, slab=False, nx=None):
+def forward_products(v, qx, qy=None, qz=None, slab=False):
     """The forward basis transform of ``v`` (dof, nx, ...) against the
     per-axis bases: ``v qx`` in 1D, ``(qx^T v) qy`` in 2D, and in 3D the
     last axis first (``v qz``, then ``qy^T``, then ``qx^T``).  With
-    ``slab`` v holds a rank's x rows and ``qx`` (rows, nx) its rows of
-    the x basis: the x contraction comes last (in 2D ``qx^T (v qy)``),
-    and ``nx`` is the global extent.  The products run in the operands'
-    dtype, so bfloat16 operands give bfloat16 intermediates and
+    ``slab`` v holds a rank's block and each basis (rows, n) its rows of
+    that axis's basis (all of them on an unsplit axis): the x
+    contraction comes last (in 2D ``qx^T (v qy)``).  The products run
+    in the operands' dtype, so bfloat16 operands give bfloat16 intermediates and
     coefficients."""
     if qy is None:
         return torch.matmul(v, qx)
@@ -82,19 +83,20 @@ def forward_products(v, qx, qy=None, qz=None, slab=False, nx=None):
             return torch.matmul(qx.T, torch.matmul(v, qy))
         return torch.matmul(torch.matmul(qx.T, v), qy)
     f, rows = v.shape[0], v.shape[1]
-    nx = qx.shape[1] if nx is None else nx
     c = torch.matmul(v, qz)                                   # m -> n
     c = torch.matmul(qy.T, c)                                 # j -> l
+    rest = tuple(c.shape[2:])
     c = torch.matmul(qx.T, c.reshape(f, rows, -1))            # i -> k
-    return c.reshape((f, nx) + tuple(v.shape[2:]))
+    return c.reshape((f, qx.shape[1]) + rest)
 
 
 def inverse_products(c, qx, qy=None, qz=None, slab=False):
     """The inverse basis transform of the mode coefficients ``c`` (dof,
     nx, ...): ``c qx^T`` in 1D, ``(qx c) qy^T`` in 2D, and in 3D the last
     axis first (``qz^T``, then ``qy``, then ``qx``), in the operands'
-    dtype.  With ``slab`` ``qx`` (rows, nx) holds a rank's rows of the x
-    basis and the x product comes first, giving only those rows."""
+    dtype.  With ``slab`` each basis (rows, n) holds a rank's rows of
+    its axis's basis and the x product comes first, giving only the
+    rank's block."""
     if qy is None:
         return torch.matmul(c, qx.T)
     if qz is None:
@@ -205,20 +207,25 @@ class SpectralPreconditioner(nn.Module):
             c.to(td).to(cd),
             *(getattr(self, name + sfx) for name in self._bases))
 
-    def apply(self, v, shift, diff, decay):
-        """v: (dof, *Sshape); diff/decay: per-field scalars."""
+    def _denom(self, c, shift, diff, decay):
+        """``shift + decay_f - diff_f lam`` per field and mode, in the
+        compute dtype on c's device."""
         cd = self.compute_dtype
-        c = self._forward(v.to(cd))
-        dev = v.device
+        dev = c.device
         per_field = (-1,) + (1,) * self.dim
         diff = torch.stack([torch.as_tensor(d, dtype=cd, device=dev) for d in diff])
         decay = torch.stack([torch.as_tensor(d, dtype=cd, device=dev) for d in decay])
-        denom = (
+        return (
             torch.as_tensor(shift, dtype=cd, device=dev)
             + decay.reshape(per_field)
             - diff.reshape(per_field) * self.lam_cd
         )
-        return self._inverse(c / denom).to(v.dtype)
+
+    def apply(self, v, shift, diff, decay):
+        """v: (dof, *Sshape); diff/decay: per-field scalars."""
+        c = self._forward(v.to(self.compute_dtype))
+        return self._inverse(c / self._denom(c, shift, diff, decay)).to(
+            v.dtype)
 
 
 class BlockSpectralPreconditioner(SpectralPreconditioner):
@@ -295,42 +302,65 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
         return self._inverse(outs).to(v.dtype)
 
 
-def make_sharded_block_apply(precond, ops, mesh):
-    """The block pc's apply on a slab mesh, ONE all_reduce per apply:
-    ``apply(v, shift, t, means, rho_diff)`` with v this rank's slab.
+def make_sharded_apply(precond, ops, mesh):
+    """The pc's apply on a mesh, ONE all_reduce per apply: for a
+    ``BlockSpectralPreconditioner`` ``apply(v, shift, t, means,
+    rho_diff)``, for a ``SpectralPreconditioner`` ``apply(v, shift,
+    diff, decay)``, with v this rank's block (its single-card
+    ``apply_linearized`` and ``apply`` on the global state).
 
-    Counterpart: ksfd_tpu/solvers/linalg.py:make_sharded_block_apply.
-    The forward products (``forward_products``) contract only the local
-    x rows against this rank's rows of Qx (the local y (and z) products
-    first, so each rank's work is its share); the partial mode
-    coefficients are cast to the transform dtype (bfloat16 on the wire
-    under ``pc_dtype`` bfloat16) and summed over the ranks; the arrow
-    solve runs replicated in the compute dtype; the inverse products
-    (``inverse_products``) give only the local rows, in the compute
-    dtype from the transform-dtype coefficients and bases, as the
-    single-card apply's, with no further collective.  The FFT form
-    raises: it is single-card only (the reference's sharded apply also
-    excludes it).
+    Counterpart: ksfd_tpu/solvers/linalg.py:make_sharded_block_apply
+    (and, for the spectral pc, the partitioned einsums XLA makes of its
+    apply on a sharded state).  The forward products
+    (``forward_products``) contract each axis's local rows against this
+    rank's rows of that axis's basis (the whole basis on an unsplit
+    axis; the x contraction last, so each rank's work is its share);
+    the partial mode coefficients are cast to the transform dtype
+    (bfloat16 on the wire under ``pc_dtype`` bfloat16) and summed over
+    the ranks; the per-mode solve (the block pc's arrow solve, the
+    spectral pc's divide) runs replicated in the compute dtype; the
+    inverse products (``inverse_products``) give only the local block,
+    in the compute dtype from the transform-dtype coefficients and
+    bases, as the single-card apply's, with no further collective.
+
+    The FFT form (``use_fft``) gathers the global state, applies the
+    single-card float32 FFT pc and keeps the rank's block, as XLA does
+    for the reference (ksfd_tpu/solvers/linalg.py:86-89: an FFT along a
+    split axis gathers); it has no sum to round, so ``pc_dtype`` does
+    not reach it.
     """
+    block = isinstance(precond, BlockSpectralPreconditioner)
     if precond.use_fft:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP): the FFT pc on a mesh (the "
-            "reference's is single-shard too), Queue A item 11 (A14)")
-    td, cd = precond.transform_dtype, precond.compute_dtype
-    rest = precond._bases[1:]
-    qx = mesh.rows(precond.Qx).contiguous()        # (nx_loc, nx), td
-    fwd = [getattr(precond, name) for name in rest]
-    # the inverse's operands: the td-rounded bases in cd (exact)
-    qx_i = qx.to(cd)
-    inv = [getattr(precond, name).to(cd) for name in rest]
+        def apply_fft(v, *args):
+            full = mesh.gather(v)
+            out = (precond.apply_linearized(full, args[0], *args[1:3],
+                                            rho_diff=args[3]) if block
+                   else precond.apply(full, *args))
+            return mesh.local(out, first=1).contiguous()
 
-    def apply(v, shift, t, means, rho_diff):
-        c = forward_products(v.to(td), qx, *fwd, slab=True, nx=mesh.nx)
+        return apply_fft
+    td, cd = precond.transform_dtype, precond.compute_dtype
+    # each axis's rows of this rank (the whole basis on an unsplit axis)
+    fwd = [mesh.axis_rows(getattr(precond, name), d).contiguous()
+           for d, name in enumerate(precond._bases)]
+    # the inverse's operands: the td-rounded bases in cd (exact)
+    inv = [q.to(cd) for q in fwd]
+
+    def transform(v, solve):
+        c = forward_products(v.to(td), *fwd, slab=True)
         # THE collective: the partial coefficients, in the transform dtype
         c = all_reduce_sum(c.to(td), mesh)
-        outs = precond._arrow_solve(c.to(cd), shift, t, means, rho_diff,
-                                    nextra=v.shape[0] - precond.nfields)
-        return inverse_products(outs.to(td).to(cd), qx_i, *inv,
+        return inverse_products(solve(c.to(cd)).to(td).to(cd), *inv,
                                 slab=True).to(v.dtype)
+
+    if block:
+        def apply(v, shift, t, means, rho_diff):
+            return transform(v, lambda c: precond._arrow_solve(
+                c, shift, t, means, rho_diff,
+                nextra=v.shape[0] - precond.nfields))
+    else:
+        def apply(v, shift, diff, decay):
+            return transform(v, lambda c: c / precond._denom(
+                c, shift, diff, decay))
 
     return apply

@@ -100,14 +100,18 @@ make_adaptive_chunk_fn).
 ``EnsembleSolver`` vmaps these steps unchanged (``torch.func.vmap``):
 each fused kernel call launches its member-batched build once.
 
-**On a slab mesh** (``mesh=``, parallel/mesh.py) the step, the
-multistep, the chunk and the Solver run SPMD, one torch.distributed
-rank per x-slab, each on its local slab: the halo-slab kernels (B9),
-the sharded basis-GEMM pc (one all_reduce per apply, bfloat16 by default
-on more than one rank), global means, pc statistics and error norms;
-the GMRES steps with their inner products summed over the ranks, the
-unfused step on the slab's RHS linearized with its halo rows, and the
-exact tiers as the reference's replicated host solve.
+**On a mesh** (``mesh=``, parallel/mesh.py) the step, the multistep,
+the chunk and the Solver run SPMD, one torch.distributed rank per box
+of the grid, each on its local block: on an x split the halo-slab
+kernels (B9), on a y or z split and on a 1D grid the unfused step (the
+reference's ``pallas_mesh_ok`` sends those to XLA); the sharded
+block or spectral basis-GEMM pc (one all_reduce per apply, bfloat16 by
+default on more than one rank), or the FFT pc on the gathered state;
+global means, pc statistics and error norms; the GMRES steps with their
+inner products summed over the ranks, the unfused step on the block's
+RHS linearized with its halo rows (``ops.reach`` rows: ``2*sw`` in the
+flux form), and the exact tiers as the reference's replicated host
+solve.  With-G states refresh their pointwise G slot on the block.
 
 **The exact tiers** (solver.py:200-254, :1297-1328): ``ksp_type``
 dense or direct LU-factors W = shift*I - J once per step, J the RHS's
@@ -147,10 +151,10 @@ pc's shift-only inverse on the trailing G field, and ``pc_pallas``
 falls back to the basis-GEMM pc there, as the reference's gate does;
 the Solver refreshes the G slot after every accepted step.
 
-Everything else raises NotImplementedError naming its ROADMAP item:
-on a mesh the FFT, spectral and no pc, the flux form, with-G states,
-members (the halo-slab kernels have no member axis), y splits and other
-meshes (Queue A item 11, A14).
+What the reference refuses raises here too: a mesh that leaves ranks
+idle or splits blocks thinner than the stencil's reach (ValueError),
+and a halo-slab kernel under vmap (an ensemble on a mesh takes the
+unfused step, solvers/ensemble.py).
 """
 
 import dataclasses
@@ -168,8 +172,13 @@ from ..ops.fused_pc import (
     pack_pc_scalars,
     reference_fuses,
 )
-from ..ops.fused_stencil import check_mesh, kernel_refusal, make_fused_kernels
-from ..parallel.mesh import MESH_TODO, all_reduce_max, all_reduce_sum
+from ..ops.fused_stencil import (
+    check_mesh,
+    kernel_refusal,
+    make_fused_kernels,
+    mesh_kernel_refusal,
+)
+from ..parallel.mesh import all_reduce_max, all_reduce_sum
 from .direct import replicated_step
 from .gmres import (
     chebyshev_solve,
@@ -184,7 +193,7 @@ from .gmres import (
 from .linalg import (
     BlockSpectralPreconditioner,
     SpectralPreconditioner,
-    make_sharded_block_apply,
+    make_sharded_apply,
 )
 from .steppers import DIRKTableau, get_tableau, wlte_norm_delta
 
@@ -233,7 +242,7 @@ def _pc_dtype(numerics, mesh=None):
     and to float32 otherwise; an explicit pc_dtype wins."""
     if numerics.pc_dtype != "auto":
         return numerics.pc_dtype
-    return "bfloat16" if mesh is not None and mesh.n_x > 1 else "float32"
+    return "bfloat16" if mesh is not None and mesh.size > 1 else "float32"
 
 
 def _pc_fft(numerics, ops, mesh=None):
@@ -266,47 +275,39 @@ def _check_numerics(numerics, ops, mesh=None):
     if numerics.pc_type not in ("block", "spectral", "none"):
         todo.append("pc_type %r (the reference has block, spectral and "
                     "none)" % numerics.pc_type)
-    elif (mesh is not None and numerics.pc_type != "block"
-          and numerics.ksp_type not in EXACT_KSP):
-        todo.append("pc_type %s on a mesh (the sharded apply is the block "
-                    "pc's: %s)" % (numerics.pc_type, MESH_TODO))
     if numerics.precision not in ("float64", "f64", "float32", "f32"):
         todo.append("precision %r (the reference has only float64 and "
                     "float32)" % numerics.precision)
-    if mesh is not None and numerics.pc_fft == "on":
-        todo.append("pc_fft on on a mesh (the FFT pc is single-card, as "
-                    "the reference's: %s)" % MESH_TODO)
     if numerics.pc_dtype not in ("auto", "float32", "f32", "float64", "f64",
                                  "bfloat16", "bf16"):
         todo.append("pc_dtype %r (the reference has float32, float64 and "
                     "bfloat16)" % numerics.pc_dtype)
-    if mesh is not None and ops.flux_form:
-        todo.append("the flux form on a mesh (%s)" % MESH_TODO)
-    if mesh is not None and ops.grid.dof != ops.nligands + 1:
-        todo.append("with-G states on a mesh (%s)" % MESH_TODO)
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP): " + "; ".join(todo)
         )
 
 
-def _step_refusal(numerics, ops):
+def _step_refusal(numerics, ops, mesh=None):
     """Why steps of these numerics launch no fused kernel, or None:
     ``use_pallas=False``, or the gate's refusal (ops/fused_stencil.py
-    kernel_refusal), as the reference asks ``pallas_available``
+    kernel_refusal, and on a mesh mesh_kernel_refusal: a y or z split),
+    as the reference asks ``pallas_available`` and ``pallas_mesh_ok``
     (solver.py:296-330)."""
     if not numerics.use_pallas:
         return "use_pallas=False"
     if numerics.ksp_type in EXACT_KSP:
         return "ksp_type=%s (an exact tier)" % numerics.ksp_type
-    return kernel_refusal(ops.grid, ops)
+    return kernel_refusal(ops.grid, ops) or mesh_kernel_refusal(mesh)
 
 
 def step_kernels(ops, numerics=None, mesh=None, kernels=None):
     """The ``make_fused_kernels`` namespace that steps of these numerics
     launch (``kernels`` when given), or None where they take the
     unfused step (_step_refusal)."""
-    if _step_refusal(numerics or NumericsOptions(), ops) is not None:
+    if mesh is not None:
+        check_mesh(ops, mesh)
+    if _step_refusal(numerics or NumericsOptions(), ops, mesh) is not None:
         return None
     return kernels if kernels is not None else make_fused_kernels(
         ops, mesh=mesh)
@@ -444,20 +445,21 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     the fused pc runs here.
 
     mesh: a parallel/mesh.py SlabMesh.  The step then runs SPMD, one
-    rank per x-slab: u is this rank's local slab on ``mesh.device`` (as
-    ``ops.device``), the fused kernels are their halo-slab builds (B9),
-    the pc is ``make_sharded_block_apply`` (``pc_dtype`` auto: bfloat16
-    on more than one rank; ``pc_pallas`` takes it too, the reference's
-    fused pc being single-shard), and the means, the pc statistics, the
-    Chebyshev interval and enorm are global over the ranks, so every
-    rank returns the same enorm.  The GMRES steps reduce their inner
-    products over the ranks (solvers/gmres.py), the unfused step and the
-    float64 GMRES W apply linearize the slab with its halo rows
-    (``ops.linearize(mesh=)``), and the exact tiers are the reference's
-    replicated host solve: every rank gathers the global state, runs the
-    one-card exact step on it and keeps its rows
-    (solvers/direct.py replicated_step).  The spectral and no pc, the FFT
-    pc, the flux form and with-G states raise on a mesh.
+    rank per box: u is this rank's local block on ``mesh.device`` (as
+    ``ops.device``); on an x split the fused kernels are their
+    halo-slab builds (B9), on a y or z split the step is unfused
+    (``mesh_kernel_refusal``); the pc is ``make_sharded_apply`` (the
+    block or spectral basis form, ``pc_dtype`` auto: bfloat16 on more
+    than one rank; ``pc_pallas`` takes it too, the reference's fused pc
+    being single-shard; the FFT form on the gathered state), and the
+    means, the pc statistics, the Chebyshev interval and enorm are
+    global over the ranks, so every rank returns the same enorm.  The
+    GMRES steps reduce their inner products over the ranks
+    (solvers/gmres.py), the unfused step and the float64 GMRES W apply
+    linearize the block with its halo rows (``ops.linearize(mesh=)``),
+    and the exact tiers are the reference's replicated host solve:
+    every rank gathers the global state, runs the one-card exact step on
+    it and keeps its block (solvers/direct.py replicated_step).
 
     The step (or the chain namespace) carries ``build_info``: which
     kernel build, pc and pc dtype run, the mesh shape, the path
@@ -506,11 +508,9 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                          "%r" % (kern.mesh, mesh))
     pc_fused = pc_sharded = None
     pc_fallback = _pc_pallas_fallback(numerics, ops, mesh)
-    if not block_pc:
-        pass
-    elif mesh is not None:
-        pc_sharded = make_sharded_block_apply(precond, ops, mesh)
-    elif numerics.pc_pallas and pc_fallback is None:
+    if mesh is not None and precond is not None:
+        pc_sharded = make_sharded_apply(precond, ops, mesh)
+    elif block_pc and numerics.pc_pallas and pc_fallback is None:
         pc_fused = (fused_pc if fused_pc is not None
                     else make_fused_block_pc(ops.grid, ops))
     iters = numerics.ksp_iters
@@ -548,9 +548,11 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
                 if use_cheb and precond is not None else None)
     build_info = dict(
         kernels=None if kern is None else kern.kind,
-        kernel_refusal=_step_refusal(numerics, ops), pc_dtype=pc_dtype,
-        pc=("sharded basis-GEMM, one all_reduce per apply" if pc_sharded
-            else "fused (B5a, B5b)" if pc_fused
+        kernel_refusal=_step_refusal(numerics, ops, mesh), pc_dtype=pc_dtype,
+        pc=(("sharded " + ("" if block_pc else "spectral ")
+             + ("FFT, gathered" if use_fft
+                else "basis-GEMM, one all_reduce per apply"))
+            if pc_sharded else "fused (B5a, B5b)" if pc_fused
             else None if precond is None
             else ("" if block_pc else "spectral ")
             + ("FFT" if use_fft else "basis-GEMM")),
@@ -564,7 +566,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
     def source(isrc, t):
         """Source ``isrc`` at t on this rank's rows."""
         src = ops.sources[isrc](t)
-        return src if mesh is None else mesh.rows(src)
+        return src if mesh is None else mesh.local(src)
 
     def rhs(x, t):
         """The float64 (or, on a float32 x, float32) RHS."""
@@ -622,7 +624,7 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         cheb_ab = _cheb_interval(numerics, shift, rho_dmin, rho_diff,
                                  cheb_lap) if use_cheb else None
 
-        if pc_sharded is not None:
+        if pc_sharded is not None and block_pc:
             def Minv(v):
                 return pc_sharded(v, shift, t, means, rho_diff)
         elif pc_fused is not None:
@@ -639,9 +641,10 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         elif precond is not None:
             # the spectral pc: each field's stiff part (solver.py:513-515)
             diff, decay = ops.stiff_coefficients(t)
+            apply = pc_sharded if pc_sharded is not None else precond.apply
 
             def Minv(v):
-                return precond.apply(v, shift, diff, decay)
+                return apply(v, shift, diff, decay)
 
         # f0, the J-action and the stage RHS (solver.py:391-424): the
         # fast mode's kernels; the mixed path's float64 RHS (its W
@@ -1361,19 +1364,18 @@ class Solver:
     ``stats`` counts what the loop ran (see solve).
 
     ``mesh`` (a parallel/mesh.py SlabMesh): the loop runs SPMD, one
-    torch.distributed rank per x-slab, each on its slab (``solve`` takes
-    and returns the slab).  The steps, the
+    torch.distributed rank per box, each on its block (``solve`` takes
+    and returns the block).  The steps, the
     multistep, the chunk, the GMRES fallback and the exact tiers are
-    built on the mesh and share one kernel build (its halo-slab entries,
-    B9).  Every decision is taken from values that every rank holds
+    built on the mesh and share one kernel build (on an x split its
+    halo-slab entries, B9; none elsewhere).  Every decision is taken from values that every rank holds
     equal: the error norms and the CFL bound are all-reduced, the worm
     count is summed over the ranks, and the noise is drawn from the
     Solver's generator (seeded alike on every rank) at the global shape,
     each rank keeping its rows, so the injected field is the one-rank
     run's.  Accepts, rejections, tiers, fallbacks, rescues and
     ``stats`` are then equal on every rank; monitors get the rank's
-    slab.  What the mesh does not run (the flux form, with-G states, the
-    spectral, no and FFT pcs) raises as make_step_fn does.
+    block.
     """
 
     default_hmin = 1e-20
@@ -1549,7 +1551,7 @@ class Solver:
         stn = torch.randn(shape, generator=self._generator(),
                           dtype=u.dtype, device=u.device)
         if self.mesh is not None:
-            stn = self.mesh.rows(stn)
+            stn = self.mesh.local(stn)
         return torch.cat([(u[0] * torch.exp(sd * stn))[None], u[1:]], dim=0)
 
     def CFL_step(self, u, t):

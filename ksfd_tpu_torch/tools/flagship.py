@@ -82,8 +82,10 @@ def example_numerics(**kw):
 
 def run(example="aggregation2d", nelements=None, seed=DEFAULT_SEED,
         tmax=None, maxsteps=None, wall=None, every=60.0, device=None,
-        numerics=None, out=print):
-    """Build, start and run; returns a dict of the counts."""
+        numerics=None, out=print, keep=False):
+    """Build, start and run; returns a dict of the counts (with
+    ``keep``, also ``state``: the operators, the final state tensor and
+    its t, as tools/probe_hgap.py takes its rough state)."""
     from .. import ic
     from ..interop import problem_from_clargs
     from ..solvers import Solver
@@ -149,6 +151,8 @@ def run(example="aggregation2d", nelements=None, seed=DEFAULT_SEED,
             res["exact_rescues"], res["dispatches"], res["tier_calls"],
             res["host_reads"], secs, res["ms_per_step"], res["aggregates"],
             res["rho_min"], res["rho_max"]))
+    if keep:
+        res["state"] = (ops, u, float(solver.t))
     return res
 
 

@@ -12,8 +12,8 @@ ksfdsolver2.py grammar).  The same grammar and the same decoding:
 - ``@optionsfile`` indirection with '#' comments (shlex rules).
 
 ``decode_numerics`` decodes every token the reference decodes; where
-the port refuses a combination (on a slab mesh, ROADMAP Queue A item
-11), the refusal is the step's (solvers/solver.py ``_check_numerics``).
+the port refuses a combination, the refusal is the step's
+(solvers/solver.py ``_check_numerics``).
 """
 
 import re

@@ -458,12 +458,13 @@ def test_route_petsc_direct_matches_reference():
 
 
 def test_exact_tiers_refused_where_not_ported(problems):
-    """The exact tiers on a mesh that is not a slab mesh raise (A14;
-    on a slab mesh they are the replicated host solve:
-    tests/test_torch_mesh_solver.py); banded on a 2D grid raises as the
+    """The exact tiers on a mesh that is not parallel.grid_mesh's raise
+    TypeError naming it (on a mesh they are the replicated host solve:
+    tests/test_torch_mesh_solver.py, a 1D and a (2, 2) split in
+    tests/test_torch_mesh_splits.py); banded on a 2D grid raises as the
     reference's does."""
     _, tops, _ = problems["2d"]
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="grid_mesh"):
         make_step_fn(tops, NumericsOptions(ksp_type="lu"), mesh=object())
     with pytest.raises(Exception, match="1D only"):
         make_step_fn(tops, NumericsOptions(ksp_type="banded"))

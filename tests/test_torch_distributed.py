@@ -4,8 +4,8 @@
 and ``KSFD_COORDINATOR``/``KSFD_NUM_PROCS``/``KSFD_PROC_ID`` (one gloo
 rank per process, one x-slab each) on a 2D problem at 32^2 x 3, a few
 steps: the port's counterpart of the reference's tests/test_distributed.py
-(:95, :183, :254, :321, :415, :463; 1D there, and the slab mesh splits
-no 1D grid).  Every independent run starts at once (``runs``), the
+(:95, :183, :254, :321, :415, :463; 1D there: the 1D mesh and the y
+splits are tests/test_torch_mesh_splits.py's).  Every independent run starts at once (``runs``), the
 resumes after them; each process has a timeout, and a process that fails
 fails the test with its output.
 

@@ -557,9 +557,9 @@ def test_refused_ensembles_raise(prob):
     EnsembleSolver(tops, NumericsOptions(device_loop=True,
                                          adapt_type="none"))
     # members go on ranks (ksfdsolver.py run_ensemble over processes):
-    # shard_members keeps a process's members on its one device; the
-    # halo-slab kernels of a slab mesh have no member axis
-    # (tests/test_torch_mesh_solver.py)
+    # shard_members keeps a process's members on its one device; an
+    # ensemble split over a mesh takes the unfused step
+    # (tests/test_torch_mesh_forms.py)
     U = torch.zeros(2, 3, N, N)
     assert shard_members(U) is U
     with pytest.raises(ValueError, match="members on ranks"):

@@ -414,7 +414,9 @@ def test_monitors_print_and_record(capsys):
 
 def test_solver_refusals():
     _, tops, _ = problem(32)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # a mesh that is not parallel.grid_mesh's (the Solver runs on those:
+    # tests/test_torch_mesh_solver.py, test_torch_mesh_forms.py)
+    with pytest.raises(TypeError, match="grid_mesh"):
         Solver(tops, NumericsOptions(), mesh=object())
     # the DIRK path runs (tests/test_torch_arkimex.py); the exact host
     # steps refuse its tableaus, as the reference's Solver does

@@ -32,8 +32,10 @@ through the reference's Solver.  The bounds:
 - the exact tiers lu and dense (the replicated host solve) bit-equal to
   one rank from the same state.
 
-The refusals that stay (ROADMAP Queue A item 11) are build-only checks
-in this process on a mesh without a process group.
+What the mesh once refused (the flux form, with-G states, the spectral,
+no and FFT pcs, a 1D mesh, an ensemble) runs here on a one-rank mesh
+without a process group against the unsharded run; the refusal that
+stays (a halo-slab kernel under vmap) is checked here too.
 """
 
 import dataclasses
@@ -49,8 +51,10 @@ from ksfd_tpu.solvers import Solver as JSolver
 from ksfd_tpu_torch import NumericsOptions
 from ksfd_tpu_torch.grid import Grid
 from ksfd_tpu_torch.ops import PDEOperators, WithGOperators, with_g_grid
+from ksfd_tpu_torch.parallel import distribute
 from ksfd_tpu_torch.parallel.mesh import SlabMesh
 from ksfd_tpu_torch.solvers import (
+    EnsembleSolver,
     Solver,
     make_multistep_fn,
     make_step_fn,
@@ -70,7 +74,6 @@ from torch_mesh_ranks import (
     solver_start,
 )
 
-ITEM = r"Queue A item 11 \(A14\)"
 CASES = {c[0]: c for c in solver_cases()}
 STEPS = {s[0]: s for s in mesh_steps()}
 
@@ -295,10 +298,18 @@ def test_mesh_exact_tiers_bit_equal(ranks, label):
 
 
 def test_mesh_shape_refusals(ranks):
-    """A y split raises before any step, naming the ROADMAP item."""
+    """A y split, once refused, runs: the unfused step (float32 sweeps)
+    on the (1, n) mesh within 1e-5 of the increment of one rank, no
+    kernel, one error norm on every rank (tests/test_torch_mesh_splits.py
+    holds the splits further)."""
+    one = one_rank("unfused")
+    inc = np.abs(one["u"] - solver_start("rough", N_SOLVER)).max()
     for n in (2, 4):
-        for res in ranks[n].values():
-            assert "Queue A item 11 (A14)" in res["mesh_steps"]["y_split"]
+        outs = [res["mesh_steps"]["y_split"] for res in ranks[n].values()]
+        assert len({o["enorm"] for o in outs}) == 1
+        assert "'mesh_shape': (1, %d)" % n in outs[0]["info"]
+        assert "'kernels': None" in outs[0]["info"]
+        assert np.abs(outs[0]["u"] - one["u"]).max() <= 1e-5 * inc
 
 
 # ------------------------------------------------- build-only, one process
@@ -306,7 +317,8 @@ def test_mesh_shape_refusals(ranks):
 
 def fake_mesh(grid, n):
     """Rank 0's mesh of an n-way x split without a process group."""
-    return SlabMesh(grid, None, n, 0, "gloo", "cpu", ["cpu"] * n)
+    return SlabMesh(grid, None, (n,) + (1,) * (grid.dim - 1), 0, "gloo",
+                    "cpu", ["cpu"] * n)
 
 
 @pytest.fixture(scope="module")
@@ -323,39 +335,89 @@ def with_g_ops(ps, grid):
     return WithGOperators(ps, with_g_grid(grid), device="cpu")
 
 
+def run_on(build, mesh):
+    """The gathered state of ``build(mesh)``'s run from the rough state:
+    a step (``("step", ops, numerics)``), a Solver (``("solver", ops,
+    numerics)``: 3 fixed steps of H) or an RHS (``("rhs", ops)``)."""
+    kind, ops, *nm = build(mesh)
+    u0 = solver_start("rough", N_SOLVER) if ops.grid.dim == 2 else \
+        np.stack([9000.0 + np.sin(2 * np.pi * np.arange(N_SOLVER)
+                                  / N_SOLVER * k) for k in (1, 2, 3)])
+    if ops.grid.dof == ops.nligands + 2:
+        u0 = np.concatenate([u0, np.zeros((1,) + u0.shape[1:])])
+    u = torch.from_numpy(u0)
+    if mesh is not None:
+        u = distribute(u, ops.grid, mesh)[0]
+    if kind == "rhs":
+        out = ops.linearize(u, 0.0, mesh=mesh)[0]
+    elif kind == "step":
+        step, _ = make_step_fn(ops, nm[0], atol=0.01, rtol=1e-6, mesh=mesh)
+        out = step(ops.groom(u), torch.zeros((), dtype=torch.float64),
+                   torch.full((), H, dtype=torch.float64))[0]
+    else:
+        s = Solver(ops, nm[0], t0=0.0, dt=H, tmax=1e9, maxsteps=3,
+                   rtol=1e-6, atol=0.01, mesh=mesh)
+        out = s.solve(u)
+    out = out if mesh is None else mesh.gather(out)
+    return out.numpy(), u0
+
+
+FIXED = NumericsOptions(adapt_type="none")
+GRID_1D = Grid(dim=1, dof=3, width=1.0, nx=N_SOLVER, order=3)
+
 REFUSALS = {
-    "flux_form_step": lambda ps, grid, ops: make_step_fn(
-        flux_ops(ps, grid), NumericsOptions(), mesh=fake_mesh(grid, 2)),
-    "flux_form_solver": lambda ps, grid, ops: Solver(
-        flux_ops(ps, grid), NumericsOptions(), mesh=fake_mesh(grid, 2)),
-    "flux_form_rhs": lambda ps, grid, ops: flux_ops(ps, grid).linearize(
-        torch.ones(grid.Vshape, dtype=torch.float64), 0.0,
-        mesh=fake_mesh(grid, 1)),
-    "with_g_solver": lambda ps, grid, ops: Solver(
-        with_g_ops(ps, grid), NumericsOptions(), mesh=fake_mesh(grid, 2)),
-    "spectral_pc": lambda ps, grid, ops: make_step_fn(
-        ops, NumericsOptions(pc_type="spectral"), mesh=fake_mesh(grid, 2)),
-    "no_pc": lambda ps, grid, ops: Solver(
-        ops, NumericsOptions(pc_type="none", ksp_type="gmres"),
-        mesh=fake_mesh(grid, 2)),
-    "fft_pc": lambda ps, grid, ops: Solver(
-        ops, NumericsOptions(pc_fft="on"), mesh=fake_mesh(grid, 2)),
-    "one_d_mesh": lambda ps, grid, ops: fake_mesh(
-        Grid(dim=1, dof=3, width=1.0, nx=32, order=3), 2),
+    "flux_form_step": lambda ps, grid, ops: lambda m: (
+        "step", flux_ops(ps, grid), NumericsOptions()),
+    "flux_form_solver": lambda ps, grid, ops: lambda m: (
+        "solver", flux_ops(ps, grid), FIXED),
+    "flux_form_rhs": lambda ps, grid, ops: lambda m: (
+        "rhs", flux_ops(ps, grid)),
+    "with_g_solver": lambda ps, grid, ops: lambda m: (
+        "solver", with_g_ops(ps, grid), FIXED),
+    "spectral_pc": lambda ps, grid, ops: lambda m: (
+        "step", ops, NumericsOptions(pc_type="spectral")),
+    "no_pc": lambda ps, grid, ops: lambda m: (
+        "solver", ops, NumericsOptions(pc_type="none", ksp_type="gmres",
+                                       adapt_type="none")),
+    "fft_pc": lambda ps, grid, ops: lambda m: (
+        "solver", ops, NumericsOptions(pc_fft="on", adapt_type="none")),
+    "one_d_mesh": lambda ps, grid, ops: lambda m: (
+        "rhs", PDEOperators(ps, GRID_1D, device="cpu")),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_mesh_refusals_name_their_item(port32, case):
-    """What the slab mesh does not run yet raises NotImplementedError
-    naming ROADMAP Queue A item 11 (A14)."""
-    with pytest.raises(NotImplementedError, match=ITEM):
-        REFUSALS[case](*port32)
+    """What the mesh once refused (the flux form, with-G states, the
+    spectral, no and FFT pcs, a 1D mesh) builds on a 2-rank mesh and
+    runs on a one-rank mesh without a process group (its reductions over
+    itself, its halo rows its own wrap rows) to the unsharded result:
+    the RHS to 1e-12 of its max, a float64-sweep step or Solver to
+    rtol=atol=1e-9, float32 sweeps within 1e-5 of the increment.
+    tests/test_torch_mesh_forms.py runs each over 2 and 4 ranks."""
+    build = REFUSALS[case](*port32)
+    _, ops, *nm = build(None)
+    fake_mesh(ops.grid, 2)
+    if nm:
+        make_step_fn(ops, nm[0], mesh=fake_mesh(ops.grid, 2))
+    want, u0 = run_on(build, None)
+    got, _ = run_on(build, fake_mesh(ops.grid, 1))
+    if build(None)[0] == "rhs":
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    elif nm[0].pc_type == "none":
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    else:
+        inc = np.abs(want - u0).max()
+        assert np.abs(got - want).max() <= 1e-5 * inc
 
 
 def test_ensemble_on_a_slab_mesh_refused(port32):
-    """A halo-slab kernel has no member axis: vmapping the mesh's
-    multistep over members raises naming the item."""
+    """A halo-slab kernel has no member axis (as the reference's): the
+    mesh's kernel multistep vmapped over members raises before its halo
+    exchange.  ``EnsembleSolver(mesh=)`` takes the unfused step
+    instead: two fixed-dt steps of two members on a one-rank mesh
+    within 1e-5 of the increment of the one-process unfused
+    ensemble."""
     _, grid, ops = port32
     multi, _ = make_multistep_fn(ops, NumericsOptions(),
                                  mesh=fake_mesh(grid, 1))
@@ -363,8 +425,20 @@ def test_ensemble_on_a_slab_mesh_refused(port32):
     U = torch.from_numpy(np.stack([solver_start("smooth", N_SOLVER)] * 2))
     t = torch.zeros((), dtype=torch.float64)
     h = torch.full((), H, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=ITEM):
+    with pytest.raises(NotImplementedError, match="no member axis"):
         torch.func.vmap(lambda u: multi(u, t, h, 1)[0])(U)
+    U = torch.from_numpy(np.stack([solver_start("rough", N_SOLVER),
+                                   solver_start("smooth", N_SOLVER)]))
+    kw = dict(t0=0.0, dt=H, tmax=1e9, maxsteps=2, rtol=1e-6, atol=0.01)
+    nm = NumericsOptions(adapt_type="none", pc_dtype="float32")
+    want = EnsembleSolver(ops, dataclasses.replace(nm, use_pallas=False),
+                          **kw).solve(U)
+    es = EnsembleSolver(ops, nm, mesh=fake_mesh(grid, 1), **kw)
+    got = es.solve(U)
+    assert es.build_info["kernels"] is None
+    assert list(got.k) == list(want.k) == [2, 2]
+    inc = float((want.u - U).abs().max())
+    assert float((got.u - want.u).abs().max()) <= 1e-5 * inc
 
 
 def test_shard_members_places_members_on_one_device():

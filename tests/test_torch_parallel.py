@@ -5,9 +5,11 @@
   tests/torch_mesh_ranks.py): ``distribute``/``local_values``/
   ``global_from_local``/``owned_box``/``gather`` round-trip, the halo
   rows are the neighbours' rows with the ring closed, the reductions,
-  and the refusals of a y split and of slabs thinner than sw; the
+  a y split's boxes and the refusals of a split needing more ranks
+  and of slabs thinner than sw; the
   sharded block-pc apply against the reference's
-  ``make_sharded_block_apply`` on a (2, 1) mesh, in float32 and
+  ``make_sharded_block_apply`` on a (2, 1) mesh (the port's
+  ``make_sharded_apply``), in float32 and
   bfloat16.
 - B9's plain versions on S in {1, 2, 4} slabs of one global state (the
   halo rows cut from it, in one process): stitched, they equal the
@@ -143,12 +145,15 @@ def test_reductions(ranks, n):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_mesh_refusals(ranks, n):
-    """A y split (or an x-and-y split) raises NotImplementedError naming
-    the ROADMAP item; slabs thinner than the stencil width raise."""
-    for res in ranks[n].values():
+    """A y split, once refused, gives each rank its box of the (1, n)
+    split (tests/test_torch_mesh_splits.py runs it); an x-and-y split
+    that needs more ranks than the group has, and slabs thinner than the
+    stencil width, raise."""
+    w = N2_SMALL // n
+    for r, res in ranks[n].items():
         out = res["refusals"]
-        for label in ("y", "xy"):
-            assert "Queue A item 11 (A14)" in out[label], out[label]
+        assert out["y"] == ((0, N2_SMALL), (w * r, w * (r + 1)))
+        assert "uses %d ranks, the group has %d" % (2 * n, n) in out["xy"]
         assert "at least sw=2 rows" in out["rows"], out["rows"]
 
 
@@ -157,9 +162,9 @@ def test_nccl_two_ranks_on_one_device_raise():
     before any collective (gloo may share a card)."""
     grid = Grid(dim=2, nx=16, ny=16, dof=3)
     with pytest.raises(ValueError, match="NCCL cannot run two ranks"):
-        SlabMesh(grid, None, 2, 0, "nccl", "cuda:0", ["cuda:0", "cuda:0"])
-    SlabMesh(grid, None, 2, 0, "nccl", "cuda:0", ["cuda:0", "cuda:1"])
-    SlabMesh(grid, None, 2, 0, "gloo", "cuda:0", ["cuda:0", "cuda:0"])
+        SlabMesh(grid, None, (2, 1), 0, "nccl", "cuda:0", ["cuda:0", "cuda:0"])
+    SlabMesh(grid, None, (2, 1), 0, "nccl", "cuda:0", ["cuda:0", "cuda:1"])
+    SlabMesh(grid, None, (2, 1), 0, "gloo", "cuda:0", ["cuda:0", "cuda:0"])
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +181,7 @@ def ref_bench():
     ("bfloat16", 4 * 2.0 ** -8),
 ])
 def test_sharded_pc_apply_matches_reference(ranks, ref_bench, dtype, tol):
-    """make_sharded_block_apply over 2 gloo ranks against the
+    """make_sharded_apply over 2 gloo ranks against the
     reference's on a (2, 1) mesh: the same residual and statistics."""
     jgrid, jops = ref_bench
     u = jops.groom(jnp.asarray(rough_state((N2, N2))))
@@ -205,7 +210,8 @@ def test_sharded_pc_apply_matches_reference(ranks, ref_bench, dtype, tol):
 def slab_meshes(grid, S, device="cpu"):
     """The S ranks' meshes of an x split, without a process group: the
     B9 bodies and ``cut`` need no communication."""
-    return [SlabMesh(grid, None, S, r, "gloo", device, [device] * S)
+    return [SlabMesh(grid, None, (S,) + (1,) * (grid.dim - 1), r, "gloo",
+                     device, [device] * S)
             for r in range(S)]
 
 

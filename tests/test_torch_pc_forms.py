@@ -21,9 +21,9 @@ coefficients, float32 mode arithmetic and inverse output), and
   float64 GMRES step within its GMRES envelope
   (tests/test_torch_ensemble.py);
 - the gate: ``pc_fft`` auto, ``-pc_pallas 1`` with the FFT pc, the
-  refusals that remain (``pc_type`` none with Richardson or Chebyshev:
-  Queue A item 9; the FFT and spectral pcs on a mesh: A14), and the
-  Solver and EnsembleSolver with these forms.
+  FFT and spectral pcs on a mesh (their sharded and gathered applies
+  against the one-card step; tests/test_torch_mesh_forms.py over
+  ranks), and the Solver and EnsembleSolver with these forms.
 """
 
 import dataclasses
@@ -257,15 +257,28 @@ def test_pc_none_sweeps_take_gmres_fixed(problems, change):
     dict(pc_type="spectral", pc_fft="on")], ids=["fft", "spectral",
                                                   "spectral-fft"])
 def test_forms_on_a_mesh_raise(problems, change):
-    """The sharded apply is the block pc's basis form: the FFT and the
-    spectral pcs on a mesh raise naming A14 (the reference's sharded
-    apply also excludes FFT); pc_fft auto on a mesh takes the basis
-    form."""
+    """The FFT and the spectral pcs on a mesh, once refused, build (on a
+    2-rank mesh: the sharded spectral apply, one all_reduce, or the
+    gathered FFT form, as XLA gathers for the reference) and step on a
+    one-rank mesh within 1e-5 of the increment of the one-card step
+    (tests/test_torch_mesh_forms.py runs them over 2 and 4 ranks);
+    pc_fft auto on a mesh takes the basis form."""
     _, tops = problems[2]
-    mesh = fake_mesh(tops.grid, 2)
-    with pytest.raises(NotImplementedError, match=r"Queue A item 11 \(A14\)"):
-        make_step_fn(tops, NumericsOptions(**change), mesh=mesh)
-    step, _ = make_step_fn(tops, NumericsOptions(pc_fft="auto"), mesh=mesh)
+    nm = NumericsOptions(**change)
+    step, _ = make_step_fn(tops, nm, mesh=fake_mesh(tops.grid, 2))
+    pc = step.build_info["pc"]
+    assert pc.startswith("sharded " + (
+        "spectral " if change.get("pc_type") == "spectral" else ""))
+    assert ("FFT, gathered" in pc) == (change.get("pc_fft") == "on")
+    u0 = tops.groom(torch.from_numpy(rough_state((N, N), seed=3)))
+    args = (u0, scalar(0.0), scalar(H))
+    want = make_step_fn(tops, nm, atol=ATOL, rtol=RTOL)[0](*args)[0]
+    got = make_step_fn(tops, nm, atol=ATOL, rtol=RTOL,
+                       mesh=fake_mesh(tops.grid, 1))[0](*args)[0]
+    inc = float((want - u0).abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * inc
+    step, _ = make_step_fn(tops, NumericsOptions(pc_fft="auto"),
+                           mesh=fake_mesh(tops.grid, 2))
     assert step.build_info["pc"].startswith("sharded basis-GEMM")
 
 

@@ -272,7 +272,8 @@ def port_ops2d(port2d):
 def fake_mesh(grid, n):
     """Rank 0's mesh of an n-way x split without a process group: the
     builds make no collective."""
-    return SlabMesh(grid, None, n, 0, "gloo", "cpu", ["cpu"] * n)
+    return SlabMesh(grid, None, (n,) + (1,) * (grid.dim - 1), 0, "gloo",
+                    "cpu", ["cpu"] * n)
 
 
 def test_pc_dtype_auto_resolution(port2d):
@@ -322,30 +323,36 @@ def vmapped_mesh_step(ops, m):
 
 @pytest.mark.parametrize("build,match", [
     (lambda ops, m: make_step_fn(ops, NumericsOptions(
-        ksp_type="gmres_scipy", pc_type="spectral"), mesh=m),
-     r"Queue A item 11 \(A14\)"),
+        ksp_type="gmres_scipy", pc_type="spectral"), mesh=m)[0],
+     "sharded spectral basis-GEMM"),
     (lambda ops, m: make_adaptive_chunk_fn(
-        ops, NumericsOptions(ksp_type="gmres", pc_type="none"), mesh=m),
-     r"Queue A item 11 \(A14\)"),
-    (lambda ops, m: make_step_fn(ops, NumericsOptions(pc_fft="on"), mesh=m),
-     r"Queue A item 11 \(A14\)"),
+        ops, NumericsOptions(ksp_type="gmres", pc_type="none"), mesh=m)[0],
+     None),
+    (lambda ops, m: make_step_fn(ops, NumericsOptions(pc_fft="on"),
+                                 mesh=m)[0], "sharded FFT, gathered"),
     (lambda ops, m: make_step_fn(ops, NumericsOptions(), mesh=object()),
-     r"Queue A item 11 \(A14\)"),
-    (vmapped_mesh_step, r"Queue A item 11 \(A14\)"),
+     (TypeError, "grid_mesh")),
+    (vmapped_mesh_step, (NotImplementedError, "no member axis")),
 ], ids=["gmres-step", "gmres-chunk", "fft-on-mesh", "other-mesh",
         "member-mesh"])
 def test_refusals(port2d, build, match):
-    """What stays refused on a mesh raises, naming the ROADMAP item: the
-    GMRES step with the spectral pc and the GMRES chunk without a pc
-    (the GMRES steps themselves run since their inner products reduce
-    over the ranks: tests/test_torch_mesh_solver.py; the sharded apply
-    is the block pc's), the FFT pc (``pc_fft`` on: it is single-card,
-    as the reference's is), a mesh that is not a slab mesh, and members
-    on a slab mesh (the halo-slab kernels have no member axis;
-    ``shard_members`` puts members on ranks)."""
+    """What the mesh once refused builds: the GMRES step with the
+    spectral pc (its sharded apply), the GMRES chunk without a pc and
+    the FFT pc (``pc_fft`` on: gathered, as XLA gathers for the
+    reference); tests/test_torch_mesh_forms.py runs them over ranks.
+    What stays refused raises: a mesh that is not parallel.grid_mesh's,
+    and a halo-slab kernel under vmap (no member axis, as the
+    reference's; ``EnsembleSolver(mesh=)`` takes the unfused step)."""
     grid, ops = port2d
-    with pytest.raises(NotImplementedError, match=match):
-        build(ops, fake_mesh(grid, 2))
+    if isinstance(match, tuple):
+        with pytest.raises(match[0], match=match[1]):
+            build(ops, fake_mesh(grid, 2))
+        return
+    built = build(ops, fake_mesh(grid, 2))
+    if match is None:
+        assert built.tiers == [("gmres", 3)]
+    else:
+        assert built.build_info["pc"].startswith(match)
 
 
 def test_kernels_of_another_mesh_refused(port2d):

@@ -174,24 +174,41 @@ def test_ported_options_step(change):
 
 @pytest.mark.parametrize("build,item", [
     (lambda ops: tsolver.make_adaptive_chunk_fn(ops, mesh=object()),
-     "A14"),
-    # the Solver runs on a slab mesh and writes slab series
-    # (tests/test_torch_mesh_solver.py, tests/test_torch_distributed.py);
-    # the spectral pc on a mesh waits (the sharded apply is the block
-    # pc's)
-    (lambda ops: tsolver.make_step_fn(
-        ops, NumericsOptions(pc_type="spectral"), mesh=SlabMesh(
-            ops.grid, None, 2, 0, "gloo", "cpu", ["cpu"] * 2)), "A14"),
+     "grid_mesh"),
+    # the spectral pc on a mesh, once refused, takes the sharded apply
+    # (tests/test_torch_mesh_forms.py runs it over ranks)
+    (lambda ops, n=2: tsolver.make_step_fn(
+        ops, NumericsOptions(pc_type="spectral"), atol=0.01, rtol=1e-6,
+        mesh=SlabMesh(ops.grid, None, (n, 1), 0, "gloo", "cpu",
+                      ["cpu"] * n)),
+     None),
 ], ids=["<lambda>-item 14", "<lambda>-item 8"])
 def test_later_entry_points_raise(problems, build, item):
+    """A mesh that is not parallel.grid_mesh's raises TypeError naming
+    it.  The spectral pc builds its sharded apply on a 2-rank mesh and,
+    on a one-rank mesh, steps within 1e-5 of the increment of the
+    one-card step."""
     _, tops = problems
-    with pytest.raises(NotImplementedError, match=item):
-        build(tops)
+    if item is not None:
+        with pytest.raises(TypeError, match=item):
+            build(tops)
+        return
+    step, _ = build(tops)
+    assert step.build_info["pc"].startswith("sharded spectral basis-GEMM")
+    u0 = tops.groom(torch.from_numpy(rough_state()))
+    args = (u0, scalar(0.0), scalar(H))
+    want = tsolver.make_step_fn(tops, NumericsOptions(pc_type="spectral"),
+                                atol=0.01, rtol=1e-6)[0](*args)[0]
+    got = build(tops, n=1)[0](*args)[0]
+    inc = float((want - u0).abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * inc
 
 
 def test_mesh_not_ported(problems):
+    """A mesh that is not parallel.grid_mesh's raises TypeError naming
+    it."""
     _, tops = problems
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="grid_mesh"):
         make_step_fn(tops, NumericsOptions(), mesh=object())
 
 

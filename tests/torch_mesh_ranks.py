@@ -4,7 +4,8 @@
 processes (spawn), each a torch.distributed rank over gloo on the CPU
 (a ``file://`` store in a fresh directory), runs every named case of
 ``CASES`` in order and hands back ``{n: {rank: {case: result}}}``, the
-results numpy arrays, numbers and strings.  A rank that fails fails the call with its traceback.  This
+results numpy arrays, numbers and strings (``start_ranks`` and
+``collect`` split the call, so the parent can work while they run).  A rank that fails fails the call with its traceback.  This
 module imports torch and the port only: the rank processes never load
 JAX, so the test modules compare the results with the reference in the
 parent process.
@@ -142,16 +143,16 @@ def case_reduce(ctx):
 
 
 def case_refusals(ctx):
-    """A y split and a split that leaves fewer than sw rows raise."""
+    """A y split (its box), an (n, 2) split of n ranks and a split that
+    leaves fewer than sw rows (their errors)."""
     from ksfd_tpu_torch.parallel import grid_mesh
 
     out = {}
     _, grid, _ = bench_problem(N2_SMALL)
     for label, shape in (("y", (1, ctx["n"])), ("xy", (ctx["n"], 2))):
         try:
-            grid_mesh(grid, shape=shape, device="cpu")
-            out[label] = "no error"
-        except NotImplementedError as e:
+            out[label] = grid_mesh(grid, shape=shape, device="cpu").box
+        except ValueError as e:
             out[label] = str(e)
     _, small, _ = bench_problem(ctx["n"])     # one row per rank < sw
     try:
@@ -163,13 +164,13 @@ def case_refusals(ctx):
 
 
 def case_pc_apply(ctx):
-    """make_sharded_block_apply at N2^2 in float32 and bfloat16 on a
-    seeded residual, at the rough state's statistics."""
+    """make_sharded_apply of the block pc at N2^2 in float32 and
+    bfloat16 on a seeded residual, at the rough state's statistics."""
     import torch
 
     from ksfd_tpu_torch.parallel import distribute, grid_mesh
     from ksfd_tpu_torch.solvers.linalg import (
-        BlockSpectralPreconditioner, make_sharded_block_apply)
+        BlockSpectralPreconditioner, make_sharded_apply)
 
     _, grid, ops = bench_problem(N2)
     mesh = grid_mesh(grid, device="cpu")
@@ -185,7 +186,7 @@ def case_pc_apply(ctx):
     for dtype in ("float32", "bfloat16"):
         pc = BlockSpectralPreconditioner(grid, ops, compute_dtype=dtype,
                                          device="cpu")
-        apply = make_sharded_block_apply(pc, ops, mesh)
+        apply = make_sharded_apply(pc, ops, mesh)
         y = apply(distribute(v, grid, mesh)[0], shift, t, means, rho_diff)
         out[dtype] = mesh.gather(y).numpy()
         out[dtype + "_dtype"] = str(y.dtype)
@@ -485,11 +486,345 @@ def case_mesh_steps(ctx):
         out[label] = mesh_step(ops, NumericsOptions(**nm), n,
                                mesh=grid_mesh(grid, shape=(ctx["n"], 1),
                                               device="cpu"))
+    _, grid, ops = solver_problem(N_SOLVER)
+    out["y_split"] = mesh_step(
+        ops, NumericsOptions(**{s[0]: s[2] for s in mesh_steps()}[
+            "unfused"]), N_SOLVER,
+        mesh=grid_mesh(grid, shape=(1, ctx["n"]), device="cpu"))
+    return out
+
+
+# ---- the pc forms, 1D, the flux form, with-G and ensembles on a mesh
+# (tests/test_torch_mesh_forms.py) ------------------------------------
+
+#: the forms cases' 2D grid and 1D extent
+N_FORMS = 32
+N_1D = 128
+FORM_STEPS_H = H
+
+
+def forms_problem(kind, n=N_FORMS):
+    """(ps, grid, ops) of a forms case: ``bench`` (the bench problem at
+    n^2), ``flux`` (its flux form), ``with_g`` (with its G slot),
+    ``eigen1d`` (examples/eigenmode1d, options92, at N_1D) or
+    ``validate1d`` (options93's manufactured problem at N_1D, with its
+    rho source)."""
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.tools.problems import (
+        bench_clargs, example_params, make_clargs)
+
+    if kind == "validate1d":
+        from ksfd_tpu_torch.tools import validate
+
+        return validate.make_problem(N_1D, device="cpu")
+    if kind == "eigen1d":
+        return problem_from_clargs(
+            make_clargs(params=example_params("eigenmode1d")
+                        + ["nelements=%d" % N_1D]), N_1D, device="cpu")
+    return problem_from_clargs(bench_clargs(n), n, n, device="cpu",
+                               flux_form=kind == "flux",
+                               with_g=kind == "with_g")
+
+
+def forms_start(kind, grid):
+    """The start of a forms case: the rough state in 2D (a zero G slot
+    under with-G, filled by the first refresh), the eigenmode (options92)
+    or options93's exact state at t=0 in 1D."""
+    if kind == "validate1d":
+        from ksfd_tpu_torch.tools import validate
+
+        return validate.exact_state(grid, 0.0)
+    if kind == "eigen1d":
+        x = np.arange(N_1D) / N_1D
+        w = np.sin(2 * np.pi * (0.25 + 4.0 * x))
+        return np.stack([9000.0 + w, 9000.0 + 0.6846227279629311 * w,
+                         9000.0 + 0.088562372925828 * w])
+    u = rough_state((N_FORMS, N_FORMS))
+    if kind == "with_g":
+        u = np.concatenate([u, np.zeros((1, N_FORMS, N_FORMS))])
+    return u
+
+
+def form_steps():
+    """(label, problem kind, NumericsOptions fields) of the single steps
+    of the forms cases: the spectral and no pc, the FFT pc, the flux
+    form and with-G states; ``_f64`` ones on float64 sweeps and pc."""
+    f64 = dict(sweep_dtype="float64", pc_dtype="float64")
+    return [
+        ("spectral", "bench", dict(pc_type="spectral", pc_dtype="float32")),
+        ("spectral_f64", "bench", dict(pc_type="spectral", **f64)),
+        ("spectral_bf16", "bench", dict(pc_type="spectral",
+                                        pc_dtype="bfloat16")),
+        ("block_bf16", "bench", dict(pc_dtype="bfloat16")),
+        ("none_richardson", "bench", dict(pc_type="none")),
+        ("none_chebyshev", "bench", dict(pc_type="none",
+                                         ksp_type="chebyshev")),
+        ("none_gmres", "bench", dict(pc_type="none", ksp_type="gmres")),
+        ("fft_block", "bench", dict(pc_fft="on")),
+        ("fft_spectral", "bench", dict(pc_fft="on", pc_type="spectral")),
+        ("flux", "flux", dict(pc_dtype="float32")),
+        ("flux_f64", "flux", f64),
+        ("with_g", "with_g", dict(pc_dtype="float32")),
+        ("with_g_f64", "with_g", f64),
+    ]
+
+
+def form_step(label, mesh=None):
+    """One step of ``form_steps``'s ``label`` at h=H from its start
+    (groomed; a with-G state refreshed): the (gathered) state, enorm
+    and build info."""
+    import torch
+
+    from ksfd_tpu_torch import NumericsOptions
+
+    _, kind, nm = {s[0]: s for s in form_steps()}[label]
+    _, grid, ops = forms_problem(kind)
+    u0 = ops.groom(torch.from_numpy(forms_start(kind, grid)))
+    if hasattr(ops, "refresh_G"):
+        u0 = ops.refresh_G(u0, 0.0)
+    return mesh_step_from(ops, NumericsOptions(**nm), u0, mesh)
+
+
+def mesh_step_from(ops, nm, u0, mesh=None):
+    """One step of ``nm`` at h=H from the global state u0 (a tensor):
+    the (gathered) state, enorm and build info."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import distribute
+    from ksfd_tpu_torch.solvers import make_step_fn
+
+    step, _ = make_step_fn(ops, nm, atol=0.01, rtol=1e-6, mesh=mesh)
+    if mesh is not None:
+        u0 = distribute(u0, ops.grid, mesh)[0]
+    u1, e = step(u0, torch.zeros((), dtype=torch.float64),
+                 torch.full((), H, dtype=torch.float64))
+    if mesh is not None:
+        u1 = mesh.gather(u1)
+    return dict(u=u1.numpy(), enorm=float(e), info=repr(step.build_info))
+
+
+def form_solvers():
+    """(label, problem kind, NumericsOptions fields, Solver keywords) of
+    the Solver runs of the forms cases: 1D meshes (options92 adaptive,
+    options93 fixed dt with its source), the flux form and with-G
+    states."""
+    adapt = dict(t0=0.0, tmax=1e9, rtol=1e-6, atol=0.01)
+    return [
+        ("eigen1d", "eigen1d", dict(), dict(adapt, dt=1.0, maxsteps=6)),
+        ("validate1d", "validate1d", dict(adapt_type="none",
+                                          pc_dtype="float64"),
+         dict(adapt, dt=1.0, maxsteps=4)),
+        ("flux_solver", "flux", dict(pc_dtype="float32"),
+         dict(adapt, dt=H, maxsteps=4)),
+        ("with_g_solver", "with_g", dict(adapt_type="none",
+                                         pc_dtype="float32"),
+         dict(adapt, dt=H, maxsteps=3, block_steps=1)),
+    ]
+
+
+def form_solver(label, mesh=None):
+    """The Solver run of ``form_solvers``'s ``label`` (solver_run)."""
+    from ksfd_tpu_torch import NumericsOptions
+
+    _, kind, nm, kw = {s[0]: s for s in form_solvers()}[label]
+    _, grid, ops = forms_problem(kind)
+    return solver_run(ops, NumericsOptions(**nm), forms_start(kind, grid),
+                      mesh=mesh, **kw)
+
+
+#: the ensembles' members
+N_MEMBERS = 2
+
+
+def form_ensembles():
+    """(label, NumericsOptions fields, EnsembleSolver keywords, extra
+    parameters) of the ensemble runs on the bench problem at N_FORMS:
+    per step (adaptive), the device loop, and fixed-dt noise."""
+    adapt = dict(t0=0.0, tmax=1e9, rtol=1e-6, atol=0.01)
+    return [
+        ("ens_step", dict(pc_dtype="float32"), dict(adapt, dt=H,
+                                                    maxsteps=4), ()),
+        ("ens_loop", dict(pc_dtype="float32", device_loop=True),
+         dict(adapt, dt=H, maxsteps=4), ()),
+        ("ens_noise", dict(adapt_type="none", pc_dtype="float32"),
+         dict(adapt, dt=1.0, maxsteps=2, rng_key=7), NOISE_PARAMS),
+    ]
+
+
+def ensemble_start():
+    """Member i: the rough state of seed i."""
+    return np.stack([rough_state((N_FORMS, N_FORMS), seed=i)
+                     for i in range(N_MEMBERS)])
+
+
+def form_ensemble(label, mesh=None, **change):
+    """The EnsembleSolver run of ``form_ensembles``'s ``label`` (its
+    numerics with ``change``): per member the (gathered) state, k, t, h,
+    failures, and the run's device-loop totals; the noise draws
+    recorded."""
+    import torch
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.solvers import EnsembleSolver
+
+    _, nm, kw, extra = {s[0]: s for s in form_ensembles()}[label]
+    _, grid, ops = solver_problem(N_FORMS, extra)
+    es = EnsembleSolver(ops, NumericsOptions(**dict(nm, **change)),
+                        mesh=mesh, **kw)
+    U = torch.from_numpy(ensemble_start())
+    if mesh is not None:
+        U = mesh.local(U, first=2).contiguous()
+    draws = []
+    randn = torch.randn
+
+    def recorded(*a, **k):
+        x = randn(*a, **k)
+        draws.append(x.numpy().copy())
+        return x
+    torch.randn = recorded
     try:
-        grid_mesh(grid, shape=(1, ctx["n"]), device="cpu")
-        out["y_split"] = "no error"
-    except NotImplementedError as e:
-        out["y_split"] = str(e)
+        out = es.solve(U)
+    finally:
+        torch.randn = randn
+    u = out.u if mesh is None else torch.stack(
+        [mesh.gather(m) for m in out.u])
+    totals = None if es._chunk is None else vars(es._chunk.totals)
+    return dict(u=u.numpy(), k=out.k.tolist(), t=out.t.tolist(),
+                h=out.h.tolist(), failures=out.snes_failures.tolist(),
+                totals=repr(totals), info=repr(es.build_info), draws=draws)
+
+
+def case_mesh_forms(ctx):
+    """Every step, Solver run and ensemble of the forms cases on this
+    rank's block (``grid_mesh``'s own split: an x split of these grids)."""
+    from ksfd_tpu_torch.parallel import grid_mesh
+
+    out = {}
+    for label, kind, _ in form_steps():
+        grid = forms_problem(kind)[1]
+        out[label] = form_step(label, grid_mesh(grid, device="cpu"))
+    for label, kind, _, _ in form_solvers():
+        grid = forms_problem(kind)[1]
+        out[label] = form_solver(label, grid_mesh(grid, device="cpu"))
+    for label, *_ in form_ensembles():
+        _, grid, _ = solver_problem(N_FORMS)
+        out[label] = form_ensemble(label, grid_mesh(grid, device="cpu"))
+    return out
+
+
+# ---- y and z splits (tests/test_torch_mesh_splits.py) ----------------
+
+#: the split cases' grids
+N_SPLIT = 32
+N_SPLIT3 = 16
+
+
+def split_shapes(n):
+    """The 2D and 3D mesh shapes of the split cases over n ranks: the
+    y split (1, n) and, on 4, also (2, 2); in 3D (1, 1, 2) and
+    (1, 2, 2)."""
+    two = [(1, n)] + ([(2, 2)] if n == 4 else [])
+    return two, [(1, 1, 2) if n == 2 else (1, 2, 2)]
+
+
+def split_steps():
+    """(label, NumericsOptions fields) of the split cases' steps from the
+    rough bench state at N_SPLIT^2: the mixed path (float32 sweeps and
+    block pc), float64 sweeps and pc, the fast mode and fixed-count
+    GMRES."""
+    return [
+        ("mixed", dict(pc_dtype="float32")),
+        ("f64", dict(sweep_dtype="float64", pc_dtype="float64")),
+        ("fast32", dict(precision="float32", pc_dtype="float32")),
+        ("gmres", dict(ksp_type="gmres", pc_dtype="float64")),
+    ]
+
+
+def split3_problem():
+    from ksfd_tpu_torch.interop import problem_from_clargs
+    from ksfd_tpu_torch.tools.problems import make_clargs
+
+    return problem_from_clargs(
+        make_clargs(params=aggregation3d_params(N_SPLIT3)), N_SPLIT3,
+        N_SPLIT3, N_SPLIT3, device="cpu")
+
+
+def split3_step(mesh=None):
+    """One mixed step of H3 on aggregation3d at N_SPLIT3^3 from the
+    rough state."""
+    import torch
+
+    from ksfd_tpu_torch import NumericsOptions
+
+    _, _, ops = split3_problem()
+    u0 = ops.groom(torch.from_numpy(rough_state((N_SPLIT3,) * 3)))
+    out = mesh_step_from(ops, NumericsOptions(pc_dtype="float32"), u0,
+                         mesh)
+    return out
+
+
+def case_split_layout(ctx):
+    """On each 2D split shape: distribute / gather / process_box /
+    global_from_local / owned_box and the halo rows along y."""
+    import torch
+
+    from ksfd_tpu_torch.parallel import (
+        distribute, global_from_local, grid_mesh, owned_box, process_box)
+    from ksfd_tpu_torch.parallel.mesh import halo_rows, state_sharding
+
+    n = N_SPLIT
+    _, grid, ops = bench_problem(n)
+    u = rough_state((n, n), seed=3)
+    out = {}
+    for shape in split_shapes(ctx["n"])[0]:
+        mesh = grid_mesh(grid, shape=shape, device="cpu")
+        u_loc = distribute(u, grid, mesh)[0]
+        lo, hi = halo_rows(u_loc, ops.sw, mesh, axis=1)
+        out[shape] = dict(
+            slab=u_loc.numpy(), box=owned_box(u_loc, mesh),
+            pbox=process_box(grid, mesh), coords=mesh.coords,
+            from_full=bool(torch.equal(global_from_local(u, grid, mesh),
+                                       u_loc)),
+            gathered=mesh.gather(u_loc).numpy(), lo=lo.numpy(),
+            hi=hi.numpy(), contiguous=lo.is_contiguous(),
+            spec=state_sharding(mesh),
+            padded=mesh.pad(u_loc, ops.sw).numpy())
+    return out
+
+
+def case_split_steps(ctx):
+    """Every step of ``split_steps`` on each 2D split shape, the 3D step
+    on the 3D shape, and the Solver's adaptive loop and device loop
+    (solver_cases) on the first 2D shape."""
+    import torch
+
+    from ksfd_tpu_torch import NumericsOptions
+    from ksfd_tpu_torch.parallel import grid_mesh
+
+    out = {}
+    shapes2, shapes3 = split_shapes(ctx["n"])
+    _, grid, ops = solver_problem(N_SPLIT)
+    u0 = ops.groom(torch.from_numpy(rough_state((N_SPLIT, N_SPLIT))))
+    for shape in shapes2:
+        mesh = grid_mesh(grid, shape=shape, device="cpu")
+        for label, nm in split_steps():
+            out[(shape, label)] = mesh_step_from(ops, NumericsOptions(**nm),
+                                                 u0, mesh)
+    cases = {c[0]: c for c in solver_cases()}
+    for label in ("adaptive", "device_loop"):
+        _, extra, nm, kw, start, fail = cases[label]
+        mesh = grid_mesh(grid, shape=shapes2[0], device="cpu")
+        out[label] = solver_run(ops, NumericsOptions(**nm),
+                                solver_start(start, N_SOLVER), mesh=mesh,
+                                fail_first=fail, **kw)
+    grid3 = split3_problem()[1]
+    out["3d"] = split3_step(grid_mesh(grid3, shape=shapes3[0],
+                                      device="cpu"))
+    try:
+        grid_mesh(grid, shape=(ctx["n"] // 2, 1), device="cpu")
+        out["idle"] = "no error"
+    except ValueError as e:
+        out["idle"] = str(e)
     return out
 
 
@@ -515,10 +850,11 @@ def _rank_main(n, rank, store, cases, queue):
         raise
 
 
-def run_ranks(groups, timeout=600):
+def start_ranks(groups):
     """Spawn one gloo group per ``{n: cases}`` entry, all at once: n
-    ranks that run ``cases`` (names of CASES).  Returns ``{n: {rank:
-    {case: result}}}``."""
+    ranks that run ``cases`` (names of CASES).  Returns a handle for
+    ``collect``; the caller may work meanwhile (the test modules run the
+    reference while the ranks run)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -540,7 +876,14 @@ def run_ranks(groups, timeout=600):
             os.environ.pop("OMP_NUM_THREADS")
         else:
             os.environ["OMP_NUM_THREADS"] = saved
-    results = {n: {} for n in groups}
+    return dict(groups=list(groups), procs=procs, queue=queue)
+
+
+def collect(handle, timeout=600):
+    """``{n: {rank: {case: result}}}`` of ``start_ranks``'s groups; a
+    rank that failed fails the call with its traceback."""
+    procs, queue = handle["procs"], handle["queue"]
+    results = {n: {} for n in handle["groups"]}
     errors = []
     try:
         for _ in procs:
@@ -558,3 +901,9 @@ def run_ranks(groups, timeout=600):
     if errors:
         raise RuntimeError("\n".join(errors))
     return results
+
+
+def run_ranks(groups, timeout=600):
+    """``collect(start_ranks(groups))``: ``{n: {rank: {case:
+    result}}}``."""
+    return collect(start_ranks(groups), timeout=timeout)
