@@ -1,0 +1,9 @@
+"""sim_time_per_accept.solver: simulated time advanced (the sum of the
+accepted steps' h) over member accepts in the window."""
+
+
+def read(ctx):
+    w = ctx["window"]
+    if ctx["kind"] != "solver" or not w.get("accepts"):
+        return None
+    return w["sim_time"] / w["accepts"]
