@@ -128,7 +128,11 @@ def parse_commandline(args=None):
                              "field, refreshed after every accepted step")
     parser.add_argument("--xprof", metavar="DIR",
                         help="write a torch.profiler chrome trace of the "
-                             "solve to DIR")
+                             "solve to DIR: the torch ops, the card's "
+                             "kernels and the port's host spans "
+                             "(ksfd::attempt, tier, read, step, pc, "
+                             "dispatch, post_accept, fallback, halo, "
+                             "all_reduce), on one clock")
     parser.add_argument("--ensemble", type=int, default=0, metavar="N",
                         help="integrate N ensemble members (fresh starts "
                              "seeded seed..seed+N-1, independent noise "
@@ -205,7 +209,8 @@ def xprof_trace(directory, rank=None):
     """A torch.profiler chrome trace of the block into ``directory``
     (the counterpart of the JAX driver's ``jax.profiler.trace``), one
     file per rank when ``rank`` is given, or nothing for ``directory``
-    None."""
+    None.  The trace holds the port's ``ksfd::`` host spans
+    (utils/spans.py) beside the ops and kernels."""
     if not directory:
         yield
         return

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from ..utils.spans import span
 
 __all__ = [
     "SlabMesh",
@@ -320,8 +321,8 @@ def _rank_at(mesh, coords):
 def exchange_halos(xs, sw, mesh, axis=0):
     """``halo_rows`` of several blocks of one dtype and shape in one
     exchange along spatial ``axis``: a list of ``(lo, hi)``, each
-    contiguous.  Profiled as ``ksfd::halo``."""
-    with torch.profiler.record_function("ksfd::halo"):
+    contiguous.  Profiled as ``ksfd::halo`` (utils/spans.py)."""
+    with span("halo"):
         return _exchange(xs, sw, mesh, axis, xs[0].dim() - mesh.dim)
 
 
@@ -376,7 +377,7 @@ def halo_rows(u_loc, sw, mesh, axis=0):
 
 def _pad(u, mesh, width):
     lead = u.dim() - mesh.dim
-    with torch.profiler.record_function("ksfd::halo"):
+    with span("halo"):
         for d in mesh.padded_axes():
             lo, hi = _exchange([u], width, mesh, d, lead)[0]
             u = torch.cat([lo, u, hi], dim=lead + d)
@@ -396,7 +397,7 @@ def _reduce_any(x, op, mesh):
     x = x.clone()
     if mesh.size == 1 and not dist.is_initialized():
         return x
-    with torch.profiler.record_function("ksfd::all_reduce"):
+    with span("all_reduce"):
         return _reduce(x, op, mesh)
 
 

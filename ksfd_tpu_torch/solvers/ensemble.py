@@ -106,6 +106,7 @@ from ..parallel.mesh import all_reduce_max, all_reduce_sum
 from ..utils.cli import NumericsOptions
 from ..utils.debug import logger
 from ..utils.exceptions import KSFDException
+from ..utils.spans import span
 from .solver import (
     ChunkLadder,
     _pc_pallas_fallback,
@@ -512,13 +513,14 @@ class EnsembleSolver:
     def _post_accept(self, U, ts, hs, lastvart, mask, conserve, Nw0):
         """The post-accept sequence (noise, groom, refresh_G, CFL clamp)
         on the members in ``mask`` (ensemble.py:452-467); grooming the
-        others again is a no-op."""
-        if noise_active(self.ps):
-            U, lastvart = self._inject_noise(U, ts, lastvart, mask,
-                                             conserve, Nw0)
-        U = self._groom(U, ts)
-        hs = self._cfl_clamp(U, ts, hs, mask)
-        return U, hs, lastvart
+        others again is a no-op.  One ``ksfd::post_accept`` span."""
+        with span("post_accept"):
+            if noise_active(self.ps):
+                U, lastvart = self._inject_noise(U, ts, lastvart, mask,
+                                                 conserve, Nw0)
+            U = self._groom(U, ts)
+            hs = self._cfl_clamp(U, ts, hs, mask)
+            return U, hs, lastvart
 
     def _chunk_iteration(self, U, ts, hs, ks, snes, consec, diverged,
                          lastvart, active, conserve, Nw0):
@@ -545,8 +547,9 @@ class EnsembleSolver:
             straddled = chunk_active & (tmax_eff < ts)
             tmax_eff = np.where(straddled, self.tmax, tmax_eff)
             max_acc = np.where(straddled, np.minimum(max_acc, 1), max_acc)
-            U, t1, h1, kacc, attempts, rej = self._run_chunk(
-                U, ts, hs, tmax_eff, max_acc)
+            with span("dispatch"):
+                U, t1, h1, kacc, attempts, rej = self._run_chunk(
+                    U, ts, hs, tmax_eff, max_acc)
             logENS("chunk accepted/attempts", kacc, attempts)
             snes = snes + np.where(active, np.maximum(0, attempts - kacc), 0)
             ts = np.where(active, t1, ts)
@@ -576,9 +579,11 @@ class EnsembleSolver:
                     self._fbacc = np.where(stuck, 0, self._fbacc)
                     self._fbm = self._fbm | stuck
                 u1b = {}
-                for i in np.nonzero(need_fb)[0]:
-                    ub, eb = fb(U[i], self._dev(ts[i]), self._dev(hs[i]))
-                    u1b[i], ebn[i] = ub, float(eb)
+                with span("fallback"):
+                    for i in np.nonzero(need_fb)[0]:
+                        ub, eb = fb(U[i], self._dev(ts[i]),
+                                    self._dev(hs[i]))
+                        u1b[i], ebn[i] = ub, float(eb)
                 rescued = need_fb & np.isfinite(ebn) & (ebn <= 1.0)
                 if rescued.any():
                     logENS("fallback accepted members",
@@ -695,9 +700,11 @@ class EnsembleSolver:
             if fb is not None:
                 ebn = np.full(N, np.nan)
                 u1b = {}
-                for i in np.nonzero(need)[0]:
-                    ub, eb = fb(U[i], self._dev(ts[i]), self._dev(hs[i]))
-                    u1b[i], ebn[i] = ub, float(eb)
+                with span("fallback"):
+                    for i in np.nonzero(need)[0]:
+                        ub, eb = fb(U[i], self._dev(ts[i]),
+                                    self._dev(hs[i]))
+                        u1b[i], ebn[i] = ub, float(eb)
                 # members IN fallback mode take the robust result as
                 # THE step; rejected fast-path members get the same-h
                 # robust retry and ENGAGE fallback mode

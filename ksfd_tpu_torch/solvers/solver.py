@@ -166,6 +166,7 @@ import torch
 
 from ..utils.cli import NumericsOptions
 from ..utils.debug import logger
+from ..utils.spans import span
 from ..ops.fused_pc import (
     fused_pc_refusal,
     make_fused_block_pc,
@@ -624,27 +625,32 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         cheb_ab = _cheb_interval(numerics, shift, rho_dmin, rho_diff,
                                  cheb_lap) if use_cheb else None
 
+        # each application of the pc is one ``ksfd::pc`` span
         if pc_sharded is not None and block_pc:
             def Minv(v):
-                return pc_sharded(v, shift, t, means, rho_diff)
+                with span("pc"):
+                    return pc_sharded(v, shift, t, means, rho_diff)
         elif pc_fused is not None:
             # the scalar pack once per step, not per apply
             sc_pc = pack_pc_scalars(ops, shift, t, means, rho_diff)
 
             def Minv(v):
-                return pc_fused(sc_pc, v.to(torch.float32)).to(v.dtype)
+                with span("pc"):
+                    return pc_fused(sc_pc, v.to(torch.float32)).to(v.dtype)
         elif block_pc:
             def Minv(v):
-                return precond.apply_linearized(
-                    v, shift, t, means, rho_diff=rho_diff
-                )
+                with span("pc"):
+                    return precond.apply_linearized(
+                        v, shift, t, means, rho_diff=rho_diff
+                    )
         elif precond is not None:
             # the spectral pc: each field's stiff part (solver.py:513-515)
             diff, decay = ops.stiff_coefficients(t)
             apply = pc_sharded if pc_sharded is not None else precond.apply
 
             def Minv(v):
-                return apply(v, shift, diff, decay)
+                with span("pc"):
+                    return apply(v, shift, diff, decay)
 
         # f0, the J-action and the stage RHS (solver.py:391-424): the
         # fast mode's kernels; the mixed path's float64 RHS (its W
@@ -838,16 +844,18 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
             return None, tab
 
         def step_chain(u, t, h, f0):
-            ug, u1, enorm = _step_core(u, t, h, f0_chained=f0)
-            u1g = ops.groom(u1)
-            f1 = f0 + kern.delta(ug, u1g - ug, u1g, t).to(f0.dtype)
-            return u1, enorm, f1
+            with span("step"):
+                ug, u1, enorm = _step_core(u, t, h, f0_chained=f0)
+                u1g = ops.groom(u1)
+                f1 = f0 + kern.delta(ug, u1g - ug, u1g, t).to(f0.dtype)
+                return u1, enorm, f1
 
         return SimpleNamespace(step=step_chain, build_info=build_info), tab
 
     def step(u, t, h):
-        _, u1, enorm = _step_core(u, t, h)
-        return u1, enorm
+        with span("step"):
+            _, u1, enorm = _step_core(u, t, h)
+            return u1, enorm
 
     step.build_info = build_info
     return step, tab
@@ -1232,7 +1240,12 @@ def run_attempts(ladders, t, tmax, max_accepts, max_attempts, attempt):
     and the accepted results are kept.  The single-member chunk is the
     case of one member.  Returns per member t, accepts ``k``,
     ``attempts`` and ``records`` ``[(tier, enorm, h), ...]``, and per
-    attempt the occupied tiers (``occupied``)."""
+    attempt the occupied tiers (``occupied``).
+
+    Spans (utils/spans.py): each attempt is one ``ksfd::attempt``,
+    inside it each tier's ``attempt`` call one ``ksfd::tier`` and the
+    host read one ``ksfd::read``; the rest of the attempt (the ladders
+    and the commits) is the attempt's self time."""
     n_mem = len(ladders)
     t = [float(x) for x in t]
     tmax = [float(x) for x in tmax]
@@ -1249,33 +1262,37 @@ def run_attempts(ladders, t, tmax, max_accepts, max_attempts, attempt):
                 groups.setdefault(ladders[i].tier, []).append(i)
         if not groups:
             break
-        outs = []
-        for tier in sorted(groups):
-            idx = groups[tier]
-            e, commit = attempt(tier, idx, [t[i] for i in idx],
-                                [ladders[i].h for i in idx])
-            outs.append((tier, idx, e, commit))
-        occupied.append(sorted(groups))
-        # the one host read of the attempt
-        vals = torch.cat([e.reshape(-1) for _, _, e, _ in outs]).tolist()
-        pos = 0
-        for tier, idx, e, commit in outs:
-            n = len(idx)
-            es = vals[pos:pos + n]
-            cfls = (vals[pos + n:pos + 2 * n] if e.dim() == 2
-                    else [math.inf] * n)
-            pos += e.numel()
-            acc = []
-            for j, i in enumerate(idx):
-                h = ladders[i].h
-                records[i].append((tier, es[j], h))
-                attempts[i] += 1
-                if ladders[i].update(es[j], cfls[j]):
-                    acc.append(j)
-                    t[i] = t[i] + h
-                    k[i] += 1
-            if acc:
-                commit(acc)
+        with span("attempt"):
+            outs = []
+            for tier in sorted(groups):
+                idx = groups[tier]
+                with span("tier"):
+                    e, commit = attempt(tier, idx, [t[i] for i in idx],
+                                        [ladders[i].h for i in idx])
+                outs.append((tier, idx, e, commit))
+            occupied.append(sorted(groups))
+            # the one host read of the attempt
+            with span("read"):
+                vals = torch.cat([e.reshape(-1)
+                                  for _, _, e, _ in outs]).tolist()
+            pos = 0
+            for tier, idx, e, commit in outs:
+                n = len(idx)
+                es = vals[pos:pos + n]
+                cfls = (vals[pos + n:pos + 2 * n] if e.dim() == 2
+                        else [math.inf] * n)
+                pos += e.numel()
+                acc = []
+                for j, i in enumerate(idx):
+                    h = ladders[i].h
+                    records[i].append((tier, es[j], h))
+                    attempts[i] += 1
+                    if ladders[i].update(es[j], cfls[j]):
+                        acc.append(j)
+                        t[i] = t[i] + h
+                        k[i] += 1
+                if acc:
+                    commit(acc)
     return SimpleNamespace(t=t, k=k, attempts=attempts, records=records,
                            occupied=occupied)
 
@@ -1575,18 +1592,19 @@ class Solver:
         """The post-accept sequence of the step path and the chunk's
         exit, in the reference's order: noise, conserve, groom, with-G
         states' refresh_G, CFL clamp, monitor.  Returns (u, h), h possibly
-        CFL-clamped."""
-        if self.is_noise_time(t, self.lastvart):
-            u = self.add_variance(u, t - self.lastvart, t)
-            if conserve:
-                u = self.conserve_worms(u, Nworms)
-            self.lastvart = t
-            self.stats.injections += 1
-        u = self._groom(u, t)
-        self.u, self.k, self.t, self.h = u, k, t, h
-        self.CFL_check(u, t)
-        self.monitor(k, t, u)
-        return u, self.h
+        CFL-clamped.  One ``ksfd::post_accept`` span."""
+        with span("post_accept"):
+            if self.is_noise_time(t, self.lastvart):
+                u = self.add_variance(u, t - self.lastvart, t)
+                if conserve:
+                    u = self.conserve_worms(u, Nworms)
+                self.lastvart = t
+                self.stats.injections += 1
+            u = self._groom(u, t)
+            self.u, self.k, self.t, self.h = u, k, t, h
+            self.CFL_check(u, t)
+            self.monitor(k, t, u)
+            return u, self.h
 
     def _groom(self, u, t):
         """groom, then (a with-G state's operators) refresh_G: the G
@@ -1678,9 +1696,11 @@ class Solver:
         if exact is None:
             return None
         try:
-            u1, enorm = exact(u, t, h)
+            with span("fallback"):
+                u1, enorm = exact(u, t, h)
+                enorm = float(enorm)
             self.stats.exact_steps += 1
-            return u1, float(enorm)
+            return u1, enorm
         except Exception as exc:
             self._lu_errors += 1
             logTS("exact LU step failed (%s): %s" % (
@@ -1718,8 +1738,9 @@ class Solver:
         ``stop`` when the run diverged."""
         n = self.numerics
         st = self.stats
-        u1, tnew, hnew, kacc, attempts, rej = self._chunk(
-            u, t, h, tmax_eff, self.maxsteps - k)
+        with span("dispatch"):
+            u1, tnew, hnew, kacc, attempts, rej = self._chunk(
+                u, t, h, tmax_eff, self.maxsteps - k)
         kacc, attempts, rej = int(kacc), int(attempts), bool(rej)
         cs = self._chunk.stats
         st.dispatches += 1
@@ -1863,8 +1884,9 @@ class Solver:
                     u1, enorm = res
             elif self._fb_mode:
                 st.fallback_steps += 1
-                u1, enorm = self._get_fallback()(u, self._dev(t),
-                                                 self._dev(h))
+                with span("fallback"):
+                    u1, enorm = self._get_fallback()(u, self._dev(t),
+                                                     self._dev(h))
             else:
                 u1, enorm = self.step_fn(u, self._dev(t), self._dev(h))
             enorm = float(enorm)
@@ -1876,9 +1898,10 @@ class Solver:
                     and self._get_fallback() is not None):
                 # retry the same h on the robust solver before shrinking
                 st.fallback_steps += 1
-                u1b, enormb = self._get_fallback()(u, self._dev(t),
-                                                   self._dev(h))
-                enormb = float(enormb)
+                with span("fallback"):
+                    u1b, enormb = self._get_fallback()(u, self._dev(t),
+                                                       self._dev(h))
+                    enormb = float(enormb)
                 if math.isfinite(enormb) and (not adapt or enormb <= 1.0):
                     u1, enorm, finite, rejected = u1b, enormb, True, False
                     self._fb_mode = True
