@@ -7,8 +7,8 @@ CUDA toolkit (nvcc):
 
 It builds the CUDA kernels of ksfd_tpu_torch from the sources in the
 checkout (csrc/stencil2d.cu and csrc/stencil3d.cu, one nvcc per problem
-header, and csrc/pc2d.cu, all started together) and runs thirty-six
-phases, each printing one line:
+header, and csrc/pc2d.cu, all started together; csrc/arrow.cu at its
+first call) and runs thirty-eight phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the float32 matmul precision and the kernels' builds, with
@@ -184,9 +184,15 @@ phases, each printing one line:
     options93 on a 1D mesh, a 4-member hexagons2d ensemble split over
     the mesh (per step and device loop); two gloo ranks on the card: a
     (1, 2) y split at 256^2 x 3 and ``main`` on eigenmode1d's 1D mesh;
-    ``tools/probe_hgap.py`` on the flagship after 150 accepts.
+    ``tools/probe_hgap.py`` on the flagship after 150 accepts;
+38. the basis-GEMM pc's arrow solve (csrc/arrow.cu, phase_arrow_kernel)
+    against its plain chain on the same card inputs, bit for bit: the
+    flagship at 1536^2 x 3 and 16 hexagons2d members at 384^2 x 3
+    under ``torch.func.vmap`` (one launch), CUDA-event µs of both
+    beside the bytes bound; its launches are counted on phases 3, 6 and
+    9 (12 per step) and phase 13's basis-GEMM chunk.
 
-Then one JSON line of the nineteen kernels (B9's eight rows last, with
+Then one JSON line of the twenty kernels (B9's eight rows last, with
 the mesh Solver's launches per accepted step) and
 of every phase's figures, the card's line, one short line per kernel
 (µs, bound, plain and library µs, launches per step on each path) and,
@@ -961,11 +967,16 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
     kern = make_fused_kernels(ops)
     numerics = NumericsOptions(precision="float32" if fast32 else "float64",
                                pc_pallas=pc_pallas, **(extra or {}))
-    if per_step is None:
+    default = per_step is None
+    if default:
         per_step = (dict(rhs=4, jvp=8, resid=0, delta=0) if fast32
                     else dict(rhs=0, jvp=0, resid=8, delta=4))
     if pc_pallas:
         per_step.update(pc_fwd=12, pc_inv=12)
+    elif default and not extra:
+        # the basis-GEMM block pc's arrow solves (the pc forms of
+        # ``extra`` run none)
+        per_step.update(arrow=12)
     multi, _ = make_multistep_fn(ops, numerics, atol=0.01,
                                  rtol=1e-6, static_steps=False,
                                  kernels=kern)
@@ -976,13 +987,17 @@ def phase_main_path(card, tag, clargs, shape, phase, fast32=False,
     t0 = torch.zeros((), dtype=torch.float64, device=dev)
     h = torch.full((), h, dtype=torch.float64, device=dev)
 
+    # the arrow solves, counted where the default launches expect them
+    arrows = arrow_kernels() if "arrow" in per_step else []
     counts = {}
     for n in (2, 10):
-        for k in wrappers.values():
+        for k in list(wrappers.values()) + arrows:
             k.launches = 0
         u, t, emax = multi(u0, t0, h, n)
         torch.cuda.synchronize()
         counts[n] = {name: k.launches for name, k in wrappers.items()}
+        if arrows:
+            counts[n]["arrow"] = sum(k.launches for k in arrows)
         check(counts[n] == {k: n * c for k, c in per_step.items()},
               "launch counts %s for %d steps" % (counts[n], n))
         check(u.dtype == (torch.float32 if fast32 else torch.float64),
@@ -1122,6 +1137,92 @@ def phase_card_vs_cpu(card, tag, clargs, shape, make_state, phase,
     return dict(max_dev=dev_abs, increment=inc, bound=tol)
 
 
+def arrow_kernels():
+    """The live basis-GEMM pcs' ``arrow_modes`` wrappers (csrc/arrow.cu):
+    every step builds its own pc, so a path's launches are their sum."""
+    from ksfd_tpu_torch.ops.fused_stencil import _KERNELS
+
+    return [k for k in list(_KERNELS.values()) if k.name == "arrow_modes"]
+
+
+#: the members of phase 38's batched arrow solve (benchmark hex2d.ens16)
+ARROW_NB = 16
+
+
+def arrow_bound_ms(nb, nplanes, S, itemsize=4):
+    """The bytes bound of one arrow_modes launch: each member's modes
+    read and written once, lam read once."""
+    return (2 * nb * nplanes + 1) * S * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def phase_arrow_kernel(card):
+    """The basis-GEMM pc's arrow solve (``pc.arrow``, csrc/arrow.cu)
+    against its plain chain (``pc._arrow_chain``) on the same card
+    inputs: the flagship at 1536^2 x 3 (the step's pack of the rough
+    state, the forward modes of a seeded v) and examples/hexagons2d at
+    384^2 x 3 with ARROW_NB members under ``torch.func.vmap`` (each
+    member's own noisy start, pack and modes; one launch, lam not
+    copied).  Bit for bit; CUDA-event ms of the kernel's entry and of
+    the chain (vmapped for the members) beside the bytes bound."""
+    from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for label, clargs, n, nb in (
+            ("%d^2" % N_AGG, agg2d_clargs(N_AGG), N_AGG, 1),
+            ("%d^2_nb%d" % (N_HEX, ARROW_NB), hex_clargs(), N_HEX,
+             ARROW_NB)):
+        ps, grid, ops = problem_from_clargs(clargs, n, n, device=dev)
+        pc = BlockSpectralPreconditioner(grid, ops, compute_dtype="float32",
+                                         device=dev)
+        starts = ([rough_state(grid, ps)] if nb == 1
+                  else hex_starts(grid, nb, 29))
+        packs, modes = [], []
+        for i, u in enumerate(starts):
+            shift, t, means, rho_diff, _ = pc_step_scalars(
+                ops, torch.as_tensor(u, device=dev), h=1.0 + i)
+            packs.append(pc.pack(shift, t, means, rho_diff))
+            modes.append(pc._forward(torch.randn(
+                tuple(grid.Vshape), generator=gen, device=dev)))
+        packs = torch.stack(packs).contiguous()
+        modes = torch.stack(modes).contiguous()
+        want = torch.stack([pc._arrow_chain(packs[i], modes[i])
+                            for i in range(nb)])
+        launches, copies = pc.arrow.launches, pc.arrow.broadcasts
+        if nb == 1:
+            got = pc.solve_modes(modes[0], packs[0])[None]
+            args = (packs[0], modes[0])
+            plain = lambda: pc._arrow_chain(*args)
+        else:
+            got = torch.func.vmap(pc.solve_modes)(modes, packs)
+            args = (packs, modes)
+            plain = lambda: torch.func.vmap(pc._arrow_chain)(*args)
+        torch.cuda.synchronize()
+        check(pc.arrow.launches == launches + 1
+              and pc.arrow.broadcasts == copies,
+              "arrow %s: %d launches, %d broadcasts for one solve" % (
+                  label, pc.arrow.launches - launches,
+                  pc.arrow.broadcasts - copies))
+        check(bool(torch.isfinite(got).all()), "arrow %s finite" % label)
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), "arrow %s: kernel differs from the "
+              "plain chain by up to %.3e" % (label, err))
+        out[label] = dict(
+            ms=cuda_ms(lambda: pc.arrow.launch(*args), 100),
+            plain_ms=cuda_ms(plain, 20),
+            bound_ms=arrow_bound_ms(nb, grid.dof, math.prod(grid.Sshape)),
+            max_abs_err=err, max_rel_err=err / float(want.abs().max()),
+            nb=nb)
+        out["replaces"] = pc.arrow.replaces
+    print("phase 38 arrow_modes vs plain chain (%s): %s" % (card, "; ".join(
+        "%s bitwise, %.2f us (bound %.2f us, %.3f of it; plain %.2f us)" % (
+            k, f["ms"] * 1e3, f["bound_ms"] * 1e3, f["bound_ms"] / f["ms"],
+            f["plain_ms"] * 1e3)
+        for k, f in out.items() if k != "replaces")))
+    return out
+
+
 def pc_step_scalars(ops, u64, h=1.0):
     """The fused pc's inputs of one step of size h from u64 at t=0, as
     make_step_fn builds them: (shift, t, means, rho_diff, scalar pack)."""
@@ -1174,7 +1275,8 @@ def phase_pc_kernels(card):
     v from a seeded generator: within 1e-5 of max|plain|.  At the two
     square sizes, CUDA-event ms of each kernel, of its plain version and
     of the library call that computes the same function (the basis-GEMM
-    pc's cuBLAS products: ``_forward`` then ``_arrow_solve`` for pc_fwd,
+    pc's cuBLAS products: ``_forward`` then the plain ``_arrow_chain``
+    on the step's pack for pc_fwd,
     ``_inverse`` for pc_inv), and both bounds; at RAGGED4 the profiled
     device µs of the pitched copy per entry call."""
     from ksfd_tpu_torch.ops.fused_pc import make_fused_block_pc
@@ -1246,6 +1348,7 @@ def phase_pc_kernels(card):
         v = torch.randn(tuple(grid.Vshape), generator=gen, device=dev)
         lib = BlockSpectralPreconditioner(grid, ops, compute_dtype="float32",
                                           device=dev)
+        lib_pack = lib.pack(shift, t, means, rho_diff)
         fwd_in = pc.fwd.prepare(sc, v)
         modes = pc.fwd.launch(*fwd_in)
         inv_in = pc.inv.prepare(modes)
@@ -1253,8 +1356,8 @@ def phase_pc_kernels(card):
             "pc_fwd": (
                 cuda_ms(lambda: pc.fwd.launch(*fwd_in), 50),
                 cuda_ms(lambda: pc.fwd.body(*fwd_in), 20),
-                cuda_ms(lambda: lib._arrow_solve(lib._forward(v), shift, t,
-                                                 means, rho_diff), 20),
+                cuda_ms(lambda: lib._arrow_chain(lib_pack, lib._forward(v)),
+                        20),
             ) + pc_bound("pc_fwd", grid),
             "pc_inv": (
                 cuda_ms(lambda: pc.inv.launch(*inv_in), 50),
@@ -1304,16 +1407,21 @@ def chunk_wrappers(chunk):
 
 def run_chunk(chunk, u, t, h, accepts):
     """One chunk call from launch counts of 0: (its result, host seconds
-    to the synchronised end, the launches by kernel)."""
+    to the synchronised end, the launches by kernel; with the basis-GEMM
+    pc also its tiers' arrow solves, ``arrow``)."""
     wrappers = chunk_wrappers(chunk)
-    for k in wrappers.values():
+    arrows = arrow_kernels() if chunk.fused_pc is None else []
+    for k in list(wrappers.values()) + arrows:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = chunk(u, t, h, 1e30, accepts)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return out, secs, {name: k.launches for name, k in wrappers.items()}
+    counts = {name: k.launches for name, k in wrappers.items()}
+    if arrows:
+        counts["arrow"] = sum(k.launches for k in arrows)
+    return out, secs, counts
 
 
 #: accepted steps of the stiff figure's untimed spin-up (bench.py:332)
@@ -4082,12 +4190,12 @@ def phase_b5_fields(card):
             per[k.name]["nb%d_max_rel_err" % NB] = err / scale
         lib = BlockSpectralPreconditioner(grid, ops, compute_dtype="float32",
                                           device=dev)
+        lib_pack = lib.pack(shift, t, means, rho_diff)
         fwd_in = pc.fwd.prepare(sc, v)
         inv_in = pc.inv.prepare(modes)
         for name, k, args, library in (
                 ("pc_fwd", pc.fwd, fwd_in,
-                 lambda: lib._arrow_solve(lib._forward(v), shift, t, means,
-                                          rho_diff)),
+                 lambda: lib._arrow_chain(lib_pack, lib._forward(v))),
                 ("pc_inv", pc.inv, inv_in, lambda: lib._inverse(modes))):
             bound_ms, bound_by, _ = pc_bound(name, grid)
             per[name].update(
@@ -5085,6 +5193,33 @@ def kernel_rows(kern, src, per_step, totals, errs, rel, times, suffix,
     return rows
 
 
+def arrow_row(fig, per_step, per_step3, runs):
+    """The kernels line's row of the basis-GEMM pc's arrow solve: phase
+    38's figures at the flagship's 1536^2 x 3 and, as ``*_nb16``, of 16
+    hexagons2d members at 384^2 x 3; its launches per step on the main
+    paths (phases 3, 6, 9; ``_3d`` in 3D) and per accepted step of the
+    basis-GEMM chunk (phase 13), and the launches counted on ``runs``."""
+    one = fig["%d^2" % N_AGG]
+    many = fig["%d^2_nb%d" % (N_HEX, ARROW_NB)]
+    per = {p: c["arrow"] for p, c in per_step.items() if "arrow" in c}
+    per.update({p + "_3d": c["arrow"] for p, c in per_step3.items()
+                if "arrow" in c})
+    row = {
+        "name": "arrow", "route": "cuda",
+        "source": "ksfd_tpu_torch/csrc/arrow.cu",
+        "replaces": fig["replaces"],
+        "launches": sum(c.get("arrow", 0) for c in runs),
+        "launches_per_step": per,
+        "max_abs_err": one["max_abs_err"], "max_rel_err": one["max_rel_err"],
+        "ms": one["ms"], "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "library": "none",
+    }
+    row.update({k + "_nb%d" % ARROW_NB: many[k] for k in (
+        "ms", "plain_ms", "bound_ms", "max_abs_err", "max_rel_err")})
+    return row
+
+
 def b9_rows(halo, one_rank, totals, mesh_per_accept=None):
     """The kernels line's B9 rows: phase 25's errors and times per slab
     (``halo``), phase 26's launches per step on each path
@@ -5221,6 +5356,7 @@ def main():
                    u_flag, cli31)
     del u_flag
     forms37 = timed("37", phase_mesh_forms, card)
+    arrow38 = timed("38", phase_arrow_kernel, card)
     print("phase seconds: %s" % "; ".join("%s %.2f" % kv for kv in seconds))
     # the rhs kernels of phase 8 are the same kernels as phases 2 and 5
     # build for the same problems: merge their figures
@@ -5353,6 +5489,7 @@ def main():
             + kernel_rows(pc_ragged, "ksfd_tpu_torch/csrc/pc2d.cu", per_step,
                           totals, pc_errs, pc_rel, pc_times, "",
                           extra=pc_extra)
+            + [arrow_row(arrow38, per_step, per_step3, runs2d + runs3d)]
             + b9_rows(halo, one_rank, b9_totals, mesh_per_accept))
     print(json.dumps({
         "kernels": rows,

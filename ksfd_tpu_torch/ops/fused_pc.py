@@ -65,8 +65,8 @@ from ..utils.device import resolve_device
 from .fused_stencil import build_library, call_kernel, register_kernel
 from .stencil import laplacian_eigendecomp
 
-__all__ = ["pack_pc_scalars", "fused_pc_available", "fused_pc_refusal",
-           "reference_fuses", "make_fused_block_pc", "PCKernel", "PC_BUILD",
+__all__ = ["pack_pc_scalars", "ligand_table", "fused_pc_available",
+           "fused_pc_refusal", "reference_fuses", "make_fused_block_pc", "PCKernel", "PC_BUILD",
            "MAX_NF", "tf32", "split_planes", "scratch_floats"]
 
 CSRC_PC = Path(__file__).resolve().parent.parent / "csrc" / "pc2d.cu"
@@ -85,22 +85,26 @@ _SRC = "ksfd_tpu/ops/pallas_pc.py"
 
 
 class _PCBuild:
-    """The one csrc/pc2d.cu library: it needs no problem header, so a
-    single build serves every grid and every fused pc."""
+    """One library of a source that needs no problem header, so a single
+    build serves every grid: csrc/pc2d.cu (the fused pc) and
+    csrc/arrow.cu (the basis-GEMM pc's arrow solve,
+    solvers/linalg.py)."""
 
-    def __init__(self):
+    def __init__(self, csrc, entries):
+        self.csrc = csrc
+        self.entries = entries
         self.build_info = None
         self._lib = None
 
     def library(self):
         if self._lib is None:
             self._lib, self.build_info = build_library(
-                "", CSRC_PC, entries=_ENTRIES
+                "", self.csrc, entries=self.entries
             )
         return self._lib
 
 
-PC_BUILD = _PCBuild()
+PC_BUILD = _PCBuild(CSRC_PC, _ENTRIES)
 
 
 def tf32(x):
@@ -135,22 +139,60 @@ def scratch_floats(nf, nx, ny, nb):
     return nb * nf * (ny * p4(nx) + nx * p4(ny))
 
 
-def pack_pc_scalars(ops, shift, t, means, rho_diff):
-    """The per-step scalar vector the fused apply consumes:
-    ``[shift, rho_diff, rho_mean, dG_1..dG_nl, s_1..s_nl,
-    gamma_1..gamma_nl, D_1..D_nl]`` (float32), on the device of
-    ``means[0]``.  Each part is cast to float32 on its own, as
-    pallas_pc.py:90 casts it; device scalars stay on the device (no
-    host read)."""
-    dG, s, gamma, D = ops.linearization_coefficients(means, t)
+#: the ligand coefficients in the order of the scalar pack
+_LIGAND_ORDER = ("s", "gamma", "D")
+
+
+def ligand_table(ops, dtype, device):
+    """The ligands' s, gamma and D in the scalar pack's order
+    (``s_1..s_nl, gamma_1..gamma_nl, D_1..D_nl``) as one tensor of
+    ``dtype`` on ``device``: each constant cast from its float64 value,
+    a t-dependent entry 0 (``pack_pc_scalars`` evaluates it at t).  A pc
+    makes it once, when it is built, so that the pack it makes each step
+    copies nothing from the host."""
+    vals = [0.0 if exprs[name].free_symbols else float(exprs[name])
+            for name in _LIGAND_ORDER for exprs in ops.lig_exprs]
+    return torch.tensor(vals, dtype=torch.float64).to(dtype=dtype,
+                                                      device=device)
+
+
+def pack_pc_scalars(ops, shift, t, means, rho_diff, ligands=None):
+    """The per-step scalar vector of the block pc: ``[shift, rho_diff,
+    rho_mean, dG_1..dG_nl, s_1..s_nl, gamma_1..gamma_nl, D_1..D_nl]``
+    in the dtype and on the device of ``ligands`` (the pc's
+    ``ligand_table``; without it a float32 one, the fused apply's, on
+    the device of ``means[0]``, made here).  Each part is cast on its
+    own, as pallas_pc.py:90 casts it.  ``rho_diff`` None is the rho
+    row's diffusivity at the means, ``rho_mean * dG_0``.
+
+    Nothing else comes from the host: device scalars stay on the device,
+    a Python number is filled there, and a t-dependent ligand
+    coefficient is evaluated at t (a Python t filled on the device in
+    float64)."""
+    if ligands is None:
+        ligands = ligand_table(ops, torch.float32,
+                               torch.as_tensor(means[0]).device)
+    dtype, device = ligands.dtype, ligands.device
+
+    def part(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype)
+        return torch.full((), float(x), dtype=dtype, device=device)
+
     nl = ops.nligands
-    dev = torch.as_tensor(means[0]).device
-    parts = [shift, rho_diff, means[0]]
-    parts += [dG[1 + l] for l in range(nl)]
-    parts += list(s) + list(gamma) + list(D)
-    return torch.stack([
-        torch.as_tensor(p, device=dev).to(torch.float32) for p in parts
-    ])
+    if rho_diff is None:
+        rho_diff = means[0] * ops._dG_fns[0](*means, t)
+    head = [shift, rho_diff, means[0]] + [
+        ops._dG_fns[1 + l](*means, t) for l in range(nl)]
+    if ops._lig_tdep:
+        tt = t if isinstance(t, torch.Tensor) else torch.full(
+            (), float(t), dtype=torch.float64, device=device)
+        entries = [(name, l) for name in _LIGAND_ORDER for l in range(nl)]
+        ligands = torch.stack([
+            part(ops._lig_coeffs[l][name](tt))
+            if ops.lig_exprs[l][name].free_symbols else ligands[k]
+            for k, (name, l) in enumerate(entries)])
+    return torch.cat([torch.stack([part(x) for x in head]), ligands])
 
 
 def fused_pc_refusal(grid, ops, pc_dtype="float32"):
@@ -390,7 +432,8 @@ def make_fused_block_pc(grid, ops, device=None):
     """Build the fused apply ``apply(sc, v32) -> M^{-1} v32`` (float32).
 
     Counterpart: ksfd_tpu/ops/pallas_pc.py:make_pallas_block_pc.  ``sc``
-    from ``pack_pc_scalars``; v32 is ``(dof, nx, ny)``.  The same
+    from ``pack_pc_scalars`` (given ``apply.ligands``, the pc's
+    ``ligand_table``); v32 is ``(dof, nx, ny)``.  The same
     arithmetic as ``apply_linearized`` with ``rho_diff`` set, up to the
     association of the products.  ``apply.fwd(sc, v32)`` and
     ``apply.inv(c)`` are the two halves (PCKernels, also in
@@ -414,4 +457,5 @@ def make_fused_block_pc(grid, ops, device=None):
     apply.inv = inv
     apply.kernels = {"pc_fwd": fwd, "pc_inv": inv}
     apply.owner = owner
+    apply.ligands = ligand_table(ops, torch.float32, owner.lam2d.device)
     return apply

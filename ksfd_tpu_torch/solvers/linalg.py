@@ -11,9 +11,18 @@ leaves to XLA and the port leaves to ``torch.matmul``.  In 3D the
 reference's four-operand einsums (``"fijm,ik,jl,mn->fkln"`` and
 ``"fkln,ik,jl,mn->fijm"``) are written as three single-axis products,
 so no intermediate is larger than the state.  The per-mode arrow solve
-between them is elementwise tensor arithmetic (XLA code in the
-reference too, ``_arrow_solve``).  Behind ``-pc_pallas 1`` the whole 2D
-apply is the hand-written CUDA pair of ops/fused_pc.py instead.
+between them (XLA elementwise code in the reference, ``_arrow_solve``)
+is, on the card, one launch of the hand-written kernel of csrc/arrow.cu
+(``arrow_modes``, float32 or float64 modes, any dimension, a member axis
+under ``torch.func.vmap``), and elsewhere the same arithmetic as plain
+tensor operations (``_arrow_chain``): the CPU, the FFT form's complex
+modes and the bfloat16 coefficients of a single-card bfloat16 pc.  The
+kernel rounds every operation on its own in the plain chain's order, so
+the two agree bit for bit.  Both read the per-step scalar pack
+(``BlockSpectralPreconditioner.pack``, built on the device with no
+host copy), so an application synchronises nothing.  Behind
+``-pc_pallas 1`` the whole 2D apply is the hand-written CUDA pair of
+ops/fused_pc.py instead.
 
 The **FFT form** (``use_fft``, ``-pc_fft``) applies the same circulant
 inverse through ``torch.fft.rfftn``/``irfftn`` over the field axes:
@@ -46,15 +55,26 @@ reference's (an FFT along a split axis); a transpose-based distributed
 FFT is later speed work (ROADMAP).
 """
 
+import ctypes
+from pathlib import Path
+
 import torch
 from torch import nn
 
+from ..ops.fused_pc import PCKernel, _PCBuild, ligand_table, pack_pc_scalars
 from ..ops.stencil import laplacian_eigendecomp, laplacian_symbol
 from ..parallel.mesh import all_reduce_sum
 from ..utils.device import resolve_device
 
 __all__ = ["SpectralPreconditioner", "BlockSpectralPreconditioner",
            "make_sharded_apply", "forward_products", "inverse_products"]
+
+CSRC_ARROW = Path(__file__).resolve().parent.parent / "csrc" / "arrow.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: (pack, P, modes, lam, out, nl, nextra, S, nb, dbl, stream)
+ARROW_BUILD = _PCBuild(CSRC_ARROW, {
+    "ksfd_arrow_modes": [_P, _I, _P, _P, _P, _I, _I, ctypes.c_longlong,
+                         _I, _I, _P]})
 
 _DTYPES = {
     None: torch.float32,
@@ -250,56 +270,126 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
                          use_fft=use_fft)
         self.ops = ops
         self.nfields = ops.nligands + 1
+        #: the pack's constant ligand coefficients, on the device once
+        self.ligands = ligand_table(ops, self.compute_dtype,
+                                    self.lam_cd.device)
+        #: the arrow solve's kernel: real float32 or float64 modes on the
+        #: card (``launches`` counts its calls), None in the FFT form
+        self.arrow = None
+        if not self.use_fft and self.compute_dtype in (torch.float32,
+                                                       torch.float64):
+            self.arrow = _ArrowKernel(
+                "arrow_modes", self._arrow_chain, self._launch_arrow, 1,
+                "ksfd_tpu/solvers/linalg.py:BlockSpectralPreconditioner"
+                "._arrow_solve")
 
-    def _arrow_solve(self, c, shift, t, means, rho_diff, nextra=0):
+    def pack(self, shift, t, means, rho_diff=None):
+        """The per-step scalar pack of ``apply_packed``: fused_pc.py's
+        ``pack_pc_scalars`` layout in the compute dtype on the pc's
+        device, ``[shift, rho_diff, rho_mean, dG_1..dG_nl, s_1..s_nl,
+        gamma_1..gamma_nl, D_1..D_nl]`` (``rho_diff`` None: ``rho_mean
+        dG_0`` at the means).  ``means`` are per-field scalars of the
+        STATE being linearized, ``t`` its time; built with no copy from
+        the host."""
+        return pack_pc_scalars(self.ops, shift, t, means, rho_diff,
+                               self.ligands)
+
+    def _arrow_chain(self, pack, c):
         """Per-mode arrow-system solve on transformed coefficients c
-        (counterpart: BlockSpectralPreconditioner._arrow_solve); each of
-        ``nextra`` trailing fields past the physical ones (a with-G
+        (counterpart: BlockSpectralPreconditioner._arrow_solve) as plain
+        tensor operations; each field past the physical ones (a with-G
         state's G) gets the shift-only inverse ``c / shift``."""
-        cd = self.compute_dtype
-        dev = c.device
-        cast = lambda x: torch.as_tensor(x, dtype=cd, device=dev)
         nf = self.nfields
+        nl = nf - 1
         lam = self.lam_cd
-        dG, s, gamma, D = self.ops.linearization_coefficients(means, t)
-        rho_mean = cast(means[0])
-        shift = cast(shift)
-        dG = [cast(g) for g in dG]
-        # arrow system per mode:
+        shift, rho_mean = pack[0], pack[2]
+        # arrow system per mode, a = shift - rho_diff lam:
         #   a x_r + sum_l b_l x_l = y_r
         #   c_l x_r + d_l x_l     = y_l
-        if rho_diff is not None:
-            a = shift - cast(rho_diff) * lam
-        else:
-            a = shift - rho_mean * lam * dG[0]
-        schur = a
+        schur = shift - pack[1] * lam
         rhs_r = c[0]
         xs_den = []
-        for l in range(nf - 1):
-            b_l = -rho_mean * lam * dG[1 + l]
-            c_l = -cast(s[l])
-            d_l = shift + cast(gamma[l]) - cast(D[l]) * lam
+        for l in range(nl):
+            b_l = -rho_mean * lam * pack[3 + l]
+            c_l = -pack[3 + nl + l]
+            d_l = shift + pack[3 + 2 * nl + l] - pack[3 + 3 * nl + l] * lam
             schur = schur - b_l * c_l / d_l
             rhs_r = rhs_r - b_l * c[1 + l] / d_l
             xs_den.append((c_l, d_l))
         x_r = rhs_r / schur
         outs = [x_r]
-        for l in range(nf - 1):
+        for l in range(nl):
             c_l, d_l = xs_den[l]
             outs.append((c[1 + l] - c_l * x_r) / d_l)
-        for extra in range(nf, nf + nextra):
+        for extra in range(nf, c.shape[0]):
             outs.append(c[extra] / shift)
         return torch.stack(outs, dim=0)
+
+    def _launch_arrow(self, pack, c):
+        """``arrow_modes`` on the card: c ``(nf + nextra, *Sshape)`` or
+        with a leading member axis, the pack ``(P,)`` or ``(nb, P)``, lam
+        shared; a new output."""
+        lam = self.lam_cd
+        batched = c.dim() == lam.dim() + 2
+        nb = int(c.shape[0]) if batched else 1
+        nl = self.nfields - 1
+        P = 3 + 4 * nl
+        if (c.dtype != lam.dtype or pack.dtype != lam.dtype
+                or c.device != lam.device or pack.device != lam.device
+                or tuple(c.shape[1 + batched:]) != tuple(lam.shape)
+                or tuple(pack.shape) != ((nb, P) if batched else (P,))):
+            raise ValueError(
+                "arrow_modes kernel: modes %s %s and pack %s on %s, %s; "
+                "expected modes (..., %s) and a pack of %d in %s on %s" % (
+                    tuple(c.shape), c.dtype, tuple(pack.shape), c.device,
+                    pack.device, tuple(lam.shape), P, lam.dtype,
+                    lam.device))
+        out = torch.empty_like(c)
+        lib = ARROW_BUILD.library()
+        with torch.cuda.device(c.device):
+            stream = torch.cuda.current_stream(c.device).cuda_stream
+            err = lib.ksfd_arrow_modes(
+                pack.data_ptr(), P, c.data_ptr(), lam.data_ptr(),
+                out.data_ptr(), nl, int(c.shape[batched]) - self.nfields,
+                lam.numel(), nb, int(c.dtype == torch.float64), stream)
+        if err != 0:
+            raise RuntimeError(
+                "arrow_modes kernel launch failed: cudaError %d" % err)
+        return out
+
+    def solve_modes(self, c, pack):
+        """The per-mode solve of the transformed coefficients c: the
+        kernel for real modes in the compute dtype on the card; the plain
+        chain on the CPU, for the FFT form's complex modes and for a
+        single-card bfloat16 pc's bfloat16 coefficients."""
+        if (self.arrow is not None and c.is_cuda
+                and c.dtype == self.compute_dtype):
+            return self.arrow(pack, c)
+        return self._arrow_chain(pack, c)
+
+    def apply_packed(self, v, pack):
+        """v: (dof, *Sshape); ``pack`` from ``pack``.  Returns the result
+        in v's dtype.  Fields past the physical ones (a with-G state's
+        G) take the shift-only inverse."""
+        c = self._forward(v.to(self.compute_dtype))
+        return self._inverse(self.solve_modes(c, pack)).to(v.dtype)
 
     def apply_linearized(self, v, shift, t, means, rho_diff=None):
         """v: (dof, *Sshape); means: per-field scalars of the STATE
         being linearized (not of v, which is a residual).  Returns the
-        result in v's dtype.  Fields past the physical ones (a with-G
-        state's G) take the shift-only inverse."""
-        c = self._forward(v.to(self.compute_dtype))
-        outs = self._arrow_solve(c, shift, t, means, rho_diff,
-                                 nextra=v.shape[0] - self.nfields)
-        return self._inverse(outs).to(v.dtype)
+        result in v's dtype: ``apply_packed`` on a pack made here."""
+        return self.apply_packed(v, self.pack(shift, t, means, rho_diff))
+
+
+class _ArrowKernel(PCKernel):
+    """The arrow solve as a ``PCKernel`` (ops/fused_pc.py): a call goes
+    through the custom op of ops/fused_stencil.py, so under
+    ``torch.func.vmap`` it is one launch for all members, lam unbatched.
+    Its operands keep their dtype (float32, or float64 on a float64
+    pc)."""
+
+    def prepare(self, *args):
+        return [x.contiguous() for x in args]
 
 
 def make_sharded_apply(precond, ops, mesh):
@@ -307,7 +397,8 @@ def make_sharded_apply(precond, ops, mesh):
     ``BlockSpectralPreconditioner`` ``apply(v, shift, t, means,
     rho_diff)``, for a ``SpectralPreconditioner`` ``apply(v, shift,
     diff, decay)``, with v this rank's block (its single-card
-    ``apply_linearized`` and ``apply`` on the global state).
+    ``apply_linearized`` and ``apply`` on the global state); the block
+    pc's ``apply.packed(v, pack)`` takes the step's ``precond.pack``.
 
     Counterpart: ksfd_tpu/solvers/linalg.py:make_sharded_block_apply
     (and, for the spectral pc, the partitioned einsums XLA makes of its
@@ -331,36 +422,41 @@ def make_sharded_apply(precond, ops, mesh):
     """
     block = isinstance(precond, BlockSpectralPreconditioner)
     if precond.use_fft:
-        def apply_fft(v, *args):
-            full = mesh.gather(v)
-            out = (precond.apply_linearized(full, args[0], *args[1:3],
-                                            rho_diff=args[3]) if block
-                   else precond.apply(full, *args))
-            return mesh.local(out, first=1).contiguous()
+        def on_full(v, fn):
+            return mesh.local(fn(mesh.gather(v)), first=1).contiguous()
 
-        return apply_fft
-    td, cd = precond.transform_dtype, precond.compute_dtype
-    # each axis's rows of this rank (the whole basis on an unsplit axis)
-    fwd = [mesh.axis_rows(getattr(precond, name), d).contiguous()
-           for d, name in enumerate(precond._bases)]
-    # the inverse's operands: the td-rounded bases in cd (exact)
-    inv = [q.to(cd) for q in fwd]
+        if not block:
+            return lambda v, *args: on_full(
+                v, lambda x: precond.apply(x, *args))
 
-    def transform(v, solve):
-        c = forward_products(v.to(td), *fwd, slab=True)
-        # THE collective: the partial coefficients, in the transform dtype
-        c = all_reduce_sum(c.to(td), mesh)
-        return inverse_products(solve(c.to(cd)).to(td).to(cd), *inv,
-                                slab=True).to(v.dtype)
-
-    if block:
-        def apply(v, shift, t, means, rho_diff):
-            return transform(v, lambda c: precond._arrow_solve(
-                c, shift, t, means, rho_diff,
-                nextra=v.shape[0] - precond.nfields))
+        def apply_packed(v, pack):
+            return on_full(v, lambda x: precond.apply_packed(x, pack))
     else:
-        def apply(v, shift, diff, decay):
-            return transform(v, lambda c: c / precond._denom(
-                c, shift, diff, decay))
+        td, cd = precond.transform_dtype, precond.compute_dtype
+        # each axis's rows of this rank (the whole basis on an unsplit
+        # axis)
+        fwd = [mesh.axis_rows(getattr(precond, name), d).contiguous()
+               for d, name in enumerate(precond._bases)]
+        # the inverse's operands: the td-rounded bases in cd (exact)
+        inv = [q.to(cd) for q in fwd]
 
+        def transform(v, solve):
+            c = forward_products(v.to(td), *fwd, slab=True)
+            # THE collective: the partial coefficients, in the transform
+            # dtype
+            c = all_reduce_sum(c.to(td), mesh)
+            return inverse_products(solve(c.to(cd)).to(td).to(cd), *inv,
+                                    slab=True).to(v.dtype)
+
+        if not block:
+            return lambda v, shift, diff, decay: transform(
+                v, lambda c: c / precond._denom(c, shift, diff, decay))
+
+        def apply_packed(v, pack):
+            return transform(v, lambda c: precond.solve_modes(c, pack))
+
+    def apply(v, shift, t, means, rho_diff):
+        return apply_packed(v, precond.pack(shift, t, means, rho_diff))
+
+    apply.packed = apply_packed
     return apply

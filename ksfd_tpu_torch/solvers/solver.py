@@ -625,24 +625,23 @@ def make_step_fn(ops, numerics=None, atol=1e-5, rtol=1e-5, tableau=None,
         cheb_ab = _cheb_interval(numerics, shift, rho_dmin, rho_diff,
                                  cheb_lap) if use_cheb else None
 
-        # each application of the pc is one ``ksfd::pc`` span
-        if pc_sharded is not None and block_pc:
-            def Minv(v):
-                with span("pc"):
-                    return pc_sharded(v, shift, t, means, rho_diff)
-        elif pc_fused is not None:
-            # the scalar pack once per step, not per apply
-            sc_pc = pack_pc_scalars(ops, shift, t, means, rho_diff)
+        # each application of the pc is one ``ksfd::pc`` span; the
+        # block pc's scalar pack is made once per step, not per apply
+        if pc_fused is not None:
+            sc_pc = pack_pc_scalars(ops, shift, t, means, rho_diff,
+                                    pc_fused.ligands)
 
             def Minv(v):
                 with span("pc"):
                     return pc_fused(sc_pc, v.to(torch.float32)).to(v.dtype)
         elif block_pc:
+            sc_pc = precond.pack(shift, t, means, rho_diff)
+            apply = (pc_sharded.packed if pc_sharded is not None
+                     else precond.apply_packed)
+
             def Minv(v):
                 with span("pc"):
-                    return precond.apply_linearized(
-                        v, shift, t, means, rho_diff=rho_diff
-                    )
+                    return apply(v, sc_pc)
         elif precond is not None:
             # the spectral pc: each field's stiff part (solver.py:513-515)
             diff, decay = ops.stiff_coefficients(t)

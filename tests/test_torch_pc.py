@@ -13,6 +13,12 @@ float64 numbers), the apply to 1e-5 of max|reference| (float32 products
 summed in another order, or 3xTF32 products, tests/test_pallas.py:783),
 a pc_pallas step to 1e-5 of the increment (the mixed-precision envelope
 of tests/test_torch_solver.py); the TF32 split exactly.
+
+The basis-GEMM pc's per-step scalar pack and arrow solve (csrc/arrow.cu,
+solvers/linalg.py) are held exactly: the pack against the scalars cast
+at each application, the plain chain and the source's host body against
+that chain, bit for bit; its card tests live in tests/torch_pc_card.py
+(no JAX import) and are collected here too.
 """
 
 import ctypes
@@ -49,8 +55,24 @@ from ksfd_tpu_torch.solvers import (
     make_multistep_fn,
     make_step_fn,
 )
-from ksfd_tpu_torch.solvers.linalg import BlockSpectralPreconditioner
+from ksfd_tpu_torch.solvers.linalg import (
+    CSRC_ARROW,
+    BlockSpectralPreconditioner,
+)
 from ksfd_tpu_torch.tools.problems import bench_clargs
+# the basis-GEMM pc's arrow kernel on a card: its tests are collected
+# here too (they skip without a card) and its helpers shared
+from torch_pc_card import (  # noqa: F401
+    card,
+    chain_apply,
+    chain_arrow_solve,
+    rough,
+    statistics,
+    test_card_arrow_kernel_batches_members_under_vmap,
+    test_card_arrow_kernel_equals_chain,
+    test_card_arrow_kernel_name_stays_outside_the_yardstick_groups,
+    test_card_pack_and_applications_synchronise_nothing,
+)
 
 N = 128
 
@@ -605,6 +627,140 @@ def test_fused_pc_refuses_other_devices():
         pc.fwd(sc, v)
     with pytest.raises(ValueError, match="pc_inv kernel"):
         pc.inv(v)
+
+
+# -- the basis-GEMM pc's scalar pack and arrow solve ----------------------
+#
+# The pack is built once per step on the device; the arrow solve reads
+# it, as csrc/arrow.cu's kernel on the card and as the plain chain
+# elsewhere.  Both are held bit for bit against the chain that casts
+# every scalar at each application (torch_pc_card.chain_apply).
+
+_PC_PROBLEMS = {}
+
+
+def pc_case(dof=3, shape=(16, 12), pc_dtype="float32", with_g=False,
+            use_fft=False, tdep=False):
+    """(pc, v, shift, t, means, rho_diff) on the CPU: the bench problem
+    (with a t-dependent ligand decay and free energy where ``tdep``),
+    the step's statistics of a rough state as float32 tensors at t = 0
+    (t = 30 where ``tdep``), a float32 v."""
+    key = (dof, shape, with_g, tdep)
+    if key not in _PC_PROBLEMS:
+        clargs = (chip_smoke.tdep_clargs(shape[0]) if tdep
+                  else bench_clargs(shape[0], dof))
+        _PC_PROBLEMS[key] = problem_from_clargs(clargs, *shape,
+                                                device="cpu", with_g=with_g)
+    ps, grid, ops = _PC_PROBLEMS[key]
+    pc = BlockSpectralPreconditioner(grid, ops, compute_dtype=pc_dtype,
+                                     device="cpu", use_fft=use_fft)
+    shift, t, means, rho_diff = statistics(
+        ops, rough(grid, ps)[:ops.nligands + 1], "cpu")
+    if tdep:
+        t = torch.tensor(30.0, dtype=torch.float64)
+    v = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (grid.dof,) + tuple(grid.Sshape)).astype(np.float32))
+    return pc, v, shift, t, means, rho_diff
+
+
+@pytest.mark.parametrize("case", ["f32", "f64", "tdep", "no-rho-diff",
+                                  "numbers", "dof5"])
+def test_block_pc_pack_equals_the_per_application_casts(case):
+    """``pc.pack`` holds, value for value, the scalars the chain casts at
+    each application, in fused_pc.py's layout (the fused pc's own
+    ``pack_pc_scalars`` equals it for a float32 pc); with ``rho_diff``
+    None slot 1 is ``rho_mean dG_0`` at the means."""
+    pc, _, shift, t, means, rho_diff = pc_case(
+        dof=5 if case == "dof5" else 3, tdep=case == "tdep",
+        pc_dtype="float64" if case == "f64" else "float32")
+    if case == "no-rho-diff":
+        rho_diff = None
+    if case == "numbers":
+        shift, t, rho_diff = 2.29, 0.0, float(rho_diff)
+    ops, cd = pc.ops, pc.compute_dtype
+    cast = lambda x: torch.as_tensor(x, dtype=cd)
+    dG, s, gamma, D = ops.linearization_coefficients(means, t)
+    want = [shift, means[0] * dG[0] if rho_diff is None else rho_diff,
+            means[0]] + dG[1:] + s + gamma + D
+    pack = pc.pack(shift, t, means, rho_diff)
+    assert pack.dtype == cd and pack.shape == (len(want),)
+    assert torch.equal(pack, torch.stack([cast(x) for x in want]))
+    if case == "tdep":
+        assert ops._lig_tdep and float(pack[3 + 2 * 2]) == float(
+            cast(0.01 * (1 + 30.0)))
+    if cd == torch.float32:
+        assert torch.equal(pack_pc_scalars(ops, shift, t, means, rho_diff),
+                           pack)
+
+
+@pytest.mark.parametrize("case", ["2d", "with-g", "no-rho-diff", "fft",
+                                  "bf16", "dof1"])
+def test_block_pc_apply_equals_the_chain_on_cpu(case):
+    """Off the card the apply is the plain chain on the pack, bit for
+    bit the chain that casts at each application, in every form that
+    keeps it: with-G, the FFT form, bf16 transforms; without rho_diff
+    the pack's ``rho_mean dG_0`` at the means; no kernel launch."""
+    pc, v, shift, t, means, rho_diff = pc_case(
+        dof=1 if case == "dof1" else 3, with_g=case == "with-g",
+        use_fft=case == "fft",
+        pc_dtype="bfloat16" if case == "bf16" else "float32")
+    got = pc.apply_linearized(v, shift, t, means,
+                              None if case == "no-rho-diff" else rho_diff)
+    if case == "no-rho-diff":
+        rho_diff = means[0] * pc.ops._dG_fns[0](*means, t)
+    want = chain_apply(pc, v, shift, t, means, rho_diff)
+    assert got.dtype == v.dtype and torch.equal(got, want)
+    assert pc.arrow is None if case == "fft" else pc.arrow.launches == 0
+
+
+@pytest.fixture(scope="module")
+def host_arrow(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no C++ compiler found to compile the kernel body")
+    lib = tmp_path_factory.mktemp("arrow") / "libarrow.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-x", "c++", "-o", str(lib), str(CSRC_ARROW)],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    host = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    host.arrow_modes_host.argtypes = [P, I, P, P, P, I, I, ctypes.c_longlong,
+                                      I, I]
+    return host
+
+
+@pytest.mark.parametrize("dof,with_g,pc_dtype,nb", [
+    (1, False, "float32", 1), (2, False, "float32", 2),
+    (3, False, "float32", 1), (3, True, "float32", 2),
+    (3, False, "float64", 2), (5, False, "float32", 1),
+    (6, False, "float32", 2),
+])
+def test_arrow_source_host_body_equals_the_chain(host_arrow, dof, with_g,
+                                                 pc_dtype, nb):
+    """csrc/arrow.cu's per-mode body, compiled as host C++ (no
+    contraction), equals the plain chain bit for bit: every instance
+    (0 to 4 ligands in registers, 5 read again), a with-G field, float64
+    modes, members with their own packs."""
+    pc, v, shift, t, means, rho_diff = pc_case(dof=dof, with_g=with_g,
+                                               pc_dtype=pc_dtype)
+    cd = pc.compute_dtype
+    modes = torch.stack([pc._forward(v.to(cd) * (1 + 0.5 * i))
+                         for i in range(nb)]).contiguous()
+    packs = torch.stack([pc.pack(shift * (1 + 0.1 * i), t, means,
+                                 rho_diff * (1 - 0.1 * i))
+                         for i in range(nb)]).contiguous()
+    out = torch.empty_like(modes)
+    lam = pc.lam_cd.contiguous()
+    nl = pc.nfields - 1
+    assert host_arrow.arrow_modes_host(
+        packs.data_ptr(), packs.shape[1], modes.data_ptr(), lam.data_ptr(),
+        out.data_ptr(), nl, modes.shape[1] - pc.nfields, lam.numel(), nb,
+        int(cd == torch.float64)) == 0
+    for i in range(nb):
+        want = pc._arrow_chain(packs[i], modes[i])
+        assert torch.equal(out[i], want), i
 
 
 # -- on a card -------------------------------------------------------------
