@@ -1,9 +1,9 @@
 """The comparison that decides ``correct``.
 
 Each call the runner copied is run again by the plain reference
-(reference/ks2d.py) from the program's own input state, with the
-program's h and solve tier, in float64, and three numbers are compared
-with the cell's limits (``limits`` in its workload file):
+(reference/ks.py, over the grid's 2 or 3 axes) from the program's own
+input state, with the program's h and solve tier, in float64, and three
+numbers are compared with the cell's limits (``limits`` in its workload file):
 
 - ``state_gap``: over the copied calls whose new state the program
   keeps (every call of a fixed-dt chain; an adaptive attempt where the
@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from reference.ks2d import Problem, state_gap
+from reference.ks import Problem, state_gap
 
 __all__ = ["judge"]
 

@@ -17,6 +17,6 @@ def read(ctx):
     nm = ctx["numerics"]
     evals = stencil_evals(int(nm.ksp_iters),
                           fast32=nm.precision in ("float32", "f32"))
-    least = stencil_bytes_per_step(evals, ctx["fields"], ctx["n"] ** 2,
+    least = stencil_bytes_per_step(evals, ctx["fields"], ctx["points"],
                                    ctx["members"]) / HBM_BYTES_PER_S
     return 100.0 * least / t_kern

@@ -1,7 +1,8 @@
 """Plain float64 reference of the benchmark's Keller-Segel system.
 
-The system, on a periodic 2D grid of ``n x n`` points over ``width x
-height`` (spacing ``width / n``):
+The system, on a periodic grid of 2 or 3 dimensions (the
+configuration's ``dim``) with ``n`` points per axis over ``width x
+height [x depth]`` (spacing ``width / n`` along x, and so on):
 
 - free energy  G = sum_g -beta_g log(alpha_g + sum_l U_gl)
                    + maxscale s2 (tanh((rho - rhomax) / cushion) + 1)
@@ -10,9 +11,10 @@ height`` (spacing ``width / n``):
 - each ligand  dU/dt   = -gamma U + s rho + D lap(U)
 
 with every derivative the centred finite difference of half-width
-``sw = 1 + degree // 2`` (Fornberg's weights on the offsets -sw..sw),
-and the fields clamped below at ``rhomin`` and ``Umin`` before the
-right-hand side is taken.
+``sw = 1 + degree // 2`` (Fornberg's weights on the offsets -sw..sw)
+along each axis, every Laplacian the sum of the axes' second
+differences, and the fields clamped below at ``rhomin`` and ``Umin``
+before the right-hand side is taken.
 
 One implicit step is Rang and Angermann's ROS34PW2 W-method (4 stages,
 order 3, embedded order 2) with J the exact Jacobian at the step's
@@ -25,12 +27,14 @@ estimated from the pointwise diffusivity spread).  M inverts, per
 Fourier mode, the system linearized about the state's field means with
 the rho row's diffusivity bounded by ``max(rho dG/drho)``: an arrow
 matrix per mode, solved by its Schur complement, applied here through
-the FFT.  The error norm is the root mean square of the embedded
-difference over ``atol + rtol max(|u1|, |u1 + d|)``.
+the FFT over the grid's axes (the Laplacian's Fourier symbol the sum
+of the axes' symbols).  The error norm is the root mean square of the
+embedded difference over ``atol + rtol max(|u1|, |u1 + d|)``.
 
 Everything is float64 and batched over a leading member axis: a state
-is ``(members, fields, n, n)``.  Nothing here imports the program under
-test; the parameters are read from the configuration's own lines.
+is ``(members, fields) + (n,) * dim``.  Nothing here imports the
+program under test; the parameters are read from the configuration's
+own lines.
 """
 
 import math
@@ -107,16 +111,29 @@ ROS34PW2 = _transform(
                  5.0000000000000000e-01, 2.1793326075422950e-01]))
 
 
+def _dot(a, b, acc=None):
+    """``acc + a[0] b[0] + a[1] b[1] + ...``, added left to right."""
+    for x, y in zip(a, b):
+        acc = x * y if acc is None else acc + x * y
+    return acc
+
+
 class Problem:
-    """The system of one configuration at ``n x n`` on ``device``."""
+    """The system of one configuration at ``n`` points per axis on
+    ``device``."""
 
     def __init__(self, params, n, device="cpu", atol=None, rtol=None):
         p = eval_params(params)
         self.p = p
         self.n = int(n)
+        self.dim = int(p.get("dim", 2))
+        if self.dim not in (2, 3):
+            raise ValueError("dim=%d: the reference takes 2 or 3" % self.dim)
         self.device = torch.device(device)
-        self.dx = float(p["width"]) / self.n
-        self.dy = float(p.get("height", 1.0)) / self.n
+        extents = (float(p["width"]), float(p.get("height", 1.0)),
+                   float(p.get("depth", 1.0)))[:self.dim]
+        self.h = [e / self.n for e in extents]
+        self.axes = tuple(range(-self.dim, 0))
         self.sw = 1 + int(p["degree"]) // 2
         self.atol = float(p["atol"] if atol is None else atol)
         self.rtol = float(p["rtol"] if rtol is None else rtol)
@@ -135,18 +152,23 @@ class Problem:
         self.nf = 1 + len(self.ligands)
         self.w1 = fd_weights(1, self.sw)
         self.w2 = fd_weights(2, self.sw)
-        # the Laplacian's Fourier symbol per mode, (n, n)
+        # the Laplacian's Fourier symbol per mode, (n,) * dim
         k = np.arange(self.n)
-        sym = []
-        for h in (self.dx, self.dy):
-            lam = np.full(self.n, self.w2[self.sw] / h ** 2)
+        lam = None
+        for a, h in enumerate(self.h):
+            sym = np.full(self.n, self.w2[self.sw] / h ** 2)
             for j in range(1, self.sw + 1):
-                lam = lam + 2.0 * self.w2[self.sw + j] / h ** 2 * np.cos(
+                sym = sym + 2.0 * self.w2[self.sw + j] / h ** 2 * np.cos(
                     2.0 * np.pi * j * k / self.n)
-            sym.append(lam)
-        self.lam = torch.as_tensor(sym[0][:, None] + sym[1][None, :],
-                                   dtype=torch.float64, device=self.device)
+            sym = sym.reshape([-1 if b == a else 1 for b in range(self.dim)])
+            lam = sym if lam is None else lam + sym
+        self.lam = torch.as_tensor(lam, dtype=torch.float64,
+                                   device=self.device)
         self.lap_max = float((-self.lam).max())
+
+    def _col(self, x):
+        """Per-member values as ``(members, 1) + (1,) * dim``."""
+        return x.reshape((-1, 1) + (1,) * self.dim)
 
     # -- the operator -------------------------------------------------
     def _deriv(self, f, axis, w, h, order):
@@ -159,12 +181,15 @@ class Problem:
         return acc
 
     def grad(self, f):
-        return (self._deriv(f, -2, self.w1, self.dx, 1),
-                self._deriv(f, -1, self.w1, self.dy, 1))
+        return tuple(self._deriv(f, a, self.w1, h, 1)
+                     for a, h in zip(self.axes, self.h))
 
     def lap(self, f):
-        return (self._deriv(f, -2, self.w2, self.dx, 2)
-                + self._deriv(f, -1, self.w2, self.dy, 2))
+        acc = None
+        for a, h in zip(self.axes, self.h):
+            d = self._deriv(f, a, self.w2, h, 2)
+            acc = d if acc is None else acc + d
+        return acc
 
     def groom(self, u):
         rho = torch.clamp(torch.nan_to_num(u[:, :1], nan=self.p["rhomin"]),
@@ -207,8 +232,7 @@ class Problem:
         u = self.groom(u)
         rho = u[:, 0]
         G = self.G(u)
-        gr, gG = self.grad(rho), self.grad(G)
-        rows = [gr[0] * gG[0] + gr[1] * gG[1] + rho * self.lap(G)]
+        rows = [_dot(self.grad(rho), self.grad(G)) + rho * self.lap(G)]
         for l, (s, gamma, D) in enumerate(self.ligands):
             U = u[:, 1 + l]
             rows.append(-gamma * U + s * rho + D * self.lap(U))
@@ -229,7 +253,7 @@ class Problem:
         p = self.p
         floors = torch.tensor([p["rhomin"]] + [p["Umin"]] * (self.nf - 1),
                               dtype=u.dtype, device=u.device)
-        live = (u > floors.reshape(1, -1, 1, 1)).to(u.dtype)
+        live = (u > floors.reshape((1, -1) + (1,) * self.dim)).to(u.dtype)
         ug = self.groom(u)
         rho = ug[:, 0]
         G = self.G(ug)
@@ -244,9 +268,8 @@ class Problem:
         def jv(v):
             vm = live * v
             Gv = sum(dG[k] * vm[:, k] for k in range(self.nf))
-            gv, gGv = self.grad(vm[:, 0]), self.grad(Gv)
-            rows = [gv[0] * gG[0] + gv[1] * gG[1] + gr[0] * gGv[0]
-                    + gr[1] * gGv[1] + vm[:, 0] * lG + rho * self.lap(Gv)]
+            acc = _dot(gr, self.grad(Gv), _dot(self.grad(vm[:, 0]), gG))
+            rows = [acc + vm[:, 0] * lG + rho * self.lap(Gv)]
             for l, (s, gamma, D) in enumerate(self.ligands):
                 rows.append(-gamma * vm[:, 1 + l] + s * vm[:, 0]
                             + D * self.lap(vm[:, 1 + l]))
@@ -256,16 +279,17 @@ class Problem:
     # -- the preconditioner ------------------------------------------
     def pc_stats(self, u):
         """Per member: field means, max and min of rho dG/drho."""
-        means = u.mean(dim=(-2, -1))
+        means = u.mean(dim=self.axes)
         d = u[:, 0] * self.dG_drho(u)
-        return means, d.amax(dim=(-2, -1)), d.amin(dim=(-2, -1))
+        return means, d.amax(dim=self.axes), d.amin(dim=self.axes)
 
     def pc_apply(self, v, shift, means, rho_diff):
         """The per-mode arrow solve of the mean-state linearization,
-        through the FFT; ``shift``, ``rho_diff`` per member."""
-        col = lambda x: x.reshape(-1, 1, 1)
+        through the FFT over the grid's axes; ``shift``, ``rho_diff`` per
+        member."""
+        col = lambda x: x.reshape((-1,) + (1,) * self.dim)
         lam = self.lam
-        c = torch.fft.fft2(v)
+        c = torch.fft.fftn(v, dim=self.axes)
         dGU = [col(g) for g in self.dG_dU(means)]
         rho_mean, sh = col(means[:, 0]), col(shift)
         schur = sh - col(rho_diff) * lam
@@ -279,20 +303,21 @@ class Problem:
         x_r = rhs_r / schur
         rows = [x_r] + [(c[:, 1 + l] + s * x_r) / dens[l]
                         for l, (s, _, _) in enumerate(self.ligands)]
-        return torch.fft.ifft2(torch.stack(rows, dim=1)).real
+        return torch.fft.ifftn(torch.stack(rows, dim=1), dim=self.axes).real
 
     # -- the step -----------------------------------------------------
     def step(self, u, h, kind="richardson", iters=3, cheb=(1.2, 0.5)):
-        """One ROS34PW2 step of every member from u (members, fields, n,
-        n) with step sizes h (members,): ``(u1, enorm)``.  ``kind`` and
-        ``iters`` choose the stage solve; ``cheb`` is the Chebyshev
-        interval's upper end and its safety factor on the lower end."""
+        """One ROS34PW2 step of every member from u (members, fields) +
+        (n,) * dim with step sizes h (members,): ``(u1, enorm)``.
+        ``kind`` and ``iters`` choose the stage solve; ``cheb`` is the
+        Chebyshev interval's upper end and its safety factor on the
+        lower end."""
         tab = ROS34PW2
         u = self.groom(u)
         h = torch.as_tensor(h, dtype=torch.float64, device=u.device)
-        hb = h.reshape(-1, 1, 1, 1)
+        hb = self._col(h)
         shift = 1.0 / (h * tab["gamma"])
-        shb = shift.reshape(-1, 1, 1, 1)
+        shb = self._col(shift)
         means, rho_diff, rho_dmin = self.pc_stats(u)
 
         def M(v):
@@ -317,9 +342,8 @@ class Problem:
                 for _ in range(iters - 1):
                     x = x + M(bi - W(x))
                 return x
-            theta = (0.5 * (lmax + lmin)).reshape(-1, 1, 1, 1)
-            delta = torch.clamp(0.5 * (lmax - lmin),
-                                min=1e-8).reshape(-1, 1, 1, 1)
+            theta = self._col(0.5 * (lmax + lmin))
+            delta = self._col(torch.clamp(0.5 * (lmax - lmin), min=1e-8))
             sigma = theta / delta
             rho = 1.0 / sigma
             d = M(bi) / theta
@@ -351,7 +375,7 @@ class Problem:
             if dm:
                 d = dm * Ys[j] if d is None else d + dm * Ys[j]
         w = self.atol + self.rtol * torch.maximum(u1.abs(), (u1 + d).abs())
-        enorm = torch.sqrt(((d / w) ** 2).mean(dim=(1, 2, 3)))
+        enorm = torch.sqrt(((d / w) ** 2).mean(dim=tuple(range(1, u.dim()))))
         return u1, enorm
 
 
@@ -360,4 +384,5 @@ def state_gap(u_prog, u_ref, atol, rtol):
     |u_ref|`` (the step controller's weights) over fields and points."""
     w = atol + rtol * u_ref.abs()
     gap = ((u_prog.to(torch.float64) - u_ref).abs() / w)
-    return torch.nan_to_num(gap, nan=math.inf).amax(dim=(1, 2, 3))
+    return torch.nan_to_num(gap, nan=math.inf).amax(
+        dim=tuple(range(1, gap.dim())))

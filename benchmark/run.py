@@ -73,11 +73,12 @@ def _err(line):
 
 
 def run_cell(name, seed, seconds, trace, device="cuda", n=None, fault=None,
-             overrides=None, t_start=None, out=_err):
+             overrides=None, cell=None, t_start=None, out=_err):
     """Run cell ``name`` and return its result dict (None where a
-    forbidden module is loaded).  ``n`` (the grid), ``fault`` (planted
-    in the program's results, bench_record.plant) and ``overrides`` (of
-    the workload's traffic parameters) are for tests on the CPU only."""
+    forbidden module is loaded).  ``n`` (the grid per axis), ``fault``
+    (planted in the program's results, bench_record.plant),
+    ``overrides`` (of the workload's traffic parameters) and ``cell`` (an ``(entry, workload, config)`` in place
+    of the files of ``name``) are for tests on the CPU only."""
     import torch
 
     from bench_cells import cell_metrics, config_params, load_cell
@@ -85,13 +86,13 @@ def run_cell(name, seed, seconds, trace, device="cuda", n=None, fault=None,
     from bench_trace import Tracer
 
     t_start = T_START if t_start is None else t_start
-    entry, wl, cfg = load_cell(name)
-    wl = dict(wl, **(overrides or {}))
+    entry, wl, cfg = cell or load_cell(name, overrides)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
     kind = importlib.import_module("runners." + wl["kind"])
     drv = kind.Runner(wl, cfg, seed, dev, n=n, fault=fault)
+    drv.timings["start"] = round(time.perf_counter() - t_start, 3)
     drv.setup()
     setup_s = time.perf_counter() - t_start
     out("set-up %.3f s: %s" % (setup_s, json.dumps(drv.timings)))
@@ -120,7 +121,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", n=None, fault=None,
         return None
     samples, decisions = drv.samples(), drv.decisions()
     ctx = dict(kind=wl["kind"], setup_s=setup_s, window=window,
-               trace=traced, n=drv.n, fields=int(drv.ops.grid.dof),
+               trace=traced, fields=int(drv.ops.grid.dof),
+               points=int(drv.ops.grid.nps.prod()),
                members=getattr(drv, "members", 1),
                numerics=drv.numerics, wl=wl)
     drv.release()

@@ -15,7 +15,7 @@ import torch
 
 from bench_cells import build_program
 from bench_record import Recorder, replay_decisions
-from reference.ks2d import eval_params
+from reference.ks import eval_params
 
 __all__ = ["Base", "Adaptive", "sync"]
 

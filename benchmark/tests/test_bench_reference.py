@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from bench_cells import build_program, config_params, load_cell, start_state
-from reference.ks2d import Problem, fd_weights, state_gap
+from reference.ks import Problem, fd_weights, state_gap
 
 N = 32
 
